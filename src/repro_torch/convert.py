@@ -1,0 +1,91 @@
+"""Convert a JAX parameter pytree (as numpy arrays) into the port's params.
+
+``repro`` and the port share the parameter layout — ``(d_in, d_out)``
+weights, per-layer params stacked on a leading ``(L, …)`` axis, the same
+dict keys — so conversion is a copy, never a transpose.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dssoftmax import DSState
+from repro_torch.device import resolve_device
+
+MASK_KEY = "ds_state/mask"
+
+
+def to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy → torch on ``device``. A bf16 array (``dtype.name ==
+    'bfloat16'``, e.g. from ml_dtypes) is reinterpreted bit for bit."""
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device)
+
+
+def flatten_paths(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays → ``{"a/b/c": np.ndarray}``, the form
+    :func:`params_from_jax` takes."""
+    out: Dict[str, np.ndarray] = {}
+    for key, v in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(v, dict):
+            out.update(flatten_paths(v, path + "/"))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    shapes = {
+        "embed/table": (cfg.padded_vocab, d),
+        "layers/attn/wq": (L, d, H * dh),
+        "layers/attn/wk": (L, d, KV * dh),
+        "layers/attn/wv": (L, d, KV * dh),
+        "layers/attn/wo": (L, H * dh, d),
+        "layers/mlp/w_up": (L, d, ff),
+        "layers/mlp/w_down": (L, ff, d),
+        "final_norm/scale": (d,),
+    }
+    if cfg.head == "ds":
+        K = cfg.ds.num_experts
+        shapes.update({"head/gate": (K, d), "head/experts": (K, cfg.padded_vocab, d),
+                       MASK_KEY: (K, cfg.padded_vocab)})
+    return shapes
+
+
+def params_from_jax(np_tree: Dict[str, np.ndarray], cfg: ModelConfig,
+                    device="cuda") -> Tuple[dict, DSState]:
+    """``np_tree`` maps "/"-joined pytree paths of ``repro``'s params
+    (``"layers/attn/wq"``, ``"head/gate"``, …) to numpy arrays, plus
+    ``"ds_state/mask"`` for a DS head. Returns (params, DSState or None)
+    on ``device``. Raises if a leaf the config needs is missing or has
+    the wrong shape."""
+    dev = resolve_device(device)
+    for path, shape in _expected_shapes(cfg).items():
+        if path not in np_tree:
+            raise KeyError(f"missing parameter {path!r}")
+        if tuple(np_tree[path].shape) != shape:
+            raise ValueError(f"{path}: shape {tuple(np_tree[path].shape)}, "
+                             f"expected {shape} for {cfg.name}")
+    params: dict = {}
+    state = None
+    for path, a in np_tree.items():
+        t = to_tensor(np.asarray(a), dev)
+        if path == MASK_KEY:
+            state = DSState(mask=t.to(torch.bool))
+            continue
+        node = params
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    params.setdefault("head", {})
+    return params, state

@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of every kernel of this slice.
+
+Each function computes what its CUDA kernel computes, in the same order
+of operations: fp32 logits from fp32 operands (bf16 × bf16 products are
+exact in fp32), the gate value applied to the fp32 logits after the
+product, padding rows (id -1) at ``NEG_INF``. The kernel wrappers call
+these only for tensors on the CPU; tests and ``chip_smoke.py`` hold the
+kernels against them.
+
+Top-k is a stable descending sort, so ties go to the lowest packed
+position, as ``jax.lax.top_k`` does (``torch.topk`` promises no order
+among ties).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e9
+
+
+def topk_stable(z: torch.Tensor, k: int):
+    """(values, positions) of the k largest along the last axis; ties to
+    the lowest position."""
+    vals, pos = torch.sort(z, dim=-1, descending=True, stable=True)
+    return vals[..., :k], pos[..., :k]
+
+
+def gate_top1_ref(gate_w: torch.Tensor, h: torch.Tensor):
+    """Fused top-1 gate: fp32 logits, softmax, first argmax of p, g = max p.
+    → (idx (B,) int32, g (B,) fp32)."""
+    p = torch.softmax(h.float() @ gate_w.float().T, dim=-1)
+    return torch.argmax(p, dim=-1).to(torch.int32), torch.amax(p, dim=-1)
+
+
+def dss_topk_grouped_ref(weights, ids, buf, g_buf, k: int):
+    """Expert-grouped retrieval. weights (K, V_pad, d), ids (K, V_pad),
+    buf (K, C, d), g_buf (K, C) fp32 → (vals (K, C, k) fp32, ids (K, C, k)
+    int32)."""
+    z = torch.bmm(buf.float(), weights.float().transpose(1, 2))  # (K, C, V_pad)
+    z = z * g_buf[..., None]
+    z = torch.where(ids[:, None, :] >= 0, z, NEG_INF)
+    vals, pos = topk_stable(z, k)
+    return vals, torch.gather(ids[:, None, :].expand(z.shape), 2, pos)
+
+
+def dss_topk_fused_ref(gate_w, weights, ids, h, k: int, e_base: int = 0):
+    """Single-launch decode retrieval: gating on the first argmax of the
+    fp32 logits with ``g = 1/Σexp(l - max)``, then retrieval over the
+    selected expert's rows only. Tokens whose expert lies outside
+    ``[e_base, e_base + K)`` emit ``(-inf, -1)``.
+    → (vals (B, k) fp32, ids (B, k) int32, expert (B,) int32 global)."""
+    K = weights.shape[0]
+    glog = h.float() @ gate_w.float().T                      # (B, K_real)
+    sel = torch.argmax(glog, dim=-1)                         # first maximum
+    g = 1.0 / torch.sum(torch.exp(glog - torch.amax(glog, -1, keepdim=True)), -1)
+    local = sel - e_base
+    mine = (local >= 0) & (local < K)
+    lc = local.clamp(0, K - 1)
+    ids_sel = ids[lc]                                        # (B, V_pad)
+    z = torch.einsum("bvd,bd->bv", weights[lc].float(), h.float()) * g[:, None]
+    z = torch.where(ids_sel >= 0, z, NEG_INF)
+    vals, pos = topk_stable(z, k)
+    out_ids = torch.gather(ids_sel, 1, pos)
+    vals = torch.where(mine[:, None], vals, float("-inf"))
+    out_ids = torch.where(mine[:, None], out_ids, -1)
+    return vals, out_ids, sel.to(torch.int32)
