@@ -8,26 +8,38 @@ Run from the root of a checkout, with no arguments:
 Phases, in order (any failure exits non-zero before the result line):
 
 1. Device and build: the card's name and power limit, TF32 off, the
-   three CUDA kernels built from ``src/repro_torch/csrc`` (one ``nvcc``
+   four CUDA libraries built from ``src/repro_torch/csrc`` (one ``nvcc``
    each, all at once).
-2. Kernels against their plain PyTorch versions at full width (d 1536,
-   K 16, k 8; bf16 and fp32): ids equal, values within the stated
-   tolerance, kernel / plain / library-call times (CUDA events, median of
-   25 after warm-up).
+2. Every kernel body against its plain PyTorch version at full width
+   (d 1536, K 16, k 8; bf16 and fp32; int8 rows for the ``_q`` bodies):
+   ids equal, values within the stated tolerance, kernel / plain /
+   library-call times (CUDA events, median of 25 after warm-up).
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
    through 8 slots, 12 requests (one prompt of 2048 tokens, so chunked
-   attention merges two query chunks), for each ``kernel=`` of cuda_fused,
-   cuda_grouped, auto and jnp: once as a user calls ``run()`` (tokens/s),
-   once with every prefill and decode step synchronized and timed. The
-   kernels' launch counters must rise in their sessions, and the greedy
-   streams must be token-identical across all eight runs.
+   attention merges two query chunks).
+   (fp) For each ``kernel=`` of cuda_fused, cuda_grouped, auto and jnp:
+   once as a user calls ``run()`` (tokens/s), once with every prefill and
+   decode step synchronized and timed; greedy streams token-identical.
+   (int8) ``quantize='int8'`` sessions, each run once, instrumented:
+   (a) flip threshold 1.0, every expert on int8 rows, through
+   cuda_fused, cuda_grouped, auto and jnp; (b) a ``quantize_table`` table
+   with half the experts on fp fallback rows, through cuda_fused,
+   cuda_grouped and jnp; each group token-identical; (c) the default
+   threshold 0.0, its exactness report printed.
+   (per-token) One ``cuda_pertoken`` session on the fp table, held
+   against the fp jnp session (its g fold rounds h to bf16, so a stream
+   may leave only at a top-1/top-2 gap below 2^-7 relative).
+   Each group resets the launch counters before it and reads them after:
+   every kernel body of its path must have launched, the plain sessions'
+   counts stay 0.
 4. Decode-step profile: 8 residents at prompt length 512, for cuda_fused
-   and jnp: step ms (median of 20), then ``torch.profiler`` over 5 steps
-   for device-busy time, the device's idle share, device ops and host
-   syncs per step, and the ten device ops that take the most time.
-5. Report: one ``{"kernels": [...]}`` line, the card line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   and jnp on the fp table and cuda_fused on the int8 table: step ms
+   (median of 20), then ``torch.profiler`` over 5 steps for device-busy
+   time, the device's idle share, device ops and host syncs per step, and
+   the ten device ops that take the most time.
+5. Report: one ``{"kernels": [...]}`` line (six kernel bodies), the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits with code 2 and prints no result. It imports only
 torch, numpy and the port.
@@ -57,6 +69,10 @@ VAL_ATOL, VAL_RTOL = 1e-3, 1e-5
 # reference's top-1 and top-2 values closer than this (relative), i.e.
 # within the accumulation-order differences above.
 TIE_RTOL = 1e-5
+# cuda_pertoken rounds g·h to bf16 before the product (as the reference's
+# per-token path does), so its stream may leave the plain one where the
+# reference's top-1 and top-2 are closer than one bf16 step (2^-7 relative).
+FOLD_RTOL = 2.0 ** -7
 
 SEED = 0
 N_SLOTS, K_TOP, NEW_TOKENS = 8, 8, 32
@@ -66,7 +82,18 @@ PROMPT_LENS = (16, 1536, 40, 300, 1100, 64, 700, 24, 512, 90, 2048, 200)
 MAX_SEQ = max(PROMPT_LENS) + NEW_TOKENS - 1
 SAMPLED = 5                  # this request samples at temperature 0.8
 SESSION_KERNELS = ("cuda_fused", "cuda_grouped", "auto", "jnp")
-PROFILE_KERNELS, PROFILE_PROMPT, PROFILE_STEPS, PROFILE_TRACED = ("cuda_fused", "jnp"), 512, 20, 5
+INT8_ALL_KERNELS = ("cuda_fused", "cuda_grouped", "auto", "jnp")      # (a)
+INT8_FB_KERNELS = ("cuda_fused", "cuda_grouped", "jnp")               # (b)
+# kernel bodies each serve path must launch (dispatch by table kind)
+NEEDS = {("cuda_fused", False): ("dss_topk_fused",),
+         ("cuda_grouped", False): ("gate_top1", "dss_topk_grouped"),
+         ("auto", False): ("dss_topk_fused",),
+         ("cuda_fused", True): ("dss_topk_fused_q",),
+         ("cuda_grouped", True): ("gate_top1", "dss_topk_grouped_q"),
+         ("auto", True): ("dss_topk_fused_q",),
+         ("cuda_pertoken", False): ("gate_top1", "dss_topk"),
+         ("jnp", False): (), ("jnp", True): ()}
+PROFILE_PROMPT, PROFILE_STEPS, PROFILE_TRACED = 512, 20, 5
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaMemcpyAsync", "cudaEventSynchronize")
 
@@ -168,7 +195,7 @@ def kernel_phase(results: dict) -> None:
         print(f"[kernel] {name:17s} {case:38s} kernel {t_kernel:9.4f} ms  plain "
               f"{t_plain:9.4f} ms  library {t_lib:9.4f} ms  bound {b_ms:.4f} ms "
               f"({b_by})  max|dv| {err:.3g}  ids equal {ids_equal}  launches "
-              f"{getattr(ops, name).launches}", flush=True)
+              f"{ops.launch_counts()[name]}", flush=True)
         if main:
             results.setdefault("main", {})[name] = row
 
@@ -247,6 +274,89 @@ def kernel_phase(results: dict) -> None:
                rows_read * (d * eb + 4) + (B + K) * d * eb + B * (k * 8 + 4),
                flops, dtype, main)
 
+    # -- dss_topk_grouped_q: int8 rows, bf16 tokens ----------------------
+    from repro_torch.core.dssoftmax import ServeTable, quantize_table
+
+    for C, v_pad, empty, main in ((1, 12032, None, True), (256, 12000, 3, False)):
+        w, ids = _table(gen, K, v_pad, d, bf16, empty)
+        qt = quantize_table(ServeTable(ids=ids, weights=w))
+        q, sc = qt.qweights, qt.scales
+        del w, qt
+        qb = q.to(bf16)  # the yardstick reads the rows as bf16
+        buf = torch.randn((K, C, d), generator=gen, device="cuda").to(bf16)
+        g_buf = torch.rand((K, C), generator=gen, device="cuda")
+        got = ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=sc)
+        want = ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=sc)
+        if empty is not None and not (bool((got[1][empty] == -1).all())
+                                      and bool((got[0][empty] == -1e9).all())):
+            raise SmokeFailure("dss_topk_grouped_q: the all-padding expert must emit (-1e9, -1)")
+        real_rows = int((ids >= 0).sum())
+        report("dss_topk_grouped_q",
+               f"int8 rows, bf16 C={C} v_pad={v_pad}"
+               + (f" empty e{empty}" if empty is not None else ""),
+               got, want,
+               time_ms(lambda: ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=sc)),
+               time_ms(lambda: ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=sc)),
+               time_ms(lambda: torch.topk(torch.bmm(buf, qb.transpose(1, 2)), k)),
+               real_rows * (d + 4 + 4) + K * C * (d * 2 + 4) + K * C * k * 8,
+               2 * C * real_rows * d, bf16, main)
+        del q, qb, buf
+
+    # -- dss_topk_fused_q: int8 rows, bf16 gate and tokens ---------------
+    for B, main in ((8, True), (128, False)):
+        v_pad = 12032
+        gw = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(bf16)
+        w, ids = _table(gen, K, v_pad, d, bf16)
+        qt = quantize_table(ServeTable(ids=ids, weights=w))
+        q, sc = qt.qweights, qt.scales
+        del w, qt
+        h = torch.randn((B, d), generator=gen, device="cuda").to(bf16)
+        got = ops.dss_topk_fused(gw, q, ids, h, k, scales=sc)
+        want = ref.dss_topk_fused_ref(gw, q, ids, h, k, scales=sc)
+        if not torch.equal(got[2], want[2]):
+            raise SmokeFailure("dss_topk_fused_q: expert ids differ from the plain version")
+        sel = want[2].long()
+        e0 = int(sel[0])
+        qb0 = q[e0].to(bf16)
+        uniq = torch.unique(sel)
+        rows_read = int((ids[uniq] >= 0).sum())
+        flops = 2 * B * K * d + 2 * sum(int((ids[e] >= 0).sum()) for e in sel.tolist()) * d
+        report("dss_topk_fused_q", f"int8 rows, bf16 B={B} K={K}", got[:2], want[:2],
+               time_ms(lambda: ops.dss_topk_fused(gw, q, ids, h, k, scales=sc)),
+               time_ms(lambda: ref.dss_topk_fused_ref(gw, q, ids, h, k, scales=sc)),
+               time_ms(lambda: torch.topk(h @ qb0.T, k)),
+               rows_read * (d + 4 + 4) + (B + K) * d * 2 + B * (k * 8 + 4),
+               flops, bf16, main)
+        del q, qb0
+
+    # -- dss_topk: per token, fp rows, one expert with 5 real rows --------
+    for dtype, main in ((bf16, True), (f32, False)):
+        B, v_pad = 8, 12032
+        w, ids = _table(gen, K, v_pad, d, dtype)
+        ids[5, 5:] = -1
+        w[5, 5:] = 0
+        e = torch.randperm(K, generator=gen, device="cuda")[:B].to(torch.int32)
+        e[0] = 5
+        g = torch.rand((B,), generator=gen, device="cuda") * 0.5 + 0.5
+        h = torch.randn((B, d), generator=gen, device="cuda").to(dtype)
+        hs = (h.float() * g[:, None]).to(dtype)
+        got = ops.dss_topk(w, ids, h, e, g, k)
+        want = ref.dss_topk_ref(w, ids, hs, e, k)
+        if not (bool((got[1][0, 5:] == -1).all()) and bool((got[0][0, 5:] == -1e9).all())):
+            raise SmokeFailure("dss_topk: the tail of an expert with 5 real rows "
+                               "must be (-1e9, -1)")
+        el = e.long()
+        eb = w.element_size()
+        uniq = torch.unique(el)
+        rows_read = int((ids[uniq] >= 0).sum())
+        flops = 2 * sum(int((ids[x] >= 0).sum()) for x in el.tolist()) * d
+        report("dss_topk", f"{str(dtype)[6:]} B={B} K={K} (expert 5: 5 rows)", got, want,
+               time_ms(lambda: ops.dss_topk_kernel(w, ids, hs, e, k)),
+               time_ms(lambda: ref.dss_topk_ref(w, ids, hs, e, k)),
+               time_ms(lambda: torch.topk(torch.bmm(w[el], hs[:, :, None])[:, :, 0], k)),
+               rows_read * (d * eb + 4) + B * (d * eb + 4) + B * k * 8,
+               flops, dtype, main)
+
 
 # ---------------------------------------------------------------------------
 # Phase 3: the slice
@@ -308,7 +418,31 @@ class Recorder:
         return out
 
 
-def slice_phase(results: dict, card: str) -> None:
+def _diverge_check(label, streams, heads, kerns, ref_kern, rtol, greedy_only=False):
+    """Each stream of ``kerns`` must equal ``ref_kern``'s, or leave it only
+    at a near-tie of the reference (top-1/top-2 gap below ``rtol``
+    relative); the sampled request must match exactly unless
+    ``greedy_only``. Prints every divergence; returns their count."""
+    n = 0
+    for kern in kerns:
+        for i, (a, b) in enumerate(zip(streams[kern], streams[ref_kern])):
+            if a == b or (greedy_only and i == SAMPLED):
+                continue
+            n += 1
+            j = next(m for m, (x, y) in enumerate(zip(a, b)) if x != y)
+            rv, ri = heads[ref_kern][i][j]
+            kv, ki = heads[kern][i][j]
+            gap = float(rv[0] - rv[1])
+            print(f"[slice] {label}: request {i} diverges at emission {j}: {ref_kern} top-2 "
+                  f"{rv[:2].tolist()} ids {ri[:2].tolist()}; {kern} top-2 "
+                  f"{kv[:2].tolist()} ids {ki[:2].tolist()}; gap {gap:.3g}")
+            if i == SAMPLED or gap > rtol * max(1.0, abs(float(rv[0]))):
+                raise SmokeFailure(f"{label} {kern}: stream {i} diverges from {ref_kern} "
+                                   f"at emission {j} without a near-tie (gap {gap})")
+    return n
+
+
+def slice_phase(results: dict, card: str):
     import numpy as np
     import torch
 
@@ -337,9 +471,12 @@ def slice_phase(results: dict, card: str) -> None:
                and n // cfg.attn_q_chunk >= 2 for n in PROMPT_LENS):
         raise SmokeFailure("no prompt takes the multi-chunk branch of chunked attention")
 
-    def serve(kern, record):
-        sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
-                            k=K_TOP, kernel=kern, device="cuda")
+    def serve(label, kern, record, tbl, **session_kw):
+        t0 = time.perf_counter()
+        sess = ServeSession(bundle, params, tbl, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
+                            k=K_TOP, kernel=kern, device="cuda", **session_kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
         reqs = [Request(prompt=p, sampling=SamplingParams(
             max_new_tokens=NEW_TOKENS, temperature=0.8 if i == SAMPLED else 0.0,
             seed=SEED + i)) for i, p in enumerate(prompts)]
@@ -348,7 +485,6 @@ def slice_phase(results: dict, card: str) -> None:
             rec = Recorder(bundle, sess, reqs)
             sess.bundle = dataclasses.replace(bundle, prefill=rec.prefill,
                                               decode_step=rec.decode_step)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         sess.run(reqs)
         torch.cuda.synchronize()
@@ -356,48 +492,52 @@ def slice_phase(results: dict, card: str) -> None:
         st = sess.stats()
         for r in reqs:
             if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != NEW_TOKENS:
-                raise SmokeFailure(f"session {kern}: request ended {r.status} ({r.error}) "
+                raise SmokeFailure(f"{label} {kern}: request ended {r.status} ({r.error}) "
                                    f"with {len(r.out_tokens)} tokens")
             if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
-                raise SmokeFailure(f"session {kern}: token outside the vocabulary")
+                raise SmokeFailure(f"{label} {kern}: token outside the vocabulary")
         if st["n_admitted"] != len(prompts) or st["n_admitted"] <= N_SLOTS:
-            raise SmokeFailure(f"session {kern}: slots were not reused ({st})")
-        return [list(r.out_tokens) for r in reqs], wall, rec
+            raise SmokeFailure(f"{label} {kern}: slots were not reused ({st})")
+        return [list(r.out_tokens) for r in reqs], wall, rec, st, setup_s, sess.table
 
-    streams, heads = {}, {}
-    ops.reset_launch_counts()  # the main path starts here
-    for kern in SESSION_KERNELS:
-        before = ops.launch_counts()
-        # tokens/s from run() as a user calls it; step times and the heads
-        # for divergence reports from a second, instrumented run (a sync and
-        # a read-back around every prefill and decode step).
-        timed, wall, _ = serve(kern, record=False)
-        streams[kern], wall_rec, rec = serve(kern, record=True)
-        if timed != streams[kern]:
-            raise SmokeFailure(f"session {kern}: two runs on the same requests gave other tokens")
-        delta = {n: c - before[n] for n, c in ops.launch_counts().items()}
-        need = {"cuda_fused": ("dss_topk_fused",),
-                "cuda_grouped": ("gate_top1", "dss_topk_grouped"),
-                "auto": ("dss_topk_fused",), "jnp": ()}[kern]
-        for n in need:
-            if delta[n] < 1:
-                raise SmokeFailure(f"session {kern}: kernel {n} never launched ({delta})")
-        if kern == "jnp" and any(delta.values()):
-            raise SmokeFailure(f"session jnp launched kernels ({delta})")
-        n_tok = sum(len(t) for t in timed)
-        row = {"kernel": kern, "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-               "tokens_per_s_instrumented": n_tok / wall_rec,
+    def row_of(label, kern, streams, wall, rec, delta, **extra):
+        n_tok = sum(len(t) for t in streams)
+        row = {"group": label, "kernel": kern, "tokens": n_tok, "wall_s": wall,
+               "tokens_per_s": n_tok / wall,
                "decode_steps": len(rec.decode_s),
                "decode_step_ms_median": 1e3 * statistics.median(rec.decode_s),
                "prefill_ms_median": 1e3 * statistics.median(rec.prefill_s.values()),
                "prefill_ms_total": 1e3 * sum(rec.prefill_s.values()),
                "prefill_ms_longest": 1e3 * rec.prefill_s[PROMPT_LENS.index(max(PROMPT_LENS))],
-               "prefill_ms_by_prompt_len": {n: 1e3 * rec.prefill_s[i]
-                                            for i, n in enumerate(PROMPT_LENS)},
-               "launches_two_runs": delta,
-               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+               "launches": delta,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, **extra}
         results.setdefault("sessions", []).append(row)
-        print(f"[slice] kernel={kern:12s} {n_tok} tokens in {wall:.3f} s = "
+        return row
+
+    def need_launches(label, kern, quantized, delta):
+        for n in NEEDS[(kern, quantized)]:
+            if delta[n] < 1:
+                raise SmokeFailure(f"{label} {kern}: kernel {n} never launched ({delta})")
+        if kern == "jnp" and any(delta.values()):
+            raise SmokeFailure(f"{label} jnp launched kernels ({delta})")
+
+    # -- (fp) the slice-1 path: four serve paths on the bf16 table --------
+    streams, heads = {}, {}
+    ops.reset_launch_counts()  # the fp path starts here
+    for kern in SESSION_KERNELS:
+        before = ops.launch_counts()
+        # tokens/s from run() as a user calls it; step times and the heads
+        # for divergence reports from a second, instrumented run (a sync and
+        # a read-back around every prefill and decode step).
+        timed, wall, _, _, _, _ = serve("fp", kern, False, table)
+        streams[kern], wall_rec, rec, _, _, _ = serve("fp", kern, True, table)
+        if timed != streams[kern]:
+            raise SmokeFailure(f"session {kern}: two runs on the same requests gave other tokens")
+        delta = {n: c - before[n] for n, c in ops.launch_counts().items()}
+        need_launches("fp", kern, False, delta)
+        row = row_of("fp", kern, timed, wall, rec, delta,
+                     tokens_per_s_instrumented=sum(map(len, timed)) / wall_rec)
+        print(f"[slice] fp kernel={kern:12s} {row['tokens']} tokens in {wall:.3f} s = "
               f"{row['tokens_per_s']:.2f} tokens/s (uninstrumented run); instrumented run: "
               f"decode step median {row['decode_step_ms_median']:.2f} ms over "
               f"{row['decode_steps']} steps, prefill median {row['prefill_ms_median']:.2f} ms "
@@ -405,25 +545,80 @@ def slice_phase(results: dict, card: str) -> None:
               f"{row['prefill_ms_longest']:.1f} ms); launches over both runs {delta}; "
               f"card {card}", flush=True)
         heads[kern] = rec.heads
+    results["main_path_launches"] = {"fp": ops.launch_counts()}
+    _diverge_check("fp", streams, heads, SESSION_KERNELS[:-1], "jnp", TIE_RTOL)
+    print(f"[slice] fp: greedy and sampled streams agree across {', '.join(SESSION_KERNELS)}")
 
-    results["main_path_launches"] = ops.launch_counts()
-    ref_kern = "jnp"
-    for kern in SESSION_KERNELS[:-1]:
-        for i, (a, b) in enumerate(zip(streams[kern], streams[ref_kern])):
-            if a == b:
-                continue
-            j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
-            rv, ri = heads[ref_kern][i][j]
-            kv, ki = heads[kern][i][j]
-            gap = float(rv[0] - rv[1])
-            print(f"[slice] request {i} diverges at emission {j}: {ref_kern} top-2 "
-                  f"{rv[:2].tolist()} ids {ri[:2].tolist()}; {kern} top-2 "
-                  f"{kv[:2].tolist()} ids {ki[:2].tolist()}")
-            if i == SAMPLED or gap > TIE_RTOL * max(1.0, abs(float(rv[0]))):
-                raise SmokeFailure(f"session {kern}: stream {i} diverges from {ref_kern} "
-                                   f"at emission {j} without a near-tie (gap {gap})")
-    print(f"[slice] greedy and sampled streams agree across {', '.join(SESSION_KERNELS)}")
-    return cfg, bundle, params, table
+    # -- (int8) quantize='int8' sessions, each run once, instrumented ------
+    K = cfg.ds.num_experts
+    fb_half = torch.arange(K) % 2 == 1
+    fb_table = ds.quantize_table(table, fb_mask=fb_half)
+    groups = (("int8 (a) all rows int8", INT8_ALL_KERNELS, table,
+               dict(quantize="int8", quantize_flip_threshold=1.0)),
+              ("int8 (b) half fp fallback", INT8_FB_KERNELS, fb_table, {}))
+    ops.reset_launch_counts()  # the int8 path starts here
+    int8_table = None
+    for label, kerns, tbl, kw in groups:
+        g_streams, g_heads = {}, {}
+        for kern in kerns:
+            before = ops.launch_counts()
+            g_streams[kern], wall, rec, st, setup_s, served = serve(label, kern, True, tbl, **kw)
+            if not isinstance(served, ds.QuantizedServeTable):
+                raise SmokeFailure(f"{label} {kern}: the session did not serve an int8 table")
+            delta = {n: c - before[n] for n, c in ops.launch_counts().items()}
+            need_launches(label, kern, True, delta)
+            g_heads[kern] = rec.heads
+            report_ = st["quantize_report"]
+            row = row_of(label, kern, g_streams[kern], wall, rec, delta,
+                         setup_s=setup_s, n_fallback=served.n_fallback,
+                         quantize_report=report_)
+            print(f"[slice] {label} kernel={kern:12s} {row['tokens']} tokens in {wall:.3f} s = "
+                  f"{row['tokens_per_s']:.2f} tokens/s (instrumented run); decode step median "
+                  f"{row['decode_step_ms_median']:.2f} ms over {row['decode_steps']} steps, "
+                  f"prefill median {row['prefill_ms_median']:.2f} ms; session set-up "
+                  f"(calibration included) {setup_s:.2f} s; {served.n_fallback} fallback "
+                  f"experts; launches {delta}; card {card}", flush=True)
+            if kern == "cuda_fused" and int8_table is None:
+                int8_table = served
+        n_div = _diverge_check(label, g_streams, g_heads, kerns[:-1], "jnp", TIE_RTOL)
+        print(f"[slice] {label}: streams agree across {', '.join(kerns)} "
+              f"({n_div} near-tie divergences)", flush=True)
+    results["main_path_launches"]["int8"] = ops.launch_counts()
+
+    # (c) the default exactness gate at full width
+    before = ops.launch_counts()
+    c_streams, wall, rec, st, setup_s, served = serve("int8 (c) gate 0.0", "auto", True,
+                                                      table, quantize="int8")
+    rep = st["quantize_report"]
+    row_of("int8 (c) gate 0.0", "auto", c_streams, wall, rec,
+           {n: c - before[n] for n, c in ops.launch_counts().items()},
+           setup_s=setup_s, n_fallback=served.n_fallback, quantize_report=rep)
+    print(f"[slice] int8 (c) default gate at full width: quantize_report "
+          f"n_flips_raw {rep['n_flips_raw']} of {rep['n_tokens']}, n_fallback "
+          f"{rep['n_fallback']} {rep['fallback_experts']}, passed {rep['passed']}; "
+          f"per-expert flip rate {[round(r, 4) for r in rep['per_expert_flip_rate']]}; "
+          f"set-up {setup_s:.2f} s", flush=True)
+    results["quantize_report_default"] = rep
+    if not rep["passed"]:
+        raise SmokeFailure(f"int8 (c): the default exactness gate did not pass ({rep})")
+
+    # -- (per-token) cuda_pertoken on the fp table -------------------------
+    ops.reset_launch_counts()  # the per-token path starts here
+    p_streams, wall, rec, _, _, _ = serve("per-token", "cuda_pertoken", True, table)
+    delta = ops.launch_counts()
+    need_launches("per-token", "cuda_pertoken", False, delta)
+    results["main_path_launches"]["pertoken"] = delta
+    row = row_of("per-token", "cuda_pertoken", p_streams, wall, rec, delta)
+    print(f"[slice] per-token kernel=cuda_pertoken {row['tokens']} tokens in {wall:.3f} s = "
+          f"{row['tokens_per_s']:.2f} tokens/s (instrumented run); decode step median "
+          f"{row['decode_step_ms_median']:.2f} ms; launches {delta}; card {card}", flush=True)
+    n_div = _diverge_check("per-token", {"cuda_pertoken": p_streams, "jnp": streams["jnp"]},
+                           {"cuda_pertoken": rec.heads, "jnp": heads["jnp"]},
+                           ("cuda_pertoken",), "jnp", FOLD_RTOL, greedy_only=True)
+    print(f"[slice] per-token: stream agrees with the fp jnp session ({n_div} divergences, "
+          f"each at a gap below 2^-7 relative)", flush=True)
+    return cfg, bundle, params, (("cuda_fused", table), ("jnp", table),
+                                 ("cuda_fused int8", int8_table))
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +633,7 @@ def _dev_time(e) -> float:
     return 0.0
 
 
-def profile_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
+def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -446,7 +641,8 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
     from repro_torch.train import Request, SamplingParams, ServeSession
 
     rng = np.random.RandomState(SEED + 2)
-    for kern in PROFILE_KERNELS:
+    for label, table in cases:
+        kern = label.split()[0]
         sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
                             k=K_TOP, kernel=kern, device="cuda")
         for _ in range(N_SLOTS):
@@ -471,7 +667,7 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
         dev = [e for e in events if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
         busy_us = sum(_dev_time(e) for e in dev)
         row = {
-            "kernel": kern, "card": card,
+            "kernel": label, "card": card,
             "step_ms_median": 1e3 * statistics.median(times),
             "traced_step_ms": 1e3 * wall / PROFILE_TRACED,
             "device_busy_ms_per_step": busy_us / 1e3 / PROFILE_TRACED,
@@ -516,18 +712,29 @@ def main() -> int:
 
     from repro_torch.kernels import ops
 
-    sources = {"gate_top1": "src/repro_torch/csrc/gate_top1.cu",
-               "dss_topk_grouped": "src/repro_torch/csrc/dss_topk_grouped.cu",
-               "dss_topk_fused": "src/repro_torch/csrc/dss_topk_fused.cu"}
-    replaces = {"gate_top1": "src/repro/kernels/gate_top1.py:43",
-                "dss_topk_grouped": "src/repro/kernels/dss_topk_grouped.py:221",
-                "dss_topk_fused": "src/repro/kernels/dss_topk_fused.py:197"}
+    csrc = "src/repro_torch/csrc/"
+    # body -> (source, the TPU kernel it replaces, the path whose run counts it)
+    bodies = {
+        "gate_top1": ("gate_top1.cu", "src/repro/kernels/gate_top1.py:43", "fp"),
+        "dss_topk_grouped": ("dss_topk_grouped.cu", "src/repro/kernels/dss_topk_grouped.py:221",
+                             "fp"),
+        "dss_topk_grouped_q": ("dss_topk_grouped.cu",
+                               "src/repro/kernels/dss_topk_grouped.py:148", "int8"),
+        "dss_topk_fused": ("dss_topk_fused.cu", "src/repro/kernels/dss_topk_fused.py:197", "fp"),
+        "dss_topk_fused_q": ("dss_topk_fused.cu", "src/repro/kernels/dss_topk_fused.py:120",
+                             "int8"),
+        "dss_topk": ("dss_topk.cu", "src/repro/kernels/dss_topk.py:110", "pertoken"),
+    }
+    if set(bodies) != {name for name, _, _ in ops.BODIES}:
+        raise SmokeFailure("the report does not list every kernel body")
     kernels = []
-    for fn in ops.KERNELS:
-        m = results["main"][fn.__name__]
-        kernels.append({"name": fn.__name__, "route": "cuda", "source": sources[fn.__name__],
-                        "replaces": replaces[fn.__name__],
-                        "launches": results["main_path_launches"][fn.__name__],
+    for name, (src, replaces, path) in bodies.items():
+        m = results["main"][name]
+        launches = results["main_path_launches"][path][name]
+        if launches < 1:
+            raise SmokeFailure(f"{name} never launched on its main path ({path})")
+        kernels.append({"name": name, "route": "cuda", "source": csrc + src,
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"], "library_ms": m["library_ms"]})

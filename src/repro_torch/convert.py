@@ -1,8 +1,10 @@
-"""Convert a JAX parameter pytree (as numpy arrays) into the port's params.
+"""Convert a JAX parameter pytree or serve table (as numpy arrays) into
+the port's.
 
 ``repro`` and the port share the parameter layout — ``(d_in, d_out)``
 weights, per-layer params stacked on a leading ``(L, …)`` axis, the same
-dict keys — so conversion is a copy, never a transpose.
+dict keys — and the serve tables' fields, so conversion is a copy, never
+a transpose.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dssoftmax import DSState
+from repro_torch.core.dssoftmax import DSState, QuantizedServeTable, ServeTable
 from repro_torch.device import resolve_device
 
 MASK_KEY = "ds_state/mask"
@@ -89,3 +91,34 @@ def params_from_jax(np_tree: Dict[str, np.ndarray], cfg: ModelConfig,
         node[leaf] = t
     params.setdefault("head", {})
     return params, state
+
+
+_TABLE_DTYPES = {"ids": ("int32",), "qweights": ("int8",), "scales": ("float32",),
+                 "fb_index": ("int32",)}
+
+
+def table_from_jax(np_fields: Dict[str, np.ndarray], device="cuda"):
+    """A ``repro`` ``ServeTable`` (fields ``ids``, ``weights``) or
+    ``QuantizedServeTable`` (``ids``, ``qweights``, ``scales``,
+    ``fb_index``, ``fb_weights``), its fields as numpy arrays (e.g.
+    ``{f: np.asarray(v) for f, v in table._asdict().items()}``), → the
+    port's table of the same kind on ``device``. bf16 rows are copied bit
+    for bit; int8 stays int8. Raises on a missing field, a wrong dtype or
+    shapes that disagree."""
+    dev = resolve_device(device)
+    kind = QuantizedServeTable if "qweights" in np_fields else ServeTable
+    for f in kind._fields:
+        if f not in np_fields:
+            raise KeyError(f"{kind.__name__} field {f!r} is missing")
+        dt = np.asarray(np_fields[f]).dtype.name
+        if f in _TABLE_DTYPES and dt not in _TABLE_DTYPES[f]:
+            raise TypeError(f"{f}: dtype {dt}, expected {_TABLE_DTYPES[f][0]}")
+    t = {f: to_tensor(np.asarray(np_fields[f]), dev) for f in kind._fields}
+    K, v_pad = t["ids"].shape
+    rows = t["qweights" if kind is QuantizedServeTable else "weights"]
+    if rows.shape[:2] != (K, v_pad) or (kind is QuantizedServeTable and (
+            t["scales"].shape != (K, v_pad) or t["fb_index"].shape != (K,)
+            or t["fb_weights"].shape[1:] != rows.shape[1:])):
+        raise ValueError("table fields disagree in shape: "
+                         + ", ".join(f"{f} {tuple(v.shape)}" for f, v in t.items()))
+    return kind(**t)

@@ -9,10 +9,13 @@ import torch
 def dispatch_indices(e_flat: torch.Tensor, num_experts: int, capacity: int):
     """Assignment slots for a flat expert-id vector.
 
-    e_flat: (A,) int — expert chosen per assignment, in [0, num_experts).
+    e_flat: (A,) int — expert chosen per assignment, in [0, num_experts],
+    where ``num_experts`` is the sentinel callers route dropped
+    assignments to.
     Returns (slot (A,) int32, valid (A,) bool): ``slot`` is the rank of the
     assignment inside its expert (stable order), ``valid`` is False where
-    the expert overflowed ``capacity``.
+    the expert overflowed ``capacity``. The ``first`` gather is clamped as
+    JAX clamps it, so sentinel ids get JAX's slots bit for bit.
     """
     A = e_flat.shape[0]
     e = e_flat.long()
@@ -20,7 +23,7 @@ def dispatch_indices(e_flat: torch.Tensor, num_experts: int, capacity: int):
     sorted_e = e[order]
     first = torch.searchsorted(
         sorted_e, torch.arange(num_experts, device=e.device), side="left")
-    rank = torch.arange(A, device=e.device) - first[sorted_e]
+    rank = torch.arange(A, device=e.device) - first[sorted_e.clamp(0, num_experts - 1)]
     slot = torch.empty(A, dtype=torch.int32, device=e.device)
     slot[order] = rank.to(torch.int32)
     valid = slot < capacity

@@ -7,8 +7,11 @@
 // tile into a running top-k per token kept in shared memory.
 //
 // Order of operations (every path of the port follows it): z = x . w in
-// fp32 (bf16 operands are widened, so each product is exact), z *= g on
-// the fp32 accumulator after the product, padding rows (id -1) -> -1e9.
+// fp32 (bf16 operands are widened, so each product is exact; int8 rows are
+// widened too, which equals the reference's cast to the token dtype since
+// |q| <= 127), then z *= scale[row] for int8 rows, then z *= g, each on
+// the fp32 accumulator after the product (fp32 multiplication is not
+// associative, so this order is fixed), padding rows (id -1) -> -1e9.
 // The running top-k is ordered by (value desc, packed position asc):
 // candidates arrive in increasing position order and a candidate enters
 // only when strictly greater than the current k-th value, landing after
@@ -17,6 +20,7 @@
 // scanned number at least k.
 #pragma once
 
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -26,6 +30,7 @@ namespace repro {
 constexpr float kNegInfMask = -1e9f;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeI8 = 2;    // table rows only, with per-row fp32 scales
 constexpr int kThreads = 256;  // 16 x 16 thread grid over the output tile
 constexpr int kTV = 64;        // vocab rows per tile
 constexpr int kTD = 32;        // hidden dims per tile
@@ -33,6 +38,7 @@ constexpr int kMaxK = 64;      // largest top-k width the kernels take
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 // Insert (v, id) into a (value desc, position asc) sorted list of k.
 __device__ __forceinline__ void topk_insert(float* vals, int* ids, int k,
@@ -54,6 +60,7 @@ struct TileSmem {
   long long* tok_off;  // [TB] element offset of each token row
   float* g;            // [TB] gate value per token
   int* ids;            // [kTV] class ids of the current vocab tile
+  float* sc;           // [kTV] row scales of the current tile (int8 rows)
   float* xs;           // [kTD][TB + 1] token tile, transposed
   float* ws;           // [kTD][kTV + 1] weight tile, transposed
   float* zs;           // [TB][kTV + 1] logits of the current tile
@@ -62,7 +69,7 @@ struct TileSmem {
 
   __host__ __device__ static size_t bytes(int k) {
     return TB * sizeof(long long) +
-           sizeof(float) * (TB + kTV + kTD * (TB + 1) + kTD * (kTV + 1) +
+           sizeof(float) * (TB + 2 * kTV + kTD * (TB + 1) + kTD * (kTV + 1) +
                             TB * (kTV + 1) + 2 * TB * k);
   }
   __device__ static TileSmem carve(char* base, int k) {
@@ -72,6 +79,8 @@ struct TileSmem {
     s.g = f;
     f += TB;
     s.ids = reinterpret_cast<int*>(f);
+    f += kTV;
+    s.sc = f;
     f += kTV;
     s.xs = f;
     f += kTD * (TB + 1);
@@ -94,14 +103,17 @@ __device__ void init_topk(const TileSmem<TB>& s, int k) {
   }
 }
 
-// Stream rows [v_lo, v_hi) of one expert (w: (v_pad, d), ids: (v_pad,))
-// against the first n_tok tokens named by s.tok_off / s.g, merging into
-// s.top_v / s.top_i. Must be called by all kThreads threads of the block.
-template <typename T, int TB>
-__device__ void retrieve_tile(const TileSmem<TB>& s, const T* __restrict__ x,
-                              int n_tok, const T* __restrict__ w,
-                              const int* __restrict__ ids, int v_lo, int v_hi,
-                              int d, int k) {
+// Stream rows [v_lo, v_hi) of one expert (w: (v_pad, d), ids: (v_pad,),
+// scales: (v_pad,) for int8 rows, else null) against the first n_tok
+// tokens named by s.tok_off / s.g, merging into s.top_v / s.top_i. TX is
+// the token type, TW the row type. Must be called by all kThreads threads
+// of the block.
+template <typename TX, typename TW, int TB>
+__device__ void retrieve_tile(const TileSmem<TB>& s, const TX* __restrict__ x,
+                              int n_tok, const TW* __restrict__ w,
+                              const int* __restrict__ ids,
+                              const float* __restrict__ scales, int v_lo,
+                              int v_hi, int d, int k) {
   constexpr int MT = TB / 16;
   constexpr int NT = kTV / 16;
   const int tid = threadIdx.x;
@@ -141,7 +153,11 @@ __device__ void retrieve_tile(const TileSmem<TB>& s, const T* __restrict__ x,
       }
       __syncthreads();
     }
-    if (tid < kTV) s.ids[tid] = (v0 + tid < v_hi) ? ids[v0 + tid] : -1;
+    if (tid < kTV) {
+      const bool in = v0 + tid < v_hi;
+      s.ids[tid] = in ? ids[v0 + tid] : -1;
+      s.sc[tid] = (in && scales != nullptr) ? scales[v0 + tid] : 1.f;
+    }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -149,7 +165,9 @@ __device__ void retrieve_tile(const TileSmem<TB>& s, const T* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int c = tx + 16 * j;
-        float z = acc[i][j] * s.g[t];
+        float z = acc[i][j];
+        if (scales != nullptr) z *= s.sc[c];
+        z *= s.g[t];
         if (s.ids[c] < 0) z = kNegInfMask;
         s.zs[t * (kTV + 1) + c] = z;
       }

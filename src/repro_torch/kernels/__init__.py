@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels (``csrc/``) with their plain PyTorch
 versions (``ref.py``) and the serve-path registry (``registry.py``)."""
 from repro_torch.kernels import ops, ref, registry
+from repro_torch.kernels.dss_topk import dss_topk
 from repro_torch.kernels.dss_topk_fused import dss_topk_fused
 from repro_torch.kernels.dss_topk_grouped import dss_topk_grouped
 from repro_torch.kernels.gate_top1 import gate_top1
@@ -17,6 +18,7 @@ __all__ = [
     "ops",
     "ref",
     "registry",
+    "dss_topk",
     "dss_topk_fused",
     "dss_topk_grouped",
     "gate_top1",

@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gate_top1", "dss_topk_grouped", "dss_topk_fused")
+SOURCES = ("gate_top1", "dss_topk_grouped", "dss_topk_fused", "dss_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -29,12 +29,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # gate_w, h, idx, g, B, K, d, dtype, stream
     "gate_top1": [_P] * 4 + [_I] * 4 + [_P],
-    # buf, g_buf, w, ids, out_v, out_i, part_v, part_i,
-    # K, C, v_pad, d, k, tb, nsplit, tiles_per_split, dtype, stream
-    "dss_topk_grouped": [_P] * 8 + [_I] * 9 + [_P],
-    # gate_w, w, ids, h, out_v, out_i, out_e, part_v, part_i,
-    # K_real, K, B, v_pad, d, k, e_base, nsplit, tiles_per_split, dtype, stream
-    "dss_topk_fused": [_P] * 9 + [_I] * 10 + [_P],
+    # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
+    # K, C, v_pad, d, k, tb, nsplit, tiles_per_split, dtype, wdtype, stream
+    "dss_topk_grouped": [_P] * 9 + [_I] * 10 + [_P],
+    # gate_w, w, ids, scales, h, out_v, out_i, out_e, part_v, part_i,
+    # K_real, K, B, v_pad, d, k, e_base, nsplit, tiles_per_split, dtype,
+    # wdtype, stream
+    "dss_topk_fused": [_P] * 10 + [_I] * 11 + [_P],
+    # w, ids, h_scaled, expert_idx, out_v, out_i, part_v, part_i,
+    # K, B, v_pad, d, k, nsplit, tiles_per_split, dtype, stream
+    "dss_topk": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -136,14 +140,26 @@ TV = 64            # vocab rows per tile (kTV in csrc/topk_common.cuh)
 MAX_K = 64         # largest top-k width (kMaxK)
 SMS = 132          # streaming multiprocessors of an H100 SXM
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+INT8_CODE = 2      # kDtypeI8: int8 table rows (with per-row fp32 scales)
 
 
 def dtype_code(t) -> int:
-    """The C-side dtype code of a tensor; raises for unsupported dtypes."""
+    """The C-side dtype code of a token-side tensor; raises for
+    unsupported dtypes."""
     name = str(t.dtype).removeprefix("torch.")
     if name not in DTYPE_CODES:
         raise TypeError(f"kernels take float32 or bfloat16 tensors, got {t.dtype}")
     return DTYPE_CODES[name]
+
+
+def weight_code(w) -> int:
+    """The C-side dtype code of table rows: the token codes, or int8."""
+    return INT8_CODE if str(w.dtype) == "torch.int8" else dtype_code(w)
+
+
+def ptr(t) -> Optional[int]:
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def vocab_split(v_pad: int, active_blocks: int):

@@ -8,8 +8,17 @@ Every ``serve_topk`` compute path registers a :class:`KernelSpec`
 The names ``'jnp'`` and ``'grouped'`` are kept from ``repro`` so configs
 and strings carry over; in the port both are plain PyTorch: ``'jnp'`` the
 per-token gather (the oracle), ``'grouped'`` the expert-batched matmul.
-``'cuda_grouped'`` and ``'cuda_fused'`` are the hand-written kernels and
-run only on CUDA tensors.
+The hand-written kernel paths are renamed for their hardware and are
+feasible only on CUDA tensors:
+
+    repro (Pallas)      port (CUDA)
+    'pallas'            'cuda_pertoken'   per-token kernel, fp tables only
+    'pallas_grouped'    'cuda_grouped'
+    'pallas_fused'      'cuda_fused'
+
+A quantized table (``KernelContext.quantized``: int8 rows, ``wbytes``
+1, plus a 4-byte fp32 scale per packed row that every formula prices)
+is served only by specs with ``quantized_ok``; naming any other raises.
 
 The cost model is bytes moved, the formulas of ``repro``'s registry
 without its TPU constants. The fused path is priced by what the port's
@@ -41,7 +50,8 @@ __all__ = [
 class KernelContext:
     """Call-site shapes for kernel selection. ``backend`` is the device
     type of the hidden states (``'cpu'`` or ``'cuda'``); ``wbytes`` /
-    ``hbytes`` are the element sizes of the table rows and of ``h``."""
+    ``hbytes`` are the element sizes of the table rows and of ``h``;
+    ``quantized`` marks an int8 table with per-row fp32 scales."""
 
     B: int
     d: int
@@ -52,6 +62,7 @@ class KernelContext:
     capacity_factor: float = 2.0
     wbytes: int = 4
     hbytes: int = 4
+    quantized: bool = False
 
     @property
     def capacity(self) -> int:
@@ -74,9 +85,12 @@ class KernelSpec:
     cost: Callable[[KernelContext], int] = field(compare=False)
     backends: Optional[Tuple[str, ...]] = None  # None => every device type
     fused: bool = False            # in-kernel gating (no dispatch pre-pass)
+    quantized_ok: bool = True      # can serve int8 rows + per-row scales
 
     def feasible(self, ctx: KernelContext) -> bool:
-        return self.backends is None or ctx.backend in self.backends
+        """Native on the call's backend and able to serve its table."""
+        return ((self.backends is None or ctx.backend in self.backends)
+                and (self.quantized_ok or not ctx.quantized))
 
     def bytes_moved(self, ctx: KernelContext) -> int:
         return int(self.cost(ctx))
@@ -145,34 +159,45 @@ _POLICIES: dict[str, KernelPolicy] = {}
 
 
 def resolve_kernel(kernel, ctx: KernelContext) -> str:
-    """str | KernelPolicy → validated registered kernel name."""
+    """str | KernelPolicy → validated registered kernel name. A name that
+    cannot serve the call's quantized table raises ``ValueError``."""
     if isinstance(kernel, KernelPolicy):
-        return get_spec(kernel.resolve(ctx)).name
-    if isinstance(kernel, str):
-        if kernel in _POLICIES:
-            return get_spec(_POLICIES[kernel].resolve(ctx)).name
-        return get_spec(kernel).name
-    raise TypeError(
-        f"kernel must be a registered name, policy name, or KernelPolicy; "
-        f"got {type(kernel).__name__}"
-    )
+        spec = get_spec(kernel.resolve(ctx))
+    elif isinstance(kernel, str):
+        spec = get_spec(_POLICIES[kernel].resolve(ctx) if kernel in _POLICIES else kernel)
+    else:
+        raise TypeError(
+            f"kernel must be a registered name, policy name, or KernelPolicy; "
+            f"got {type(kernel).__name__}"
+        )
+    if ctx.quantized and not spec.quantized_ok:
+        raise ValueError(
+            f"serve kernel {spec.name!r} cannot serve a quantized (int8) table: "
+            "its kernel has no per-row scales operand; use 'cuda_fused', "
+            "'cuda_grouped', 'grouped', 'jnp' or 'auto'")
+    return spec.name
 
 
 # ---------------------------------------------------------------------------
 # The serve paths. wb/hb = weight/hidden bytes; every formula ends with the
-# O(B·k) outputs.
+# O(B·k) outputs. An expert's rows cost ``_row_bytes`` per packed row: d
+# elements, plus the fp32 scale on a quantized table.
 # ---------------------------------------------------------------------------
+
+def _row_bytes(c: KernelContext) -> int:
+    return c.d * c.wbytes + (4 if c.quantized else 0)
+
 
 def _cost_jnp(c: KernelContext) -> int:
     # Expert rows re-read once per TOKEN, plus the (B, V_pad, d) gather
-    # materialized before the product (write + re-read).
-    return 2 * c.B * c.v_pad * c.d * c.wbytes + c.B * c.d * c.hbytes + c.out_bytes
+    # (and the gathered scales) materialized before the product.
+    return 2 * c.B * c.v_pad * _row_bytes(c) + c.B * c.d * c.hbytes + c.out_bytes
 
 
 def _cost_grouped(c: KernelContext) -> int:
     # Rows once per EXPERT, the grouped buffers' round trip, and the
     # (K, C, V_pad) fp32 logits written and read back for the top-k.
-    return (c.K * c.v_pad * c.d * c.wbytes
+    return (c.K * c.v_pad * _row_bytes(c)
             + 2 * c.K * c.capacity * c.d * c.hbytes
             + 2 * c.K * c.capacity * c.v_pad * 4 + c.out_bytes)
 
@@ -180,7 +205,7 @@ def _cost_grouped(c: KernelContext) -> int:
 def _cost_cuda_grouped(c: KernelContext) -> int:
     # Rows once per expert + the grouped buffers' round trip; logits and
     # the running top-k stay on chip.
-    return (c.K * c.v_pad * c.d * c.wbytes
+    return (c.K * c.v_pad * _row_bytes(c)
             + 2 * c.K * c.capacity * c.d * c.hbytes
             + c.K * c.capacity * c.k * 8 + c.out_bytes)
 
@@ -190,8 +215,18 @@ def _cost_cuda_fused(c: KernelContext) -> int:
     # only the experts its tokens chose, at most min(tokens in tile, K)
     # of them; plus the gate matrix and the (B,) expert ids.
     reads = sum(min(_FUSED_TILE, c.B - t, c.K) for t in range(0, c.B, _FUSED_TILE))
-    return (reads * c.v_pad * c.d * c.wbytes
-            + c.K * c.d * c.wbytes + c.B * c.d * c.hbytes + c.B * 4 + c.out_bytes)
+    return (reads * c.v_pad * _row_bytes(c)
+            + c.K * c.d * c.hbytes + c.B * c.d * c.hbytes + c.B * 4 + c.out_bytes)
+
+
+def _cost_cuda_pertoken(c: KernelContext) -> int:
+    # gate_top1 first (the gate matrix and h read, (B,) ids + g written),
+    # the fold writes h_scaled, then every TOKEN reads its expert's rows
+    # and ids and its h_scaled, ids and g: never below the fused path.
+    gate = c.K * c.d * c.hbytes + c.B * c.d * c.hbytes + c.B * 8
+    fold = 2 * c.B * c.d * c.hbytes
+    return (gate + fold + c.B * c.v_pad * (_row_bytes(c) + 4)
+            + c.B * c.d * c.hbytes + c.B * 8 + c.out_bytes)
 
 
 register_kernel(KernelSpec(
@@ -216,6 +251,13 @@ register_kernel(KernelSpec(
     cost=_cost_cuda_fused,
     backends=("cuda",),
     fused=True,
+))
+register_kernel(KernelSpec(
+    name="cuda_pertoken",
+    description="gate_top1 + per-token CUDA retrieval kernel (g folded into h)",
+    cost=_cost_cuda_pertoken,
+    backends=("cuda",),
+    quantized_ok=False,
 ))
 
 _POLICIES["auto"] = AutoPolicy()

@@ -2,7 +2,8 @@
 
 A head is a dict of tensors under ``params['head']`` plus, for DS, a
 ``DSState`` mask packed into a :class:`~repro_torch.core.dssoftmax.ServeTable`
-for serving. Only serving (``head_topk``) is ported in this slice.
+(or its int8 :class:`~repro_torch.core.dssoftmax.QuantizedServeTable`) for
+serving. Only serving (``head_topk``) is ported so far.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: in
               embed_table: Optional[torch.Tensor] = None, kernel=None,
               capacity_factor: Optional[float] = None, with_stats: bool = False):
     """Top-k classes from hidden states h (B, d) → (values, ids) (B, k).
+    For a DS head ``serve_table`` is either table kind.
 
     ``kernel`` overrides ``cfg.ds.serve_kernel`` (a registered name, policy
     name, or KernelPolicy); ``capacity_factor`` overrides

@@ -19,8 +19,10 @@ Sampling is host-side numpy: a counter-based Philox stream keyed by
 ``(seed, emission index)`` drives Gumbel-max top-k sampling, copied from
 ``repro.train.serve`` so sampled streams match it token for token.
 
-Chunked prefill, the paged cache, table hot-swap, int8 tables, the
-overflow circuit breaker and speculative decoding are later slices.
+``quantize='int8'`` serves the DS table from int8 rows with per-row fp32
+scales, gated for exactness as ``repro.train.serve`` gates it. Chunked
+prefill, the paged cache, table hot-swap, the overflow circuit breaker and
+speculative decoding are later slices.
 """
 from __future__ import annotations
 
@@ -228,7 +230,8 @@ class ServeSession:
         bundle/params: the model (``repro_torch.models.build``), params on
             ``device``.
         ds_state_or_table: the DS mask state (packed here) or an already
-            packed :class:`~repro_torch.core.dssoftmax.ServeTable`; the
+            packed :class:`~repro_torch.core.dssoftmax.ServeTable` or
+            :class:`~repro_torch.core.dssoftmax.QuantizedServeTable`; the
             head state for non-DS heads.
         n_slots: decode slots (the decode batch size).
         max_seq_len: shared cache length; every request must satisfy
@@ -239,6 +242,20 @@ class ServeSession:
         stream_cb: ``cb(request, token)`` per emitted token; a raising
             callback FAILs only its own request.
         queue_limit: bound on the admission queue (``None``: unbounded).
+        quantize: ``'int8'`` serves the DS table from int8 rows with
+            per-row fp32 scales, quantized under the exactness gate
+            (:func:`~repro_torch.core.dssoftmax.calibrate_quantized_table`):
+            experts whose top-k ids flip against the fp oracle on the
+            calibration activations beyond ``quantize_flip_threshold``
+            serve full-precision fallback rows. The gate's report is
+            ``stats()['quantize_report']``. A pre-quantized table passes
+            through with no report.
+        quantize_calib: calibration activations, an ``(n, d_model)``
+            tensor or array, or an int ``n`` for n unit-gaussian fp32 draws
+            from a ``torch.Generator`` seeded 17 (default 256).
+        quantize_flip_threshold: per-expert flip-rate bound above which an
+            expert falls back to full-precision rows. 0.0 makes the served
+            table exact on the calibration trace; 1.0 disables fallback.
         device: where the cache lives and the steps run; ``cuda`` unless
             the caller passes ``'cpu'``.
     """
@@ -248,9 +265,16 @@ class ServeSession:
                  kernel=None,
                  stream_cb: Optional[Callable[[Request, int], None]] = None,
                  queue_limit: Optional[int] = None,
+                 quantize: Optional[str] = None,
+                 quantize_calib=256,
+                 quantize_flip_threshold: float = 0.0,
                  device="cuda"):
         self.device = resolve_device(device)
         cfg = bundle.cfg
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        if quantize is not None and cfg.head != "ds":
+            raise ValueError("quantize= requires a DS head (serve table)")
         self.bundle = bundle
         self.cfg = cfg
         self.params = params
@@ -261,13 +285,20 @@ class ServeSession:
         self.stream_cb = stream_cb
         self.requests: List[Request] = []
         self.n_steps = 0
-        if cfg.head == "ds" and not isinstance(ds_state_or_table, ds.ServeTable):
-            self.table = ds.pack_experts(params["head"], ds_state_or_table)
-        else:
-            self.table = ds_state_or_table
+        self._quantize = quantize
+        self._quantize_report: Optional[ds.ExactnessReport] = None
         check_on(self.device, params=params["embed"]["table"])
         if cfg.head == "ds":
-            check_on(self.device, table=self.table.weights)
+            table = ds_state_or_table
+            if not isinstance(table, (ds.ServeTable, ds.QuantizedServeTable)):
+                table = ds.pack_experts(params["head"], table)
+            check_on(self.device, table=ds.table_rows(table))
+            if quantize is not None and isinstance(table, ds.ServeTable):
+                table = self._quantize_pack(table, params["head"]["gate"], quantize_calib,
+                                            float(quantize_flip_threshold))
+            self.table = table
+        else:
+            self.table = ds_state_or_table
         specs = cache_specs(cfg, ShapeConfig(name="serve", seq_len=max_seq_len,
                                              global_batch=n_slots, kind="decode"))
         self._cache = DecodeCache(*(torch.zeros(s.shape, dtype=s.dtype, device=self.device)
@@ -381,8 +412,10 @@ class ServeSession:
         return self.requests
 
     def stats(self) -> dict:
-        """Host-side counters: occupancy, per-outcome counts, shed count and
-        per-expert dispatch/overflow totals over the decode steps."""
+        """Host-side counters: occupancy, per-outcome counts, shed count,
+        per-expert dispatch/overflow totals over the decode steps, and the
+        int8 mode with its exactness-gate report (``ExactnessReport.as_dict()``,
+        None when the table was not quantized here)."""
         o = self._outcomes
         return {
             "n_admitted": self.scheduler.n_admitted,
@@ -400,9 +433,29 @@ class ServeSession:
                                   else self._expert_dispatched.tolist()),
             "expert_overflow": (None if self._expert_overflow is None
                                 else self._expert_overflow.tolist()),
+            "quantize": self._quantize,
+            "quantize_report": (None if self._quantize_report is None
+                                else self._quantize_report.as_dict()),
         }
 
     # -- internals ------------------------------------------------------------
+
+    def _quantize_pack(self, table: ds.ServeTable, gate_w, calib,
+                       flip_threshold: float) -> ds.QuantizedServeTable:
+        """Quantize a fp table under the exactness gate and keep its
+        :class:`~repro_torch.core.dssoftmax.ExactnessReport`."""
+        if isinstance(calib, int):
+            gen = torch.Generator().manual_seed(17)
+            calib = torch.randn((calib, self.cfg.d_model), generator=gen, dtype=torch.float32)
+        calib = torch.as_tensor(calib).to(self.device)
+        qtable, report = ds.calibrate_quantized_table(
+            gate_w, table, calib, k=self.k, flip_threshold=flip_threshold)
+        self._quantize_report = report
+        log.info("int8 quantize: %d/%d calib flips raw, %d experts on fp fallback, "
+                 "%d unguarded (gate %s)", report.n_flips_raw, report.n_tokens,
+                 len(report.fallback_experts), report.n_unguarded_flips,
+                 "PASSED" if report.passed else "FAILED")
+        return qtable
 
     def _finish(self, req: Request, status: RequestStatus,
                 error: Optional[str] = None) -> None:

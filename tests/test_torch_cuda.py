@@ -92,6 +92,98 @@ def test_fused_kernel(dev, dtype, B, k, e_base, K_real):
     _same(got[:2], want[:2])
 
 
+def _int8_table(dev, K, v_pad, d, seed, empty=None):
+    w, ids, g = _table(dev, K, v_pad, d, torch.float32, seed, empty=empty, dup=True)
+    scales = w.abs().amax(-1) / 127
+    scales = torch.where(scales > 0, scales, 1.0)
+    q = torch.round(w / scales[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scales, ids, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,v_pad,k,empty", [(1, 512, 8, None), (70, 900, 8, 2),
+                                             (256, 4096, 16, 0)])
+def test_grouped_kernel_int8(dev, dtype, C, v_pad, k, empty):
+    from repro_torch.kernels import ops, ref
+
+    K, d = 4, 128
+    q, scales, ids, g = _int8_table(dev, K, v_pad, d, seed=C, empty=empty)
+    buf = torch.randn((K, C, d), generator=g, device=dev).to(dtype)
+    g_buf = torch.rand((K, C), generator=g, device=dev)
+    n = ops.launch_counts()
+    got = ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=scales)
+    after = ops.launch_counts()
+    assert after["dss_topk_grouped_q"] == n["dss_topk_grouped_q"] + 1
+    assert after["dss_topk_grouped"] == n["dss_topk_grouped"]
+    _same(got, ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=scales))
+    if empty is not None:
+        assert (got[1][empty] == -1).all() and (got[0][empty] == -1e9).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,k,e_base,K_real", [(8, 8, 0, 4), (128, 8, 2, 8)])
+def test_fused_kernel_int8(dev, dtype, B, k, e_base, K_real):
+    from repro_torch.kernels import ops, ref
+
+    K, d = 4, 128
+    q, scales, ids, g = _int8_table(dev, K, 900, d, seed=B)
+    gate = torch.randn((K_real, d), generator=g, device=dev).to(dtype)
+    h = torch.randn((B, d), generator=g, device=dev).to(dtype)
+    n = ops.launch_counts()["dss_topk_fused_q"]
+    got = ops.dss_topk_fused(gate, q, ids, h, k, scales=scales, e_base=e_base)
+    assert ops.launch_counts()["dss_topk_fused_q"] == n + 1
+    want = ref.dss_topk_fused_ref(gate, q, ids, h, k, e_base, scales=scales)
+    assert torch.equal(got[2], want[2])
+    _same(got[:2], want[:2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,k", [(8, 8), (37, 1), (300, 16)])
+def test_pertoken_kernel(dev, dtype, B, k):
+    """Expert 1 holds 5 real rows: its tokens' tails are (-1e9, -1)."""
+    from repro_torch.kernels import ops, ref
+
+    K, d, v_pad = 4, 128, 900
+    w, ids, g = _table(dev, K, v_pad, d, dtype, seed=B, dup=True)
+    ids[1, 5:] = -1
+    w[1, 5:] = 0
+    h = torch.randn((B, d), generator=g, device=dev).to(dtype)
+    e = torch.randint(0, K, (B,), generator=g, device=dev).to(torch.int32)
+    e[0] = 1
+    gv = torch.rand((B,), generator=g, device=dev)
+    n = ops.launch_counts()["dss_topk"]
+    got = ops.dss_topk(w, ids, h, e, gv, k)
+    assert ops.launch_counts()["dss_topk"] == n + 1
+    h_scaled = (h.float() * gv[:, None]).to(dtype)
+    _same(got, ref.dss_topk_ref(w, ids, h_scaled, e, k))
+    short = e == 1
+    if k > 5:
+        assert (got[1][short, 5:] == -1).all() and (got[0][short, 5:] == -1e9).all()
+
+
+def test_quantized_serve_with_fallback_experts(dev):
+    """An int8 table with half its experts on fp fallback: cuda_grouped
+    and cuda_fused give the jnp path's ids on the card."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops
+
+    K, d, v_pad = 8, 128, 640
+    w, ids, g = _table(dev, K, v_pad, d, torch.bfloat16, seed=3)
+    gate = torch.randn((K, d), generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn((64, d), generator=g, device=dev).to(torch.bfloat16)
+    qt = ds.quantize_table(ds.ServeTable(ids=ids, weights=w),
+                           fb_mask=torch.arange(K) % 2 == 1)
+    assert qt.n_fallback == K // 2
+    want = ds.serve_topk(gate, qt, h, 8, kernel="jnp")
+    ops.reset_launch_counts()
+    for kern in ("cuda_grouped", "cuda_fused"):
+        _same(ds.serve_topk(gate, qt, h, 8, kernel=kern, capacity_factor=1.0), want,
+              atol=1e-4)
+    c = ops.launch_counts()
+    assert c["dss_topk_grouped_q"] == 1 and c["dss_topk_fused_q"] == 1
+    assert c["dss_topk_grouped"] == c["dss_topk_fused"] == 0
+
+
 def test_session_streams_identical_on_every_path(dev):
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.core import dssoftmax as ds
@@ -117,6 +209,42 @@ def test_session_streams_identical_on_every_path(dev):
             assert counts["gate_top1"] > 0 and counts["dss_topk_grouped"] > 0
         elif kern == "cuda_fused":
             assert counts["dss_topk_fused"] > 0
+        else:
+            assert not any(counts.values())
+    assert all(s == streams["jnp"] for s in streams.values())
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_session_streams_identical_fp32_and_int8(dev, quantize):
+    """fp32 weights (the g fold of cuda_pertoken rounds nothing there) and
+    an int8 table with fallback experts: every path's greedy streams
+    equal the jnp path's, and each path launches its own kernel bodies."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.train import Request, SamplingParams, ServeSession
+
+    cfg = reduce_config(get_config("qwen2-1.5b"), vocab=1024).replace(dtype="float32")
+    bundle = build(cfg)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 1024, rng.randint(3, 60)).astype(np.int32) for _ in range(5)]
+    kerns = ("jnp", "cuda_grouped", "cuda_fused") + (("cuda_pertoken",) if quantize is None
+                                                     else ())
+    need = {"cuda_grouped": "dss_topk_grouped", "cuda_fused": "dss_topk_fused",
+            "cuda_pertoken": "dss_topk"}
+    streams = {}
+    for kern in kerns:
+        ops.reset_launch_counts()
+        sess = ServeSession(bundle, params, state, n_slots=2, max_seq_len=128, kernel=kern,
+                            quantize=quantize, quantize_calib=64,
+                            quantize_flip_threshold=0.3)
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=6)) for p in prompts]
+        sess.run(reqs)
+        streams[kern] = [r.out_tokens for r in reqs]
+        counts = ops.launch_counts()
+        if kern in need:
+            assert counts[need[kern] + ("_q" if quantize else "")] > 0, (kern, counts)
         else:
             assert not any(counts.values())
     assert all(s == streams["jnp"] for s in streams.values())

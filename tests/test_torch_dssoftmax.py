@@ -161,7 +161,8 @@ def test_capacity_uses_python_round():
 
 
 def test_registry_names_and_unknown_kernel(fx32):
-    assert registry.kernel_names() == ("jnp", "grouped", "cuda_grouped", "cuda_fused")
+    assert registry.kernel_names() == ("jnp", "grouped", "cuda_grouped", "cuda_fused",
+                                       "cuda_pertoken")
     _, _, tparams, ttable = fx32
     with pytest.raises(ValueError, match="unknown serve kernel"):
         ds.serve_topk(tparams["gate"], ttable, _t(_h(4)), 8, kernel="pallas", device="cpu")

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from repro.core import dispatch as jdispatch
+from repro.core import dssoftmax as jds
 from repro.core import gating as jgating
 from repro.kernels import gate_top1 as pallas_gate_top1
 from repro_torch.core import dispatch, gating
+from repro_torch.core import dssoftmax as ds
 from repro_torch.kernels import ops
 
 
@@ -90,3 +92,31 @@ def test_dispatch_load_drops_out_of_range_ids():
     d2, o2 = jdispatch.dispatch_load(jnp.asarray(e), 4)
     np.testing.assert_array_equal(d1.numpy(), np.asarray(d2))
     np.testing.assert_array_equal(o1.numpy(), np.asarray(o2))
+
+
+@pytest.mark.parametrize("capacity", [1, 2])
+def test_dispatch_and_grouping_take_the_sentinel_expert(capacity):
+    """Ids equal to K (the sentinel the int8 grouped path routes fallback
+    tokens to) get JAX's slot and valid bit for bit (JAX clamps the
+    gather), and _group_tokens leaves them out of buf and g_buf, as
+    JAX's mode="drop" scatter does."""
+    K, d = 4, 8
+    e = np.array([0, 3, 4, 1, 4, 0], np.int32)
+    slot, valid = dispatch.dispatch_indices(torch.from_numpy(e), K, capacity)
+    js, jv = jdispatch.dispatch_indices(jnp.asarray(e), K, capacity)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jv))
+    if capacity == 1:
+        assert slot.tolist() == [0, 0, 1, 0, 2, 1]
+        assert valid.tolist() == [True, True, False, True, False, False]
+    rng = np.random.RandomState(0)
+    h = rng.randn(len(e), d).astype(np.float32)
+    g = rng.rand(len(e)).astype(np.float32) + 0.5
+    buf, g_buf, _, _ = ds._group_tokens(torch.from_numpy(h), torch.from_numpy(g),
+                                        torch.from_numpy(e), K, capacity)
+    jbuf, jg_buf, _, _ = jds._group_tokens(jnp.asarray(h), jnp.asarray(g), jnp.asarray(e),
+                                           K, capacity)
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+    np.testing.assert_array_equal(g_buf.numpy(), np.asarray(jg_buf))
+    sentinel_rows = {tuple(h[i]) for i in np.nonzero(e == K)[0]}
+    assert not any(tuple(r) in sentinel_rows for r in buf.reshape(-1, d).numpy())

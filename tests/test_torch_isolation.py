@@ -52,7 +52,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         dssoftmax.serve_topk(torch.zeros(4, 8), table, h, 2)
 
 
-@pytest.mark.parametrize("name", ["gate_top1", "dss_topk_grouped", "dss_topk_fused"])
+@pytest.mark.parametrize("name", ["gate_top1", "dss_topk_grouped", "dss_topk_fused",
+                                  "dss_topk_kernel"])
 def test_kernel_wrappers_raise_on_an_unreachable_device(name):
     """CPU tensors handed to a wrapper asked for CUDA (the default) raise;
     they never fall back to the plain version."""
@@ -63,7 +64,8 @@ def test_kernel_wrappers_raise_on_an_unreachable_device(name):
     w, ids = torch.zeros(4, 16, 8), torch.zeros(4, 16, dtype=torch.int32)
     args = {"gate_top1": (gate, h),
             "dss_topk_grouped": (w, ids, torch.zeros(4, 2, 8), torch.zeros(4, 2), 2),
-            "dss_topk_fused": (gate, w, ids, h, 2)}[name]
+            "dss_topk_fused": (gate, w, ids, h, 2),
+            "dss_topk_kernel": (w, ids, h, torch.zeros(2, dtype=torch.int32), 2)}[name]
     before = fn.launches
     with pytest.raises((RuntimeError, ValueError)):
         fn(*args)
