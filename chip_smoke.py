@@ -8,16 +8,26 @@ Run from the root of a checkout, with no arguments:
 Phases, in order (any failure exits non-zero before the result line):
 
 1. Device and build: the card's name and power limit, TF32 off, the
-   four CUDA libraries built from ``src/repro_torch/csrc`` (one ``nvcc``
+   five CUDA libraries built from ``src/repro_torch/csrc`` (one ``nvcc``
    each, all at once).
 2. Every kernel body against its plain PyTorch version at full width
    (d 1536, K 16, k 8; bf16 and fp32; int8 rows for the ``_q`` bodies):
    ids equal, values within the stated tolerance, kernel / plain /
    library-call times (CUDA events, median of 25 after warm-up).
+   ``lasso_prune``: fp32 at N 16,384 and, once the model exists, bf16 on
+   its seeded (16, 152,064, 1536) head with the stand-in mask (the shape
+   the repack gives it) and with every row alive; masks equal, norms
+   within rtol 1e-5, the threshold at the midpoint of two adjacent sorted
+   norms at least 8 fp32 ulps apart (relative; the kernel and its plain
+   version differ by at most one) so no row ties it, nearest to the 25th
+   percentile of the alive rows' norms (within 0.01 of it for the stand-in
+   mask, whose threshold the adapt phase prunes at).
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
    through 8 slots, 12 requests (one prompt of 2048 tokens, so chunked
    attention merges two query chunks).
+   Every session here keeps the overflow breaker off and must end on the
+   kernel it names.
    (fp) For each ``kernel=`` of cuda_fused, cuda_grouped, auto and jnp:
    once as a user calls ``run()`` (tokens/s), once with every prefill and
    decode step synchronized and timed; greedy streams token-identical.
@@ -38,7 +48,25 @@ Phases, in order (any failure exits non-zero before the result line):
    (median of 20), then ``torch.profiler`` over 5 steps for device-busy
    time, the device's idle share, device ops and host syncs per step, and
    the ten device ops that take the most time.
-5. Report: one ``{"kernels": [...]}`` line (six kernel bodies), the card
+5. Adapt: qwen2-1.5b at full width on ``skew_gate`` params (every token
+   to expert 0: at capacity factor 2.0, K 16 and 8 slots, 7 of 8 tokens
+   overflow), 8 requests. (i) One ``repack_for_traffic`` (re-prune at the
+   25th percentile of alive-row norms, mitosis of expert 0) swapped into
+   ``cuda_grouped``, ``cuda_fused`` and ``jnp`` sessions at the same
+   decode step: streams agree (or leave at a near-tie), v_pad shrinks.
+   (ii) The online loop (``AdaptPolicy``, breaker off) on
+   ``cuda_grouped``: one swap, the window's overflow rate falls, rows
+   pruned, v_pad shrinks, ``lasso_prune`` launched and its plain version
+   never called, ``decode_builds == 1 + n_swaps``.
+   (iii) The breaker trips twice (capacity x2, then the ``cuda_fused``
+   kernel, which must launch after trip 2), streams equal an unswapped
+   ``jnp`` session's. (iv) An int8 session (flip threshold
+   1.0) adapted once stays quantized, with a fresh gate report, and its
+   int8 grouped body launches after the swap. Every kernel body of the
+   path (both grouped bodies, ``gate_top1``, the fused body,
+   ``lasso_prune``) must have launched. Repack, swap and lasso times are
+   printed.
+6. Report: one ``{"kernels": [...]}`` line (seven kernel bodies), the card
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits with code 2 and prints no result. It imports only
@@ -47,6 +75,7 @@ torch, numpy and the port.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -94,6 +123,24 @@ NEEDS = {("cuda_fused", False): ("dss_topk_fused",),
          ("cuda_pertoken", False): ("gate_top1", "dss_topk"),
          ("jnp", False): (), ("jnp", True): ()}
 PROFILE_PROMPT, PROFILE_STEPS, PROFILE_TRACED = 512, 20, 5
+# lasso_prune: the kernel sums its fp32 squares in another order than the
+# plain version (one fp32 ulp apart at most, at d 1536 on the H100); each
+# threshold is the midpoint of a gap of 8 ulps (FP32_SAFE_GAP) between two
+# adjacent alive norms; the main path's must land within PRUNE_SLACK of the
+# quantile.
+LASSO_RTOL, LASSO_ATOL = 1e-5, 1e-6
+PRUNE_QUANTILE, PRUNE_SLACK = 0.25, 0.01
+# adapt phase: 8 requests fill the 8 slots; 24 new tokens give the breaker
+# (window 8) room for both trips
+ADAPT_PROMPT_LENS = (16, 40, 24, 64, 90, 32, 48, 200)
+ADAPT_NEW, SWAP_AT = 24, 6
+ADAPT_SEQ = max(ADAPT_PROMPT_LENS) + ADAPT_NEW - 1
+ADAPT_KERNELS = ("cuda_grouped", "cuda_fused", "jnp")
+BREAKER_OFF = 1.1            # overflow_threshold above any rate
+# kernel bodies the adapt path must launch: the grouped and fused decode
+# paths, the int8 grouped body of (iv), and the repack's re-prune
+ADAPT_NEEDS = ("gate_top1", "dss_topk_grouped", "dss_topk_fused", "dss_topk_grouped_q",
+               "lasso_prune")
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaMemcpyAsync", "cudaEventSynchronize")
 
@@ -155,7 +202,7 @@ def _table(gen, K, v_pad, d, dtype, empty_expert=None):
     return w.contiguous(), ids
 
 
-def _compare(name, case, got, want):
+def _compare(name, case, got, want, rtol=VAL_RTOL, atol=VAL_ATOL):
     """Max |value difference| over entries both report finite; raise
     unless ids (and sentinels) agree and values are within tolerance."""
     import torch
@@ -170,9 +217,29 @@ def _compare(name, case, got, want):
     if not ids_equal:
         bad = int((gi != wi).sum())
         raise SmokeFailure(f"{name} {case}: {bad} ids differ from the plain version")
-    if not torch.allclose(gv[fin], wv[fin], rtol=VAL_RTOL, atol=VAL_ATOL):
+    if not torch.allclose(gv[fin], wv[fin], rtol=rtol, atol=atol):
         raise SmokeFailure(f"{name} {case}: values differ by up to {err}")
     return err, ids_equal
+
+
+def report_case(results, name, case, got, want, t_kernel, t_plain, t_lib, nbytes, flops,
+                dtype, main=False, rtol=VAL_RTOL, atol=VAL_ATOL):
+    """Check one kernel case against its plain version and record its
+    times and bound (``main``: the shape the main path gives the body)."""
+    from repro_torch.kernels import ops
+
+    err, ids_equal = _compare(name, case, got, want, rtol, atol)
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    row = {"name": name, "case": case, "ms": t_kernel, "plain_ms": t_plain,
+           "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err, "ids_equal": ids_equal, "main_path_shape": main}
+    results.setdefault("cases", []).append(row)
+    print(f"[kernel] {name:17s} {case:38s} kernel {t_kernel:9.4f} ms  plain "
+          f"{t_plain:9.4f} ms  library {t_lib:9.4f} ms  bound {b_ms:.4f} ms "
+          f"({b_by})  max|dv| {err:.3g}  ids equal {ids_equal}  launches "
+          f"{ops.launch_counts()[name]}", flush=True)
+    if main:
+        results.setdefault("main", {})[name] = row
 
 
 def kernel_phase(results: dict) -> None:
@@ -183,21 +250,7 @@ def kernel_phase(results: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     K, d, k = 16, 1536, 8
     bf16, f32 = torch.bfloat16, torch.float32
-
-    def report(name, case, got, want, t_kernel, t_plain, t_lib, nbytes, flops, dtype,
-               main=False):
-        err, ids_equal = _compare(name, case, got, want)
-        b_ms, b_by = bound_ms(nbytes, flops, dtype)
-        row = {"name": name, "case": case, "ms": t_kernel, "plain_ms": t_plain,
-               "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
-               "max_abs_err": err, "ids_equal": ids_equal, "main_path_shape": main}
-        results.setdefault("cases", []).append(row)
-        print(f"[kernel] {name:17s} {case:38s} kernel {t_kernel:9.4f} ms  plain "
-              f"{t_plain:9.4f} ms  library {t_lib:9.4f} ms  bound {b_ms:.4f} ms "
-              f"({b_by})  max|dv| {err:.3g}  ids equal {ids_equal}  launches "
-              f"{ops.launch_counts()[name]}", flush=True)
-        if main:
-            results.setdefault("main", {})[name] = row
+    report = functools.partial(report_case, results)
 
     # -- gate_top1 --------------------------------------------------------
     for dtype, B, main in ((bf16, 8, True), (bf16, 2048, False), (f32, 8, False)):
@@ -357,6 +410,67 @@ def kernel_phase(results: dict) -> None:
                rows_read * (d * eb + 4) + B * (d * eb + 4) + B * k * 8,
                flops, dtype, main)
 
+    # -- lasso_prune: fp32 rows, half of them alive; the full-width bf16
+    # head comes in lasso_phase, once the model exists
+    w = torch.randn((K, 16384, d), generator=gen, device="cuda").mul_(d ** -0.5)
+    mask = torch.rand((K, 16384), generator=gen, device="cuda") < 0.5
+    lasso_case(results, "N=16384, half alive", w, mask, main=False)
+
+
+def lasso_case(results, case, w, mask, main, q=PRUNE_QUANTILE) -> float:
+    """``lasso_prune`` against its plain version on (w, mask) at a threshold
+    near the q-quantile of the alive rows' norms; returns the threshold.
+    Bound: the alive rows' bytes (a masked row is never read), the mask
+    read, the norms and new mask written; one fp32 multiply-add per alive
+    element."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.testing import FP32_SAFE_GAP, gamma_between
+
+    K, N, d = w.shape
+    norms = ref.lasso_prune_ref(w, mask, 0.0)[0]
+    gamma = gamma_between(norms, mask, q, rel_gap=FP32_SAFE_GAP)
+    quantile = float((norms[mask] < gamma).double().mean())
+    del norms
+    # the main path's threshold is the one the adapt phase prunes at; with
+    # every row alive (2.4M norms) ties leave no safe gap near q
+    if main and abs(quantile - q) > PRUNE_SLACK:
+        raise SmokeFailure(f"lasso_prune {case}: the nearest safe gap lies at the "
+                           f"{quantile:.5f} quantile, not near {q}")
+    got = ops.lasso_prune(w, mask, gamma)
+    want = ref.lasso_prune_ref(w, mask, gamma)
+    if bool((got[0][~mask] != 0).any()):
+        raise SmokeFailure(f"lasso_prune {case}: a masked row's norm is not 0")
+    if not 0 < int(want[1].sum()) < int(mask.sum()):
+        raise SmokeFailure(f"lasso_prune {case}: the threshold prunes no row or every row")
+    alive = int(mask.sum())
+    report_case(results, "lasso_prune", f"{str(w.dtype)[6:]} {case}", got, want,
+                time_ms(lambda: ops.lasso_prune(w, mask, gamma)),
+                time_ms(lambda: ref.lasso_prune_ref(w, mask, gamma)),
+                time_ms(lambda: torch.linalg.vector_norm(w, dim=-1, dtype=torch.float32) * mask),
+                alive * d * w.element_size() + K * N * (1 + 4 + 1), 2 * alive * d,
+                torch.float32, main, LASSO_RTOL, LASSO_ATOL)
+    results["cases"][-1].update(gamma=gamma, gamma_quantile=quantile,
+                                rows_pruned=alive - int(want[1].sum()))
+    print(f"[kernel] lasso_prune       threshold {gamma:.7g}: the nearest 8-ulp gap to the "
+          f"{q:.2f} quantile lies at the {quantile:.5f} quantile of the {alive} alive "
+          f"rows' norms; {alive - int(want[1].sum())} rows fall below it", flush=True)
+    return gamma
+
+
+def lasso_phase(results, head_w, mask) -> float:
+    """Phase 2's full-width lasso_prune cases, on the model's seeded head:
+    the stand-in mask (the main path's input), then every row alive.
+    Returns the stand-in case's threshold (the adapt phase prunes at it)."""
+    import torch
+
+    shape = "(" + ", ".join(map(str, head_w.shape)) + ")"
+    gamma = lasso_case(results, f"{shape} stand-in mask", head_w, mask, main=True)
+    lasso_case(results, f"{shape} every row alive", head_w, torch.ones_like(mask), main=False)
+    torch.cuda.empty_cache()
+    return gamma
+
 
 # ---------------------------------------------------------------------------
 # Phase 3: the slice
@@ -418,15 +532,17 @@ class Recorder:
         return out
 
 
-def _diverge_check(label, streams, heads, kerns, ref_kern, rtol, greedy_only=False):
+def _diverge_check(label, streams, heads, kerns, ref_kern, rtol, greedy_only=False,
+                   sampled=SAMPLED):
     """Each stream of ``kerns`` must equal ``ref_kern``'s, or leave it only
     at a near-tie of the reference (top-1/top-2 gap below ``rtol``
-    relative); the sampled request must match exactly unless
-    ``greedy_only``. Prints every divergence; returns their count."""
+    relative); the ``sampled`` request (None: none samples) must match
+    exactly unless ``greedy_only``. Prints every divergence; returns their
+    count."""
     n = 0
     for kern in kerns:
         for i, (a, b) in enumerate(zip(streams[kern], streams[ref_kern])):
-            if a == b or (greedy_only and i == SAMPLED):
+            if a == b or (greedy_only and i == sampled):
                 continue
             n += 1
             j = next(m for m, (x, y) in enumerate(zip(a, b)) if x != y)
@@ -436,7 +552,7 @@ def _diverge_check(label, streams, heads, kerns, ref_kern, rtol, greedy_only=Fal
             print(f"[slice] {label}: request {i} diverges at emission {j}: {ref_kern} top-2 "
                   f"{rv[:2].tolist()} ids {ri[:2].tolist()}; {kern} top-2 "
                   f"{kv[:2].tolist()} ids {ki[:2].tolist()}; gap {gap:.3g}")
-            if i == SAMPLED or gap > rtol * max(1.0, abs(float(rv[0]))):
+            if i == sampled or gap > rtol * max(1.0, abs(float(rv[0]))):
                 raise SmokeFailure(f"{label} {kern}: stream {i} diverges from {ref_kern} "
                                    f"at emission {j} without a near-tie (gap {gap})")
     return n
@@ -473,8 +589,10 @@ def slice_phase(results: dict, card: str):
 
     def serve(label, kern, record, tbl, **session_kw):
         t0 = time.perf_counter()
+        # the breaker stays off: each session serves through the kernel it names
         sess = ServeSession(bundle, params, tbl, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
-                            k=K_TOP, kernel=kern, device="cuda", **session_kw)
+                            k=K_TOP, kernel=kern, device="cuda",
+                            overflow_threshold=BREAKER_OFF, **session_kw)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         reqs = [Request(prompt=p, sampling=SamplingParams(
@@ -498,6 +616,9 @@ def slice_phase(results: dict, card: str):
                 raise SmokeFailure(f"{label} {kern}: token outside the vocabulary")
         if st["n_admitted"] != len(prompts) or st["n_admitted"] <= N_SLOTS:
             raise SmokeFailure(f"{label} {kern}: slots were not reused ({st})")
+        if st["effective_kernel"] != kern or st["breaker_trips"] != 0:
+            raise SmokeFailure(f"{label} {kern}: served through {st['effective_kernel']!r} "
+                               f"after {st['breaker_trips']} breaker trips")
         return [list(r.out_tokens) for r in reqs], wall, rec, st, setup_s, sess.table
 
     def row_of(label, kern, streams, wall, rec, delta, **extra):
@@ -683,6 +804,235 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
         print(f"[profile] {json.dumps(row)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the adaptation path (repack, swap, the online loop, the breaker)
+# ---------------------------------------------------------------------------
+
+def _count_calls(module, name):
+    """Wrap ``module.name`` so each call is counted; returns the counter
+    (a list holding one int) and a function that restores the original."""
+    orig, calls = getattr(module, name), [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+
+    setattr(module, name, counted)
+    return calls, lambda: setattr(module, name, orig)
+
+
+def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: float) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import AdaptPolicy, repack_for_traffic
+    from repro_torch.testing import skew_gate
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    skewed = skew_gate(params)
+    state = ds.DSState(mask=mask)
+    K = cfg.ds.num_experts
+    rng = np.random.RandomState(SEED + 3)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in ADAPT_PROMPT_LENS]
+    out = results.setdefault("adapt", {"card": card, "gamma": gamma})
+
+    def session(kern, record=False, **kw):
+        sess = ServeSession(bundle, skewed, state, n_slots=N_SLOTS,
+                            max_seq_len=ADAPT_SEQ, k=K_TOP, kernel=kern, device="cuda", **kw)
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=ADAPT_NEW))
+                for p in prompts]
+        rec = None
+        if record:
+            rec = Recorder(bundle, sess, reqs)
+            sess.bundle = dataclasses.replace(bundle, prefill=rec.prefill,
+                                              decode_step=rec.decode_step)
+        for r in reqs:
+            sess.submit(r)
+        return sess, reqs, rec
+
+    def drained(label, sess, reqs):
+        while sess.step():
+            pass
+        torch.cuda.synchronize()
+        for r in reqs:
+            if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != ADAPT_NEW:
+                raise SmokeFailure(f"adapt {label}: request ended {r.status} ({r.error})")
+        return [list(r.out_tokens) for r in reqs], sess.stats()
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    plain_calls, restore = _count_calls(ref, "lasso_prune_ref")
+    try:
+        ops.reset_launch_counts()  # the adapt path starts here
+        # -- (i) one repack swapped into three sessions at the same step ----
+        sessions = {}
+        for kern in ADAPT_KERNELS:
+            sess, reqs, rec = session(kern, record=True, overflow_threshold=BREAKER_OFF)
+            for _ in range(SWAP_AT):
+                sess.step()
+            sessions[kern] = (sess, reqs, rec)
+        prof = sessions["cuda_grouped"][0].traffic_profile()
+        if not prof.overflow_rate > 0.5:
+            raise SmokeFailure(f"adapt (i): the skewed window did not overflow ({prof})")
+        n_lasso = ops.launch_counts()["lasso_prune"]
+        res, repack_s = sync_s(lambda: repack_for_traffic(
+            skewed["head"], state, prof, prune_gamma=gamma, mitosis_overflow_threshold=0.1,
+            generator=torch.Generator(device="cuda").manual_seed(SEED)))
+        if res.cloned != (0,) or res.rows_pruned <= 0 \
+                or ops.launch_counts()["lasso_prune"] != n_lasso + 1:
+            raise SmokeFailure(f"adapt (i): repack cloned {res.cloned}, pruned "
+                               f"{res.rows_pruned} rows, lasso launches "
+                               f"{ops.launch_counts()['lasso_prune'] - n_lasso}")
+        streams, heads, swap_s = {}, {}, {}
+        v_pad_before = int(sessions["jnp"][0].table.v_pad)
+        if not res.table.v_pad < v_pad_before:
+            raise SmokeFailure(f"adapt (i): the re-pruned table's v_pad {res.table.v_pad} "
+                               f"is not below {v_pad_before}")
+        for kern, (sess, reqs, rec) in sessions.items():
+            _, swap_s[kern] = sync_s(lambda: sess.swap_table(
+                res.table, new_gate=res.head_params["gate"],
+                capacity_factor=res.capacity_factor))
+            streams[kern], st = drained(f"(i) {kern}", sess, reqs)
+            heads[kern] = rec.heads
+            if st["n_swaps"] != 1 or st["decode_builds"] != 2 or sess.table_version != 1:
+                raise SmokeFailure(f"adapt (i) {kern}: swap accounting {st}")
+        n_div = _diverge_check("adapt (i)", streams, heads, ADAPT_KERNELS[:-1], "jnp",
+                               TIE_RTOL, sampled=None)
+        lasso_ms = results["main"]["lasso_prune"]["ms"]
+        out["explicit_swap"] = {
+            "rows_pruned": res.rows_pruned, "cloned": list(res.cloned),
+            "K": int(res.table.ids.shape[0]), "v_pad": int(res.table.v_pad),
+            "v_pad_before": v_pad_before,
+            "capacity_factor": res.capacity_factor, "window_overflow_rate": prof.overflow_rate,
+            "repack_s": repack_s, "swap_s": swap_s, "lasso_ms": lasso_ms,
+            "lasso_share_of_repack": lasso_ms / 1e3 / repack_s, "near_tie_divergences": n_div}
+        print(f"[adapt] (i) repack of the skewed window (overflow {prof.overflow_rate:.3f}): "
+              f"{res.rows_pruned} rows pruned at gamma {gamma:.6g}, cloned {res.cloned}, K "
+              f"{K} -> {res.table.ids.shape[0]}, v_pad {v_pad_before} "
+              f"-> {res.table.v_pad}, capacity factor {res.capacity_factor:.3g}; repack "
+              f"{repack_s * 1e3:.1f} ms wall, lasso_prune kernel {lasso_ms:.4f} ms "
+              f"({100 * lasso_ms / 1e3 / repack_s:.2f}% of it); swap wall ms "
+              f"{ {k: round(v * 1e3, 3) for k, v in swap_s.items()} }; streams agree across "
+              f"{', '.join(ADAPT_KERNELS)} ({n_div} near-tie divergences); card {card}",
+              flush=True)
+        del sessions, res
+
+        # -- (ii) the online loop on cuda_grouped, breaker off --------------
+        policy = AdaptPolicy(interval=SWAP_AT, min_window_steps=4, overflow_threshold=0.05,
+                             mitosis_overflow_threshold=0.1, max_swaps=1, prune_gamma=gamma,
+                             seed=SEED)
+        n_lasso = ops.launch_counts()["lasso_prune"]
+        sess, reqs, _ = session("cuda_grouped", overflow_threshold=BREAKER_OFF,
+                                adapt_policy=policy)
+        v_pad_first = int(sess.table.v_pad)
+        before = None
+        while True:
+            more = sess.step()
+            st = sess.stats()
+            if st["n_swaps"] == 0:
+                before = st["overflow_rate_window"]
+            if not more:
+                break
+        _, st = drained("(ii)", sess, reqs)
+        after = st["overflow_rate_window"]
+        fails = [msg for ok, msg in (
+            (st["n_swaps"] >= 1, "no swap"),
+            (before is not None and after < before, f"window overflow {before} -> {after}"),
+            (st["rows_pruned"] > 0, "no row pruned"),
+            (ops.launch_counts()["lasso_prune"] - n_lasso >= 1, "lasso_prune never launched"),
+            (st["decode_builds"] == 1 + st["n_swaps"], f"decode_builds {st['decode_builds']}"),
+            (sess.table.v_pad < v_pad_first, f"v_pad {v_pad_first} -> {sess.table.v_pad}"),
+        ) if not ok]
+        if fails:
+            raise SmokeFailure(f"adapt (ii): {'; '.join(fails)}")
+        out["online_loop"] = {k: st[k] for k in (
+            "n_swaps", "decode_builds", "rows_pruned", "effective_capacity_factor",
+            "overflow_rate_window", "breaker_trips")}
+        out["online_loop"].update(overflow_rate_window_before=before, v_pad_before=v_pad_first,
+                                  v_pad=int(sess.table.v_pad))
+        print(f"[adapt] (ii) AdaptPolicy on cuda_grouped: {st['n_swaps']} swap(s), window "
+              f"overflow {before:.3f} -> {after:.3f}, {st['rows_pruned']} rows pruned, "
+              f"v_pad {v_pad_first} -> {sess.table.v_pad}, "
+              f"capacity factor -> {st['effective_capacity_factor']:.3g}, decode_builds "
+              f"{st['decode_builds']}", flush=True)
+        del sess
+
+        # -- (iii) the breaker: trip 1, then trip 2 to the fused kernel ------
+        sess, reqs, rec = session("cuda_grouped", record=True)
+        fused_first, fused_at_trip2 = ops.launch_counts()["dss_topk_fused"], None
+        while sess.step():
+            if fused_at_trip2 is None and sess.stats()["breaker_trips"] == 2:
+                fused_at_trip2 = ops.launch_counts()["dss_topk_fused"]
+        b_streams, st = drained("(iii)", sess, reqs)
+        fused_after = ops.launch_counts()["dss_topk_fused"] - (fused_at_trip2 or 0)
+        if st["breaker_trips"] != 2 or st["effective_kernel"] != "cuda_fused" \
+                or st["effective_capacity_factor"] != 2 * cfg.ds.capacity_factor \
+                or st["decode_builds"] != 3 or fused_at_trip2 != fused_first \
+                or fused_after < 1:
+            raise SmokeFailure(f"adapt (iii): breaker state {st}; dss_topk_fused launches "
+                               f"before trip 2 {(fused_at_trip2 or fused_first) - fused_first}, "
+                               f"after it {fused_after}")
+        plain, plain_reqs, plain_rec = session("jnp", record=True)
+        p_streams, _ = drained("(iii) plain", plain, plain_reqs)
+        n_div = _diverge_check("adapt (iii)", {"breaker": b_streams, "jnp": p_streams},
+                               {"breaker": rec.heads, "jnp": plain_rec.heads}, ("breaker",),
+                               "jnp", TIE_RTOL, sampled=None)
+        out["breaker"] = {k: st[k] for k in ("breaker_trips", "effective_kernel",
+                                              "effective_capacity_factor", "decode_builds",
+                                              "overflow_rate")}
+        out["breaker"]["fused_launches_after_trip_2"] = fused_after
+        print(f"[adapt] (iii) breaker: {st['breaker_trips']} trips, capacity factor "
+              f"{st['effective_capacity_factor']}, then kernel {st['effective_kernel']!r} "
+              f"(dss_topk_fused launched {fused_after} times after trip 2); streams agree "
+              f"with an unswapped jnp session ({n_div} near-tie divergences)", flush=True)
+        del sess, plain
+
+        # -- (iv) an int8 session stays quantized across a swap -------------
+        sess, reqs, _ = session("cuda_grouped", overflow_threshold=BREAKER_OFF,
+                                quantize="int8", quantize_flip_threshold=1.0,
+                                adapt_policy=dataclasses.replace(policy, interval=10**9))
+        for _ in range(SWAP_AT):
+            sess.step()
+        rep_before = sess.stats()["quantize_report"]
+        _, swap_q_s = sync_s(sess.adapt_now)
+        n_q = ops.launch_counts()["dss_topk_grouped_q"]
+        _, st = drained("(iv)", sess, reqs)
+        rep_after = st["quantize_report"]
+        n_q = ops.launch_counts()["dss_topk_grouped_q"] - n_q
+        if not isinstance(sess.table, ds.QuantizedServeTable) or st["n_swaps"] != 1 \
+                or len(rep_after["per_expert_flip_rate"]) != K + 1 \
+                or len(rep_before["per_expert_flip_rate"]) != K or n_q < 1:
+            raise SmokeFailure(f"adapt (iv): after the swap the table is "
+                               f"{type(sess.table).__name__}, report {rep_after}, "
+                               f"int8 launches since {n_q}")
+        out["int8"] = {"adapt_now_s": swap_q_s, "n_fallback_after": rep_after["n_fallback"],
+                       "int8_launches_after_swap": n_q}
+        print(f"[adapt] (iv) int8 session: adapt_now (repack + gate + swap) "
+              f"{swap_q_s * 1e3:.1f} ms wall; still int8 after the swap (K {K + 1}, "
+              f"{rep_after['n_fallback']} fallback experts, report refreshed); "
+              f"dss_topk_grouped_q launched {out['int8']['int8_launches_after_swap']} times "
+              f"after it", flush=True)
+        del sess
+    finally:
+        restore()
+    if plain_calls[0]:
+        raise SmokeFailure(f"adapt: lasso_prune's plain version ran {plain_calls[0]} times")
+    counts = ops.launch_counts()
+    results["main_path_launches"]["adapt"] = counts
+    missing = [n for n in ADAPT_NEEDS if counts[n] < 1]
+    if missing:
+        raise SmokeFailure(f"adapt: kernels {missing} never launched ({counts})")
+    print(f"[adapt] launches over the adapt path: {counts}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -708,7 +1058,11 @@ def main() -> int:
 
     results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     kernel_phase(results)
-    profile_phase(results, card, *slice_phase(results, card))
+    cfg, bundle, params, cases = slice_phase(results, card)
+    mask = stand_in_mask(cfg, "cuda")
+    gamma = lasso_phase(results, params["head"]["experts"], mask)
+    profile_phase(results, card, cfg, bundle, params, cases)
+    adapt_phase(results, card, cfg, bundle, params, mask, gamma)
 
     from repro_torch.kernels import ops
 
@@ -724,6 +1078,7 @@ def main() -> int:
         "dss_topk_fused_q": ("dss_topk_fused.cu", "src/repro/kernels/dss_topk_fused.py:120",
                              "int8"),
         "dss_topk": ("dss_topk.cu", "src/repro/kernels/dss_topk.py:110", "pertoken"),
+        "lasso_prune": ("lasso_prune.cu", "src/repro/kernels/lasso_prune.py:41", "adapt"),
     }
     if set(bodies) != {name for name, _, _ in ops.BODIES}:
         raise SmokeFailure("the report does not list every kernel body")

@@ -1,5 +1,5 @@
-"""Convert a JAX parameter pytree or serve table (as numpy arrays) into
-the port's.
+"""Convert a JAX parameter pytree, DS head or serve table (as numpy
+arrays) into the port's.
 
 ``repro`` and the port share the parameter layout — ``(d_in, d_out)``
 weights, per-layer params stacked on a leading ``(L, …)`` axis, the same
@@ -91,6 +91,26 @@ def params_from_jax(np_tree: Dict[str, np.ndarray], cfg: ModelConfig,
         node[leaf] = t
     params.setdefault("head", {})
     return params, state
+
+
+def head_from_jax(np_head: Dict[str, np.ndarray], mask: np.ndarray,
+                  device="cuda") -> Tuple[dict, DSState]:
+    """A ``repro`` DS head ``{"gate": (K, d), "experts": (K, N, d)}`` and
+    its ``DSState.mask`` (K, N) bool, as numpy arrays → the port's
+    ``(head params, DSState)`` on ``device``, the pair that
+    ``pack_experts`` and ``serve.repack_for_traffic`` take. bf16 is copied
+    bit for bit. Raises on a missing field or shapes that disagree."""
+    dev = resolve_device(device)
+    for f in ("gate", "experts"):
+        if f not in np_head:
+            raise KeyError(f"DS head field {f!r} is missing")
+    gate, experts, mask = (np.asarray(a) for a in (np_head["gate"], np_head["experts"], mask))
+    K, N, d = experts.shape
+    if gate.shape != (K, d) or mask.shape != (K, N) or mask.dtype != np.bool_:
+        raise ValueError(f"head fields disagree: gate {gate.shape}, experts {experts.shape}, "
+                         f"mask {mask.shape} {mask.dtype} (want (K, d), (K, N, d), (K, N) bool)")
+    head = {"gate": to_tensor(gate, dev), "experts": to_tensor(experts, dev)}
+    return head, DSState(mask=to_tensor(mask, dev))
 
 
 _TABLE_DTYPES = {"ids": ("int32",), "qweights": ("int8",), "scales": ("float32",),

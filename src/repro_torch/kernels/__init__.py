@@ -5,6 +5,7 @@ from repro_torch.kernels.dss_topk import dss_topk
 from repro_torch.kernels.dss_topk_fused import dss_topk_fused
 from repro_torch.kernels.dss_topk_grouped import dss_topk_grouped
 from repro_torch.kernels.gate_top1 import gate_top1
+from repro_torch.kernels.lasso_prune import lasso_prune
 from repro_torch.kernels.registry import (
     AutoPolicy,
     FixedPolicy,
@@ -22,6 +23,7 @@ __all__ = [
     "dss_topk_fused",
     "dss_topk_grouped",
     "gate_top1",
+    "lasso_prune",
     "AutoPolicy",
     "FixedPolicy",
     "KernelContext",

@@ -20,11 +20,11 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gate_top1", "dss_topk_grouped", "dss_topk_fused", "dss_topk")
+SOURCES = ("gate_top1", "dss_topk_grouped", "dss_topk_fused", "dss_topk", "lasso_prune")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each library's entry point (all return cudaError_t as int).
 SIGNATURES = {
     # gate_w, h, idx, g, B, K, d, dtype, stream
@@ -39,6 +39,8 @@ SIGNATURES = {
     # w, ids, h_scaled, expert_idx, out_v, out_i, part_v, part_i,
     # K, B, v_pad, d, k, nsplit, tiles_per_split, dtype, stream
     "dss_topk": [_P] * 8 + [_I] * 8 + [_P],
+    # w, mask, norms, new_mask, rows, d, gamma, dtype, blocks, stream
+    "lasso_prune": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

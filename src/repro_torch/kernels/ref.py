@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every kernel of this slice.
+"""Plain PyTorch versions of every kernel of the port.
 
 Each function computes what its CUDA kernel computes, in the same order
 of operations: fp32 logits from fp32 operands (bf16 × bf16 products are
@@ -100,3 +100,17 @@ def dss_topk_ref(weights, ids, h_scaled, expert_idx, k: int):
     z = torch.where(ids_sel >= 0, z, NEG_INF)
     vals, pos = topk_stable(z, k)
     return vals, torch.gather(ids_sel, 1, pos)
+
+
+def lasso_prune_ref(weights, mask, gamma: float):
+    """Group-lasso row step. weights (K, N, d) f32/bf16, mask (K, N) bool →
+    (norms (K, N) fp32, new_mask (K, N) bool): the fp32 l2 norm of every
+    row, exactly 0 for a masked row (its fp32 copy is zeroed first, as
+    ``repro.kernels.ref.lasso_prune_ref`` does), and
+    ``new_mask = mask ∧ norm > gamma`` with gamma compared in fp32. One
+    expert at a time, so no fp32 copy of the whole (K, N, d) tensor exists."""
+    norms = torch.empty(mask.shape, dtype=torch.float32, device=weights.device)
+    for e in range(weights.shape[0]):
+        w = weights[e].float() * mask[e, :, None]
+        norms[e] = torch.sqrt(torch.sum(w * w, dim=-1))
+    return norms, mask & (norms > gamma)

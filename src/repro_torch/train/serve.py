@@ -20,9 +20,21 @@ Sampling is host-side numpy: a counter-based Philox stream keyed by
 ``repro.train.serve`` so sampled streams match it token for token.
 
 ``quantize='int8'`` serves the DS table from int8 rows with per-row fp32
-scales, gated for exactness as ``repro.train.serve`` gates it. Chunked
-prefill, the paged cache, table hot-swap, the overflow circuit breaker and
-speculative decoding are later slices.
+scales, gated for exactness as ``repro.train.serve`` gates it.
+
+The packed table is a versioned resource
+(:class:`~repro_torch.serve.table_manager.TableResource`):
+``swap_table`` hot-swaps a repacked, re-pruned or mitosed table between
+decode steps, and ``adapt_policy=`` runs the repack online from the
+step-stamped per-expert stats window. An overflow circuit breaker degrades
+a session whose capacity buffers keep overflowing (trip 1 doubles the
+capacity factor; trip 2 serves through the ``'cuda_fused'`` kernel, which
+has no capacity buffers, where ``repro`` moves to ``'jnp'``). The port has
+no jit:
+where ``repro`` re-traces its decode step, the port rebinds it (once at
+init, once per swap, once per breaker trip; ``stats()['decode_builds']``).
+
+Chunked prefill, the paged cache and speculative decoding are later slices.
 """
 from __future__ import annotations
 
@@ -40,6 +52,12 @@ from repro_torch.core import dssoftmax as ds
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models.model_zoo import ModelBundle, cache_specs
 from repro_torch.models.transformer import DecodeCache
+from repro_torch.serve.table_manager import (
+    AdaptPolicy,
+    TableResource,
+    TrafficProfile,
+    repack_for_traffic,
+)
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -256,6 +274,25 @@ class ServeSession:
         quantize_flip_threshold: per-expert flip-rate bound above which an
             expert falls back to full-precision rows. 0.0 makes the served
             table exact on the calibration trace; 1.0 disables fallback.
+            Every later :meth:`swap_table` of an fp table (the adaptation
+            loop's repacks included) re-runs the same gate, so the session
+            stays quantized.
+        overflow_threshold / overflow_window: the DS-head overflow circuit
+            breaker. When the mean capacity-overflow rate over the last
+            ``overflow_window`` decode steps exceeds ``overflow_threshold``,
+            trip 1 doubles the effective ``capacity_factor`` and trip 2
+            serves through the ``'cuda_fused'`` kernel, which has no
+            capacity buffers (``repro`` takes ``'jnp'``); each trip rebinds
+            the decode step.
+        stats_window: length in decode steps of the step-stamped per-expert
+            dispatch/overflow window behind ``stats()['*_window']`` and
+            :meth:`traffic_profile`.
+        adapt_policy: an :class:`~repro_torch.serve.table_manager.AdaptPolicy`
+            that runs the online adaptation loop: every ``interval`` steps,
+            when the window's overflow rate exceeds the policy's threshold,
+            ``repack_for_traffic`` and :meth:`swap_table`, between decode
+            steps. Needs a DS head and the raw DS mask state (not a packed
+            table): repacking needs the (head, mask) pair.
         device: where the cache lives and the steps run; ``cuda`` unless
             the caller passes ``'cpu'``.
     """
@@ -268,6 +305,10 @@ class ServeSession:
                  quantize: Optional[str] = None,
                  quantize_calib=256,
                  quantize_flip_threshold: float = 0.0,
+                 overflow_threshold: float = 0.5,
+                 overflow_window: int = 8,
+                 stats_window: int = 128,
+                 adapt_policy: Optional[AdaptPolicy] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         cfg = bundle.cfg
@@ -286,19 +327,34 @@ class ServeSession:
         self.requests: List[Request] = []
         self.n_steps = 0
         self._quantize = quantize
+        self._quantize_calib = quantize_calib
+        self._quantize_flip_threshold = float(quantize_flip_threshold)
         self._quantize_report: Optional[ds.ExactnessReport] = None
+        self._head_params = None    # the (head, mask) pair tracked across
+        self._ds_state = None       # adaptive swaps, so repacks compound
         check_on(self.device, params=params["embed"]["table"])
         if cfg.head == "ds":
             table = ds_state_or_table
             if not isinstance(table, (ds.ServeTable, ds.QuantizedServeTable)):
+                self._ds_state = ds_state_or_table
                 table = ds.pack_experts(params["head"], table)
+            self._head_params = params["head"]
             check_on(self.device, table=ds.table_rows(table))
             if quantize is not None and isinstance(table, ds.ServeTable):
-                table = self._quantize_pack(table, params["head"]["gate"], quantize_calib,
-                                            float(quantize_flip_threshold))
-            self.table = table
+                table = self._quantize_pack(table, params["head"]["gate"])
+            self._table_res = TableResource(table, gate=params["head"]["gate"])
         else:
-            self.table = ds_state_or_table
+            self._table_res = TableResource(ds_state_or_table)
+        self._adapt_policy = adapt_policy
+        self._n_swaps = 0
+        self._rows_pruned = 0
+        self._last_adapt_step = 0
+        if adapt_policy is not None:
+            if cfg.head != "ds":
+                raise ValueError("adapt_policy requires a DS head")
+            if self._ds_state is None:
+                raise ValueError("adapt_policy needs the raw DS mask state to repack; "
+                                 "pass ds_state, not a pre-packed ServeTable")
         specs = cache_specs(cfg, ShapeConfig(name="serve", seq_len=max_seq_len,
                                              global_batch=n_slots, kind="decode"))
         self._cache = DecodeCache(*(torch.zeros(s.shape, dtype=s.dtype, device=self.device)
@@ -307,8 +363,164 @@ class ServeSession:
         self._tok = np.zeros(n_slots, np.int64)
         self._pos = np.zeros(n_slots, np.int64)
         self._outcomes: collections.Counter = collections.Counter()
+        self._overflow_threshold = overflow_threshold
+        self._overflow_hist: Deque[float] = collections.deque(maxlen=max(1, overflow_window))
+        self._breaker_trips = 0
+        self._eff_kernel = kernel              # trip 2 forces an uncapped path
+        self._eff_capacity_factor = None       # None -> cfg.ds.capacity_factor
         self._expert_dispatched: Optional[np.ndarray] = None
         self._expert_overflow: Optional[np.ndarray] = None
+        # step-stamped window over the same per-expert counters: each entry
+        # is (n_steps stamp, dispatched (K,), overflow (K,))
+        self._win: Deque[tuple] = collections.deque(maxlen=max(1, stats_window))
+        self._n_decode_builds = 0
+        self._build_decode_fn()
+
+    # -- versioned table resource ---------------------------------------------
+
+    @property
+    def table(self):
+        """The CURRENT table version, passed to every step; swaps happen only
+        between steps, so a step reads one version whole."""
+        return self._table_res.table
+
+    @property
+    def table_version(self) -> int:
+        return self._table_res.version
+
+    def _build_decode_fn(self) -> None:
+        """(Re)bind the decode step to the effective kernel and capacity
+        factor: once at init, once per :meth:`swap_table` and once per
+        breaker trip (``decode_builds`` counts them). ``serve_topk``
+        resolves the bound kernel against the table each step is given,
+        which is the current version. The step is looked up on
+        ``self.bundle`` at call time."""
+        self._n_decode_builds += 1
+        kernel, cf, k = self._eff_kernel, self._eff_capacity_factor, self.k
+
+        def _decode(p, t, c, tok, pos):
+            return self.bundle.decode_step(p, t, c, tok, pos, k=k, kernel=kernel,
+                                           capacity_factor=cf, with_stats=True)
+
+        self._decode_fn = _decode
+
+    # -- table hot-swap + online adaptation -----------------------------------
+
+    def swap_table(self, new_table, new_gate=None, *,
+                   capacity_factor: Optional[float] = None) -> int:
+        """Hot-swap the serve table (and optionally its matching gate)
+        between decode steps. Returns the new table version.
+
+        In order: the gate and table are checked as one pair; a new gate
+        (required when K changed) replaces ``params['head']['gate']``; an fp
+        table swapped into a ``quantize='int8'`` session is re-quantized
+        under the exactness gate against that gate, refreshing
+        ``stats()['quantize_report']`` (a quantized table swaps in as it
+        is); the :class:`TableResource` retires the old version; the
+        per-expert counters, the window and the breaker history restart
+        (K and V_pad may change); the decode step is rebound once.
+
+        Backbone params and the KV cache do not depend on the table, so a
+        resident request's tokens after the swap equal those of a fresh
+        session on the new table replaying ``prompt ++ pre_swap_tokens``."""
+        if self.cfg.head != "ds":
+            raise ValueError("swap_table requires a DS head")
+        if not isinstance(new_table, (ds.ServeTable, ds.QuantizedServeTable)):
+            raise ValueError("swap_table takes a packed ServeTable or QuantizedServeTable")
+        check_on(self.device, table=ds.table_rows(new_table))
+        n_table = new_table.ids.shape[0]
+        if new_gate is None:
+            n_gate = self.params["head"]["gate"].shape[0]
+            if n_table != n_gate:
+                raise ValueError(
+                    f"table has {n_table} experts but the resident gate has {n_gate} rows; "
+                    "pass new_gate — gate and table swap as one pair")
+        else:
+            new_gate = torch.as_tensor(new_gate)
+            if new_gate.shape[0] != n_table:
+                raise ValueError(
+                    f"gate rows ({new_gate.shape[0]}) must match table experts ({n_table})"
+                    " — gate and table swap as one versioned pair")
+            check_on(self.device, new_gate=new_gate)
+            self.params = dict(self.params, head=dict(self.params["head"], gate=new_gate))
+        if self._quantize is not None and isinstance(new_table, ds.ServeTable):
+            new_table = self._quantize_pack(new_table, self.params["head"]["gate"])
+        version = self._table_res.swap(new_table, gate=self.params["head"]["gate"])
+        self._n_swaps += 1
+        if capacity_factor is not None:
+            self._eff_capacity_factor = float(capacity_factor)
+        self._expert_dispatched = None
+        self._expert_overflow = None
+        self._win.clear()
+        self._overflow_hist.clear()
+        self._build_decode_fn()
+        log.info("table swap -> v%d: K=%d V_pad=%d capacity_factor=%s (decode step rebound)",
+                 version, n_table, new_table.v_pad, self._eff_capacity_factor)
+        return version
+
+    def traffic_profile(self) -> Optional[TrafficProfile]:
+        """The stats window as a
+        :class:`~repro_torch.serve.table_manager.TrafficProfile`, or None
+        until the current table version has served a decode step. (No
+        dummy experts to slice off: the port does not shard the table.)"""
+        if not self._win:
+            return None
+        disp = np.sum([d for _, d, _ in self._win], axis=0, dtype=np.int64)
+        over = np.sum([o for _, _, o in self._win], axis=0, dtype=np.int64)
+        return TrafficProfile(dispatched=disp, overflow=over, steps=len(self._win),
+                              start_step=self._win[0][0], end_step=self._win[-1][0])
+
+    def adapt_now(self) -> bool:
+        """One adaptation pass now (the policy's interval and overflow
+        threshold are ignored; the stats window must not be empty). True
+        when a swap happened."""
+        if self._adapt_policy is None:
+            raise ValueError("adapt_now() requires adapt_policy=")
+        prof = self.traffic_profile()
+        if prof is None:
+            return False
+        self._last_adapt_step = self.n_steps
+        return self._adapt(prof)
+
+    def _maybe_adapt(self) -> None:
+        """End-of-step adaptation check: swaps happen only here or in
+        :meth:`adapt_now`, between decode steps."""
+        pol = self._adapt_policy
+        if pol is None or self._n_swaps >= pol.max_swaps:
+            return
+        if self.n_steps - self._last_adapt_step < pol.interval:
+            return
+        prof = self.traffic_profile()
+        if prof is None or prof.steps < pol.min_window_steps:
+            return
+        self._last_adapt_step = self.n_steps
+        if prof.overflow_rate <= pol.overflow_threshold:
+            return
+        self._adapt(prof)
+
+    def _adapt(self, prof: TrafficProfile) -> bool:
+        pol = self._adapt_policy
+        if self._n_swaps >= pol.max_swaps:
+            return False
+        seed = np.random.SeedSequence((pol.seed, self._n_swaps)).generate_state(1, np.uint64)[0]
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        res = repack_for_traffic(
+            self._head_params, self._ds_state, prof, generator=gen,
+            prune_gamma=pol.prune_gamma,
+            mitosis_overflow_threshold=pol.mitosis_overflow_threshold,
+            headroom=pol.headroom, noise=pol.noise,
+            base_capacity_factor=(self._eff_capacity_factor
+                                  if self._eff_capacity_factor is not None
+                                  else self.cfg.ds.capacity_factor))
+        # evolve the tracked (head, mask) pair so later repacks compound
+        self._head_params, self._ds_state = res.head_params, res.state
+        self._rows_pruned += res.rows_pruned
+        log.info("adaptive repack at step %d: window overflow %.3f over %d steps; "
+                 "cloned=%s pruned=%d rows", self.n_steps, prof.overflow_rate, prof.steps,
+                 res.cloned, res.rows_pruned)
+        self.swap_table(res.table, new_gate=res.head_params["gate"],
+                        capacity_factor=res.capacity_factor)
+        return True
 
     # -- public API -----------------------------------------------------------
 
@@ -381,12 +593,10 @@ class ServeSession:
         act = self.scheduler.active()
         if not act:
             return self.scheduler.has_work()
-        vals, ids, self._cache, stats = self.bundle.decode_step(
+        vals, ids, self._cache, stats = self._decode_fn(
             self.params, self.table, self._cache,
             torch.from_numpy(self._tok).to(self.device),
-            torch.from_numpy(self._pos).to(self.device),
-            k=self.k, kernel=self.kernel, with_stats=True,
-        )
+            torch.from_numpy(self._pos).to(self.device))
         self.n_steps += 1
         vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
         self._record_load(stats)
@@ -400,6 +610,10 @@ class ServeSession:
                 continue
             t = self._sample(vals[i], ids[i], slot.req.sampling_params, slot.n_emitted)
             self._emit(i, slot, t)
+        if self._adapt_policy is not None:
+            # swaps happen only BETWEEN steps: the step above ran whole on
+            # the old table version
+            self._maybe_adapt()
         return self.scheduler.has_work()
 
     def run(self, requests: Optional[List[Request]] = None) -> List[Request]:
@@ -413,11 +627,22 @@ class ServeSession:
 
     def stats(self) -> dict:
         """Host-side counters: occupancy, per-outcome counts, shed count,
-        per-expert dispatch/overflow totals over the decode steps, and the
-        int8 mode with its exactness-gate report (``ExactnessReport.as_dict()``,
-        None when the table was not quantized here)."""
+        per-expert dispatch/overflow totals over the current table version
+        and the step-stamped window over them (``*_window`` keys with
+        ``window_start_step``/``window_end_step``, what
+        :meth:`traffic_profile` reads), the circuit breaker's state, the
+        table-swap accounting (``table_version``, ``n_swaps``,
+        ``decode_builds``; ``rows_pruned`` sums the adaptive repacks'
+        re-prunes, a key ``repro`` does not have), and the int8 mode with
+        its exactness-gate report (``ExactnessReport.as_dict()``, None when
+        the table was not quantized here)."""
         o = self._outcomes
-        return {
+        hist = self._overflow_hist
+        eff_cf = None
+        if self.cfg.head == "ds":
+            eff_cf = (self._eff_capacity_factor if self._eff_capacity_factor is not None
+                      else self.cfg.ds.capacity_factor)
+        out = {
             "n_admitted": self.scheduler.n_admitted,
             "n_released": self.scheduler.n_released,
             "n_steps": self.n_steps,
@@ -429,27 +654,45 @@ class ServeSession:
             "n_timed_out": o[RequestStatus.TIMED_OUT],
             "n_failed": o[RequestStatus.FAILED],
             "n_shed": self.scheduler.n_shed,
+            "overflow_rate": (sum(hist) / len(hist)) if hist else 0.0,
             "expert_dispatched": (None if self._expert_dispatched is None
                                   else self._expert_dispatched.tolist()),
             "expert_overflow": (None if self._expert_overflow is None
                                 else self._expert_overflow.tolist()),
+            "breaker_trips": self._breaker_trips,
+            "effective_capacity_factor": eff_cf,
+            "effective_kernel": self._eff_kernel,
+            "table_version": self._table_res.version,
+            "n_swaps": self._n_swaps,
+            "decode_builds": self._n_decode_builds,
+            "rows_pruned": self._rows_pruned,
             "quantize": self._quantize,
             "quantize_report": (None if self._quantize_report is None
                                 else self._quantize_report.as_dict()),
         }
+        prof = self.traffic_profile()
+        out["expert_dispatched_window"] = None if prof is None else prof.dispatched.tolist()
+        out["expert_overflow_window"] = None if prof is None else prof.overflow.tolist()
+        out["window_start_step"] = None if prof is None else prof.start_step
+        out["window_end_step"] = None if prof is None else prof.end_step
+        out["window_steps"] = 0 if prof is None else prof.steps
+        out["overflow_rate_window"] = 0.0 if prof is None else prof.overflow_rate
+        return out
 
     # -- internals ------------------------------------------------------------
 
-    def _quantize_pack(self, table: ds.ServeTable, gate_w, calib,
-                       flip_threshold: float) -> ds.QuantizedServeTable:
+    def _quantize_pack(self, table: ds.ServeTable, gate_w) -> ds.QuantizedServeTable:
         """Quantize a fp table under the exactness gate and keep its
-        :class:`~repro_torch.core.dssoftmax.ExactnessReport`."""
+        :class:`~repro_torch.core.dssoftmax.ExactnessReport`. The int form
+        of ``quantize_calib`` redraws from the generator seeded 17, so every
+        swap gates on the same activations."""
+        calib = self._quantize_calib
         if isinstance(calib, int):
             gen = torch.Generator().manual_seed(17)
             calib = torch.randn((calib, self.cfg.d_model), generator=gen, dtype=torch.float32)
         calib = torch.as_tensor(calib).to(self.device)
         qtable, report = ds.calibrate_quantized_table(
-            gate_w, table, calib, k=self.k, flip_threshold=flip_threshold)
+            gate_w, table, calib, k=self.k, flip_threshold=self._quantize_flip_threshold)
         self._quantize_report = report
         log.info("int8 quantize: %d/%d calib flips raw, %d experts on fp fallback, "
                  "%d unguarded (gate %s)", report.n_flips_raw, report.n_tokens,
@@ -496,11 +739,51 @@ class ServeSession:
     def _record_load(self, stats) -> None:
         disp = stats["dispatched"].cpu().numpy().astype(np.int64)
         over = stats["overflow"].cpu().numpy().astype(np.int64)
-        if self._expert_dispatched is None:
+        if self._expert_dispatched is None or self._expert_dispatched.shape != disp.shape:
+            # first step on this table version (swap_table resets them)
             self._expert_dispatched = np.zeros_like(disp)
             self._expert_overflow = np.zeros_like(over)
+            self._win.clear()
         self._expert_dispatched += disp
         self._expert_overflow += over
+        # n_steps already counts the step these stats came from
+        self._win.append((self.n_steps, disp, over))
+        self._overflow_hist.append(float(over.sum()) / max(float(disp.sum()), 1.0))
+        self._maybe_trip_breaker()
+
+    def _maybe_trip_breaker(self) -> None:
+        """Degrade when capacity overflow stops being rare. Overflowed
+        tokens stay exact (the grouped paths' fixup re-runs them), but a
+        sustained rate means the capacity buffers are mis-sized and the
+        fixup dominates the step. Trip 1 doubles the effective
+        ``capacity_factor`` (from the config's); trip 2 serves through the
+        ``'cuda_fused'`` kernel (fp and int8 bodies, exact), which has no
+        capacity buffers and so never overflows. ``repro`` takes ``'jnp'``
+        there; the port stays on a kernel (on CPU tensors the fused
+        wrapper runs its plain version, as every wrapper does)."""
+        if self.cfg.head != "ds" or self._breaker_trips >= 2:
+            return
+        hist = self._overflow_hist
+        if len(hist) < hist.maxlen:
+            return
+        rate = sum(hist) / len(hist)
+        if rate <= self._overflow_threshold:
+            return
+        self._breaker_trips += 1
+        if self._breaker_trips == 1:
+            base = self.cfg.ds.capacity_factor
+            self._eff_capacity_factor = 2.0 * base
+            log.warning("overflow breaker trip 1: mean rate %.3f > %.3f over %d steps; "
+                        "capacity_factor %.2f -> %.2f (decode step rebound)",
+                        rate, self._overflow_threshold, hist.maxlen, base,
+                        self._eff_capacity_factor)
+        else:
+            self._eff_kernel = "cuda_fused"
+            log.warning("overflow breaker trip 2: mean rate %.3f still > %.3f after the "
+                        "capacity bump; serving through %r (decode step rebound)",
+                        rate, self._overflow_threshold, self._eff_kernel)
+        hist.clear()
+        self._build_decode_fn()
 
     @torch.no_grad()
     def _admit(self) -> None:

@@ -248,3 +248,135 @@ def test_session_streams_identical_fp32_and_int8(dev, quantize):
         else:
             assert not any(counts.values())
     assert all(s == streams["jnp"] for s in streams.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N,d,offset", [(4, 1000, 64, 0), (3, 257, 100, 0), (2, 64, 7, 0),
+                                          (16, 4096, 1536, 0), (3, 300, 1536, 1),
+                                          (2, 129, 37, 3)])
+def test_lasso_prune_kernel(dev, dtype, K, N, d, offset):
+    """Norms rtol 1e-5 (fp32 sums of exact bf16 squares, or of fp32 fmas,
+    in another order), masks equal; expert 1 is all masked; ``offset``
+    shifts the rows off 16-byte alignment (scalar head and tail)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.testing import gamma_between
+
+    g = torch.Generator(device=dev).manual_seed(N + d)
+    flat = torch.empty(K * N * d + offset, dtype=dtype, device=dev)
+    w = flat[offset:].view(K, N, d)
+    w.copy_(torch.randn((K, N, d), generator=g, device=dev) * 0.2)
+    mask = torch.rand((K, N), generator=g, device=dev) < 0.8
+    mask[1] = False
+    gamma = gamma_between(ref.lasso_prune_ref(w, mask, 0.0)[0], mask, 0.5)
+    n = ops.lasso_prune.launches
+    norms, new_mask = ops.lasso_prune(w, mask, gamma)
+    assert ops.lasso_prune.launches == n + 1
+    want_n, want_m = ref.lasso_prune_ref(w, mask, gamma)
+    assert torch.equal(new_mask, want_m)
+    torch.testing.assert_close(norms, want_n, rtol=1e-5, atol=1e-6)
+    assert (norms[~mask] == 0).all() and not new_mask[1].any()
+    assert 0 < int(new_mask.sum()) < int(mask.sum())
+
+
+def test_lasso_prune_kernel_above_2_31_elements(dev):
+    """64-bit row offsets: (2, 2^20 + 3, 1100) bf16 holds 2.3e9 elements."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.testing import gamma_between
+
+    K, N, d = 2, (1 << 20) + 3, 1100
+    if torch.cuda.mem_get_info()[0] < 24 * 2**30:
+        pytest.skip("needs 24 GiB of free device memory")
+    g = torch.Generator(device=dev).manual_seed(9)
+    w = torch.empty((K, N, d), dtype=torch.bfloat16, device=dev)
+    for e in range(K):
+        w[e] = torch.randn((N, d), generator=g, device=dev) * 0.2
+    assert w.numel() > 2**31
+    mask = torch.rand((K, N), generator=g, device=dev) < 0.9
+    gamma = gamma_between(ref.lasso_prune_ref(w, mask, 0.0)[0], mask, q=0.25)
+    norms, new_mask = ops.lasso_prune(w, mask, gamma)
+    want_n, want_m = ref.lasso_prune_ref(w, mask, gamma)
+    assert torch.equal(new_mask, want_m)
+    torch.testing.assert_close(norms, want_n, rtol=1e-5, atol=1e-6)
+    assert bool(new_mask[-1, -1]) == bool(want_m[-1, -1])  # the last row is reached
+
+
+def test_adaptive_session_launches_lasso_prune(dev):
+    """A skewed session on cuda_grouped re-prunes through the kernel: one
+    swap, the window's overflow cleared, lasso_prune launched, and the
+    streams equal a jnp session adapting the same way."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build
+    from repro_torch.serve import AdaptPolicy
+    from repro_torch.testing import gamma_between, skew_gate
+    from repro_torch.train import Request, SamplingParams, ServeSession
+
+    cfg = reduce_config(get_config("qwen2-1.5b"), vocab=1024).replace(dtype="float32")
+    cfg = cfg.replace(ds=cfg.ds.replace(capacity_factor=0.25))
+    bundle = build(cfg)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    params = skew_gate(params)
+    gamma = gamma_between(ref.lasso_prune_ref(params["head"]["experts"], state.mask, 0.0)[0],
+                          state.mask, q=0.3)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 1024, rng.randint(3, 30)).astype(np.int32) for _ in range(8)]
+    streams = {}
+    for kern in ("jnp", "cuda_grouped"):
+        ops.reset_launch_counts()
+        sess = ServeSession(bundle, params, state, n_slots=8, max_seq_len=64, kernel=kern,
+                            overflow_threshold=1.1,
+                            adapt_policy=AdaptPolicy(interval=4, min_window_steps=2,
+                                                     overflow_threshold=-1.0,
+                                                     mitosis_overflow_threshold=0.1,
+                                                     max_swaps=1, prune_gamma=gamma))
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=12)) for p in prompts]
+        sess.run(reqs)
+        s = sess.stats()
+        assert s["n_swaps"] == 1 and s["decode_builds"] == 2
+        assert ops.launch_counts()["lasso_prune"] == 1
+        if kern == "cuda_grouped":
+            assert s["overflow_rate_window"] == 0.0 and ops.launch_counts()["gate_top1"] > 0
+        streams[kern] = [r.out_tokens for r in reqs]
+    assert streams["cuda_grouped"] == streams["jnp"]
+
+
+def test_breaker_trip_2_serves_through_the_fused_kernel(dev):
+    """On skewed traffic the breaker trips twice on cuda_grouped; after
+    trip 2 the session launches dss_topk_fused (no capacity buffers) and
+    never the grouped body, and its streams equal a jnp session's on the
+    same skewed params."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.testing import skew_gate
+    from repro_torch.train import Request, SamplingParams, ServeSession
+
+    cfg = reduce_config(get_config("qwen2-1.5b"), vocab=1024).replace(dtype="float32")
+    cfg = cfg.replace(ds=cfg.ds.replace(capacity_factor=0.25))
+    bundle = build(cfg)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    params = skew_gate(params)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 1024, rng.randint(3, 30)).astype(np.int32) for _ in range(8)]
+    streams = {}
+    for kern in ("jnp", "cuda_grouped"):
+        sess = ServeSession(bundle, params, state, n_slots=8, max_seq_len=64, kernel=kern,
+                            overflow_threshold=0.3, overflow_window=4)
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=16)) for p in prompts]
+        for r in reqs:
+            sess.submit(r)
+        after_trip2 = None
+        while sess.step():
+            if after_trip2 is None and sess.stats()["breaker_trips"] == 2:
+                ops.reset_launch_counts()
+                after_trip2 = True
+        s = sess.stats()
+        streams[kern] = [r.out_tokens for r in reqs]
+        if kern == "jnp":
+            assert s["breaker_trips"] == 0
+            continue
+        assert after_trip2 and s["breaker_trips"] == 2 and s["decode_builds"] == 3
+        assert s["effective_kernel"] == "cuda_fused"
+        counts = ops.launch_counts()
+        assert counts["dss_topk_fused"] > 0 and counts["dss_topk_grouped"] == 0, counts
+    assert streams["cuda_grouped"] == streams["jnp"]

@@ -31,6 +31,17 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", ["serve/__init__.py", "serve/table_manager.py",
+                                    "core/pruning.py", "testing/__init__.py",
+                                    "testing/faults.py", "testing/thresholds.py",
+                                    "kernels/lasso_prune.py"])
+def test_adaptation_modules_import_no_jax_nor_repro(module):
+    path = PORT / module
+    assert path.exists()
+    bad = [name for name in _imports(path) if name.split(".")[0] in FORBIDDEN]
+    assert not bad, (module, bad)
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the cuda device is reachable here")
@@ -50,10 +61,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                  weights=torch.zeros(4, 8, 8))
     with pytest.raises(RuntimeError, match="cuda"):
         dssoftmax.serve_topk(torch.zeros(4, 8), table, h, 2)
+    import numpy as np
+
+    from repro_torch.convert import head_from_jax
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        head_from_jax({"gate": np.zeros((4, 8), np.float32),
+                       "experts": np.zeros((4, 16, 8), np.float32)}, np.ones((4, 16), bool))
 
 
 @pytest.mark.parametrize("name", ["gate_top1", "dss_topk_grouped", "dss_topk_fused",
-                                  "dss_topk_kernel"])
+                                  "dss_topk_kernel", "lasso_prune"])
 def test_kernel_wrappers_raise_on_an_unreachable_device(name):
     """CPU tensors handed to a wrapper asked for CUDA (the default) raise;
     they never fall back to the plain version."""
@@ -65,7 +83,8 @@ def test_kernel_wrappers_raise_on_an_unreachable_device(name):
     args = {"gate_top1": (gate, h),
             "dss_topk_grouped": (w, ids, torch.zeros(4, 2, 8), torch.zeros(4, 2), 2),
             "dss_topk_fused": (gate, w, ids, h, 2),
-            "dss_topk_kernel": (w, ids, h, torch.zeros(2, dtype=torch.int32), 2)}[name]
+            "dss_topk_kernel": (w, ids, h, torch.zeros(2, dtype=torch.int32), 2),
+            "lasso_prune": (w, torch.ones(4, 16, dtype=torch.bool), 0.5)}[name]
     before = fn.launches
     with pytest.raises((RuntimeError, ValueError)):
         fn(*args)
