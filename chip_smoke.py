@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order (any failure exits non-zero before the result line):
 
 1. Device and build: the card's name and power limit, TF32 off, the
-   five CUDA libraries built from ``src/repro_torch/csrc`` (one ``nvcc``
+   six CUDA libraries built from ``src/repro_torch/csrc`` (one ``nvcc``
    each, all at once).
 2. Every kernel body against its plain PyTorch version at full width
    (d 1536, K 16, k 8; bf16 and fp32; int8 rows for the ``_q`` bodies):
@@ -22,10 +22,17 @@ Phases, in order (any failure exits non-zero before the result line):
    version differ by at most one) so no row ties it, nearest to the 25th
    percentile of the alive rows' norms (within 0.01 of it for the stand-in
    mask, whose threshold the adapt phase prunes at).
+   ``flash_attention`` against ``ref.flash_attention_ref`` at qwen2-1.5b's
+   attention shape (B 1, H 12, H_kv 2, dh 128, bf16) for S 16, 200, 2047
+   and 2048 (the main path's), fp32 at H = H_kv = 2, dh 64, S 256, and
+   views that are not dense, each element within
+   ``repro_torch.testing.flash_attention_limit`` (bf16: one rounding of p,
+   2^-8·(softmax(s)·|v|), plus 2^-7·|o|); the yardstick is
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
-   through 8 slots, 12 requests (one prompt of 2048 tokens, so chunked
-   attention merges two query chunks).
+   through 8 slots, 12 requests (one prompt of 2048 tokens: its prefill
+   runs the flash_attention kernel over 32 kv tiles).
    Every session here keeps the overflow breaker off and must end on the
    kernel it names.
    (fp) For each ``kernel=`` of cuda_fused, cuda_grouped, auto and jnp:
@@ -41,8 +48,8 @@ Phases, in order (any failure exits non-zero before the result line):
    against the fp jnp session (its g fold rounds h to bf16, so a stream
    may leave only at a top-1/top-2 gap below 2^-7 relative).
    Each group resets the launch counters before it and reads them after:
-   every kernel body of its path must have launched, the plain sessions'
-   counts stay 0.
+   every kernel body of its path must have launched (flash_attention in
+   every session's prefill), the plain head's counts stay 0.
 4. Decode-step profile: 8 residents at prompt length 512, for cuda_fused
    and jnp on the fp table and cuda_fused on the int8 table: step ms
    (median of 20), then ``torch.profiler`` over 5 steps for device-busy
@@ -66,7 +73,28 @@ Phases, in order (any failure exits non-zero before the result line):
    path (both grouped bodies, ``gate_top1``, the fused body,
    ``lasso_prune``) must have launched. Repack, swap and lasso times are
    printed.
-6. Report: one ``{"kernels": [...]}`` line (seven kernel bodies), the card
+6. Prefill: qwen2-1.5b at full width. (a) One 2048-token whole-prompt
+   prefill through the kernel against the same prefill with the plain
+   attention (``chunked_causal_attention``) swapped in by this script:
+   top-k values within 2^-4 of the top-1 and ids apart only at a near-tie
+   (within twice that), exactly 28 kernel launches, and neither plain
+   function called on the kernel run. (b) Five sessions
+   (8 slots, ``kernel='auto'``, max_seq_len 2304): (A) contiguous,
+   whole-prompt; (B) contiguous, ``prefill_chunk=256``; (C) paged,
+   whole-prompt; (D) paged, chunked, prefix sharing; (E) as D with the
+   arena at 60% of the most pages D held at once and two priority classes.
+   12 greedy requests of 32 new tokens: 8 share a 1024-token system prompt
+   (4 chunks) with distinct 16-300-token tails, 4 are unrelated (16-2048
+   tokens). C must equal A and D equal B token for token; A against B and E
+   against D: while a stream agrees, its top-1 value and top-1 gate
+   probability within 2^-4 of the reference's at each emission, and it may
+   leave only where the reference ranks its token, or the expert it chose,
+   within twice that (the gate is watched by wrapping ``heads.head_topk``
+   for these sessions); D saves >= 28 prefix
+   chunks; E preempts and completes every request; every page is free
+   after a paged session. Prefill ms (median, total; the model's calls,
+   without the cache insert) and decode-step ms per session.
+7. Report: one ``{"kernels": [...]}`` line (eight kernel bodies), the card
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits with code 2 and prints no result. It imports only
@@ -77,6 +105,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -105,8 +134,10 @@ FOLD_RTOL = 2.0 ** -7
 
 SEED = 0
 N_SLOTS, K_TOP, NEW_TOKENS = 8, 8, 32
-# 2048 = 2 x attn_q_chunk: the one prompt whose prefill takes the multi-chunk
-# branch of chunked_causal_attention (the others are not chunk multiples).
+# On the card every whole-prompt prefill runs the flash_attention kernel
+# (64-row tiles); the 2048-token prompt visits 32 kv tiles per query tile
+# of its last row, and most others end on a ragged tile.
+FLASH_TILE = 64
 PROMPT_LENS = (16, 1536, 40, 300, 1100, 64, 700, 24, 512, 90, 2048, 200)
 MAX_SEQ = max(PROMPT_LENS) + NEW_TOKENS - 1
 SAMPLED = 5                  # this request samples at temperature 0.8
@@ -141,6 +172,25 @@ BREAKER_OFF = 1.1            # overflow_threshold above any rate
 # paths, the int8 grouped body of (iv), and the repack's re-prune
 ADAPT_NEEDS = ("gate_top1", "dss_topk_grouped", "dss_topk_fused", "dss_topk_grouped_q",
                "lasso_prune")
+# prefill phase: max_seq_len divisible by the page size and the chunk; 8
+# requests behind a 1024-token system prompt (4 chunks) with distinct tails,
+# then 4 unrelated prompts (the 2048-token one keeps the kernel's multi-tile
+# case in the sessions)
+PREFILL_SEQ, PAGE_SIZE, PREFILL_CHUNK = 2304, 16, 256
+SYSTEM_LEN = 1024
+SHARED_TAILS = (16, 300, 40, 257, 64, 128, 200, 23)
+OTHER_LENS = (2048, 16, 700, 1500)
+ARENA_SHARE = 0.6            # session E's arena, of the most pages D held
+E_SUBMIT_AT = 3              # E: the shared-prefix class arrives after 3 steps
+# Two backbones that round differently (the kernel against the plain
+# einsums; a resumed request's re-prefill against its decode steps) drift
+# apart through 28 layers of bf16 hidden states. A fixed allowance holds
+# them: at each emission while the streams agree, the top-1 value and the
+# top-1 gate probability within BF16_DRIFT of the reference's (relative, 16
+# units of bf16 roundoff); a stream may leave the reference only where the
+# reference puts the other stream's token, or the expert it chose, within
+# twice that of its top-1.
+BF16_DRIFT = 2.0 ** -4
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaMemcpyAsync", "cudaEventSynchronize")
 
@@ -415,6 +465,69 @@ def kernel_phase(results: dict) -> None:
     w = torch.randn((K, 16384, d), generator=gen, device="cuda").mul_(d ** -0.5)
     mask = torch.rand((K, 16384), generator=gen, device="cuda") < 0.5
     lasso_case(results, "N=16384, half alive", w, mask, main=False)
+    del w, mask
+    flash_cases(results, gen)
+
+
+def flash_cases(results, gen) -> None:
+    """flash_attention against its plain version. Inputs are (B, S, heads,
+    dh) tensors passed as (B, heads, S, dh) views, as attention_block passes
+    them. Bound: 4·dh flops per unmasked (query, key) pair, S(S+1)/2 pairs
+    per head, at the tensor-core rate of the type (fp32: the CUDA-core
+    rate); q, k, v read and o written once. The limit is per element
+    (``repro_torch.testing.flash_attention_limit``): fp32 repro's 1e-4 /
+    1e-5; bf16 one rounding of p, 2^-8·(softmax(s)·|v|), plus the two
+    outputs' own rounding, 2^-7·|o|."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.testing import flash_attention_limit
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(1, 12, 2, S, 128, bf16, S == 2048, False) for S in (16, 200, 2047, 2048)]
+    cases += [(1, 2, 2, 256, 64, f32, False, False), (1, 12, 2, 1000, 128, bf16, False, True)]
+    for B, H, H_kv, S, dh, dtype, main, strided in cases:
+        if strided:  # every other position of wider buffers, dh sliced out
+            qb = torch.randn((B, 2 * S, H, dh + 32), generator=gen, device="cuda").to(dtype)
+            kvb = torch.randn((B, 2 * S, H_kv, 2, dh), generator=gen, device="cuda").to(dtype)
+            q = qb[:, ::2, :, 16:16 + dh].transpose(1, 2)
+            k, v = (kvb[:, ::2, :, j].transpose(1, 2) for j in (0, 1))
+        else:
+            q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda").to(dtype)
+                       .transpose(1, 2) for h in (H, H_kv, H_kv))
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        diff = (got.float() - want.float()).abs()
+        limit = flash_attention_limit(q, k, v, want)
+        err, used = float(diff.max()), float((diff / limit).max())
+        # how wide the limit is against the values it holds
+        width = float(limit.median() / want.float().abs().median())
+        if used > 1.0:
+            raise SmokeFailure(f"flash_attention S={S} {dtype}: differs from the plain "
+                               f"version by up to {err}, {used:.3g} of the limit")
+        t_kernel = time_ms(lambda: ops.flash_attention(q, k, v))
+        t_plain = time_ms(lambda: ref.flash_attention_ref(q, k, v))
+        t_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                               enable_gqa=True))
+        eb = q.element_size()
+        b_ms, b_by = bound_ms(B * S * dh * eb * (2 * H + 2 * H_kv),
+                              4 * dh * B * H * S * (S + 1) / 2, dtype)
+        case = (f"{str(dtype)[6:]} B={B} H={H} H_kv={H_kv} S={S} dh={dh}"
+                + (" strided views" if strided else ""))
+        row = {"name": "flash_attention", "case": case, "ms": t_kernel, "plain_ms": t_plain,
+               "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+               "limit_used": used, "median_limit_over_median_o": width,
+               "main_path_shape": main}
+        results.setdefault("cases", []).append(row)
+        if main:
+            results.setdefault("main", {})["flash_attention"] = row
+        print(f"[kernel] flash_attention   {case:38s} kernel {t_kernel:9.4f} ms  plain "
+              f"{t_plain:9.4f} ms  library {t_lib:9.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+              f"max|do| {err:.3g} ({used:.3g} of the limit; median limit {width:.3g} of the "
+              f"median |o|)", flush=True)
+        del q, k, v, got, want, diff, limit
+    torch.cuda.empty_cache()
 
 
 def lasso_case(results, case, w, mask, main, q=PRUNE_QUANTILE) -> float:
@@ -494,42 +607,127 @@ def stand_in_mask(cfg, device):
     return torch.from_numpy(mask).to(device)
 
 
+_LAST_GATE: list = []  # the gate probabilities of the head's last call, when watched
+
+
+def _watch_gate():
+    """Wrap ``heads.head_topk`` so each call also keeps its gate
+    probabilities, fp32 softmax(h·Uᵀ) as ``gate_top1`` computes them, in
+    ``_LAST_GATE``; returns a function that restores the original."""
+    import torch
+
+    from repro_torch.models import heads
+
+    orig = heads.head_topk
+
+    def head_topk(head_params, table, cfg, h, k, **kw):
+        z = h.float() @ head_params["gate"].float().T
+        _LAST_GATE[:] = [torch.softmax(z, dim=-1).cpu()]
+        return orig(head_params, table, cfg, h, k, **kw)
+
+    heads.head_topk = head_topk
+
+    def restore():
+        heads.head_topk = orig
+        _LAST_GATE.clear()
+    return restore
+
+
 class Recorder:
-    """Wraps a bundle's prefill/decode_step: synchronized wall times, and
-    each request's per-emission (values, ids) for divergence reports."""
+    """Wraps a session's model calls (``sess.bundle``: prefill,
+    prefill_chunk, decode_step): synchronized wall times, the most pages in
+    use at once (``stats()["paged"]``), and each request's per-emission
+    (values, ids) for divergence reports. A request's prefill time is the
+    sum of its model calls (one whole-prompt prefill, or its chunks); a
+    resumed request's re-prefill is timed apart and its (dropped) head
+    output not recorded; the chunks of a prefill the arena cut short are
+    timed apart too (``aborted_s``). While :func:`_watch_gate` watches the
+    head, each emission's gate probabilities are kept beside its (values,
+    ids) in ``gates``."""
 
-    def __init__(self, bundle, session, reqs):
-        self.inner, self.sess = bundle, session
-        self.by_prompt = {r.prompt.tobytes(): i for i, r in enumerate(reqs)}
-        self.index = {id(r): i for i, r in enumerate(reqs)}
+    def __init__(self, sess, reqs):
+        import numpy as np
+        import torch
+
         self.heads = {i: [] for i in range(len(reqs))}
-        self.prefill_s, self.decode_s = {}, []
+        self.gates = {i: [] for i in range(len(reqs))}
+        self.prefill_s, self.resume_s, self.decode_s = {}, {}, []
+        self.aborted_s, self.peak_pages = 0.0, 0
+        paged = "paged" in sess.stats()
+        index = {id(r): i for i, r in enumerate(reqs)}
+        bundle = sess.bundle
+        pending = [0.0]  # chunk time of the prefill under way
 
-    def prefill(self, p, t, batch, **kw):
-        import torch
+        def timed(fn, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if paged:
+                self.peak_pages = max(self.peak_pages,
+                                      sess.stats()["paged"]["pages_in_use"])
+            return out, dt
 
-        t0 = time.perf_counter()
-        vals, ids, cache = self.inner.prefill(p, t, batch, **kw)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        i = self.by_prompt[batch["tokens"][0].cpu().numpy().astype("int32").tobytes()]
-        self.prefill_s[i] = dt
-        self.heads[i].append((vals[0].cpu(), ids[0].cpu()))
-        return vals, ids, cache
+        def ends(toks, end):
+            """The queued request whose prefill sequence (its prompt, or on a
+            resume prompt ++ out_tokens[:-1]) ends with ``toks`` at ``end``."""
+            found = []
+            for r in reqs:
+                if r.status.value != "queued":
+                    continue
+                seq = np.concatenate([np.asarray(r.prompt, np.int64).reshape(-1),
+                                      np.asarray(r.out_tokens[:-1], np.int64)])
+                if len(seq) == end and (seq[end - len(toks):] == toks).all():
+                    found.append(r)
+            if len(found) > 1:
+                raise SmokeFailure("recorder: a prefill matches two queued requests")
+            return found[0] if found else None
 
-    def decode_step(self, p, t, cache, tok, pos, **kw):
-        import torch
+        def done(r, dt, vals, ids):
+            i = index[id(r)]
+            if r.out_tokens:
+                self.resume_s.setdefault(i, []).append(dt)
+            else:
+                self.prefill_s[i] = dt
+                self.heads[i].append((vals[0].cpu(), ids[0].cpu()))
+                if _LAST_GATE:
+                    self.gates[i].append(_LAST_GATE[0][0])
 
-        owners = [s.req if s is not None else None for s in self.sess.scheduler.slots]
-        t0 = time.perf_counter()
-        out = self.inner.decode_step(p, t, cache, tok, pos, **kw)
-        torch.cuda.synchronize()
-        self.decode_s.append(time.perf_counter() - t0)
-        vals, ids = out[0].cpu(), out[1].cpu()
-        for i, r in enumerate(owners):
-            if r is not None:
-                self.heads[self.index[id(r)]].append((vals[i], ids[i]))
-        return out
+        def prefill(p, t, batch, **kw):
+            out, dt = timed(bundle.prefill, p, t, batch, **kw)
+            toks = batch["tokens"][0].cpu().numpy()
+            r = ends(toks, len(toks))
+            if r is None:
+                raise SmokeFailure("recorder: a whole-prompt prefill of no queued request")
+            done(r, dt, out[0], out[1])
+            return out
+
+        def prefill_chunk(p, t, cache, tokens, pos0, n_valid, **kw):
+            out, dt = timed(bundle.prefill_chunk, p, t, cache, tokens, pos0, n_valid, **kw)
+            pending[0] += dt
+            r = ends(tokens[0, :n_valid].cpu().numpy(), int(pos0) + int(n_valid))
+            if r is not None:  # the prompt's last chunk
+                done(r, pending[0], out[0], out[1])
+                pending[0] = 0.0
+            return out
+
+        def decode_step(p, t, cache, tok, pos, **kw):
+            # a prefill still under way was cut short by the arena
+            self.aborted_s += pending[0]
+            pending[0] = 0.0
+            owners = [s.req if s is not None else None for s in sess.scheduler.slots]
+            out, dt = timed(bundle.decode_step, p, t, cache, tok, pos, **kw)
+            self.decode_s.append(dt)
+            vals, ids = out[0].cpu(), out[1].cpu()
+            for b, r in enumerate(owners):
+                if r is not None:
+                    self.heads[index[id(r)]].append((vals[b], ids[b]))
+                    if _LAST_GATE:
+                        self.gates[index[id(r)]].append(_LAST_GATE[0][b])
+            return out
+
+        sess.bundle = dataclasses.replace(bundle, prefill=prefill, prefill_chunk=prefill_chunk,
+                                          decode_step=decode_step)
 
 
 def _diverge_check(label, streams, heads, kerns, ref_kern, rtol, greedy_only=False,
@@ -583,9 +781,8 @@ def slice_phase(results: dict, card: str):
 
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
-    if not any(n % cfg.attn_q_chunk == 0 and n % cfg.attn_kv_chunk == 0
-               and n // cfg.attn_q_chunk >= 2 for n in PROMPT_LENS):
-        raise SmokeFailure("no prompt takes the multi-chunk branch of chunked attention")
+    if not (max(PROMPT_LENS) // FLASH_TILE >= 32 and any(n % FLASH_TILE for n in PROMPT_LENS)):
+        raise SmokeFailure("no prompt spans 32 kernel tiles, or none ends on a ragged tile")
 
     def serve(label, kern, record, tbl, **session_kw):
         t0 = time.perf_counter()
@@ -600,9 +797,7 @@ def slice_phase(results: dict, card: str):
             seed=SEED + i)) for i, p in enumerate(prompts)]
         rec = None
         if record:
-            rec = Recorder(bundle, sess, reqs)
-            sess.bundle = dataclasses.replace(bundle, prefill=rec.prefill,
-                                              decode_step=rec.decode_step)
+            rec = Recorder(sess, reqs)
         t0 = time.perf_counter()
         sess.run(reqs)
         torch.cuda.synchronize()
@@ -636,11 +831,11 @@ def slice_phase(results: dict, card: str):
         return row
 
     def need_launches(label, kern, quantized, delta):
-        for n in NEEDS[(kern, quantized)]:
+        for n in NEEDS[(kern, quantized)] + ("flash_attention",):
             if delta[n] < 1:
                 raise SmokeFailure(f"{label} {kern}: kernel {n} never launched ({delta})")
-        if kern == "jnp" and any(delta.values()):
-            raise SmokeFailure(f"{label} jnp launched kernels ({delta})")
+        if kern == "jnp" and any(c for n, c in delta.items() if n != "flash_attention"):
+            raise SmokeFailure(f"{label} jnp launched head kernels ({delta})")
 
     # -- (fp) the slice-1 path: four serve paths on the bf16 table --------
     streams, heads = {}, {}
@@ -845,9 +1040,7 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
                 for p in prompts]
         rec = None
         if record:
-            rec = Recorder(bundle, sess, reqs)
-            sess.bundle = dataclasses.replace(bundle, prefill=rec.prefill,
-                                              decode_step=rec.decode_step)
+            rec = Recorder(sess, reqs)
         for r in reqs:
             sess.submit(r)
         return sess, reqs, rec
@@ -860,13 +1053,6 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
             if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != ADAPT_NEW:
                 raise SmokeFailure(f"adapt {label}: request ended {r.status} ({r.error})")
         return [list(r.out_tokens) for r in reqs], sess.stats()
-
-    def sync_s(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
 
     plain_calls, restore = _count_calls(ref, "lasso_prune_ref")
     try:
@@ -1033,6 +1219,260 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: prefill (the flash_attention kernel, chunked prefill, the paged
+# cache with prefix sharing and preemption)
+# ---------------------------------------------------------------------------
+
+def sync_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _topk_parts_only_at_ties(label, vk, ik, vp, ip, tol) -> None:
+    """Kernel top-k (vk, ik) against the plain one (vp, ip): at every rank
+    where the ids differ, the id the kernel put there must hold a plain
+    value within ``tol`` of the plain value at that rank."""
+    for j in range(len(ip)):
+        if int(ik[j]) == int(ip[j]):
+            continue
+        at = (ip == ik[j]).nonzero()
+        gap = abs(float(vp[int(at[0])] - vp[j])) if len(at) else abs(float(vk[j] - vp[j]))
+        if gap > tol:
+            raise SmokeFailure(f"{label}: rank {j} id {int(ik[j])} against plain {int(ip[j])} "
+                               f"at a gap of {gap:.4g} > {tol:.4g}")
+
+
+def _held_within_drift(label, a_run, ref_run, rtol=BF16_DRIFT) -> dict:
+    """Each request's greedy stream against the reference's; a run is
+    (streams, Recorder) with the gate watched. While the streams agree,
+    each emission's top-1 value and top-1 gate probability stay within
+    ``rtol`` of the reference's (relative). Where a stream leaves, the
+    reference must hold a near-tie within ``2·rtol``: where the stream
+    chose the reference's expert, of the token (the reference ranks that
+    stream's token within 2·rtol of its top-1; a token outside its top-k
+    counts at the k-th value, a lower bound of the gap); where it chose
+    another expert, of the gate (the reference puts that expert's
+    probability within 2·rtol of its top-1 expert's; the head scales an
+    expert's values by it). Returns the readings: the largest
+    drifts and gaps (relative) and the partings by kind."""
+    (streams, rec), (streams_ref, ref) = a_run, ref_run
+    read = {"max_drift": 0.0, "max_gate_drift": 0.0, "max_token_gap": 0.0,
+            "max_gate_gap": 0.0, "token_ties": 0, "gate_ties": 0}
+    for i, (a, b) in enumerate(zip(streams, streams_ref)):
+        n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        for j in range(n):
+            top, got = float(ref.heads[i][j][0][0]), float(rec.heads[i][j][0][0])
+            g_top, g_got = float(ref.gates[i][j].max()), float(rec.gates[i][j].max())
+            d, gd = abs(got - top) / abs(top), abs(g_got - g_top) / g_top
+            if d > rtol or gd > rtol:
+                raise SmokeFailure(f"{label}: request {i} emission {j}: top-1 value {got} "
+                                   f"against {top}, gate {g_got} against {g_top}: "
+                                   f"{d:.3g} and {gd:.3g} relative")
+            read["max_drift"] = max(read["max_drift"], d)
+            read["max_gate_drift"] = max(read["max_gate_drift"], gd)
+        if n == len(a):
+            continue
+        rv, ri = ref.heads[i][n]
+        at = (ri == a[n]).nonzero()
+        other = float(rv[int(at[0])]) if len(at) else float(rv[-1])
+        gap = (float(rv[0]) - other) / abs(float(rv[0]))
+        g_ref, e_ref, e_a = ref.gates[i][n], int(ref.gates[i][n].argmax()), \
+            int(rec.gates[i][n].argmax())
+        g_gap = float(g_ref[e_ref] - g_ref[e_a]) / float(g_ref[e_ref])
+        # another expert's tokens are other rows: only the gate explains it
+        kind = "gate" if e_a != e_ref else "token"
+        if (g_gap if kind == "gate" else gap) > 2 * rtol:
+            kind = None
+        print(f"[prefill] {label}: request {i} leaves the reference at emission {n}: "
+              f"reference top-2 {rv[:2].tolist()} ids {ri[:2].tolist()}, token {a[n]} "
+              f"{'at ' + format(other, '.6g') if len(at) else 'outside its top-k'} (gap "
+              f"{gap:.3g} of the top-1); experts {e_ref} / {e_a}, gate gap {g_gap:.3g}: "
+              f"{kind or 'no'} near-tie", flush=True)
+        if kind is None:
+            raise SmokeFailure(f"{label}: request {i} leaves the reference at emission {n} "
+                               f"without a near-tie (token gap {gap:.3g}, experts {e_ref} / "
+                               f"{e_a}, gate gap {g_gap:.3g})")
+        read[f"{kind}_ties"] += 1
+        read[f"max_{kind}_gap"] = max(read[f"max_{kind}_gap"], gap if kind == "token" else g_gap)
+    return read
+
+
+def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    out = results.setdefault("prefill", {"card": card})
+    V = cfg.vocab_size
+
+    # -- (a) one 2048-token prefill: the kernel against plain attention ----
+    rng = np.random.RandomState(SEED + 4)
+    tokens = torch.from_numpy(rng.randint(0, V, (1, max(OTHER_LENS)))).to("cuda")
+
+    def prefill():
+        return bundle.prefill(params, table, {"tokens": tokens}, k=K_TOP, kernel="auto")
+
+    plain_calls, restore_ref = _count_calls(ref, "flash_attention_ref")
+    chunk_calls, restore_chunked = _count_calls(layers, "chunked_causal_attention")
+    try:
+        ops.reset_launch_counts()  # the prefill path starts here
+        (vk, ik, _), t_kernel = sync_s(prefill)
+        launches = ops.launch_counts()["flash_attention"]
+    finally:
+        restore_ref()
+        restore_chunked()
+    if launches != cfg.n_layers or plain_calls[0] or chunk_calls[0]:
+        raise SmokeFailure(f"prefill (a): {launches} kernel launches for {cfg.n_layers} "
+                           f"layers; plain versions called {plain_calls[0]} + "
+                           f"{chunk_calls[0]} times")
+    orig = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
+        cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    try:
+        ops.reset_launch_counts()
+        (vp, ip, _), t_plain = sync_s(prefill)
+        if ops.launch_counts()["flash_attention"]:
+            raise SmokeFailure("prefill (a): the plain run launched the kernel")
+    finally:
+        layers.flash_attention = orig
+    vk, ik, vp, ip = vk[0].cpu(), ik[0].cpu(), vp[0].cpu(), ip[0].cpu()
+    same = ik == ip
+    top = abs(float(vp[0]))
+    drift = float((vk[same] - vp[same]).abs().max()) / top if bool(same.any()) else 0.0
+    if drift > BF16_DRIFT:
+        raise SmokeFailure(f"prefill (a): top-k values differ by {drift:.3g} of the top-1 "
+                           f"from the plain run")
+    _topk_parts_only_at_ties("prefill (a)", vk, ik, vp, ip, 2 * BF16_DRIFT * top)
+    out["one_prefill"] = {"tokens": int(tokens.shape[1]), "kernel_launches": launches,
+                          "kernel_ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
+                          "ids_equal": bool(same.all()), "max_drift": drift}
+    print(f"[prefill] (a) {tokens.shape[1]}-token prefill: flash_attention launched {launches} "
+          f"times ({cfg.n_layers} layers), plain versions never called; {t_kernel * 1e3:.1f} ms "
+          f"against {t_plain * 1e3:.1f} ms with chunked_causal_attention swapped in; top-k ids "
+          f"{'equal' if bool(same.all()) else 'equal up to near-ties'}, values within {drift:.3g} "
+          f"of the top-1 (allowed {BF16_DRIFT:.3g}); card {card}", flush=True)
+
+    # -- (b) five sessions -----------------------------------------------------
+    rng = np.random.RandomState(SEED + 5)
+    system = rng.randint(0, V, SYSTEM_LEN)
+    prompts = [np.concatenate([system, rng.randint(0, V, n)]).astype(np.int32)
+               for n in SHARED_TAILS]
+    prompts += [rng.randint(0, V, n).astype(np.int32) for n in OTHER_LENS]
+    n_shared = len(SHARED_TAILS)
+
+    def serve(label, submit_late=False, **kw):
+        sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=PREFILL_SEQ,
+                            k=K_TOP, kernel="auto", overflow_threshold=BREAKER_OFF,
+                            device="cuda", **kw)
+        # E: the unrelated prompts (priority 0) first, the shared-prefix
+        # class (priority 1) E_SUBMIT_AT steps later
+        prio = [1] * n_shared + [0] * len(OTHER_LENS) if submit_late else [0] * len(prompts)
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=NEW_TOKENS,
+                                                          priority=pr))
+                for p, pr in zip(prompts, prio)]
+        rec = Recorder(sess, reqs)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, later = (reqs[n_shared:], reqs[:n_shared]) if submit_late else (reqs, [])
+        for r in first:
+            sess.submit(r)
+        for _ in range(E_SUBMIT_AT if later else 0):
+            sess.step()
+        for r in later:
+            sess.submit(r)
+        while sess.step():
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = ops.launch_counts()
+        st = sess.stats()
+        for r in reqs:
+            if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != NEW_TOKENS:
+                raise SmokeFailure(f"prefill {label}: request ended {r.status} ({r.error}) "
+                                   f"with {len(r.out_tokens)} tokens")
+        if "paged" in st and (st["paged"]["pages_in_use"]
+                              or st["paged"]["pages_free"] != st["paged"]["pages_total"]):
+            raise SmokeFailure(f"prefill {label}: pages still held after the session "
+                               f"({st['paged']})")
+        first_ms = [1e3 * s for s in rec.prefill_s.values()]
+        row = {"session": label, "wall_s": wall, "tokens": NEW_TOKENS * len(reqs),
+               "tokens_per_s": NEW_TOKENS * len(reqs) / wall,
+               "prefill_ms_median": statistics.median(first_ms),
+               "prefill_ms_total": sum(first_ms),
+               "prefill_ms_longest": 1e3 * rec.prefill_s[n_shared],
+               "resume_prefill_ms_total": 1e3 * sum(map(sum, rec.resume_s.values())),
+               "aborted_prefill_ms_total": 1e3 * rec.aborted_s,
+               "decode_steps": len(rec.decode_s),
+               "decode_step_ms_median": 1e3 * statistics.median(rec.decode_s),
+               "peak_pages": rec.peak_pages, "launches": delta, "paged": st.get("paged"),
+               "card": card, **{k: v for k, v in kw.items() if k != "page_arena"}}
+        if "page_arena" in kw:
+            row["page_arena"] = kw["page_arena"]
+        out.setdefault("sessions", []).append(row)
+        print(f"[prefill] ({label}) {row['tokens']} tokens in {wall:.3f} s = "
+              f"{row['tokens_per_s']:.2f} tokens/s; prefill median "
+              f"{row['prefill_ms_median']:.2f} ms, total {row['prefill_ms_total']:.1f} ms "
+              f"(2048-token prompt {row['prefill_ms_longest']:.1f} ms; resumes "
+              f"{row['resume_prefill_ms_total']:.1f} ms); decode step median "
+              f"{row['decode_step_ms_median']:.2f} ms over {row['decode_steps']} steps; "
+              f"peak pages {rec.peak_pages}; paged {st.get('paged')}; launches {delta}; "
+              f"card {card}", flush=True)
+        if delta["flash_attention"] < 1 and "prefill_chunk" not in kw:
+            raise SmokeFailure(f"prefill {label}: whole-prompt prefill never launched "
+                               f"flash_attention ({delta})")
+        return [list(r.out_tokens) for r in reqs], rec, st, delta
+
+    paged = dict(paged=True, page_size=PAGE_SIZE)
+    chunked = dict(prefill_chunk=PREFILL_CHUNK)
+    restore = _watch_gate()
+    try:
+        sA, rA, _, dA = serve("A")
+        sB, rB, _, _ = serve("B", **chunked)
+        sC, rC, _, _ = serve("C", **paged)
+        sD, rD, stD, _ = serve("D", **paged, **chunked)
+        arena = math.ceil(ARENA_SHARE * rD.peak_pages)
+        sE, rE, stE, _ = serve("E", submit_late=True, page_arena=arena, **paged, **chunked)
+    finally:
+        restore()
+    results.setdefault("main_path_launches", {})["prefill"] = dA
+    for got, want, pair in ((sC, sA, "C = A"), (sD, sB, "D = B")):
+        if got != want:
+            bad = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+            raise SmokeFailure(f"prefill: {pair} fails for requests {bad}")
+    ab = _held_within_drift("A/B", (sA, rA), (sB, rB))
+    ed = _held_within_drift("E/D", (sE, rE), (sD, rD))
+    resumed = sorted(rE.resume_s)
+    same_unpreempted = all(sE[i] == sD[i] for i in range(len(sE)) if i not in resumed)
+    pD, pE = stD["paged"], stE["paged"]
+    fails = [msg for ok, msg in (
+        (pD["prefill_chunks_saved"] >= 28, f"D saved {pD['prefill_chunks_saved']} chunks"),
+        (pD["prefix_tokens_reused"] > 0, "D reused no prefix token"),
+        (pE["preemptions"] > 0, "E preempted nobody"),
+    ) if not ok]
+    if fails:
+        raise SmokeFailure(f"prefill: {'; '.join(fails)}")
+    out.update(e_arena=arena, d_peak_pages=rD.peak_pages, resumed_requests=resumed,
+               drift={"allowed": BF16_DRIFT, "A/B": ab, "E/D": ed},
+               e_unpreempted_equal_d=same_unpreempted)
+    print(f"[prefill] C = A and D = B token for token; A/B {json.dumps(ab)}; D saved "
+          f"{pD['prefill_chunks_saved']} prefix chunks, reused {pD['prefix_tokens_reused']} "
+          f"tokens, peak {rD.peak_pages} pages; E (arena {arena} pages) preempted "
+          f"{pE['preemptions']} times (requests {resumed} resumed), E/D {json.dumps(ed)}, "
+          f"unpreempted requests {'equal' if same_unpreempted else 'not all equal'} to D's; "
+          f"drift allowed {BF16_DRIFT:.3g}, near-ties twice that; every request completed, "
+          f"every page free", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1057,12 +1497,22 @@ def main() -> int:
                 print(f"[build] {n}: {line.strip()}")
 
     results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    kernel_phase(results)
-    cfg, bundle, params, cases = slice_phase(results, card)
+    phase_s = results.setdefault("phase_s", {"build": time.perf_counter() - t0})
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        print(f"[time] {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    timed("kernels", kernel_phase, results)
+    cfg, bundle, params, cases = timed("slice", slice_phase, results, card)
     mask = stand_in_mask(cfg, "cuda")
-    gamma = lasso_phase(results, params["head"]["experts"], mask)
-    profile_phase(results, card, cfg, bundle, params, cases)
-    adapt_phase(results, card, cfg, bundle, params, mask, gamma)
+    gamma = timed("lasso", lasso_phase, results, params["head"]["experts"], mask)
+    timed("profile", profile_phase, results, card, cfg, bundle, params, cases)
+    timed("adapt", adapt_phase, results, card, cfg, bundle, params, mask, gamma)
+    timed("prefill", prefill_phase, results, card, cfg, bundle, params, cases[0][1])
 
     from repro_torch.kernels import ops
 
@@ -1079,6 +1529,8 @@ def main() -> int:
                              "int8"),
         "dss_topk": ("dss_topk.cu", "src/repro/kernels/dss_topk.py:110", "pertoken"),
         "lasso_prune": ("lasso_prune.cu", "src/repro/kernels/lasso_prune.py:41", "adapt"),
+        "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:91",
+                            "prefill"),
     }
     if set(bodies) != {name for name, _, _ in ops.BODIES}:
         raise SmokeFailure("the report does not list every kernel body")

@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gate_top1", "dss_topk_grouped", "dss_topk_fused", "dss_topk", "lasso_prune")
+SOURCES = ("gate_top1", "dss_topk_grouped", "dss_topk_fused", "dss_topk", "lasso_prune",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,9 @@ SIGNATURES = {
     "dss_topk": [_P] * 8 + [_I] * 8 + [_P],
     # w, mask, norms, new_mask, rows, d, gamma, dtype, blocks, stream
     "lasso_prune": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
+    # q, k, v, o, (batch, head, sequence) element strides of q, k, v, o,
+    # B, H, H_kv, S, dh, dtype, stream
+    "flash_attention": [_P] * 4 + [_L] * 12 + [_I] * 6 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

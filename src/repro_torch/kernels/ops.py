@@ -12,6 +12,7 @@ from __future__ import annotations
 from repro_torch.kernels.dss_topk import dss_topk as dss_topk_kernel
 from repro_torch.kernels.dss_topk_fused import dss_topk_fused
 from repro_torch.kernels.dss_topk_grouped import dss_topk_grouped
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gate_top1 import gate_top1
 from repro_torch.kernels.lasso_prune import lasso_prune
 
@@ -24,6 +25,7 @@ BODIES = (
     ("dss_topk_fused_q", dss_topk_fused, "launches_q"),
     ("dss_topk", dss_topk_kernel, "launches"),
     ("lasso_prune", lasso_prune, "launches"),
+    ("flash_attention", flash_attention, "launches"),
 )
 
 
@@ -45,4 +47,4 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["BODIES", "dss_topk", "dss_topk_fused", "dss_topk_grouped", "dss_topk_kernel",
-           "gate_top1", "lasso_prune", "launch_counts", "reset_launch_counts"]
+           "flash_attention", "gate_top1", "lasso_prune", "launch_counts", "reset_launch_counts"]

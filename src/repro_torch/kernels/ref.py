@@ -12,6 +12,10 @@ kernels against them.
 Top-k is a stable descending sort, so ties go to the lowest packed
 position, as ``jax.lax.top_k`` does (``torch.topk`` promises no order
 among ties).
+
+``flash_attention_ref`` is the reference's oracle: unlike the kernel (and
+the Pallas kernel) it does not round p to bf16 before p·v, so on bf16
+inputs the two differ by one bf16 rounding of each p.
 """
 from __future__ import annotations
 
@@ -114,3 +118,23 @@ def lasso_prune_ref(weights, mask, gamma: float):
         w = weights[e].float() * mask[e, :, None]
         norms[e] = torch.sqrt(torch.sum(w * w, dim=-1))
     return norms, mask & (norms > gamma)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """Oracle attention, as ``repro.kernels.ref.flash_attention_ref``
+    computes it. q (B, H, S, dh), k/v (B, H_kv, S, dh) with H % H_kv == 0
+    (query head h reads kv head h // (H / H_kv), the order of
+    ``jnp.repeat(k, H // H_kv, axis=1)``) → (B, H, S, dh) in q's dtype:
+    fp32 scores times 1/√dh (an fp32 division), -1e9 causal mask, fp32
+    softmax, p·v with v widened to fp32 and p not rounded."""
+    G = q.shape[1] // k.shape[1]
+    if G > 1:
+        k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    S = q.shape[2]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]), dtype=torch.float32))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale.to(q.device)
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = torch.where(pos[:, None] >= pos[None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

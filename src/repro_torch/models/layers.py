@@ -8,9 +8,16 @@ a copy):
   for fp32 accumulation (``preferred_element_type``) widens both operands
   to fp32 first — a bf16 × bf16 product is exact in fp32, while a bf16
   ``matmul`` in torch would return bf16;
-* attention is plain tensor code mirroring the JAX einsums: masks at
-  -1e9, fp32 softmax. A hand-written flash-attention kernel is a later
-  slice.
+* causal self-attention over whole sequences (prefill) runs the
+  hand-written ``flash_attention`` kernel on CUDA tensors, for every
+  sequence length; on CPU tensors it stays the plain tensor code mirroring
+  the JAX einsums (``chunked_causal_attention`` above ``attn_q_chunk``,
+  else ``full_attention``), as do decode and chunked prefill on either
+  device: masks at -1e9, fp32 softmax;
+* the caches are written in place (``repro`` returns updated arrays):
+  contiguous ``(B, S_max, KV, dh)`` rows, or, with ``pages=``, an arena of
+  ``(n_pages, page_size, KV, dh)`` pages addressed through a per-row page
+  table.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -159,40 +167,118 @@ def full_attention(q, k, v, causal: bool) -> torch.Tensor:
 
 def attention_block(params, cfg: ModelConfig, x: torch.Tensor, positions, *, causal=True):
     """Self-attention over whole sequences (prefill). Returns the output
-    projection and the (k, v) tensors for the cache."""
+    projection and the (k, v) tensors for the cache.
+
+    Causal attention on CUDA tensors runs the ``flash_attention`` kernel,
+    whatever S: the (B, S, H, dh) tensors pass as (B, H, S, dh) views and
+    the output comes back in the (B, S, H, dh) layout ``wo`` reads. CPU
+    tensors take the plain code, as ``repro`` does."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     B, S = x.shape[:2]
-    if causal and S > cfg.attn_q_chunk:
+    if causal and q.is_cuda:
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            device=q.device).transpose(1, 2)
+    elif causal and S > cfg.attn_q_chunk:
         o = chunked_causal_attention(cfg, q, k, v)
     else:
         o = full_attention(q, k, v, causal=causal)
     return o.reshape(B, S, -1) @ params["wo"], (k, v)
 
 
-def attention_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos):
+def _paged_view(cache, pages: torch.Tensor) -> torch.Tensor:
+    """The logical (B, n_pg·page_size, KV, dh) view of an (n_pages,
+    page_size, KV, dh) arena through a (B, n_pg) page table (a gather)."""
+    B, n_pg = pages.shape
+    return cache[pages.long()].reshape(B, n_pg * cache.shape[1], *cache.shape[2:])
+
+
+def attention_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos, pages=None):
     """One-token decode against a contiguous (B, S_cache, KV, dh) cache.
 
     x: (B, 1, d); pos: (B,) int per-row positions (every slot decodes at
     its own length). Row b's new K/V is written IN PLACE into the caches
     at ``pos[b]``; cache rows > pos[b] are masked. Returns (out (B,1,d),
-    cache_k, cache_v)."""
+    cache_k, cache_v).
+
+    ``pages`` ((B, n_pg) int page table) switches to the paged layout:
+    the caches are (n_pages, page_size, KV, dh) arenas, row b's K/V goes
+    to page ``pages[b, pos // page_size]`` at ``pos % page_size``, and the
+    unchanged math runs on the gathered (B, n_pg·page_size, KV, dh) view.
+    Unmapped entries point at the all-zero page, so their V rows add
+    exact zeros, never NaN."""
     B = x.shape[0]
     pos_b = pos.long()
     q, k_new, v_new = _project_qkv(params, cfg, x, pos_b[:, None])
     rows = torch.arange(B, device=x.device)
-    cache_k[rows, pos_b] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[rows, pos_b] = v_new[:, 0].to(cache_v.dtype)
+    if pages is not None:
+        ps = cache_k.shape[1]
+        pid = pages.long()[rows, pos_b // ps]
+        cache_k[pid, pos_b % ps] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[pid, pos_b % ps] = v_new[:, 0].to(cache_v.dtype)
+        view_k, view_v = _paged_view(cache_k, pages), _paged_view(cache_v, pages)
+    else:
+        cache_k[rows, pos_b] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[rows, pos_b] = v_new[:, 0].to(cache_v.dtype)
+        view_k, view_v = cache_k, cache_v
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
-    S = cache_k.shape[1]
+    S = view_k.shape[1]
     qg = q.reshape(B, KV, G, dh)
-    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), cache_k.float()) / math.sqrt(dh)
+    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), view_k.float()) / math.sqrt(dh)
     valid = torch.arange(S, device=x.device)[None, None, None, :] <= pos_b[:, None, None, None]
     s = torch.where(valid, s, -1e9)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgc,bckd->bkgd", p.to(cache_v.dtype).float(), cache_v.float())
+    o = torch.einsum("bkgc,bckd->bkgd", p.to(view_v.dtype).float(), view_v.float())
     out = o.reshape(B, H * dh).to(x.dtype) @ params["wo"]
     return out[:, None, :], cache_k, cache_v
+
+
+def attention_prefill_chunk(params, cfg: ModelConfig, x, cache_k, cache_v, pos0, pages=None):
+    """Chunked prefill: C new tokens against a partly filled (B, S_max, KV,
+    dh) cache.
+
+    x: (B, C, d) at positions ``pos0 .. pos0+C-1``; ``pos0`` is an int
+    shared by every row, or a (B,) int tensor of per-row starts. The
+    chunk's K/V are written IN PLACE into the caches; each query attends
+    to every cache position up to its own, so consecutive chunks compute
+    what one whole-prompt prefill computes (masked positions add exact
+    zeros to the softmax). Padding rows at a chunk's tail write K/V at
+    positions that stay masked until a later real token overwrites them.
+    ``pages`` switches to the paged layout (see :func:`attention_decode`):
+    the chunk's rows go to ``pages[b, position // page_size]`` and the
+    same masked attention runs on the gathered view, which is how a tail
+    chunk attends to pages another request prefilled. Returns (out (B, C,
+    d), cache_k, cache_v)."""
+    B, C, _ = x.shape
+    steps = torch.arange(C, device=x.device)
+    if torch.is_tensor(pos0) and pos0.dim() == 1:
+        positions = pos0.long()[:, None] + steps[None, :]
+    else:
+        positions = (int(pos0) + steps).expand(B, C)
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    if pages is not None:
+        ps = cache_k.shape[1]
+        pid = torch.gather(pages.long(), 1, positions // ps)   # (B, C)
+        cache_k[pid, positions % ps] = k_new.to(cache_k.dtype)
+        cache_v[pid, positions % ps] = v_new.to(cache_v.dtype)
+        view_k, view_v = _paged_view(cache_k, pages), _paged_view(cache_v, pages)
+    else:
+        rows = torch.arange(B, device=x.device)[:, None]
+        cache_k[rows, positions] = k_new.to(cache_k.dtype)
+        cache_v[rows, positions] = v_new.to(cache_v.dtype)
+        view_k, view_v = cache_k, cache_v
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    S = view_k.shape[1]
+    k, v = _expand_kv(view_k, G), _expand_kv(view_v, G)
+    # the einsum and dtype conventions of full_attention, so chunked
+    # prefill matches the whole-prompt path row for row
+    s = torch.einsum("bqhd,bchd->bqhc", q.float(), k.float()) * (1.0 / math.sqrt(dh))
+    valid = positions[:, :, None] >= torch.arange(S, device=x.device)[None, None, :]
+    s = torch.where(valid[:, :, None, :], s, -1e9)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhc,bchd->bqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return o.reshape(B, C, -1) @ params["wo"], cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """Uniform model API: ``build(cfg)`` returns a :class:`ModelBundle`.
 
-Only the dense family is ported in this slice; other families raise.
+Only the dense family is ported so far; other families raise.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -21,6 +21,8 @@ class ModelBundle:
     init: Callable[[torch.Generator], Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
+    # chunked prefill into an existing cache (``transformer.prefill_chunk``)
+    prefill_chunk: Optional[Callable[..., Any]] = None
 
 
 def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
@@ -35,9 +37,12 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         prefill=lambda p, t, batch, k=8, kernel=None: transformer.prefill(
             p, t, cfg, batch, k=k, kernel=kernel),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None,
-        capacity_factor=None, with_stats=False: transformer.decode_step(
+        capacity_factor=None, with_stats=False, pages=None: transformer.decode_step(
             p, t, cfg, cache, tok, pos, k=k, kernel=kernel,
-            capacity_factor=capacity_factor, with_stats=with_stats),
+            capacity_factor=capacity_factor, with_stats=with_stats, pages=pages),
+        prefill_chunk=lambda p, t, cache, tokens, pos0, n_valid, k=8, kernel=None,
+        pages=None: transformer.prefill_chunk(p, t, cfg, cache, tokens, pos0, n_valid,
+                                              k=k, kernel=kernel, pages=pages),
     )
 
 
@@ -53,3 +58,24 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
     kv = TensorSpec((cfg.n_layers, shape.global_batch, shape.seq_len,
                      cfg.n_kv_heads, cfg.hd), cfg.jdtype)
     return transformer.DecodeCache(k=kv, v=kv)
+
+
+def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int):
+    """Paged-arena specs: the slot axis of :func:`cache_specs` becomes a
+    page axis shared by every slot, ``(L, n_pages, page_size, KV, dh)``,
+    addressed through a host-side ``(n_slots, n_pg)`` page table
+    (``repro_torch.serve.paged_cache.PagedCacheManager``). At the default
+    arena size the bytes equal the contiguous cache's: paging buys
+    sharing and cheap preemption, not smaller buffers."""
+    if cfg.family != "dense":
+        raise ValueError(f"no paged cache for family {cfg.family!r} (dense only)")
+    kv = TensorSpec((cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd), cfg.jdtype)
+    return transformer.DecodeCache(k=kv, v=kv)
+
+
+def cache_kv_leaves(cfg: ModelConfig):
+    """Per-leaf bool: True for position-indexed attention K/V leaves (paged
+    over KV pages). The dense family has no state leaves."""
+    if cfg.family != "dense":
+        raise ValueError(f"no paged cache for family {cfg.family!r} (dense only)")
+    return transformer.DecodeCache(k=True, v=True)

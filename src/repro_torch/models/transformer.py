@@ -16,6 +16,7 @@ from repro_torch.models import heads
 from repro_torch.models.layers import (
     attention_block,
     attention_decode,
+    attention_prefill_chunk,
     embed,
     mlp,
     rmsnorm,
@@ -99,16 +100,53 @@ def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None):
     return vals, ids, DecodeCache(k=torch.stack(ks), v=torch.stack(vs))
 
 
+def prefill_chunk(params, table, cfg: ModelConfig, cache: DecodeCache, tokens, pos0,
+                  n_valid, k: int = 8, kernel=None, pages=None):
+    """Prefill one chunk of a prompt into an existing decode cache, in place.
+
+    tokens: (B, C) int at positions ``pos0 .. pos0+C-1`` (an int, or a
+    (B,) tensor of per-row starts); rows at or past ``n_valid`` (an int or
+    a (B,) tensor) are right-padding whose K/V writes stay masked until
+    real tokens overwrite them. Returns (vals, ids, cache) with the head
+    applied to the hidden state of token ``n_valid - 1``; only a prompt's
+    last chunk gives a meaningful top-k. ``pages`` ((B, n_pg) page table)
+    switches the cache to the paged arena (``cache.k``/``cache.v``:
+    (L, n_pages, page_size, KV, dh))."""
+    h = _chunk_hidden(params, cfg, cache, tokens, pos0, pages=pages)
+    if torch.is_tensor(n_valid):
+        h_last = h[torch.arange(h.shape[0], device=h.device), n_valid.long() - 1]
+    else:
+        h_last = h[:, n_valid - 1]
+    vals, ids = heads.head_topk(params["head"], table, cfg, h_last, k,
+                                embed_table=params["embed"]["table"], kernel=kernel)
+    return vals, ids, cache
+
+
+def _chunk_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pages=None):
+    """The chunk backbone: run a (B, C) token block at positions ``pos0 ..
+    pos0+C-1`` against the cache (written in place). Returns the final
+    normed hidden states (B, C, d)."""
+    x = embed(params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params["layers"], i)
+        h, _, _ = attention_prefill_chunk(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
+                                          cache.k[i], cache.v[i], pos0, pages=pages)
+        x = _mlp_residual(lp, cfg, x + h)
+    return rmsnorm(params["final_norm"], x)
+
+
 def decode_step(params, table, cfg: ModelConfig, cache: DecodeCache, token, pos,
-                k: int = 8, kernel=None, capacity_factor=None, with_stats=False):
+                k: int = 8, kernel=None, capacity_factor=None, with_stats=False,
+                pages=None):
     """One-token decode. token: (B,) int; pos: (B,) int per-slot positions.
-    The cache is updated in place. Returns (vals, ids, cache) — plus the
-    head's per-expert telemetry when ``with_stats=True``."""
+    The cache is updated in place; ``pages`` ((B, n_pg) page table) selects
+    the paged arena. Returns (vals, ids, cache) — plus the head's
+    per-expert telemetry when ``with_stats=True``."""
     x = embed(params["embed"], token)[:, None, :]
     for i in range(cfg.n_layers):
         lp = _layer_params(params["layers"], i)
         h, _, _ = attention_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
-                                   cache.k[i], cache.v[i], pos)
+                                   cache.k[i], cache.v[i], pos, pages=pages)
         x = _mlp_residual(lp, cfg, x + h)
     h = rmsnorm(params["final_norm"], x)[:, 0]
     out = heads.head_topk(params["head"], table, cfg, h, k,

@@ -3,8 +3,8 @@
 Slot-based continuous batching over one model bundle: a fixed number of
 decode slots share one contiguous KV cache and one decode step; every slot
 carries its own sequence position, so a finished request releases its slot
-mid-flight and the next queued prompt is prefilled into it (whole-prompt
-prefill) while the other slots keep decoding. Per-request
+mid-flight and the next queued prompt is prefilled into it while the other
+slots keep decoding. Per-request
 :class:`SamplingParams` control ``max_new_tokens``, ``eos_id``,
 greedy/temperature sampling, a ``deadline_steps`` budget and the shed
 ``priority``; a ``stream_cb`` hook observes every emitted token.
@@ -34,7 +34,24 @@ no jit:
 where ``repro`` re-traces its decode step, the port rebinds it (once at
 init, once per swap, once per breaker trip; ``stats()['decode_builds']``).
 
-Chunked prefill, the paged cache and speculative decoding are later slices.
+Prefill into a slot is whole-prompt (one ``bundle.prefill`` at the prompt's
+length; on the card its attention runs the ``flash_attention`` kernel) or
+chunked (``prefill_chunk=C``: the prompt streams through
+``bundle.prefill_chunk`` in right-padded (1, C) chunks written in place
+into the slot's cache).
+
+``paged=True`` replaces the per-slot cache rows with an arena of fixed-size
+pages (:mod:`repro_torch.serve.paged_cache`): a host-side page table maps
+each slot's positions to pages; with chunked prefill, requests that share
+a chunk-aligned prompt prefix prefill it once and share its pages
+copy-on-write; under arena pressure the session preempts the
+lowest-priority resident and requeues it at the front of the queue. A
+preempted request resumes by re-prefilling ``prompt ++ out_tokens[:-1]``
+and continues its sampling stream at the preserved emission count. The
+decode step runs the same attention math on the gathered page view.
+
+Speculative decoding and the families with recurrent state (state pages)
+are later slices.
 """
 from __future__ import annotations
 
@@ -50,8 +67,9 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import dssoftmax as ds
 from repro_torch.device import check_on, resolve_device
-from repro_torch.models.model_zoo import ModelBundle, cache_specs
+from repro_torch.models.model_zoo import ModelBundle, cache_specs, paged_cache_specs
 from repro_torch.models.transformer import DecodeCache
+from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheManager, prefix_hash
 from repro_torch.serve.table_manager import (
     AdaptPolicy,
     TableResource,
@@ -153,6 +171,7 @@ class _Slot:
     req: Request
     prompt_len: int
     n_emitted: int = 0
+    admit_seq: int = 0  # admission order (the preemption tiebreak)
 
     @property
     def pos(self) -> int:
@@ -226,11 +245,17 @@ class Scheduler:
     def has_work(self) -> bool:
         return bool(self.queue) or any(s is not None for s in self.slots)
 
+    def requeue(self, req: Request) -> None:
+        """Put a preempted resident back at the FRONT of the queue: it keeps
+        its seniority within its priority class (``pop_next`` is FIFO per
+        class), so equal-priority churn cannot starve it."""
+        self.queue.appendleft(req)
+
     def admit(self, i: int, req: Request, prompt_len: int) -> _Slot:
         if self.slots[i] is not None:
             raise RuntimeError(f"slot {i} is occupied")
         self.n_admitted += 1
-        slot = _Slot(req=req, prompt_len=prompt_len)
+        slot = _Slot(req=req, prompt_len=prompt_len, admit_seq=self.n_admitted)
         self.slots[i] = slot
         return slot
 
@@ -257,6 +282,9 @@ class ServeSession:
         k: top-k width returned by the head (candidates for sampling).
         kernel: serve-kernel override (name, policy name, or KernelPolicy);
             ``None`` uses ``cfg.ds.serve_kernel``.
+        prefill_chunk: if set, prompts prefill through
+            ``bundle.prefill_chunk`` in (1, C) chunks, the tail chunk
+            right-padded and masked.
         stream_cb: ``cb(request, token)`` per emitted token; a raising
             callback FAILs only its own request.
         queue_limit: bound on the admission queue (``None``: unbounded).
@@ -293,6 +321,19 @@ class ServeSession:
             ``repack_for_traffic`` and :meth:`swap_table`, between decode
             steps. Needs a DS head and the raw DS mask state (not a packed
             table): repacking needs the (head, mask) pair.
+        paged: replace the per-slot cache rows with the fixed-size-page
+            arena. Tokens equal the contiguous cache's (the gathered page
+            view feeds the same attention math); with ``prefill_chunk``,
+            chunk-aligned prompt prefixes are prefilled once and shared
+            copy-on-write, and arena exhaustion preempts and requeues the
+            lowest-priority resident. Needs ``max_seq_len % page_size == 0``
+            (and ``% prefill_chunk == 0`` when chunked).
+        page_size: cache positions per page.
+        page_arena: allocatable pages. Default ``n_slots * max_seq_len /
+            page_size`` (the contiguous capacity), plus the reserved zero and
+            garbage pages.
+        prefix_sharing: register and adopt shared prompt prefixes (paged and
+            chunked only).
         device: where the cache lives and the steps run; ``cuda`` unless
             the caller passes ``'cpu'``.
     """
@@ -300,6 +341,7 @@ class ServeSession:
     def __init__(self, bundle: ModelBundle, params, ds_state_or_table, *,
                  n_slots: int = 8, max_seq_len: int = 256, k: int = 8,
                  kernel=None,
+                 prefill_chunk: Optional[int] = None,
                  stream_cb: Optional[Callable[[Request, int], None]] = None,
                  queue_limit: Optional[int] = None,
                  quantize: Optional[str] = None,
@@ -309,9 +351,27 @@ class ServeSession:
                  overflow_window: int = 8,
                  stats_window: int = 128,
                  adapt_policy: Optional[AdaptPolicy] = None,
+                 paged: bool = False, page_size: int = 16,
+                 page_arena: Optional[int] = None,
+                 prefix_sharing: bool = True,
                  device="cuda"):
         self.device = resolve_device(device)
         cfg = bundle.cfg
+        if prefill_chunk is not None and bundle.prefill_chunk is None:
+            raise ValueError(f"family {cfg.family!r} has no chunked prefill; "
+                             "use whole-prompt prefill (prefill_chunk=None)")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if paged:
+            if max_seq_len % page_size:
+                raise ValueError(f"paged mode needs max_seq_len ({max_seq_len}) divisible "
+                                 f"by page_size ({page_size})")
+            if prefill_chunk is not None and max_seq_len % prefill_chunk:
+                # a resumed request re-prefills prompt ++ emitted tokens; the
+                # tail chunk's padded writes round that length up to a chunk
+                # multiple, which must never index a page past the table
+                raise ValueError(f"paged chunked prefill needs max_seq_len ({max_seq_len}) "
+                                 f"divisible by prefill_chunk ({prefill_chunk})")
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         if quantize is not None and cfg.head != "ds":
@@ -323,6 +383,7 @@ class ServeSession:
         self.max_seq_len = max_seq_len
         self.k = k
         self.kernel = kernel
+        self.prefill_chunk = prefill_chunk
         self.stream_cb = stream_cb
         self.requests: List[Request] = []
         self.n_steps = 0
@@ -355,8 +416,20 @@ class ServeSession:
             if self._ds_state is None:
                 raise ValueError("adapt_policy needs the raw DS mask state to repack; "
                                  "pass ds_state, not a pre-packed ServeTable")
-        specs = cache_specs(cfg, ShapeConfig(name="serve", seq_len=max_seq_len,
-                                             global_batch=n_slots, kind="decode"))
+        self._mgr: Optional[PagedCacheManager] = None
+        self._prefix_sharing = prefix_sharing and paged and prefill_chunk is not None
+        self._n_preempted = 0
+        self._n_prefill_chunks = 0
+        self._n_prefill_chunks_saved = 0
+        if paged:
+            n_alloc = page_arena if page_arena is not None else n_slots * (max_seq_len // page_size)
+            self._mgr = PagedCacheManager(n_slots=n_slots, n_pages=N_RESERVED + n_alloc,
+                                          page_size=page_size, max_seq_len=max_seq_len)
+            specs = paged_cache_specs(cfg, N_RESERVED + n_alloc, page_size)
+            log.info("paged cache: %d pages x %d positions", n_alloc, page_size)
+        else:
+            specs = cache_specs(cfg, ShapeConfig(name="serve", seq_len=max_seq_len,
+                                                 global_batch=n_slots, kind="decode"))
         self._cache = DecodeCache(*(torch.zeros(s.shape, dtype=s.dtype, device=self.device)
                                     for s in specs))
         self.scheduler = Scheduler(n_slots, queue_limit=queue_limit)
@@ -398,9 +471,9 @@ class ServeSession:
         self._n_decode_builds += 1
         kernel, cf, k = self._eff_kernel, self._eff_capacity_factor, self.k
 
-        def _decode(p, t, c, tok, pos):
+        def _decode(p, t, c, tok, pos, **paged):
             return self.bundle.decode_step(p, t, c, tok, pos, k=k, kernel=kernel,
-                                           capacity_factor=cf, with_stats=True)
+                                           capacity_factor=cf, with_stats=True, **paged)
 
         self._decode_fn = _decode
 
@@ -560,6 +633,27 @@ class ServeSession:
         if S + sp.max_new_tokens - 1 > self.max_seq_len:
             reject(f"prompt_len ({S}) + max_new_tokens ({sp.max_new_tokens}) - 1 "
                    f"exceeds max_seq_len ({self.max_seq_len})")
+        if self.prefill_chunk is not None:
+            # the tail chunk writes all prefill_chunk rows, padding included;
+            # none may fall past the cache end
+            cp = self.prefill_chunk
+            needed = -(-S // cp) * cp
+            if needed > self.max_seq_len:
+                reject(f"chunked prefill rounds the prompt up to a multiple of "
+                       f"prefill_chunk ({cp}): needs {needed} cache rows > max_seq_len "
+                       f"({self.max_seq_len}); raise max_seq_len or lower prefill_chunk")
+        if self._mgr is not None:
+            # the worst-case footprint must fit the arena ALONE: a request
+            # that cannot run with every resident preempted would wedge the
+            # queue
+            worst = S + sp.max_new_tokens - 1
+            if self.prefill_chunk is not None:
+                worst = max(worst, -(-S // self.prefill_chunk) * self.prefill_chunk)
+            need = -(-worst // self._mgr.page_size)
+            if need > self._mgr.allocatable:
+                reject(f"request needs {need} pages at its max length but the arena "
+                       f"only has {self._mgr.allocatable}; raise page_arena or shorten "
+                       "the request")
         req.submit_step = self.n_steps
         self.requests.append(req)
         victim = self.scheduler.submit(req)
@@ -590,13 +684,17 @@ class ServeSession:
         remains."""
         self._expire_queue()
         self._admit()
+        paged = {}
+        if self._mgr is not None:
+            self._prepare_decode_writes()
+            paged["pages"] = torch.from_numpy(self._mgr.tables).to(self.device)
         act = self.scheduler.active()
         if not act:
             return self.scheduler.has_work()
         vals, ids, self._cache, stats = self._decode_fn(
             self.params, self.table, self._cache,
             torch.from_numpy(self._tok).to(self.device),
-            torch.from_numpy(self._pos).to(self.device))
+            torch.from_numpy(self._pos).to(self.device), **paged)
         self.n_steps += 1
         vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
         self._record_load(stats)
@@ -633,9 +731,11 @@ class ServeSession:
         :meth:`traffic_profile` reads), the circuit breaker's state, the
         table-swap accounting (``table_version``, ``n_swaps``,
         ``decode_builds``; ``rows_pruned`` sums the adaptive repacks'
-        re-prunes, a key ``repro`` does not have), and the int8 mode with
+        re-prunes, a key ``repro`` does not have), the int8 mode with
         its exactness-gate report (``ExactnessReport.as_dict()``, None when
-        the table was not quantized here)."""
+        the table was not quantized here), and for a paged session
+        ``paged``: the page table's counters, ``preemptions``,
+        ``prefill_chunks`` and ``prefill_chunks_saved``."""
         o = self._outcomes
         hist = self._overflow_hist
         eff_cf = None
@@ -677,6 +777,10 @@ class ServeSession:
         out["window_end_step"] = None if prof is None else prof.end_step
         out["window_steps"] = 0 if prof is None else prof.steps
         out["overflow_rate_window"] = 0.0 if prof is None else prof.overflow_rate
+        if self._mgr is not None:
+            out["paged"] = {**self._mgr.stats(), "preemptions": self._n_preempted,
+                            "prefill_chunks": self._n_prefill_chunks,
+                            "prefill_chunks_saved": self._n_prefill_chunks_saved}
         return out
 
     # -- internals ------------------------------------------------------------
@@ -716,7 +820,12 @@ class ServeSession:
         self.scheduler.release(i)
         self._tok[i] = 0
         self._pos[i] = 0
-        if status is RequestStatus.FAILED:
+        if self._mgr is not None:
+            # drop every page reference; a FAILED tenant's pages are zeroed
+            # as they return to the free list (a shared page survives
+            # through its co-owners)
+            self._release_slot_pages(i, scrub=status is RequestStatus.FAILED)
+        elif status is RequestStatus.FAILED:
             self._scrub(i)
 
     def _scrub(self, i: int) -> None:
@@ -796,23 +905,208 @@ class ServeSession:
             prompt = np.asarray(req.prompt, np.int64).reshape(-1)
             S = len(prompt)
             sp = req.sampling_params
-            vals, ids, row = self.bundle.prefill(
-                self.params, self.table,
-                {"tokens": torch.from_numpy(prompt[None]).to(self.device)},
-                k=self.k, kernel=self.kernel)
+            n_resume = len(req.out_tokens)
+            # a preempted request re-prefills everything it produced but the
+            # last token, which is fed back as the next decode input
+            toks = (np.concatenate([prompt, np.asarray(req.out_tokens[:-1], np.int64)])
+                    if n_resume else prompt)
+            out = self._prefill_into_slot(toks, i, sp.priority)
+            if out is None:
+                # the arena is exhausted with nothing preemptible below this
+                # priority: wait at the FRONT of the queue for the residents
+                # (submit() checked that the request fits the arena alone)
+                if sched.active():
+                    sched.requeue(req)
+                    return
+                self._finish(req, RequestStatus.FAILED,
+                             "page arena exhausted with no resident to wait for")
+                continue
+            vals, ids, pending = out
             vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
             if not np.isfinite(vals[0]).all() or ids[0, 0] < 0:
-                # quarantine BEFORE admission: the slot stays free
+                # quarantine BEFORE admission: the slot stays free and the
+                # rows this prefill wrote are zeroed
                 self._finish(req, RequestStatus.FAILED,
                              "non-finite prefill output (request quarantined)")
+                if self._mgr is not None:
+                    self._release_slot_pages(i, scrub=True)
+                else:
+                    self._scrub(i)
                 continue
-            # positions >= S keep stale rows; they stay masked until this
-            # slot's own decode steps overwrite them
-            self._cache.k[:, i, :S] = row.k[:, 0]
-            self._cache.v[:, i, :S] = row.v[:, 0]
+            # prefixes become adoptable only after the finite check
+            for key, length in pending:
+                self._mgr.register_prefix(i, key, length)
             slot = sched.admit(i, req, S)
             req.status = RequestStatus.ACTIVE
-            self._emit(i, slot, self._sample(vals[0], ids[0], sp, 0))
+            if n_resume:
+                # the re-prefill's head output is dropped: those tokens were
+                # emitted before the preemption; the sampling stream goes on
+                # at the preserved emission count
+                slot.n_emitted = n_resume
+                self._tok[i] = req.out_tokens[-1]
+                self._pos[i] = slot.pos
+            else:
+                self._emit(i, slot, self._sample(vals[0], ids[0], sp, 0))
+
+    def _prefill_into_slot(self, toks: np.ndarray, i: int, priority: int):
+        """Prefill ``toks`` into slot ``i``: ``(vals, ids, pending
+        prefixes)``, or None when the arena could not supply the pages even
+        after preemption (the slot is left with nothing mapped)."""
+        S = len(toks)
+        m = self._mgr
+        pending: List[tuple] = []
+        if self.prefill_chunk is None:
+            if m is not None:
+                if not self._prepare_kv_write_range(i, 0, S, priority):
+                    self._release_slot_pages(i, scrub=False)
+                    return None
+                m.activate_slot(i)
+            vals, ids, row = self.bundle.prefill(
+                self.params, self.table,
+                {"tokens": torch.from_numpy(toks[None]).to(self.device)},
+                k=self.k, kernel=self.kernel)
+            if m is not None:
+                pos = np.arange(S)
+                pid = torch.from_numpy(m.tables[i][pos // m.page_size].astype(np.int64))
+                off = torch.from_numpy(pos % m.page_size)
+                pid, off = pid.to(self.device), off.to(self.device)
+                # positions past S in the last page keep stale (finite) rows,
+                # masked like the contiguous cache's tail
+                self._cache.k[:, pid, off] = row.k[:, 0]
+                self._cache.v[:, pid, off] = row.v[:, 0]
+            else:
+                # positions >= S keep stale rows; they stay masked until this
+                # slot's own decode steps overwrite them
+                self._cache.k[:, i, :S] = row.k[:, 0]
+                self._cache.v[:, i, :S] = row.v[:, 0]
+            return vals, ids, pending
+        cp = self.prefill_chunk
+        if m is None:
+            # slot i's (L, 1, S_max, KV, dh) rows, written in place
+            cache = DecodeCache(k=self._cache.k[:, i:i + 1], v=self._cache.v[:, i:i + 1])
+            for lo in range(0, S, cp):
+                vals, ids, _ = self._chunk(cache, toks, lo)
+            return vals, ids, pending
+        # paged chunked prefill, straight into the shared arena
+        pos0 = 0
+        if self._prefix_sharing:
+            # max_len = S - 1: at least one tail chunk runs and gives the
+            # head's top-k for this prompt
+            e = m.match_prefix(toks, cp, S - 1)
+            if e is not None:
+                m.adopt_prefix(i, e)
+                pos0 = e.length
+                self._n_prefill_chunks_saved += pos0 // cp
+        m.activate_slot(i)
+        vals = ids = None
+        for lo in range(pos0, S, cp):
+            # the chunk writes all cp rows (tail padding included), so the
+            # prepared range covers the whole chunk
+            if not self._prepare_kv_write_range(i, lo, lo + cp, priority):
+                self._release_slot_pages(i, scrub=False)
+                return None
+            vals, ids, _ = self._chunk(self._cache, toks, lo,
+                                       torch.from_numpy(m.tables[i:i + 1]).to(self.device))
+            self._n_prefill_chunks += 1
+            hi = min(lo + cp, S)
+            if self._prefix_sharing and hi == lo + cp \
+                    and not m.has_prefix(prefix_hash(toks[:hi]), hi):
+                pending.append((prefix_hash(toks[:hi]), hi))
+        return vals, ids, pending
+
+    def _chunk(self, cache: DecodeCache, toks: np.ndarray, lo: int, pages=None):
+        """One (1, prefill_chunk) chunk of ``toks`` from position ``lo``,
+        right-padded with token 0, through ``bundle.prefill_chunk``."""
+        cp = self.prefill_chunk
+        tail = toks[lo: lo + cp]
+        buf = np.zeros((1, cp), np.int64)
+        buf[0, : len(tail)] = tail
+        return self.bundle.prefill_chunk(
+            self.params, self.table, cache, torch.from_numpy(buf).to(self.device), lo,
+            len(tail), k=self.k, kernel=self.kernel, pages=pages)
+
+    # -- paged-arena management -------------------------------------------------
+
+    def _prepare_kv_write_range(self, i: int, lo: int, hi: int, priority: int) -> bool:
+        """Make every page covering positions ``[lo, hi)`` of slot ``i``
+        exclusively writable: fresh pages for unmapped entries, a copy for
+        shared ones (copy-on-write: the copy runs here, before the write
+        that needs it), preempting strictly-lower-priority residents while
+        the arena is exhausted. False when even that failed."""
+        m = self._mgr
+        for j in range(lo // m.page_size, (hi - 1) // m.page_size + 1):
+            while True:
+                plan = m.prepare_write(i, j)
+                if plan is not None:
+                    break
+                if not self._preempt_lowest_below(priority):
+                    return False
+            if plan.kind == "cow":
+                for leaf in self._cache:
+                    leaf[:, plan.dst] = leaf[:, plan.src]
+        return True
+
+    def _prepare_decode_writes(self) -> None:
+        """Before the decode step, secure each resident's write position. A
+        resident that cannot get its page even after preempting every
+        lower-priority batchmate preempts ITSELF: its freed pages unblock
+        the others, and it resumes once capacity returns."""
+        for i, slot in list(self.scheduler.active()):
+            if self.scheduler.slots[i] is not slot:
+                continue  # preempted by an earlier iteration
+            pos = int(self._pos[i])
+            if not self._prepare_kv_write_range(i, pos, pos + 1,
+                                                slot.req.sampling_params.priority):
+                self._preempt_slot(i)
+
+    def _preempt_lowest_below(self, priority: int) -> bool:
+        """Preempt the lowest-priority resident strictly below ``priority``
+        (the newest admission among ties). False when nobody qualifies:
+        equal priority never preempts equal priority."""
+        victim = None
+        for i, slot in self.scheduler.active():
+            p = slot.req.sampling_params.priority
+            if p >= priority:
+                continue
+            if victim is None:
+                victim = (i, slot)
+                continue
+            vp = victim[1].req.sampling_params.priority
+            if p < vp or (p == vp and slot.admit_seq > victim[1].admit_seq):
+                victim = (i, slot)
+        if victim is None:
+            return False
+        self._preempt_slot(victim[0])
+        return True
+
+    def _preempt_slot(self, i: int) -> None:
+        """Preempt resident ``i`` and requeue it at the front: its page
+        references drop (shared prefix pages survive through their
+        co-owners) and the request keeps its emitted tokens for the resume."""
+        slot = self.scheduler.slots[i]
+        req = slot.req
+        self._release_slot_pages(i, scrub=False)
+        self.scheduler.release(i)
+        self._tok[i] = 0
+        self._pos[i] = 0
+        req.status = RequestStatus.QUEUED
+        self.scheduler.requeue(req)
+        self._n_preempted += 1
+        log.info("preempted slot %d (priority=%d, %d tokens emitted); requeued",
+                 i, req.sampling_params.priority, slot.n_emitted)
+
+    def _release_slot_pages(self, i: int, scrub: bool) -> None:
+        """Drop every page reference of slot ``i`` and point its table row at
+        the garbage sink again. ``scrub`` zeroes each page that actually
+        returns to the free list (FAILED tenants: their rows may be
+        non-finite; a still-shared page is zeroed by whichever failing
+        co-owner drops the last reference)."""
+        m = self._mgr
+        for pid in m.mapped_kv_pages(i):
+            if m.decref(pid) and scrub:
+                for leaf in self._cache:
+                    leaf[:, pid] = 0
+        m.reset_slot(i)
 
     def _sample(self, vals: np.ndarray, ids: np.ndarray, sp: SamplingParams,
                 n_emitted: int) -> int:

@@ -205,6 +205,8 @@ def test_session_streams_identical_on_every_path(dev):
         sess.run(reqs)
         streams[kern] = [r.out_tokens for r in reqs]
         counts = ops.launch_counts()
+        # every path prefills through the flash_attention kernel
+        assert counts.pop("flash_attention") > 0
         if kern == "cuda_grouped":
             assert counts["gate_top1"] > 0 and counts["dss_topk_grouped"] > 0
         elif kern == "cuda_fused":
@@ -243,6 +245,7 @@ def test_session_streams_identical_fp32_and_int8(dev, quantize):
         sess.run(reqs)
         streams[kern] = [r.out_tokens for r in reqs]
         counts = ops.launch_counts()
+        assert counts.pop("flash_attention") > 0  # every path's prefill
         if kern in need:
             assert counts[need[kern] + ("_q" if quantize else "")] > 0, (kern, counts)
         else:
@@ -380,3 +383,135 @@ def test_breaker_trip_2_serves_through_the_fused_kernel(dev):
         counts = ops.launch_counts()
         assert counts["dss_topk_fused"] > 0 and counts["dss_topk_grouped"] == 0, counts
     assert streams["cuda_grouped"] == streams["jnp"]
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(dev, B, H, H_kv, S, dh, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, h, dh), generator=g, device=dev).to(dtype)
+               for h in (H, H_kv, H_kv))
+    return q, k, v  # (B, S, heads, dh): the layout attention_block holds
+
+
+def _assert_within_limit(o, q, k, v):
+    """The kernel's output against its plain version, element by element,
+    within ``repro_torch.testing.flash_attention_limit`` (fp32: repro's
+    own 1e-4 / 1e-5; bf16: one bf16 rounding of p, 2^-8·(softmax(s)·|v|),
+    plus the two outputs' own rounding, 2^-7·|o|)."""
+    from repro_torch.kernels import ref
+    from repro_torch.testing import flash_attention_limit
+
+    want = ref.flash_attention_ref(q, k, v)
+    err = (o.float() - want.float()).abs()
+    limit = flash_attention_limit(q, k, v, want)
+    assert (err <= limit).all(), f"{float((err / limit).max())} of the limit"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("S", [1, 7, 129, 2047])
+@pytest.mark.parametrize("H,H_kv", [(2, 2), (12, 2)])
+def test_flash_attention_kernel(dev, dtype, dh, S, H, H_kv):
+    """(B, S, H, dh) tensors passed as their (B, H, S, dh) transpose views,
+    as attention_block passes them; the output comes back in that layout."""
+    from repro_torch.kernels import ops
+
+    q, k, v = _attn_inputs(dev, 2, H, H_kv, S, dh, dtype, seed=S * dh + H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    n = ops.flash_attention.launches
+    o = ops.flash_attention(qt, kt, vt)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n + 1
+    assert o.shape == qt.shape and o.dtype == dtype
+    assert o.transpose(1, 2).is_contiguous()  # q's (B, S, H, dh) layout
+    _assert_within_limit(o, qt, kt, vt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_strided_views(dev, dtype):
+    """Views that are not dense: q, k and v sliced out of wider buffers
+    along dh and every other position; the output is dense, in q's axis
+    order (B, S, H, dh)."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    S, dh = 300, 128
+    qb = torch.randn((1, 2 * S, 12, dh + 32), generator=g, device=dev).to(dtype)
+    kvb = torch.randn((1, 2 * S, 2, 2, dh), generator=g, device=dev).to(dtype)
+    q = qb[:, ::2, :, 16:16 + dh].transpose(1, 2)
+    k, v = (kvb[:, ::2, :, j].transpose(1, 2) for j in (0, 1))
+    o = ops.flash_attention(q, k, v)
+    assert o.transpose(1, 2).is_contiguous()
+    _assert_within_limit(o, q, k, v)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 2, 8, 16), device=dev)
+    n = ops.flash_attention.launches
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[:, :, :, :8], q)          # k/v shape
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 1, 4, 320), device=dev)
+        ops.flash_attention(big, big, big)
+    assert ops.flash_attention.launches == n
+
+
+def test_paged_chunked_session_preempts_on_the_card(dev):
+    """A 5-page arena cannot hold both requests: admitting the
+    high-priority one preempts the low one, which resumes through chunked
+    re-prefill. Both streams equal uncontended runs (fp32: the re-prefill's
+    other product shapes move values by ulps, far below any top-1/top-2
+    gap here), no page stays mapped. Whole-prompt paged prefill goes through
+    the flash_attention kernel and matches the contiguous cache's tokens."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.train import Request, SamplingParams, ServeSession
+
+    cfg = reduce_config(get_config("qwen2-1.5b"), vocab=1024).replace(dtype="float32")
+    bundle = build(cfg)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.RandomState(6)
+    specs = [(rng.randint(1, 1000, 10).astype(np.int32), pr) for pr in (0, 5)]
+
+    def req(p, pr):
+        return Request(prompt=p, sampling=SamplingParams(max_new_tokens=20, priority=pr))
+
+    solo = []
+    for p, pr in specs:
+        r = req(p, pr)
+        ServeSession(bundle, params, state, n_slots=1, max_seq_len=64,
+                     prefill_chunk=4).run([r])
+        solo.append(r.out_tokens)
+    sess = ServeSession(bundle, params, state, n_slots=2, max_seq_len=64, prefill_chunk=4,
+                        paged=True, page_size=8, page_arena=5, prefix_sharing=False)
+    low, high = (req(p, pr) for p, pr in specs)
+    sess.submit(low)
+    for _ in range(3):
+        sess.step()
+    sess.submit(high)
+    while sess.step():
+        pass
+    st = sess.stats()["paged"]
+    assert st["preemptions"] > 0 and st["pages_in_use"] == 0
+    assert [low.out_tokens, high.out_tokens] == solo
+
+    prompts = [rng.randint(1, 1000, n).astype(np.int32) for n in (5, 70, 129)]
+    streams = {}
+    for paged in (False, True):
+        ops.reset_launch_counts()
+        reqs = [req(p, 0) for p in prompts]
+        ServeSession(bundle, params, state, n_slots=2, max_seq_len=160, paged=paged,
+                     page_size=16).run(reqs)
+        assert ops.launch_counts()["flash_attention"] == len(prompts) * cfg.n_layers
+        streams[paged] = [r.out_tokens for r in reqs]
+    assert streams[True] == streams[False]

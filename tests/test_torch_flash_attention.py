@@ -1,0 +1,120 @@
+"""Port parity: the ``flash_attention`` wrapper (its plain version,
+``ref.flash_attention_ref``, which is what it runs on CPU tensors) against
+``repro``'s Pallas kernel in interpret mode and ``repro``'s oracle
+``ref.flash_attention_ref``, on the same numpy-seeded inputs.
+
+Shapes: ``repro``'s own (``tests/test_kernels.py:49``), a grouped-query
+case (H 6, H_kv 2: the JAX side gets ``jnp.repeat(k, 3, axis=1)``), an odd
+S, and bf16.
+
+Tolerances. fp32: against the Pallas kernel ``repro``'s 1e-4 / 1e-5
+(``tests/test_kernels.py:56``); against the oracle, which computes the
+same einsums, 1e-5 / 1e-6. bf16: against the oracle one bf16 rounding of
+the output (rtol 2^-7, an fp32 difference in the last bit can round to the
+neighbouring bf16 value); against the Pallas kernel, which rounds p to
+bf16 before p·v and the plain version does not, the per-element limit
+``repro_torch.testing.flash_attention_limit``: 2^-8·(softmax(s)·|v|) for
+the rounding of p, plus 2^-7·|o| for the two outputs' own rounding.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.convert import to_tensor
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.testing import flash_attention_limit
+
+BF16_ULP = 2.0 ** -7
+
+
+def _inputs(B, H, H_kv, S, dh, seed, dtype=jnp.float32):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, h, S, dh).astype(np.float32) for h in (H, H_kv, H_kv))
+    return tuple(jnp.asarray(a).astype(dtype) for a in (q, k, v))
+
+
+def _t(a):
+    return to_tensor(np.asarray(a), "cpu")
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32)) if not torch.is_tensor(a) \
+        else a.float().numpy()
+
+
+@pytest.mark.parametrize("B,H,H_kv,S,dh,dtype", [
+    (2, 2, 2, 64, 16, jnp.float32),      # tests/test_kernels.py:49
+    (2, 2, 2, 128, 32, jnp.float32),
+    (2, 2, 2, 256, 64, jnp.float32),
+    (1, 6, 2, 96, 32, jnp.float32),      # grouped-query attention
+    (2, 2, 1, 37, 16, jnp.float32),      # odd S
+    (1, 6, 2, 128, 64, jnp.bfloat16),
+    (1, 2, 2, 45, 32, jnp.bfloat16),
+])
+def test_flash_attention_matches_pallas_and_oracle(B, H, H_kv, S, dh, dtype):
+    q, k, v = _inputs(B, H, H_kv, S, dh, seed=S + dh + H, dtype=dtype)
+    G = H // H_kv
+    kr, vr = jnp.repeat(k, G, axis=1), jnp.repeat(v, G, axis=1)
+    n = ops.flash_attention.launches
+    got = ops.flash_attention(_t(q), _t(k), _t(v), device="cpu")
+    assert ops.flash_attention.launches == n  # the plain version: no launch
+    assert got.shape == (B, H, S, dh) and got.dtype == _t(q).dtype
+    pallas = pallas_flash(q, kr, vr, interpret=True)
+    oracle = jref.flash_attention_ref(q, kr, vr)
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=1e-5, atol=1e-6)
+    else:
+        limit = flash_attention_limit(_t(q), _t(k), _t(v), got)
+        err = np.abs(_f32(got) - _f32(pallas))
+        assert (err <= limit.numpy()).all(), float((err / limit.numpy()).max())
+        np.testing.assert_allclose(_f32(got), _f32(oracle), rtol=BF16_ULP, atol=1e-6)
+
+
+def test_plain_version_equals_the_cpu_attention_path():
+    """The kernel's plain version and the port's CPU prefill attention
+    (``chunked_causal_attention``: three query chunks merged online) are one
+    function on the same (B, S, H, dh) tensors."""
+    cfg = reduce_config(get_config("qwen2-1.5b"))
+    S = 3 * cfg.attn_q_chunk
+    q, k, v = (torch.from_numpy(np.array(a)).permute(0, 2, 1, 3)
+               for a in _inputs(1, 4, 2, S, 32, seed=3))
+    flash = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                device="cpu").transpose(1, 2)
+    chunked = layers.chunked_causal_attention(cfg, q, k, v)
+    torch.testing.assert_close(flash, chunked, rtol=1e-5, atol=1e-6)
+
+
+def test_attention_block_on_cpu_tensors_keeps_the_plain_code(monkeypatch):
+    """CPU tensors never reach the kernel wrapper: the plain attention runs,
+    as in ``repro``'s CPU lowering."""
+    cfg = reduce_config(get_config("qwen2-1.5b")).replace(dtype="float32")
+    from repro_torch.models import build
+
+    params, _ = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    attn = {name: w[0] for name, w in params["layers"]["attn"].items()}
+
+    def refuse(*a, **kw):
+        raise AssertionError("flash_attention called on CPU tensors")
+
+    monkeypatch.setattr(layers, "flash_attention", refuse)
+    for S in (5, 2 * cfg.attn_q_chunk):
+        x = torch.randn((1, S, cfg.d_model), generator=torch.Generator().manual_seed(S))
+        out, (kk, vv) = layers.attention_block(attn, cfg, x, torch.arange(S)[None])
+        assert out.shape == x.shape and kk.shape == (1, S, cfg.n_kv_heads, cfg.hd)
+
+
+def test_wrapper_rejects_mismatched_shapes_and_dtypes():
+    q = torch.zeros((1, 4, 8, 16))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.zeros((1, 3, 8, 16)), torch.zeros((1, 3, 8, 16)),
+                            device="cpu")  # H % H_kv != 0
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[:, :, :4], q[:, :, :4], device="cpu")
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q.bfloat16(), device="cpu")

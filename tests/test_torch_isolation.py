@@ -34,7 +34,10 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
 @pytest.mark.parametrize("module", ["serve/__init__.py", "serve/table_manager.py",
                                     "core/pruning.py", "testing/__init__.py",
                                     "testing/faults.py", "testing/thresholds.py",
-                                    "kernels/lasso_prune.py"])
+                                    "kernels/lasso_prune.py", "serve/paged_cache.py",
+                                    "kernels/flash_attention.py", "models/layers.py",
+                                    "models/transformer.py", "models/model_zoo.py",
+                                    "train/serve.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()
@@ -71,7 +74,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("name", ["gate_top1", "dss_topk_grouped", "dss_topk_fused",
-                                  "dss_topk_kernel", "lasso_prune"])
+                                  "dss_topk_kernel", "lasso_prune", "flash_attention"])
 def test_kernel_wrappers_raise_on_an_unreachable_device(name):
     """CPU tensors handed to a wrapper asked for CUDA (the default) raise;
     they never fall back to the plain version."""
@@ -84,7 +87,9 @@ def test_kernel_wrappers_raise_on_an_unreachable_device(name):
             "dss_topk_grouped": (w, ids, torch.zeros(4, 2, 8), torch.zeros(4, 2), 2),
             "dss_topk_fused": (gate, w, ids, h, 2),
             "dss_topk_kernel": (w, ids, h, torch.zeros(2, dtype=torch.int32), 2),
-            "lasso_prune": (w, torch.ones(4, 16, dtype=torch.bool), 0.5)}[name]
+            "lasso_prune": (w, torch.ones(4, 16, dtype=torch.bool), 0.5),
+            "flash_attention": (torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16),
+                                torch.zeros(1, 2, 8, 16))}[name]
     before = fn.launches
     with pytest.raises((RuntimeError, ValueError)):
         fn(*args)

@@ -87,6 +87,28 @@ def test_mixed_workload_token_identical_to_repro(dtype, kern):
     assert sum(st["expert_dispatched"]) == sess.n_steps * sess.n_slots
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["chunked", "paged", "paged_chunked"])
+def test_chunked_and_paged_workload_token_identical_to_repro(dtype, mode):
+    """``tests/test_serve_session.py:72`` with ``prefill_chunk=4`` (the
+    reference streams themselves come from repro's chunk-4 session), and the
+    same workload on the paged cache: slots reused mid-flight, greedy and
+    sampled streams equal repro's, no page leaked."""
+    expected, bundle, params, state = _setup(dtype)
+    kw = {"chunked": dict(prefill_chunk=4), "paged": dict(paged=True, page_size=8),
+          "paged_chunked": dict(prefill_chunk=4, paged=True, page_size=8)}[mode]
+    sess = ServeSession(bundle, params, state, n_slots=2, max_seq_len=32, kernel="jnp",
+                        device="cpu", **kw)
+    reqs = [Request(prompt=p, sampling=_sp(SamplingParams, i, m))
+            for i, (p, m) in enumerate(zip(_prompts(), MAX_NEWS))]
+    sess.run(reqs)
+    assert [r.out_tokens for r in reqs] == expected
+    st = sess.stats()
+    assert st["n_admitted"] == st["n_released"] == 6 > sess.n_slots
+    if "paged" in st:
+        assert st["paged"]["pages_in_use"] == 0
+
+
 def test_submit_validates_before_any_compute():
     _, bundle, params, state = _setup("float32")
     sess = ServeSession(bundle, params, state, n_slots=2, max_seq_len=16, device="cpu")
@@ -121,6 +143,26 @@ def test_non_finite_output_quarantines_only_its_slot():
     sess.run([victim] + reqs)
     assert victim.status is RequestStatus.FAILED and "non-finite" in victim.error
     assert [r.out_tokens for r in reqs] == expected
+
+
+def test_non_finite_output_quarantines_only_its_paged_slot():
+    """The poisoned request of the test above on the paged cache with
+    chunked prefill: it ends FAILED, every page it held is zeroed as it
+    returns to the free list, and the others' streams are unchanged."""
+    expected, bundle, params, state = _setup("float32")
+    table = params["embed"]["table"].clone()
+    table[127] = float("nan")
+    poisoned = dict(params, embed={"table": table})
+    sess = ServeSession(bundle, poisoned, state, n_slots=2, max_seq_len=32, kernel="jnp",
+                        prefill_chunk=4, paged=True, page_size=8, device="cpu")
+    reqs = [Request(prompt=p, sampling=_sp(SamplingParams, i, m))
+            for i, (p, m) in enumerate(zip(_prompts(), MAX_NEWS))]
+    victim = Request(prompt=np.array([5, 127, 7], np.int32), max_new_tokens=3)
+    sess.run([victim] + reqs)
+    assert victim.status is RequestStatus.FAILED and "non-finite" in victim.error
+    assert [r.out_tokens for r in reqs] == expected
+    assert sess.stats()["paged"]["pages_in_use"] == 0
+    assert torch.isfinite(sess._cache.k).all() and torch.isfinite(sess._cache.v).all()
 
 
 def test_session_without_device_needs_cuda():

@@ -156,3 +156,92 @@ def test_params_from_jax_rejects_wrong_shapes():
     tree["layers/attn/wq"] = tree["layers/attn/wq"][:1]
     with pytest.raises(ValueError, match="wq"):
         params_from_jax(tree, tcfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: attention_prefill_chunk and prefill_chunk
+# ---------------------------------------------------------------------------
+
+def _layer0(tree):
+    return jax.tree.map(lambda a: a[0], tree)
+
+
+@pytest.mark.parametrize("mode", ["scalar", "per_row", "paged", "paged_per_row"])
+def test_attention_prefill_chunk_matches_repro(mode):
+    """One layer's chunk attention against a partly filled cache: the
+    output and the caches it writes (in place on the port's side), for a
+    scalar pos0, per-row pos0 and the paged arena (a page table mapping
+    logical pages to shuffled arena pages). fp32 rtol 1e-5, atol 1e-5."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+
+    jb, jp, _, tb, tp, _ = _models("float32")
+    cfg_j, cfg_t = jb.cfg, tb.cfg
+    rng = np.random.RandomState(4)
+    B, C, KV, dh = 3, 4, cfg_t.n_kv_heads, cfg_t.hd
+    x = rng.randn(B, C, cfg_t.d_model).astype(np.float32)
+    pos0 = np.array([0, 5, 9], np.int32) if mode.endswith("per_row") else 6
+    if mode.startswith("paged"):
+        ps, n_pg, n_pages = 4, 4, 16
+        ck = rng.randn(n_pages, ps, KV, dh).astype(np.float32)
+        pages = np.stack([rng.permutation(np.arange(2, n_pages))[:n_pg]
+                          for _ in range(B)]).astype(np.int32)
+        pages[1:, :] = pages[1:, ::-1]  # rows see their pages in other orders
+        pages[2] = np.where(np.arange(n_pg) < 3, pages[2], 0)
+    else:
+        ck = rng.randn(B, 16, KV, dh).astype(np.float32)
+        pages = None
+    cv = ck[::-1].copy() * 0.5
+    jout, jk, jv = jlayers.attention_prefill_chunk(
+        _layer0(jp["layers"]["attn"]), cfg_j, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
+        jnp.asarray(pos0), pages=None if pages is None else jnp.asarray(pages))
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    tpos = torch.from_numpy(pos0).long() if isinstance(pos0, np.ndarray) else pos0
+    tout, rk, rv = tlayers.attention_prefill_chunk(
+        {n: w[0] for n, w in tp["layers"]["attn"].items()}, cfg_t, torch.from_numpy(x), tk, tv,
+        tpos, pages=None if pages is None else torch.from_numpy(pages))
+    assert rk is tk and rv is tv  # written in place
+    tol = TOL["float32"]
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **tol)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **tol)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_chunk_matches_repro_and_whole_prompt(dtype):
+    """A 10-token prompt through three chunks of 4 (the last one padded)
+    into a zero (L, 1, 16, KV, dh) cache: the caches and every chunk's
+    top-k equal repro's (bf16 under strict rounding), and the last chunk's
+    ids equal the whole-prompt prefill's."""
+    jb, jp, jt, tb, tp, tt = _models(dtype)
+    tol = TOL[dtype]
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    prompt = np.random.RandomState(5).randint(0, 256, 10).astype(np.int32)
+    L, KV, dh = tb.cfg.n_layers, tb.cfg.n_kv_heads, tb.cfg.hd
+    zeros = np.zeros((L, 1, 16, KV, dh), np.float32)
+    jcache = JDecodeCache(k=jnp.asarray(zeros).astype(jb.cfg.jdtype),
+                          v=jnp.asarray(zeros).astype(jb.cfg.jdtype))
+    tcache = TDecodeCache(k=torch.zeros(zeros.shape, dtype=tb.cfg.jdtype),
+                          v=torch.zeros(zeros.shape, dtype=tb.cfg.jdtype))
+    chunk = jax.jit(lambda p, t, c, toks, lo, nv: jb.prefill_chunk(p, t, c, toks, lo, nv,
+                                                                   kernel="jnp"),
+                    compiler_options={"xla_allow_excess_precision": False})
+    for lo in range(0, 10, 4):
+        buf = np.zeros((1, 4), np.int32)
+        tail = prompt[lo: lo + 4]
+        buf[0, : len(tail)] = tail
+        jv, ji, jcache = chunk(jp, jt, jcache, jnp.asarray(buf), lo, len(tail))
+        tv, ti, tcache = tb.prefill_chunk(tp, tt, tcache, torch.from_numpy(buf).long(), lo,
+                                          len(tail), kernel="jnp")
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **HEAD_TOL)
+    for a, b in ((tcache.k, jcache.k), (tcache.v, jcache.v)):
+        np.testing.assert_allclose(a.float().numpy(), f32(b), **tol)
+    # the last chunk again with a per-row n_valid tensor: same head output
+    again = TDecodeCache(k=tcache.k.clone(), v=tcache.v.clone())
+    tv2, ti2, _ = tb.prefill_chunk(tp, tt, again, torch.from_numpy(buf).long(), lo,
+                                   torch.tensor([len(tail)]), kernel="jnp")
+    assert torch.equal(ti2, ti) and torch.equal(tv2, tv)
+    _, whole_ids, _ = tb.prefill(tp, tt, {"tokens": torch.from_numpy(prompt[None]).long()},
+                                 kernel="jnp")
+    np.testing.assert_array_equal(ti.numpy(), whole_ids.numpy())
