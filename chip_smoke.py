@@ -12,8 +12,14 @@ Phases, in order (any failure exits non-zero before the result line):
    each, all at once).
 2. Every kernel body against its plain PyTorch version at full width
    (d 1536, K 16, k 8; bf16 and fp32; int8 rows for the ``_q`` bodies):
-   ids equal, values within the stated tolerance, kernel / plain /
-   library-call times (CUDA events, median of 25 after warm-up).
+   ids equal, values within the stated tolerance. Times per case: the
+   kernel's wrapper, its plain version and the library call as the host
+   calls them (``ms``: CUDA events around each Python call, median of 25
+   after warm-up; the wrapper's host work is inside), the wrapper and the
+   library call on the device alone (``device_ms``: 20 calls captured in
+   one CUDA graph, replayed between two events, over the count; median of
+   5 replays), and the wrapper's host µs per call (50 calls enqueued back
+   to back).
    ``lasso_prune``: fp32 at N 16,384 and, once the model exists, bf16 on
    its seeded (16, 152,064, 1536) head with the stand-in mask (the shape
    the repack gives it) and with every row alive; masks equal, norms
@@ -24,15 +30,18 @@ Phases, in order (any failure exits non-zero before the result line):
    mask, whose threshold the adapt phase prunes at).
    ``flash_attention`` against ``ref.flash_attention_ref`` at qwen2-1.5b's
    attention shape (B 1, H 12, H_kv 2, dh 128, bf16) for S 16, 200, 2047
-   and 2048 (the main path's), fp32 at H = H_kv = 2, dh 64, S 256, and
-   views that are not dense, each element within
+   and 2048 (the main path's; the tensor-core body), the CUDA-core body on
+   the same S 2048 inputs, fp32 at S 2048 (the CUDA-core body's main
+   path) and at H = H_kv = 2, dh 64, S 256, and bf16 views that are not
+   dense; each case must launch the body ``select_body`` names, each
+   element within
    ``repro_torch.testing.flash_attention_limit`` (bf16: one rounding of p,
    2^-8·(softmax(s)·|v|), plus 2^-7·|o|); the yardstick is
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
    through 8 slots, 12 requests (one prompt of 2048 tokens: its prefill
-   runs the flash_attention kernel over 32 kv tiles).
+   runs the flash_attention kernel over 16 kv tiles of 128 rows).
    Every session here keeps the overflow breaker off and must end on the
    kernel it names.
    (fp) For each ``kernel=`` of cuda_fused, cuda_grouped, auto and jnp:
@@ -48,8 +57,9 @@ Phases, in order (any failure exits non-zero before the result line):
    against the fp jnp session (its g fold rounds h to bf16, so a stream
    may leave only at a top-1/top-2 gap below 2^-7 relative).
    Each group resets the launch counters before it and reads them after:
-   every kernel body of its path must have launched (flash_attention in
-   every session's prefill), the plain head's counts stay 0.
+   every kernel body of its path must have launched (flash_attention's
+   tensor-core body in every session's prefill, its CUDA-core body never),
+   the plain head's counts stay 0.
 4. Decode-step profile: 8 residents at prompt length 512, for cuda_fused
    and jnp on the fp table and cuda_fused on the int8 table: step ms
    (median of 20), then ``torch.profiler`` over 5 steps for device-busy
@@ -77,8 +87,12 @@ Phases, in order (any failure exits non-zero before the result line):
    prefill through the kernel against the same prefill with the plain
    attention (``chunked_causal_attention``) swapped in by this script:
    top-k values within 2^-4 of the top-1 and ids apart only at a near-tie
-   (within twice that), exactly 28 kernel launches, and neither plain
-   function called on the kernel run. (b) Five sessions
+   (within twice that), exactly 28 launches of the tensor-core body and
+   none of the CUDA-core body, and neither plain function called on the
+   kernel run. (a2) The same prompt through an fp32 copy of the model (the
+   CUDA-core body's path): 28 launches of that body, none of the other,
+   top-k values within 1e-4 of the top-1 against the plain attention.
+   (b) Five sessions
    (8 slots, ``kernel='auto'``, max_seq_len 2304): (A) contiguous,
    whole-prompt; (B) contiguous, ``prefill_chunk=256``; (C) paged,
    whole-prompt; (D) paged, chunked, prefix sharing; (E) as D with the
@@ -94,8 +108,9 @@ Phases, in order (any failure exits non-zero before the result line):
    chunks; E preempts and completes every request; every page is free
    after a paged session. Prefill ms (median, total; the model's calls,
    without the cache insert) and decode-step ms per session.
-7. Report: one ``{"kernels": [...]}`` line (eight kernel bodies), the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+7. Report: one ``{"kernels": [...]}`` line (nine kernel bodies, each with
+   its host-timed and device-only times), the card line, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits with code 2 and prints no result. It imports only
 torch, numpy and the port.
@@ -133,11 +148,14 @@ TIE_RTOL = 1e-5
 FOLD_RTOL = 2.0 ** -7
 
 SEED = 0
+GRAPH_CALLS = 20             # calls per CUDA graph for device-only kernel times
 N_SLOTS, K_TOP, NEW_TOKENS = 8, 8, 32
-# On the card every whole-prompt prefill runs the flash_attention kernel
-# (64-row tiles); the 2048-token prompt visits 32 kv tiles per query tile
-# of its last row, and most others end on a ragged tile.
-FLASH_TILE = 64
+# On the card every bf16 whole-prompt prefill runs the flash_attention
+# kernel's tensor-core body (128-row tiles); the 2048-token prompt visits 16
+# kv tiles for its last query tile, and most others end on a ragged tile.
+FLASH_TILE = 128
+# the two bodies of flash_attention (kernels/flash_attention.py::select_body)
+FLASH_TC, FLASH_SIMT = "flash_attention_wgmma", "flash_attention"
 PROMPT_LENS = (16, 1536, 40, 300, 1100, 64, 700, 24, 512, 90, 2048, 200)
 MAX_SEQ = max(PROMPT_LENS) + NEW_TOKENS - 1
 SAMPLED = 5                  # this request samples at temperature 0.8
@@ -191,6 +209,9 @@ E_SUBMIT_AT = 3              # E: the shared-prefix class arrives after 3 steps
 # reference puts the other stream's token, or the expert it chose, within
 # twice that of its top-1.
 BF16_DRIFT = 2.0 ** -4
+# The fp32 prefill through the kernel against the plain einsums: fp32
+# roundoff through 28 layers, held to repro's own fp32 rtol.
+FP32_DRIFT = 1e-4
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaMemcpyAsync", "cudaEventSynchronize")
 
@@ -207,7 +228,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` runs."""
+    """Median time of one ``fn()`` call in ms over ``reps`` runs, between
+    two CUDA events around the Python call: the host's work in the call
+    (the wrapper's checks, allocations, launches) is inside the span."""
     import torch
 
     for _ in range(warmup):
@@ -222,6 +245,57 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+    """Device time of one ``fn()`` in ms, the host's work left out: ``calls``
+    calls captured in one CUDA graph, the graph replayed between two events
+    (median of ``replays``), divided by ``calls``. The launch counters are
+    put back as they were before the capture: a captured call enqueues no
+    launch, and the replays do not pass through the wrappers."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the allocator on the capture's stream
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    counts = ops.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for name, wrapper, attr in ops.BODIES:
+        setattr(wrapper, attr, counts[name])
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """The host's time in one ``fn()`` call in µs: ``calls`` calls enqueued
+    back to back on a synchronized device, without waiting for them."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -272,20 +346,35 @@ def _compare(name, case, got, want, rtol=VAL_RTOL, atol=VAL_ATOL):
     return err, ids_equal
 
 
-def report_case(results, name, case, got, want, t_kernel, t_plain, t_lib, nbytes, flops,
-                dtype, main=False, rtol=VAL_RTOL, atol=VAL_ATOL):
+def kernel_times(kernel, plain, library) -> dict:
+    """The times of one case: the kernel's wrapper, its plain version and
+    the library call as the host calls them (``time_ms``); the wrapper and
+    the library call on the device alone (``device_ms``); the wrapper's
+    host µs per call (``host_us``)."""
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+            "device_ms": device_ms(kernel), "library_device_ms": device_ms(library),
+            "host_us": host_us(kernel)}
+
+
+def _times_text(t: dict) -> str:
+    return (f"kernel {t['ms']:9.4f} ms (device {t['device_ms']:9.4f}, host {t['host_us']:6.1f} "
+            f"us)  plain {t['plain_ms']:9.4f} ms  library {t['library_ms']:9.4f} ms (device "
+            f"{t['library_device_ms']:9.4f})")
+
+
+def report_case(results, name, case, got, want, times, nbytes, flops, dtype, main=False,
+                rtol=VAL_RTOL, atol=VAL_ATOL):
     """Check one kernel case against its plain version and record its
-    times and bound (``main``: the shape the main path gives the body)."""
+    times (``kernel_times``) and bound (``main``: the shape the main path
+    gives the body)."""
     from repro_torch.kernels import ops
 
     err, ids_equal = _compare(name, case, got, want, rtol, atol)
     b_ms, b_by = bound_ms(nbytes, flops, dtype)
-    row = {"name": name, "case": case, "ms": t_kernel, "plain_ms": t_plain,
-           "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+    row = {"name": name, "case": case, **times, "bound_ms": b_ms, "bound_by": b_by,
            "max_abs_err": err, "ids_equal": ids_equal, "main_path_shape": main}
     results.setdefault("cases", []).append(row)
-    print(f"[kernel] {name:17s} {case:38s} kernel {t_kernel:9.4f} ms  plain "
-          f"{t_plain:9.4f} ms  library {t_lib:9.4f} ms  bound {b_ms:.4f} ms "
+    print(f"[kernel] {name:17s} {case:38s} {_times_text(times)}  bound {b_ms:.4f} ms "
           f"({b_by})  max|dv| {err:.3g}  ids equal {ids_equal}  launches "
           f"{ops.launch_counts()[name]}", flush=True)
     if main:
@@ -311,9 +400,9 @@ def kernel_phase(results: dict) -> None:
         eb = h.element_size()
         report("gate_top1", f"{str(dtype)[6:]} B={B} K={K} d={d}",
                (got[1], got[0]), (want[1], want[0]),
-               time_ms(lambda: ops.gate_top1(gw, h)),
-               time_ms(lambda: ref.gate_top1_ref(gw, h)),
-               time_ms(lambda: torch.softmax(h.float() @ gw.float().T, -1).max(-1)),
+               kernel_times(lambda: ops.gate_top1(gw, h),
+                            lambda: ref.gate_top1_ref(gw, h),
+                            lambda: torch.softmax(h.float() @ gw.float().T, -1).max(-1)),
                (B * d + K * d) * eb + B * 8, 2 * B * K * d, dtype, main)
 
     # -- dss_topk_grouped -------------------------------------------------
@@ -339,9 +428,9 @@ def kernel_phase(results: dict) -> None:
         real_rows = int((ids >= 0).sum())
         case = f"{str(dtype)[6:]} C={C} v_pad={v_pad}" + (f" empty e{empty}" if empty is not None else "")
         report("dss_topk_grouped", case, got, want,
-               time_ms(lambda: ops.dss_topk_grouped(w, ids, buf, g_buf, k)),
-               time_ms(lambda: ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k)),
-               time_ms(lambda: torch.topk(torch.bmm(buf, w.transpose(1, 2)), k)),
+               kernel_times(lambda: ops.dss_topk_grouped(w, ids, buf, g_buf, k),
+                            lambda: ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k),
+                            lambda: torch.topk(torch.bmm(buf, w.transpose(1, 2)), k)),
                real_rows * (d * eb + 4) + K * C * (d * eb + 4) + K * C * k * 8,
                2 * C * real_rows * d, dtype, main)
 
@@ -371,9 +460,9 @@ def kernel_phase(results: dict) -> None:
         e0 = int(sel[0]) if sel.numel() else 0
         report("dss_topk_fused", f"{str(dtype)[6:]} B={B} e_base={e_base} K={K_loc}",
                got[:2], want[:2],
-               time_ms(lambda: ops.dss_topk_fused(gw, w, ids, h, k, e_base=e_base)),
-               time_ms(lambda: ref.dss_topk_fused_ref(gw, w, ids, h, k, e_base)),
-               time_ms(lambda: torch.topk(h @ w[e0].T, k)),
+               kernel_times(lambda: ops.dss_topk_fused(gw, w, ids, h, k, e_base=e_base),
+                            lambda: ref.dss_topk_fused_ref(gw, w, ids, h, k, e_base),
+                            lambda: torch.topk(h @ w[e0].T, k)),
                rows_read * (d * eb + 4) + (B + K) * d * eb + B * (k * 8 + 4),
                flops, dtype, main)
 
@@ -398,9 +487,9 @@ def kernel_phase(results: dict) -> None:
                f"int8 rows, bf16 C={C} v_pad={v_pad}"
                + (f" empty e{empty}" if empty is not None else ""),
                got, want,
-               time_ms(lambda: ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=sc)),
-               time_ms(lambda: ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=sc)),
-               time_ms(lambda: torch.topk(torch.bmm(buf, qb.transpose(1, 2)), k)),
+               kernel_times(lambda: ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=sc),
+                            lambda: ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=sc),
+                            lambda: torch.topk(torch.bmm(buf, qb.transpose(1, 2)), k)),
                real_rows * (d + 4 + 4) + K * C * (d * 2 + 4) + K * C * k * 8,
                2 * C * real_rows * d, bf16, main)
         del q, qb, buf
@@ -425,9 +514,9 @@ def kernel_phase(results: dict) -> None:
         rows_read = int((ids[uniq] >= 0).sum())
         flops = 2 * B * K * d + 2 * sum(int((ids[e] >= 0).sum()) for e in sel.tolist()) * d
         report("dss_topk_fused_q", f"int8 rows, bf16 B={B} K={K}", got[:2], want[:2],
-               time_ms(lambda: ops.dss_topk_fused(gw, q, ids, h, k, scales=sc)),
-               time_ms(lambda: ref.dss_topk_fused_ref(gw, q, ids, h, k, scales=sc)),
-               time_ms(lambda: torch.topk(h @ qb0.T, k)),
+               kernel_times(lambda: ops.dss_topk_fused(gw, q, ids, h, k, scales=sc),
+                            lambda: ref.dss_topk_fused_ref(gw, q, ids, h, k, scales=sc),
+                            lambda: torch.topk(h @ qb0.T, k)),
                rows_read * (d + 4 + 4) + (B + K) * d * 2 + B * (k * 8 + 4),
                flops, bf16, main)
         del q, qb0
@@ -454,9 +543,9 @@ def kernel_phase(results: dict) -> None:
         rows_read = int((ids[uniq] >= 0).sum())
         flops = 2 * sum(int((ids[x] >= 0).sum()) for x in el.tolist()) * d
         report("dss_topk", f"{str(dtype)[6:]} B={B} K={K} (expert 5: 5 rows)", got, want,
-               time_ms(lambda: ops.dss_topk_kernel(w, ids, hs, e, k)),
-               time_ms(lambda: ref.dss_topk_ref(w, ids, hs, e, k)),
-               time_ms(lambda: torch.topk(torch.bmm(w[el], hs[:, :, None])[:, :, 0], k)),
+               kernel_times(lambda: ops.dss_topk_kernel(w, ids, hs, e, k),
+                            lambda: ref.dss_topk_ref(w, ids, hs, e, k),
+                            lambda: torch.topk(torch.bmm(w[el], hs[:, :, None])[:, :, 0], k)),
                rows_read * (d * eb + 4) + B * (d * eb + 4) + B * k * 8,
                flops, dtype, main)
 
@@ -472,9 +561,13 @@ def kernel_phase(results: dict) -> None:
 def flash_cases(results, gen) -> None:
     """flash_attention against its plain version. Inputs are (B, S, heads,
     dh) tensors passed as (B, heads, S, dh) views, as attention_block passes
-    them. Bound: 4·dh flops per unmasked (query, key) pair, S(S+1)/2 pairs
-    per head, at the tensor-core rate of the type (fp32: the CUDA-core
-    rate); q, k, v read and o written once. The limit is per element
+    them; each case runs the body ``select_body`` gives it, and its counter
+    must rise. At the bf16 main shape the CUDA-core body also runs on the
+    same inputs (``launch_body``), so both bodies are timed on one card; the
+    CUDA-core body's own main shape is the fp32 prefill's. Bound: 4·dh
+    flops per unmasked (query, key) pair, S(S+1)/2 pairs per head, at the
+    tensor-core rate of the type (fp32: the CUDA-core rate); q, k, v read
+    and o written once. The limit is per element
     (``repro_torch.testing.flash_attention_limit``): fp32 repro's 1e-4 /
     1e-5; bf16 one rounding of p, 2^-8·(softmax(s)·|v|), plus the two
     outputs' own rounding, 2^-7·|o|."""
@@ -482,12 +575,17 @@ def flash_cases(results, gen) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import launch_body, select_body
     from repro_torch.testing import flash_attention_limit
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(1, 12, 2, S, 128, bf16, S == 2048, False) for S in (16, 200, 2047, 2048)]
-    cases += [(1, 2, 2, 256, 64, f32, False, False), (1, 12, 2, 1000, 128, bf16, False, True)]
-    for B, H, H_kv, S, dh, dtype, main, strided in cases:
+    # (B, H, H_kv, S, dh, dtype, main, strided, forced body)
+    cases = [(1, 12, 2, S, 128, bf16, S == 2048, False, None) for S in (16, 200, 2047, 2048)]
+    cases += [(1, 12, 2, 2048, 128, bf16, False, False, FLASH_SIMT),
+              (1, 12, 2, 2048, 128, f32, True, False, None),
+              (1, 2, 2, 256, 64, f32, False, False, None),
+              (1, 12, 2, 1000, 128, bf16, False, True, None)]
+    for B, H, H_kv, S, dh, dtype, main, strided, forced in cases:
         if strided:  # every other position of wider buffers, dh sliced out
             qb = torch.randn((B, 2 * S, H, dh + 32), generator=gen, device="cuda").to(dtype)
             kvb = torch.randn((B, 2 * S, H_kv, 2, dh), generator=gen, device="cuda").to(dtype)
@@ -496,7 +594,18 @@ def flash_cases(results, gen) -> None:
         else:
             q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda").to(dtype)
                        .transpose(1, 2) for h in (H, H_kv, H_kv))
-        got = ops.flash_attention(q, k, v)
+        body = forced or select_body(q, k, v)
+        if forced is None and (body == FLASH_TC) != (dtype == bf16):
+            raise SmokeFailure(f"flash_attention S={S} {dtype}: the rule chose {body}")
+
+        def run():
+            return launch_body(q, k, v, forced) if forced else ops.flash_attention(q, k, v)
+
+        before = ops.launch_counts()
+        got = run()
+        after = ops.launch_counts()
+        if after[body] != before[body] + 1 or sum(after.values()) != sum(before.values()) + 1:
+            raise SmokeFailure(f"flash_attention S={S} {dtype}: {body} did not launch once")
         want = ref.flash_attention_ref(q, k, v)
         diff = (got.float() - want.float()).abs()
         limit = flash_attention_limit(q, k, v, want)
@@ -504,28 +613,29 @@ def flash_cases(results, gen) -> None:
         # how wide the limit is against the values it holds
         width = float(limit.median() / want.float().abs().median())
         if used > 1.0:
-            raise SmokeFailure(f"flash_attention S={S} {dtype}: differs from the plain "
-                               f"version by up to {err}, {used:.3g} of the limit")
-        t_kernel = time_ms(lambda: ops.flash_attention(q, k, v))
-        t_plain = time_ms(lambda: ref.flash_attention_ref(q, k, v))
-        t_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                               enable_gqa=True))
+            raise SmokeFailure(f"{body} S={S} {dtype}: differs from the plain version by up "
+                               f"to {err}, {used:.3g} of the limit")
+        times = kernel_times(run, lambda: ref.flash_attention_ref(q, k, v),
+                             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                    enable_gqa=True))
         eb = q.element_size()
         b_ms, b_by = bound_ms(B * S * dh * eb * (2 * H + 2 * H_kv),
                               4 * dh * B * H * S * (S + 1) / 2, dtype)
         case = (f"{str(dtype)[6:]} B={B} H={H} H_kv={H_kv} S={S} dh={dh}"
-                + (" strided views" if strided else ""))
-        row = {"name": "flash_attention", "case": case, "ms": t_kernel, "plain_ms": t_plain,
-               "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-               "limit_used": used, "median_limit_over_median_o": width,
+                + (" strided views" if strided else "") + (" (forced)" if forced else ""))
+        row = {"name": body, "case": case, **times, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": err, "limit_used": used, "median_limit_over_median_o": width,
                "main_path_shape": main}
+        if main or forced:  # the launch alone, without the wrapper's checks and rule
+            row["host_us_launch_only"] = host_us(lambda: launch_body(q, k, v, body))
         results.setdefault("cases", []).append(row)
         if main:
-            results.setdefault("main", {})["flash_attention"] = row
-        print(f"[kernel] flash_attention   {case:38s} kernel {t_kernel:9.4f} ms  plain "
-              f"{t_plain:9.4f} ms  library {t_lib:9.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
-              f"max|do| {err:.3g} ({used:.3g} of the limit; median limit {width:.3g} of the "
-              f"median |o|)", flush=True)
+            results.setdefault("main", {})[body] = row
+        print(f"[kernel] {body:21s} {case:46s} {_times_text(times)}  bound {b_ms:.4f} ms "
+              f"({b_by})  max|do| {err:.3g} ({used:.3g} of the limit; median limit "
+              f"{width:.3g} of the median |o|)"
+              + (f"; launch alone {row['host_us_launch_only']:.1f} us on the host"
+                 if "host_us_launch_only" in row else ""), flush=True)
         del q, k, v, got, want, diff, limit
     torch.cuda.empty_cache()
 
@@ -559,9 +669,10 @@ def lasso_case(results, case, w, mask, main, q=PRUNE_QUANTILE) -> float:
         raise SmokeFailure(f"lasso_prune {case}: the threshold prunes no row or every row")
     alive = int(mask.sum())
     report_case(results, "lasso_prune", f"{str(w.dtype)[6:]} {case}", got, want,
-                time_ms(lambda: ops.lasso_prune(w, mask, gamma)),
-                time_ms(lambda: ref.lasso_prune_ref(w, mask, gamma)),
-                time_ms(lambda: torch.linalg.vector_norm(w, dim=-1, dtype=torch.float32) * mask),
+                kernel_times(lambda: ops.lasso_prune(w, mask, gamma),
+                             lambda: ref.lasso_prune_ref(w, mask, gamma),
+                             lambda: torch.linalg.vector_norm(w, dim=-1,
+                                                              dtype=torch.float32) * mask),
                 alive * d * w.element_size() + K * N * (1 + 4 + 1), 2 * alive * d,
                 torch.float32, main, LASSO_RTOL, LASSO_ATOL)
     results["cases"][-1].update(gamma=gamma, gamma_quantile=quantile,
@@ -781,8 +892,8 @@ def slice_phase(results: dict, card: str):
 
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
-    if not (max(PROMPT_LENS) // FLASH_TILE >= 32 and any(n % FLASH_TILE for n in PROMPT_LENS)):
-        raise SmokeFailure("no prompt spans 32 kernel tiles, or none ends on a ragged tile")
+    if not (max(PROMPT_LENS) // FLASH_TILE >= 16 and any(n % FLASH_TILE for n in PROMPT_LENS)):
+        raise SmokeFailure("no prompt spans 16 kernel tiles, or none ends on a ragged tile")
 
     def serve(label, kern, record, tbl, **session_kw):
         t0 = time.perf_counter()
@@ -831,10 +942,13 @@ def slice_phase(results: dict, card: str):
         return row
 
     def need_launches(label, kern, quantized, delta):
-        for n in NEEDS[(kern, quantized)] + ("flash_attention",):
+        for n in NEEDS[(kern, quantized)] + (FLASH_TC,):
             if delta[n] < 1:
                 raise SmokeFailure(f"{label} {kern}: kernel {n} never launched ({delta})")
-        if kern == "jnp" and any(c for n, c in delta.items() if n != "flash_attention"):
+        if delta[FLASH_SIMT]:
+            raise SmokeFailure(f"{label} {kern}: a bf16 prefill ran the CUDA-core "
+                               f"flash_attention body ({delta})")
+        if kern == "jnp" and any(c for n, c in delta.items() if n not in (FLASH_TC, FLASH_SIMT)):
             raise SmokeFailure(f"{label} jnp launched head kernels ({delta})")
 
     # -- (fp) the slice-1 path: four serve paths on the bf16 table --------
@@ -1303,6 +1417,96 @@ def _held_within_drift(label, a_run, ref_run, rtol=BF16_DRIFT) -> dict:
     return read
 
 
+def warm_prefill_profile(prefill) -> dict:
+    """Where a warm whole-prompt prefill's time goes: three more calls
+    (median ms, each to a synchronize), then one under ``torch.profiler``:
+    device-busy ms, the device's idle share, device ops, the
+    flash_attention kernels' device ms, the five ops that take most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    warm = [sync_s(prefill)[1] * 1e3 for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_s(prefill)
+    dev = [e for e in prof.key_averages()
+           if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
+    busy_ms = sum(_dev_time(e) for e in dev) / 1e3
+    flash_ms = sum(_dev_time(e) for e in dev
+                   if "fa_wgmma_kernel" in e.key or "flash_attention_kernel" in e.key) / 1e3
+    rec = {"ms_median_of_3": statistics.median(warm), "traced_ms": wall * 1e3,
+           "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+           "device_ops": sum(e.count for e in dev), "flash_attention_device_ms": flash_ms,
+           "top_device_ops_ms": [(e.key[:80], _dev_time(e) / 1e3)
+                                 for e in sorted(dev, key=_dev_time, reverse=True)[:5]]}
+    print(f"[prefill] (a) warm: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def fp32_prefill(results, cfg, params, table, tokens) -> dict:
+    """The CUDA-core flash_attention body's path: one whole-prompt prefill
+    of qwen2-1.5b in fp32 (the seeded bf16 weights and serve table widened;
+    full width, 28 layers), which takes that body by the rule, against the
+    same prefill with ``chunked_causal_attention`` swapped in: exactly 28
+    launches of the CUDA-core body and none of the tensor-core body, top-k
+    values within FP32_DRIFT of the top-1 and ids apart only at a near-tie
+    (within twice that). Returns the record; the launch counts land in
+    ``main_path_launches["prefill_fp32"]``."""
+    import torch
+
+    from repro_torch.core.dssoftmax import ServeTable
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, layers
+
+    def widen(x):
+        if isinstance(x, dict):
+            return {k: widen(v) for k, v in x.items()}
+        return x.float() if torch.is_tensor(x) and x.is_floating_point() else x
+
+    cfg32 = cfg.replace(dtype="float32")
+    bundle32 = build(cfg32, device="cuda")
+    # the DS head reads the gate and the serve table; its expert rows stay
+    p32 = {k: widen(v) for k, v in params.items() if k != "head"}
+    p32["head"] = {k: (v if k == "experts" else widen(v)) for k, v in params["head"].items()}
+    t32 = ServeTable(ids=table.ids, weights=table.weights.float())
+
+    def prefill():
+        return bundle32.prefill(p32, t32, {"tokens": tokens}, k=K_TOP, kernel="auto")
+
+    ops.reset_launch_counts()  # the fp32 prefill path starts here
+    (vk, ik, _), t_kernel = sync_s(prefill)
+    counts = ops.launch_counts()
+    if counts[FLASH_SIMT] != cfg.n_layers or counts[FLASH_TC]:
+        raise SmokeFailure(f"prefill (a2) fp32: {counts[FLASH_SIMT]} CUDA-core launches for "
+                           f"{cfg.n_layers} layers, {counts[FLASH_TC]} tensor-core ({counts})")
+    results.setdefault("main_path_launches", {})["prefill_fp32"] = counts
+    orig = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
+        cfg32, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    try:
+        (vp, ip, _), t_plain = sync_s(prefill)
+    finally:
+        layers.flash_attention = orig
+    vk, ik, vp, ip = vk[0].cpu(), ik[0].cpu(), vp[0].cpu(), ip[0].cpu()
+    same = ik == ip
+    top = abs(float(vp[0]))
+    drift = float((vk[same] - vp[same]).abs().max()) / top if bool(same.any()) else 0.0
+    if drift > FP32_DRIFT:
+        raise SmokeFailure(f"prefill (a2) fp32: top-k values differ by {drift:.3g} of the "
+                           f"top-1 from the plain run")
+    _topk_parts_only_at_ties("prefill (a2) fp32", vk, ik, vp, ip, 2 * FP32_DRIFT * top)
+    del p32, t32
+    torch.cuda.empty_cache()
+    rec = {"tokens": int(tokens.shape[1]), "kernel_launches": counts,
+           "kernel_ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
+           "ids_equal": bool(same.all()), "max_drift": drift}
+    print(f"[prefill] (a2) fp32 copy, {tokens.shape[1]}-token prefill: {FLASH_SIMT} launched "
+          f"{counts[FLASH_SIMT]} times, {FLASH_TC} {counts[FLASH_TC]}; {t_kernel * 1e3:.1f} ms "
+          f"against {t_plain * 1e3:.1f} ms with chunked_causal_attention; top-k ids "
+          f"{'equal' if bool(same.all()) else 'equal up to near-ties'}, values within "
+          f"{drift:.3g} of the top-1 (allowed {FP32_DRIFT:.3g})", flush=True)
+    return rec
+
+
 def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
     import numpy as np
     import torch
@@ -1326,21 +1530,22 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
     try:
         ops.reset_launch_counts()  # the prefill path starts here
         (vk, ik, _), t_kernel = sync_s(prefill)
-        launches = ops.launch_counts()["flash_attention"]
+        counts = ops.launch_counts()
+        launches = counts[FLASH_TC]
     finally:
         restore_ref()
         restore_chunked()
-    if launches != cfg.n_layers or plain_calls[0] or chunk_calls[0]:
-        raise SmokeFailure(f"prefill (a): {launches} kernel launches for {cfg.n_layers} "
-                           f"layers; plain versions called {plain_calls[0]} + "
-                           f"{chunk_calls[0]} times")
+    if launches != cfg.n_layers or counts[FLASH_SIMT] or plain_calls[0] or chunk_calls[0]:
+        raise SmokeFailure(f"prefill (a): {launches} tensor-core kernel launches for "
+                           f"{cfg.n_layers} layers, {counts[FLASH_SIMT]} on the CUDA-core body; "
+                           f"plain versions called {plain_calls[0]} + {chunk_calls[0]} times")
     orig = layers.flash_attention
     layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
         cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
     try:
         ops.reset_launch_counts()
         (vp, ip, _), t_plain = sync_s(prefill)
-        if ops.launch_counts()["flash_attention"]:
+        if ops.launch_counts()[FLASH_TC] or ops.launch_counts()[FLASH_SIMT]:
             raise SmokeFailure("prefill (a): the plain run launched the kernel")
     finally:
         layers.flash_attention = orig
@@ -1352,14 +1557,18 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
         raise SmokeFailure(f"prefill (a): top-k values differ by {drift:.3g} of the top-1 "
                            f"from the plain run")
     _topk_parts_only_at_ties("prefill (a)", vk, ik, vp, ip, 2 * BF16_DRIFT * top)
-    out["one_prefill"] = {"tokens": int(tokens.shape[1]), "kernel_launches": launches,
+    out["one_prefill"] = {"tokens": int(tokens.shape[1]), "kernel_launches": counts,
                           "kernel_ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
-                          "ids_equal": bool(same.all()), "max_drift": drift}
-    print(f"[prefill] (a) {tokens.shape[1]}-token prefill: flash_attention launched {launches} "
+                          "ids_equal": bool(same.all()), "max_drift": drift,
+                          "warm": warm_prefill_profile(prefill)}
+    print(f"[prefill] (a) {tokens.shape[1]}-token prefill: {FLASH_TC} launched {launches} "
           f"times ({cfg.n_layers} layers), plain versions never called; {t_kernel * 1e3:.1f} ms "
           f"against {t_plain * 1e3:.1f} ms with chunked_causal_attention swapped in; top-k ids "
           f"{'equal' if bool(same.all()) else 'equal up to near-ties'}, values within {drift:.3g} "
           f"of the top-1 (allowed {BF16_DRIFT:.3g}); card {card}", flush=True)
+
+    # -- (a2) the same prompt through an fp32 copy of the model -------------
+    out["fp32_prefill"] = fp32_prefill(results, cfg, params, table, tokens)
 
     # -- (b) five sessions -----------------------------------------------------
     rng = np.random.RandomState(SEED + 5)
@@ -1427,9 +1636,9 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
               f"{row['decode_step_ms_median']:.2f} ms over {row['decode_steps']} steps; "
               f"peak pages {rec.peak_pages}; paged {st.get('paged')}; launches {delta}; "
               f"card {card}", flush=True)
-        if delta["flash_attention"] < 1 and "prefill_chunk" not in kw:
+        if (delta[FLASH_TC] < 1 and "prefill_chunk" not in kw) or delta[FLASH_SIMT]:
             raise SmokeFailure(f"prefill {label}: whole-prompt prefill never launched "
-                               f"flash_attention ({delta})")
+                               f"{FLASH_TC}, or launched the CUDA-core body ({delta})")
         return [list(r.out_tokens) for r in reqs], rec, st, delta
 
     paged = dict(paged=True, page_size=PAGE_SIZE)
@@ -1529,8 +1738,10 @@ def main() -> int:
                              "int8"),
         "dss_topk": ("dss_topk.cu", "src/repro/kernels/dss_topk.py:110", "pertoken"),
         "lasso_prune": ("lasso_prune.cu", "src/repro/kernels/lasso_prune.py:41", "adapt"),
+        "flash_attention_wgmma": ("flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:91", "prefill"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:91",
-                            "prefill"),
+                            "prefill_fp32"),
     }
     if set(bodies) != {name for name, _, _ in ops.BODIES}:
         raise SmokeFailure("the report does not list every kernel body")
@@ -1543,8 +1754,10 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                        "device_ms": m["device_ms"], "host_us": m["host_us"],
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                        "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+                        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                        "library_device_ms": m["library_device_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))

@@ -1,4 +1,4 @@
-// Causal flash attention for Hopper (sm_90a).
+// Causal flash attention for Hopper (sm_90a): two bodies of one kernel.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas, TPU).
 // Computes, for every batch row b, query head h and query position i < S,
@@ -14,23 +14,86 @@
 // Bound on this card: operations at prefill lengths. Each unmasked (i, j)
 // pair costs 4*dh flops (two products), S(S+1)/2 pairs per head; the bytes
 // are q, k and v read once and o written once (qwen2-1.5b at S 2048: 12.9
-// GFLOP against 14.7 MB).
-// Design (a first, simple version): one block of 256 threads per (64-row
-// query tile, head, batch row), the heaviest (last) query tiles launched
-// first. The query tile, then each kv tile's K and, after the scores, its
-// V are staged in shared memory as fp32 (rows padded by 4 floats, so the
-// float4 reads of 8 lanes hit distinct banks). A thread computes a 4 x 4
-// patch of the 64 x 64 score tile with CUDA-core FMAs; each row's m and l
-// are replicated over the 16 threads holding that row (shuffle
-// reductions), and each thread keeps 4 rows x 4*ceil(dh/64) columns of acc
-// in registers. kv tiles strictly above the diagonal are never visited;
-// the ragged last tile is masked (rows >= S load as zeros, are masked by
-// the causal test or belong to query rows that are never written), so any
+// GFLOP against 14.7 MB, 0.013 ms at the bf16 tensor-core rate).
+//
+// The caller (kernels/flash_attention.py::select_body) picks the body by
+// dtype, head dim and alignment; each checks again what it takes.
+//
+// Body "wgmma" (bf16; dh a multiple of 16 up to 128; 16-byte aligned data
+// pointers and batch/head/sequence strides), the tensor-core body:
+// - One block of 288 threads per (128-row query tile, head, batch row):
+//   two consumer warpgroups own 64 query rows each; warp 8 is the producer.
+//   Grid order puts the heaviest query tiles (most kv tiles) first across
+//   all heads: at qwen2-1.5b's S 2048, 16 x 12 = 192 blocks for 132 SMs,
+//   the first wave holds exactly the 132 tiles with 6-16 kv tiles and the
+//   60 light ones fill in behind them, so the makespan is the heaviest
+//   tile's 16 kv tiles against a mean of 12.4 (77% balance).
+// - The producer's lane 0 issues TMA loads (cp.async.bulk.tensor, 4-D
+//   tensor maps over (dh, S, heads, B) built on the host from the element
+//   strides, passed as __grid_constant__): Q once, then whole 128-row K and
+//   V tiles into a ring of 2 stages with full/empty mbarriers, so tile j+1
+//   is in flight while tile j's products run. Rows >= S and head-dim
+//   columns >= dh arrive as TMA's zero fill (no masked loads).
+// - Shared memory holds each tile as 64-column (128-byte) regions with the
+//   128-byte swizzle: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB at
+//   dh 128 (one block per SM).
+// - S = Q K^T is wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate), Q
+//   and K read K-major from shared memory; two n64 halves per k16 slice.
+//   The online softmax runs on the accumulator registers (each row's m and
+//   l shared by the 4 lanes holding it, quad shuffles), in the log2 domain
+//   (ex2 of the scores times log2(e)/sqrt(dh)); the causal mask (-1e9)
+//   only on the diagonal tile, kv tiles above it never visited.
+// - O += P V is wgmma with P as the A operand in registers: the score
+//   accumulator after the softmax, rounded to bf16 (the Pallas kernel's
+//   p.astype(v.dtype)), repacked in place (the m64nNk16 accumulator layout
+//   of two n8 column blocks is the A fragment of one k16 slice). V is read
+//   from the same swizzled tiles through wgmma's transpose bit (MN-major B).
+// - Each warpgroup waits on its own products (no ping-pong between the two
+//   warpgroups yet); the epilogue stores o / l from registers, 4 bytes per
+//   lane, in q's axis order.
+//
+// Body "simt" (the CUDA-core body: fp32, dh not a multiple of 16 or above
+// 128, data TMA cannot address; dh <= 256): one block of 256 threads per
+// (64-row query tile, head, batch row), the heaviest query tiles first.
+// The query tile, then each kv tile's K and, after the scores, its V are
+// staged in shared memory as fp32 (rows padded by 4 floats, so the float4
+// reads of 8 lanes hit distinct banks). A thread computes a 4 x 4 patch of
+// the 64 x 64 score tile with CUDA-core FMAs; each row's m and l are
+// replicated over the 16 threads holding that row (shuffle reductions),
+// and each thread keeps 4 rows x 4*ceil(dh/64) columns of acc in
+// registers. kv tiles strictly above the diagonal are never visited; the
+// ragged last tile is masked (rows >= S load as zeros, are masked by the
+// causal test or belong to query rows that are never written), so any
 // S >= 1 works. Element strides for q, k, v and o; the dh axis must be
-// contiguous. No tensor cores, no cp.async/TMA overlap yet.
+// contiguous.
+//
+// Both bodies set their shared-memory limit once per device, not per call.
+#include <cuda.h>
+
+#include <mutex>
+#include <tuple>
+#include <vector>
+
 #include "topk_common.cuh"
 
 namespace {
+
+// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
+// (kernel, device, size): launches after the first skip it.
+cudaError_t smem_limit_once(const void* kern, int bytes) {
+  static std::mutex mu;
+  static std::vector<std::tuple<const void*, int, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& kd : done)
+    if (std::get<0>(kd) == kern && std::get<1>(kd) == dev && std::get<2>(kd) >= bytes)
+      return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.emplace_back(kern, dev, bytes);
+  return err;
+}
 
 constexpr int kBQ = 64;             // query rows per block
 constexpr int kBK = 64;             // kv rows per tile
@@ -215,7 +278,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
   const int dhp = (dh + 3) & ~3;
   const int smem = static_cast<int>(sizeof(float)) * (2 * kBQ * (dhp + 4) + kBQ * kPStride);
   auto kern = flash_attention_kernel<T, NJ>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
@@ -234,17 +297,420 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, Strid
   return launch<T, 4>(q, k, v, o, qs, ks, vs, os, B, H, group, S, dh, s);
 }
 
+// ---------------------------------------------------------------------------
+// Body "wgmma": tensor cores on TMA-staged K/V (bf16)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;                // query rows per block (two warpgroups)
+constexpr int kBK = 128;                // kv rows per tile
+constexpr int kStages = 2;              // K/V ring depth
+constexpr int kConsumers = 256;         // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+constexpr int kRegion = 128 * 128;      // bytes of one 64-column region of a 128-row tile
+constexpr int kMaxDh = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int NC>  // 64-column regions over the (zero-padded) head dim
+constexpr int smem_bytes() {
+  return NC * kRegion + kStages * 2 * NC * kRegion + 8 * (2 * kStages + 1) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor of a K-major or MN-major tile stored as
+// 128-byte rows with the 128-byte swizzle: 8-row groups 1024 bytes apart
+// (SBO); LBO is unused for a 64-wide (128-byte) operand.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products (wgmma owns them until the wait).
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, fp32) = (scale_d ? d : 0) + A (64 x 16) . B (16 x 64), A and
+// B bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) . B (16 x 64), B
+// read MN-major (transposed) from shared memory.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Block L of the 1-D grid: query tile n_q - 1 - L / (H * B) (heaviest
+// first across all heads), head L % H, batch row (L / H) % B.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                Strides os, int H, int B, int group, int S, int dh, int n_q, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;                    // Q: NC regions of 128 rows
+  const uint32_t skv = sq + NC * kRegion;      // stage s: K, then V, NC regions each
+  const uint32_t bars = skv + kStages * 2 * NC * kRegion;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
+  const uint32_t qbar = bars + 8u * (2 * kStages);
+
+  const int L = blockIdx.x;
+  const int hb = L % (H * B);
+  const int qt = n_q - 1 - L / (H * B);
+  const int h = hb % H, b = hb / H, hk = h / group;
+  const int q0 = qt * kBQ;
+  const int n_kv = qt + 1;  // kBK == kBQ: the last tile holds the diagonal
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32) {
+    // -- producer: one lane issues every TMA load ------------------------
+    if (lane == 0) {
+      mbar_expect_tx(qbar, NC * kRegion);
+      for (int c = 0; c < NC; ++c) tma_load_4d(sq + c * kRegion, &tq, qbar, 64 * c, q0, h, b);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty(s), ((kt / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * NC * kRegion);
+        const uint32_t sk = skv + s * 2 * NC * kRegion, sv = sk + NC * kRegion;
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(sk + c * kRegion, &tk, full(s), 64 * c, kt * kBK, hk, b);
+          tma_load_4d(sv + c * kRegion, &tv, full(s), 64 * c, kt * kBK, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----------
+  const int wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, tq4 = lane % 4;
+  // accumulator element i of a 64 x 64 product: row 16 w + g + 8 ((i >> 1) & 1),
+  // column 8 (i >> 2) + 2 tq4 + (i & 1)
+  const int row0 = q0 + 64 * wg + 16 * w + g;
+  const int ks = dh / 16;  // k16 slices that hold head-dim data
+  const uint32_t q_wg = sq + wg * 64 * 128;
+  float m[2] = {repro::kNegInfMask, repro::kNegInfMask}, l[2] = {0.f, 0.f};
+  float oacc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(full(s), (kt / kStages) & 1);
+    const uint32_t sk = skv + s * 2 * NC * kRegion, sv = sk + NC * kRegion;
+
+    // S = Q K^T: two 64-column halves of the 128 kv rows
+    float sacc[2][32];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[nb][i] = 0.f;
+    fence_regs(sacc[0]);
+    fence_regs(sacc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk) {
+      if (kk < ks) {
+        const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
+        const uint64_t da = sw128_desc(q_wg + off);
+        wgmma_ss(sacc[0], da, sw128_desc(sk + off), kk > 0);
+        wgmma_ss(sacc[1], da, sw128_desc(sk + off + 64 * 128), kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc[0]);
+    fence_regs(sacc[1]);
+
+    // online softmax on the accumulators (log2 domain), causal mask on the
+    // diagonal tile only
+    const int k0 = kt * kBK;
+    const bool diag = kt == n_kv - 1;
+    float mx[2] = {repro::kNegInfMask, repro::kNegInfMask};
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int rr = (i >> 1) & 1;
+        float x = sacc[nb][i] * scale_log2;
+        if (diag && k0 + 64 * nb + 8 * (i >> 2) + 2 * tq4 + (i & 1) > row0 + 8 * rr)
+          x = repro::kNegInfMask;
+        sacc[nb][i] = x;
+        mx[rr] = fmaxf(mx[rr], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m[rr], mx[rr]);
+      alpha[rr] = ex2(m[rr] - m_new);
+      m[rr] = m_new;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int rr = (i >> 1) & 1;
+        const float p = ex2(sacc[nb][i] - m[rr]);
+        sacc[nb][i] = p;
+        rs[rr] += p;
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 1);
+      rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 2);
+      l[rr] = l[rr] * alpha[rr] + rs[rr];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[c][i] *= alpha[(i >> 1) & 1];
+
+    // P (bf16) as A fragments: slice kk covers kv rows 16 kk .. 16 kk + 15
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int nb = kk / 4, i0 = 8 * (kk % 4);
+      pa[kk][0] = pack_bf16(sacc[nb][i0 + 0], sacc[nb][i0 + 1]);  // row g,     k 2 tq4 ..
+      pa[kk][1] = pack_bf16(sacc[nb][i0 + 2], sacc[nb][i0 + 3]);  // row g + 8, k 2 tq4 ..
+      pa[kk][2] = pack_bf16(sacc[nb][i0 + 4], sacc[nb][i0 + 5]);  // row g,     k 8 + 2 tq4 ..
+      pa[kk][3] = pack_bf16(sacc[nb][i0 + 6], sacc[nb][i0 + 7]);  // row g + 8, k 8 + 2 tq4 ..
+    }
+
+    // O += P V, V transposed by the descriptor (MN-major B)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        wgmma_rs_tb(oacc[c], pa[kk], sw128_desc(sv + c * kRegion + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
+    mbar_arrive(empty(s));  // this thread no longer reads stage s
+  }
+
+  // epilogue: o = acc / l in bf16, q's axis order
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 8 * rr;
+    if (r >= S) continue;
+    __nv_bfloat16* orow = o + b * os.b + h * os.h + static_cast<long long>(r) * os.s;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + 2 * tq4;
+        if (col < dh) {
+          const int i = 4 * j + 2 * rr;
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(oacc[c][i] / l[rr], oacc[c][i + 1] / l[rr]);
+        }
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (nothing links -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (dh, S, heads, batch) of one bf16 operand, box (64, 128, 1,
+// 1) with the 128-byte swizzle; elements outside the tensor read as zero.
+// An axis of length 1 is never stepped, so its stride is replaced by one
+// TMA accepts.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int dh, int S, int heads, int B,
+                     Strides st) {
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const long long e = sizeof(__nv_bfloat16);
+  long long span = 2LL * dh * e;
+  for (long long x : {st.s * S, st.h * heads, st.b * B}) span = x * e > span ? x * e : span;
+  span = (span + 15) & ~15LL;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(S),
+                        static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(S > 1 ? st.s * e : span),
+                           static_cast<cuuint64_t>(heads > 1 ? st.h * e : span),
+                           static_cast<cuuint64_t>(B > 1 ? st.b * e : span)};
+  cuuint32_t box[4] = {64, kBK, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// What the body takes: dh a multiple of 16 up to 128, 16-byte aligned data
+// and strides (axes of length 1 excepted).
+bool takes(const void* p, Strides st, int B, int heads, int S, int dh) {
+  const long long e = sizeof(__nv_bfloat16);
+  return dh % 16 == 0 && dh <= kMaxDh && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (B == 1 || st.b * e % 16 == 0) && (heads == 1 || st.h * e % 16 == 0) &&
+         (S == 1 || st.s * e % 16 == 0);
+}
+
+template <int NC>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides qs, Strides ks,
+                   Strides vs, Strides os, int B, int H, int H_kv, int S, int dh,
+                   cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_map(&mq, q, dh, S, H, B, qs);
+  if (err == cudaSuccess) err = make_map(&mk, k, dh, S, H_kv, B, ks);
+  if (err == cudaSuccess) err = make_map(&mv, v, dh, S, H_kv, B, vs);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = smem_bytes<NC>();
+  auto kern = fa_wgmma_kernel<NC>;
+  err = smem_limit_once(reinterpret_cast<const void*>(kern), smem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(dh));
+  kern<<<n_q * H * B, kThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), os,
+                                                  H, B, H / H_kv, S, dh, n_q, scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, o (B, H, S, dh) and k, v (B, H_kv, S, dh) in `dtype`, addressed by
 // element strides (batch, head, sequence; dh is contiguous). H % H_kv == 0,
-// 1 <= dh <= 256. Launches on `stream`, does not synchronize.
+// 1 <= dh <= 256. `body` 0 runs the CUDA-core body, 1 the tensor-core body
+// (bf16 only; cudaErrorInvalidValue for inputs it does not take). Launches
+// on `stream`, does not synchronize.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                long long q_sb, long long q_sh, long long q_ss,
                                long long k_sb, long long k_sh, long long k_ss,
                                long long v_sb, long long v_sh, long long v_ss,
                                long long o_sb, long long o_sh, long long o_ss, int B, int H,
-                               int H_kv, int S, int dh, int dtype, void* stream) {
+                               int H_kv, int S, int dh, int dtype, int body, void* stream) {
   if (B < 0 || S < 0 || H < 1 || H_kv < 1 || H % H_kv || dh < 1 || dh > kMaxDh || B > 65535 ||
       H > 65535)
     return cudaErrorInvalidValue;
@@ -253,6 +719,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
       os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = H / H_kv;
+  if (body == 1) {
+    if (dtype != repro::kDtypeBF16 || !tc::takes(q, qs, B, H, S, dh) ||
+        !tc::takes(k, ks, B, H_kv, S, dh) || !tc::takes(v, vs, B, H_kv, S, dh) ||
+        static_cast<long long>((S + tc::kBQ - 1) / tc::kBQ) * H * B > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    if (dh <= 64) return tc::launch<1>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);
+    return tc::launch<2>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   if (dtype == repro::kDtypeF32)
     return dispatch<float>(q, k, v, o, qs, ks, vs, os, B, H, group, S, dh, s);
   if (dtype == repro::kDtypeBF16)

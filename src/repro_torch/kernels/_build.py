@@ -43,8 +43,8 @@ SIGNATURES = {
     # w, mask, norms, new_mask, rows, d, gamma, dtype, blocks, stream
     "lasso_prune": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
     # q, k, v, o, (batch, head, sequence) element strides of q, k, v, o,
-    # B, H, H_kv, S, dh, dtype, stream
-    "flash_attention": [_P] * 4 + [_L] * 12 + [_I] * 6 + [_P],
+    # B, H, H_kv, S, dh, dtype, body (0 CUDA cores, 1 wgmma), stream
+    "flash_attention": [_P] * 4 + [_L] * 12 + [_I] * 7 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -10,6 +10,11 @@ contiguous, so a (B, S, H, dh) tensor passes as its ``transpose(1, 2)``
 view; the output is dense with q's axis order, so a (B, S, H, dh) tensor
 gets its output back in that layout. For CPU tensors it
 runs the plain version, ``ref.flash_attention_ref``.
+
+On CUDA tensors one of the kernel's two bodies runs, by the rule in
+:func:`select_body`: the tensor-core body (``wgmma`` on TMA-staged K/V)
+for bf16 that TMA can address, the CUDA-core body for the rest. Each body
+counts its own launches (``launches_wgmma``, ``launches``).
 """
 from __future__ import annotations
 
@@ -19,6 +24,34 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import _build, ref
 
 MAX_DH = 256
+WGMMA_MAX_DH = 128
+WGMMA, SIMT = "flash_attention_wgmma", "flash_attention"
+
+
+def select_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel body that runs ``flash_attention(q, k, v)`` on CUDA
+    tensors, from dtypes, shapes, strides and data-pointer alignment alone
+    (so CPU tensors give the same answer):
+
+    - ``WGMMA``, the tensor-core body, for bfloat16 with dh a multiple of
+      16 up to 128, every data pointer on a 16-byte boundary and every
+      batch, head and sequence stride of q, k and v (of an axis longer
+      than 1) a multiple of 16 bytes, as TMA requires;
+    - ``SIMT``, the CUDA-core body, for everything else: float32 (tensor
+      cores would need TF32, which cannot meet repro's fp32 1e-4 / 1e-5),
+      other head dims, data TMA cannot address.
+
+    A dispatch by dtype and shape: both bodies build, and a failing launch
+    raises either way."""
+    dh = q.shape[-1]
+    if q.dtype != torch.bfloat16 or dh % 16 or dh > WGMMA_MAX_DH:
+        return SIMT
+    for t in (q, k, v):  # bf16: 16 bytes are 8 elements
+        b, h, s, _ = t.shape
+        sb, sh, ss, _ = t.stride()
+        if t.data_ptr() % 16 or (b > 1 and sb % 8) or (h > 1 and sh % 8) or (s > 1 and ss % 8):
+            return SIMT
+    return WGMMA
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, device="cuda"):
@@ -40,20 +73,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, device
         raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v)
-    code = _build.dtype_code(q)
     if not 1 <= dh <= MAX_DH:
         raise ValueError(f"head dim {dh} outside [1, {MAX_DH}]")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head-dim axis of q, k and v must be contiguous (stride 1)")
+    return launch_body(q, k, v, select_body(q, k, v))
+
+
+def launch_body(q, k, v, body: str) -> torch.Tensor:
+    """Launch ``body`` (``WGMMA`` or ``SIMT``) on CUDA tensors that
+    :func:`flash_attention` has checked (raises for a dtype neither body
+    takes), and count the launch. The wrapper passes ``select_body``'s
+    choice; ``chip_smoke.py`` also runs ``SIMT`` on bf16 inputs to time
+    both bodies on the same data."""
+    B, H, S, dh = q.shape
+    code = _build.dtype_code(q)
     o = torch.empty_like(q)  # dense, with q's axis order (q's layout when q is dense)
     lib = _build.load("flash_attention")
     err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                              *o.stride()[:3], B, H, H_kv, S, dh, code,
+                              *o.stride()[:3], B, H, k.shape[1], S, dh, code, int(body == WGMMA),
                               torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention")
-    flash_attention.launches += 1
+    _build.check(lib, err, body)
+    if body == WGMMA:
+        flash_attention.launches_wgmma += 1
+    else:
+        flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_wgmma = 0

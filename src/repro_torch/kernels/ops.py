@@ -5,7 +5,9 @@
 ``BODIES`` names every kernel body with the wrapper attribute that counts
 its launches: a plain integer that rises by one per launch of that body
 (never for the plain version that runs on CPU tensors). The grouped and
-fused wrappers have two bodies each, for f32/bf16 rows and for int8 rows.
+fused wrappers have two bodies each, for f32/bf16 rows and for int8 rows;
+``flash_attention`` has a CUDA-core body and a tensor-core (``wgmma``)
+body, chosen by ``kernels.flash_attention.select_body``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ BODIES = (
     ("dss_topk", dss_topk_kernel, "launches"),
     ("lasso_prune", lasso_prune, "launches"),
     ("flash_attention", flash_attention, "launches"),
+    ("flash_attention_wgmma", flash_attention, "launches_wgmma"),
 )
 
 

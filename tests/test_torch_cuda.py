@@ -46,7 +46,9 @@ def _same(got, want, atol=1e-5):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,d,B", [(4, 32, 16), (16, 256, 300), (64, 64, 8)])
+@pytest.mark.parametrize("K,d,B", [(4, 32, 16), (16, 256, 300), (64, 64, 8),
+                                   # d that no 16-byte load divides: one element per load
+                                   (8, 37, 9), (8, 37, 700)])
 def test_gate_top1_kernel(dev, dtype, K, d, B):
     from repro_torch.kernels import ops, ref
 
@@ -57,6 +59,47 @@ def test_gate_top1_kernel(dev, dtype, K, d, B):
     i1, g1 = ops.gate_top1(u, h)
     i2, g2 = ref.gate_top1_ref(u, h)
     assert ops.gate_top1.launches == n + 1
+    assert torch.equal(i1, i2)
+    torch.testing.assert_close(g1, g2, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,B", [(16, 1), (16, 8), (16, 2048), (64, 8), (64, 600)])
+def test_gate_top1_kernel_serve_shapes(dev, dtype, K, B):
+    """qwen2-1.5b's d 1536 at the serving path's B (1 at prefill, 8 at
+    decode) and at larger B (one block per token), with the gate drawn as
+    the model draws it, N(0, 1/d) (unit-scale logits: at |z| ~ 40, as
+    unscaled rows give, two fp32 summation orders alone part g by ~2e-5
+    relative)."""
+    from repro_torch.kernels import ops, ref
+
+    d = 1536
+    g = torch.Generator(device=dev).manual_seed(B + K)
+    u = (torch.randn((K, d), generator=g, device=dev) * d ** -0.5).to(dtype)
+    h = torch.randn((B, d), generator=g, device=dev).to(dtype)
+    n = ops.gate_top1.launches
+    i1, g1 = ops.gate_top1(u, h)
+    i2, g2 = ref.gate_top1_ref(u, h)
+    assert ops.gate_top1.launches == n + 1
+    assert torch.equal(i1, i2)
+    torch.testing.assert_close(g1, g2, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("B", [8, 2048])
+def test_gate_top1_kernel_ties_go_to_the_lower_expert(dev, B):
+    """Experts 3 and 11 have identical rows that win every token: their
+    logits and probabilities are equal, and idx is the lower expert,
+    exactly as the plain version's first argmax gives."""
+    from repro_torch.kernels import ops, ref
+
+    K, d = 16, 1536
+    g = torch.Generator(device=dev).manual_seed(11)
+    h = torch.randn((B, d), generator=g, device=dev).abs().to(torch.bfloat16)
+    u = (torch.randn((K, d), generator=g, device=dev) * 0.01).to(torch.bfloat16)
+    u[3] = u[11] = torch.full((d,), 0.05, device=dev).to(torch.bfloat16)
+    i1, g1 = ops.gate_top1(u, h)
+    i2, g2 = ref.gate_top1_ref(u, h)
+    assert torch.equal(i2, torch.full_like(i2, 3))
     assert torch.equal(i1, i2)
     torch.testing.assert_close(g1, g2, rtol=1e-5, atol=1e-7)
 
@@ -205,8 +248,9 @@ def test_session_streams_identical_on_every_path(dev):
         sess.run(reqs)
         streams[kern] = [r.out_tokens for r in reqs]
         counts = ops.launch_counts()
-        # every path prefills through the flash_attention kernel
-        assert counts.pop("flash_attention") > 0
+        # every path prefills through the flash_attention kernel: its
+        # tensor-core body on these bf16 weights
+        assert counts.pop("flash_attention_wgmma") > 0 and counts.pop("flash_attention") == 0
         if kern == "cuda_grouped":
             assert counts["gate_top1"] > 0 and counts["dss_topk_grouped"] > 0
         elif kern == "cuda_fused":
@@ -245,7 +289,8 @@ def test_session_streams_identical_fp32_and_int8(dev, quantize):
         sess.run(reqs)
         streams[kern] = [r.out_tokens for r in reqs]
         counts = ops.launch_counts()
-        assert counts.pop("flash_attention") > 0  # every path's prefill
+        # every path's prefill, through the CUDA-core body (fp32)
+        assert counts.pop("flash_attention") > 0 and counts.pop("flash_attention_wgmma") == 0
         if kern in need:
             assert counts[need[kern] + ("_q" if quantize else "")] > 0, (kern, counts)
         else:
@@ -410,23 +455,73 @@ def _assert_within_limit(o, q, k, v):
     assert (err <= limit).all(), f"{float((err / limit).max())} of the limit"
 
 
+def _run_flash(q, k, v, body):
+    """flash_attention(q, k, v), asserting that exactly one launch of
+    ``body`` (and none of the other body) ran."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import select_body
+
+    assert select_body(q, k, v) == body
+    n = ops.launch_counts()
+    o = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after[body] == n[body] + 1
+    assert sum(after.values()) == sum(n.values()) + 1
+    return o
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 64, 128])
 @pytest.mark.parametrize("S", [1, 7, 129, 2047])
 @pytest.mark.parametrize("H,H_kv", [(2, 2), (12, 2)])
 def test_flash_attention_kernel(dev, dtype, dh, S, H, H_kv):
     """(B, S, H, dh) tensors passed as their (B, H, S, dh) transpose views,
-    as attention_block passes them; the output comes back in that layout."""
-    from repro_torch.kernels import ops
-
+    as attention_block passes them; the output comes back in that layout.
+    bf16 runs the tensor-core body, fp32 the CUDA-core body."""
     q, k, v = _attn_inputs(dev, 2, H, H_kv, S, dh, dtype, seed=S * dh + H)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    n = ops.flash_attention.launches
-    o = ops.flash_attention(qt, kt, vt)
-    torch.cuda.synchronize()
-    assert ops.flash_attention.launches == n + 1
+    body = "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
+    o = _run_flash(qt, kt, vt, body)
     assert o.shape == qt.shape and o.dtype == dtype
     assert o.transpose(1, 2).is_contiguous()  # q's (B, S, H, dh) layout
+    _assert_within_limit(o, qt, kt, vt)
+
+
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 128, 129, 255, 256, 257, 2048])
+@pytest.mark.parametrize("H,H_kv", [(12, 2), (2, 2)])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_tensor_core_body_tile_edges(dev, S, H, H_kv, dh):
+    """The tensor-core body at the edges of its 128-row tiles and of its
+    2-stage K/V ring (S 255-257: three kv tiles), B 2, with GQA and
+    without; each element within the unchanged limit."""
+    q, k, v = _attn_inputs(dev, 2, H, H_kv, S, dh, torch.bfloat16, seed=S + dh + H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = _run_flash(qt, kt, vt, "flash_attention_wgmma")
+    assert o.transpose(1, 2).is_contiguous()
+    _assert_within_limit(o, qt, kt, vt)
+
+
+@pytest.mark.parametrize("case", ["dh 24", "dh 8", "dh 192", "unaligned base",
+                                  "unaligned stride"])
+def test_flash_attention_cuda_core_body_takes_the_rest(dev, case):
+    """bf16 inputs the tensor-core body does not take run the CUDA-core
+    body, by the written rule, within the same limit."""
+    S, H, H_kv = 129, 4, 2
+    dh = {"dh 24": 24, "dh 8": 8, "dh 192": 192}.get(case, 64)
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    if case == "unaligned base":  # every tensor starts one element past a 16-byte boundary
+        flat = [torch.randn(1 + S * h * dh, generator=g, device=dev).to(torch.bfloat16)
+                for h in (H, H_kv, H_kv)]
+        q, k, v = (f[1:].view(1, S, h, dh) for f, h in zip(flat, (H, H_kv, H_kv)))
+    elif case == "unaligned stride":  # rows 2 * dh + 4 elements apart
+        bufs = [torch.randn((1, S, h, dh + 4), generator=g, device=dev).to(torch.bfloat16)
+                for h in (H, H_kv, H_kv)]
+        q, k, v = (b[..., :dh] for b in bufs)
+    else:
+        q, k, v = _attn_inputs(dev, 1, H, H_kv, S, dh, torch.bfloat16, seed=dh)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = _run_flash(qt, kt, vt, "flash_attention")
     _assert_within_limit(o, qt, kt, vt)
 
 
@@ -443,7 +538,8 @@ def test_flash_attention_kernel_strided_views(dev, dtype):
     kvb = torch.randn((1, 2 * S, 2, 2, dh), generator=g, device=dev).to(dtype)
     q = qb[:, ::2, :, 16:16 + dh].transpose(1, 2)
     k, v = (kvb[:, ::2, :, j].transpose(1, 2) for j in (0, 1))
-    o = ops.flash_attention(q, k, v)
+    body = "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
+    o = _run_flash(q, k, v, body)
     assert o.transpose(1, 2).is_contiguous()
     _assert_within_limit(o, q, k, v)
 
@@ -452,7 +548,7 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
     from repro_torch.kernels import ops
 
     q = torch.zeros((1, 2, 8, 16), device=dev)
-    n = ops.flash_attention.launches
+    n = ops.launch_counts()
     with pytest.raises(ValueError):
         ops.flash_attention(q, q[:, :, :, :8], q)          # k/v shape
     with pytest.raises(ValueError):
@@ -462,7 +558,7 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         big = torch.zeros((1, 1, 4, 320), device=dev)
         ops.flash_attention(big, big, big)
-    assert ops.flash_attention.launches == n
+    assert ops.launch_counts() == n
 
 
 def test_paged_chunked_session_preempts_on_the_card(dev):

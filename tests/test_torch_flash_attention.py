@@ -118,3 +118,61 @@ def test_wrapper_rejects_mismatched_shapes_and_dtypes():
         ops.flash_attention(q, q[:, :, :4], q[:, :, :4], device="cpu")
     with pytest.raises(TypeError):
         ops.flash_attention(q, q.bfloat16(), q.bfloat16(), device="cpu")
+
+
+def _bhsd(S, H, dh, dtype=torch.bfloat16, pad=0, offset=0):
+    """(B 1, H, S, dh) as attention_block passes it: the transpose view of
+    a (1, S, H, dh + pad) buffer (``pad`` widens each row, ``offset``
+    shifts the data pointer by that many elements)."""
+    flat = torch.zeros(offset + S * H * (dh + pad), dtype=dtype)
+    return flat[offset:].view(1, S, H, dh + pad)[..., :dh].transpose(1, 2)
+
+
+WGMMA, SIMT = "flash_attention_wgmma", "flash_attention"
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 (B, S, H, dh) views, dh 128", WGMMA),
+    ("bf16 dense (B, H, S, dh), dh 64", WGMMA),
+    ("bf16 dh 16", WGMMA),
+    ("a length-1 axis with a stride TMA refuses", WGMMA),
+    ("fp32", SIMT),
+    ("bf16 dh 8", SIMT),
+    ("bf16 dh 24", SIMT),
+    ("bf16 dh 192", SIMT),
+    ("unaligned base", SIMT),
+    ("unaligned stride", SIMT),
+    ("unaligned k only", SIMT),
+])
+def test_body_selection_rule(case, want):
+    """``select_body`` is the written rule that picks flash_attention's
+    body on the card from dtypes, shapes, strides and data-pointer
+    alignment alone: bf16 with dh a multiple of 16 up to 128 and
+    16-byte-aligned pointers and strides runs the tensor-core body,
+    everything else the CUDA-core body."""
+    from repro_torch.kernels.flash_attention import SIMT as simt
+    from repro_torch.kernels.flash_attention import WGMMA as wgmma
+    from repro_torch.kernels.flash_attention import select_body
+
+    assert (wgmma, simt) == (WGMMA, SIMT)
+    H, H_kv, S, dh = 12, 2, 64, 128
+    kw = {}
+    if case == "bf16 dense (B, H, S, dh), dh 64":
+        q, k, v = (torch.zeros((1, h, S, 64), dtype=torch.bfloat16) for h in (H, H_kv, H_kv))
+    elif case == "a length-1 axis with a stride TMA refuses":
+        q, k, v = (torch.zeros((1, h, S, dh), dtype=torch.bfloat16)
+                   .as_strided((1, h, S, dh), (3, S * dh, dh, 1)) for h in (H, H_kv, H_kv))
+    else:
+        dh = {"bf16 dh 16": 16, "bf16 dh 8": 8, "bf16 dh 24": 24, "bf16 dh 192": 192}.get(case, dh)
+        kw = {"fp32": {"dtype": torch.float32}, "unaligned base": {"offset": 1},
+              "unaligned stride": {"pad": 4}}.get(case, {})
+        q, k, v = (_bhsd(S, h, dh, **kw) for h in (H, H_kv, H_kv))
+        if case == "unaligned k only":
+            k = _bhsd(S, H_kv, dh, offset=4)
+    if "unaligned" in case:
+        assert any(t.data_ptr() % 16 or any(s * 2 % 16 for s in t.stride()[:3])
+                   for t in (q, k, v))
+    assert select_body(q, k, v) == want
+    n = ops.launch_counts()
+    ops.flash_attention(q, k, v, device="cpu")  # CPU tensors: the plain version, no launch
+    assert ops.launch_counts() == n

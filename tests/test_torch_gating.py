@@ -120,3 +120,20 @@ def test_dispatch_and_grouping_take_the_sentinel_expert(capacity):
     np.testing.assert_array_equal(g_buf.numpy(), np.asarray(jg_buf))
     sentinel_rows = {tuple(h[i]) for i in np.nonzero(e == K)[0]}
     assert not any(tuple(r) in sentinel_rows for r in buf.reshape(-1, d).numpy())
+
+
+@pytest.mark.parametrize("B", [8, 64])
+def test_gate_top1_wrapper_ties_match_pallas_kernel(B):
+    """At the serve width (K 16, d 1536), experts 3 and 11 have identical
+    rows that win every token: the wrapper's plain version (what the CUDA
+    bodies are held to) and the Pallas kernel both give the lower expert,
+    with equal gate values."""
+    K, d = 16, 1536
+    u, h = _inputs(K, d, B, seed=3)
+    h = np.abs(h)
+    u[3] = u[11] = np.full(d, 0.05, np.float32)
+    i1, g1 = ops.gate_top1(torch.from_numpy(u), torch.from_numpy(h), device="cpu")
+    i2, g2 = pallas_gate_top1(jnp.asarray(u), jnp.asarray(h), interpret=True)
+    np.testing.assert_array_equal(i1.numpy(), np.full(B, 3))
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(i2))
+    np.testing.assert_allclose(g1.numpy(), np.asarray(g2), rtol=1e-5)
