@@ -38,6 +38,16 @@ Phases, in order (any failure exits non-zero before the result line):
    ``repro_torch.testing.flash_attention_limit`` (bf16: one rounding of p,
    2^-8·(softmax(s)·|v|), plus 2^-7·|o|); the yardstick is
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
+   ``dss_topk_fused`` (bf16 B 8, the main case; B 1 and 128; fp32 B 8; the
+   local half of a gate at e_base 8) and ``dss_topk_fused_q`` (int8 rows, B
+   8, 1 and 128): expert ids equal, no -inf on a served token; the yardstick
+   is u calls, one ``topk(h[idx_e] @ W[e]^T)`` for each of the u distinct
+   experts the tokens chose (int8 rows read as bf16), u in the case name.
+   The head-path step: ``serve_topk`` at qwen2-1.5b's head shape on a
+   stand-in fp table and its int8 table at B 1 and 8 through jnp, grouped,
+   cuda_grouped and cuda_fused, interleaved round-robin, device time from
+   the profiler; every path's ids equal jnp's, and ``auto``'s pick within
+   1.5x the fastest path.
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
    through 8 slots, 12 requests (one prompt of 2048 tokens: its prefill
@@ -121,6 +131,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -149,6 +160,11 @@ FOLD_RTOL = 2.0 ** -7
 
 SEED = 0
 GRAPH_CALLS = 20             # calls per CUDA graph for device-only kernel times
+# the head-path step: every exact serve path, interleaved round-robin, each
+# timed over HEAD_CALLS calls by the profiler; auto's pick within AUTO_SLACK
+# times the fastest
+HEAD_PATHS = ("jnp", "grouped", "cuda_grouped", "cuda_fused")
+HEAD_ROUNDS, HEAD_CALLS, AUTO_SLACK = 3, 5, 1.5
 N_SLOTS, K_TOP, NEW_TOKENS = 8, 8, 32
 # On the card every bf16 whole-prompt prefill runs the flash_attention
 # kernel's tensor-core body (128-row tiles); the 2048-token prompt visits 16
@@ -434,41 +450,73 @@ def kernel_phase(results: dict) -> None:
                real_rows * (d * eb + 4) + K * C * (d * eb + 4) + K * C * k * 8,
                2 * C * real_rows * d, dtype, main)
 
-    # -- dss_topk_fused ---------------------------------------------------
-    cases = ((bf16, 8, 0, K, True), (bf16, 128, 0, K, False), (f32, 8, 0, K, False),
-             # the local half of a 16-expert gate: e_base 8, K 8
-             (bf16, 128, 8, K // 2, False))
-    for dtype, B, e_base, K_loc, main in cases:
-        v_pad = 12032
-        gw = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(dtype)
-        w, ids = _table(gen, K_loc, v_pad, d, dtype)
-        h = torch.randn((B, d), generator=gen, device="cuda").to(dtype)
-        got = ops.dss_topk_fused(gw, w, ids, h, k, e_base=e_base)
-        want = ref.dss_topk_fused_ref(gw, w, ids, h, k, e_base)
+    # -- dss_topk_fused and dss_topk_fused_q -----------------------------
+    from repro_torch.core.dssoftmax import ServeTable, quantize_table
+
+    def fused_case(name, gw, w, ids, h, e_base, K_loc, main, scales=None):
+        """One fused case against its plain version; the yardstick is one
+        topk(h[idx_e] @ W[e]^T) per distinct chosen expert e (u calls, the
+        rows the kernel reads; int8 rows read as bf16), index lists made
+        outside the timed call."""
+        kw = {} if scales is None else {"scales": scales}
+        got = ops.dss_topk_fused(gw, w, ids, h, k, e_base=e_base, **kw)
+        want = ref.dss_topk_fused_ref(gw, w, ids, h, k, e_base, scales=scales)
         if not torch.equal(got[2], want[2]):
-            raise SmokeFailure("dss_topk_fused: expert ids differ from the plain version")
+            raise SmokeFailure(f"{name}: expert ids differ from the plain version")
         local = want[2].long() - e_base
         mine = (local >= 0) & (local < K_loc)
         if e_base and not (bool((got[1][~mine] == -1).all()) and bool(mine.any())):
-            raise SmokeFailure("dss_topk_fused: foreign tokens must emit id -1")
+            raise SmokeFailure(f"{name}: foreign tokens must emit id -1")
         if bool(torch.isinf(got[0][mine]).any()):
-            raise SmokeFailure("dss_topk_fused: an internal -inf reached a served token")
-        eb = w.element_size()
-        sel = torch.unique(local[mine])
-        rows_read = int((ids[sel] >= 0).sum()) if sel.numel() else 0
-        flops = 2 * B * K * d + 2 * sum(int((ids[e] >= 0).sum()) for e in local[mine].tolist()) * d
-        e0 = int(sel[0]) if sel.numel() else 0
-        report("dss_topk_fused", f"{str(dtype)[6:]} B={B} e_base={e_base} K={K_loc}",
-               got[:2], want[:2],
-               kernel_times(lambda: ops.dss_topk_fused(gw, w, ids, h, k, e_base=e_base),
-                            lambda: ref.dss_topk_fused_ref(gw, w, ids, h, k, e_base),
-                            lambda: torch.topk(h @ w[e0].T, k)),
-               rows_read * (d * eb + 4) + (B + K) * d * eb + B * (k * 8 + 4),
-               flops, dtype, main)
+            raise SmokeFailure(f"{name}: an internal -inf reached a served token")
+        sel = torch.unique(local[mine]).tolist()
+        yard = [(torch.nonzero(local == e)[:, 0],
+                 w[e] if scales is None else w[e].to(torch.bfloat16)) for e in sel]
+        rows_read = sum(int((ids[e] >= 0).sum()) for e in sel)
+        flops = 2 * h.shape[0] * gw.shape[0] * d + 2 * sum(
+            int((ids[e] >= 0).sum()) for e in local[mine].tolist()) * d
+        row_bytes = d * w.element_size() + 4 + (4 if scales is not None else 0)  # + id, scale
+        dt = h.dtype
+        report(name, f"{'int8 rows, ' if scales is not None else ''}{str(dt)[6:]} "
+               f"B={h.shape[0]} e_base={e_base} K={K_loc} u={len(yard)}", got[:2], want[:2],
+               kernel_times(lambda: ops.dss_topk_fused(gw, w, ids, h, k, e_base=e_base, **kw),
+                            lambda: ref.dss_topk_fused_ref(gw, w, ids, h, k, e_base,
+                                                           scales=scales),
+                            lambda: [torch.topk(h[i] @ we.T, k) for i, we in yard]),
+               rows_read * row_bytes + (h.shape[0] + gw.shape[0]) * d * h.element_size()
+               + h.shape[0] * (k * 8 + 4), flops, dt, main)
+        del yard
+        if main:  # the three kernels of one call, by the profiler
+            split = device_ms_by_op(lambda: ops.dss_topk_fused(gw, w, ids, h, k, e_base=e_base,
+                                                               **kw), calls=GRAPH_CALLS)
+            results.setdefault("fused_kernels_ms", {})[name] = split
+            short = {op: (re.search(r"(\w+_kernel)", op) or re.search(r"(\w+)", op)).group(1)
+                     for op in split}
+            print(f"[kernel] {name} by kernel (device ms): "
+                  + "  ".join(f"{short[op]} {t:.4f}" for op, t in split.items()), flush=True)
+
+    v_pad = 12032
+    cases = ((bf16, 8, 0, K, True), (bf16, 1, 0, K, False), (bf16, 128, 0, K, False),
+             (f32, 8, 0, K, False),
+             # the local half of a 16-expert gate: e_base 8, K 8
+             (bf16, 128, 8, K // 2, False))
+    for dtype, B, e_base, K_loc, main in cases:
+        gw = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(dtype)
+        w, ids = _table(gen, K_loc, v_pad, d, dtype)
+        h = torch.randn((B, d), generator=gen, device="cuda").to(dtype)
+        fused_case("dss_topk_fused", gw, w, ids, h, e_base, K_loc, main)
+    del w
+    # int8 rows, bf16 gate and tokens
+    gw = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(bf16)
+    w, ids = _table(gen, K, v_pad, d, bf16)
+    qt = quantize_table(ServeTable(ids=ids, weights=w))
+    del w
+    for B, main in ((8, True), (1, False), (128, False)):
+        h = torch.randn((B, d), generator=gen, device="cuda").to(bf16)
+        fused_case("dss_topk_fused_q", gw, qt.qweights, ids, h, 0, K, main, scales=qt.scales)
+    del qt
 
     # -- dss_topk_grouped_q: int8 rows, bf16 tokens ----------------------
-    from repro_torch.core.dssoftmax import ServeTable, quantize_table
-
     for C, v_pad, empty, main in ((1, 12032, None, True), (256, 12000, 3, False)):
         w, ids = _table(gen, K, v_pad, d, bf16, empty)
         qt = quantize_table(ServeTable(ids=ids, weights=w))
@@ -493,33 +541,6 @@ def kernel_phase(results: dict) -> None:
                real_rows * (d + 4 + 4) + K * C * (d * 2 + 4) + K * C * k * 8,
                2 * C * real_rows * d, bf16, main)
         del q, qb, buf
-
-    # -- dss_topk_fused_q: int8 rows, bf16 gate and tokens ---------------
-    for B, main in ((8, True), (128, False)):
-        v_pad = 12032
-        gw = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(bf16)
-        w, ids = _table(gen, K, v_pad, d, bf16)
-        qt = quantize_table(ServeTable(ids=ids, weights=w))
-        q, sc = qt.qweights, qt.scales
-        del w, qt
-        h = torch.randn((B, d), generator=gen, device="cuda").to(bf16)
-        got = ops.dss_topk_fused(gw, q, ids, h, k, scales=sc)
-        want = ref.dss_topk_fused_ref(gw, q, ids, h, k, scales=sc)
-        if not torch.equal(got[2], want[2]):
-            raise SmokeFailure("dss_topk_fused_q: expert ids differ from the plain version")
-        sel = want[2].long()
-        e0 = int(sel[0])
-        qb0 = q[e0].to(bf16)
-        uniq = torch.unique(sel)
-        rows_read = int((ids[uniq] >= 0).sum())
-        flops = 2 * B * K * d + 2 * sum(int((ids[e] >= 0).sum()) for e in sel.tolist()) * d
-        report("dss_topk_fused_q", f"int8 rows, bf16 B={B} K={K}", got[:2], want[:2],
-               kernel_times(lambda: ops.dss_topk_fused(gw, q, ids, h, k, scales=sc),
-                            lambda: ref.dss_topk_fused_ref(gw, q, ids, h, k, scales=sc),
-                            lambda: torch.topk(h @ qb0.T, k)),
-               rows_read * (d + 4 + 4) + (B + K) * d * 2 + B * (k * 8 + 4),
-               flops, bf16, main)
-        del q, qb0
 
     # -- dss_topk: per token, fp rows, one expert with 5 real rows --------
     for dtype, main in ((bf16, True), (f32, False)):
@@ -556,6 +577,79 @@ def kernel_phase(results: dict) -> None:
     lasso_case(results, "N=16384, half alive", w, mask, main=False)
     del w, mask
     flash_cases(results, gen)
+    head_path_step(results, gen)
+
+
+def device_ms_by_op(fn, calls: int = HEAD_CALLS) -> dict:
+    """Device time of one ``fn()`` in ms per device op (kernel or copy),
+    from the profiler over ``calls`` calls after one warm call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: _dev_time(e) / 1e3 / calls for e in prof.key_averages()
+            if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()}
+
+
+def profiled_device_ms(fn, calls: int = HEAD_CALLS) -> float:
+    """Device time of one ``fn()`` in ms: its device ops summed."""
+    return sum(device_ms_by_op(fn, calls).values())
+
+
+def head_path_step(results: dict, gen) -> None:
+    """``serve_topk`` through every exact path at qwen2-1.5b's head shape
+    (K 16, d 1536, V_pad 12,032, k 8, bf16 tokens) on a stand-in fp table
+    and its int8 table, at B 1 (prefill's last position) and B 8 (decode at
+    8 slots): the paths interleaved round-robin, each call's device time
+    from the profiler (median of HEAD_ROUNDS rounds). Fails if the path
+    ``auto`` picks takes more than AUTO_SLACK times the fastest, or if a
+    path's ids differ from the jnp path's."""
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import registry
+
+    K, d, v_pad, k = 16, 1536, 12032, 8
+    bf16 = torch.bfloat16
+    w, ids = _table(gen, K, v_pad, d, bf16)
+    tables = {"fp": ds.ServeTable(ids=ids, weights=w)}
+    tables["int8"] = ds.quantize_table(tables["fp"])
+    gate = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(bf16)
+    rows, failed = [], []
+    for B in (1, 8):
+        h = torch.randn((B, d), generator=gen, device="cuda").to(bf16)
+        for kind, table in tables.items():
+            want = ds.serve_topk(gate, table, h, k, kernel="jnp")
+            for path in HEAD_PATHS:
+                got = ds.serve_topk(gate, table, h, k, kernel=path)
+                if not torch.equal(got[1], want[1]):
+                    raise SmokeFailure(f"head path {path} ({kind}, B={B}): ids differ from jnp")
+            times = {path: [] for path in HEAD_PATHS}
+            for _ in range(HEAD_ROUNDS):
+                for path in HEAD_PATHS:
+                    times[path].append(profiled_device_ms(
+                        lambda: ds.serve_topk(gate, table, h, k, kernel=path)))
+            med = {path: statistics.median(t) for path, t in times.items()}
+            pick = registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, k))
+            fastest = min(med, key=med.get)
+            row = {"table": kind, "B": B, "device_ms": med, "auto": pick, "fastest": fastest,
+                   "auto_over_fastest": med[pick] / med[fastest]}
+            rows.append(row)
+            print(f"[head] {kind:4s} B={B}: " + "  ".join(
+                f"{path} {t:.4f}" for path, t in med.items())
+                + f" ms (device)  auto -> {pick} ({row['auto_over_fastest']:.2f}x the fastest, "
+                f"{fastest})", flush=True)
+            if med[pick] > AUTO_SLACK * med[fastest]:
+                failed.append(f"{kind} B={B}: auto picks {pick}, {med[pick]:.4f} ms, against "
+                              f"{fastest} {med[fastest]:.4f} ms")
+    results["head_path"] = rows
+    if failed:
+        raise SmokeFailure("auto's head-path pick is slow: " + "; ".join(failed))
 
 
 def flash_cases(results, gen) -> None:

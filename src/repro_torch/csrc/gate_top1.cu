@@ -28,45 +28,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// N elements at p widened to fp32: one 16-byte load when VEC, else one
-// element (N = 1).
-template <typename T, bool VEC>
-struct Vec;
-template <>
-struct Vec<float, true> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&x)[N]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  }
-};
-template <>
-struct Vec<__nv_bfloat16, true> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&x)[N]) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = __uint_as_float(w[i] << 16);              // element 2i (low half)
-      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);  // element 2i + 1
-    }
-  }
-};
-template <typename T>
-struct Vec<T, false> {
-  static constexpr int N = 1;
-  __device__ __forceinline__ static void load(const T* p, float (&x)[N]) {
-    x[0] = repro::to_f32(*p);
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // Softmax over z[0..K) (K <= 64) by one warp; lane 0 writes the first
 // argmax of p and max p.
 __device__ __forceinline__ void warp_top1(const float* z, int K, int* idx, float* g) {
@@ -79,7 +40,7 @@ __device__ __forceinline__ void warp_top1(const float* z, int K, int* idx, float
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   const float e0 = has0 ? expf(z0 - m) : 0.f;
   const float e1 = has1 ? expf(z1 - m) : 0.f;
-  const float sum = warp_sum(e0 + e1);
+  const float sum = repro::warp_sum(e0 + e1);
   float best = has0 ? e0 / sum : -1.f;
   int arg = lane;
   if (has1) {
@@ -104,38 +65,12 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gate_top1_kernel(const T* __restrict__ gate_w, const T* __restrict__ h, int* __restrict__ idx,
                  float* __restrict__ g, int K, int d) {
-  using V = Vec<T, VEC>;
   __shared__ float z[repro::kMaxK];
-  const int b = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* hr = h + static_cast<size_t>(b) * d;
-  const int nv = d / V::N;
-  float acc[repro::kMaxK / kWarps];
-#pragma unroll
-  for (int j = 0; j < repro::kMaxK / kWarps; ++j) acc[j] = 0.f;
-  for (int v = lane; v < nv; v += 32) {
-    float x[V::N];
-    V::load(hr + v * V::N, x);
-#pragma unroll
-    for (int j = 0; j < repro::kMaxK / kWarps; ++j) {
-      const int e = warp + kWarps * j;
-      if (e < K) {
-        float u[V::N];
-        V::load(gate_w + static_cast<size_t>(e) * d + v * V::N, u);
-#pragma unroll
-        for (int n = 0; n < V::N; ++n) acc[j] = fmaf(x[n], u[n], acc[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < repro::kMaxK / kWarps; ++j) {
-    const int e = warp + kWarps * j;
-    if (e < K) {
-      const float s = warp_sum(acc[j]);
-      if (lane == 0) z[e] = s;
-    }
-  }
+  const int b = blockIdx.x;
+  repro::gate_logits<T, VEC ? 16 : static_cast<int>(sizeof(T)), kWarps>(
+      gate_w, h + static_cast<size_t>(b) * d, K, d, z);
   __syncthreads();
-  if (warp == 0) warp_top1(z, K, idx + b, g + b);
+  if (threadIdx.x < 32) warp_top1(z, K, idx + b, g + b);
 }
 
 template <typename T, bool VEC>

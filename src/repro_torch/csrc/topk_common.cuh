@@ -1,10 +1,11 @@
 // Shared device code of the DS-Softmax retrieval kernels (sm_90a).
 //
-// retrieve_tile() is the body of both dss_topk_grouped.cu and
-// dss_topk_fused.cu: a block holds up to TB token rows and streams one
-// expert's packed rows through shared memory in (TV rows x TD dims)
-// tiles, accumulating fp32 logits in registers, then merges each vocab
-// tile into a running top-k per token kept in shared memory.
+// retrieve_tile() is the body of dss_topk_grouped.cu and dss_topk.cu: a
+// block holds up to TB token rows and streams one expert's packed rows
+// through shared memory in (TV rows x TD dims) tiles, accumulating fp32
+// logits in registers, then merges each vocab tile into a running top-k
+// per token kept in shared memory. Vec<T, VB> is the vector load of
+// gate_top1.cu and dss_topk_fused.cu.
 //
 // Order of operations (every path of the port follows it): z = x . w in
 // fp32 (bf16 operands are widened, so each product is exact; int8 rows are
@@ -21,6 +22,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -39,6 +41,127 @@ constexpr int kMaxK = 64;      // largest top-k width the kernels take
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+// VB bytes at p (VB = 16 or 4, or one element, VB = sizeof(T)) widened to
+// N = VB / sizeof(T) fp32 values in memory order. int8 bytes become floats
+// exactly through the 2^23 trick: (b ^ 0x80) in the low byte of 2^23's bit
+// pattern is 2^23 + 128 + b, minus 2^23 + 128 (one byte_perm and one
+// subtract per element).
+__device__ __forceinline__ void unpack(uint32_t w, float* x, float) { x[0] = __uint_as_float(w); }
+__device__ __forceinline__ void unpack(uint32_t w, float* x, __nv_bfloat16) {
+  x[0] = __uint_as_float(w << 16);          // element 0 (low half)
+  x[1] = __uint_as_float(w & 0xffff0000u);  // element 1
+}
+__device__ __forceinline__ void unpack(uint32_t w, float* x, int8_t) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    x[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+}
+
+template <typename T, int VB>
+struct Vec {
+  static constexpr int N = VB / static_cast<int>(sizeof(T));
+  static_assert(VB == 16 || VB == 4 || VB == static_cast<int>(sizeof(T)), "vector width");
+  // the loaded bytes, kept raw until they are used
+  using Raw = std::conditional_t<
+      VB == 16, uint4, std::conditional_t<(VB == 4 && sizeof(T) < 4), uint32_t, T>>;
+  __device__ __forceinline__ static Raw fetch(const T* p) {
+    return *reinterpret_cast<const Raw*>(p);
+  }
+  __device__ __forceinline__ static void widen(const Raw& r, float (&x)[N]) {
+    if constexpr (VB == 16) {
+      constexpr int E = N / 4;  // elements per 32-bit word
+      unpack(r.x, x, T{});
+      unpack(r.y, x + E, T{});
+      unpack(r.z, x + 2 * E, T{});
+      unpack(r.w, x + 3 * E, T{});
+    } else if constexpr (VB == 4 && sizeof(T) < 4) {
+      unpack(r, x, T{});
+    } else {
+      x[0] = to_f32(r);
+    }
+  }
+  __device__ __forceinline__ static void load(const T* p, float (&x)[N]) { widen(fetch(p), x); }
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// fp32 gate logits of one token against K <= 64 gate rows, by the WARPS
+// warps of the block: warp w takes experts w, w + WARPS, ...; lane l sums
+// the VB-byte vectors l, l + 32, ... of h . U[e] (fmaf over each vector's
+// elements in order), then a butterfly over the 32 lanes, which leaves the
+// same sum on every lane. So every logit is the same fp32 sum in the same
+// order whatever warp computes it, and identical gate rows tie exactly.
+// Writes z[0..K); the caller synchronizes before reading z.
+template <typename T, int VB, int WARPS>
+__device__ __forceinline__ void gate_logits(const T* __restrict__ gate_w,
+                                            const T* __restrict__ h_row, int K, int d,
+                                            float* z) {
+  using V = Vec<T, VB>;
+  constexpr int J = kMaxK / WARPS;  // experts per warp, at most
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nv = d / V::N;
+  float acc[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) acc[j] = 0.f;
+  for (int v = lane; v < nv; v += 32) {
+    float x[V::N];
+    V::load(h_row + v * V::N, x);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int e = warp + WARPS * j;
+      if (e < K) {
+        float u[V::N];
+        V::load(gate_w + static_cast<size_t>(e) * d + v * V::N, u);
+#pragma unroll
+        for (int n = 0; n < V::N; ++n) acc[j] = fmaf(x[n], u[n], acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int e = warp + WARPS * j;
+    if (e < K) {
+      const float s = warp_sum(acc[j]);
+      if (lane == 0) z[e] = s;
+    }
+  }
+}
+
+// mbarrier helpers of the kernels that stage tiles asynchronously
+// (flash_attention.cu, dss_topk_fused.cu).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
 // Insert (v, id) into a (value desc, position asc) sorted list of k.
 __device__ __forceinline__ void topk_insert(float* vals, int* ids, int k,
@@ -216,25 +339,6 @@ inline cudaError_t launch_merge(const float* part_v, const int* part_i,
   merge_splits_kernel<<<(R + threads - 1) / threads, threads, 0, stream>>>(
       part_v, part_i, out_v, out_i, R, k, nsplit);
   return cudaGetLastError();
-}
-
-// fp32 gate logits of one token against K gate rows, by one warp: lane l
-// sums dims l, l+32, ... in order, then a butterfly reduction (every lane
-// ends with the same sum). Writes z[0..K) (lane 0).
-template <typename T>
-__device__ void warp_gate_logits(const T* __restrict__ h_row,
-                                 const T* __restrict__ gate_w, int K, int d,
-                                 float* z) {
-  const int lane = threadIdx.x & 31;
-  for (int e = 0; e < K; ++e) {
-    const T* u = gate_w + static_cast<size_t>(e) * d;
-    float acc = 0.f;
-    for (int i = lane; i < d; i += 32) acc = fmaf(to_f32(h_row[i]), to_f32(u[i]), acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) z[e] = acc;
-  }
-  __syncwarp();
 }
 
 }  // namespace repro

@@ -33,10 +33,10 @@ SIGNATURES = {
     # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
     # K, C, v_pad, d, k, tb, nsplit, tiles_per_split, dtype, wdtype, stream
     "dss_topk_grouped": [_P] * 9 + [_I] * 10 + [_P],
-    # gate_w, w, ids, scales, h, out_v, out_i, out_e, part_v, part_i,
-    # K_real, K, B, v_pad, d, k, e_base, nsplit, tiles_per_split, dtype,
-    # wdtype, stream
-    "dss_topk_fused": [_P] * 10 + [_I] * 11 + [_P],
+    # gate_w, w, ids, scales, h, out_v, out_i, out_e, g, part_v, part_p,
+    # K_real, K, B, v_pad, d, k, e_base, grid, vec_bytes, dtype, wdtype,
+    # stream
+    "dss_topk_fused": [_P] * 11 + [_I] * 11 + [_P],
     # w, ids, h_scaled, expert_idx, out_v, out_i, part_v, part_i,
     # K, B, v_pad, d, k, nsplit, tiles_per_split, dtype, stream
     "dss_topk": [_P] * 8 + [_I] * 8 + [_P],

@@ -22,16 +22,17 @@ is served only by specs with ``quantized_ok``; naming any other raises.
 
 The cost model is bytes moved, the formulas of ``repro``'s registry
 without its TPU constants. The fused path is priced by what the port's
-kernel reads: per token tile of ``dss_topk_fused.TOKEN_TILE`` tokens (not
-the TPU's 128 rows), only the experts those tokens chose. The per-path rates behind these bytes are H100 measurements
-still to be taken (ROADMAP.md).
+kernel reads: each chosen expert's rows once per group of
+``dss_topk_fused.token_group(d)`` of its tokens (not the TPU's 128 rows).
+``chip_smoke.py``'s head-path step times every exact path interleaved on
+the H100 and fails if ``'auto'``'s pick takes more than 1.5× the fastest.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
-from repro_torch.kernels.dss_topk_fused import TOKEN_TILE as _FUSED_TILE
+from repro_torch.kernels.dss_topk_fused import token_group
 
 __all__ = [
     "KernelContext",
@@ -210,13 +211,21 @@ def _cost_cuda_grouped(c: KernelContext) -> int:
             + c.K * c.capacity * c.k * 8 + c.out_bytes)
 
 
+def fused_expert_reads(B: int, K: int, d: int) -> int:
+    """Passes of ``dss_topk_fused`` over an expert's rows, at most: each
+    chosen expert once per group of ``token_group(d)`` of its tokens. With
+    m experts chosen that is at most m + (B − m) // group, largest at
+    m = min(B, K)."""
+    m = min(B, K)
+    return m + (B - m) // token_group(d)
+
+
 def _cost_cuda_fused(c: KernelContext) -> int:
-    # Gating in the kernel: no dispatch round trip. Each token tile reads
-    # only the experts its tokens chose, at most min(tokens in tile, K)
-    # of them; plus the gate matrix and the (B,) expert ids.
-    reads = sum(min(_FUSED_TILE, c.B - t, c.K) for t in range(0, c.B, _FUSED_TILE))
-    return (reads * c.v_pad * _row_bytes(c)
-            + c.K * c.d * c.hbytes + c.B * c.d * c.hbytes + c.B * 4 + c.out_bytes)
+    # Gating in the kernel, once per token: no dispatch round trip. The
+    # chosen experts' rows once per token group; the gate matrix, h, the
+    # (B,) expert ids and gate values.
+    return (fused_expert_reads(c.B, c.K, c.d) * c.v_pad * _row_bytes(c)
+            + c.K * c.d * c.hbytes + c.B * c.d * c.hbytes + c.B * 8 + c.out_bytes)
 
 
 def _cost_cuda_pertoken(c: KernelContext) -> int:

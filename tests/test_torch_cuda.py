@@ -120,26 +120,74 @@ def test_grouped_kernel(dev, dtype, C, v_pad, k, empty):
         assert (got[1][empty] == -1).all() and (got[0][empty] == -1e9).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,k,e_base,K_real", [(8, 8, 0, 4), (37, 1, 0, 4), (128, 8, 2, 8)])
-def test_fused_kernel(dev, dtype, B, k, e_base, K_real):
-    from repro_torch.kernels import ops, ref
+# (B, k, d, e_base, K_real): B 1 to 300, k 1 to 64, d 37 and 200 (rows no
+# 16-byte load aligns to) beside 128; e_base > 0 leaves foreign tokens,
+# K_real < K experts that no token can choose. v_pad 900 is no multiple of
+# any row chunk.
+FUSED_CASES = [(1, 8, 128, 0, 4), (8, 8, 128, 0, 4), (8, 64, 128, 0, 4), (37, 1, 37, 0, 4),
+               (128, 8, 200, 2, 8), (300, 64, 128, 0, 3), (300, 8, 37, 1, 4), (8, 1, 200, 0, 3)]
+FUSED_V_PAD, FUSED_K, FUSED_EMPTY = 900, 4, 1
 
-    K, d = 4, 128
-    w, ids, g = _table(dev, K, 900, d, dtype, seed=B, dup=True)
+
+def _fused_inputs(dev, dtype, B, d, e_base, K_real, seed):
+    """fp32 rows (K 4, v_pad 900, rows 2i and 2i+1 equal) with local
+    expert 1 all padding and chosen by token 0 whenever it is on the
+    gate; rows 5 all zero; rows cb - 1 and cb (cb the kernel's chunk length
+    for the number of experts these tokens choose: the first row chunk's
+    boundary) equal, at 2.5 times the others' scale so they
+    reach the top k of many tokens. Returns (gate, h, w fp32, ids)."""
+    from repro_torch.kernels.dss_topk_fused import chunk_rows, launch_plan
+
+    K, v_pad = FUSED_K, FUSED_V_PAD
+    w, ids, g = _table(dev, K, v_pad, d, torch.float32, seed=seed, empty=FUSED_EMPTY, dup=True)
     gate = torch.randn((K_real, d), generator=g, device=dev).to(dtype)
     h = torch.randn((B, d), generator=g, device=dev).to(dtype)
-    got = ops.dss_topk_fused(gate, w, ids, h, k, e_base=e_base)
-    want = ref.dss_topk_fused_ref(gate, w, ids, h, k, e_base)
+    if e_base + FUSED_EMPTY < K_real:
+        gate[e_base + FUSED_EMPTY] = 2 * h[0]
+    w[:, 5] = 0.0
+    local = torch.argmax(h.float() @ gate.float().T, -1) - e_base
+    n_sel = int(torch.unique(local[(local >= 0) & (local < K)]).numel())
+    cb = chunk_rows(n_sel, v_pad, launch_plan(B, K, v_pad, d, dtype).grid)
+    real = (ids[:, cb - 1] >= 0) & (ids[:, cb] >= 0)
+    w[real, cb - 1] *= 2.5
+    w[real, cb] = w[real, cb - 1]
+    return gate, h, w, ids
+
+
+def _check_fused(got, want, e_base, K_real):
     assert torch.equal(got[2], want[2])
     _same(got[:2], want[:2])
+    local = want[2].long() - e_base
+    mine = (local >= 0) & (local < FUSED_K)
+    assert not torch.isinf(got[0][mine]).any()
+    assert (got[1][~mine] == -1).all() and torch.isneginf(got[0][~mine]).all()
+    if e_base + FUSED_EMPTY < K_real:  # token 0 chose the all-padding expert
+        assert int(want[2][0]) == e_base + FUSED_EMPTY
+        assert (got[1][0] == -1).all() and (got[0][0] == -1e9).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,k,d,e_base,K_real", FUSED_CASES)
+def test_fused_kernel(dev, dtype, B, k, d, e_base, K_real):
+    from repro_torch.kernels import ops, ref
+
+    gate, h, w, ids = _fused_inputs(dev, dtype, B, d, e_base, K_real, seed=B + d)
+    w = w.to(dtype)
+    n = ops.launch_counts()["dss_topk_fused"]
+    got = ops.dss_topk_fused(gate, w, ids, h, k, e_base=e_base)
+    assert ops.launch_counts()["dss_topk_fused"] == n + 1
+    _check_fused(got, ref.dss_topk_fused_ref(gate, w, ids, h, k, e_base), e_base, K_real)
+
+
+def _quantize(w):
+    scales = w.abs().amax(-1) / 127
+    scales = torch.where(scales > 0, scales, 1.0)
+    return torch.round(w / scales[..., None]).clamp(-127, 127).to(torch.int8), scales
 
 
 def _int8_table(dev, K, v_pad, d, seed, empty=None):
     w, ids, g = _table(dev, K, v_pad, d, torch.float32, seed, empty=empty, dup=True)
-    scales = w.abs().amax(-1) / 127
-    scales = torch.where(scales > 0, scales, 1.0)
-    q = torch.round(w / scales[..., None]).clamp(-127, 127).to(torch.int8)
+    q, scales = _quantize(w)
     return q, scales, ids, g
 
 
@@ -164,20 +212,84 @@ def test_grouped_kernel_int8(dev, dtype, C, v_pad, k, empty):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,k,e_base,K_real", [(8, 8, 0, 4), (128, 8, 2, 8)])
-def test_fused_kernel_int8(dev, dtype, B, k, e_base, K_real):
+@pytest.mark.parametrize("B,k,d,e_base,K_real", FUSED_CASES)
+def test_fused_kernel_int8(dev, dtype, B, k, d, e_base, K_real):
+    """The cases of test_fused_kernel on int8 rows; rows 5 quantize to
+    zeros with scale 1.0."""
     from repro_torch.kernels import ops, ref
 
-    K, d = 4, 128
-    q, scales, ids, g = _int8_table(dev, K, 900, d, seed=B)
-    gate = torch.randn((K_real, d), generator=g, device=dev).to(dtype)
-    h = torch.randn((B, d), generator=g, device=dev).to(dtype)
-    n = ops.launch_counts()["dss_topk_fused_q"]
+    gate, h, w, ids = _fused_inputs(dev, dtype, B, d, e_base, K_real, seed=B + d)
+    q, scales = _quantize(w)
+    assert (q[:, 5] == 0).all() and (scales[:, 5] == 1.0).all()
+    n = ops.launch_counts()
     got = ops.dss_topk_fused(gate, q, ids, h, k, scales=scales, e_base=e_base)
-    assert ops.launch_counts()["dss_topk_fused_q"] == n + 1
-    want = ref.dss_topk_fused_ref(gate, q, ids, h, k, e_base, scales=scales)
-    assert torch.equal(got[2], want[2])
-    _same(got[:2], want[:2])
+    after = ops.launch_counts()
+    assert after["dss_topk_fused_q"] == n["dss_topk_fused_q"] + 1
+    assert after["dss_topk_fused"] == n["dss_topk_fused"]
+    _check_fused(got, ref.dss_topk_fused_ref(gate, q, ids, h, k, e_base, scales=scales),
+                 e_base, K_real)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fused_kernel_replays_in_a_cuda_graph(dev, quantized):
+    """The wrapper captured once in a CUDA graph (no host sync, no
+    allocation in the kernels) and replayed on new tokens copied into the
+    captured buffers gives the eager call's result exactly."""
+    from repro_torch.kernels import ops
+
+    B, k, d = 8, 8, 128
+    gate, h, w, ids = _fused_inputs(dev, torch.bfloat16, B, d, 0, 4, seed=5)
+    kw = {}
+    if quantized:
+        w, kw["scales"] = _quantize(w)
+    else:
+        w = w.to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.dss_topk_fused(gate, w, ids, h, k, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.dss_topk_fused(gate, w, ids, h, k, **kw)
+    for seed in (6, 7):
+        h_new = torch.randn((B, d), generator=torch.Generator(device=dev).manual_seed(seed),
+                            device=dev).to(torch.bfloat16)
+        h.copy_(h_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.dss_topk_fused(gate, w, ids, h_new, k, **kw)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_auto_picks_the_fused_kernel_on_the_head_path(dev, quantize, B):
+    """qwen2-1.5b's head shape (K 16, d 1536, V_pad 12,032, k 8, bf16
+    tokens), fp and int8 tables: 'auto' resolves to cuda_fused at B 1
+    (prefill's last position) and B 8 (decode at 8 slots), launches its
+    body and gives the jnp path's result."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, registry
+
+    K, d, v_pad, k = 16, 1536, 12032, 8
+    g = torch.Generator(device=dev).manual_seed(B)
+    w = (torch.randn((K, v_pad, d), generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+    ids = torch.randperm(K * v_pad, generator=g, device=dev).reshape(K, v_pad).to(torch.int32)
+    table = ds.ServeTable(ids=ids, weights=w)
+    if quantize:
+        table = ds.quantize_table(table)
+        del w
+    gate = (torch.randn((K, d), generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+    h = torch.randn((B, d), generator=g, device=dev).to(torch.bfloat16)
+    ctx = ds.serve_kernel_context(table, h, k)
+    assert registry.resolve_kernel("auto", ctx) == "cuda_fused"
+    body = "dss_topk_fused" + ("_q" if quantize else "")
+    n = ops.launch_counts()[body]
+    got = ds.serve_topk(gate, table, h, k, kernel="auto")
+    assert ops.launch_counts()[body] == n + 1
+    _same(got, ds.serve_topk(gate, table, h, k, kernel="jnp"), atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -184,3 +184,21 @@ def test_auto_policy_at_serving_shapes(B, backend, expected):
                                  wbytes=2, hbytes=2)
     assert registry.AutoPolicy(history=hist).resolve(ctx) == expected
     assert hist == [(B, expected)]
+
+
+@pytest.mark.parametrize("B,K,d,reads", [
+    (1, 16, 1536, 1), (8, 16, 1536, 8), (16, 16, 1536, 16),
+    # past min(B, K), an expert is read once more per token group (6 at d 1536)
+    (2048, 16, 1536, 16 + (2048 - 16) // 6), (300, 4, 128, 4 + 296 // 8),
+])
+def test_cost_cuda_fused_prices_each_chosen_expert_per_token_group(B, K, d, reads):
+    """The fused path's bytes: the chosen experts' rows once per token
+    group (at most min(B, K) experts), plus the gate, h, the expert ids and
+    gate values and the outputs."""
+    assert registry.fused_expert_reads(B, K, d) == reads
+    for quantized in (False, True):
+        ctx = registry.KernelContext(B=B, d=d, K=K, v_pad=12032, k=8, backend="cuda",
+                                     wbytes=1 if quantized else 2, hbytes=2, quantized=quantized)
+        row = d * ctx.wbytes + (4 if quantized else 0)
+        want = reads * 12032 * row + K * d * 2 + B * d * 2 + B * 8 + B * 8 * 8
+        assert registry.get_spec("cuda_fused").bytes_moved(ctx) == want

@@ -7,6 +7,8 @@ Tolerances: ids equal everywhere (ties included: duplicated rows make
 them exact, and the lowest packed position must win on both sides);
 values rtol 1e-6, atol 2e-6 (``tests/test_kernels.py:103``: fp32 sums of
 exact products in another order)."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,7 @@ import torch
 
 from repro.kernels import ops as pallas_ops
 from repro_torch.convert import to_tensor
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 
 RTOL, ATOL = 1e-6, 2e-6
 
@@ -167,3 +169,66 @@ def test_fused_equals_gate_then_gather_path():
     np.testing.assert_array_equal(i1.numpy(), torch.gather(sel_ids, 1, pos).numpy())
     np.testing.assert_allclose(v1.numpy(), v2.numpy(), rtol=RTOL, atol=ATOL)
 
+
+
+# ---------------------------------------------------------------------------
+# The fused kernel's launch plan (kernels/dss_topk_fused.py): the grid and
+# the row chunks the kernel computes on the device, mirrored in Python.
+# ---------------------------------------------------------------------------
+
+# the package's name dss_topk_fused is the wrapper function, so the module
+# comes from importlib
+_plan = importlib.import_module("repro_torch.kernels.dss_topk_fused")
+
+
+@pytest.mark.parametrize("B,K,v_pad", [(1, 16, 12032), (8, 16, 12032), (300, 16, 12032),
+                                       (8, 4, 900), (37, 4, 900), (1, 64, 64), (128, 8, 12000)])
+def test_fused_chunks_partition_the_rows(B, K, v_pad):
+    """For every number of experts the tokens can choose, the chunks are
+    multiples of ROW_STEP rows (the last one cut at v_pad), cover [0,
+    v_pad) exactly once, and never outnumber the partial lists the wrapper
+    allocates."""
+    plan = _plan.launch_plan(B, K, v_pad, 1536, torch.bfloat16)
+    for n_sel in range(1, min(B, K) + 1):
+        rows = _plan.chunk_rows(n_sel, v_pad, plan.grid)
+        assert rows % _plan.ROW_STEP == 0 and _plan.ROW_STEP <= rows <= _plan.MAX_CHUNK_ROWS
+        nck = -(-v_pad // rows)
+        bounds = [(c * rows, min(v_pad, (c + 1) * rows)) for c in range(nck)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == v_pad
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(bounds, bounds[1:]))
+        assert nck <= plan.max_chunks
+
+
+@pytest.mark.parametrize("n_sel", range(1, 9))
+def test_fused_grid_fills_every_sm_at_decode(n_sel):
+    """qwen2-1.5b's head at B 8 (K 16, V_pad 12,032): the grid is two
+    blocks on each of the H100's 132 SMs, and whatever number of experts 8
+    tokens choose, their chunks keep at least 95% of those blocks busy in
+    one pass (no block takes a second chunk)."""
+    plan = _plan.launch_plan(8, 16, 12032, 1536, torch.bfloat16)
+    assert plan.grid == 2 * _build.SMS
+    items = n_sel * -(-12032 // _plan.chunk_rows(n_sel, 12032, plan.grid))
+    assert 0.95 * plan.grid <= items <= plan.grid
+
+
+def test_fused_plan_depends_only_on_the_shapes():
+    """The plan is a function of (B, K, v_pad, d, dtype): the same shapes
+    give the same plan, and the row load width follows d and the element
+    size (16 bytes where the row allows it, else 4, else one element)."""
+    shapes = (8, 16, 12032, 1536)
+    assert _plan.launch_plan(*shapes, torch.bfloat16) == _plan.launch_plan(*shapes, torch.bfloat16)
+    assert _plan.launch_plan(*shapes, torch.int8).grid == _plan.launch_plan(*shapes,
+                                                                            torch.float32).grid
+    vb = {(d, dt): _plan.launch_plan(8, 4, 900, d, dt).vec_bytes
+          for d in (37, 128, 200, 1536) for dt in (torch.float32, torch.bfloat16, torch.int8)}
+    assert vb[(1536, torch.bfloat16)] == vb[(1536, torch.int8)] == vb[(128, torch.float32)] == 16
+    assert vb[(200, torch.int8)] == 4 and vb[(200, torch.bfloat16)] == 16
+    assert vb[(37, torch.float32)] == 4 and vb[(37, torch.bfloat16)] == 2
+    assert vb[(37, torch.int8)] == 1
+    assert _plan.row_vec_bytes(128, 2, ptr=8) == 4
+
+
+@pytest.mark.parametrize("d,group", [(1536, 6), (128, 8), (200, 8), (8192, 1)])
+def test_fused_token_group_fits_the_staged_tokens(d, group):
+    assert _plan.token_group(d) == group
+    assert group * d * 4 <= _plan.TOKEN_BYTES or group == 1
