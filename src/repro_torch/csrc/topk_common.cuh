@@ -1,11 +1,12 @@
 // Shared device code of the DS-Softmax retrieval kernels (sm_90a).
 //
-// retrieve_tile() is the body of dss_topk_grouped.cu and dss_topk.cu: a
-// block holds up to TB token rows and streams one expert's packed rows
-// through shared memory in (TV rows x TD dims) tiles, accumulating fp32
-// logits in registers, then merges each vocab tile into a running top-k
-// per token kept in shared memory. Vec<T, VB> is the vector load of
-// gate_top1.cu and dss_topk_fused.cu.
+// retrieve_tile() is the body of dss_topk.cu and of dss_topk_grouped.cu's
+// tiled body (prefill capacities; retrieve_stream.cuh holds the streaming
+// retrieval of the decode kernels): a block holds up to TB token rows and
+// streams one expert's packed rows through shared memory in (TV rows x TD
+// dims) tiles, accumulating fp32 logits in registers, then merges each
+// vocab tile into a running top-k per token kept in shared memory.
+// Vec<T, VB> is the vector load of gate_top1.cu and retrieve_stream.cuh.
 //
 // Order of operations (every path of the port follows it): z = x . w in
 // fp32 (bf16 operands are widened, so each product is exact; int8 rows are
@@ -134,7 +135,7 @@ __device__ __forceinline__ void gate_logits(const T* __restrict__ gate_w,
 }
 
 // mbarrier helpers of the kernels that stage tiles asynchronously
-// (flash_attention.cu, dss_topk_fused.cu).
+// (flash_attention.cu, retrieve_stream.cuh).
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

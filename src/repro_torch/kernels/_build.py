@@ -26,17 +26,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signature of each library's entry point (all return cudaError_t as int).
+# C signature of each entry point (all return cudaError_t as int). An entry
+# point lives in the library of its own name, or in ENTRY_LIBRARY's.
 SIGNATURES = {
     # gate_w, h, idx, g, B, K, d, dtype, stream
     "gate_top1": [_P] * 4 + [_I] * 4 + [_P],
+    # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_p, n_sel,
+    # K, C, v_pad, d, k, grid, vec_bytes, dtype, wdtype, stream
+    "dss_topk_grouped": [_P] * 10 + [_I] * 9 + [_P],
     # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
     # K, C, v_pad, d, k, tb, nsplit, tiles_per_split, dtype, wdtype, stream
-    "dss_topk_grouped": [_P] * 9 + [_I] * 10 + [_P],
+    "dss_topk_grouped_tiled": [_P] * 9 + [_I] * 10 + [_P],
     # gate_w, w, ids, scales, h, out_v, out_i, out_e, g, part_v, part_p,
-    # K_real, K, B, v_pad, d, k, e_base, grid, vec_bytes, dtype, wdtype,
-    # stream
-    "dss_topk_fused": [_P] * 11 + [_I] * 11 + [_P],
+    # n_sel, K_real, K, B, v_pad, d, k, e_base, grid, vec_bytes, dtype,
+    # wdtype, stream
+    "dss_topk_fused": [_P] * 12 + [_I] * 11 + [_P],
     # w, ids, h_scaled, expert_idx, out_v, out_i, part_v, part_i,
     # K, B, v_pad, d, k, nsplit, tiles_per_split, dtype, stream
     "dss_topk": [_P] * 8 + [_I] * 8 + [_P],
@@ -46,6 +50,7 @@ SIGNATURES = {
     # B, H, H_kv, S, dh, dtype, body (0 CUDA cores, 1 wgmma), stream
     "flash_attention": [_P] * 4 + [_L] * 12 + [_I] * 7 + [_P],
 }
+ENTRY_LIBRARY = {"dss_topk_grouped_tiled": "dss_topk_grouped"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -117,14 +122,17 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, built first if missing."""
+    """The loaded library for ``name``, built first if missing, with every
+    entry point it holds typed."""
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for entry, argtypes in SIGNATURES.items():
+            if ENTRY_LIBRARY.get(entry, entry) == name:
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

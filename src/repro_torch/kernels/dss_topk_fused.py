@@ -6,71 +6,25 @@ f32/bf16 rows and ``_kernel_q`` for int8 rows with per-row scales). One
 call launches three kernels: the gate, once per token; the retrieval,
 which streams each selected expert's rows once for all of its tokens in
 row chunks that a fixed grid (:func:`launch_plan`) shares out on the
-device; and the merge of the chunks' partial top-k lists, per token. For CPU tensors it runs the plain
-version, ``ref.dss_topk_fused_ref``. ``launches`` counts the f32/bf16
-body, ``launches_q`` the int8 body.
+device; and the merge of the chunks' partial top-k lists, per token (the
+retrieval and the merge are ``csrc/retrieve_stream.cuh``, shared with the
+grouped kernel's decode body). For CPU tensors it runs the plain version,
+``ref.dss_topk_fused_ref``. ``launches`` counts the f32/bf16 body,
+``launches_q`` the int8 body.
 """
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import torch
 
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import _build, ref
-
-TOKEN_GROUP = 8    # most tokens staged per pass over a row chunk (kTB in the .cu)
-TOKEN_BYTES = 40 * 1024  # shared memory for the staged fp32 tokens (kTokenBytes)
-ROW_STEP = 16      # chunk lengths are multiples of this (kRowStep)
-MAX_CHUNK_ROWS = 512  # a chunk's ids and scales sit in shared memory (kMaxChunkRows)
-BLOCKS_PER_SM = 2  # retrieval blocks resident on each SM
+from repro_torch.kernels.retrieve_stream import StreamPlan, row_vec_bytes, stream_plan
 
 
-class FusedPlan(NamedTuple):
-    """The retrieval launch: ``grid`` blocks walking the (expert, row chunk)
-    work list that the kernel builds on the device; ``max_chunks`` row
-    chunks of one expert at most (the partial lists' first dimension);
-    row loads of ``vec_bytes``."""
-
-    grid: int
-    max_chunks: int
-    vec_bytes: int
-
-
-def token_group(d: int) -> int:
-    """Tokens one pass over a row chunk serves: as many fp32 rows of d as
-    ``TOKEN_BYTES`` holds, 1 to ``TOKEN_GROUP``."""
-    return min(TOKEN_GROUP, max(1, TOKEN_BYTES // (4 * d)))
-
-
-def chunk_rows(n_sel: int, v_pad: int, grid: int) -> int:
-    """Rows per chunk when ``n_sel`` chosen experts share ``grid`` blocks:
-    each expert gets ``grid // n_sel`` of them (``chunk_rows_for`` in the
-    .cu, which runs this on the device once it has counted the experts)."""
-    per = max(1, grid // max(1, n_sel))
-    rows = -(-(-(-v_pad // per)) // ROW_STEP) * ROW_STEP
-    return min(MAX_CHUNK_ROWS, max(ROW_STEP, rows))
-
-
-def row_vec_bytes(d: int, elem: int, ptr: int = 0) -> int:
-    """Bytes per row load: 16 or 4 where the row pitch ``d·elem`` and the
-    base address allow it, else one element."""
-    for vb in (16, 4):
-        if vb >= elem and (d * elem) % vb == 0 and ptr % vb == 0:
-            return vb
-    return elem
-
-
-def launch_plan(B: int, K: int, v_pad: int, d: int, wdtype: torch.dtype) -> FusedPlan:
-    """The launch from the shapes alone: ``BLOCKS_PER_SM`` blocks on each
-    SM, or fewer where ``min(B, K)`` experts of ``ROW_STEP``-row chunks
-    cannot use them. Whatever number of experts the tokens choose, the
-    kernel splits their rows over the same grid."""
-    slots = max(1, min(B, K))
-    grid = min(BLOCKS_PER_SM * _build.SMS, slots * -(-v_pad // ROW_STEP))
-    max_chunks = -(-v_pad // chunk_rows(1, v_pad, grid))
-    elem = torch.empty((), dtype=wdtype).element_size()
-    return FusedPlan(grid, max_chunks, row_vec_bytes(d, elem))
+def launch_plan(B: int, K: int, v_pad: int, d: int, wdtype: torch.dtype) -> StreamPlan:
+    """The retrieval's launch from the shapes alone: ``min(B, K)`` experts
+    can be chosen (``retrieve_stream.stream_plan``)."""
+    return stream_plan(min(B, K), v_pad, d, wdtype)
 
 
 def dss_topk_fused(gate_w, weights, ids, h, k: int = 8, *, scales=None, e_base: int = 0,
@@ -117,11 +71,12 @@ def dss_topk_fused(gate_w, weights, ids, h, k: int = 8, *, scales=None, e_base: 
     g = torch.empty((B,), dtype=torch.float32, device=h.device)
     part_v = torch.empty((plan.max_chunks, B, k), dtype=torch.float32, device=h.device)
     part_p = torch.empty((plan.max_chunks, B, k), dtype=torch.int32, device=h.device)
+    n_sel = torch.empty((1,), dtype=torch.int32, device=h.device)
     lib = _build.load("dss_topk_fused")
     err = lib.dss_topk_fused(
         gate_w.data_ptr(), weights.data_ptr(), ids.data_ptr(), _build.ptr(scales),
         h.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), out_e.data_ptr(), g.data_ptr(),
-        part_v.data_ptr(), part_p.data_ptr(),
+        part_v.data_ptr(), part_p.data_ptr(), n_sel.data_ptr(),
         K_real, K, B, v_pad, d, k, int(e_base), plan.grid, vb,
         _build.dtype_code(h), _build.weight_code(weights),
         torch.cuda.current_stream(h.device).cuda_stream)

@@ -4,10 +4,12 @@
 ``kernels.registry`` and only then dispatches into these wrappers.
 ``BODIES`` names every kernel body with the wrapper attribute that counts
 its launches: a plain integer that rises by one per launch of that body
-(never for the plain version that runs on CPU tensors). The grouped and
-fused wrappers have two bodies each, for f32/bf16 rows and for int8 rows;
-``flash_attention`` has a CUDA-core body and a tensor-core (``wgmma``)
-body, chosen by ``kernels.flash_attention.select_body``.
+(never for the plain version that runs on CPU tensors). The fused wrapper
+has two bodies, for f32/bf16 rows and for int8 rows; the grouped wrapper
+four, a decode and a tiled body for each row kind, chosen by capacity
+(``kernels.dss_topk_grouped.select_body``); ``flash_attention`` has a
+CUDA-core body and a tensor-core (``wgmma``) body, chosen by
+``kernels.flash_attention.select_body``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ BODIES = (
     ("gate_top1", gate_top1, "launches"),
     ("dss_topk_grouped", dss_topk_grouped, "launches"),
     ("dss_topk_grouped_q", dss_topk_grouped, "launches_q"),
+    ("dss_topk_grouped_tiled", dss_topk_grouped, "launches_tiled"),
+    ("dss_topk_grouped_tiled_q", dss_topk_grouped, "launches_tiled_q"),
     ("dss_topk_fused", dss_topk_fused, "launches"),
     ("dss_topk_fused_q", dss_topk_fused, "launches_q"),
     ("dss_topk", dss_topk_kernel, "launches"),

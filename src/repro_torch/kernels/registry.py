@@ -21,9 +21,10 @@ A quantized table (``KernelContext.quantized``: int8 rows, ``wbytes``
 is served only by specs with ``quantized_ok``; naming any other raises.
 
 The cost model is bytes moved, the formulas of ``repro``'s registry
-without its TPU constants. The fused path is priced by what the port's
-kernel reads: each chosen expert's rows once per group of
-``dss_topk_fused.token_group(d)`` of its tokens (not the TPU's 128 rows).
+without its TPU constants. The fused path and the grouped path at decode
+capacities are priced by what the port's streaming retrieval reads: each
+expert that holds a token, its rows once per group of
+``retrieve_stream.token_group(d)`` of its tokens (not the TPU's 128 rows).
 ``chip_smoke.py``'s head-path step times every exact path interleaved on
 the H100 and fails if ``'auto'``'s pick takes more than 1.5× the fastest.
 """
@@ -32,7 +33,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
-from repro_torch.kernels.dss_topk_fused import token_group
+from repro_torch.kernels.dss_topk_grouped import TILED, select_body
+from repro_torch.kernels.retrieve_stream import token_group
 
 __all__ = [
     "KernelContext",
@@ -203,14 +205,6 @@ def _cost_grouped(c: KernelContext) -> int:
             + 2 * c.K * c.capacity * c.v_pad * 4 + c.out_bytes)
 
 
-def _cost_cuda_grouped(c: KernelContext) -> int:
-    # Rows once per expert + the grouped buffers' round trip; logits and
-    # the running top-k stay on chip.
-    return (c.K * c.v_pad * _row_bytes(c)
-            + 2 * c.K * c.capacity * c.d * c.hbytes
-            + c.K * c.capacity * c.k * 8 + c.out_bytes)
-
-
 def fused_expert_reads(B: int, K: int, d: int) -> int:
     """Passes of ``dss_topk_fused`` over an expert's rows, at most: each
     chosen expert once per group of ``token_group(d)`` of its tokens. With
@@ -218,6 +212,27 @@ def fused_expert_reads(B: int, K: int, d: int) -> int:
     m = min(B, K)."""
     m = min(B, K)
     return m + (B - m) // token_group(d)
+
+
+def grouped_expert_reads(B: int, K: int, C: int, d: int) -> int:
+    """Passes of the grouped decode body over an expert's rows, at most:
+    each expert with a live slot once per group of ``token_group(d)`` of
+    them. B tokens over at most min(B, K) experts give at most
+    ``fused_expert_reads``; C slots per expert at most K·⌈C / group⌉."""
+    return min(fused_expert_reads(B, K, d), K * -(-C // token_group(d)))
+
+
+def _cost_cuda_grouped(c: KernelContext) -> int:
+    # The grouped buffers' round trip and the (K, C, k) outputs gathered
+    # back; logits and the running top-k stay on chip. The decode body
+    # reads the live experts' rows once per token group; the tiled body
+    # (capacities above dss_topk_grouped.TILED_ABOVE) is priced at every
+    # expert's rows once.
+    reads = c.K if select_body(c.capacity) == TILED else grouped_expert_reads(
+        c.B, c.K, c.capacity, c.d)
+    return (reads * c.v_pad * _row_bytes(c)
+            + 2 * c.K * c.capacity * c.d * c.hbytes
+            + c.K * c.capacity * c.k * 8 + c.out_bytes)
 
 
 def _cost_cuda_fused(c: KernelContext) -> int:

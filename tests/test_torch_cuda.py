@@ -114,7 +114,12 @@ def test_grouped_kernel(dev, dtype, C, v_pad, k, empty):
     w, ids, g = _table(dev, K, v_pad, d, dtype, seed=C, empty=empty, dup=True)
     buf = torch.randn((K, C, d), generator=g, device=dev).to(dtype)
     g_buf = torch.rand((K, C), generator=g, device=dev)
+    from repro_torch.kernels.dss_topk_grouped import select_body
+
+    n = ops.launch_counts()
     got = ops.dss_topk_grouped(w, ids, buf, g_buf, k)
+    body = select_body(C)
+    assert ops.launch_counts()[body] == n[body] + 1
     _same(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k))
     if empty is not None:
         assert (got[1][empty] == -1).all() and (got[0][empty] == -1e9).all()
@@ -136,7 +141,8 @@ def _fused_inputs(dev, dtype, B, d, e_base, K_real, seed):
     for the number of experts these tokens choose: the first row chunk's
     boundary) equal, at 2.5 times the others' scale so they
     reach the top k of many tokens. Returns (gate, h, w fp32, ids)."""
-    from repro_torch.kernels.dss_topk_fused import chunk_rows, launch_plan
+    from repro_torch.kernels.dss_topk_fused import launch_plan
+    from repro_torch.kernels.retrieve_stream import chunk_rows
 
     K, v_pad = FUSED_K, FUSED_V_PAD
     w, ids, g = _table(dev, K, v_pad, d, torch.float32, seed=seed, empty=FUSED_EMPTY, dup=True)
@@ -204,11 +210,196 @@ def test_grouped_kernel_int8(dev, dtype, C, v_pad, k, empty):
     n = ops.launch_counts()
     got = ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=scales)
     after = ops.launch_counts()
-    assert after["dss_topk_grouped_q"] == n["dss_topk_grouped_q"] + 1
-    assert after["dss_topk_grouped"] == n["dss_topk_grouped"]
+    from repro_torch.kernels.dss_topk_grouped import select_body
+
+    body = select_body(C)
+    assert after[body + "_q"] == n[body + "_q"] + 1
+    assert after[body] == n[body]
     _same(got, ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=scales))
     if empty is not None:
         assert (got[1][empty] == -1).all() and (got[0][empty] == -1e9).all()
+
+
+# The decode body (kernels/dss_topk_grouped.py::DECODE) on K 4 experts of
+# v_pad 900 (no row chunk divides it): rows 2i and 2i+1 equal, rows 5 all
+# zero, expert 1 all padding, expert 2 with 5 real rows, expert 3 with no
+# live slot, and slot C - 1 of expert 0 empty when C > 1 (an empty slot as
+# the dispatch leaves it: a zero row and g 0); rows cb - 1 and cb (cb the
+# first row chunk's boundary for the experts that hold a slot) equal and
+# doubled to reach the top k. Rows lie on a grid of 1/64 in [-2, 2] and
+# tokens are integers in [-8, 8], so every product and every partial sum
+# is exact in fp32 (bf16 holds them too): the kernel's sums equal the plain
+# version's whatever their order, and equal rows tie exactly. Every slot is
+# compared, empty ones too.
+GROUPED_DECODE_V_PAD, GROUPED_DECODE_K = 900, 4
+
+
+def _decode_inputs(dev, dtype, C, d, seed, quantized):
+    from repro_torch.kernels.dss_topk_grouped import launch_plan
+    from repro_torch.kernels.retrieve_stream import chunk_rows
+
+    K, v_pad = GROUPED_DECODE_K, GROUPED_DECODE_V_PAD
+    _, ids, g = _table(dev, K, v_pad, d, torch.float32, seed=seed, empty=1)
+    ids[2, 5:] = -1
+    w = torch.randint(-128, 129, (K, v_pad, d), generator=g, device=dev).float() / 64
+    w[:, 1::2] = w[:, 0::2]
+    w[ids < 0] = 0.0
+    w[:, 5] = 0.0
+    buf = torch.randint(-8, 9, (K, C, d), generator=g, device=dev).to(dtype)
+    g_buf = torch.rand((K, C), generator=g, device=dev) * 0.5 + 0.5
+    g_buf[3] = 0.0
+    if C > 1:
+        g_buf[0, C - 1] = 0.0
+    buf[g_buf == 0] = 0.0
+    cb = chunk_rows(3, v_pad, launch_plan(K, v_pad, d, dtype).grid)
+    real = (ids[:, cb - 1] >= 0) & (ids[:, cb] >= 0)
+    w[real, cb - 1] *= 2
+    w[real, cb] = w[real, cb - 1]
+    kw = {}
+    if quantized:
+        w, kw["scales"] = _quantize(w)
+        assert (w[:, 5] == 0).all() and (kw["scales"][:, 5] == 1.0).all()
+    else:
+        w = w.to(dtype)
+    return w, ids, buf, g_buf, kw
+
+
+def _check_decode(got, want, g_buf, k):
+    _same(got, want)
+    assert not torch.isinf(got[0]).any()
+    assert (got[1][1] == -1).all() and (got[0][1] == -1e9).all()  # all padding
+    n_real = min(k, 5)  # expert 2: 5 real rows, then padding
+    assert (got[1][2, :, n_real:] == -1).all() and (got[1][2, :, :n_real] >= 0).all()
+    assert (got[0][3] == 0).all()  # no live slot: the first k real rows at 0
+
+
+@pytest.mark.parametrize("quantized,dtype", [(False, torch.float32), (False, torch.bfloat16),
+                                             (True, torch.bfloat16)])
+@pytest.mark.parametrize("C", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("d", [37, 128, 200, 1536])
+def test_grouped_decode_body(dev, quantized, dtype, C, k, d):
+    """Both decode bodies against the plain version on every slot. d 37
+    and 200 admit no 16-byte row load (f32/bf16 at 37, int8 at both)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import DECODE, launch_body
+
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, dtype, C, d, seed=C * 7 + d + k, quantized=quantized)
+    body = DECODE + ("_q" if quantized else "")
+    n = ops.launch_counts()[body]
+    got = launch_body(w, ids, buf, g_buf, k, kw.get("scales"), DECODE)
+    assert ops.launch_counts()[body] == n + 1
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw), g_buf, k)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("B,K,cf", [(8, 16, 2.0), (20, 8, 2.0), (5, 16, 1.0)])
+def test_grouped_decode_body_on_a_real_dispatch(dev, quantize, B, K, cf):
+    """Buffers from the serve path's own dispatch (``_group_tokens`` over
+    ``gate_top1``'s choices) at qwen2-1.5b's width: experts that no token
+    chose and slots left empty, compared on every slot."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, ref
+
+    d, v_pad, k = 1536, 1000, 8
+    w, ids, g = _table(dev, K, v_pad, d, torch.bfloat16, seed=B + K)
+    table = ds.ServeTable(ids=ids, weights=w)
+    kw = {}
+    if quantize:
+        table = ds.quantize_table(table)
+        w, kw["scales"] = table.qweights, table.scales
+    gate = (torch.randn((K, d), generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+    h = torch.randn((B, d), generator=g, device=dev).to(torch.bfloat16)
+    e, gv = ops.gate_top1(gate, h)
+    C = int(max(1, round(B / K * cf)))
+    buf, g_buf, _, _ = ds._group_tokens(h, gv, e, K, C)
+    assert not (g_buf != 0).all()
+    if B < K:
+        assert not (g_buf != 0).any(1).all()
+    got = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    _same(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw))
+    assert not torch.isinf(got[0]).any()
+
+
+def test_grouped_decode_body_on_an_int8_table_with_fallback_experts(dev):
+    """On an int8 table the fallback experts' tokens go to the sentinel K
+    before dispatch (``_serve_topk_grouped``): those experts hold no live
+    slot, and the int8 body's output equals the plain version's on every
+    slot."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, ref
+
+    K, d, v_pad, B, k = 8, 128, 640, 16, 8
+    w, ids, g = _table(dev, K, v_pad, d, torch.bfloat16, seed=9)
+    qt = ds.quantize_table(ds.ServeTable(ids=ids, weights=w), fb_mask=torch.arange(K) % 2 == 1)
+    gate = torch.randn((K, d), generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn((B, d), generator=g, device=dev).to(torch.bfloat16)
+    e, gv = ops.gate_top1(gate, h)
+    fb_tok = qt.fb_index[e.long()] >= 0
+    assert fb_tok.any()
+    e_disp = torch.where(fb_tok, K, e)
+    buf, g_buf, _, _ = ds._group_tokens(h, gv, e_disp, K, 4)
+    assert (g_buf[1::2] == 0).all()
+    n = ops.launch_counts()["dss_topk_grouped_q"]
+    got = ops.dss_topk_grouped(qt.qweights, ids, buf, g_buf, k, scales=qt.scales)
+    assert ops.launch_counts()["dss_topk_grouped_q"] == n + 1
+    _same(got, ref.dss_topk_grouped_ref(qt.qweights, ids, buf, g_buf, k, scales=qt.scales))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_grouped_decode_body_replays_in_a_cuda_graph(dev, quantized):
+    """The wrapper captured once in a CUDA graph (the work list is built on
+    the device, no host sync, no allocation in the kernels) and replayed
+    on new slots copied into the captured buffers, with other experts
+    live each time, gives the eager call's result exactly."""
+    from repro_torch.kernels import ops
+
+    C, k, d = 2, 8, 128
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=5, quantized=quantized)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    for seed, dead in ((6, 0), (7, 2)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        b_new = torch.randn(buf.shape, generator=gen, device=dev).to(buf.dtype)
+        g_new = torch.rand(g_buf.shape, generator=gen, device=dev) + 0.25
+        g_new[dead] = 0.0
+        b_new[g_new == 0] = 0.0
+        buf.copy_(b_new)
+        g_buf.copy_(g_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.dss_topk_grouped(w, ids, b_new, g_new, k, **kw)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_grouped_bodies_launch_by_capacity(dev, quantized):
+    """Through the wrapper, every decode capacity (up to TILED_ABOVE)
+    launches the decode body and never the tiled one; capacities above it
+    launch the tiled body and never the decode one."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import DECODE, TILED, TILED_ABOVE
+
+    K, d, v_pad, k = 4, 128, 900, 8
+    sfx = "_q" if quantized else ""
+    for C in list(range(1, TILED_ABOVE + 1)) + [TILED_ABOVE + 1, 70, 256]:
+        w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=C,
+                                                quantized=quantized)
+        ops.reset_launch_counts()
+        got = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+        counts = ops.launch_counts()
+        want_body = DECODE if C <= TILED_ABOVE else TILED
+        other = TILED if want_body == DECODE else DECODE
+        assert counts[want_body + sfx] == 1 and counts[other + sfx] == 0, (C, counts)
+        assert sum(counts.values()) == 1
+        _same(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

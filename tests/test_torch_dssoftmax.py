@@ -6,6 +6,8 @@ Every port path (``jnp``, ``grouped`` and, through their wrappers' plain
 versions on CPU tensors, ``cuda_grouped`` and ``cuda_fused``) is held
 against repro's ``jnp`` oracle. Tolerances: ids equal; fp32 values
 rtol 1e-6, atol 2e-6 (``tests/test_kernels.py:103``)."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -202,3 +204,33 @@ def test_cost_cuda_fused_prices_each_chosen_expert_per_token_group(B, K, d, read
         row = d * ctx.wbytes + (4 if quantized else 0)
         want = reads * 12032 * row + K * d * 2 + B * d * 2 + B * 8 + B * 8 * 8
         assert registry.get_spec("cuda_fused").bytes_moved(ctx) == want
+
+
+@pytest.mark.parametrize("B,K,d,reads", [
+    # decode: one pass per live expert while C fits one token group (6 at d 1536)
+    (1, 16, 1536, 1), (8, 16, 1536, 8), (16, 16, 1536, 16),
+    # C 8 > 6: past min(B, K), an expert is read once more per token group
+    (64, 16, 1536, 16 + 48 // 6), (10, 2, 1536, 2 + 8 // 6),
+    # C 6 fits one group of 8 at d 128: each of the 4 experts once
+    (12, 4, 128, 4),
+])
+def test_cost_cuda_grouped_prices_live_experts_per_token_group(B, K, d, reads):
+    """The grouped path at decode capacities (the decode body): the live
+    experts' rows once per token group (at most min(B, K) experts, and at
+    most ⌈C / group⌉ passes each), the buffers' round trip and the
+    (K, C, k) outputs; above TILED_ABOVE the tiled body, every expert's
+    rows once."""
+    for quantized in (False, True):
+        ctx = registry.KernelContext(B=B, d=d, K=K, v_pad=12032, k=8, backend="cuda",
+                                     wbytes=1 if quantized else 2, hbytes=2, quantized=quantized)
+        C = ctx.capacity
+        assert C <= importlib.import_module("repro_torch.kernels.dss_topk_grouped").TILED_ABOVE
+        assert registry.grouped_expert_reads(B, K, C, d) == reads
+        row = d * ctx.wbytes + (4 if quantized else 0)
+        want = reads * 12032 * row + 2 * K * C * d * 2 + K * C * 8 * 8 + B * 8 * 8
+        assert registry.get_spec("cuda_grouped").bytes_moved(ctx) == want
+    big = registry.KernelContext(B=2048, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
+                                 wbytes=2, hbytes=2)
+    assert big.capacity == 256
+    assert registry.get_spec("cuda_grouped").bytes_moved(big) == (
+        16 * 12032 * 1536 * 2 + 2 * 16 * 256 * 1536 * 2 + 16 * 256 * 8 * 8 + 2048 * 8 * 8)

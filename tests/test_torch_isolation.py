@@ -107,7 +107,10 @@ def test_build_targets_sm90a_from_port_sources_only():
         srcs = _build._source_files(name)
         assert srcs and all(p.parent == PORT / "csrc" for p in srcs)
         assert srcs[0].name == f"{name}.cu" and srcs[0].exists()
-        assert set(_build.SIGNATURES) == set(_build.SOURCES)
+        # every source has its own entry point; any other entry point lives
+        # in a source's library
+        assert set(_build.SOURCES) <= set(_build.SIGNATURES)
+        assert {_build.ENTRY_LIBRARY.get(e, e) for e in _build.SIGNATURES} == set(_build.SOURCES)
     # the build lands in a directory .gitignore lists
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()

@@ -177,8 +177,10 @@ def test_fused_equals_gate_then_gather_path():
 # ---------------------------------------------------------------------------
 
 # the package's name dss_topk_fused is the wrapper function, so the module
-# comes from importlib
+# comes from importlib; the chunking it shares with the grouped decode body
+# is retrieve_stream's
 _plan = importlib.import_module("repro_torch.kernels.dss_topk_fused")
+_stream = importlib.import_module("repro_torch.kernels.retrieve_stream")
 
 
 @pytest.mark.parametrize("B,K,v_pad", [(1, 16, 12032), (8, 16, 12032), (300, 16, 12032),
@@ -190,8 +192,8 @@ def test_fused_chunks_partition_the_rows(B, K, v_pad):
     allocates."""
     plan = _plan.launch_plan(B, K, v_pad, 1536, torch.bfloat16)
     for n_sel in range(1, min(B, K) + 1):
-        rows = _plan.chunk_rows(n_sel, v_pad, plan.grid)
-        assert rows % _plan.ROW_STEP == 0 and _plan.ROW_STEP <= rows <= _plan.MAX_CHUNK_ROWS
+        rows = _stream.chunk_rows(n_sel, v_pad, plan.grid)
+        assert rows % _stream.ROW_STEP == 0 and _stream.ROW_STEP <= rows <= _stream.MAX_CHUNK_ROWS
         nck = -(-v_pad // rows)
         bounds = [(c * rows, min(v_pad, (c + 1) * rows)) for c in range(nck)]
         assert bounds[0][0] == 0 and bounds[-1][1] == v_pad
@@ -207,7 +209,7 @@ def test_fused_grid_fills_every_sm_at_decode(n_sel):
     one pass (no block takes a second chunk)."""
     plan = _plan.launch_plan(8, 16, 12032, 1536, torch.bfloat16)
     assert plan.grid == 2 * _build.SMS
-    items = n_sel * -(-12032 // _plan.chunk_rows(n_sel, 12032, plan.grid))
+    items = n_sel * -(-12032 // _stream.chunk_rows(n_sel, 12032, plan.grid))
     assert 0.95 * plan.grid <= items <= plan.grid
 
 
@@ -225,10 +227,126 @@ def test_fused_plan_depends_only_on_the_shapes():
     assert vb[(200, torch.int8)] == 4 and vb[(200, torch.bfloat16)] == 16
     assert vb[(37, torch.float32)] == 4 and vb[(37, torch.bfloat16)] == 2
     assert vb[(37, torch.int8)] == 1
-    assert _plan.row_vec_bytes(128, 2, ptr=8) == 4
+    assert _stream.row_vec_bytes(128, 2, ptr=8) == 4
 
 
 @pytest.mark.parametrize("d,group", [(1536, 6), (128, 8), (200, 8), (8192, 1)])
 def test_fused_token_group_fits_the_staged_tokens(d, group):
-    assert _plan.token_group(d) == group
-    assert group * d * 4 <= _plan.TOKEN_BYTES or group == 1
+    assert _stream.token_group(d) == group
+    assert group * d * 4 <= _stream.TOKEN_BYTES or group == 1
+
+
+# ---------------------------------------------------------------------------
+# The grouped kernel's decode body (kernels/dss_topk_grouped.py): its launch
+# plan and work list, mirrored in Python, and the body rule by capacity.
+# ---------------------------------------------------------------------------
+
+_grouped = importlib.import_module("repro_torch.kernels.dss_topk_grouped")
+
+
+def _work_items(live, v_pad, grid):
+    """The decode body's work list as every block builds it on the device:
+    the experts with a live slot in ascending id, each cut into chunks of
+    ``chunk_rows(len(live))`` rows; item i is chunk i % nck of the
+    (i // nck)-th. Returns [(expert, row_lo, row_hi)] in item order."""
+    rows = _stream.chunk_rows(len(live), v_pad, grid)
+    nck = -(-v_pad // rows)
+    return [(live[i // nck], (i % nck) * rows, min(v_pad, (i % nck + 1) * rows))
+            for i in range(len(live) * nck)]
+
+
+@pytest.mark.parametrize("K,v_pad,live", [
+    (16, 12032, list(range(16))), (16, 12032, [0, 3, 4, 9, 15]), (16, 12032, [7]),
+    (4, 900, [0, 2]), (8, 1000, [1, 2, 3, 5, 6, 7]), (64, 64, [0, 63])])
+def test_grouped_work_items_partition_each_live_experts_rows(K, v_pad, live):
+    """Every live expert's packed rows are covered exactly once, in
+    chunks of whole ROW_STEP multiples (the last cut at v_pad), no expert
+    without a live slot appears, and the chunks of one expert never
+    outnumber the partial lists the wrapper allocates."""
+    plan = _grouped.launch_plan(K, v_pad, 1536, torch.bfloat16)
+    items = _work_items(live, v_pad, plan.grid)
+    assert [e for e, _, _ in items] == sorted(e for e, _, _ in items)
+    assert {e for e, _, _ in items} == set(live)
+    for e in live:
+        spans = [(lo, hi) for x, lo, hi in items if x == e]
+        assert spans[0][0] == 0 and spans[-1][1] == v_pad
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(spans, spans[1:]))
+        assert all((hi - lo) % _stream.ROW_STEP == 0 for lo, hi in spans[:-1])
+        assert len(spans) <= plan.max_chunks
+
+
+@pytest.mark.parametrize("n_live", range(1, 17))
+def test_grouped_grid_fills_every_sm_at_decode(n_live):
+    """qwen2-1.5b's head (K 16, V_pad 12,032) at any decode capacity: the
+    grid is two blocks on each of the H100's 132 SMs, and whatever number
+    of experts hold a live slot, their chunks keep at least 95% of those
+    blocks busy in one pass (no block takes a second chunk)."""
+    plan = _grouped.launch_plan(16, 12032, 1536, torch.bfloat16)
+    assert plan.grid == 2 * _build.SMS
+    items = len(_work_items(list(range(n_live)), 12032, plan.grid))
+    assert 0.95 * plan.grid <= items <= plan.grid
+
+
+def test_grouped_plan_depends_only_on_the_shapes():
+    """The decode body's plan is a function of (K, v_pad, d, dtype), not of
+    the capacity or the data: the same shapes give the same plan, the
+    shared retrieval's with every expert a possible holder of a live slot;
+    the row load width follows d and the element size."""
+    assert _grouped.launch_plan(16, 12032, 1536, torch.bfloat16) == \
+        _grouped.launch_plan(16, 12032, 1536, torch.bfloat16) == \
+        _stream.stream_plan(16, 12032, 1536, torch.bfloat16)
+    assert _grouped.launch_plan(4, 900, 1536, torch.int8).grid == \
+        _grouped.launch_plan(4, 900, 1536, torch.float32).grid
+    vb = {(d, dt): _grouped.launch_plan(4, 900, d, dt).vec_bytes
+          for d in (37, 200) for dt in (torch.float32, torch.bfloat16, torch.int8)}
+    assert vb == {(37, torch.float32): 4, (37, torch.bfloat16): 2, (37, torch.int8): 1,
+                  (200, torch.float32): 16, (200, torch.bfloat16): 16, (200, torch.int8): 4}
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 8, 16, 17, 32, 64, 70, 256, 4096])
+def test_grouped_select_body_by_capacity_alone(C):
+    """The body is chosen by the capacity alone: the decode body up to
+    TILED_ABOVE slots per expert, the tiled body above."""
+    import inspect
+
+    assert list(inspect.signature(_grouped.select_body).parameters) == ["capacity"]
+    want = _grouped.DECODE if C <= _grouped.TILED_ABOVE else _grouped.TILED
+    assert _grouped.select_body(C) == want
+    assert {name for name, _, _ in ops.BODIES} >= {want, want + "_q"}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_grouped_empty_slots_follow_the_rule_the_decode_body_writes(quantized, k):
+    """The decode body writes an empty slot (g 0) from ids alone: (0, id) on
+    the first k real packed positions, then (-1e9, -1). That is the plain
+    version's output on the serve path's own dispatch (``_group_tokens``:
+    zero rows, g 0) for finite inputs: every real row scores x·w·0 = 0,
+    all tied, and padding -1e9. Expert 1 is all padding, expert 2 has 5
+    real rows and its padding scattered between them."""
+    from repro_torch.core.dssoftmax import _group_tokens
+
+    K, d, v_pad, C = 4, 32, 300, 3
+    w, ids = _table(K, d, v_pad, seed=k, empty=1)
+    w = w.copy()
+    ids[2] = -1
+    ids[2, [3, 40, 41, 100, 299]] = [7, 8, 9, 10, 11]
+    w[2][ids[2] < 0] = 0.0
+    rng = np.random.RandomState(k)
+    h = rng.randn(5, d).astype(np.float32)
+    e = np.array([0, 0, 2, 1, 0], np.int32)
+    g = rng.rand(5).astype(np.float32) * 0.5 + 0.5
+    buf, g_buf, _, _ = _group_tokens(_t(h), _t(g), _t(e), K, C)
+    wt, scales = _t(w), None
+    if quantized:
+        scales = torch.where(wt.abs().amax(-1) > 0, wt.abs().amax(-1) / 127, 1.0)
+        wt = torch.round(wt / scales[..., None]).to(torch.int8)
+    vals, out_ids = ref.dss_topk_grouped_ref(wt, _t(ids), buf, g_buf, k, scales=scales)
+    empty = (g_buf == 0).nonzero().tolist()
+    assert [2, 1] in empty and [3, 0] in empty
+    for ex, c in empty:
+        real = [int(i) for i in ids[ex] if i >= 0][:k]
+        want_ids = real + [-1] * (k - len(real))
+        want_v = [0.0] * len(real) + [-1e9] * (k - len(real))
+        assert out_ids[ex, c].tolist() == want_ids
+        assert vals[ex, c].tolist() == want_v
