@@ -12,7 +12,8 @@ Phases, in order (any failure exits non-zero before the result line):
    each, all at once).
 2. Every kernel body against its plain PyTorch version at full width
    (d 1536, K 16, k 8; bf16 and fp32; int8 rows for the ``_q`` bodies):
-   ids equal, values within the stated tolerance. Times per case: the
+   ids equal but where two classes are within TIE_RTOL of the row's top-1
+   (the rows that part are counted), values within the stated tolerance. Times per case: the
    kernel's wrapper, its plain version and the library call as the host
    calls them (``ms``: CUDA events around each Python call, median of 25
    after warm-up; the wrapper's host work is inside), the wrapper and the
@@ -47,19 +48,23 @@ Phases, in order (any failure exits non-zero before the result line):
    bodies at C 1 with every slot live (the main cases) and on a real
    dispatch (B 8 through ``gate_top1`` and ``_group_tokens``: at most 8
    live experts, every slot compared, empty ones too; the yardstick one
-   ``topk(buf[e] @ W[e]^T)`` per live expert), the tiled bodies at C 256
-   (their main case the batch path's shape, V_pad 12,032). The main cases
-   of the two-launch bodies (``dss_topk_fused``, the grouped decode
-   bodies) are split by kernel with the profiler (``kernels_split_ms``).
-   The capacity sweep: both grouped bodies (``launch_body``) at C 1, 2, 4,
-   8, 16, 32, 48, 64 and 256 on bf16 rows and their int8 table, each
-   checked and timed on the device alone; it sets ``TILED_ABOVE``. These
-   grouped cases run last in phase 2, on a generator of their own.
+   ``topk(buf[e] @ W[e]^T)`` per live expert), the tensor-core bodies at
+   C 256 for bf16 tokens (their main case the batch path's shape, V_pad
+   12,032; also V_pad 12,000 with an all-padding expert), the CUDA-core
+   tiled bodies at C 256 for fp32 tokens (their main case the fp32 batch
+   path's shape). The main cases of the two-launch bodies
+   (``dss_topk_fused``, the grouped decode bodies) are split by kernel
+   with the profiler (``kernels_split_ms``). The capacity sweep: the
+   decode and the tensor-core body (``launch_body``) at C 1, 2, 4, 8, 16,
+   32, 48, 64, 128 and 256 (and 3) on bf16 rows and their int8 table, each checked
+   and timed on the device alone; it sets ``TILED_ABOVE``. These grouped
+   cases run last in phase 2, on a generator of their own.
    The head-path step: ``serve_topk`` at qwen2-1.5b's head shape on a
-   stand-in fp table and its int8 table at B 1 and 8 through jnp, grouped,
-   cuda_grouped and cuda_fused, interleaved round-robin, device time from
-   the profiler; every path's ids equal jnp's, and ``auto``'s pick within
-   1.5x the fastest path.
+   stand-in fp table and its int8 table at B 1, 8, 64 and 2048 (C 1, 1,
+   8, 256) through jnp, grouped, cuda_grouped and cuda_fused, interleaved
+   round-robin, device time from the profiler; every path's ids equal
+   jnp's but at near-ties (TIE_RTOL of the row's top-1; the count is
+   printed), and ``auto``'s pick within 1.5x the fastest path.
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
    through 8 slots, 12 requests (one prompt of 2048 tokens: its prefill
@@ -82,10 +87,13 @@ Phases, in order (any failure exits non-zero before the result line):
    every kernel body of its path must have launched (flash_attention's
    tensor-core body in every session's prefill, its CUDA-core body never),
    the plain head's counts stay 0.
-   (batch) ``serve_topk(kernel='auto')`` over 2048 hidden states at once on
-   the fp head table and its int8 table: ``auto`` resolves to
-   ``cuda_grouped`` at capacity 256, so both tiled bodies launch (counts
-   set to 0 just before, read just after; the decode bodies never); held
+   (batch) ``serve_topk(kernel='auto')`` over 2048 bf16 hidden states at
+   once on the fp head table and its int8 table, through whatever path
+   ``auto`` picks (printed; ``cuda_grouped`` runs the tensor-core bodies
+   at capacity 256); then 2048 fp32 hidden states through an fp32 copy of
+   the head table and its int8 table on ``cuda_grouped`` (the CUDA-core
+   tiled bodies). Counts set to 0 just before each group and read just
+   after: the path's bodies must launch, no other grouped body; held
    against the plain ``grouped`` path (ids equal but at near-ties).
 4. Decode-step profile: 8 residents at prompt length 512, for cuda_fused
    and jnp on the fp table and cuda_fused on the int8 table: step ms
@@ -135,7 +143,7 @@ Phases, in order (any failure exits non-zero before the result line):
    chunks; E preempts and completes every request; every page is free
    after a paged session. Prefill ms (median, total; the model's calls,
    without the cache insert) and decode-step ms per session.
-7. Report: one ``{"kernels": [...]}`` line (eleven kernel bodies, each
+7. Report: one ``{"kernels": [...]}`` line (thirteen kernel bodies, each
    with its host-timed and device-only times), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -183,8 +191,12 @@ GRAPH_CALLS = 20             # calls per CUDA graph for device-only kernel times
 # times the fastest
 HEAD_PATHS = ("jnp", "grouped", "cuda_grouped", "cuda_fused")
 HEAD_ROUNDS, HEAD_CALLS, AUTO_SLACK = 3, 5, 1.5
+# prefill's last position, decode at 8 slots, a speculative verify step's
+# size, a whole prompt scored at once (C 1, 1, 8 and 256 at cf 2.0, K 16)
+HEAD_BATCHES = (1, 8, 64, 2048)
 # the batch path: hidden states scored at once through serve_topk (C 256 at
-# cf 2.0 and K 16: the grouped kernel's tiled bodies)
+# cf 2.0 and K 16: the grouped kernel's tensor-core bodies for bf16 tokens,
+# its CUDA-core tiled bodies for fp32)
 BATCH_B = 2048
 N_SLOTS, K_TOP, NEW_TOKENS = 8, 8, 32
 # On the card every bf16 whole-prompt prefill runs the flash_attention
@@ -363,24 +375,47 @@ def _table(gen, K, v_pad, d, dtype, empty_expert=None):
     return w.contiguous(), ids
 
 
+def _parted_rows(label, gv, gi, wv, wi) -> int:
+    """Top-k rows (last axis) whose ids differ between a kernel and its
+    plain version; each must part only at a near-tie (TIE_RTOL of the row's
+    plain top-1, ``_topk_parts_only_at_ties``). Returns their number."""
+    import torch
+
+    k = gi.shape[-1]
+    gv, gi, wv, wi = (x.reshape(-1, k) for x in (gv, gi, wv, wi))
+    rows = torch.nonzero((gi != wi).any(1))[:, 0].tolist()
+    for r in rows:
+        _topk_parts_only_at_ties(f"{label} row {r}", gv[r], gi[r], wv[r], wi[r],
+                                 TIE_RTOL * abs(float(wv[r, 0])))
+    return len(rows)
+
+
 def _compare(name, case, got, want, rtol=VAL_RTOL, atol=VAL_ATOL):
-    """Max |value difference| over entries both report finite; raise
-    unless ids (and sentinels) agree and values are within tolerance."""
+    """Max |value difference| over entries both report finite, and the
+    number of top-k rows whose ids part from the plain version's; raise
+    unless sentinels agree, ids agree but at near-ties (``_parted_rows``;
+    a 1-D result, the gate's expert ids, exactly) and values are within
+    tolerance. The kernels sum in another order than the plain version (the
+    tensor-core bodies inside wgmma), so on random data two classes within
+    fp32 rounding of each other may swap."""
     import torch
 
     (gv, gi), (wv, wi) = got, want
-    ids_equal = bool(torch.equal(gi, wi))
     fin = torch.isfinite(wv)
     if not torch.equal(fin, torch.isfinite(gv)):
         raise SmokeFailure(f"{name} {case}: non-finite entries differ from the plain version")
     diff = (gv[fin] - wv[fin]).abs()
     err = float(diff.max()) if diff.numel() else 0.0
-    if not ids_equal:
-        bad = int((gi != wi).sum())
-        raise SmokeFailure(f"{name} {case}: {bad} ids differ from the plain version")
+    if gi.dim() == 1:
+        if not torch.equal(gi, wi):
+            raise SmokeFailure(f"{name} {case}: {int((gi != wi).sum())} ids differ from the "
+                               "plain version")
+        parted = 0
+    else:
+        parted = _parted_rows(f"{name} {case}", gv, gi, wv, wi)
     if not torch.allclose(gv[fin], wv[fin], rtol=rtol, atol=atol):
         raise SmokeFailure(f"{name} {case}: values differ by up to {err}")
-    return err, ids_equal
+    return err, parted
 
 
 def kernel_times(kernel, plain, library) -> dict:
@@ -406,13 +441,13 @@ def report_case(results, name, case, got, want, times, nbytes, flops, dtype, mai
     gives the body)."""
     from repro_torch.kernels import ops
 
-    err, ids_equal = _compare(name, case, got, want, rtol, atol)
+    err, parted = _compare(name, case, got, want, rtol, atol)
     b_ms, b_by = bound_ms(nbytes, flops, dtype)
     row = {"name": name, "case": case, **times, "bound_ms": b_ms, "bound_by": b_by,
-           "max_abs_err": err, "ids_equal": ids_equal, "main_path_shape": main}
+           "max_abs_err": err, "rows_parted_at_ties": parted, "main_path_shape": main}
     results.setdefault("cases", []).append(row)
     print(f"[kernel] {name:17s} {case:38s} {_times_text(times)}  bound {b_ms:.4f} ms "
-          f"({b_by})  max|dv| {err:.3g}  ids equal {ids_equal}  launches "
+          f"({b_by})  max|dv| {err:.3g}  rows parted at ties {parted}  launches "
           f"{ops.launch_counts()[name]}", flush=True)
     if main:
         results.setdefault("main", {})[name] = row
@@ -483,16 +518,16 @@ def grouped_dispatch_case(results, gen, quantized: bool) -> None:
     del yard, w
 
 
-SWEEP_CAPACITIES = (1, 2, 4, 8, 16, 32, 48, 64, 256)
+SWEEP_CAPACITIES = (1, 2, 3, 4, 8, 16, 32, 48, 64, 128, 256)
 
 
 def capacity_sweep(results, gen) -> None:
-    """Both grouped bodies (``launch_body``: the decode and the tiled body)
-    at every capacity of SWEEP_CAPACITIES on K 16, d 1536, V_pad 12,032,
-    k 8, every slot live, bf16 rows and their int8 table: each checked
-    against the plain version and timed on the device alone
-    (``device_ms``). It sets ``dss_topk_grouped.TILED_ABOVE``: the line
-    says which body is faster at each capacity and which one
+    """The grouped bodies of bf16 tokens (``launch_body``: the decode and
+    the tensor-core body) at every capacity of SWEEP_CAPACITIES on K 16,
+    d 1536, V_pad 12,032, k 8, every slot live, bf16 rows and their int8
+    table: each checked against the plain version and timed on the device
+    alone (``device_ms``). It sets ``dss_topk_grouped.TILED_ABOVE``: the
+    line says which body is faster at each capacity and which one
     ``select_body`` runs."""
     import torch
 
@@ -514,17 +549,18 @@ def capacity_sweep(results, gen) -> None:
             buf = torch.randn((K, C, d), generator=gen, device="cuda").to(bf16)
             g_buf = torch.rand((K, C), generator=gen, device="cuda") + 0.01
             want = ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, scales=sc)
-            t = {}
-            for body in (grouped.DECODE, grouped.TILED):
+            t, parted = {}, {}
+            for body in (grouped.DECODE, grouped.WGMMA):
                 run = functools.partial(grouped.launch_body, w, ids, buf, g_buf, k, sc, body)
-                _compare(body, f"sweep {kind} C={C}", run(), want)
+                parted[body] = _compare(body, f"sweep {kind} C={C}", run(), want)[1]
                 t[body] = device_ms(run)
             row = {"rows": kind, "C": C, "decode_ms": t[grouped.DECODE],
-                   "tiled_ms": t[grouped.TILED], "select_body": grouped.select_body(C)}
+                   "wgmma_ms": t[grouped.WGMMA], "select_body": grouped.select_body(C, bf16),
+                   "rows_parted_at_ties": parted}
             rows.append(row)
-            print(f"[sweep] {kind} C={C:3d}: decode {row['decode_ms']:9.4f} ms  tiled "
-                  f"{row['tiled_ms']:9.4f} ms (device)  faster: "
-                  f"{'decode' if row['decode_ms'] <= row['tiled_ms'] else 'tiled'}; "
+            print(f"[sweep] {kind} C={C:3d}: decode {row['decode_ms']:9.4f} ms  wgmma "
+                  f"{row['wgmma_ms']:9.4f} ms (device)  faster: "
+                  f"{'decode' if row['decode_ms'] <= row['wgmma_ms'] else 'wgmma'}; "
                   f"select_body runs {row['select_body']}", flush=True)
             del buf, want
         del w
@@ -560,10 +596,12 @@ def kernel_phase(results: dict) -> None:
     cases = (
         # decode: B = 8 slots, capacity round(8/16*2) = 1, every slot live
         (bf16, 1, 12032, None, True),
-        # prefill-sized batch B = 2048 at cf 2.0 → C = 256 (the tiled body);
-        # one expert all padding and a v_pad that no 64-row tile divides
+        # prefill-sized batch B = 2048 at cf 2.0 → C = 256 (the tensor-core
+        # body); one expert all padding and a v_pad that no 128-row tile
+        # divides
         (bf16, 256, 12000, 3, False),
-        (f32, 256, 12032, None, False),
+        # the fp32 batch path's shape (the CUDA-core tiled body)
+        (f32, 256, 12032, None, True),
     )
     for dtype, C, v_pad, empty, main in cases:
         w, ids = _table(gen, K, v_pad, d, dtype, empty)
@@ -578,7 +616,7 @@ def kernel_phase(results: dict) -> None:
         eb = w.element_size()
         real_rows = int((ids >= 0).sum())
         case = f"{str(dtype)[6:]} C={C} v_pad={v_pad}" + (f" empty e{empty}" if empty is not None else "")
-        name = grouped.select_body(C)
+        name = grouped.select_body(C, dtype)
         report(name, case, got, want,
                kernel_times(lambda: ops.dss_topk_grouped(w, ids, buf, g_buf, k),
                             lambda: ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k),
@@ -650,15 +688,18 @@ def kernel_phase(results: dict) -> None:
         fused_case("dss_topk_fused_q", gw, qt.qweights, ids, h, 0, K, main, scales=qt.scales)
     del qt
 
-    # -- dss_topk_grouped_q: int8 rows, bf16 tokens (decode at C 1, tiled
-    # at C 256) -----------------------------------------------------------
-    for C, v_pad, empty, main in ((1, 12032, None, True), (256, 12000, 3, False)):
-        w, ids = _table(gen, K, v_pad, d, bf16, empty)
+    # -- dss_topk_grouped_q: int8 rows, bf16 tokens (decode at C 1, the
+    # tensor-core body at C 256) and fp32 tokens (the tiled body at C 256,
+    # the fp32 batch path's shape) ------------------------------------------
+    for tok, C, v_pad, empty, main in ((bf16, 1, 12032, None, True),
+                                       (bf16, 256, 12000, 3, False),
+                                       (f32, 256, 12032, None, True)):
+        w, ids = _table(gen, K, v_pad, d, tok, empty)
         qt = quantize_table(ServeTable(ids=ids, weights=w))
         q, sc = qt.qweights, qt.scales
         del w, qt
-        qb = q.to(bf16)  # the yardstick reads the rows as bf16
-        buf = torch.randn((K, C, d), generator=gen, device="cuda").to(bf16)
+        qb = q.to(tok)  # the yardstick reads the rows as the tokens' type
+        buf = torch.randn((K, C, d), generator=gen, device="cuda").to(tok)
         g_buf = torch.rand((K, C), generator=gen, device="cuda")
         got = ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=sc)
         want = ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=sc)
@@ -666,16 +707,16 @@ def kernel_phase(results: dict) -> None:
                                       and bool((got[0][empty] == -1e9).all())):
             raise SmokeFailure("dss_topk_grouped_q: the all-padding expert must emit (-1e9, -1)")
         real_rows = int((ids >= 0).sum())
-        name = grouped.select_body(C) + "_q"
+        name = grouped.select_body(C, tok) + "_q"
         report(name,
-               f"int8 rows, bf16 C={C} v_pad={v_pad}"
+               f"int8 rows, {str(tok)[6:]} C={C} v_pad={v_pad}"
                + (f" empty e{empty}" if empty is not None else ""),
                got, want,
                kernel_times(lambda: ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=sc),
                             lambda: ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=sc),
                             lambda: torch.topk(torch.bmm(buf, qb.transpose(1, 2)), k)),
-               real_rows * (d + 4 + 4) + K * C * (d * 2 + 4) + K * C * k * 8,
-               2 * C * real_rows * d, bf16, main)
+               real_rows * (d + 4 + 4) + K * C * (d * buf.element_size() + 4) + K * C * k * 8,
+               2 * C * real_rows * d, tok, main)
         if main and C == 1:
             kernel_split(results, name,
                          lambda: ops.dss_topk_grouped(q, ids, buf, g_buf, k, scales=sc))
@@ -723,7 +764,7 @@ def kernel_phase(results: dict) -> None:
 def grouped_cases(results) -> None:
     """The grouped kernel's cases that the earlier phase-2 cases did not
     have, on a generator of their own (so every earlier case draws the
-    inputs it always drew): the tiled bodies' main cases at the batch
+    inputs it always drew): the tensor-core bodies' main cases at the batch
     path's shape (C 256, V_pad 12,032), the decode bodies on a real
     dispatch, and the capacity sweep."""
     import torch
@@ -744,7 +785,7 @@ def grouped_cases(results) -> None:
             del qt
         buf = torch.randn((K, C, d), generator=gen, device="cuda").to(bf16)
         g_buf = torch.rand((K, C), generator=gen, device="cuda")
-        name = grouped.select_body(C) + ("_q" if quantized else "")
+        name = grouped.select_body(C, bf16) + ("_q" if quantized else "")
         real_rows = int((ids >= 0).sum())
         report_case(results, name, f"{'int8 rows, ' if quantized else ''}bf16 C={C} "
                     f"v_pad={v_pad} (batch path)",
@@ -786,11 +827,12 @@ def profiled_device_ms(fn, calls: int = HEAD_CALLS) -> float:
 def head_path_step(results: dict, gen) -> None:
     """``serve_topk`` through every exact path at qwen2-1.5b's head shape
     (K 16, d 1536, V_pad 12,032, k 8, bf16 tokens) on a stand-in fp table
-    and its int8 table, at B 1 (prefill's last position) and B 8 (decode at
-    8 slots): the paths interleaved round-robin, each call's device time
-    from the profiler (median of HEAD_ROUNDS rounds). Fails if the path
-    ``auto`` picks takes more than AUTO_SLACK times the fastest, or if a
-    path's ids differ from the jnp path's."""
+    and its int8 table, at every B of HEAD_BATCHES: the paths interleaved
+    round-robin, each call's device time from the profiler (median of
+    HEAD_ROUNDS rounds). Fails if the path ``auto`` picks takes more than
+    AUTO_SLACK times the fastest, or if a path's ids part from the jnp
+    path's anywhere but at a near-tie (``_parted_rows``: the paths sum in
+    different orders)."""
     import torch
 
     from repro_torch.core import dssoftmax as ds
@@ -803,14 +845,13 @@ def head_path_step(results: dict, gen) -> None:
     tables["int8"] = ds.quantize_table(tables["fp"])
     gate = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(bf16)
     rows, failed = [], []
-    for B in (1, 8):
+    for B in HEAD_BATCHES:
         h = torch.randn((B, d), generator=gen, device="cuda").to(bf16)
         for kind, table in tables.items():
             want = ds.serve_topk(gate, table, h, k, kernel="jnp")
-            for path in HEAD_PATHS:
-                got = ds.serve_topk(gate, table, h, k, kernel=path)
-                if not torch.equal(got[1], want[1]):
-                    raise SmokeFailure(f"head path {path} ({kind}, B={B}): ids differ from jnp")
+            parted = {path: _parted_rows(f"head path {path} ({kind}, B={B})",
+                                         *ds.serve_topk(gate, table, h, k, kernel=path), *want)
+                      for path in HEAD_PATHS}
             times = {path: [] for path in HEAD_PATHS}
             for _ in range(HEAD_ROUNDS):
                 for path in HEAD_PATHS:
@@ -829,12 +870,13 @@ def head_path_step(results: dict, gen) -> None:
             pick = registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, k))
             fastest = min(med, key=med.get)
             row = {"table": kind, "B": B, "device_ms": med, "auto": pick, "fastest": fastest,
-                   "auto_over_fastest": med[pick] / med[fastest]}
+                   "auto_over_fastest": med[pick] / med[fastest],
+                   "rows_parted_from_jnp_at_ties": parted}
             rows.append(row)
             print(f"[head] {kind:4s} B={B}: " + "  ".join(
                 f"{path} {t:.4f}" for path, t in med.items())
                 + f" ms (device)  auto -> {pick} ({row['auto_over_fastest']:.2f}x the fastest, "
-                f"{fastest})", flush=True)
+                f"{fastest}); rows parted from jnp at near-ties {parted}", flush=True)
             if med[pick] > AUTO_SLACK * med[fastest]:
                 failed.append(f"{kind} B={B}: auto picks {pick}, {med[pick]:.4f} ms, against "
                               f"{fastest} {med[fastest]:.4f} ms")
@@ -1336,54 +1378,74 @@ def slice_phase(results: dict, card: str):
                                  ("cuda_fused int8", int8_table))
 
 
+def _batch_bodies(pick: str, body: str, quantized: bool) -> tuple:
+    """The kernel bodies a batch call through ``pick`` must launch (``body``:
+    the grouped kernel's body for the call's capacity and token dtype)."""
+    sfx = "_q" if quantized else ""
+    return {"cuda_grouped": ("gate_top1", body + sfx), "cuda_fused": ("dss_topk_fused" + sfx,),
+            "cuda_pertoken": ("gate_top1", "dss_topk")}.get(pick, ())
+
+
 def batch_phase(results: dict, card: str, params, cases) -> None:
-    """The batch path: ``serve_topk(kernel='auto')`` over BATCH_B hidden
-    states at once (a user scoring every position of a 2048-token prompt)
-    on the slice's fp head table and its int8 table. ``auto`` resolves to
-    ``cuda_grouped``, whose capacity (256 at cf 2.0, K 16) runs the tiled
-    bodies; held against the plain ``grouped`` path: ids equal but at a
-    near-tie (TIE_RTOL of the row's top-1), values within VAL_ATOL +
-    VAL_RTOL. The counts are set to 0 just before and read just after:
-    both tiled bodies must launch, the decode bodies never."""
+    """The batch path: ``serve_topk`` over BATCH_B hidden states at once (a
+    user scoring every position of a 2048-token prompt; capacity 256 at cf
+    2.0, K 16). (bf16) ``kernel='auto'`` on the slice's fp head table and
+    its int8 table, whatever path ``auto`` picks (reported). (fp32) fp32
+    hidden states through an fp32 copy of the head table and its int8
+    table on ``cuda_grouped``: the CUDA-core tiled bodies. Each run is held
+    against the plain ``grouped`` path: ids equal but at a near-tie
+    (TIE_RTOL of the row's top-1), values within VAL_ATOL + VAL_RTOL. The
+    counts are set to 0 just before each group and read just after: the
+    bodies of the path that ran must launch, and no other grouped body."""
     import torch
 
     from repro_torch.core import dssoftmax as ds
     from repro_torch.kernels import ops, registry
 
-    grouped = _grouped()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     gate = params["head"]["gate"]
-    tables = (("fp", cases[0][1]), ("int8", cases[2][1]))
-    hs = [torch.randn((BATCH_B, gate.shape[1]), generator=gen, device="cuda").to(gate.dtype)
-          for _ in tables]
-    ops.reset_launch_counts()  # the batch path starts here
-    got = {}
-    for (kind, table), h in zip(tables, hs):
-        pick = registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, K_TOP))
-        got[kind], t = sync_s(lambda: ds.serve_topk(gate, table, h, K_TOP, kernel="auto"))
-        print(f"[batch] {kind} B={BATCH_B}: auto -> {pick} ({t * 1e3:.2f} ms, synchronized); "
-              f"card {card}", flush=True)
-        if pick != "cuda_grouped":
-            raise SmokeFailure(f"batch {kind}: auto picks {pick}, not cuda_grouped")
-    counts = ops.launch_counts()
-    results.setdefault("main_path_launches", {})["batch"] = counts
-    for name in (grouped.TILED, grouped.TILED + "_q"):
-        if counts[name] < 1:
-            raise SmokeFailure(f"batch path: {name} never launched ({counts})")
-    if counts[grouped.DECODE] or counts[grouped.DECODE + "_q"]:
-        raise SmokeFailure(f"batch path: a decode body launched at C 256 ({counts})")
-    for (kind, table), h in zip(tables, hs):
-        (vk, ik), (vp, ip) = got[kind], ds.serve_topk(gate, table, h, K_TOP, kernel="grouped")
-        if not torch.allclose(vk, vp, rtol=VAL_RTOL, atol=VAL_ATOL):
-            raise SmokeFailure(f"batch {kind}: values differ from the plain grouped path by up "
-                               f"to {float((vk - vp).abs().max())}")
-        rows = torch.nonzero((ik != ip).any(1))[:, 0].tolist()
-        for r in rows:
-            _topk_parts_only_at_ties(f"batch {kind} row {r}", vk[r], ik[r], vp[r], ip[r],
-                                     TIE_RTOL * abs(float(vp[r, 0])))
-        print(f"[batch] {kind}: ids equal the plain grouped path's on {BATCH_B - len(rows)} of "
-              f"{BATCH_B} rows, the rest apart only at near-ties; launches {counts}", flush=True)
-    results["batch"] = {"B": BATCH_B, "launches": counts}
+    fp, i8 = cases[0][1], cases[2][1]
+    fp32 = ds.ServeTable(ids=fp.ids, weights=fp.weights.float())
+    groups = (("batch", "auto", ((("fp", fp), ("int8", i8)), gate.dtype)),
+              ("batch_fp32", "cuda_grouped",
+               ((("fp32", fp32), ("fp32 int8", ds.quantize_table(fp32))), torch.float32)))
+    grouped_names = {name for name, _, _ in ops.BODIES if name.startswith("dss_topk_grouped")}
+    for label, kernel, (tables, dtype) in groups:
+        hs = [torch.randn((BATCH_B, gate.shape[1]), generator=gen, device="cuda").to(dtype)
+              for _ in tables]
+        g = gate.to(dtype)
+        ops.reset_launch_counts()  # this group's path starts here
+        got, need = {}, set()
+        for (kind, table), h in zip(tables, hs):
+            ctx = ds.serve_kernel_context(table, h, K_TOP)
+            pick = registry.resolve_kernel(kernel, ctx)
+            need |= set(_batch_bodies(pick, registry.grouped_body(ctx), ctx.quantized))
+            got[kind], t = sync_s(lambda: ds.serve_topk(g, table, h, K_TOP, kernel=kernel))
+            print(f"[batch] {kind} B={BATCH_B}: {kernel} -> {pick} ({t * 1e3:.2f} ms, "
+                  f"synchronized); card {card}", flush=True)
+            results.setdefault("batch_picks", {})[kind] = pick
+        counts = ops.launch_counts()
+        results.setdefault("main_path_launches", {})[label] = counts
+        missing = [name for name in need if counts[name] < 1]
+        stray = [name for name in grouped_names - need if counts[name]]
+        if missing or stray:
+            raise SmokeFailure(f"{label}: bodies {missing} never launched, {stray} launched "
+                               f"off the path ({counts})")
+        for (kind, table), h in zip(tables, hs):
+            (vk, ik), (vp, ip) = got[kind], ds.serve_topk(g, table, h, K_TOP, kernel="grouped")
+            if not torch.allclose(vk, vp, rtol=VAL_RTOL, atol=VAL_ATOL):
+                raise SmokeFailure(f"{label} {kind}: values differ from the plain grouped path "
+                                   f"by up to {float((vk - vp).abs().max())}")
+            rows = torch.nonzero((ik != ip).any(1))[:, 0].tolist()
+            for r in rows:
+                _topk_parts_only_at_ties(f"{label} {kind} row {r}", vk[r], ik[r], vp[r], ip[r],
+                                         TIE_RTOL * abs(float(vp[r, 0])))
+            print(f"[batch] {kind}: ids equal the plain grouped path's on {BATCH_B - len(rows)} "
+                  f"of {BATCH_B} rows, the rest apart only at near-ties; launches {counts}",
+                  flush=True)
+    results["batch"] = {"B": BATCH_B, "picks": results["batch_picks"],
+                        "launches": {k: results["main_path_launches"][k]
+                                     for k in ("batch", "batch_fp32")}}
 
 
 # ---------------------------------------------------------------------------
@@ -1637,10 +1699,15 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
             sess.step()
         rep_before = sess.stats()["quantize_report"]
         _, swap_q_s = sync_s(sess.adapt_now)
-        n_q = ops.launch_counts()["dss_topk_grouped_q"]
+        # the repack raises the capacity (cf 25.5 at K 17: C 12), so the int8
+        # grouped body after the swap is the one select_body names for it
+        int8_bodies = [n for n, _, _ in ops.BODIES
+                       if n.startswith("dss_topk_grouped") and n.endswith("_q")]
+        before_q = {n: ops.launch_counts()[n] for n in int8_bodies}
         _, st = drained("(iv)", sess, reqs)
         rep_after = st["quantize_report"]
-        n_q = ops.launch_counts()["dss_topk_grouped_q"] - n_q
+        after_q = {n: ops.launch_counts()[n] - before_q[n] for n in int8_bodies}
+        n_q = sum(after_q.values())
         if not isinstance(sess.table, ds.QuantizedServeTable) or st["n_swaps"] != 1 \
                 or len(rep_after["per_expert_flip_rate"]) != K + 1 \
                 or len(rep_before["per_expert_flip_rate"]) != K or n_q < 1:
@@ -1648,12 +1715,11 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
                                f"{type(sess.table).__name__}, report {rep_after}, "
                                f"int8 launches since {n_q}")
         out["int8"] = {"adapt_now_s": swap_q_s, "n_fallback_after": rep_after["n_fallback"],
-                       "int8_launches_after_swap": n_q}
+                       "int8_launches_after_swap": after_q}
         print(f"[adapt] (iv) int8 session: adapt_now (repack + gate + swap) "
               f"{swap_q_s * 1e3:.1f} ms wall; still int8 after the swap (K {K + 1}, "
-              f"{rep_after['n_fallback']} fallback experts, report refreshed); "
-              f"dss_topk_grouped_q launched {out['int8']['int8_launches_after_swap']} times "
-              f"after it", flush=True)
+              f"{rep_after['n_fallback']} fallback experts, report refreshed); int8 grouped "
+              f"bodies launched after it {after_q}", flush=True)
         del sess
     finally:
         restore()
@@ -2069,10 +2135,14 @@ def main() -> int:
                              "fp"),
         "dss_topk_grouped_q": ("dss_topk_grouped.cu",
                                "src/repro/kernels/dss_topk_grouped.py:148", "int8"),
-        "dss_topk_grouped_tiled": ("dss_topk_grouped.cu",
+        "dss_topk_grouped_wgmma": ("dss_topk_grouped.cu",
                                    "src/repro/kernels/dss_topk_grouped.py:221", "batch"),
-        "dss_topk_grouped_tiled_q": ("dss_topk_grouped.cu",
+        "dss_topk_grouped_wgmma_q": ("dss_topk_grouped.cu",
                                      "src/repro/kernels/dss_topk_grouped.py:148", "batch"),
+        "dss_topk_grouped_tiled": ("dss_topk_grouped.cu",
+                                   "src/repro/kernels/dss_topk_grouped.py:221", "batch_fp32"),
+        "dss_topk_grouped_tiled_q": ("dss_topk_grouped.cu",
+                                     "src/repro/kernels/dss_topk_grouped.py:148", "batch_fp32"),
         "dss_topk_fused": ("dss_topk_fused.cu", "src/repro/kernels/dss_topk_fused.py:197", "fp"),
         "dss_topk_fused_q": ("dss_topk_fused.cu", "src/repro/kernels/dss_topk_fused.py:120",
                              "int8"),

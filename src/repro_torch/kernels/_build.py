@@ -37,6 +37,9 @@ SIGNATURES = {
     # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
     # K, C, v_pad, d, k, tb, nsplit, tiles_per_split, dtype, wdtype, stream
     "dss_topk_grouped_tiled": [_P] * 9 + [_I] * 10 + [_P],
+    # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
+    # K, C, v_pad, d, k, n_tile, nsplit, tiles_per_split, stages, wdtype, stream
+    "dss_topk_grouped_wgmma": [_P] * 9 + [_I] * 10 + [_P],
     # gate_w, w, ids, scales, h, out_v, out_i, out_e, g, part_v, part_p,
     # n_sel, K_real, K, B, v_pad, d, k, e_base, grid, vec_bytes, dtype,
     # wdtype, stream
@@ -50,7 +53,8 @@ SIGNATURES = {
     # B, H, H_kv, S, dh, dtype, body (0 CUDA cores, 1 wgmma), stream
     "flash_attention": [_P] * 4 + [_L] * 12 + [_I] * 7 + [_P],
 }
-ENTRY_LIBRARY = {"dss_topk_grouped_tiled": "dss_topk_grouped"}
+ENTRY_LIBRARY = {"dss_topk_grouped_tiled": "dss_topk_grouped",
+                 "dss_topk_grouped_wgmma": "dss_topk_grouped"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

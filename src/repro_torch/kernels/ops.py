@@ -6,7 +6,8 @@
 its launches: a plain integer that rises by one per launch of that body
 (never for the plain version that runs on CPU tensors). The fused wrapper
 has two bodies, for f32/bf16 rows and for int8 rows; the grouped wrapper
-four, a decode and a tiled body for each row kind, chosen by capacity
+six, a decode, a tensor-core (``wgmma``) and a CUDA-core tiled body for
+each row kind, chosen by capacity and token dtype
 (``kernels.dss_topk_grouped.select_body``); ``flash_attention`` has a
 CUDA-core body and a tensor-core (``wgmma``) body, chosen by
 ``kernels.flash_attention.select_body``.
@@ -25,6 +26,8 @@ BODIES = (
     ("gate_top1", gate_top1, "launches"),
     ("dss_topk_grouped", dss_topk_grouped, "launches"),
     ("dss_topk_grouped_q", dss_topk_grouped, "launches_q"),
+    ("dss_topk_grouped_wgmma", dss_topk_grouped, "launches_wgmma"),
+    ("dss_topk_grouped_wgmma_q", dss_topk_grouped, "launches_wgmma_q"),
     ("dss_topk_grouped_tiled", dss_topk_grouped, "launches_tiled"),
     ("dss_topk_grouped_tiled_q", dss_topk_grouped, "launches_tiled_q"),
     ("dss_topk_fused", dss_topk_fused, "launches"),

@@ -25,16 +25,32 @@ without its TPU constants. The fused path and the grouped path at decode
 capacities are priced by what the port's streaming retrieval reads: each
 expert that holds a token, its rows once per group of
 ``retrieve_stream.token_group(d)`` of its tokens (not the TPU's 128 rows).
+The grouped kernel's bodies are priced by what bounds each on the H100:
+its bytes, or its operations at the rate of their unit (the tensor-core
+body's bf16 products, the CUDA-core bodies' fp32 FMAs) expressed as the
+bytes the memory moves in the same time, whichever is larger.
 ``chip_smoke.py``'s head-path step times every exact path interleaved on
-the H100 and fails if ``'auto'``'s pick takes more than 1.5× the fastest.
+the H100 at B 1, 8, 64 and 2048 and fails if ``'auto'``'s pick takes more
+than 1.5× the fastest.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
-from repro_torch.kernels.dss_topk_grouped import TILED, select_body
+import importlib
+
+import torch
+
 from repro_torch.kernels.retrieve_stream import token_group
+
+_grouped = importlib.import_module("repro_torch.kernels.dss_topk_grouped")
+
+# H100 SXM (NVIDIA data sheet, dense): the memory rate, and the peak rate of
+# the units the grouped kernel's bodies compute on.
+HBM_BYTES_PER_S = 3.35e12
+TENSOR_BF16_OPS = 989e12
+CUDA_CORE_FP32_OPS = 67e12
 
 __all__ = [
     "KernelContext",
@@ -222,17 +238,35 @@ def grouped_expert_reads(B: int, K: int, C: int, d: int) -> int:
     return min(fused_expert_reads(B, K, d), K * -(-C // token_group(d)))
 
 
+def grouped_body(c: KernelContext) -> str:
+    """The grouped kernel's body for the call (``dss_topk_grouped.select_body``
+    by capacity and token dtype; data pointers are taken as TMA-aligned)."""
+    dtype = torch.bfloat16 if c.hbytes == 2 else torch.float32
+    wdtype = torch.int8 if c.quantized else dtype
+    return _grouped.select_body(c.capacity, dtype,
+                                dtype != torch.bfloat16 or _grouped.tma_addressable(c.d, wdtype))
+
+
 def _cost_cuda_grouped(c: KernelContext) -> int:
     # The grouped buffers' round trip and the (K, C, k) outputs gathered
     # back; logits and the running top-k stay on chip. The decode body
-    # reads the live experts' rows once per token group; the tiled body
-    # (capacities above dss_topk_grouped.TILED_ABOVE) is priced at every
-    # expert's rows once.
-    reads = c.K if select_body(c.capacity) == TILED else grouped_expert_reads(
-        c.B, c.K, c.capacity, c.d)
-    return (reads * c.v_pad * _row_bytes(c)
-            + 2 * c.K * c.capacity * c.d * c.hbytes
-            + c.K * c.capacity * c.k * 8 + c.out_bytes)
+    # reads the live experts' rows once per token group and multiplies the
+    # live slots only; the tensor-core and the tiled bodies read every
+    # expert's rows once per token tile and multiply every slot. Operations
+    # count as the bytes the memory moves in their time at the body's unit.
+    C, body = c.capacity, grouped_body(c)
+    if body == _grouped.DECODE:
+        reads = grouped_expert_reads(c.B, c.K, C, c.d)
+        flops, rate = 2 * min(c.B, c.K * C) * c.v_pad * c.d, CUDA_CORE_FP32_OPS
+    elif body == _grouped.WGMMA:
+        reads = c.K * _grouped.wgmma_plan(c.K, C, c.v_pad, c.k, c.quantized).token_tiles
+        flops, rate = 2 * c.K * C * c.v_pad * c.d, TENSOR_BF16_OPS
+    else:
+        reads = c.K * -(-C // _grouped.tiled_plan(c.K, C, c.v_pad)[0])
+        flops, rate = 2 * c.K * C * c.v_pad * c.d, CUDA_CORE_FP32_OPS
+    nbytes = (reads * c.v_pad * _row_bytes(c) + 2 * c.K * C * c.d * c.hbytes
+              + c.K * C * c.k * 8 + c.out_bytes)
+    return max(nbytes, int(flops * HBM_BYTES_PER_S / rate))
 
 
 def _cost_cuda_fused(c: KernelContext) -> int:

@@ -118,7 +118,7 @@ def test_grouped_kernel(dev, dtype, C, v_pad, k, empty):
 
     n = ops.launch_counts()
     got = ops.dss_topk_grouped(w, ids, buf, g_buf, k)
-    body = select_body(C)
+    body = select_body(C, dtype)
     assert ops.launch_counts()[body] == n[body] + 1
     _same(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k))
     if empty is not None:
@@ -212,7 +212,7 @@ def test_grouped_kernel_int8(dev, dtype, C, v_pad, k, empty):
     after = ops.launch_counts()
     from repro_torch.kernels.dss_topk_grouped import select_body
 
-    body = select_body(C)
+    body = select_body(C, dtype)
     assert after[body + "_q"] == n[body + "_q"] + 1
     assert after[body] == n[body]
     _same(got, ref.dss_topk_grouped_ref(q, ids, buf, g_buf, k, scales=scales))
@@ -324,10 +324,11 @@ def test_grouped_decode_body_on_a_real_dispatch(dev, quantize, B, K, cf):
 def test_grouped_decode_body_on_an_int8_table_with_fallback_experts(dev):
     """On an int8 table the fallback experts' tokens go to the sentinel K
     before dispatch (``_serve_topk_grouped``): those experts hold no live
-    slot, and the int8 body's output equals the plain version's on every
-    slot."""
+    slot, and the int8 decode body's output (forced at C 4, above
+    TILED_ABOVE) equals the plain version's on every slot."""
     from repro_torch.core import dssoftmax as ds
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import DECODE, launch_body
 
     K, d, v_pad, B, k = 8, 128, 640, 16, 8
     w, ids, g = _table(dev, K, v_pad, d, torch.bfloat16, seed=9)
@@ -341,7 +342,7 @@ def test_grouped_decode_body_on_an_int8_table_with_fallback_experts(dev):
     buf, g_buf, _, _ = ds._group_tokens(h, gv, e_disp, K, 4)
     assert (g_buf[1::2] == 0).all()
     n = ops.launch_counts()["dss_topk_grouped_q"]
-    got = ops.dss_topk_grouped(qt.qweights, ids, buf, g_buf, k, scales=qt.scales)
+    got = launch_body(qt.qweights, ids, buf, g_buf, k, qt.scales, DECODE)
     assert ops.launch_counts()["dss_topk_grouped_q"] == n + 1
     _same(got, ref.dss_topk_grouped_ref(qt.qweights, ids, buf, g_buf, k, scales=qt.scales))
 
@@ -381,25 +382,140 @@ def test_grouped_decode_body_replays_in_a_cuda_graph(dev, quantized):
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_grouped_bodies_launch_by_capacity(dev, quantized):
-    """Through the wrapper, every decode capacity (up to TILED_ABOVE)
-    launches the decode body and never the tiled one; capacities above it
-    launch the tiled body and never the decode one."""
+    """Through the wrapper, bf16 tokens launch the decode body at every
+    capacity up to TILED_ABOVE and the tensor-core body above it; fp32
+    tokens the decode body up to SIMT_TILED_ABOVE and the CUDA-core tiled
+    body above it. Exactly one body launches per call."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.dss_topk_grouped import DECODE, TILED, TILED_ABOVE
+    from repro_torch.kernels.dss_topk_grouped import (DECODE, SIMT_TILED_ABOVE, TILED,
+                                                      TILED_ABOVE, WGMMA)
 
-    K, d, v_pad, k = 4, 128, 900, 8
+    d, k = 128, 8
     sfx = "_q" if quantized else ""
-    for C in list(range(1, TILED_ABOVE + 1)) + [TILED_ABOVE + 1, 70, 256]:
-        w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=C,
-                                                quantized=quantized)
+    runs = [(torch.bfloat16, C, DECODE if C <= TILED_ABOVE else WGMMA)
+            for C in list(range(1, TILED_ABOVE + 1)) + [TILED_ABOVE + 1, 33, 70, 256]]
+    runs += [(torch.float32, C, DECODE if C <= SIMT_TILED_ABOVE else TILED)
+             for C in (1, SIMT_TILED_ABOVE, SIMT_TILED_ABOVE + 1, 70)]
+    for dtype, C, want_body in runs:
+        w, ids, buf, g_buf, kw = _decode_inputs(dev, dtype, C, d, seed=C, quantized=quantized)
         ops.reset_launch_counts()
         got = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
         counts = ops.launch_counts()
-        want_body = DECODE if C <= TILED_ABOVE else TILED
-        other = TILED if want_body == DECODE else DECODE
-        assert counts[want_body + sfx] == 1 and counts[other + sfx] == 0, (C, counts)
-        assert sum(counts.values()) == 1
+        assert counts[want_body + sfx] == 1 and sum(counts.values()) == 1, (dtype, C, counts)
         _same(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw))
+
+
+# The tensor-core body (kernels/dss_topk_grouped.py::WGMMA) on the decode
+# body's exact inputs: rows on the 1/64 grid, integer tokens, so every fp32
+# sum is exact in any order and the ids must be equal; equal rows tie and
+# the lower packed position wins (inside a warpgroup's tile, across the two
+# warpgroups, across tiles and across vocab splits); expert 1 all padding,
+# expert 2 with 5 real rows, expert 3 and one slot of expert 0 empty (g 0).
+# C above 256 takes more than one token tile; V_pad 900 leaves a ragged
+# 128-row tile; d 144 is no multiple of the 64-element stage (16 for int8).
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("C", [1, 8, 33, 64, 200, 256, 300])
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("d", [64, 144, 1536])
+def test_grouped_wgmma_body(dev, quantized, C, k, d):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import WGMMA, launch_body
+
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=C * 7 + d + k,
+                                            quantized=quantized)
+    body = WGMMA + ("_q" if quantized else "")
+    n = ops.launch_counts()[body]
+    got = launch_body(w, ids, buf, g_buf, k, kw.get("scales"), WGMMA)
+    assert ops.launch_counts()[body] == n + 1
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw), g_buf, k)
+
+
+@pytest.mark.parametrize("quantized,d", [(False, 37), (True, 37), (True, 200)])
+def test_grouped_tiled_body_takes_bf16_that_tma_cannot_address(dev, quantized, d):
+    """bf16 tokens above TILED_ABOVE whose rows TMA cannot stage (d 37: a
+    row pitch of 74 bytes; d 200 with int8 rows: 200 bytes) run the
+    CUDA-core tiled body through the wrapper, equal to the plain version."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import TILED, tma_addressable
+
+    C, k = 70, 8
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=d, quantized=quantized)
+    assert not tma_addressable(d, w.dtype, w.data_ptr(), buf.data_ptr())
+    body = TILED + ("_q" if quantized else "")
+    ops.reset_launch_counts()
+    got = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    assert ops.launch_counts()[body] == 1
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw), g_buf, k)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_grouped_wgmma_body_replays_in_a_cuda_graph(dev, quantized):
+    """The tensor-core body through the wrapper (C 70 > TILED_ABOVE), captured
+    once in a CUDA graph (tensor maps are kernel parameters, no host sync,
+    no allocation in the kernels) and replayed on new tokens copied into the
+    captured buffers gives the eager call's result exactly."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dss_topk_grouped import WGMMA
+
+    C, k, d = 70, 8, 128
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=5, quantized=quantized)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    body = WGMMA + ("_q" if quantized else "")
+    n = ops.launch_counts()[body]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    assert ops.launch_counts()[body] == n + 1
+    for seed, dead in ((6, 0), (7, 2)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        b_new = torch.randint(-8, 9, buf.shape, generator=gen, device=dev).to(buf.dtype)
+        g_new = torch.rand(g_buf.shape, generator=gen, device=dev) + 0.25
+        g_new[dead] = 0.0
+        b_new[g_new == 0] = 0.0
+        buf.copy_(b_new)
+        g_buf.copy_(g_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.dss_topk_grouped(w, ids, b_new, g_new, k, **kw)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("B", [64, 2048])
+def test_auto_picks_the_grouped_kernel_at_batch_sizes(dev, quantize, B):
+    """qwen2-1.5b's head shape (K 16, d 1536, V_pad 12,032, k 8, bf16
+    tokens) at B 64 (C 8) and 2048 (C 256), fp and int8 tables: 'auto'
+    resolves to cuda_grouped, which launches the tensor-core body and gives
+    the plain grouped path's result. Rows on the 1/64 grid and integer
+    tokens keep every sum exact, so the ids are equal; the values differ
+    by the gate alone (cuda_grouped's g comes from the gate_top1 kernel,
+    held to rtol 1e-5 of the plain gate's)."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, registry
+
+    K, d, v_pad, k = 16, 1536, 12032, 8
+    g = torch.Generator(device=dev).manual_seed(B)
+    w = (torch.randint(-128, 129, (K, v_pad, d), generator=g, device=dev) / 64).to(torch.bfloat16)
+    ids = torch.randperm(K * v_pad, generator=g, device=dev).reshape(K, v_pad).to(torch.int32)
+    table = ds.ServeTable(ids=ids, weights=w)
+    if quantize:
+        table = ds.quantize_table(table)
+        del w
+    gate = (torch.randn((K, d), generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+    h = torch.randint(-8, 9, (B, d), generator=g, device=dev).to(torch.bfloat16)
+    assert registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, k)) == "cuda_grouped"
+    body = "dss_topk_grouped_wgmma" + ("_q" if quantize else "")
+    ops.reset_launch_counts()
+    got = ds.serve_topk(gate, table, h, k, kernel="auto")
+    assert ops.launch_counts()[body] == 1
+    want = ds.serve_topk(gate, table, h, k, kernel="grouped")
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -509,9 +625,11 @@ def test_pertoken_kernel(dev, dtype, B, k):
 
 def test_quantized_serve_with_fallback_experts(dev):
     """An int8 table with half its experts on fp fallback: cuda_grouped
-    and cuda_fused give the jnp path's ids on the card."""
+    and cuda_fused give the jnp path's ids on the card, each through its
+    int8 body (the grouped one ``select_body`` names at C 8)."""
     from repro_torch.core import dssoftmax as ds
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dss_topk_grouped import select_body
 
     K, d, v_pad = 8, 128, 640
     w, ids, g = _table(dev, K, v_pad, d, torch.bfloat16, seed=3)
@@ -526,8 +644,10 @@ def test_quantized_serve_with_fallback_experts(dev):
         _same(ds.serve_topk(gate, qt, h, 8, kernel=kern, capacity_factor=1.0), want,
               atol=1e-4)
     c = ops.launch_counts()
-    assert c["dss_topk_grouped_q"] == 1 and c["dss_topk_fused_q"] == 1
-    assert c["dss_topk_grouped"] == c["dss_topk_fused"] == 0
+    body = select_body(64 // K, torch.bfloat16)
+    assert c[body + "_q"] == 1 and c["dss_topk_fused_q"] == 1
+    assert c[body] == c["dss_topk_fused"] == 0
+    assert sum(c.values()) == 2 + c["gate_top1"]
 
 
 def test_session_streams_identical_on_every_path(dev):

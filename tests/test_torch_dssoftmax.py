@@ -176,6 +176,7 @@ def test_registry_names_and_unknown_kernel(fx32):
 @pytest.mark.parametrize("B,backend,expected", [
     (1, "cpu", "jnp"), (8, "cpu", "jnp"), (2048, "cpu", "grouped"),
     (1, "cuda", "cuda_fused"), (8, "cuda", "cuda_fused"), (2048, "cuda", "cuda_grouped"),
+    (64, "cuda", "cuda_grouped"),
 ])
 def test_auto_policy_at_serving_shapes(B, backend, expected):
     """qwen2-1.5b head shapes (K 16, V_pad 12032, d 1536, bf16): the CUDA
@@ -218,19 +219,58 @@ def test_cost_cuda_grouped_prices_live_experts_per_token_group(B, K, d, reads):
     """The grouped path at decode capacities (the decode body): the live
     experts' rows once per token group (at most min(B, K) experts, and at
     most ⌈C / group⌉ passes each), the buffers' round trip and the
-    (K, C, k) outputs; above TILED_ABOVE the tiled body, every expert's
-    rows once."""
+    (K, C, k) outputs. Where the capacity is above TILED_ABOVE the
+    tensor-core body serves bf16 tokens instead: every expert's rows once
+    per token tile, or its products at the bf16 tensor-core rate where
+    those take longer (C 256)."""
+    grouped = importlib.import_module("repro_torch.kernels.dss_topk_grouped")
     for quantized in (False, True):
         ctx = registry.KernelContext(B=B, d=d, K=K, v_pad=12032, k=8, backend="cuda",
                                      wbytes=1 if quantized else 2, hbytes=2, quantized=quantized)
         C = ctx.capacity
-        assert C <= importlib.import_module("repro_torch.kernels.dss_topk_grouped").TILED_ABOVE
         assert registry.grouped_expert_reads(B, K, C, d) == reads
         row = d * ctx.wbytes + (4 if quantized else 0)
-        want = reads * 12032 * row + 2 * K * C * d * 2 + K * C * 8 * 8 + B * 8 * 8
+        passes = reads
+        if C <= grouped.TILED_ABOVE:
+            assert registry.grouped_body(ctx) == grouped.DECODE
+        else:
+            assert registry.grouped_body(ctx) == grouped.WGMMA
+            passes = K  # one token tile
+        want = passes * 12032 * row + 2 * K * C * d * 2 + K * C * 8 * 8 + B * 8 * 8
         assert registry.get_spec("cuda_grouped").bytes_moved(ctx) == want
     big = registry.KernelContext(B=2048, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
                                  wbytes=2, hbytes=2)
     assert big.capacity == 256
     assert registry.get_spec("cuda_grouped").bytes_moved(big) == (
         16 * 12032 * 1536 * 2 + 2 * 16 * 256 * 1536 * 2 + 16 * 256 * 8 * 8 + 2048 * 8 * 8)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B", [64, 2048])
+def test_cost_cuda_grouped_prices_the_bound_of_its_body(B, quantized):
+    """qwen2-1.5b's head (K 16, V_pad 12,032, d 1536, bf16 tokens) at B 64
+    (C 8) and 2048 (C 256): the tensor-core body, priced at the larger of
+    its bytes and its 2·K·C·V_pad·d products at 989 TFLOP/s expressed as
+    bytes at 3.35 TB/s. int8 rows at C 256 are bound by the products. An
+    fp32 batch runs the CUDA-core tiled body, bound by its products at
+    67 TFLOP/s: 64-slot tiles, four passes over the rows at C 256."""
+    ctx = registry.KernelContext(B=B, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
+                                 wbytes=1 if quantized else 2, hbytes=2, quantized=quantized)
+    C = ctx.capacity
+    row = 1536 * ctx.wbytes + (4 if quantized else 0)
+    nbytes = 16 * 12032 * row + 2 * 16 * C * 1536 * 2 + 16 * C * 64 + B * 64
+    ops = int(2 * 16 * C * 12032 * 1536 * 3.35e12 / 989e12)
+    got = registry.get_spec("cuda_grouped").bytes_moved(ctx)
+    assert got == max(nbytes, ops)
+    assert (got == ops) == (quantized and B == 2048)
+    assert registry.resolve_kernel("auto", ctx) == "cuda_grouped"
+    fp32 = registry.KernelContext(B=B, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
+                                  wbytes=4, hbytes=4)
+    body = importlib.import_module("repro_torch.kernels.dss_topk_grouped").select_body(
+        C, torch.float32)
+    assert registry.grouped_body(fp32) == body
+    if B == 2048:
+        assert registry.get_spec("cuda_grouped").bytes_moved(fp32) == int(
+            2 * 16 * 256 * 12032 * 1536 * 3.35e12 / 67e12)
+
+

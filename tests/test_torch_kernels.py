@@ -305,14 +305,92 @@ def test_grouped_plan_depends_only_on_the_shapes():
 
 @pytest.mark.parametrize("C", [1, 2, 3, 8, 16, 17, 32, 64, 70, 256, 4096])
 def test_grouped_select_body_by_capacity_alone(C):
-    """The body is chosen by the capacity alone: the decode body up to
-    TILED_ABOVE slots per expert, the tiled body above."""
+    """For a given token dtype the body is chosen by the capacity alone:
+    bf16 tokens run the decode body up to TILED_ABOVE slots per expert and
+    the tensor-core body above, or the CUDA-core tiled body where TMA
+    cannot address the data; fp32 tokens run the decode body up to
+    SIMT_TILED_ABOVE and the tiled body above. Every body it names counts
+    its launches for both row kinds."""
     import inspect
 
-    assert list(inspect.signature(_grouped.select_body).parameters) == ["capacity"]
-    want = _grouped.DECODE if C <= _grouped.TILED_ABOVE else _grouped.TILED
-    assert _grouped.select_body(C) == want
-    assert {name for name, _, _ in ops.BODIES} >= {want, want + "_q"}
+    assert list(inspect.signature(_grouped.select_body).parameters) == ["capacity", "dtype",
+                                                                         "tma_ok"]
+    bf16 = _grouped.DECODE if C <= _grouped.TILED_ABOVE else _grouped.WGMMA
+    assert _grouped.select_body(C, torch.bfloat16) == bf16
+    simt = _grouped.DECODE if C <= _grouped.SIMT_TILED_ABOVE else _grouped.TILED
+    assert _grouped.select_body(C, torch.float32) == simt
+    assert _grouped.select_body(C, torch.bfloat16, tma_ok=False) == simt
+    assert _grouped.select_body(C, torch.float32, tma_ok=False) == simt
+    for want in (bf16, simt):
+        assert {name for name, _, _ in ops.BODIES} >= {want, want + "_q"}
+
+
+@pytest.mark.parametrize("d,wdtype,ptr,ok", [
+    (1536, torch.bfloat16, 0, True), (1536, torch.int8, 256, True), (200, torch.bfloat16, 0, True),
+    (136, torch.bfloat16, 0, True), (144, torch.int8, 0, True), (136, torch.int8, 0, False),
+    (37, torch.bfloat16, 0, False), (1536, torch.bfloat16, 8, False)])
+def test_grouped_wgmma_takes_only_what_tma_addresses(d, wdtype, ptr, ok):
+    """TMA stages 16-byte-aligned rows and tokens: bf16 tokens need d a
+    multiple of 8, int8 rows a multiple of 16, every data pointer on a
+    16-byte boundary; the rest runs the CUDA-core tiled body."""
+    assert _grouped.tma_addressable(d, wdtype, 0, ptr) is ok
+    assert _grouped.select_body(256, torch.bfloat16, ok) == (
+        _grouped.WGMMA if ok else _grouped.TILED)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("C", [1, 8, 33, 64, 128, 200, 256, 300, 1000])
+def test_grouped_wgmma_plan_fits_one_block_per_sm(C, k, quantized):
+    """The tensor-core body's plan: a token tile N the kernel instantiates
+    (a multiple of 8, at most 256: wgmma's N), the smallest that holds C
+    unless the k-entry lists need a smaller one, enough tiles for every
+    slot, a ring of 2 to 4 stages, and a block within the 232,448 bytes of
+    shared memory an H100 block may use; the splits cover the vocab's
+    128-row tiles exactly, each split with at least one."""
+    v_pad = 12032
+    p = _grouped.wgmma_plan(16, C, v_pad, k, quantized)
+    assert p.n_tile in _grouped.WGMMA_TILES and p.n_tile % 8 == 0 and p.n_tile <= 256
+    assert p.token_tiles == -(-C // p.n_tile)
+    assert 2 <= p.stages <= 4
+    assert p.smem == _grouped.wgmma_smem_bytes(p.n_tile, k, p.stages, quantized) <= 232448
+    smallest = min(n for n in _grouped.WGMMA_TILES if n >= min(C, 256))
+    if k <= 8:
+        assert p.n_tile == smallest
+        assert p.stages >= 3
+    n_tiles = -(-v_pad // _grouped.WGMMA_ROWS)
+    assert (p.nsplit - 1) * p.tiles_per_split < n_tiles <= p.nsplit * p.tiles_per_split
+
+
+def test_grouped_wgmma_plan_fills_the_sms_at_the_batch_shape():
+    """qwen2-1.5b's head at the batch path's capacity (K 16, C 256, V_pad
+    12,032, k 8): one token tile of 256, and the experts' vocab splits fill
+    at least 95% of the H100's 132 SMs in one wave of one block each, no
+    block walking more than 12 of the 94 row tiles."""
+    p = _grouped.wgmma_plan(16, 256, 12032, 8, False)
+    assert (p.n_tile, p.token_tiles) == (256, 1)
+    blocks = 16 * p.token_tiles * p.nsplit
+    assert 0.95 * _build.SMS <= blocks <= _build.SMS
+    assert p.tiles_per_split == 12
+    assert _grouped.wgmma_plan(16, 256, 12032, 8, True)[:2] == (256, 1)
+
+
+def test_grouped_wgmma_smem_matches_the_kernel_layout():
+    """wgmma_smem_bytes is the kernel's wg::Layout: per stage a 128 x 64
+    row tile (2 bytes an element, 1 for int8) and N x 64 bf16 tokens; 16
+    bytes of barriers per stage and 16 for the seed barrier; 4 bytes of g,
+    16 of k-th value and slot count (two warpgroups), 16 per candidate slot
+    and 16 per list entry per token; 1 KB to align the base. The first
+    tile's exchange (two warpgroups x 4 warps x N tokens x a top-2 pair)
+    fits in the ring it borrows."""
+    assert _grouped.wgmma_smem_bytes(256, 8, 3, False) == (
+        3 * (16384 + 32768) + 48 + 16 + 4 * 256 + 16 * 256 + 16 * 256 * 8 + 16 * 256 * 8
+        + 1024)
+    assert _grouped.wgmma_smem_bytes(256, 8, 3, False) == 219200
+    assert _grouped.wgmma_smem_bytes(256, 8, 3, True) == 219200 - 3 * 8192
+    assert _grouped.wgmma_smem_bytes(256, 8, 4, False) > 232448
+    for n in _grouped.WGMMA_TILES:
+        assert 2 * 4 * n * 8 <= 2 * (8192 + n * 64 * 2)
 
 
 @pytest.mark.parametrize("quantized", [False, True])
