@@ -52,19 +52,26 @@ Phases, in order (any failure exits non-zero before the result line):
    C 256 for bf16 tokens (their main case the batch path's shape, V_pad
    12,032; also V_pad 12,000 with an all-padding expert), the CUDA-core
    tiled bodies at C 256 for fp32 tokens (their main case the fp32 batch
-   path's shape). The main cases of the two-launch bodies
+   path's shape, every slot live). The main cases of the two-launch bodies
    (``dss_topk_fused``, the grouped decode bodies) are split by kernel
-   with the profiler (``kernels_split_ms``). The capacity sweep: the
-   decode and the tensor-core body (``launch_body``) at C 1, 2, 4, 8, 16,
-   32, 48, 64, 128 and 256 (and 3) on bf16 rows and their int8 table, each checked
-   and timed on the device alone; it sets ``TILED_ABOVE``. These grouped
-   cases run last in phase 2, on a generator of their own.
+   with the profiler (``kernels_split_ms``). The capacity sweeps: the
+   decode body beside the tensor-core body (bf16 tokens on bf16 rows and
+   their int8 table; it sets ``TILED_ABOVE``) and beside the CUDA-core
+   tiled body (fp32 tokens on fp32 rows and their int8 table; it sets
+   ``SIMT_TILED_ABOVE``), through ``launch_body`` at C 1, 2, 4, 8, 16, 32,
+   48, 64, 128 and 256 (and 3), each checked and timed on the device
+   alone. Then the tiled bodies on a real dispatch (2048 fp32 tokens
+   through ``gate_top1`` and ``_group_tokens`` at C 256; yardstick one
+   fp32 ``bmm`` + ``topk`` over (K, C, d)). These grouped cases run last
+   in phase 2, on a generator of their own.
    The head-path step: ``serve_topk`` at qwen2-1.5b's head shape on a
    stand-in fp table and its int8 table at B 1, 8, 64 and 2048 (C 1, 1,
-   8, 256) through jnp, grouped, cuda_grouped and cuda_fused, interleaved
-   round-robin, device time from the profiler; every path's ids equal
-   jnp's but at near-ties (TIE_RTOL of the row's top-1; the count is
-   printed), and ``auto``'s pick within 1.5x the fastest path.
+   8, 256) with bf16 tokens, and on an fp32 copy of the table and its int8
+   table at B 64 and 2048 with fp32 tokens, through jnp, grouped,
+   cuda_grouped and cuda_fused, interleaved round-robin, device time from
+   the profiler; every path's ids equal jnp's but at near-ties (TIE_RTOL
+   of the row's top-1; the count is printed), and ``auto``'s pick within
+   1.5x the fastest path.
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
    through 8 slots, 12 requests (one prompt of 2048 tokens: its prefill
@@ -91,9 +98,10 @@ Phases, in order (any failure exits non-zero before the result line):
    once on the fp head table and its int8 table, through whatever path
    ``auto`` picks (printed; ``cuda_grouped`` runs the tensor-core bodies
    at capacity 256); then 2048 fp32 hidden states through an fp32 copy of
-   the head table and its int8 table on ``cuda_grouped`` (the CUDA-core
-   tiled bodies). Counts set to 0 just before each group and read just
-   after: the path's bodies must launch, no other grouped body; held
+   the head table and its int8 table, ``kernel='auto'`` too (its pick
+   printed; ``cuda_grouped`` runs the CUDA-core tiled bodies). Counts set
+   to 0 just before each group and read just after: the bodies of the path
+   ``auto`` picked must launch, no other grouped body; held
    against the plain ``grouped`` path (ids equal but at near-ties).
 4. Decode-step profile: 8 residents at prompt length 512, for cuda_fused
    and jnp on the fp table and cuda_fused on the int8 table: step ms
@@ -194,6 +202,9 @@ HEAD_ROUNDS, HEAD_CALLS, AUTO_SLACK = 3, 5, 1.5
 # prefill's last position, decode at 8 slots, a speculative verify step's
 # size, a whole prompt scored at once (C 1, 1, 8 and 256 at cf 2.0, K 16)
 HEAD_BATCHES = (1, 8, 64, 2048)
+# fp32 tokens (an fp32 copy of the table): a verify step's size and a whole
+# prompt (C 8 and 256)
+HEAD_BATCHES_FP32 = (64, 2048)
 # the batch path: hidden states scored at once through serve_topk (C 256 at
 # cf 2.0 and K 16: the grouped kernel's tensor-core bodies for bf16 tokens,
 # its CUDA-core tiled bodies for fp32)
@@ -522,13 +533,15 @@ SWEEP_CAPACITIES = (1, 2, 3, 4, 8, 16, 32, 48, 64, 128, 256)
 
 
 def capacity_sweep(results, gen) -> None:
-    """The grouped bodies of bf16 tokens (``launch_body``: the decode and
-    the tensor-core body) at every capacity of SWEEP_CAPACITIES on K 16,
-    d 1536, V_pad 12,032, k 8, every slot live, bf16 rows and their int8
-    table: each checked against the plain version and timed on the device
-    alone (``device_ms``). It sets ``dss_topk_grouped.TILED_ABOVE``: the
-    line says which body is faster at each capacity and which one
-    ``select_body`` runs."""
+    """The grouped bodies beside the decode body at every capacity of
+    SWEEP_CAPACITIES on K 16, d 1536, V_pad 12,032, k 8, every slot live
+    (``launch_body``): bf16 tokens on bf16 rows and their int8 table
+    against the tensor-core body, fp32 tokens on fp32 rows and their int8
+    table against the CUDA-core tiled body. Each run is checked against the
+    plain version and timed on the device alone (``device_ms``). The bf16
+    rows set ``dss_topk_grouped.TILED_ABOVE``, the fp32 rows
+    ``SIMT_TILED_ABOVE``: each line says which body is faster at each
+    capacity and which one ``select_body`` runs."""
     import torch
 
     from repro_torch.core.dssoftmax import ServeTable, quantize_table
@@ -536,34 +549,37 @@ def capacity_sweep(results, gen) -> None:
 
     grouped = _grouped()
     K, d, v_pad, k = 16, 1536, 12032, 8
-    bf16 = torch.bfloat16
     rows = []
-    for kind in ("bf16", "int8"):
-        w, ids = _table(gen, K, v_pad, d, bf16)
-        sc = None
-        if kind == "int8":
-            qt = quantize_table(ServeTable(ids=ids, weights=w))
-            w, sc = qt.qweights, qt.scales
-            del qt
-        for C in SWEEP_CAPACITIES:
-            buf = torch.randn((K, C, d), generator=gen, device="cuda").to(bf16)
-            g_buf = torch.rand((K, C), generator=gen, device="cuda") + 0.01
-            want = ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, scales=sc)
-            t, parted = {}, {}
-            for body in (grouped.DECODE, grouped.WGMMA):
-                run = functools.partial(grouped.launch_body, w, ids, buf, g_buf, k, sc, body)
-                parted[body] = _compare(body, f"sweep {kind} C={C}", run(), want)[1]
-                t[body] = device_ms(run)
-            row = {"rows": kind, "C": C, "decode_ms": t[grouped.DECODE],
-                   "wgmma_ms": t[grouped.WGMMA], "select_body": grouped.select_body(C, bf16),
-                   "rows_parted_at_ties": parted}
-            rows.append(row)
-            print(f"[sweep] {kind} C={C:3d}: decode {row['decode_ms']:9.4f} ms  wgmma "
-                  f"{row['wgmma_ms']:9.4f} ms (device)  faster: "
-                  f"{'decode' if row['decode_ms'] <= row['wgmma_ms'] else 'wgmma'}; "
-                  f"select_body runs {row['select_body']}", flush=True)
-            del buf, want
-        del w
+    for tok, other in ((torch.bfloat16, grouped.WGMMA), (torch.float32, grouped.TILED)):
+        short = "wgmma" if other == grouped.WGMMA else "tiled"
+        for kind in ("fp", "int8"):
+            w, ids = _table(gen, K, v_pad, d, tok)
+            sc = None
+            if kind == "int8":
+                qt = quantize_table(ServeTable(ids=ids, weights=w))
+                w, sc = qt.qweights, qt.scales
+                del qt
+            label = f"{str(tok)[6:]} tokens, {'int8' if sc is not None else str(tok)[6:]} rows"
+            for C in SWEEP_CAPACITIES:
+                buf = torch.randn((K, C, d), generator=gen, device="cuda").to(tok)
+                g_buf = torch.rand((K, C), generator=gen, device="cuda") + 0.01
+                want = ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, scales=sc)
+                t, parted = {}, {}
+                for body in (grouped.DECODE, other):
+                    run = functools.partial(grouped.launch_body, w, ids, buf, g_buf, k, sc, body)
+                    parted[body] = _compare(body, f"sweep {label} C={C}", run(), want)[1]
+                    t[body] = device_ms(run)
+                row = {"tokens": str(tok)[6:], "rows": str(tok)[6:] if kind == "fp" else "int8",
+                       "C": C, "decode_ms": t[grouped.DECODE],
+                    f"{short}_ms": t[other], "select_body": grouped.select_body(C, tok),
+                    "rows_parted_at_ties": parted}
+                rows.append(row)
+                print(f"[sweep] {label} C={C:3d}: decode {t[grouped.DECODE]:9.4f} ms  {short} "
+                      f"{t[other]:9.4f} ms (device)  faster: "
+                      f"{'decode' if t[grouped.DECODE] <= t[other] else short}; "
+                      f"select_body runs {row['select_body']}", flush=True)
+                del buf, want
+            del w
     results["capacity_sweep"] = rows
 
 
@@ -801,6 +817,113 @@ def grouped_cases(results) -> None:
     for quantized in (False, True):
         grouped_dispatch_case(results, gen, quantized)
     capacity_sweep(results, gen)
+    for quantized in (False, True):
+        tiled_dispatch_case(results, gen, quantized)
+    tiled_schedule(results, gen)
+
+
+def tiled_schedule(results, gen) -> None:
+    """The tiled body's schedule against chunks of one size, in the same
+    run: fp32 tokens at C 256 (K 16, d 1536, V_pad 12,032, k 8) on fp32 rows
+    and their int8 table, every slot live and on a real dispatch (B 2048
+    through ``gate_top1``), each through ``launch_body`` with its plan
+    (chunks of one row tile for the last waves of items) and with
+    ``tiled_plan(..., tail_waves=0)``, timed interleaved (plan, uniform,
+    uniform, plan; device-only). Both must give the same outputs."""
+    import torch
+
+    from repro_torch.core.dssoftmax import ServeTable, _group_tokens, quantize_table
+    from repro_torch.kernels import ops
+
+    grouped = _grouped()
+    K, d, v_pad, k, B = 16, 1536, 12032, 8, BATCH_B
+    C = int(max(1, round(B / K * 2.0)))
+    w32, ids = _table(gen, K, v_pad, d, torch.float32)
+    qt = quantize_table(ServeTable(ids=ids, weights=w32))
+    buf = torch.randn((K, C, d), generator=gen, device="cuda")
+    g_buf = torch.rand((K, C), generator=gen, device="cuda") + 0.01
+    gw = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5)
+    h = torch.randn((B, d), generator=gen, device="cuda")
+    e, g = ops.gate_top1(gw, h)
+    rbuf, rg, _, _ = _group_tokens(h, g, e, K, C)
+    rows = []
+    for kind, w, sc in (("fp32", w32, None), ("int8", qt.qweights, qt.scales)):
+        plans = {"plan": grouped.tiled_plan(K, C, v_pad, k, sc is not None),
+                 "uniform": grouped.tiled_plan(K, C, v_pad, k, sc is not None, tail_waves=0)}
+        for traffic, (b, gb) in (("every slot live", (buf, g_buf)), ("real dispatch", (rbuf, rg))):
+            runs = {name: functools.partial(grouped.launch_body, w, ids, b, gb, k, sc,
+                                            grouped.TILED, plan)
+                    for name, plan in plans.items()}
+            got = {name: run() for name, run in runs.items()}
+            if not all(torch.equal(x, y) for x, y in zip(got["plan"], got["uniform"])):
+                raise SmokeFailure(f"tiled schedule ({kind} rows, {traffic}): the two plans "
+                                   "disagree")
+            t = {name: [] for name in runs}
+            for name in ("plan", "uniform", "uniform", "plan"):
+                t[name].append(device_ms(runs[name]))
+            row = {"rows": kind, "traffic": traffic, "plan": list(plans["plan"]),
+                   "uniform": list(plans["uniform"]), "plan_ms": t["plan"],
+                   "uniform_ms": t["uniform"]}
+            rows.append(row)
+            print(f"[schedule] tiled, fp32 tokens, {kind} rows, C={C}, {traffic}: plan "
+                  f"{tuple(plans['plan'][:5])} {t['plan'][0]:.4f} / {t['plan'][1]:.4f} ms, "
+                  f"one chunk size {tuple(plans['uniform'][:5])} {t['uniform'][0]:.4f} / "
+                  f"{t['uniform'][1]:.4f} ms (device)", flush=True)
+    results["tiled_schedule"] = rows
+    del w32, qt, buf, rbuf
+
+
+def tiled_dispatch_case(results, gen, quantized: bool) -> None:
+    """The CUDA-core tiled body on a real dispatch: B 2048 fp32 tokens
+    through ``gate_top1`` and the serve path's ``_group_tokens`` at C 256
+    (K 16, d 1536, V_pad 12,032, k 8; fp32 rows, or their int8 table), the
+    fp32 batch path's buffers, where some token tiles hold no live slot.
+    Every slot is compared (empty ones too, no -inf emitted). The bound
+    counts what this dispatch needs: the products of the live slots with
+    their experts' real rows at the fp32 rate, and the bytes of those rows,
+    the live slots' tokens, g_buf and the outputs; the yardstick stays one
+    fp32 ``topk(bmm(buf, W^T))`` over (K, C, d)."""
+    import torch
+
+    from repro_torch.core.dssoftmax import ServeTable, _group_tokens, quantize_table
+    from repro_torch.kernels import ops, ref
+
+    grouped = _grouped()
+    K, d, v_pad, k, B = 16, 1536, 12032, 8, BATCH_B
+    C = int(max(1, round(B / K * 2.0)))
+    f32 = torch.float32
+    w, ids = _table(gen, K, v_pad, d, f32)
+    kw, yard_w, row_extra = {}, w, 0
+    if quantized:
+        qt = quantize_table(ServeTable(ids=ids, weights=w))
+        w, kw["scales"], yard_w, row_extra = qt.qweights, qt.scales, qt.qweights.float(), 4
+        del qt
+    gw = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5)
+    h = torch.randn((B, d), generator=gen, device="cuda")
+    e, g = ops.gate_top1(gw, h)
+    buf, g_buf, _, _ = _group_tokens(h, g, e, K, C)
+    name = grouped.select_body(C, f32) + ("_q" if quantized else "")
+    got = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    want = ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw)
+    if bool(torch.isinf(got[0]).any()):
+        raise SmokeFailure(f"{name}: an internal -inf reached an output")
+    live_slots = (g_buf != 0).sum(1)
+    real = (ids >= 0).sum(1)
+    n_tile = grouped.tiled_plan(K, C, v_pad, k).n_tile
+    live_tiles = int((g_buf.view(K, C // n_tile, n_tile) != 0).any(-1).sum())
+    flops = 2 * int((live_slots * real).sum()) * d
+    nbytes = (int(real[live_slots > 0].sum()) * (d * w.element_size() + 4 + row_extra)
+              + int(live_slots.sum()) * d * 4 + K * C * 4 + K * C * k * 8)
+    report_case(results, name, f"{'int8 rows, ' if quantized else ''}fp32 real dispatch B={B} "
+                f"C={C} live token tiles {live_tiles} of {K * C // n_tile}", got, want,
+                kernel_times(lambda: ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw),
+                             lambda: ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw),
+                             lambda: torch.topk(torch.bmm(buf, yard_w.transpose(1, 2)), k)),
+                nbytes, flops, f32)
+    results.setdefault("tiled_dispatch", {})[name] = {
+        "live_slots_per_expert": live_slots.tolist(), "live_token_tiles": live_tiles,
+        "token_tiles": K * C // n_tile}
+    del w, yard_w, buf
 
 
 def device_ms_by_op(fn, calls: int = HEAD_CALLS) -> dict:
@@ -826,60 +949,67 @@ def profiled_device_ms(fn, calls: int = HEAD_CALLS) -> float:
 
 def head_path_step(results: dict, gen) -> None:
     """``serve_topk`` through every exact path at qwen2-1.5b's head shape
-    (K 16, d 1536, V_pad 12,032, k 8, bf16 tokens) on a stand-in fp table
-    and its int8 table, at every B of HEAD_BATCHES: the paths interleaved
-    round-robin, each call's device time from the profiler (median of
-    HEAD_ROUNDS rounds). Fails if the path ``auto`` picks takes more than
-    AUTO_SLACK times the fastest, or if a path's ids part from the jnp
-    path's anywhere but at a near-tie (``_parted_rows``: the paths sum in
-    different orders)."""
+    (K 16, d 1536, V_pad 12,032, k 8): bf16 tokens on a stand-in fp table
+    and its int8 table at every B of HEAD_BATCHES, and fp32 tokens on an
+    fp32 copy of that table and its int8 table at every B of
+    HEAD_BATCHES_FP32; the paths interleaved round-robin, each call's device
+    time from the profiler (median of HEAD_ROUNDS rounds). Fails if the path
+    ``auto`` picks takes more than AUTO_SLACK times the fastest, or if a
+    path's ids part from the jnp path's anywhere but at a near-tie
+    (``_parted_rows``: the paths sum in different orders)."""
     import torch
 
     from repro_torch.core import dssoftmax as ds
     from repro_torch.kernels import registry
 
     K, d, v_pad, k = 16, 1536, 12032, 8
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     w, ids = _table(gen, K, v_pad, d, bf16)
-    tables = {"fp": ds.ServeTable(ids=ids, weights=w)}
-    tables["int8"] = ds.quantize_table(tables["fp"])
+    fp = ds.ServeTable(ids=ids, weights=w)
+    fp32 = ds.ServeTable(ids=ids, weights=w.float())
+    groups = ((bf16, {"fp": fp, "int8": ds.quantize_table(fp)}, HEAD_BATCHES),
+              (f32, {"fp32": fp32, "fp32 int8": ds.quantize_table(fp32)}, HEAD_BATCHES_FP32))
     gate = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(bf16)
     rows, failed = [], []
-    for B in HEAD_BATCHES:
-        h = torch.randn((B, d), generator=gen, device="cuda").to(bf16)
-        for kind, table in tables.items():
-            want = ds.serve_topk(gate, table, h, k, kernel="jnp")
-            parted = {path: _parted_rows(f"head path {path} ({kind}, B={B})",
-                                         *ds.serve_topk(gate, table, h, k, kernel=path), *want)
-                      for path in HEAD_PATHS}
-            times = {path: [] for path in HEAD_PATHS}
-            for _ in range(HEAD_ROUNDS):
-                for path in HEAD_PATHS:
-                    times[path].append(profiled_device_ms(
-                        lambda: ds.serve_topk(gate, table, h, k, kernel=path)))
-            for path, t in times.items():
-                for _ in range(HEAD_ROUNDS):  # a round whose profile held no device op
-                    if min(t) > 0:
-                        break
-                    t[t.index(0.0)] = profiled_device_ms(
-                        lambda: ds.serve_topk(gate, table, h, k, kernel=path))
-                if min(t) <= 0:
-                    raise SmokeFailure(f"head path {path} ({kind}, B={B}): the profiler saw "
-                                       f"no device time in {t}")
-            med = {path: statistics.median(t) for path, t in times.items()}
-            pick = registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, k))
-            fastest = min(med, key=med.get)
-            row = {"table": kind, "B": B, "device_ms": med, "auto": pick, "fastest": fastest,
-                   "auto_over_fastest": med[pick] / med[fastest],
-                   "rows_parted_from_jnp_at_ties": parted}
-            rows.append(row)
-            print(f"[head] {kind:4s} B={B}: " + "  ".join(
-                f"{path} {t:.4f}" for path, t in med.items())
-                + f" ms (device)  auto -> {pick} ({row['auto_over_fastest']:.2f}x the fastest, "
-                f"{fastest}); rows parted from jnp at near-ties {parted}", flush=True)
-            if med[pick] > AUTO_SLACK * med[fastest]:
-                failed.append(f"{kind} B={B}: auto picks {pick}, {med[pick]:.4f} ms, against "
-                              f"{fastest} {med[fastest]:.4f} ms")
+    for tok, tables, batches in groups:
+        gw = gate.to(tok)
+        for B in batches:
+            h = torch.randn((B, d), generator=gen, device="cuda").to(tok)
+            for kind, table in tables.items():
+                want = ds.serve_topk(gw, table, h, k, kernel="jnp")
+                parted = {path: _parted_rows(f"head path {path} ({kind}, B={B})",
+                                             *ds.serve_topk(gw, table, h, k, kernel=path), *want)
+                          for path in HEAD_PATHS}
+                del want
+                times = {path: [] for path in HEAD_PATHS}
+                for _ in range(HEAD_ROUNDS):
+                    for path in HEAD_PATHS:
+                        times[path].append(profiled_device_ms(
+                            lambda: ds.serve_topk(gw, table, h, k, kernel=path)))
+                for path, t in times.items():
+                    for _ in range(HEAD_ROUNDS):  # a round whose profile held no device op
+                        if min(t) > 0:
+                            break
+                        t[t.index(0.0)] = profiled_device_ms(
+                            lambda: ds.serve_topk(gw, table, h, k, kernel=path))
+                    if min(t) <= 0:
+                        raise SmokeFailure(f"head path {path} ({kind}, B={B}): the profiler "
+                                           f"saw no device time in {t}")
+                med = {path: statistics.median(t) for path, t in times.items()}
+                pick = registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, k))
+                fastest = min(med, key=med.get)
+                row = {"table": kind, "tokens": str(tok)[6:], "B": B, "device_ms": med,
+                       "auto": pick, "fastest": fastest,
+                       "auto_over_fastest": med[pick] / med[fastest],
+                       "rows_parted_from_jnp_at_ties": parted}
+                rows.append(row)
+                print(f"[head] {kind:9s} B={B}: " + "  ".join(
+                    f"{path} {t:.4f}" for path, t in med.items())
+                    + f" ms (device)  auto -> {pick} ({row['auto_over_fastest']:.2f}x the fastest, "
+                    f"{fastest}); rows parted from jnp at near-ties {parted}", flush=True)
+                if med[pick] > AUTO_SLACK * med[fastest]:
+                    failed.append(f"{kind} B={B}: auto picks {pick}, {med[pick]:.4f} ms, against "
+                                  f"{fastest} {med[fastest]:.4f} ms")
     results["head_path"] = rows
     if failed:
         raise SmokeFailure("auto's head-path pick is slow: " + "; ".join(failed))
@@ -1389,10 +1519,10 @@ def _batch_bodies(pick: str, body: str, quantized: bool) -> tuple:
 def batch_phase(results: dict, card: str, params, cases) -> None:
     """The batch path: ``serve_topk`` over BATCH_B hidden states at once (a
     user scoring every position of a 2048-token prompt; capacity 256 at cf
-    2.0, K 16). (bf16) ``kernel='auto'`` on the slice's fp head table and
-    its int8 table, whatever path ``auto`` picks (reported). (fp32) fp32
-    hidden states through an fp32 copy of the head table and its int8
-    table on ``cuda_grouped``: the CUDA-core tiled bodies. Each run is held
+    2.0, K 16), ``kernel='auto'`` whatever path it picks (reported): (bf16)
+    on the slice's fp head table and its int8 table; (fp32) fp32 hidden
+    states through an fp32 copy of the head table and its int8 table
+    (``cuda_grouped`` runs the CUDA-core tiled bodies). Each run is held
     against the plain ``grouped`` path: ids equal but at a near-tie
     (TIE_RTOL of the row's top-1), values within VAL_ATOL + VAL_RTOL. The
     counts are set to 0 just before each group and read just after: the
@@ -1407,7 +1537,7 @@ def batch_phase(results: dict, card: str, params, cases) -> None:
     fp, i8 = cases[0][1], cases[2][1]
     fp32 = ds.ServeTable(ids=fp.ids, weights=fp.weights.float())
     groups = (("batch", "auto", ((("fp", fp), ("int8", i8)), gate.dtype)),
-              ("batch_fp32", "cuda_grouped",
+              ("batch_fp32", "auto",
                ((("fp32", fp32), ("fp32 int8", ds.quantize_table(fp32))), torch.float32)))
     grouped_names = {name for name, _, _ in ops.BODIES if name.startswith("dss_topk_grouped")}
     for label, kernel, (tables, dtype) in groups:

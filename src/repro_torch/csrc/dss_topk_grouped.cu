@@ -82,111 +82,755 @@
 //   the tensor cores (both warpgroups reach it together); overlapping it
 //   with the next tile's products is the next step.
 //
-// dss_topk_grouped_tiled, the CUDA-core tiled body (fp32 tokens, where
-// tensor cores would need TF32 and change the function, and bf16 tokens
-// that TMA cannot address, at prefill capacities). Bound: operations,
-// 2*K*C*V_pad*d FLOPs at the fp32 CUDA-core rate. A block owns one (expert,
-// token tile, vocab split) and loops over the split's vocab tiles itself,
-// keeping the running top-k in shared memory (topk_common.cuh). Each
-// weight tile is read once per token tile and used by every token in it.
-// Vocab splits (chosen by the wrapper to fill the 132 SMs) write partial
-// lists that a second small kernel merges in split order. The product runs
-// on CUDA cores in fp32 FMA.
+// dss_topk_grouped_tiled, the CUDA-core tiled body (fp32 tokens at prefill
+// capacities, where tensor cores would need TF32 and change the function;
+// also bf16 tokens that TMA cannot address). It replaces a body of 64-token
+// tiles, 4 x 4 micro-tiles and a serial top-k (11.7 ms at C 256 on an H100
+// 80GB HBM3 at 700 W, chip_smoke.py phase 2). Bound:
+// operations, 2*128*BN*d fp32 FMA operations per (live token tile of BN
+// slots, 128-row tile with a real row) at the fp32 CUDA-core rate of 67
+// TFLOP/s (at C 256, d 1536, K 16, V_pad 12,032, every slot live: about
+// 2.0 ms).
+// - Work items of (vocab chunk, expert, token tile of BN = 16, 32, 64 or
+//   128 slots), pulled from a counter by persistent blocks of 256 threads,
+//   so the SMs stay busy however much work is skipped (with 128-slot tiles
+//   each expert's last chunks hold one row tile, so the last items pulled
+//   are short). An item whose token tile has no live slot (g_buf == 0
+//   throughout) does no product: its slots get the decode body's rule from
+//   ids alone. A 128-row tile whose
+//   ids are all -1 does no product either: its rows are -1e9 candidates.
+//   Both facts are read on the device: no host sync, no allocation.
+// - The product: each thread keeps an 8 x BN/16 micro-tile of fp32
+//   accumulators (8 x 8 at BN 128) and reads its rows and tokens of four d
+//   as 16-byte shared-memory loads, one FMA per accumulator in turn. A ring
+//   of 4 stages of (128 rows, BN tokens) x 32 d is filled by TMA (one
+//   thread, two 3-D boxes a stage, zero fill past every edge, 128-byte
+//   swizzle so those loads hit distinct banks); int8 rows arrive 4 slices
+//   (128 bytes a row) at a time and are widened to fp32 once, a slice a
+//   stage (topk_common.cuh's exact byte_perm widening). Token tiles of 16 and
+//   32 map threads to 2 rows x BN/4 tokens instead (4 lanes share a row's
+//   load) and pass their sums through shared memory to the top-k. Each
+//   expert's rows are read once per token tile: twice at C 256, the second
+//   time mostly from L2, since the two token tiles of a (chunk, expert) are
+//   consecutive items.
+// - The top-k on the accumulators: x scale[row] (int8), x g[token], padding
+//   -1e9, each value compared once against its token's current k-th entry.
+//   The 16 lanes of a half-warp hold all 128 rows of the tile for their
+//   tokens, so a token's list (shared memory, value desc, position asc) is
+//   kept by one half-warp without a block barrier: its best candidate is
+//   found by shuffles and inserted by the 16 lanes at once, until the best
+//   one left no longer beats the k-th entry. A chunk's items start with
+//   empty lists, so a finished item publishes each slot's k-th value
+//   (atomicMax of an order-preserving key): k values at or above it exist,
+//   so the items still to come drop every value below it.
+// - Vocab chunks (at most 64 per expert) write partial lists, which
+//   topk_common.cuh's merge_splits_kernel merges in position order.
+#include <algorithm>
+
 #include "retrieve_stream.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
 
-// ---- the tiled body (prefill capacities) --------------------------------
+constexpr int kNoPos = 0x7fffffff;  // position of an unfilled list entry
+constexpr int kSmemMax = 232448;    // shared memory a block may use
 
-using repro::TileSmem;
+// (v, p) before (lv, lp) in the list order: value desc, position asc.
+__device__ __forceinline__ bool before(float v, int p, float lv, int lp) {
+  return v > lv || (v == lv && p < lp);
+}
 
-template <typename TX, typename TW, int TB>
-__global__ void __launch_bounds__(repro::kThreads)
-grouped_kernel(const TX* __restrict__ buf, const float* __restrict__ g_buf,
-               const TW* __restrict__ w, const int* __restrict__ ids,
-               const float* __restrict__ scales, float* __restrict__ out_v,
-               int* __restrict__ out_i, int K, int C, int v_pad, int d, int k,
-               int tiles_per_split) {
-  extern __shared__ __align__(16) char smem[];
-  const TileSmem<TB> s = TileSmem<TB>::carve(smem, k);
-  const int t0 = blockIdx.x * TB, e = blockIdx.y, sp = blockIdx.z;
-  const int n_tok = min(TB, C - t0);
-  const int v_lo = sp * tiles_per_split * repro::kTV;
-  const int v_hi = min(v_pad, v_lo + tiles_per_split * repro::kTV);
-  if (threadIdx.x < TB) {
-    const int t = threadIdx.x;
-    s.tok_off[t] = (static_cast<long long>(e) * C + t0 + t) * d;
-    s.g[t] = t < n_tok ? g_buf[static_cast<size_t>(e) * C + t0 + t] : 0.f;
+// The 3-D map (d, rows, K) of one operand, box (box_d, box_rows, 1);
+// elements outside the tensor read as zero.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem,
+                     int d, int rows, int K, int box_d, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
+  repro::EncodeTiledFn encode = repro::encode_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t pitch = static_cast<cuuint64_t>(d) * elem;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(K)};
+  cuuint64_t strides[2] = {pitch, pitch * rows};
+  cuuint32_t box[3] = {static_cast<cuuint32_t>(box_d), static_cast<cuuint32_t>(box_rows), 1};
+  cuuint32_t es[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, es,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- the CUDA-core tiled body (fp32 tokens, prefill capacities) ----------
+
+namespace simt {
+
+constexpr int kRows = 128;          // vocab rows per tile
+constexpr int kSlice = 32;          // d elements per ring stage: 128-byte fp32 rows
+constexpr int kStages = 4;          // ring stages: 3 in flight while one is multiplied
+constexpr int kRawSlices = 4;       // int8 rows: one raw block holds 4 slices (128 bytes a row)
+constexpr int kRawSlots = 3;        // raw blocks in the ring: 2 in flight while one is widened
+constexpr int kRawRow = kSlice * kRawSlices;  // bytes of a row in a raw block
+constexpr int kThreads = 256;       // 16 row groups x 16 token groups
+constexpr int kMaxChunks = 64;      // vocab chunks per expert (repro::launch_merge takes 288)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMisc = 16;           // ints of scratch: item[2], live count, real count, warp counts
+constexpr int kNarrow = 32;         // token tiles up to this take the narrow product
+constexpr int kZPitch = kRows + 4;  // fp32 per token of a narrow tile's logits
+
+// Byte offsets from the 1024-aligned base of the dynamic shared memory
+// (kernels/dss_topk_grouped.py::tiled_smem_bytes mirrors it). fp32 rows are
+// staged in a ring of kStages; int8 rows land raw, 4 slices (128 bytes a
+// row) at a time, in a ring of kRawSlots blocks and are widened a slice at a
+// time into two fp32 buffers.
+struct Layout {
+  int rows;    // [row buffers][kRows][kSlice] fp32 rows, swizzled (sw)
+  int toks;    // [kStages][BN][kSlice] fp32 tokens, swizzled
+  int raw;     // [kRawSlots][kRows][kRawRow] int8 rows as loaded (int8 tables)
+  int bars;    // [kStages] mbarriers: the stage's loads have landed, then
+               // [kRawSlots] the raw blocks'
+  int list_v;  // [BN][k] running top-k values, (value desc, position asc)
+  int list_p;  // [BN][k] their packed positions
+  int g;       // [BN] gate value per token
+  int z;       // [BN][kZPitch] a narrow tile's logits, as the top-k step reads them
+  int live;    // [tiles_per_chunk] the chunk's row tiles with a real row
+  int misc;    // [kMisc + kMaxK] scratch, then the first k real rows of a chunk
+  int total;   // bytes to request, with 1 KB to align the base
+  __host__ __device__ Layout(int BN, int k, int tiles_per_chunk, bool q) {
+    rows = 0;
+    toks = rows + 4 * (q ? 2 : kStages) * kRows * kSlice;
+    raw = toks + 4 * kStages * BN * kSlice;
+    bars = raw + (q ? kRawSlots * kRows * kRawRow : 0);
+    list_v = bars + 8 * (kStages + (q ? kRawSlots : 0));
+    list_p = list_v + 4 * BN * k;
+    g = list_p + 4 * BN * k;
+    z = g + 4 * BN;
+    live = z + (BN <= kNarrow ? 4 * BN * kZPitch : 0);
+    misc = live + 4 * tiles_per_chunk;
+    total = misc + 4 * (kMisc + repro::kMaxK) + 1024;
   }
-  repro::init_topk(s, k);
+};
+
+// Float dd of unit u (a row or a token) in a staged tile: 128-byte units
+// whose 16-byte chunks sit XOR-swizzled by the unit's low 3 bits, as TMA's
+// 128-byte swizzle stores them, so the 16-byte loads of 8 consecutive units
+// at one d hit distinct banks.
+__device__ __forceinline__ int sw(int u, int dd) { return u * kSlice + (dd ^ ((u & 7) << 2)); }
+
+// Thread row i (tr: its row group) and thread token j (tt: its token group):
+// a half-warp's 16 lanes hold all 128 rows of a tile for its tokens.
+__device__ __forceinline__ int row_of(int tr, int i) { return tr + 16 * i; }
+__device__ __forceinline__ int tok_of(int tt, int j) { return tt + 16 * j; }
+
+// A (UNITS x kSlice) slice of rows of d elements (units n_units and beyond,
+// elements past d: zero) one element at a time, widened to fp32, for what
+// TMA cannot address (bf16 tokens, unaligned rows).
+template <typename T, int UNITS>
+__device__ __forceinline__ void copy_sync(float* dst, const T* __restrict__ src, int n_units,
+                                          int d, int d0) {
+  for (int q = threadIdx.x; q < UNITS * kSlice; q += kThreads) {
+    const int u = q / kSlice, c = q % kSlice;
+    const bool ok = u < n_units && d0 + c < d;
+    dst[sw(u, c)] = ok ? repro::to_f32(src[static_cast<size_t>(u) * d + d0 + c]) : 0.f;
+  }
+}
+
+// The 16-byte int8 chunks of a slice each thread widens (and, without TMA,
+// copies): chunk q = threadIdx.x + kThreads * m is bytes 16 c to 16 c + 15
+// of row q / kChunks, c = q % kChunks.
+constexpr int kChunks = kSlice / 16;  // int8 chunks per row and stage
+constexpr int kOwn = kRows * kChunks / kThreads;
+static_assert(kRows * kChunks % kThreads == 0, "every thread owns whole int8 chunks");
+
+// int8 rows one byte at a time into a raw stage, each thread the chunks
+// that widen_rows widens (so no barrier is needed in between).
+__device__ __forceinline__ void copy_sync_raw(int8_t* dst, const int8_t* __restrict__ src,
+                                              int n_units, int d, int d0) {
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    const int q = threadIdx.x + kThreads * m, u = q / kChunks, c = q % kChunks;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int dd = c * 16 + e;
+      const bool ok = u < n_units && d0 + dd < d;
+      dst[u * kSlice + dd] = ok ? src[static_cast<size_t>(u) * d + d0 + dd] : int8_t{0};
+    }
+  }
+}
+
+// int8 rows: this thread's chunks of one slice of raw rows (row pitch
+// `pitch` bytes) widened exactly to fp32 rows (swizzled like the fp32 ones).
+__device__ __forceinline__ void widen_rows(float* __restrict__ dst,
+                                           const unsigned char* __restrict__ raw, int pitch) {
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    const int q = threadIdx.x + kThreads * m, u = q / kChunks, c = q % kChunks;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + u * pitch + c * 16);
+    const uint32_t word[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x[4];
+      repro::unpack(word[e], x, int8_t{});
+      *reinterpret_cast<float4*>(dst + sw(u, c * 16 + 4 * e)) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
+}
+
+// One ring stage's products: acc[i][j] += row i . token j over kSlice d, in
+// d order, from 16-byte loads of four d. Rows tr + 16 i share tr's swizzle,
+// tokens tt + 16 j tt's: one XOR per d step serves all of them. Tokens go
+// in halves of 4 (48 operand registers live, not 64: the 8 x 8 micro-tile
+// of int8 rows spilled), each FMA one d of one accumulator in turn, so
+// consecutive FMAs are independent.
+template <int NT>
+__device__ __forceinline__ void product(float (&acc)[8][NT], const float* __restrict__ rows,
+                                        const float* __restrict__ toks, int tr, int tt) {
+  constexpr int NH = NT > 4 ? 2 : 1, NJ = NT / NH;  // token halves, tokens per half
+  const float* rb = rows + tr * kSlice;
+  const float* tb = toks + tt * kSlice;
+  const int sr = (tr & 7) << 2, st = (tt & 7) << 2;
+#pragma unroll
+  for (int dq = 0; dq < kSlice; dq += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a[i] = *reinterpret_cast<const float4*>(rb + 16 * i * kSlice + (dq ^ sr));
+    const float* af = reinterpret_cast<const float*>(a);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float4 b[NJ];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+        b[jj] = *reinterpret_cast<const float4*>(tb + 16 * (h * NJ + jj) * kSlice + (dq ^ st));
+      const float* bf = reinterpret_cast<const float*>(b);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj)
+            acc[i][h * NJ + jj] = fmaf(af[4 * i + c], bf[4 * jj + c], acc[i][h * NJ + jj]);
+    }
+  }
+}
+
+// Token tiles of BN <= kNarrow: each warp takes 8 rows (and the same 8
+// plus 64) by 4 groups of tokens, thread (rg, tl) rows rg and rg + 64 and
+// tokens 4 j + tl, so a row's 16-byte load serves 4 lanes and every warp
+// reads other rows (the wide mapping makes each of 16 token groups read
+// all 128 rows, for one or two tokens). The accumulators hold the
+// (row r2, token j) sum at flat index r2 * BN / 4 + j.
+__device__ __forceinline__ int narrow_row(int r2) {
+  return threadIdx.x % 8 + 8 * (threadIdx.x / 32) + 64 * r2;
+}
+__device__ __forceinline__ int narrow_tok(int j) { return 4 * j + (threadIdx.x % 32) / 8; }
+
+template <int NT>
+__device__ __forceinline__ void product_narrow(float (&acc)[8][NT], const float* __restrict__ rows,
+                                               const float* __restrict__ toks) {
+  constexpr int TN = 4 * NT;  // tokens per thread: BN / 4
+  float* flat = &acc[0][0];
+  // swizzles: rows narrow_row(r2) share theirs; tokens 4 j + tl alternate two
+  const int lane = threadIdx.x % 32, sr = (lane & 7) << 2;
+  const int st0 = (lane / 8) << 2, st1 = (4 + lane / 8) << 2;
+  const float* rb = rows + narrow_row(0) * kSlice;
+  const float* tb = toks + (lane / 8) * kSlice;
+#pragma unroll
+  for (int dq = 0; dq < kSlice; dq += 4) {
+    float4 a[2], b[TN];
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2)
+      a[r2] = *reinterpret_cast<const float4*>(rb + 64 * r2 * kSlice + (dq ^ sr));
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      b[j] = *reinterpret_cast<const float4*>(tb + 4 * j * kSlice + (dq ^ ((j & 1) ? st1 : st0)));
+    const float* af = reinterpret_cast<const float*>(a);
+    const float* bf = reinterpret_cast<const float*>(b);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          flat[r2 * TN + j] = fmaf(af[4 * r2 + c], bf[4 * j + c], flat[r2 * TN + j]);
+  }
+}
+
+// A narrow tile's sums through shared memory into the top-k step's layout
+// (acc[i][j]: row row_of(tr, i), token tok_of(tt, j)). Every thread calls
+// it; it holds a block barrier.
+template <int NT>
+__device__ __forceinline__ void narrow_to_rows(float (&acc)[8][NT], float* z, int tr, int tt) {
+  constexpr int TN = 4 * NT;
+  float* flat = &acc[0][0];
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) z[narrow_tok(j) * kZPitch + narrow_row(r2)] = flat[r2 * TN + j];
   __syncthreads();
-  const size_t e_row = static_cast<size_t>(e) * v_pad;
-  repro::retrieve_tile<TX, TW, TB>(s, buf, n_tok, w + e_row * d, ids + e_row,
-                                   scales != nullptr ? scales + e_row : nullptr,
-                                   v_lo, v_hi, d, k);
-  for (int i = threadIdx.x; i < n_tok * k; i += repro::kThreads) {
-    const int t = i / k, j = i % k;
-    const size_t row = (static_cast<size_t>(sp) * K + e) * C + t0 + t;
-    out_v[row * k + j] = s.top_v[t * k + j];
-    out_i[row * k + j] = s.top_i[t * k + j];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j] = z[tok_of(tt, j) * kZPitch + row_of(tr, i)];
+}
+
+// The 16 lanes of a half-warp insert (v, p) into one token's sorted list of
+// k entries where `ins` holds (uniform over the half-warp); every lane of
+// the warp calls it. Lane hl moves entries hl, hl + 16, ...
+__device__ __forceinline__ void insert_half(float* lv, int* lp, int k, float v, int p, bool ins,
+                                            int hl, unsigned half) {
+  float cv[4], pv[4];
+  int cp[4], pp[4];
+  int at = 0;  // entries that stay before (v, p)
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (16 * q >= k) break;  // uniform
+    const int e = hl + 16 * q;
+    bool stays = false;
+    if (ins && e < k) {
+      cv[q] = lv[e];
+      cp[q] = lp[e];
+      pv[q] = e > 0 ? lv[e - 1] : 0.f;
+      pp[q] = e > 0 ? lp[e - 1] : 0;
+      stays = before(cv[q], cp[q], v, p);
+    }
+    at += __popc(__ballot_sync(kFull, stays) & half);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int e = hl + 16 * q;
+    if (ins && e < k && e >= at) {
+      lv[e] = e == at ? v : pv[q];
+      lp[e] = e == at ? p : pp[q];
+    }
+  }
+  __syncwarp();
+}
+
+// Order-preserving int keys of floats (key 0: none yet), for atomicMax.
+__device__ __forceinline__ unsigned float_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_float(unsigned key) {
+  return key == 0u ? -CUDART_INF_F
+                   : __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// One row tile's top-k step on the accumulators (rows v0 + row_of(tr, i),
+// those at or past v_hi left out): z = acc x scale (int8 rows) x g, padding
+// -1e9; a value goes on only if it beats its token's k-th entry and is not
+// below the token's bound from the chunks already done (low). Then each
+// token's half-warp moves those values into its list, best first, one per
+// round for all NT tokens of the thread at once (independent shuffles),
+// until the best one left of every token no longer beats its k-th entry.
+// Every lane of the block calls it.
+template <int NT, bool Q>
+__device__ __forceinline__ void topk_step(float (&acc)[8][NT], const int* __restrict__ idp,
+                                          const float* __restrict__ scp, const float* gs,
+                                          const unsigned* low, float* lv_all, int* lp_all,
+                                          int v0, int v_hi, int n_tok, int k, int tr, int tt,
+                                          unsigned half) {
+  int pos[8];
+  bool in[8];
+  float g[NT], lo[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int t = tok_of(tt, j);
+    g[j] = gs[t];
+    lo[j] = t < n_tok ? key_float(__ldcg(low + t)) : -CUDART_INF_F;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    pos[i] = v0 + row_of(tr, i);
+    in[i] = pos[i] < v_hi;
+    const int id = in[i] ? idp[pos[i]] : -1;
+    const float sc = (Q && in[i]) ? scp[pos[i]] : 1.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float z = acc[i][j];
+      if (Q) z *= sc;
+      z *= g[j];
+      acc[i][j] = id < 0 ? repro::kNegInfMask : z;
+    }
+  }
+  uint32_t m[NT];  // bit i of m[j]: row i still goes on for token j
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int t = tok_of(tt, j);
+    m[j] = 0u;
+    if (t < n_tok) {
+      const float kv = lv_all[t * k + k - 1];
+      const int kp = lp_all[t * k + k - 1];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        m[j] |= static_cast<uint32_t>(in[i] && acc[i][j] >= lo[j] &&
+                                      before(acc[i][j], pos[i], kv, kp))
+                << i;
+    }
+    any |= m[j] != 0u;
+  }
+  while (__any_sync(kFull, any)) {
+    float bv[NT];
+    int bp[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      bv[j] = -CUDART_INF_F;
+      bp[j] = kNoPos;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (((m[j] >> i) & 1u) && before(acc[i][j], pos[i], bv[j], bp[j])) {
+          bv[j] = acc[i][j];
+          bp[j] = pos[i];
+        }
+    }
+    bool act[NT];  // tokens some lane of the warp still holds values for
+#pragma unroll
+    for (int j = 0; j < NT; ++j) act[j] = __any_sync(kFull, m[j] != 0u);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (act[j]) {
+          const float ov = __shfl_xor_sync(kFull, bv[j], off);
+          const int op = __shfl_xor_sync(kFull, bp[j], off);
+          if (before(ov, op, bv[j], bp[j])) {
+            bv[j] = ov;
+            bp[j] = op;
+          }
+        }
+    any = false;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      // the half-warp's best candidate, against the k-th entry as it is now
+      const int t = tok_of(tt, j);
+      float* lv = lv_all + t * k;
+      int* lp = lp_all + t * k;
+      const bool ins = act[j] && bp[j] != kNoPos && before(bv[j], bp[j], lv[k - 1], lp[k - 1]);
+      if (__any_sync(kFull, ins)) insert_half(lv, lp, k, bv[j], bp[j], ins, tr, half);
+      if (ins) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (pos[i] == bp[j]) m[j] &= ~(1u << i);
+      } else {
+        m[j] = 0u;  // the best one left does not reach the list: none does
+      }
+      any |= m[j] != 0u;
+    }
   }
 }
 
-template <typename TX, typename TW, int TB>
-cudaError_t launch(const void* buf, const float* g_buf, const void* w,
-                   const int* ids, const float* scales, float* out_v,
-                   int* out_i, float* part_v, int* part_i, int K, int C,
-                   int v_pad, int d, int k, int nsplit, int tiles_per_split,
-                   cudaStream_t stream) {
-  const size_t smem = TileSmem<TB>::bytes(k);
-  auto kern = grouped_kernel<TX, TW, TB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// Persistent blocks pull work items (vocab chunk, expert, token tile of BN
+// slots) from *next_item and write each token's top-k (value, class id) of
+// the chunk to out (nchunk, K, C, k) at the chunk (out (K, C, k) when
+// nchunk is 1). TX: token type, TW: row type. TMA: fp32 rows (tw: (d,
+// v_pad, K), box (32, 128, 1)) and fp32 tokens (tx: (d, C, K), box (32, BN,
+// 1)) arrive by TMA with the 128-byte swizzle, int8 rows (tw: box (128,
+// 128, 1), 4 slices) unswizzled; else (bf16 tokens, unaligned data)
+// everything one element at a time, and tw, tx are unused.
+template <typename TX, typename TW, int BN, bool TMA>
+__global__ void __launch_bounds__(kThreads, 1)
+tiled_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tx,
+             const TX* __restrict__ buf, const float* __restrict__ g_buf,
+             const TW* __restrict__ w, const int* __restrict__ ids,
+             const float* __restrict__ scales, float* __restrict__ out_v,
+             int* __restrict__ out_i, int* __restrict__ next_item, unsigned* __restrict__ lows,
+             int K, int C, int v_pad, int d, int k, int tiles_per_chunk, int big_tiles,
+             int nchunk) {
+  constexpr int NT = BN / 16;
+  constexpr bool Q = std::is_same<TW, int8_t>::value;
+  constexpr uint32_t kStageBytes = (Q ? 0 : kRows * kSlice * 4) + BN * kSlice * 4;
+  constexpr uint32_t kRawBytes = kRows * kRawRow;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_base = repro::smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw_base + 1023u) & ~1023u) - raw_base);
+  const Layout L(BN, k, tiles_per_chunk, Q);
+  float* rows = reinterpret_cast<float*>(smem + L.rows);
+  float* toks = reinterpret_cast<float*>(smem + L.toks);
+  unsigned char* raw = smem + L.raw;
+  const uint32_t bars = repro::smem_u32(smem + L.bars);
+  float* lv_all = reinterpret_cast<float*>(smem + L.list_v);
+  int* lp_all = reinterpret_cast<int*>(smem + L.list_p);
+  float* gs = reinterpret_cast<float*>(smem + L.g);
+  float* zs = reinterpret_cast<float*>(smem + L.z);
+  int* live = reinterpret_cast<int*>(smem + L.live);
+  int* misc = reinterpret_cast<int*>(smem + L.misc);
+  int* first_real = misc + kMisc;
+  if (TMA && threadIdx.x == 0) {
+    for (int s = 0; s < kStages + (Q ? kRawSlots : 0); ++s)
+      repro::mbar_init(bars + 8u * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  int done = 0;      // ring stages this block has used, over its items: slot and phase
+  int raw_done = 0;  // raw int8 blocks likewise
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tr = lane % 16, tt = 2 * warp + lane / 16;
+  const unsigned half = 0xffffu << (16 * (lane / 16));
+  const int token_tiles = (C + BN - 1) / BN;
+  const int n_items = nchunk * K * token_tiles;
+  const int n_sl = (d + kSlice - 1) / kSlice;
+  const int row_tiles = (v_pad + kRows - 1) / kRows;
+
+  for (int round = 0;; ++round) {
+    if (tid == 0) misc[round & 1] = atomicAdd(next_item, 1);
+    __syncthreads();
+    const int item = misc[round & 1];
+    if (item >= n_items) break;
+    // consecutive items: the token tiles of one (chunk, expert), which read
+    // the same rows
+    const int e = (item / token_tiles) % K, ch = item / (token_tiles * K);
+    const int t0 = (item % token_tiles) * BN, n_tok = min(BN, C - t0);
+    // chunks of tiles_per_chunk row tiles up to big_tiles, then one tile
+    // each: the last items pulled are short, so the SMs finish together
+    const int n_big = (big_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+    const int tile_lo = ch < n_big ? ch * tiles_per_chunk : big_tiles + (ch - n_big);
+    const int n_tiles =
+        ch < n_big ? min(tiles_per_chunk, big_tiles - tile_lo) : min(1, row_tiles - tile_lo);
+    const int v_lo = tile_lo * kRows, v_hi = min(v_pad, v_lo + n_tiles * kRows);
+    const int* idp = ids + static_cast<size_t>(e) * v_pad;
+    const float* scp = Q ? scales + static_cast<size_t>(e) * v_pad : nullptr;
+    const size_t out_row = (static_cast<size_t>(nchunk > 1 ? ch : 0) * K + e) * C + t0;
+    unsigned* low = lows + static_cast<size_t>(e) * C + t0;
+
+    float gv = 0.f;
+    if (tid < BN) {
+      gv = tid < n_tok ? g_buf[static_cast<size_t>(e) * C + t0 + tid] : 0.f;
+      gs[tid] = gv;
+    }
+    if (!__syncthreads_or(gv != 0.f)) {
+      // No live slot: for finite rows and tokens every real row scores
+      // x . w * 0 = +-0 (a tie) and padding -1e9, so each slot gets (0, id)
+      // on the chunk's first k real rows, then (-1e9, -1) while the chunk
+      // has rows, then (-inf, -1) (the merge keeps chunks in order).
+      if (tid == 0) misc[3] = 0;
+      __syncthreads();
+      for (int base = v_lo; base < v_hi; base += kThreads) {
+        const int found = misc[3];
+        if (found >= k) break;
+        const int v = base + tid;
+        const bool real = v < v_hi && idp[v] >= 0;
+        const unsigned bal = __ballot_sync(kFull, real);
+        if (lane == 0) misc[4 + warp] = __popc(bal);
+        __syncthreads();
+        int ahead = 0, total = 0;
+        for (int x = 0; x < kThreads / 32; ++x) {
+          ahead += x < warp ? misc[4 + x] : 0;
+          total += misc[4 + x];
+        }
+        const int idx = found + ahead + __popc(bal & ((1u << lane) - 1u));
+        if (real && idx < k) first_real[idx] = v;
+        __syncthreads();
+        if (tid == 0) misc[3] = found + total;
+        __syncthreads();
+      }
+      const int n_real = min(misc[3], k), n_rows = v_hi - v_lo;
+      for (int i = tid; i < n_tok * k; i += kThreads) {
+        const int t = i / k, j = i % k;
+        const size_t o = (out_row + t) * k + j;
+        out_v[o] = j < n_real ? 0.f : (j < n_rows ? repro::kNegInfMask : -CUDART_INF_F);
+        out_i[o] = j < n_real ? idp[first_real[j]] : -1;
+      }
+      continue;
+    }
+
+    // the chunk's row tiles that hold a real row, in order
+    for (int i = tid; i < n_tiles; i += kThreads) live[i] = 0;
+    for (int i = tid; i < BN * k; i += kThreads) {
+      lv_all[i] = -CUDART_INF_F;
+      lp_all[i] = kNoPos;
+    }
+    __syncthreads();
+    for (int v = v_lo + tid; v < v_hi; v += kThreads)
+      if (idp[v] >= 0) live[(v - v_lo) / kRows] = 1;
+    __syncthreads();
+    if (tid == 0) {
+      int n = 0;
+      for (int i = 0; i < n_tiles; ++i)
+        if (live[i]) live[n++] = i;
+      misc[2] = n;
+    }
+    __syncthreads();
+    const int n_live = misc[2];
+
+    // The ring: stage st holds d slice st % n_sl of live tile st / n_sl;
+    // kStages - 1 of them are in flight while the block multiplies one.
+    const int steps = n_live * n_sl;
+    // int8 rows (TMA): raw block j of live tile t holds slices 4 j to 4 j + 3;
+    // block b = t * n_blk + j goes to slot (raw_done + b) % kRawSlots
+    const int n_blk = (n_sl + kRawSlices - 1) / kRawSlices;
+    const int n_raw = n_live * n_blk;
+    const uint32_t raw_bars = bars + 8u * kStages;
+    auto issue_raw = [&](int blk) {
+      if (Q && threadIdx.x == 0 && blk < n_raw) {
+        const int slot = (raw_done + blk) % kRawSlots;
+        const uint32_t bar = raw_bars + 8u * slot;
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        repro::mbar_expect_tx(bar, kRawBytes);
+        repro::tma_load_3d(repro::smem_u32(raw + slot * kRows * kRawRow), &tw, bar,
+                           (blk % n_blk) * kRawRow, v_lo + live[blk / n_blk] * kRows, e);
+      }
+    };
+    auto issue = [&](int st) {
+      if (st >= steps) return;
+      const int v0 = v_lo + live[st / n_sl] * kRows, d0 = (st % n_sl) * kSlice;
+      const int slot = (done + st) % kStages;
+      float* xd = toks + slot * BN * kSlice;
+      unsigned char* rd = Q ? raw + slot * kRows * kSlice
+                            : reinterpret_cast<unsigned char*>(rows + slot * kRows * kSlice);
+      if constexpr (TMA) {
+        if (threadIdx.x == 0) {
+          // the slot was last read by ordinary loads; TMA writes it next
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          const uint32_t bar = bars + 8u * slot;
+          repro::mbar_expect_tx(bar, kStageBytes);
+          if constexpr (!Q) repro::tma_load_3d(repro::smem_u32(rd), &tw, bar, d0, v0, e);
+          repro::tma_load_3d(repro::smem_u32(xd), &tx, bar, d0, t0, e);
+        }
+      } else {
+        const TW* ws = w + (static_cast<size_t>(e) * v_pad + v0) * d;
+        const int n_rows = min(kRows, v_hi - v0);
+        if constexpr (Q)
+          copy_sync_raw(reinterpret_cast<int8_t*>(rd), ws, n_rows, d, d0);
+        else
+          copy_sync<TW, kRows>(reinterpret_cast<float*>(rd), ws, n_rows, d, d0);
+        copy_sync<TX, BN>(xd, buf + (static_cast<size_t>(e) * C + t0) * d, n_tok, d, d0);
+      }
+    };
+
+    float acc[8][NT];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[i][j] = 0.f;
+    if constexpr (TMA && Q)
+      for (int blk = 0; blk < kRawSlots - 1; ++blk) issue_raw(blk);
+    for (int st = 0; st < kStages - 1; ++st) issue(st);
+    for (int st = 0; st < steps; ++st) {
+      const int slot = (done + st) % kStages;
+      const int sl = st % n_sl, blk = (st / n_sl) * n_blk + sl / kRawSlices;
+      if constexpr (TMA) repro::mbar_wait(bars + 8u * slot, ((done + st) / kStages) & 1);
+      if constexpr (TMA && Q) {
+        const int rs = (raw_done + blk) % kRawSlots;
+        if (sl % kRawSlices == 0)  // the block's first slice: it has landed
+          repro::mbar_wait(raw_bars + 8u * rs, ((raw_done + blk) / kRawSlots) & 1);
+        widen_rows(rows + (st & 1) * kRows * kSlice,
+                   raw + rs * kRows * kRawRow + (sl % kRawSlices) * kSlice, kRawRow);
+      } else if constexpr (Q) {
+        widen_rows(rows + (st & 1) * kRows * kSlice, raw + slot * kRows * kSlice, kSlice);
+      }
+      __syncthreads();  // stage st complete; stage st - 1 no longer read
+      // a raw block is refilled once its last slice is widened: at the first
+      // slice of the next block
+      if (TMA && Q && sl % kRawSlices == 0) issue_raw(blk + kRawSlots - 1);
+      issue(st + kStages - 1);
+      const float* rs = rows + (Q ? st & 1 : slot) * kRows * kSlice;
+      const float* xs = toks + slot * BN * kSlice;
+      if constexpr (BN <= kNarrow)
+        product_narrow<NT>(acc, rs, xs);
+      else
+        product<NT>(acc, rs, xs, tr, tt);
+      if (st % n_sl == n_sl - 1) {
+        if constexpr (BN <= kNarrow) narrow_to_rows<NT>(acc, zs, tr, tt);
+        topk_step<NT, Q>(acc, idp, scp, gs, low, lv_all, lp_all,
+                         v_lo + live[st / n_sl] * kRows, v_hi, n_tok, k, tr, tt, half);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) acc[i][j] = 0.f;
+      }
+    }
+    done += steps;
+    raw_done += Q ? n_raw : 0;
+    // the tiles of padding alone: every row -1e9 (the mask ignores acc)
+    for (int i = 0, li = 0; i < n_tiles; ++i) {
+      if (li < n_live && live[li] == i) {
+        ++li;
+        continue;
+      }
+      topk_step<NT, Q>(acc, idp, scp, gs, low, lv_all, lp_all, v_lo + i * kRows, v_hi, n_tok,
+                       k, tr, tt, half);
+    }
+    __syncthreads();
+    for (int i = tid; i < n_tok * k; i += kThreads) {
+      const int t = i / k, j = i % k;
+      const size_t o = (out_row + t) * k + j;
+      const int p = lp_all[t * k + j];
+      out_v[o] = lv_all[t * k + j];
+      out_i[o] = p == kNoPos ? -1 : idp[p];
+    }
+    // a full list's k-th value bounds the slot's top k from below: the
+    // chunks still to come drop what lies under it
+    if (nchunk > 1 && tid < n_tok && lp_all[tid * k + k - 1] != kNoPos)
+      atomicMax(low + tid, float_key(lv_all[tid * k + k - 1]));
+  }
+}
+
+struct Args {
+  const void *buf, *w;
+  const float* g_buf;
+  const int* ids;
+  const float* scales;
+  float *out_v, *part_v;
+  int *out_i, *part_i, *next_item;
+  unsigned* lows;
+  int K, C, v_pad, d, k, tiles_per_chunk, big_tiles, nchunk;
+  cudaStream_t stream;
+};
+
+template <typename TX, typename TW, int BN, bool TMA>
+cudaError_t launch(const Args& a) {
+  constexpr bool Q = std::is_same<TW, int8_t>::value;
+  const int smem = Layout(BN, a.k, a.tiles_per_chunk, Q).total;
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  CUtensorMap mw{}, mx{};
+  cudaError_t err = cudaSuccess;
+  if constexpr (TMA) {
+    err = Q ? make_map(&mw, a.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.d, a.v_pad, a.K, kRawRow,
+                       kRows, CU_TENSOR_MAP_SWIZZLE_NONE)
+            : make_map(&mw, a.w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.d, a.v_pad, a.K, kSlice,
+                       kRows, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = make_map(&mx, a.buf, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.d, a.C, a.K, kSlice, BN,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  auto kern = tiled_kernel<TX, TW, BN, TMA>;
+  if (err == cudaSuccess) err = repro::smem_limit_once(reinterpret_cast<const void*>(kern), smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (err == cudaSuccess) err = cudaMemsetAsync(a.next_item, 0, sizeof(int), a.stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(a.lows, 0, sizeof(unsigned) * a.K * a.C, a.stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C + TB - 1) / TB, K, nsplit);
-  float* dst_v = nsplit > 1 ? part_v : out_v;
-  int* dst_i = nsplit > 1 ? part_i : out_i;
-  kern<<<grid, repro::kThreads, smem, stream>>>(
-      static_cast<const TX*>(buf), g_buf, static_cast<const TW*>(w), ids,
-      scales, dst_v, dst_i, K, C, v_pad, d, k, tiles_per_split);
+  const long long items = static_cast<long long>(a.nchunk) * a.K * ((a.C + BN - 1) / BN);
+  const int grid = static_cast<int>(std::min<long long>(items, 1LL * sms * std::max(per_sm, 1)));
+  float* dst_v = a.nchunk > 1 ? a.part_v : a.out_v;
+  int* dst_i = a.nchunk > 1 ? a.part_i : a.out_i;
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      mw, mx, static_cast<const TX*>(a.buf), a.g_buf, static_cast<const TW*>(a.w), a.ids,
+      a.scales, dst_v, dst_i, a.next_item, a.lows, a.K, a.C, a.v_pad, a.d, a.k,
+      a.tiles_per_chunk, a.big_tiles, a.nchunk);
   err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  return repro::launch_merge(part_v, part_i, out_v, out_i, K * C, k, nsplit, stream);
+  if (err != cudaSuccess || a.nchunk == 1) return err;
+  return repro::launch_merge(a.part_v, a.part_i, a.out_v, a.out_i, a.K * a.C, a.k, a.nchunk,
+                             a.stream);
 }
 
-template <typename TX, typename TW>
-cudaError_t dispatch_tb(int tb, const void* buf, const float* g_buf,
-                        const void* w, const int* ids, const float* scales,
-                        float* out_v, int* out_i, float* part_v, int* part_i,
-                        int K, int C, int v_pad, int d, int k, int nsplit,
-                        int tps, cudaStream_t s) {
-  if (tb == 16)
-    return launch<TX, TW, 16>(buf, g_buf, w, ids, scales, out_v, out_i, part_v,
-                              part_i, K, C, v_pad, d, k, nsplit, tps, s);
-  if (tb == 64)
-    return launch<TX, TW, 64>(buf, g_buf, w, ids, scales, out_v, out_i, part_v,
-                              part_i, K, C, v_pad, d, k, nsplit, tps, s);
-  return cudaErrorInvalidValue;
-}
-
-// Token type TX with rows of the token type, or int8 rows with scales.
-template <typename TX>
-cudaError_t dispatch_w(int wdtype, int tb, const void* buf, const float* g_buf,
-                       const void* w, const int* ids, const float* scales,
-                       float* out_v, int* out_i, float* part_v, int* part_i,
-                       int K, int C, int v_pad, int d, int k, int nsplit,
-                       int tps, cudaStream_t s) {
-  if (wdtype == repro::kDtypeI8) {
-    if (scales == nullptr) return cudaErrorInvalidValue;
-    return dispatch_tb<TX, int8_t>(tb, buf, g_buf, w, ids, scales, out_v, out_i,
-                                   part_v, part_i, K, C, v_pad, d, k, nsplit,
-                                   tps, s);
+template <typename TX, typename TW, bool TMA>
+cudaError_t launch_n(int n_tile, const Args& a) {
+  switch (n_tile) {
+    case 16: return launch<TX, TW, 16, TMA>(a);
+    case 32: return launch<TX, TW, 32, TMA>(a);
+    case 64: return launch<TX, TW, 64, TMA>(a);
+    case 128: return launch<TX, TW, 128, TMA>(a);
+    default: return cudaErrorInvalidValue;
   }
-  if (scales != nullptr) return cudaErrorInvalidValue;
-  return dispatch_tb<TX, TX>(tb, buf, g_buf, w, ids, nullptr, out_v, out_i,
-                             part_v, part_i, K, C, v_pad, d, k, nsplit, tps, s);
 }
+
+}  // namespace simt
 
 // ---- the decode body ------------------------------------------------------
 
@@ -249,8 +893,6 @@ constexpr int kThreads = kConsumers + 128; // + the producer warpgroup
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kCand = 8;                   // candidate slots per token, warpgroup and round
-constexpr int kSmemMax = 232448;           // shared memory a block may use
-constexpr int kNoPos = 0x7fffffff;         // position of an unfilled list entry
 constexpr int kTop2K = 8;                  // the first tile's threshold serves k up to this
 
 __host__ __device__ constexpr int row_tile_bytes(bool q) { return kRows * kSlice * (q ? 1 : 2); }
@@ -295,11 +937,6 @@ __device__ __forceinline__ bool bar_any(int id, int n, bool p) {
       : "r"(static_cast<uint32_t>(p)), "r"(id), "r"(n)
       : "memory");
   return r != 0;
-}
-
-// (v, p) before (lv, lp) in the list order: value desc, position asc.
-__device__ __forceinline__ bool before(float v, int p, float lv, int lp) {
-  return v > lv || (v == lv && p < lp);
 }
 
 // Insert (v, p) into a sorted list of k entries, entry j at lv[j * S].
@@ -726,24 +1363,6 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUt
   }
 }
 
-// The 3-D map (d, rows, K) of one operand, box (64, box_rows, 1); elements
-// outside the tensor read as zero.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem,
-                     int d, int rows, int K, int box_rows, CUtensorMapSwizzle swizzle) {
-  repro::EncodeTiledFn encode = repro::encode_fn();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t pitch = static_cast<cuuint64_t>(d) * elem;
-  cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                        static_cast<cuuint64_t>(K)};
-  cuuint64_t strides[2] = {pitch, pitch * rows};
-  cuuint32_t box[3] = {static_cast<cuuint32_t>(kSlice), static_cast<cuuint32_t>(box_rows), 1};
-  cuuint32_t es[3] = {1, 1, 1};
-  const CUresult r = encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, es,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 struct Args {
   const void *buf, *w;
   const float* g_buf;
@@ -760,10 +1379,10 @@ cudaError_t launch(const Args& a) {
   CUtensorMap mw, mx;
   cudaError_t err =
       make_map(&mw, a.w, Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-               Q ? 1 : 2, a.d, a.v_pad, a.K, kRows,
+               Q ? 1 : 2, a.d, a.v_pad, a.K, kSlice, kRows,
                Q ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
-    err = make_map(&mx, a.buf, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.d, a.C, a.K, N,
+    err = make_map(&mx, a.buf, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.d, a.C, a.K, kSlice, N,
                    CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   const int smem = Layout(N, a.k, a.stages, Q).total;
@@ -823,38 +1442,54 @@ extern "C" int dss_topk_grouped(const void* buf, const void* g_buf, const void* 
   return cudaErrorInvalidValue;
 }
 
-// The tiled body. wdtype as above; part_v, part_i (nsplit, K, C, k) are
-// scratch when nsplit > 1; tb, nsplit and tiles_per_split come from
-// kernels/dss_topk_grouped.py::tiled_plan.
-extern "C" int dss_topk_grouped_tiled(const void* buf, const void* g_buf,
-                                const void* w, const void* ids,
-                                const void* scales, void* out_v, void* out_i,
-                                void* part_v, void* part_i, int K, int C,
-                                int v_pad, int d, int k, int tb, int nsplit,
-                                int tiles_per_split, int dtype, int wdtype,
-                                void* stream) {
+// The tiled body: fp32 tokens with fp32 rows or int8 rows ((K, v_pad) fp32
+// scales), or bf16 tokens with bf16 or int8 rows. tma 1: rows and tokens
+// staged by TMA (fp32 tokens only; d a multiple of 4, of 16 for int8 rows,
+// buf and weights 16-byte aligned), else one element at a time. part_v,
+// part_i (nchunk, K, C, k) are scratch when nchunk > 1; next_item (one int)
+// and lows (K, C) always. n_tile (16, 32, 64 or 128), tiles_per_chunk,
+// big_tiles (the row tiles in chunks of tiles_per_chunk; one tile a chunk
+// after them) and nchunk come from kernels/dss_topk_grouped.py::tiled_plan.
+extern "C" int dss_topk_grouped_tiled(const void* buf, const void* g_buf, const void* w,
+                                      const void* ids, const void* scales, void* out_v,
+                                      void* out_i, void* part_v, void* part_i, void* next_item,
+                                      void* lows, int K, int C, int v_pad, int d, int k,
+                                      int n_tile, int tiles_per_chunk, int big_tiles,
+                                      int nchunk, int tma, int dtype, int wdtype,
+                                      void* stream) {
+  const bool q = wdtype == repro::kDtypeI8;
+  const int row_tiles = (v_pad + simt::kRows - 1) / simt::kRows;
   if (k < 1 || k > repro::kMaxK || k > v_pad || K < 1 || C < 1 || d < 1 ||
-      nsplit < 1 || tiles_per_split < 1)
+      tiles_per_chunk < 1 || big_tiles < 0 || big_tiles > row_tiles || nchunk < 1 ||
+      nchunk > simt::kMaxChunks ||
+      nchunk != (big_tiles + tiles_per_chunk - 1) / tiles_per_chunk + row_tiles - big_tiles ||
+      next_item == nullptr || lows == nullptr ||
+      (nchunk > 1 && (part_v == nullptr || part_i == nullptr)))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(g_buf);
-  const int* id = static_cast<const int*>(ids);
-  const float* sc = static_cast<const float*>(scales);
-  float* ov = static_cast<float*>(out_v);
-  int* oi = static_cast<int*>(out_i);
-  float* pv = static_cast<float*>(part_v);
-  int* pi = static_cast<int*>(part_i);
-  if (wdtype != dtype && wdtype != repro::kDtypeI8) return cudaErrorInvalidValue;
-  if (dtype == repro::kDtypeF32)
-    return dispatch_w<float>(wdtype, tb, buf, g, w, id, sc, ov, oi, pv, pi, K, C,
-                             v_pad, d, k, nsplit, tiles_per_split, s);
-  if (dtype == repro::kDtypeBF16)
-    return dispatch_w<__nv_bfloat16>(wdtype, tb, buf, g, w, id, sc, ov, oi, pv,
-                                     pi, K, C, v_pad, d, k, nsplit,
-                                     tiles_per_split, s);
+  if ((wdtype != dtype && !q) || q != (scales != nullptr)) return cudaErrorInvalidValue;
+  if (tma && (dtype != repro::kDtypeF32 || d % (q ? 16 : 4) != 0 ||
+              reinterpret_cast<uintptr_t>(buf) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(w) % 16 != 0))
+    return cudaErrorInvalidValue;
+  const simt::Args a{buf, w, static_cast<const float*>(g_buf), static_cast<const int*>(ids),
+                     static_cast<const float*>(scales), static_cast<float*>(out_v),
+                     static_cast<float*>(part_v), static_cast<int*>(out_i),
+                     static_cast<int*>(part_i), static_cast<int*>(next_item),
+                     static_cast<unsigned*>(lows), K, C, v_pad, d, k, tiles_per_chunk,
+                     big_tiles, nchunk, static_cast<cudaStream_t>(stream)};
+  using bf16 = __nv_bfloat16;
+  if (dtype == repro::kDtypeF32) {
+    if (tma)
+      return q ? simt::launch_n<float, int8_t, true>(n_tile, a)
+               : simt::launch_n<float, float, true>(n_tile, a);
+    return q ? simt::launch_n<float, int8_t, false>(n_tile, a)
+             : simt::launch_n<float, float, false>(n_tile, a);
+  }
+  if (dtype == repro::kDtypeBF16 && !tma)
+    return q ? simt::launch_n<bf16, int8_t, false>(n_tile, a)
+             : simt::launch_n<bf16, bf16, false>(n_tile, a);
   return cudaErrorInvalidValue;
 }
-
 
 // The tensor-core body: bf16 tokens with bf16 rows (wdtype kDtypeBF16,
 // scales null) or int8 rows (kDtypeI8, (K, v_pad) fp32 scales). d a

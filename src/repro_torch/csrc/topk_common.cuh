@@ -1,11 +1,10 @@
 // Shared device code of the DS-Softmax retrieval kernels (sm_90a).
 //
-// retrieve_tile() is the body of dss_topk.cu and of dss_topk_grouped.cu's
-// tiled body (prefill capacities; retrieve_stream.cuh holds the streaming
-// retrieval of the decode kernels): a block holds up to TB token rows and
-// streams one expert's packed rows through shared memory in (TV rows x TD
-// dims) tiles, accumulating fp32 logits in registers, then merges each
-// vocab tile into a running top-k per token kept in shared memory.
+// retrieve_tile() is the body of dss_topk.cu (retrieve_stream.cuh holds the
+// streaming retrieval of the decode kernels): a block holds up to TB token
+// rows and streams one expert's packed rows through shared memory in (TV
+// rows x TD dims) tiles, accumulating fp32 logits in registers, then merges
+// each vocab tile into a running top-k per token kept in shared memory.
 // Vec<T, VB> is the vector load of gate_top1.cu and retrieve_stream.cuh.
 //
 // Order of operations (every path of the port follows it): z = x . w in
@@ -22,6 +21,7 @@
 // scanned number at least k.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
@@ -308,37 +308,72 @@ __device__ void retrieve_tile(const TileSmem<TB>& s, const TX* __restrict__ x,
   }
 }
 
-// Merge nsplit partial top-k lists (split s covers lower packed positions
-// than split s+1) into one: part (nsplit, R, k) -> out (R, k).
+// Merge nsplit (<= kMaxSplits) partial top-k lists, split s covering lower
+// packed positions than split s + 1: part (nsplit, R, k) -> out (R, k),
+// ties to the lower split. One warp per row; lane l holds the heads of
+// splits l, l + 32, ...; each step emits the best head (value desc, split
+// asc) and advances it.
+constexpr int kMergePerLane = 9;
+constexpr int kMaxSplits = 32 * kMergePerLane;
+
 __global__ void merge_splits_kernel(const float* __restrict__ part_v,
                                     const int* __restrict__ part_i,
                                     float* __restrict__ out_v,
                                     int* __restrict__ out_i, int R, int k,
                                     int nsplit) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
   if (r >= R) return;
-  float v[kMaxK];
-  int id[kMaxK];
+  int h[kMergePerLane];
+#pragma unroll
+  for (int s = 0; s < kMergePerLane; ++s) h[s] = 0;
   for (int j = 0; j < k; ++j) {
-    v[j] = -CUDART_INF_F;
-    id[j] = -1;
-  }
-  for (int sp = 0; sp < nsplit; ++sp) {
-    const size_t base = (static_cast<size_t>(sp) * R + r) * k;
-    for (int j = 0; j < k; ++j) topk_insert(v, id, k, part_v[base + j], part_i[base + j]);
-  }
-  for (int j = 0; j < k; ++j) {
-    out_v[static_cast<size_t>(r) * k + j] = v[j];
-    out_i[static_cast<size_t>(r) * k + j] = id[j];
+    float bv = -CUDART_INF_F;
+    int bc = INT_MAX, bid = -1;
+#pragma unroll
+    for (int s = 0; s < kMergePerLane; ++s) {
+      const int c = lane + 32 * s;
+      if (c < nsplit && h[s] < k) {
+        const size_t at = (static_cast<size_t>(c) * R + r) * k + h[s];
+        const float v = part_v[at];
+        if (bc == INT_MAX || v > bv) {
+          bv = v;
+          bc = c;
+          bid = part_i[at];
+        }
+      }
+    }
+    float wv = bv;
+    int wc = bc;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
+      const int oc = __shfl_xor_sync(0xffffffffu, wc, off);
+      if (ov > wv || (ov == wv && oc < wc)) {
+        wv = ov;
+        wc = oc;
+      }
+    }
+    const int wid = __shfl_sync(0xffffffffu, bid, wc & 31);
+    if (lane == 0) {
+      out_v[r * k + j] = wv;
+      out_i[r * k + j] = wid;
+    }
+    if (lane == (wc & 31)) {
+#pragma unroll
+      for (int s = 0; s < kMergePerLane; ++s)
+        if (s == (wc >> 5)) ++h[s];
+    }
   }
 }
 
 inline cudaError_t launch_merge(const float* part_v, const int* part_i,
                                 float* out_v, int* out_i, int R, int k,
                                 int nsplit, cudaStream_t stream) {
-  const int threads = 128;
-  merge_splits_kernel<<<(R + threads - 1) / threads, threads, 0, stream>>>(
-      part_v, part_i, out_v, out_i, R, k, nsplit);
+  if (nsplit < 1 || nsplit > kMaxSplits) return cudaErrorInvalidValue;
+  const long long threads = 256;
+  merge_splits_kernel<<<static_cast<int>((32LL * R + threads - 1) / threads), threads, 0,
+                        stream>>>(part_v, part_i, out_v, out_i, R, k, nsplit);
   return cudaGetLastError();
 }
 

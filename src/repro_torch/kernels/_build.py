@@ -34,9 +34,10 @@ SIGNATURES = {
     # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_p, n_sel,
     # K, C, v_pad, d, k, grid, vec_bytes, dtype, wdtype, stream
     "dss_topk_grouped": [_P] * 10 + [_I] * 9 + [_P],
-    # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
-    # K, C, v_pad, d, k, tb, nsplit, tiles_per_split, dtype, wdtype, stream
-    "dss_topk_grouped_tiled": [_P] * 9 + [_I] * 10 + [_P],
+    # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i, next_item,
+    # lows, K, C, v_pad, d, k, n_tile, tiles_per_chunk, big_tiles, nchunk,
+    # tma, dtype, wdtype, stream
+    "dss_topk_grouped_tiled": [_P] * 11 + [_I] * 12 + [_P],
     # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
     # K, C, v_pad, d, k, n_tile, nsplit, tiles_per_split, stages, wdtype, stream
     "dss_topk_grouped_wgmma": [_P] * 9 + [_I] * 10 + [_P],
@@ -156,6 +157,7 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
 
 TV = 64            # vocab rows per tile (kTV in csrc/topk_common.cuh)
 MAX_K = 64         # largest top-k width (kMaxK)
+MAX_SPLITS = 288   # partial lists per row the split merge takes (kMaxSplits)
 SMS = 132          # streaming multiprocessors of an H100 SXM
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 INT8_CODE = 2      # kDtypeI8: int8 table rows (with per-row fp32 scales)

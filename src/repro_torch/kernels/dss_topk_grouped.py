@@ -23,8 +23,12 @@ and the token dtype (:func:`select_body`):
   top-k runs on the accumulator registers (:func:`wgmma_plan`). Each
   expert's rows are read once per token tile.
 - ``TILED`` (fp32 tokens above ``SIMT_TILED_ABOVE``, and bf16 that TMA
-  cannot address): 16- or 64-slot token tiles on CUDA cores, each expert's
-  rows streamed once per tile through shared memory (:func:`tiled_plan`).
+  cannot address): CUDA cores, a register-tiled fp32 product of 128 vocab
+  rows by a token tile of 16 to 128 slots, staged by TMA through a ring of
+  4 stages, with the top-k on the accumulators, over work items (vocab
+  chunk, expert, token tile) that persistent blocks pull from a counter; a
+  tile without a live slot, and a row tile of padding alone, do no product
+  (:func:`tiled_plan`). Each expert's rows are read once per token tile.
 
 No body makes a host sync or allocates in its kernels: a CUDA graph can
 capture the call. Each body counts its launches on this function
@@ -34,7 +38,7 @@ capture the call. Each body counts its launches on this function
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,10 +53,9 @@ COUNTERS = {DECODE: "launches", WGMMA: "launches_wgmma", TILED: "launches_tiled"
 # chip_smoke.py's capacity sweep on an H100 (PERF.md section 6).
 TILED_ABOVE = 2
 # fp32 tokens (and bf16 that TMA cannot address): capacities above this run
-# the CUDA-core tiled body; from an earlier capacity sweep of that body
-# against the decode body on an H100 (the decode body was the faster at C
-# 32 and below).
-SIMT_TILED_ABOVE = 32
+# the CUDA-core tiled body. Set from chip_smoke.py's fp32 capacity sweep on
+# an H100 (PERF.md section 6).
+SIMT_TILED_ABOVE = 4
 
 # The tensor-core body's constants (csrc/dss_topk_grouped.cu, namespace wg)
 WGMMA_ROWS = 128          # vocab rows per tile (kRows)
@@ -62,12 +65,29 @@ WGMMA_CAND = 8            # candidate slots per token and warpgroup (kCand)
 WGMMA_STAGES = (4, 3, 2)  # ring depths, deepest first
 SMEM_MAX = 232448         # shared memory a block may use (kSmemMax)
 
+# The CUDA-core tiled body's constants (csrc/dss_topk_grouped.cu, namespace simt)
+TILED_ROWS = 128          # vocab rows per tile (kRows)
+TILED_SLICE = 32          # d elements per ring stage (kSlice): 128-byte fp32 rows
+TILED_TOKENS = (16, 32, 64, 128)  # token tiles BN the kernel instantiates
+TILED_STAGES = 4          # ring stages (kStages)
+TILED_RAW_SLOTS = 3       # int8 rows: raw blocks of 4 slices in the ring (kRawSlots)
+TILED_MAX_CHUNKS = 64     # vocab chunks per expert (kMaxChunks)
+TILED_MISC = 16           # ints of scratch (kMisc), then MAX_K real rows
+TILED_NARROW = 32         # token tiles up to this take the narrow product (kNarrow)
+TILED_Z_PITCH = 132       # fp32 per token of a narrow tile's logits (kZPitch)
+# work items per SM the chunks aim at: enough that the last ones to finish
+# leave little of the card idle
+TILED_ITEMS_PER_SM = 6
+TILED_TAIL_WAVES = 2      # waves of one-tile items that end the schedule
 
-def tma_addressable(d: int, wdtype: torch.dtype, *ptrs: int) -> bool:
-    """Whether TMA can stage bf16 tokens of width d and rows of ``wdtype``
-    (bf16, or int8): row pitches and data pointers on 16-byte boundaries."""
-    elem = torch.empty((), dtype=wdtype).element_size()
-    return d % 8 == 0 and (d * elem) % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+
+def tma_addressable(d: int, wdtype: torch.dtype, *ptrs: int,
+                    xdtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether TMA can stage tokens of ``xdtype`` (bf16 for the tensor-core
+    body, fp32 for the tiled body) and width d and rows of ``wdtype``: row
+    pitches and data pointers on 16-byte boundaries."""
+    pitch_ok = all(d * torch.empty((), dtype=t).element_size() % 16 == 0 for t in (xdtype, wdtype))
+    return pitch_ok and all(p % 16 == 0 for p in ptrs)
 
 
 def select_body(capacity: int, dtype: torch.dtype, tma_ok: bool = True) -> str:
@@ -89,16 +109,65 @@ def launch_plan(K: int, v_pad: int, d: int, wdtype: torch.dtype) -> StreamPlan:
     return stream_plan(K, v_pad, d, wdtype)
 
 
-def _token_tile(capacity: int) -> int:
-    """Tokens per block of the tiled body: 16 up to 16 slots, 64 above."""
-    return 16 if capacity <= 16 else 64
+class TiledPlan(NamedTuple):
+    """The CUDA-core tiled body's launch: token tiles of ``n_tile`` slots
+    (``token_tiles`` of them), each expert's vocab in ``nchunk`` chunks:
+    its first ``big_tiles`` 128-row tiles in chunks of ``tiles_per_chunk``,
+    then one tile a chunk; ``smem`` bytes of shared memory per block. The
+    kernel runs one persistent block per SM, or as many as fit, over the
+    ``nchunk * K * token_tiles`` work items, chunk by chunk."""
+
+    n_tile: int
+    token_tiles: int
+    tiles_per_chunk: int
+    big_tiles: int
+    nchunk: int
+    smem: int
 
 
-def tiled_plan(K: int, C: int, v_pad: int):
-    """The tiled body's launch: (token tile, vocab splits, 64-row tiles per
-    split), the splits enough that about two blocks per SM have work."""
-    tb = _token_tile(C)
-    return (tb, *_build.vocab_split(v_pad, K * -(-C // tb)))
+def tiled_smem_bytes(n_tile: int, k: int, tiles_per_chunk: int, quantized: bool) -> int:
+    """Shared memory of one block (the kernel's ``simt::Layout``): the ring
+    of TILED_STAGES stages of 128 fp32 rows (int8 rows: TILED_RAW_SLOTS raw
+    blocks of 128 x 128 bytes, with their barriers, and two fp32 buffers)
+    and n_tile fp32 tokens, 32 d each,
+    with a barrier per stage; per token the k-entry list (8 bytes an entry)
+    and g, and for token tiles up to TILED_NARROW the tile's logits (132
+    floats a token); a flag per row tile of the chunk; the scratch ints;
+    1 KB to align the base for TMA's swizzle."""
+    stages, row_bufs = TILED_STAGES, 2 if quantized else TILED_STAGES
+    return (4 * TILED_SLICE * (row_bufs * TILED_ROWS + stages * n_tile)
+            + (TILED_RAW_SLOTS * TILED_ROWS * 4 * TILED_SLICE if quantized else 0)
+            + 8 * (stages + (TILED_RAW_SLOTS if quantized else 0))
+            + 8 * n_tile * k + 4 * n_tile
+            + (4 * n_tile * TILED_Z_PITCH if n_tile <= TILED_NARROW else 0)
+            + 4 * tiles_per_chunk + 4 * (TILED_MISC + _build.MAX_K) + 1024)
+
+
+def tiled_plan(K: int, C: int, v_pad: int, k: int, quantized: bool = False,
+               tail_waves: int = TILED_TAIL_WAVES) -> TiledPlan:
+    """The tiled body's launch from the shapes: the smallest token tile that
+    holds C (at most 128); chunks of the vocab's 128-row tiles that give
+    about TILED_ITEMS_PER_SM work items per SM. With 128-slot tiles, whose
+    items are long, chunks of one tile follow for the last ``tail_waves``
+    waves of items, so the SMs finish together (the big chunks then take
+    at most half of the TILED_MAX_CHUNKS an expert may have); 0 gives
+    chunks of one size (``chip_smoke.py`` times both)."""
+    n = next((t for t in TILED_TOKENS if t >= C), TILED_TOKENS[-1])
+    tiles = -(-C // n)
+    row_tiles = -(-v_pad // TILED_ROWS)
+    tail = n == TILED_TOKENS[-1] and tail_waves > 0
+    per_chunk = round(K * tiles * row_tiles / (TILED_ITEMS_PER_SM * _build.SMS))
+    per_chunk = min(row_tiles, max(1, -(-row_tiles // (TILED_MAX_CHUNKS // (2 if tail else 1))),
+                                   per_chunk))
+    small = min(row_tiles, -(-tail_waves * _build.SMS // (K * tiles)),
+                TILED_MAX_CHUNKS // 2) if tail else 0
+    big_tiles = row_tiles - small
+    nchunk = -(-big_tiles // per_chunk) + small
+    smem = tiled_smem_bytes(n, k, per_chunk, quantized)
+    if smem > SMEM_MAX:
+        raise ValueError(f"k={k} and {per_chunk} row tiles a chunk need {smem} bytes of "
+                         f"shared memory, above {SMEM_MAX}")
+    return TiledPlan(n, tiles, per_chunk, big_tiles, nchunk, smem)
 
 
 class WgmmaPlan(NamedTuple):
@@ -192,13 +261,16 @@ def dss_topk_grouped(weights, ids, buf, g_buf, k: int = 8, *, scales=None, devic
     return launch_body(weights, ids, buf, g_buf, k, scales, select_body(C, buf.dtype, tma_ok))
 
 
-def launch_body(weights, ids, buf, g_buf, k: int, scales, body: str):
+def launch_body(weights, ids, buf, g_buf, k: int, scales, body: str,
+                plan: Optional[TiledPlan] = None):
     """Launch ``body`` (``DECODE``, ``WGMMA`` or ``TILED``) on contiguous
     CUDA tensors that :func:`dss_topk_grouped` has checked, and count the
     launch. The wrapper passes ``select_body``'s choice; ``chip_smoke.py``'s
-    capacity sweep runs the decode and the tensor-core body at every
-    capacity. ``WGMMA`` takes bf16 tokens only (the kernel raises on data
-    TMA cannot address)."""
+    capacity sweeps run the decode body beside the tensor-core body (bf16
+    tokens) or the tiled body (fp32 tokens) at every capacity. ``WGMMA``
+    takes bf16 tokens only (the kernel raises on data TMA cannot
+    address). ``plan`` replaces ``TILED``'s plan from the shapes (the
+    schedule comparison in ``chip_smoke.py``)."""
     K, v_pad, d = weights.shape
     C = buf.shape[1]
     out_v = torch.empty((K, C, k), dtype=torch.float32, device=buf.device)
@@ -217,17 +289,23 @@ def launch_body(weights, ids, buf, g_buf, k: int, scales, body: str):
             row_vec_bytes(d, weights.element_size(), weights.data_ptr()),
             _build.dtype_code(buf), _build.weight_code(weights), stream)
     elif body == TILED:
-        tb, nsplit, tps = tiled_plan(K, C, v_pad)
+        plan = plan or tiled_plan(K, C, v_pad, k, scales is not None)
+        # bf16 tokens come here only where TMA cannot stage them
+        tma = buf.dtype == torch.float32 and tma_addressable(
+            d, weights.dtype, weights.data_ptr(), buf.data_ptr(), xdtype=torch.float32)
         part_v = part_i = None
-        if nsplit > 1:
-            part_v = torch.empty((nsplit, K, C, k), dtype=torch.float32, device=buf.device)
-            part_i = torch.empty((nsplit, K, C, k), dtype=torch.int32, device=buf.device)
+        if plan.nchunk > 1:
+            part_v = torch.empty((plan.nchunk, K, C, k), dtype=torch.float32, device=buf.device)
+            part_i = torch.empty((plan.nchunk, K, C, k), dtype=torch.int32, device=buf.device)
+        next_item = torch.empty((1,), dtype=torch.int32, device=buf.device)
+        lows = torch.empty((K, C), dtype=torch.int32, device=buf.device)
         err = lib.dss_topk_grouped_tiled(
             buf.data_ptr(), g_buf.data_ptr(), weights.data_ptr(), ids.data_ptr(),
             _build.ptr(scales), out_v.data_ptr(), out_i.data_ptr(),
-            _build.ptr(part_v), _build.ptr(part_i),
-            K, C, v_pad, d, k, tb, nsplit, tps, _build.dtype_code(buf),
-            _build.weight_code(weights), stream)
+            _build.ptr(part_v), _build.ptr(part_i), next_item.data_ptr(), lows.data_ptr(),
+            K, C, v_pad, d, k, plan.n_tile, plan.tiles_per_chunk, plan.big_tiles, plan.nchunk,
+            int(tma),
+            _build.dtype_code(buf), _build.weight_code(weights), stream)
     elif body == WGMMA:
         if buf.dtype != torch.bfloat16:
             raise TypeError(f"{WGMMA} takes bfloat16 tokens, got {buf.dtype}")

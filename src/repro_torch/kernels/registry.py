@@ -28,7 +28,9 @@ expert that holds a token, its rows once per group of
 The grouped kernel's bodies are priced by what bounds each on the H100:
 its bytes, or its operations at the rate of their unit (the tensor-core
 body's bf16 products, the CUDA-core bodies' fp32 FMAs) expressed as the
-bytes the memory moves in the same time, whichever is larger.
+bytes the memory moves in the same time, whichever is larger. On CUDA
+tensors the plain ``grouped`` path adds its bmm's products over every slot
+to its bytes, at the rate of the token dtype's unit.
 ``chip_smoke.py``'s head-path step times every exact path interleaved on
 the H100 at B 1, 8, 64 and 2048 and fails if ``'auto'``'s pick takes more
 than 1.5× the fastest.
@@ -38,7 +40,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
+import functools
 import importlib
+import math
 
 import torch
 
@@ -215,10 +219,17 @@ def _cost_jnp(c: KernelContext) -> int:
 
 def _cost_grouped(c: KernelContext) -> int:
     # Rows once per EXPERT, the grouped buffers' round trip, and the
-    # (K, C, V_pad) fp32 logits written and read back for the top-k.
-    return (c.K * c.v_pad * _row_bytes(c)
-            + 2 * c.K * c.capacity * c.d * c.hbytes
-            + 2 * c.K * c.capacity * c.v_pad * 4 + c.out_bytes)
+    # (K, C, V_pad) fp32 logits written and read back for the top-k. On the
+    # card the bmm also multiplies every slot, at the rate of the token
+    # dtype's unit (as bytes the memory moves in the same time), before the
+    # top-k reads its logits. The CPU price stays bytes.
+    nbytes = (c.K * c.v_pad * _row_bytes(c)
+              + 2 * c.K * c.capacity * c.d * c.hbytes
+              + 2 * c.K * c.capacity * c.v_pad * 4 + c.out_bytes)
+    if c.backend != "cuda":
+        return nbytes
+    rate = TENSOR_BF16_OPS if c.hbytes == 2 else CUDA_CORE_FP32_OPS
+    return nbytes + int(2 * c.K * c.capacity * c.v_pad * c.d * HBM_BYTES_PER_S / rate)
 
 
 def fused_expert_reads(B: int, K: int, d: int) -> int:
@@ -238,6 +249,30 @@ def grouped_expert_reads(B: int, K: int, C: int, d: int) -> int:
     return min(fused_expert_reads(B, K, d), K * -(-C // token_group(d)))
 
 
+@functools.lru_cache(maxsize=256)
+def tiled_live_tiles(B: int, K: int, C: int, n_tile: int) -> float:
+    """Token tiles of ``n_tile`` slots per expert that a top-1 dispatch of B
+    tokens at capacity C leaves live, in expectation over a gate that picks
+    each of the K experts with probability 1/K: an expert's slots fill from
+    the first, so its tile j is live when more than j·n_tile tokens chose
+    it, and the count X of its tokens is Binomial(B, 1/K). At B 2048, K 16,
+    C 256 that is 23.6 of 32 tiles, not the 16 of a balanced dispatch."""
+    tiles = -(-C // n_tile)
+    if K == 1:
+        return float(-(-min(B, C) // n_tile))
+    lp, lq = math.log(1.0 / K), math.log1p(-1.0 / K)
+    cdf, live = 0.0, 0.0
+    for j in range(tiles):
+        lo = j * n_tile  # tile j is live when X > lo
+        if lo >= B:
+            break
+        for x in range(0 if j == 0 else (j - 1) * n_tile + 1, lo + 1):
+            cdf += math.exp(math.lgamma(B + 1) - math.lgamma(x + 1) - math.lgamma(B - x + 1)
+                            + x * lp + (B - x) * lq)
+        live += max(0.0, 1.0 - cdf)
+    return K * live
+
+
 def grouped_body(c: KernelContext) -> str:
     """The grouped kernel's body for the call (``dss_topk_grouped.select_body``
     by capacity and token dtype; data pointers are taken as TMA-aligned)."""
@@ -251,9 +286,12 @@ def _cost_cuda_grouped(c: KernelContext) -> int:
     # The grouped buffers' round trip and the (K, C, k) outputs gathered
     # back; logits and the running top-k stay on chip. The decode body
     # reads the live experts' rows once per token group and multiplies the
-    # live slots only; the tensor-core and the tiled bodies read every
-    # expert's rows once per token tile and multiply every slot. Operations
-    # count as the bytes the memory moves in their time at the body's unit.
+    # live slots only; the tensor-core body reads every expert's rows once
+    # per token tile and multiplies every slot; the tiled body reads the
+    # rows once per token tile that holds a live slot and multiplies those
+    # tiles whole (``tiled_live_tiles``: the tiles a top-1 dispatch of B
+    # tokens leaves live). Operations count as the bytes the memory moves
+    # in their time at the body's unit.
     C, body = c.capacity, grouped_body(c)
     if body == _grouped.DECODE:
         reads = grouped_expert_reads(c.B, c.K, C, c.d)
@@ -262,11 +300,12 @@ def _cost_cuda_grouped(c: KernelContext) -> int:
         reads = c.K * _grouped.wgmma_plan(c.K, C, c.v_pad, c.k, c.quantized).token_tiles
         flops, rate = 2 * c.K * C * c.v_pad * c.d, TENSOR_BF16_OPS
     else:
-        reads = c.K * -(-C // _grouped.tiled_plan(c.K, C, c.v_pad)[0])
-        flops, rate = 2 * c.K * C * c.v_pad * c.d, CUDA_CORE_FP32_OPS
+        n_tile = _grouped.tiled_plan(c.K, C, c.v_pad, c.k, c.quantized).n_tile
+        reads = tiled_live_tiles(c.B, c.K, C, n_tile)
+        flops, rate = 2 * reads * n_tile * c.v_pad * c.d, CUDA_CORE_FP32_OPS
     nbytes = (reads * c.v_pad * _row_bytes(c) + 2 * c.K * C * c.d * c.hbytes
               + c.K * C * c.k * 8 + c.out_bytes)
-    return max(nbytes, int(flops * HBM_BYTES_PER_S / rate))
+    return int(max(nbytes, flops * HBM_BYTES_PER_S / rate))
 
 
 def _cost_cuda_fused(c: KernelContext) -> int:

@@ -448,6 +448,114 @@ def test_grouped_tiled_body_takes_bf16_that_tma_cannot_address(dev, quantized, d
     _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw), g_buf, k)
 
 
+# The CUDA-core tiled body (kernels/dss_topk_grouped.py::TILED) with fp32
+# tokens on the decode body's exact inputs (rows on the 1/64 grid, integer
+# tokens: every fp32 sum is exact in any order, so the ids must be equal and
+# equal rows tie to the lower packed position, inside a row tile, across
+# tiles and across vocab chunks). Expert 1 is all padding, expert 2 has 5
+# real rows (fewer than k at k 8 and 64; all its other row tiles are
+# padding alone), expert 3 has no live slot (every token tile empty); every
+# third slot of expert 0 is empty (live slots that are no prefix), and past
+# the first token tile expert 2's slots are empty (a token tile with no live
+# slot beside a live one). C 1 and 8 take 16-slot tiles, 33 a 64-slot tile,
+# 100 to 300 128-slot tiles (300: three); V_pad 900 leaves a ragged row
+# tile; d 37 and 144 are no multiple of the 32-element stage (37 loads one
+# element at a time).
+def _tiled_inputs(dev, C, d, seed, quantized):
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.float32, C, d, seed, quantized)
+    g_buf[0, 1::3] = 0.0
+    g_buf[2, 128:] = 0.0
+    buf[g_buf == 0] = 0.0
+    return w, ids, buf, g_buf, kw
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("C", [1, 8, 33, 100, 200, 256, 300])
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("d", [37, 144, 1536])
+def test_grouped_tiled_body(dev, quantized, C, k, d):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import TILED, launch_body
+
+    w, ids, buf, g_buf, kw = _tiled_inputs(dev, C, d, seed=C * 7 + d + k, quantized=quantized)
+    body = TILED + ("_q" if quantized else "")
+    n = ops.launch_counts()[body]
+    got = launch_body(w, ids, buf, g_buf, k, kw.get("scales"), TILED)
+    assert ops.launch_counts()[body] == n + 1
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw), g_buf, k)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_grouped_tiled_body_replays_in_a_cuda_graph(dev, quantized):
+    """The tiled body through the wrapper (fp32 tokens, C 70 above
+    SIMT_TILED_ABOVE), captured once in a CUDA graph (the work counter is
+    reset by a memset in the graph, the skipped tiles are found on the
+    device, nothing syncs the host or allocates in the kernels) and
+    replayed on new tokens with other experts live each time, gives the
+    eager call's result exactly."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dss_topk_grouped import SIMT_TILED_ABOVE, TILED
+
+    C, k, d = 70, 8, 128
+    assert C > SIMT_TILED_ABOVE
+    w, ids, buf, g_buf, kw = _tiled_inputs(dev, C, d, seed=5, quantized=quantized)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    body = TILED + ("_q" if quantized else "")
+    n = ops.launch_counts()[body]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    assert ops.launch_counts()[body] == n + 1
+    for seed, dead in ((6, 0), (7, 2)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        b_new = torch.randint(-8, 9, buf.shape, generator=gen, device=dev).to(buf.dtype)
+        g_new = torch.rand(g_buf.shape, generator=gen, device=dev) + 0.25
+        g_new[dead] = 0.0
+        b_new[g_new == 0] = 0.0
+        buf.copy_(b_new)
+        g_buf.copy_(g_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.dss_topk_grouped(w, ids, b_new, g_new, k, **kw)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_auto_picks_the_grouped_kernel_for_an_fp32_batch(dev, quantize):
+    """qwen2-1.5b's head shape with fp32 tokens on an fp32 table (or its
+    int8 table) at B 2048: 'auto' resolves to cuda_grouped, which launches
+    the CUDA-core tiled body and gives the plain grouped path's result.
+    Rows on the 1/64 grid and integer tokens keep every sum exact, so the
+    ids are equal; the values differ by the gate alone (rtol 1e-5, as in
+    the bf16 batch test)."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, registry
+
+    K, d, v_pad, k, B = 16, 1536, 12032, 8, 2048
+    g = torch.Generator(device=dev).manual_seed(B + 1)
+    w = torch.randint(-128, 129, (K, v_pad, d), generator=g, device=dev) / 64
+    ids = torch.randperm(K * v_pad, generator=g, device=dev).reshape(K, v_pad).to(torch.int32)
+    table = ds.ServeTable(ids=ids, weights=w)
+    if quantize:
+        table = ds.quantize_table(table)
+        del w
+    gate = torch.randn((K, d), generator=g, device=dev) * d ** -0.5
+    h = torch.randint(-8, 9, (B, d), generator=g, device=dev).float()
+    assert registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, k)) == "cuda_grouped"
+    body = "dss_topk_grouped_tiled" + ("_q" if quantize else "")
+    ops.reset_launch_counts()
+    got = ds.serve_topk(gate, table, h, k, kernel="auto")
+    assert ops.launch_counts()[body] == 1
+    want = ds.serve_topk(gate, table, h, k, kernel="grouped")
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 def test_grouped_wgmma_body_replays_in_a_cuda_graph(dev, quantized):
     """The tensor-core body through the wrapper (C 70 > TILED_ABOVE), captured
@@ -621,6 +729,27 @@ def test_pertoken_kernel(dev, dtype, B, k):
     short = e == 1
     if k > 5:
         assert (got[1][short, 5:] == -1).all() and (got[0][short, 5:] == -1e9).all()
+
+
+@pytest.mark.parametrize("B,k,nsplit", [(1, 64, 188), (2, 8, 94), (3, 1, 63)])
+def test_pertoken_kernel_merges_many_splits(dev, B, k, nsplit):
+    """So few tokens that dss_topk splits a vocab of 188 64-row tiles 188,
+    94 and 63 ways: the split merge (a warp per row, up to 9 splits per
+    lane) against the plain version, every odd tile a copy of the one
+    before it, so equal values cross split boundaries (ties go to the
+    lower position)."""
+    from repro_torch.kernels import _build, ops, ref
+
+    K, d, v_pad = 2, 64, 12032
+    assert _build.vocab_split(v_pad, B)[0] == nsplit
+    w, ids, g = _table(dev, K, v_pad, d, torch.float32, seed=B)
+    tiles = w.view(K, v_pad // 64, 64, d)
+    tiles[:, 1::2] = tiles[:, 0::2]
+    h = torch.randn((B, d), generator=g, device=dev)
+    e = torch.randint(0, K, (B,), generator=g, device=dev).to(torch.int32)
+    gv = torch.rand((B,), generator=g, device=dev)
+    got = ops.dss_topk(w, ids, h, e, gv, k)
+    _same(got, ref.dss_topk_ref(w, ids, h * gv[:, None], e, k))
 
 
 def test_quantized_serve_with_fallback_experts(dev):

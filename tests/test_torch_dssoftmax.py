@@ -253,7 +253,9 @@ def test_cost_cuda_grouped_prices_the_bound_of_its_body(B, quantized):
     its bytes and its 2·K·C·V_pad·d products at 989 TFLOP/s expressed as
     bytes at 3.35 TB/s. int8 rows at C 256 are bound by the products. An
     fp32 batch runs the CUDA-core tiled body, bound by its products at
-    67 TFLOP/s: 64-slot tiles, four passes over the rows at C 256."""
+    67 TFLOP/s over the token tiles a top-1 dispatch of B tokens leaves
+    live (``tiled_live_tiles``: 23.6 of the 32 128-slot tiles at C 256),
+    each tile's rows read once and 2·tiles·128·V_pad·d products priced."""
     ctx = registry.KernelContext(B=B, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
                                  wbytes=1 if quantized else 2, hbytes=2, quantized=quantized)
     C = ctx.capacity
@@ -265,12 +267,78 @@ def test_cost_cuda_grouped_prices_the_bound_of_its_body(B, quantized):
     assert (got == ops) == (quantized and B == 2048)
     assert registry.resolve_kernel("auto", ctx) == "cuda_grouped"
     fp32 = registry.KernelContext(B=B, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
-                                  wbytes=4, hbytes=4)
-    body = importlib.import_module("repro_torch.kernels.dss_topk_grouped").select_body(
-        C, torch.float32)
+                                  wbytes=1 if quantized else 4, hbytes=4, quantized=quantized)
+    grouped = importlib.import_module("repro_torch.kernels.dss_topk_grouped")
+    body = grouped.select_body(C, torch.float32)
     assert registry.grouped_body(fp32) == body
     if B == 2048:
-        assert registry.get_spec("cuda_grouped").bytes_moved(fp32) == int(
-            2 * 16 * 256 * 12032 * 1536 * 3.35e12 / 67e12)
+        assert body == grouped.TILED
+        row = 1536 * fp32.wbytes + (4 if quantized else 0)
+        tiles = registry.tiled_live_tiles(2048, 16, 256, 128)
+        nbytes = tiles * 12032 * row + 2 * 16 * 256 * 1536 * 4 + 16 * 256 * 64 + 2048 * 64
+        ops = 2 * tiles * 128 * 12032 * 1536 * 3.35e12 / 67e12
+        assert registry.get_spec("cuda_grouped").bytes_moved(fp32) == int(max(nbytes, ops)) \
+            == int(ops)
 
 
+@pytest.mark.parametrize("B,K,C,n_tile", [(40, 4, 20, 16), (9, 3, 8, 2), (7, 2, 128, 128),
+                                           (5, 1, 20, 16), (3, 4, 64, 16)])
+def test_tiled_live_tiles_is_the_expected_count_of_a_random_dispatch(B, K, C, n_tile):
+    """The tiled body's live token tiles, in exact rational arithmetic: each
+    of B tokens picks one of K experts with probability 1/K, an expert's
+    slots fill from the first, and its tile j is live when more than
+    j·n_tile tokens chose it."""
+    from fractions import Fraction
+    from math import comb
+
+    p = Fraction(1, K)
+    pmf = [comb(B, x) * p ** x * (1 - p) ** (B - x) for x in range(B + 1)]
+    want = K * sum(sum(pmf[j * n_tile + 1:]) for j in range(-(-C // n_tile)))
+    assert registry.tiled_live_tiles(B, K, C, n_tile) == pytest.approx(float(want), rel=1e-9)
+
+
+def test_tiled_live_tiles_at_the_batch_path_is_what_a_gate_left_live():
+    """At the fp32 batch path's shape (B 2048, K 16, C 256, 128-slot tiles)
+    the price counts 23.6 of the 32 token tiles live: chip_smoke.py's gate
+    on random weights left 25 and 23 live (fp32 rows and their int8
+    table), a balanced dispatch would leave 16."""
+    tiles = registry.tiled_live_tiles(2048, 16, 256, 128)
+    assert 23 <= tiles <= 25
+    assert round(tiles, 1) == 23.6
+
+
+@pytest.mark.parametrize("hbytes,wbytes,quantized", [(4, 4, False), (4, 1, True), (2, 2, False),
+                                                     (2, 1, True)])
+@pytest.mark.parametrize("B", [8, 64, 2048])
+def test_cost_grouped_adds_its_products_on_the_card_only(B, hbytes, wbytes, quantized):
+    """The plain grouped path: on the CPU its bytes (rows once per expert,
+    the buffers' round trip, the (K, C, V_pad) logits written and read
+    back, the outputs); on the card the same plus its bmm's 2·K·C·V_pad·d
+    products over every slot, at 67 TFLOP/s for fp32 tokens and 989 for
+    bf16, expressed as bytes at 3.35 TB/s."""
+    kw = dict(B=B, d=1536, K=16, v_pad=12032, k=8, wbytes=wbytes, hbytes=hbytes,
+              quantized=quantized)
+    cpu = registry.KernelContext(backend="cpu", **kw)
+    cuda = registry.KernelContext(backend="cuda", **kw)
+    C = cpu.capacity
+    row = 1536 * wbytes + (4 if quantized else 0)
+    nbytes = (16 * 12032 * row + 2 * 16 * C * 1536 * hbytes + 2 * 16 * C * 12032 * 4
+              + B * 8 * 8)
+    spec = registry.get_spec("grouped")
+    assert spec.bytes_moved(cpu) == nbytes
+    rate = 67e12 if hbytes == 4 else 989e12
+    assert spec.bytes_moved(cuda) == nbytes + int(2 * 16 * C * 12032 * 1536 * 3.35e12 / rate)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B,backend,expected", [
+    (2048, "cuda", "cuda_grouped"), (1, "cuda", "cuda_fused"), (8, "cuda", "cuda_fused"),
+    (1, "cpu", "jnp"), (8, "cpu", "jnp"), (64, "cpu", "grouped"), (2048, "cpu", "grouped")])
+def test_auto_policy_for_fp32_tokens(B, backend, expected, quantized):
+    """qwen2-1.5b's head shape with fp32 tokens on an fp32 table or its
+    int8 table: on the card 'auto' sends a batch of 2048 to the grouped
+    kernel (its CUDA-core tiled body) and decode batches to the fused
+    kernel; the CPU picks stay those of the bytes model."""
+    ctx = registry.KernelContext(B=B, d=1536, K=16, v_pad=12032, k=8, backend=backend,
+                                 wbytes=1 if quantized else 4, hbytes=4, quantized=quantized)
+    assert registry.resolve_kernel("auto", ctx) == expected

@@ -428,3 +428,184 @@ def test_grouped_empty_slots_follow_the_rule_the_decode_body_writes(quantized, k
         want_v = [0.0] * len(real) + [-1e9] * (k - len(real))
         assert out_ids[ex, c].tolist() == want_ids
         assert vals[ex, c].tolist() == want_v
+
+
+# ---------------------------------------------------------------------------
+# The grouped kernel's CUDA-core tiled body (kernels/dss_topk_grouped.py::
+# TILED): its plan, mirrored in Python, and the work items it walks.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("C", [1, 3, 8, 16, 17, 33, 64, 100, 128, 129, 256, 300, 1000])
+@pytest.mark.parametrize("K,v_pad", [(16, 12032), (4, 900), (16, 152064)])
+def test_grouped_tiled_plan_from_shapes(K, v_pad, C, k, quantized):
+    """The tiled body's plan: the smallest token tile the kernel
+    instantiates that holds C (128 above), enough tiles for every slot, at
+    most 64 vocab chunks per expert (chunks of tiles_per_chunk row tiles up
+    to big_tiles, then one tile each), and a block (its ring of 4 stages,
+    k-entry lists up to k 64) within the 232,448 bytes of shared memory an
+    H100 block may use."""
+    p = _grouped.tiled_plan(K, C, v_pad, k, quantized)
+    assert p.n_tile == min(t for t in _grouped.TILED_TOKENS if t >= min(C, 128))
+    assert p.token_tiles == -(-C // p.n_tile)
+    row_tiles = -(-v_pad // _grouped.TILED_ROWS)
+    assert 1 <= p.nchunk <= _grouped.TILED_MAX_CHUNKS
+    assert 0 <= p.big_tiles <= row_tiles
+    assert p.nchunk == -(-p.big_tiles // p.tiles_per_chunk) + row_tiles - p.big_tiles
+    assert p.smem == _grouped.tiled_smem_bytes(p.n_tile, k, p.tiles_per_chunk,
+                                               quantized) <= 232448
+
+
+def test_grouped_tiled_plan_fills_the_sms_at_the_batch_shape():
+    """qwen2-1.5b's head at the batch path's capacity (K 16, C 256, V_pad
+    12,032, k 8): two token tiles of 128; 22 chunks of up to 4 row tiles
+    (85 tiles) take about 5 items per SM, then 9 one-tile chunks give the
+    last 288 items (two waves over the H100's 132 SMs), so the SMs finish
+    within one row tile of each other. Without the tail (tail_waves 0, the
+    schedule chip_smoke.py times it against) the 94 row tiles make 24
+    chunks of up to 4."""
+    for quantized in (False, True):
+        p = _grouped.tiled_plan(16, 256, 12032, 8, quantized)
+        assert p[:5] == (128, 2, 4, 85, 31)
+        assert 16 * p.token_tiles * (p.nchunk - 22) == 288 >= 2 * _build.SMS
+        assert _grouped.tiled_plan(16, 256, 12032, 8, quantized, tail_waves=0)[:5] == (
+            128, 2, 4, 94, 24)
+    assert _grouped.tiled_plan(16, 8, 12032, 8)[:2] == (16, 1)
+
+
+def test_grouped_tiled_smem_matches_the_kernel_layout():
+    """tiled_smem_bytes is the kernel's simt::Layout: per ring stage (4)
+    128 fp32 rows (int8 rows: two fp32 buffers and a ring of 3 raw blocks
+    of 128 x 128 bytes with a barrier each), BN fp32 tokens of 32 floats
+    each and an 8-byte barrier;
+    then per token a k-entry list of (value, position) and g (and a narrow
+    tile's 132 logits), an int per row tile of the chunk, 16 + 64 ints of
+    scratch and 1 KB to align the base."""
+    assert _grouped.tiled_smem_bytes(128, 8, 2, False) == (
+        4 * (128 + 128) * 32 * 4 + 4 * 8 + 128 * 8 * 8 + 128 * 4 + 2 * 4 + (16 + 64) * 4
+        + 1024) == 141160
+    assert _grouped.tiled_smem_bytes(128, 8, 2, True) == (
+        2 * 128 * 32 * 4 + 4 * 128 * 32 * 4 + 3 * 128 * 128 + 7 * 8 + 128 * 8 * 8 + 128 * 4
+        + 2 * 4 + (16 + 64) * 4 + 1024) == 157568
+    assert _grouped.tiled_smem_bytes(16, 8, 2, False) == (
+        4 * (128 + 16) * 32 * 4 + 4 * 8 + 16 * 8 * 8 + 16 * 4 + 16 * 132 * 4 + 2 * 4
+        + (16 + 64) * 4 + 1024)
+    assert _grouped.tiled_smem_bytes(128, 64, 38, False) <= 232448
+
+
+@pytest.mark.parametrize("d,wdtype,ptr,ok", [
+    (1536, torch.float32, 0, True), (1536, torch.int8, 256, True), (36, torch.float32, 0, True),
+    (144, torch.int8, 0, True), (200, torch.int8, 0, False), (37, torch.float32, 0, False),
+    (1536, torch.float32, 8, False), (1536, torch.int8, 4, False)])
+def test_grouped_tiled_stages_by_tma_only_where_aligned(d, wdtype, ptr, ok):
+    """The tiled body stages fp32 tokens and fp32 or int8 rows by TMA only
+    where every row pitch (d x 4 bytes, d x the row element) and data
+    pointer lies on a 16-byte boundary; elsewhere it loads one element at a
+    time."""
+    assert _grouped.tma_addressable(d, wdtype, 0, ptr, xdtype=torch.float32) is ok
+
+
+@pytest.mark.parametrize("v_pad", [129, 12032, 152064])
+@pytest.mark.parametrize("B", [1, 8, 2048])
+def test_split_plans_stay_within_the_merge(v_pad, B):
+    """Every body that splits the vocab hands the one split merge
+    (merge_splits_kernel in csrc/topk_common.cuh: a warp per row, 9 splits
+    per lane) at most MAX_SPLITS partial lists per row: dss_topk's
+    vocab_split, the tensor-core body's splits and the tiled body's
+    chunks."""
+    assert _build.MAX_SPLITS == 32 * 9
+    assert 1 <= _build.vocab_split(v_pad, B)[0] <= _build.MAX_SPLITS
+    for K, C in ((1, 3), (16, 256), (4, B)):
+        assert _grouped.wgmma_plan(K, C, v_pad, 8, False).nsplit <= _build.MAX_SPLITS
+        assert _grouped.tiled_plan(K, C, v_pad, 8).nchunk <= _build.MAX_SPLITS
+
+
+def _tiled_items(K, C, v_pad, k):
+    """The tiled body's work items in the order the kernel pulls them:
+    item i is token tile i % T of expert (i // T) % K and vocab chunk
+    i // (T K); chunks of tiles_per_chunk row tiles up to big_tiles, then
+    one tile each. Returns [(expert, first slot, slots, row_lo, row_hi)]."""
+    p = _grouped.tiled_plan(K, C, v_pad, k)
+    T, R = p.token_tiles, _grouped.TILED_ROWS
+    n_big = -(-p.big_tiles // p.tiles_per_chunk)
+    out = []
+    for i in range(p.nchunk * K * T):
+        e, ch, t0 = (i // T) % K, i // (T * K), (i % T) * p.n_tile
+        lo = ch * p.tiles_per_chunk if ch < n_big else p.big_tiles + ch - n_big
+        hi = min(lo + p.tiles_per_chunk, p.big_tiles) if ch < n_big else lo + 1
+        out.append((e, t0, min(p.n_tile, C - t0), lo * R, min(v_pad, hi * R)))
+    return out
+
+
+@pytest.mark.parametrize("K,C,v_pad", [(16, 256, 12032), (4, 70, 900), (3, 300, 1000),
+                                       (16, 8, 12032), (2, 1, 129)])
+def test_grouped_tiled_items_cover_every_slot_and_row_once(K, C, v_pad):
+    """Every (expert, slot, packed row) lies in exactly one work item, and
+    the token tiles of one (chunk, expert), which read the same rows, are
+    consecutive items."""
+    items = _tiled_items(K, C, v_pad, 8)
+    seen = np.zeros((K, C, v_pad), np.int32)
+    for e, t0, n, lo, hi in items:
+        assert n >= 1 and lo < hi
+        seen[e, t0:t0 + n, lo:hi] += 1
+    assert (seen == 1).all()
+    T = _grouped.tiled_plan(K, C, v_pad, 8).token_tiles
+    for i in range(0, len(items), T):
+        assert len({(e, lo) for e, _, _, lo, _ in items[i:i + T]}) == 1
+
+
+def _merge_splits(lists, k):
+    """The merge of the chunks' partial lists (merge_splits_kernel in
+    csrc/topk_common.cuh): the lists in chunk order, each entry kept when it
+    beats the k-th so far, ties to the earlier chunk."""
+    out = [(-np.inf, -1)] * k
+    for lst in lists:
+        for v, i in lst:
+            if v > out[-1][0]:
+                j = next(j for j in range(k) if v > out[j][0])
+                out = out[:j] + [(v, i)] + out[j:-1]
+    return out
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_grouped_tiled_empty_slots_follow_the_rule_in_every_chunk(quantized, k):
+    """An item whose token tile has no live slot writes, for each slot, the
+    chunk's first k real rows at (0, id), then (-1e9, -1) while the chunk
+    has rows, then (-inf, -1); merged in chunk order that is the plain
+    version's output for the empty slots of the serve path's dispatch
+    (the decode body's rule): expert 1 all padding, expert 2 with 5 real
+    rows in two of its three chunks (V_pad 300, 128-row chunks, the last
+    of 44 rows)."""
+    from repro_torch.core.dssoftmax import _group_tokens
+
+    K, d, v_pad, C = 4, 32, 300, 3
+    w, ids = _table(K, d, v_pad, seed=k, empty=1)
+    w = w.copy()
+    ids[2] = -1
+    ids[2, [3, 40, 41, 100, 299]] = [7, 8, 9, 10, 11]
+    w[2][ids[2] < 0] = 0.0
+    rng = np.random.RandomState(k)
+    h = rng.randn(5, d).astype(np.float32)
+    e = np.array([0, 0, 2, 1, 0], np.int32)
+    g = rng.rand(5).astype(np.float32) * 0.5 + 0.5
+    buf, g_buf, _, _ = _group_tokens(_t(h), _t(g), _t(e), K, C)
+    wt, scales = _t(w), None
+    if quantized:
+        scales = torch.where(wt.abs().amax(-1) > 0, wt.abs().amax(-1) / 127, 1.0)
+        wt = torch.round(wt / scales[..., None]).to(torch.int8)
+    vals, out_ids = ref.dss_topk_grouped_ref(wt, _t(ids), buf, g_buf, k, scales=scales)
+    chunks = sorted({(lo, hi) for _, _, _, lo, hi in _tiled_items(K, C, v_pad, k)})
+    assert chunks == [(0, 128), (128, 256), (256, 300)]
+    empty = (g_buf == 0).nonzero().tolist()
+    assert [2, 1] in empty and [3, 0] in empty
+    for ex, c in empty:
+        lists = []
+        for lo, hi in chunks:
+            real = [int(ids[ex, p]) for p in range(lo, hi) if ids[ex, p] >= 0][:k]
+            lst = [(0.0, i) for i in real] + [(-1e9, -1)] * (min(k, hi - lo) - len(real))
+            lists.append(lst + [(-np.inf, -1)] * (k - len(lst)))
+        merged = _merge_splits(lists, k)
+        assert [i for _, i in merged] == out_ids[ex, c].tolist()
+        assert [v for v, _ in merged] == vals[ex, c].tolist()

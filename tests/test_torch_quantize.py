@@ -364,19 +364,25 @@ def test_cuda_pertoken_path_matches_repro_pallas_path(B):
 
 def test_registry_prices_quantized_tables():
     """serve_kernel_context reads the row dtype; every path prices the
-    4-byte scale per packed row it reads; cuda_pertoken is infeasible on
-    a quantized table and naming it raises."""
+    4-byte scale per packed row it reads (the grouped kernel where its
+    price is its bytes: 4 tokens, capacity 2, the decode body; at
+    capacity 8 fp32 tokens run the tiled body, priced by its fp32
+    products); cuda_pertoken is infeasible on a quantized table and naming
+    it raises."""
     params, _, jtable = _fixture()
     tt = _port(jtable)
     tq = ds.quantize_table(tt)
     h = torch.zeros(16, 32)
     cq, cf = ds.serve_kernel_context(tq, h, 8), ds.serve_kernel_context(tt, h, 8)
     assert cq.quantized and cq.wbytes == 1 and not cf.quantized and cf.wbytes == 4
-    plain1 = dataclasses.replace(cq, quantized=False)
     K, v = cq.K, cq.v_pad
-    for name, rows in (("grouped", K * v), ("cuda_grouped", K * v), ("jnp", 2 * 16 * v)):
+    decode_q = dataclasses.replace(cq, B=4)
+    assert registry.grouped_body(decode_q) == "dss_topk_grouped"
+    for name, ctx, rows in (("grouped", cq, K * v), ("cuda_grouped", decode_q, K * v),
+                            ("jnp", cq, 2 * 16 * v)):
         spec = registry.get_spec(name)
-        assert spec.bytes_moved(cq) - spec.bytes_moved(plain1) == 4 * rows, name
+        plain1 = dataclasses.replace(ctx, quantized=False)
+        assert spec.bytes_moved(ctx) - spec.bytes_moved(plain1) == 4 * rows, name
     cuda_q, cuda_f = (dataclasses.replace(c, backend="cuda") for c in (cq, cf))
     pertoken = registry.get_spec("cuda_pertoken")
     assert not pertoken.feasible(cuda_q) and pertoken.feasible(cuda_f)
