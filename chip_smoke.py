@@ -7,9 +7,11 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order (any failure exits non-zero before the result line):
 
-1. Device and build: the card's name and power limit, TF32 off, the
-   six CUDA libraries built from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, all at once).
+1. Device and build: where a card is present but CUDA does not start,
+   up to CUDA_WAIT_S of fresh-process tries, then the script runs again
+   (with no card it exits 2 at once); the card's name and power limit,
+   TF32 off, the six CUDA libraries built from ``src/repro_torch/csrc``
+   (one ``nvcc`` each, all at once).
 2. Every kernel body against its plain PyTorch version at full width
    (d 1536, K 16, k 8; bf16 and fp32; int8 rows for the ``_q`` bodies):
    ids equal but where two classes are within TIE_RTOL of the row's top-1
@@ -33,8 +35,9 @@ Phases, in order (any failure exits non-zero before the result line):
    attention shape (B 1, H 12, H_kv 2, dh 128, bf16) for S 16, 200, 2047
    and 2048 (the main path's; the tensor-core body), the CUDA-core body on
    the same S 2048 inputs, fp32 at S 2048 (the CUDA-core body's main
-   path) and at H = H_kv = 2, dh 64, S 256, and bf16 views that are not
-   dense; each case must launch the body ``select_body`` names, each
+   path) and at H = H_kv = 2, dh 64, S 256, bf16 views that are not
+   dense, and fp32 at S 2048 with dh 64 and 256 (the CUDA-core body's
+   other head-dim classes); each case must launch the body ``select_body`` names, each
    element within
    ``repro_torch.testing.flash_attention_limit`` (bf16: one rounding of p,
    2^-8·(softmax(s)·|v|), plus 2^-7·|o|); the yardstick is
@@ -44,6 +47,10 @@ Phases, in order (any failure exits non-zero before the result line):
    8, 1 and 128): expert ids equal, no -inf on a served token; the yardstick
    is u calls, one ``topk(h[idx_e] @ W[e]^T)`` for each of the u distinct
    experts the tokens chose (int8 rows read as bf16), u in the case name.
+   ``dss_topk`` (bf16 B 8 on 8 distinct experts, one of them with 5 real
+   rows, the main case; fp32 the same; bf16 B 64 and 300 on shared
+   experts, whose yardstick is u calls as the fused kernel's): no -inf
+   emitted, the short expert's tail (-1e9, -1).
    ``dss_topk_grouped`` through the body ``select_body`` names: the decode
    bodies at C 1 with every slot live (the main cases) and on a real
    dispatch (B 8 through ``gate_top1`` and ``_group_tokens``: at most 8
@@ -68,10 +75,11 @@ Phases, in order (any failure exits non-zero before the result line):
    stand-in fp table and its int8 table at B 1, 8, 64 and 2048 (C 1, 1,
    8, 256) with bf16 tokens, and on an fp32 copy of the table and its int8
    table at B 64 and 2048 with fp32 tokens, through jnp, grouped,
-   cuda_grouped and cuda_fused, interleaved round-robin, device time from
-   the profiler; every path's ids equal jnp's but at near-ties (TIE_RTOL
-   of the row's top-1; the count is printed), and ``auto``'s pick within
-   1.5x the fastest path.
+   cuda_grouped and cuda_fused, and on the fp tables cuda_pertoken,
+   interleaved round-robin, device time from the profiler; every path's
+   ids equal jnp's but at near-ties (TIE_RTOL of the row's top-1;
+   cuda_pertoken's bf16 fold FOLD_RTOL; the count is printed), and
+   ``auto``'s pick within 1.5x the fastest path.
 3. The slice: qwen2-1.5b at full width (28 layers, seeded weights, a
    seeded stand-in for a trained expert mask) served by ``ServeSession``
    through 8 slots, 12 requests (one prompt of 2048 tokens: its prefill
@@ -134,7 +142,9 @@ Phases, in order (any failure exits non-zero before the result line):
    none of the CUDA-core body, and neither plain function called on the
    kernel run. (a2) The same prompt through an fp32 copy of the model (the
    CUDA-core body's path): 28 launches of that body, none of the other,
-   top-k values within 1e-4 of the top-1 against the plain attention.
+   top-k values within 1e-4 of the top-1 against the plain attention; then
+   warm (median of 3 and one profiled; with ``--parent`` also through the
+   parent's CUDA-core body).
    (b) Five sessions
    (8 slots, ``kernel='auto'``, max_seq_len 2304): (A) contiguous,
    whole-prompt; (B) contiguous, ``prefill_chunk=256``; (C) paged,
@@ -155,6 +165,13 @@ Phases, in order (any failure exits non-zero before the result line):
    with its host-timed and device-only times), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
+With ``--parent DIR`` (an unpacked checkout of the parent commit, e.g.
+``git archive HEAD~1 | tar -x -C build/parent``) phase 2 also builds the
+parent's ``dss_topk.cu`` and ``flash_attention.cu`` and times their bodies
+beside this tree's on the same inputs in this process (``[parent]``
+lines, ``against_parent`` in the JSON): every ``dss_topk`` case and the
+CUDA-core ``flash_attention`` cases at S 2048.
+
 Without CUDA it exits with code 2 and prints no result. It imports only
 torch, numpy and the port.
 """
@@ -165,6 +182,7 @@ import functools
 import importlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -198,6 +216,8 @@ GRAPH_CALLS = 20             # calls per CUDA graph for device-only kernel times
 # timed over HEAD_CALLS calls by the profiler; auto's pick within AUTO_SLACK
 # times the fastest
 HEAD_PATHS = ("jnp", "grouped", "cuda_grouped", "cuda_fused")
+# the per-token path serves fp tables only
+FP_HEAD_PATHS = HEAD_PATHS + ("cuda_pertoken",)
 HEAD_ROUNDS, HEAD_CALLS, AUTO_SLACK = 3, 5, 1.5
 # prefill's last position, decode at 8 slots, a speculative verify step's
 # size, a whole prompt scored at once (C 1, 1, 8 and 256 at cf 2.0, K 16)
@@ -274,6 +294,19 @@ BF16_DRIFT = 2.0 ** -4
 FP32_DRIFT = 1e-4
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaMemcpyAsync", "cudaEventSynchronize")
+# ``--parent DIR``: an unpacked checkout of the parent commit. Its
+# dss_topk.cu and flash_attention.cu are built with this tree's nvcc flags
+# and their bodies timed beside this tree's on the same inputs in this
+# process (parent, this tree, this tree, parent; device-only). Without the
+# option none of this runs.
+PARENT = None
+PARENT_SOURCES = ("dss_topk", "flash_attention")
+# A host whose card is present but whose CUDA driver does not initialize yet
+# (as while an HGX board's fabric manager starts) is given this long, tried
+# again every CUDA_RETRY_S seconds in a fresh process, before the script
+# gives up; a host with no card gives up at once.
+CUDA_WAIT_S, CUDA_RETRY_S = 240, 10
+CUDA_WAITED = "CHIP_SMOKE_CUDA_WAITED"   # set in the re-executed process
 
 
 class SmokeFailure(RuntimeError):
@@ -285,6 +318,41 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_present() -> bool:
+    """Whether the host shows an NVIDIA card, whether or not CUDA starts."""
+    if any(Path("/dev").glob("nvidia[0-9]*")):
+        return True
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return out.returncode == 0 and "GPU" in out.stdout
+
+
+def wait_for_cuda() -> bool:
+    """Whether CUDA came up in a fresh process within CUDA_WAIT_S, on a host
+    with a card where it failed in this one. CUDA's state is fixed for the
+    life of a process, so each try is a new one; the caller re-executes the
+    script when this returns True. Each failure's reason goes to stderr."""
+    if os.environ.get(CUDA_WAITED) or not card_present():
+        return False
+    probe = "import torch; torch.cuda.init(); print(torch.cuda.device_count())"
+    deadline = time.monotonic() + CUDA_WAIT_S
+    while time.monotonic() < deadline:
+        time.sleep(CUDA_RETRY_S)
+        try:
+            r = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                               timeout=120)
+        except subprocess.TimeoutExpired:
+            print("chip_smoke: a CUDA probe took over 120 s", file=sys.stderr, flush=True)
+            continue
+        if r.returncode == 0 and r.stdout.strip() not in ("", "0"):
+            return True
+        why = (r.stderr.strip().splitlines() or ["no card counted"])[-1]
+        print(f"chip_smoke: CUDA not up yet: {why}", file=sys.stderr, flush=True)
+    return False
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -365,6 +433,109 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# The parent commit's bodies (``--parent``), timed in this process
+# ---------------------------------------------------------------------------
+
+_PARENT_LIBS: dict = {}
+
+
+def build_parent() -> dict:
+    """Build ``PARENT``'s libraries of PARENT_SOURCES into
+    ``build/parent_kernels/`` (one nvcc each, started together) and load
+    them; returns seconds per library."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    csrc = Path(PARENT) / "src" / "repro_torch" / "csrc"
+    out_dir = ROOT / "build" / "parent_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                                  str(out_dir / f"{n}.so"), str(csrc / f"{n}.cu")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for n in PARENT_SOURCES}
+    seconds = {}
+    for n, p in procs.items():
+        log, _ = p.communicate(timeout=900)
+        seconds[n] = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise SmokeFailure(f"the parent's {n}.cu did not build:\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"{n}.so"))
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _PARENT_LIBS[n] = lib
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # the parent's C signatures: dss_topk (w, ids, h_scaled, expert_idx,
+    # out_v, out_i, part_v, part_i, K, B, v_pad, d, k, nsplit,
+    # tiles_per_split, dtype, stream); flash_attention as this tree's
+    _PARENT_LIBS["dss_topk"].dss_topk.argtypes = [P] * 8 + [I] * 8 + [P]
+    _PARENT_LIBS["flash_attention"].flash_attention.argtypes = [P] * 4 + [L] * 12 + [I] * 7 + [P]
+    return seconds
+
+
+def parent_dss_topk(w, ids, hs, e, k):
+    """The parent's dss_topk body: a block per (token, vocab split), the
+    vocab split so that about two blocks per SM have work (the parent's
+    ``_build.vocab_split``), the splits merged by ``merge_splits_kernel``."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    K, v_pad, d = w.shape
+    B = hs.shape[0]
+    n_tiles = -(-v_pad // 64)
+    want = max(1, -(-2 * _build.SMS // max(1, B)))
+    tps = -(-n_tiles // min(want, n_tiles))
+    nsplit = -(-n_tiles // tps)
+    out_v = torch.empty((B, k), dtype=torch.float32, device=hs.device)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=hs.device)
+    part_v = part_i = None
+    if nsplit > 1:
+        part_v = torch.empty((nsplit, B, k), dtype=torch.float32, device=hs.device)
+        part_i = torch.empty((nsplit, B, k), dtype=torch.int32, device=hs.device)
+    lib = _PARENT_LIBS["dss_topk"]
+    err = lib.dss_topk(w.data_ptr(), ids.data_ptr(), hs.data_ptr(), e.data_ptr(),
+                       out_v.data_ptr(), out_i.data_ptr(), _build.ptr(part_v),
+                       _build.ptr(part_i), K, B, v_pad, d, k, nsplit, tps,
+                       _build.dtype_code(hs), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "parent dss_topk")
+    return out_v, out_i
+
+
+def parent_flash_simt(q, k, v):
+    """The parent's CUDA-core flash_attention body on the same views."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    B, H, S, dh = q.shape
+    o = torch.empty_like(q)
+    lib = _PARENT_LIBS["flash_attention"]
+    err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                              *o.stride()[:3], B, H, k.shape[1], S, dh, _build.dtype_code(q), 0,
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "parent flash_attention")
+    return o
+
+
+def against_parent(results, name, case, this_fn, parent_fn) -> None:
+    """With ``--parent``: the parent's body and this tree's on the same
+    inputs, device-only, timed parent, this, this, parent."""
+    if PARENT is None:
+        return
+    fns = {"parent": parent_fn, "this": this_fn}
+    t = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        t[who].append(device_ms(fns[who]))
+    results.setdefault("against_parent", []).append(
+        {"name": name, "case": case, "parent_device_ms": t["parent"], "device_ms": t["this"]})
+    print(f"[parent] {name:17s} {case:46s} parent {t['parent'][0]:.4f} / {t['parent'][1]:.4f} "
+          f"ms, this tree {t['this'][0]:.4f} / {t['this'][1]:.4f} ms (device)", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -386,9 +557,9 @@ def _table(gen, K, v_pad, d, dtype, empty_expert=None):
     return w.contiguous(), ids
 
 
-def _parted_rows(label, gv, gi, wv, wi) -> int:
+def _parted_rows(label, gv, gi, wv, wi, rtol=TIE_RTOL) -> int:
     """Top-k rows (last axis) whose ids differ between a kernel and its
-    plain version; each must part only at a near-tie (TIE_RTOL of the row's
+    plain version; each must part only at a near-tie (``rtol`` of the row's
     plain top-1, ``_topk_parts_only_at_ties``). Returns their number."""
     import torch
 
@@ -397,7 +568,7 @@ def _parted_rows(label, gv, gi, wv, wi) -> int:
     rows = torch.nonzero((gi != wi).any(1))[:, 0].tolist()
     for r in rows:
         _topk_parts_only_at_ties(f"{label} row {r}", gv[r], gi[r], wv[r], wi[r],
-                                 TIE_RTOL * abs(float(wv[r, 0])))
+                                 rtol * abs(float(wv[r, 0])))
     return len(rows)
 
 
@@ -759,12 +930,18 @@ def kernel_phase(results: dict) -> None:
         uniq = torch.unique(el)
         rows_read = int((ids[uniq] >= 0).sum())
         flops = 2 * sum(int((ids[x] >= 0).sum()) for x in el.tolist()) * d
-        report("dss_topk", f"{str(dtype)[6:]} B={B} K={K} (expert 5: 5 rows)", got, want,
+        case = f"{str(dtype)[6:]} B={B} K={K} (expert 5: 5 rows)"
+        report("dss_topk", case, got, want,
                kernel_times(lambda: ops.dss_topk_kernel(w, ids, hs, e, k),
                             lambda: ref.dss_topk_ref(w, ids, hs, e, k),
                             lambda: torch.topk(torch.bmm(w[el], hs[:, :, None])[:, :, 0], k)),
                rows_read * (d * eb + 4) + B * (d * eb + 4) + B * k * 8,
                flops, dtype, main)
+        against_parent(results, "dss_topk", case, lambda: ops.dss_topk_kernel(w, ids, hs, e, k),
+                       lambda: parent_dss_topk(w, ids, hs, e, k))
+
+    del w, h, hs
+    pertoken_shared_cases(results)
 
     # -- lasso_prune: fp32 rows, half of them alive; the full-width bf16
     # head comes in lasso_phase, once the model exists
@@ -775,6 +952,45 @@ def kernel_phase(results: dict) -> None:
     flash_cases(results, gen)
     head_path_step(results, gen)
     grouped_cases(results)
+
+
+def pertoken_shared_cases(results) -> None:
+    """dss_topk where tokens share experts: B 64 and 300 bf16 tokens on
+    random experts of the K 16 table (d 1536, V_pad 12,032, k 8), on a
+    generator of their own (so every later case draws the inputs it always
+    drew). Every expert is read once per group of its tokens; the bound
+    counts each needed expert's rows once; the yardstick is one
+    ``topk(hs[idx_e] @ W[e]^T)`` per distinct expert (u calls, index lists
+    made outside the timed call)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    K, d, k, v_pad, bf16 = 16, 1536, 8, 12032, torch.bfloat16
+    w, ids = _table(gen, K, v_pad, d, bf16)
+    for B in (64, 300):
+        e = torch.randint(0, K, (B,), generator=gen, device="cuda").to(torch.int32)
+        hs = torch.randn((B, d), generator=gen, device="cuda").to(bf16)
+        got = ops.dss_topk_kernel(w, ids, hs, e, k)
+        want = ref.dss_topk_ref(w, ids, hs, e, k)
+        if bool(torch.isinf(got[0]).any()):
+            raise SmokeFailure(f"dss_topk B={B}: an internal -inf reached an output")
+        el = e.long()
+        uniq = torch.unique(el).tolist()
+        yard = [(torch.nonzero(el == x)[:, 0], w[x]) for x in uniq]
+        real = (ids >= 0).sum(1)
+        case = f"bf16 B={B} K={K} shared experts u={len(uniq)}"
+        report_case(results, "dss_topk", case, got, want,
+                    kernel_times(lambda: ops.dss_topk_kernel(w, ids, hs, e, k),
+                                 lambda: ref.dss_topk_ref(w, ids, hs, e, k),
+                                 lambda: [torch.topk(hs[i] @ we.T, k) for i, we in yard]),
+                    int(real[uniq].sum()) * (d * 2 + 4) + B * (d * 2 + 4) + B * k * 8,
+                    2 * int(real[el].sum()) * d, bf16)
+        against_parent(results, "dss_topk", case, lambda: ops.dss_topk_kernel(w, ids, hs, e, k),
+                       lambda: parent_dss_topk(w, ids, hs, e, k))
+        del got, want, yard
+        torch.cuda.empty_cache()
 
 
 def grouped_cases(results) -> None:
@@ -976,14 +1192,18 @@ def head_path_step(results: dict, gen) -> None:
         for B in batches:
             h = torch.randn((B, d), generator=gen, device="cuda").to(tok)
             for kind, table in tables.items():
+                paths = HEAD_PATHS if "int8" in kind else FP_HEAD_PATHS
                 want = ds.serve_topk(gw, table, h, k, kernel="jnp")
+                # cuda_pertoken rounds g·h to the token dtype before the product
                 parted = {path: _parted_rows(f"head path {path} ({kind}, B={B})",
-                                             *ds.serve_topk(gw, table, h, k, kernel=path), *want)
-                          for path in HEAD_PATHS}
+                                             *ds.serve_topk(gw, table, h, k, kernel=path), *want,
+                                             rtol=FOLD_RTOL if path == "cuda_pertoken"
+                                             and tok == bf16 else TIE_RTOL)
+                          for path in paths}
                 del want
-                times = {path: [] for path in HEAD_PATHS}
+                times = {path: [] for path in paths}
                 for _ in range(HEAD_ROUNDS):
-                    for path in HEAD_PATHS:
+                    for path in paths:
                         times[path].append(profiled_device_ms(
                             lambda: ds.serve_topk(gw, table, h, k, kernel=path)))
                 for path, t in times.items():
@@ -1032,24 +1252,28 @@ def flash_cases(results, gen) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import launch_body, select_body
+    from repro_torch.kernels.flash_attention import launch_body, select_body, simt_tile
     from repro_torch.testing import flash_attention_limit
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # (B, H, H_kv, S, dh, dtype, main, strided, forced body)
-    cases = [(1, 12, 2, S, 128, bf16, S == 2048, False, None) for S in (16, 200, 2047, 2048)]
-    cases += [(1, 12, 2, 2048, 128, bf16, False, False, FLASH_SIMT),
-              (1, 12, 2, 2048, 128, f32, True, False, None),
-              (1, 2, 2, 256, 64, f32, False, False, None),
-              (1, 12, 2, 1000, 128, bf16, False, True, None)]
-    for B, H, H_kv, S, dh, dtype, main, strided, forced in cases:
+    # (B, H, H_kv, S, dh, dtype, main, strided, forced body, generator)
+    cases = [(1, 12, 2, S, 128, bf16, S == 2048, False, None, gen) for S in (16, 200, 2047, 2048)]
+    cases += [(1, 12, 2, 2048, 128, bf16, False, False, FLASH_SIMT, gen),
+              (1, 12, 2, 2048, 128, f32, True, False, None, gen),
+              (1, 2, 2, 256, 64, f32, False, False, None, gen),
+              (1, 12, 2, 1000, 128, bf16, False, True, None, gen)]
+    # the CUDA-core body's other head-dim classes, on a generator of their
+    # own (so the head-path step draws what it always drew)
+    own = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cases += [(1, 12, 2, 2048, dh, f32, False, False, None, own) for dh in (64, 256)]
+    for B, H, H_kv, S, dh, dtype, main, strided, forced, case_gen in cases:
         if strided:  # every other position of wider buffers, dh sliced out
-            qb = torch.randn((B, 2 * S, H, dh + 32), generator=gen, device="cuda").to(dtype)
-            kvb = torch.randn((B, 2 * S, H_kv, 2, dh), generator=gen, device="cuda").to(dtype)
+            qb = torch.randn((B, 2 * S, H, dh + 32), generator=case_gen, device="cuda").to(dtype)
+            kvb = torch.randn((B, 2 * S, H_kv, 2, dh), generator=case_gen, device="cuda").to(dtype)
             q = qb[:, ::2, :, 16:16 + dh].transpose(1, 2)
             k, v = (kvb[:, ::2, :, j].transpose(1, 2) for j in (0, 1))
         else:
-            q, k, v = (torch.randn((B, S, h, dh), generator=gen, device="cuda").to(dtype)
+            q, k, v = (torch.randn((B, S, h, dh), generator=case_gen, device="cuda").to(dtype)
                        .transpose(1, 2) for h in (H, H_kv, H_kv))
         body = forced or select_body(q, k, v)
         if forced is None and (body == FLASH_TC) != (dtype == bf16):
@@ -1085,6 +1309,8 @@ def flash_cases(results, gen) -> None:
                "main_path_shape": main}
         if main or forced:  # the launch alone, without the wrapper's checks and rule
             row["host_us_launch_only"] = host_us(lambda: launch_body(q, k, v, body))
+        if body == FLASH_SIMT:  # the build the CUDA-core body launches
+            row["simt_tile"] = simt_tile(dh, dtype)._asdict()
         results.setdefault("cases", []).append(row)
         if main:
             results.setdefault("main", {})[body] = row
@@ -1092,7 +1318,11 @@ def flash_cases(results, gen) -> None:
               f"({b_by})  max|do| {err:.3g} ({used:.3g} of the limit; median limit "
               f"{width:.3g} of the median |o|)"
               + (f"; launch alone {row['host_us_launch_only']:.1f} us on the host"
-                 if "host_us_launch_only" in row else ""), flush=True)
+                 if "host_us_launch_only" in row else "")
+              + (f"; tile {tuple(row['simt_tile'].values())}" if "simt_tile" in row else ""),
+              flush=True)
+        if body == FLASH_SIMT and S == 2048:
+            against_parent(results, body, case, run, lambda: parent_flash_simt(q, k, v))
         del q, k, v, got, want, diff, limit
     torch.cuda.empty_cache()
 
@@ -1948,7 +2178,7 @@ def _held_within_drift(label, a_run, ref_run, rtol=BF16_DRIFT) -> dict:
     return read
 
 
-def warm_prefill_profile(prefill) -> dict:
+def warm_prefill_profile(prefill, label="(a)") -> dict:
     """Where a warm whole-prompt prefill's time goes: three more calls
     (median ms, each to a synchronize), then one under ``torch.profiler``:
     device-busy ms, the device's idle share, device ops, the
@@ -1963,13 +2193,14 @@ def warm_prefill_profile(prefill) -> dict:
            if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
     busy_ms = sum(_dev_time(e) for e in dev) / 1e3
     flash_ms = sum(_dev_time(e) for e in dev
-                   if "fa_wgmma_kernel" in e.key or "flash_attention_kernel" in e.key) / 1e3
+                   if "fa_wgmma_kernel" in e.key or "fa_simt_kernel" in e.key
+                   or "flash_attention_kernel" in e.key) / 1e3
     rec = {"ms_median_of_3": statistics.median(warm), "traced_ms": wall * 1e3,
            "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
            "device_ops": sum(e.count for e in dev), "flash_attention_device_ms": flash_ms,
            "top_device_ops_ms": [(e.key[:80], _dev_time(e) / 1e3)
                                  for e in sorted(dev, key=_dev_time, reverse=True)[:5]]}
-    print(f"[prefill] (a) warm: {json.dumps(rec)}", flush=True)
+    print(f"[prefill] {label} warm: {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -2010,7 +2241,14 @@ def fp32_prefill(results, cfg, params, table, tokens) -> dict:
         raise SmokeFailure(f"prefill (a2) fp32: {counts[FLASH_SIMT]} CUDA-core launches for "
                            f"{cfg.n_layers} layers, {counts[FLASH_TC]} tensor-core ({counts})")
     results.setdefault("main_path_launches", {})["prefill_fp32"] = counts
+    warm = {"this": warm_prefill_profile(prefill, "(a2) fp32")}
     orig = layers.flash_attention
+    if PARENT is not None:  # the same warm prefill through the parent's body
+        layers.flash_attention = lambda q, k, v, device: parent_flash_simt(q, k, v)
+        try:
+            warm["parent"] = warm_prefill_profile(prefill, "(a2) fp32, the parent's body")
+        finally:
+            layers.flash_attention = orig
     layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
         cfg32, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
     try:
@@ -2029,7 +2267,7 @@ def fp32_prefill(results, cfg, params, table, tokens) -> dict:
     torch.cuda.empty_cache()
     rec = {"tokens": int(tokens.shape[1]), "kernel_launches": counts,
            "kernel_ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
-           "ids_equal": bool(same.all()), "max_drift": drift}
+           "ids_equal": bool(same.all()), "max_drift": drift, "warm": warm}
     print(f"[prefill] (a2) fp32 copy, {tokens.shape[1]}-token prefill: {FLASH_SIMT} launched "
           f"{counts[FLASH_SIMT]} times, {FLASH_TC} {counts[FLASH_TC]}; {t_kernel * 1e3:.1f} ms "
           f"against {t_plain * 1e3:.1f} ms with chunked_causal_attention; top-k ids "
@@ -2216,7 +2454,20 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
 def main() -> int:
     import torch
 
+    global PARENT
+    args = sys.argv[1:]
+    if args:
+        if len(args) != 2 or args[0] != "--parent" or not Path(args[1]).is_dir():
+            print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+            return 2
+        PARENT = Path(args[1]).resolve()
     if not torch.cuda.is_available():
+        if wait_for_cuda():
+            print("chip_smoke: CUDA is up in a fresh process; running again", file=sys.stderr,
+                  flush=True)
+            sys.stdout.flush()
+            os.environ[CUDA_WAITED] = "1"
+            os.execv(sys.executable, [sys.executable, str(Path(__file__).resolve()), *args])
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
@@ -2238,6 +2489,9 @@ def main() -> int:
 
     results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     phase_s = results.setdefault("phase_s", {"build": time.perf_counter() - t0})
+    if PARENT is not None:
+        print(f"[build] the parent's {PARENT_SOURCES} from {PARENT}: "
+              f"{json.dumps({n: round(x, 2) for n, x in build_parent().items()})} s", flush=True)
 
     def timed(name, fn, *a):
         t = time.perf_counter()

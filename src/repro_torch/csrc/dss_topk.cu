@@ -11,103 +11,77 @@
 // real ids there instead, which depends on its block size. An expert id
 // outside [0, K) emits (-inf, -1).
 //
-// Bound on this card: bytes. Each token streams its own expert's rows,
-// (V_pad, d) elements, so B tokens read up to B expert tables; the
-// arithmetic is 2*B*V_pad*d FLOPs, one FMA per element read.
+// Bound on this card: bytes. Tokens share experts, so the work is the rows
+// of the experts that hold a token, each to be read once per call; the
+// fp32 products are 1 flop per row byte and token (bf16), below the CUDA
+// cores' ridge.
 // Design: the TPU kernel spilled a (B, n_blocks, k) candidate list to HBM
-// and merged it with a second top_k. Here block (token, vocab split) runs
-// the retrieval body shared with the grouped and fused kernels
-// (topk_common.cuh) over its split's vocab tiles with one token, keeping
-// the running top-k in shared memory; the wrapper splits the vocab so that
-// about two blocks per SM have work, and the split merge writes (B, k)
-// directly. The 16-token tile holds one token, so the body's FMAs are
-// mostly idle; its loads, which bound it, are not.
-#include "topk_common.cuh"
+// and merged it with a second top_k. Here the streaming retrieval of the
+// decode kernels (retrieve_stream.cuh) runs over the token source
+// ExpertTokens: slot t is row t of h_scaled with gate value 1, so a fixed
+// grid of two blocks per SM builds the work list of the experts that hold a
+// token on the device, streams each one's rows once per group of up to tb
+// of its tokens through a ring of asynchronous copies, and the merge writes
+// (B, k) directly. Two launches, no host sync, no allocation.
+#include "retrieve_stream.cuh"
 
 namespace {
 
-using repro::TileSmem;
-constexpr int kTB = 16;  // the retrieval body's smallest token tile
+using repro::stream::ExpertTokens;
 
-template <typename T>
-__global__ void __launch_bounds__(repro::kThreads)
-pertoken_kernel(const T* __restrict__ w, const int* __restrict__ ids,
-                const T* __restrict__ h, const int* __restrict__ expert_idx,
-                float* __restrict__ out_v, int* __restrict__ out_i, int K,
-                int B, int v_pad, int d, int k, int tiles_per_split) {
-  extern __shared__ __align__(16) char smem[];
-  const TileSmem<kTB> s = TileSmem<kTB>::carve(smem, k);
-  const int b = blockIdx.x, sp = blockIdx.y;
-  const int e = expert_idx[b];
-  const size_t out_row = (static_cast<size_t>(sp) * B + b) * k;
-  if (e < 0 || e >= K) {  // block-uniform: every thread leaves here
-    for (int j = threadIdx.x; j < k; j += repro::kThreads) {
-      out_v[out_row + j] = -CUDART_INF_F;
-      out_i[out_row + j] = -1;
-    }
-    return;
-  }
-  if (threadIdx.x < kTB) {
-    s.tok_off[threadIdx.x] = static_cast<long long>(b) * d;
-    s.g[threadIdx.x] = 1.f;  // g is in h_scaled already; z * 1 is exact
-  }
-  repro::init_topk(s, k);
-  __syncthreads();
-  const int v_lo = sp * tiles_per_split * repro::kTV;
-  const int v_hi = min(v_pad, v_lo + tiles_per_split * repro::kTV);
-  const size_t e_row = static_cast<size_t>(e) * v_pad;
-  repro::retrieve_tile<T, T, kTB>(s, h, 1, w + e_row * d, ids + e_row, nullptr,
-                                  v_lo, v_hi, d, k);
-  for (int j = threadIdx.x; j < k; j += repro::kThreads) {
-    out_v[out_row + j] = s.top_v[j];
-    out_i[out_row + j] = s.top_i[j];
-  }
+template <typename T, int VB>
+cudaError_t launch(const void* w, const int* ids, const void* h, const int* expert_idx,
+                   float* out_v, int* out_i, float* part_v, int* part_p, int* n_sel, int K, int B,
+                   int v_pad, int d, int k, int grid, cudaStream_t stream) {
+  const ExpertTokens<T> src{static_cast<const T*>(h), expert_idx, B, K};
+  return repro::stream::launch_retrieve<ExpertTokens<T>, T, VB>(
+      src, static_cast<const T*>(w), ids, nullptr, part_v, part_p, n_sel, out_v, out_i, B, K,
+      v_pad, d, k, grid, stream);
 }
 
+// Row vectors of VB bytes: 16 or 4, or one element.
 template <typename T>
-cudaError_t launch(const void* w, const int* ids, const void* h,
-                   const int* expert_idx, float* out_v, int* out_i,
-                   float* part_v, int* part_i, int K, int B, int v_pad, int d,
-                   int k, int nsplit, int tiles_per_split, cudaStream_t stream) {
-  const size_t smem = TileSmem<kTB>::bytes(k);
-  auto kern = pertoken_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B, nsplit);
-  float* dst_v = nsplit > 1 ? part_v : out_v;
-  int* dst_i = nsplit > 1 ? part_i : out_i;
-  kern<<<grid, repro::kThreads, smem, stream>>>(
-      static_cast<const T*>(w), ids, static_cast<const T*>(h), expert_idx,
-      dst_v, dst_i, K, B, v_pad, d, k, tiles_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  return repro::launch_merge(part_v, part_i, out_v, out_i, B, k, nsplit, stream);
+cudaError_t dispatch_vb(int vb, const void* w, const int* ids, const void* h, const int* e,
+                        float* ov, int* oi, float* pv, int* pp, int* ns, int K, int B, int v_pad,
+                        int d, int k, int grid, cudaStream_t s) {
+  if (vb == 16) return launch<T, 16>(w, ids, h, e, ov, oi, pv, pp, ns, K, B, v_pad, d, k, grid, s);
+  if (vb == 4) return launch<T, 4>(w, ids, h, e, ov, oi, pv, pp, ns, K, B, v_pad, d, k, grid, s);
+  if constexpr (sizeof(T) < 4) {
+    if (vb == static_cast<int>(sizeof(T)))
+      return launch<T, static_cast<int>(sizeof(T))>(w, ids, h, e, ov, oi, pv, pp, ns, K, B, v_pad,
+                                                    d, k, grid, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// w (K, v_pad, d) and h_scaled (B, d) in `dtype`; part_v and part_p
+// (chunks of one expert when a single expert holds every token, B, k) and
+// n_sel (1,) are scratch. grid and vb come from
+// kernels/dss_topk.py::launch_plan.
 extern "C" int dss_topk(const void* w, const void* ids, const void* h_scaled,
-                        const void* expert_idx, void* out_v, void* out_i,
-                        void* part_v, void* part_i, int K, int B, int v_pad,
-                        int d, int k, int nsplit, int tiles_per_split, int dtype,
-                        void* stream) {
-  if (k < 1 || k > repro::kMaxK || k > v_pad || K < 1 || B < 0 || d < 1 ||
-      nsplit < 1 || nsplit > 65535 || tiles_per_split < 1)
+                        const void* expert_idx, void* out_v, void* out_i, void* part_v,
+                        void* part_p, void* n_sel, int K, int B, int v_pad, int d, int k,
+                        int grid, int vb, int dtype, void* stream) {
+  if (k < 1 || k > repro::kMaxK || k > v_pad || K < 1 || B < 0 || d < 1 || grid < 1)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  const int wbytes = dtype == repro::kDtypeF32 ? 4 : 2;
+  if (!repro::stream::stream_args_ok(w, d, wbytes, vb, k, K)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
   const int* ei = static_cast<const int*>(expert_idx);
   float* ov = static_cast<float*>(out_v);
   int* oi = static_cast<int*>(out_i);
   float* pv = static_cast<float*>(part_v);
-  int* pi = static_cast<int*>(part_i);
+  int* pp = static_cast<int*>(part_p);
+  int* ns = static_cast<int*>(n_sel);
   if (dtype == repro::kDtypeF32)
-    return launch<float>(w, id, h_scaled, ei, ov, oi, pv, pi, K, B, v_pad, d, k,
-                         nsplit, tiles_per_split, s);
+    return dispatch_vb<float>(vb, w, id, h_scaled, ei, ov, oi, pv, pp, ns, K, B, v_pad, d, k,
+                              grid, s);
   if (dtype == repro::kDtypeBF16)
-    return launch<__nv_bfloat16>(w, id, h_scaled, ei, ov, oi, pv, pi, K, B,
-                                 v_pad, d, k, nsplit, tiles_per_split, s);
+    return dispatch_vb<__nv_bfloat16>(vb, w, id, h_scaled, ei, ov, oi, pv, pp, ns, K, B, v_pad, d,
+                                      k, grid, s);
   return cudaErrorInvalidValue;
 }

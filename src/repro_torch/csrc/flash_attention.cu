@@ -53,19 +53,35 @@
 //   lane, in q's axis order.
 //
 // Body "simt" (the CUDA-core body: fp32, dh not a multiple of 16 or above
-// 128, data TMA cannot address; dh <= 256): one block of 256 threads per
-// (64-row query tile, head, batch row), the heaviest query tiles first.
-// The query tile, then each kv tile's K and, after the scores, its V are
-// staged in shared memory as fp32 (rows padded by 4 floats, so the float4
-// reads of 8 lanes hit distinct banks). A thread computes a 4 x 4 patch of
-// the 64 x 64 score tile with CUDA-core FMAs; each row's m and l are
-// replicated over the 16 threads holding that row (shuffle reductions),
-// and each thread keeps 4 rows x 4*ceil(dh/64) columns of acc in
-// registers. kv tiles strictly above the diagonal are never visited; the
-// ragged last tile is masked (rows >= S load as zeros, are masked by the
-// causal test or belong to query rows that are never written), so any
-// S >= 1 works. Element strides for q, k, v and o; the dh axis must be
-// contiguous.
+// 128, data TMA cannot address; dh <= 256), bound by the fp32 FMAs of the
+// two products. Templated on the head-dim class DH (64, 128, 256: dh
+// rounded up). One block per (64-row query tile, head, batch row), the
+// heaviest query tiles first across all heads (the 1-D grid of the wgmma
+// body); 128 threads for DH 64 and 128 (two blocks per SM), 256
+// for DH 256. Thread (ty, tx) of a 16-wide grid owns query rows
+// ty + RT i (RT = threads / 16) and, of each 64-row kv tile, score columns
+// tx + 16 j (j < 4) and head-dim columns 4 tx + 64 jj + e of acc, so a
+// DH-128 thread holds an 8 x 4 score micro-tile and an 8 x 8 acc
+// micro-tile in registers: each 16-byte operand load from shared memory
+// feeds 8 or 16 FMAs (8 x 4 x 4 per 12 loads on the scores, 8 x 8 x 4 per
+// 16 on P V). The 16 threads of a row replicate its m (a shuffle
+// reduction per kv tile) and each keeps l over its own columns, summed
+// over the row once at the end. Staging: Q once, then K0, V0, K1, V1, ...
+// through a ring of two tile slots in shared memory, each tile copied by
+// 16-byte cp.async (a thread copies one 16-byte column of rows t / NCH +
+// RSTEP m, so its addresses step by a constant; rows >= S and columns >=
+// dh zero-filled by the copy's source size) one tile ahead of the product
+// that reads it, so tile u + 1 is in flight while tile u is multiplied;
+// where a base pointer or a stride is not a multiple of 16 bytes the tile
+// is copied one element at a time through registers.
+// Tiles keep the input type (bf16 is widened as it is read). K tiles are
+// stored with the 16-byte chunks of row r XOR-swizzled by r & 7, so the 8
+// kv rows a quarter-warp reads lie in distinct banks; Q, V and P need no
+// swizzle (a quarter-warp reads one Q or P row, and 128 contiguous bytes
+// of a V row). p is written to shared memory rounded to T for P V. kv tiles
+// above the diagonal are never visited and only the diagonal tile is
+// masked, so any S >= 1 works. Element strides for q, k, v and o; the dh
+// axis must be contiguous.
 //
 // Both bodies set their shared-memory limit once per device, not per call.
 #include "wgmma_common.cuh"
@@ -74,14 +90,43 @@ namespace {
 
 using repro::smem_limit_once;
 
-constexpr int kBQ = 64;             // query rows per block
-constexpr int kBK = 64;             // kv rows per tile
-constexpr int kFaThreads = 256;     // 16 x 16 threads over the 64 x 64 tile
-constexpr int kPStride = kBK + 4;   // row stride (floats) of the score tile
 constexpr int kMaxDh = 256;
 
 struct Strides {
   long long b, h, s;  // element strides of the batch, head and sequence axes
+};
+
+// Both bodies' softmax runs in the log2 domain: scores times log2(e) / sqrt(dh).
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+namespace simt {
+
+constexpr int kB = 64;  // query rows per block and kv rows per tile
+
+// Threads, blocks per SM and shared memory of the head-dim class DH.
+template <int DH>
+struct Cfg {
+  static constexpr int kThreads = DH <= 128 ? 128 : 256;
+  static constexpr int kMinBlocks = DH <= 128 ? 2 : 1;
+  static constexpr int RT = kThreads / 16;  // row groups
+  static constexpr int TR = kB / RT;        // query rows per thread
+  static constexpr int TS = kB / 16;        // score columns per thread
+  static constexpr int TO = DH / 64;        // float4 groups of acc columns per thread
+  template <typename T>
+  __host__ __device__ static constexpr int tile_bytes() {
+    return kB * DH * static_cast<int>(sizeof(T));
+  }
+  // Q, a ring of two K/V tile slots, P (fp32)
+  template <typename T>
+  __host__ __device__ static constexpr int smem_bytes() {
+    return 3 * tile_bytes<T>() + kB * kB * 4;
+  }
 };
 
 __device__ __forceinline__ float round_to(float x, float) { return x; }
@@ -91,144 +136,214 @@ __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// dst[r * ld + d] = src[(row0 + r) * s_stride + d] widened to fp32, for
-// r < 64 and d < dhp; zero where row0 + r >= S or d >= dh.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
-                                          long long s_stride, int row0, int S, int dh,
-                                          int dhp) {
-  for (int idx = threadIdx.x; idx < kBK * dhp; idx += kFaThreads) {
-    const int r = idx / dhp, d = idx - r * dhp;
-    float x = 0.f;
-    if (row0 + r < S && d < dh)
-      x = repro::to_f32(src[static_cast<long long>(row0 + r) * s_stride + d]);
-    dst[r * ld + d] = x;
+// 4 consecutive elements from shared memory, widened to fp32.
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// 16 bytes global -> shared, the last 16 - bytes of them zero.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one of this thread's committed copy groups is pending.
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows row0 .. row0 + 63 (row r at src + r * s_stride, dh contiguous
+// elements) into a tile of kB rows of DH elements at dst, zero where a row
+// is >= S or a column >= dh. swz: chunk c of row r lands at chunk c ^ (r & 7).
+// vec: 16-byte cp.async (every row 16-byte aligned), else one element at a
+// time, synchronously. All threads of the block call it.
+template <typename T, int DH, int NT>
+__device__ __forceinline__ void stage(char* dst, const T* __restrict__ src, long long s_stride,
+                                      int row0, int S, int dh, bool swz, bool vec) {
+  constexpr int E = sizeof(T), RB = DH * E, NCH = RB / 16;
+  if (vec) {  // thread t copies chunk t % NCH of rows t / NCH + RSTEP m
+    constexpr int RSTEP = NT / NCH, PER = kB / RSTEP;
+    static_assert(NT % NCH == 0 && kB % RSTEP == 0, "whole chunks per thread");
+    const int c = threadIdx.x % NCH, r0 = threadIdx.x / NCH;
+    const int left = dh * E - c * 16;
+    const int bytes = left >= 16 ? 16 : max(left, 0);
+    const char* base = reinterpret_cast<const char*>(src);
+    const char* g = base + static_cast<long long>(row0 + r0) * s_stride * E + c * 16;
+    const long long step = static_cast<long long>(RSTEP) * s_stride * E;
+    const uint32_t d0 = repro::smem_u32(dst) + r0 * RB;
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int r = r0 + RSTEP * m;
+      const bool in = row0 + r < S && bytes > 0;
+      cp_async16(d0 + m * RSTEP * RB + (swz ? c ^ (r & 7) : c) * 16, in ? g + m * step : base,
+                 in ? bytes : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kB * DH; i += NT) {
+      const int r = i / DH, d = i - r * DH;
+      T x = T(0.f);
+      if (row0 + r < S && d < dh) x = src[static_cast<long long>(row0 + r) * s_stride + d];
+      const int c = d * E / 16;
+      *reinterpret_cast<T*>(dst + r * RB + (swz ? c ^ (r & 7) : c) * 16 + d * E % 16) = x;
+    }
   }
 }
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kFaThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-                       Strides vs, Strides os, int group, int S, int dh, float scale) {
-  extern __shared__ float4 smem_f4[];
-  float* smem = reinterpret_cast<float*>(smem_f4);
-  const int dhp = (dh + 3) & ~3;
-  const int ld = dhp + 4;
-  float* qsm = smem;               // [kBQ][ld] query tile
-  float* kvs = qsm + kBQ * ld;     // [kBK][ld] K of the current tile, then its V
-  float* ps = kvs + kBK * ld;      // [kBQ][kPStride] p rounded to T
+// Block L of the 1-D grid: query tile n_q - 1 - L / (H * B) (heaviest
+// first across all heads), head L % H, batch row (L / H) % B.
+template <typename T, int DH>
+__global__ void __launch_bounds__(Cfg<DH>::kThreads, Cfg<DH>::kMinBlocks)
+fa_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int H, int B,
+               int group, int S, int dh, int n_q, float scale_log2, int vec) {
+  using C = Cfg<DH>;
+  constexpr int NT = C::kThreads, RT = C::RT, TR = C::TR, TS = C::TS, TO = C::TO;
+  constexpr int E = sizeof(T), RB = DH * E, TILE = C::template tile_bytes<T>();
+  extern __shared__ __align__(128) char smem[];
+  char* qsm = smem;              // [kB][DH] Q
+  char* ring = smem + TILE;      // 2 slots of [kB][DH]: K0, V0, K1, V1, ...
+  float* ps = reinterpret_cast<float*>(smem + 3 * TILE);  // [kB][kB] p rounded to T
 
-  const int n_q = (S + kBQ - 1) / kBQ;
-  const int qt = n_q - 1 - static_cast<int>(blockIdx.x);  // heavy tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const int q0 = qt * kBQ;
+  const int L = blockIdx.x;
+  const int hb = L % (H * B);
+  const int qt = n_q - 1 - L / (H * B);
+  const int h = hb % H, b = hb / H, hk = h / group;
+  const int q0 = qt * kB;
+  const int n_units = 2 * (qt + 1);  // K and V of kv tiles 0 .. qt
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const T* qp = q + b * qs.b + h * qs.h;
   const T* kp = k + b * ks.b + hk * ks.h;
   const T* vp = v + b * vs.b + hk * vs.h;
-  load_tile(qsm, ld, qp, qs.s, q0, S, dh, dhp);
+  auto issue = [&](int u) {  // unit u: K (even) or V (odd) of kv tile u / 2
+    if (u >= n_units) return;
+    char* dst = ring + (u & 1) * TILE;
+    if (u & 1)
+      stage<T, DH, NT>(dst, vp, vs.s, (u / 2) * kB, S, dh, false, vec);
+    else
+      stage<T, DH, NT>(dst, kp, ks.s, (u / 2) * kB, S, dh, true, vec);
+  };
+  stage<T, DH, NT>(qsm, qp, qs.s, q0, S, dh, false, vec);
+  issue(0);
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][NJ][4];
+  float m[TR], l[TR], acc[TR][TO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < TR; ++i) {
     m[i] = repro::kNegInfMask;
     l[i] = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
+    for (int jj = 0; jj < TO; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.f;
   }
+  const int nd = (dh + 3) & ~3;  // head-dim columns read (zero past dh)
+  const T* qrow = reinterpret_cast<const T*>(qsm) + ty * DH;
+  const int kkey = tx & 7;       // swizzle of kv rows tx + 16 j
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's V is no longer read
-    load_tile(kvs, ld, kp, ks.s, k0, S, dh, dhp);
-    __syncthreads();
-
-    // s = q . k^T over dh, 4 x 4 per thread: rows ty + 16 i, cols tx + 16 j
-    float s[4][4];
+  for (int u = 0; u < n_units; ++u) {
+    __syncthreads();  // every thread is done with unit u - 1's slot
+    issue(u + 1);
+    cp_async_commit();
+    cp_async_wait_1();  // this thread's copies of Q and unit u have landed
+    __syncthreads();    // and every other thread's
+    const char* slot = ring + (u & 1) * TILE;
+    const int kt = u / 2;
+    if ((u & 1) == 0) {
+      // s = q . k^T over dh: rows ty + RT i, columns tx + 16 j
+      float s[TR][TS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dhp; d += 4) {
-      float4 a[4], c[4];
+        for (int j = 0; j < TS; ++j) s[i][j] = 0.f;
+      const char* krow = slot + tx * RB;
+#pragma unroll 2
+      for (int d = 0; d < nd; d += 4) {
+        const int byte = d * E;
+        const int koff = (((byte >> 4) ^ kkey) << 4) | (byte & 15);
+        float4 a[TR], c[TS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qsm + (ty + 16 * i) * ld + d);
+        for (int i = 0; i < TR; ++i) a[i] = ld4(qrow + i * RT * DH + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        c[j] = *reinterpret_cast<const float4*>(kvs + (tx + 16 * j) * ld + d);
+        for (int j = 0; j < TS; ++j)
+          c[j] = ld4(reinterpret_cast<const T*>(krow + j * 16 * RB + koff));
+        // one d at a time over all TR x TS sums, so consecutive FMAs never
+        // wait on each other
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < TR; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(a[i].x, c[j].x, t);
-          t = fmaf(a[i].y, c[j].y, t);
-          t = fmaf(a[i].z, c[j].z, t);
-          t = fmaf(a[i].w, c[j].w, t);
-          s[i][j] = t;
+          for (int j = 0; j < TS; ++j) s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TS; ++j) s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TS; ++j) s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TS; ++j) s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
+      }
+      // scale (log2 domain), causal mask on the diagonal tile, online
+      // softmax; p rounded to T into shared memory
+      const bool diag = kt == qt;
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int r = ty + RT * i;
+        float mx = repro::kNegInfMask;
+#pragma unroll
+        for (int j = 0; j < TS; ++j) {
+          float x = s[i][j] * scale_log2;
+          if (diag && tx + 16 * j > r) x = repro::kNegInfMask;
+          s[i][j] = x;
+          mx = fmaxf(mx, x);
         }
-    }
-
-    // scale, causal mask, online softmax; p (rounded to T) to shared memory
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mx = repro::kNegInfMask;
+        for (int off = 8; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = ex2(m[i] - m_new);
+        float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (k0 + tx + 16 * j > r) x = repro::kNegInfMask;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+        for (int j = 0; j < TS; ++j) {
+          const float p = ex2(s[i][j] - m_new);
+          sum += p;
+          ps[r * kB + tx + 16 * j] = round_to(p, T());
+        }
+        l[i] = l[i] * alpha + sum;  // this thread's columns; summed over the row at the end
+        m[i] = m_new;
+#pragma unroll
+        for (int jj = 0; jj < TO; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
       }
+    } else {
+      // acc += p . v: rows ty + RT i, columns 4 tx + 64 jj + e
+      const T* vt = reinterpret_cast<const T*>(slot) + 4 * tx;
+      const float* prow = ps + ty * kB;
+#pragma unroll 2
+      for (int c = 0; c < kB; c += 4) {
+        float4 pr[TR];
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+        for (int i = 0; i < TR; ++i) pr[i] = *reinterpret_cast<const float4*>(prow + i * RT * kB + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = round_to(p, T());
-      }
+        for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
-      for (int off = 8; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
+          for (int jj = 0; jj < TO; ++jj) {
+            const float4 vv = ld4(vt + (c + cc) * DH + 64 * jj);
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
-    }
-    __syncthreads();  // K is no longer read; p is complete
-    load_tile(kvs, ld, vp, vs.s, k0, S, dh, dhp);
-    __syncthreads();
-
-    // acc += p . v: thread holds cols 4 tx + 64 jj + e of its 4 rows
-    for (int c = 0; c < kBK; c += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pr[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kPStride + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          const int d = 4 * tx + 64 * jj;
-          if (d >= dhp) continue;
-          const float4 vv = *reinterpret_cast<const float4*>(kvs + (c + cc) * ld + d);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0 ? pr[i].x : cc == 1 ? pr[i].y : cc == 2 ? pr[i].z : pr[i].w;
-            acc[i][jj][0] = fmaf(p, vv.x, acc[i][jj][0]);
-            acc[i][jj][1] = fmaf(p, vv.y, acc[i][jj][1]);
-            acc[i][jj][2] = fmaf(p, vv.z, acc[i][jj][2]);
-            acc[i][jj][3] = fmaf(p, vv.w, acc[i][jj][3]);
+            for (int i = 0; i < TR; ++i) {
+              const float p = cc == 0 ? pr[i].x : cc == 1 ? pr[i].y : cc == 2 ? pr[i].z : pr[i].w;
+              acc[i][jj][0] = fmaf(p, vv.x, acc[i][jj][0]);
+              acc[i][jj][1] = fmaf(p, vv.y, acc[i][jj][1]);
+              acc[i][jj][2] = fmaf(p, vv.z, acc[i][jj][2]);
+              acc[i][jj][3] = fmaf(p, vv.w, acc[i][jj][3]);
+            }
           }
         }
       }
@@ -236,12 +351,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off /= 2) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  }
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = q0 + ty + RT * i;
     if (r >= S) continue;
     T* orow = o + b * os.b + h * os.h + static_cast<long long>(r) * os.s;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
+    for (int jj = 0; jj < TO; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * tx + 64 * jj + e;
@@ -250,31 +370,50 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NJ>
+// Whether a tensor's rows can be copied 16 bytes at a time: its base
+// pointer and every batch, head and sequence stride (of an axis longer
+// than 1) on a 16-byte boundary.
+template <typename T>
+bool rows_16b(const void* p, Strides st, int B, int heads, int S) {
+  const long long e = sizeof(T);
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || st.b * e % 16 == 0) &&
+         (heads == 1 || st.h * e % 16 == 0) && (S == 1 || st.s * e % 16 == 0);
+}
+
+template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-                   Strides ks, Strides vs, Strides os, int B, int H, int group, int S, int dh,
+                   Strides ks, Strides vs, Strides os, int B, int H, int H_kv, int S, int dh,
                    cudaStream_t stream) {
-  const int dhp = (dh + 3) & ~3;
-  const int smem = static_cast<int>(sizeof(float)) * (2 * kBQ * (dhp + 4) + kBQ * kPStride);
-  auto kern = flash_attention_kernel<T, NJ>;
+  constexpr int smem = Cfg<DH>::template smem_bytes<T>();
+  auto kern = fa_simt_kernel<T, DH>;
   cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kFaThreads, smem, stream>>>(
+  // all of the SM's unified memory as shared memory, so kMinBlocks fit
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (carve != cudaSuccess) return carve;
+  const int vec = rows_16b<T>(q, qs, B, H, S) && rows_16b<T>(k, ks, B, H_kv, S) &&
+                  rows_16b<T>(v, vs, B, H_kv, S);
+  const int n_q = (S + kB - 1) / kB;
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(dh));
+  kern<<<n_q * H * B, Cfg<DH>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), qs, ks, vs, os, group, S, dh, scale);
+      static_cast<T*>(o), qs, ks, vs, os, H, B, H / H_kv, S, dh, n_q, scale_log2, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, Strides qs,
-                     Strides ks, Strides vs, Strides os, int B, int H, int group, int S,
-                     int dh, cudaStream_t s) {
-  if (dh <= 64) return launch<T, 1>(q, k, v, o, qs, ks, vs, os, B, H, group, S, dh, s);
-  if (dh <= 128) return launch<T, 2>(q, k, v, o, qs, ks, vs, os, B, H, group, S, dh, s);
-  return launch<T, 4>(q, k, v, o, qs, ks, vs, os, B, H, group, S, dh, s);
+                     Strides ks, Strides vs, Strides os, int B, int H, int H_kv, int S, int dh,
+                     cudaStream_t s) {
+  if (static_cast<long long>((S + kB - 1) / kB) * H * B > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (dh <= 64) return launch<T, 64>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);
+  if (dh <= 128) return launch<T, 128>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);
+  return launch<T, 256>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);
 }
+
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // Body "wgmma": tensor cores on TMA-staged K/V (bf16)
@@ -289,7 +428,6 @@ constexpr int kConsumers = 256;         // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 constexpr int kRegion = 128 * 128;      // bytes of one 64-column region of a 128-row tile
 constexpr int kMaxDh = 128;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int NC>  // 64-column regions over the (zero-padded) head dim
 constexpr int smem_bytes() {
@@ -311,12 +449,6 @@ using repro::wgmma_fence;
 using repro::wgmma_rs_tb;
 using repro::wgmma_ss;
 using repro::wgmma_wait_all;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Block L of the 1-D grid: query tile n_q - 1 - L / (H * B) (heaviest
 // first across all heads), head L % H, batch row (L / H) % B.
@@ -587,7 +719,6 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = H / H_kv;
   if (body == 1) {
     if (dtype != repro::kDtypeBF16 || !tc::takes(q, qs, B, H, S, dh) ||
         !tc::takes(k, ks, B, H_kv, S, dh) || !tc::takes(v, vs, B, H_kv, S, dh) ||
@@ -598,8 +729,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   }
   if (body != 0) return cudaErrorInvalidValue;
   if (dtype == repro::kDtypeF32)
-    return dispatch<float>(q, k, v, o, qs, ks, vs, os, B, H, group, S, dh, s);
+    return simt::dispatch<float>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);
   if (dtype == repro::kDtypeBF16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, qs, ks, vs, os, B, H, group, S, dh, s);
+    return simt::dispatch<__nv_bfloat16>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-// Streaming DS-Softmax retrieval shared by dss_topk_fused.cu and the decode
-// body of dss_topk_grouped.cu (sm_90a).
+// Streaming DS-Softmax retrieval shared by dss_topk_fused.cu, the decode
+// body of dss_topk_grouped.cu and dss_topk.cu (sm_90a).
 //
 // The retrieval is bound by bytes at decode: a few tokens per expert, so
 // each needed expert's rows are read once per call (once per group of up
@@ -8,8 +8,8 @@
 // loads: enough bytes in flight on every SM to cover the memory's latency.
 //
 // Both kernels here are templates over a token source (GateTokens,
-// SlotTokens below): slot i of the source is a token row x + i * d with
-// gate value g[i] and a local expert (or none). Order of operations is the
+// SlotTokens, ExpertTokens below): slot i of the source is a token row
+// x + i * d with gate value gate(i) and a local expert (or none). Order of operations is the
 // contract of topk_common.cuh: z = x . w in fp32, times the row scale
 // (int8), times g, padding rows -> -1e9, ties to the lowest packed position.
 //
@@ -291,6 +291,14 @@ __host__ __device__ __forceinline__ int chunk_rows_for(int n_sel, int v_pad, int
   return min(kMaxChunkRows, max(kRowStep, rows));
 }
 
+// k outputs (-inf, -1), by the whole merge block: a token no expert serves.
+__device__ __forceinline__ void emit_none(int k, float* ov, int* oi) {
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    ov[j] = -CUDART_INF_F;
+    oi[j] = -1;
+  }
+}
+
 // Token source of dss_topk_fused: slot t is token t (h row t, gate value
 // g[t]) of global expert sel[t]; served when that expert is local (in
 // [e_base, e_base + K)), else it emits (-inf, -1).
@@ -306,15 +314,13 @@ struct GateTokens {
     const int e = sel[i] - e_base;
     return e >= 0 && e < K ? e : -1;
   }
+  __device__ __forceinline__ float gate(int i) const { return g[i]; }
   // the slots where expert e's tokens lie
   __device__ __forceinline__ int first(int) const { return 0; }
   __device__ __forceinline__ int end(int) const { return B; }
   // By the whole merge block: slot r's k outputs when it has no expert.
   __device__ void unserved(int, const int*, int, int k, float* ov, int* oi) const {
-    for (int j = threadIdx.x; j < k; j += kThreads) {
-      ov[j] = -CUDART_INF_F;
-      oi[j] = -1;
-    }
+    emit_none(k, ov, oi);
   }
 };
 
@@ -329,6 +335,7 @@ struct SlotTokens {
   int K, C;
   __device__ __forceinline__ int n_slots() const { return K * C; }
   __device__ __forceinline__ int expert(int i) const { return g[i] != 0.f ? i / C : -1; }
+  __device__ __forceinline__ float gate(int i) const { return g[i]; }
   __device__ __forceinline__ int first(int e) const { return e * C; }
   __device__ __forceinline__ int end(int e) const { return e * C + C; }
   // By the whole merge block: an empty slot r of expert e = r / C. For
@@ -374,6 +381,29 @@ struct SlotTokens {
       ov[j] = kNegInfMask;
       oi[j] = -1;
     }
+  }
+};
+
+// Token source of dss_topk: slot t is row t of h_scaled, the token already
+// multiplied by its gate value, of expert expert_idx[t]; served when that
+// lies in [0, K), else it emits (-inf, -1). Its gate value is exactly 1 (z * 1
+// is exact, so the scores are the plain x . w).
+template <typename TX>
+struct ExpertTokens {
+  using T = TX;
+  const TX* x;
+  const int* sel;
+  int B, K;
+  __device__ __forceinline__ int n_slots() const { return B; }
+  __device__ __forceinline__ int expert(int i) const {
+    const int e = sel[i];
+    return e >= 0 && e < K ? e : -1;
+  }
+  __device__ __forceinline__ float gate(int) const { return 1.f; }
+  __device__ __forceinline__ int first(int) const { return 0; }
+  __device__ __forceinline__ int end(int) const { return B; }
+  __device__ void unserved(int, const int*, int, int k, float* ov, int* oi) const {
+    emit_none(k, ov, oi);
   }
 };
 
@@ -516,7 +546,7 @@ retrieve_kernel(const Src src, const TW* __restrict__ w, const int* __restrict__
           const int r = __popc(bits & ((1u << lane) - 1u));
           if (hit && r < take) {
             tok[n + r] = t;
-            tg[n + r] = src.g[t];
+            tg[n + r] = src.gate(t);
           }
           n += take;
           if (take < __popc(bits)) {  // resume at the first hit not taken

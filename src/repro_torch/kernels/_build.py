@@ -45,9 +45,9 @@ SIGNATURES = {
     # n_sel, K_real, K, B, v_pad, d, k, e_base, grid, vec_bytes, dtype,
     # wdtype, stream
     "dss_topk_fused": [_P] * 12 + [_I] * 11 + [_P],
-    # w, ids, h_scaled, expert_idx, out_v, out_i, part_v, part_i,
-    # K, B, v_pad, d, k, nsplit, tiles_per_split, dtype, stream
-    "dss_topk": [_P] * 8 + [_I] * 8 + [_P],
+    # w, ids, h_scaled, expert_idx, out_v, out_i, part_v, part_p, n_sel,
+    # K, B, v_pad, d, k, grid, vec_bytes, dtype, stream
+    "dss_topk": [_P] * 9 + [_I] * 8 + [_P],
     # w, mask, norms, new_mask, rows, d, gamma, dtype, blocks, stream
     "lasso_prune": [_P] * 4 + [_L, _I, _F, _I, _I, _P],
     # q, k, v, o, (batch, head, sequence) element strides of q, k, v, o,
@@ -155,7 +155,6 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
 # Launch glue shared by the wrappers
 # ---------------------------------------------------------------------------
 
-TV = 64            # vocab rows per tile (kTV in csrc/topk_common.cuh)
 MAX_K = 64         # largest top-k width (kMaxK)
 MAX_SPLITS = 288   # partial lists per row the split merge takes (kMaxSplits)
 SMS = 132          # streaming multiprocessors of an H100 SXM
@@ -180,12 +179,3 @@ def weight_code(w) -> int:
 def ptr(t) -> Optional[int]:
     """A tensor's device pointer, or None (a null pointer) for no tensor."""
     return None if t is None else t.data_ptr()
-
-
-def vocab_split(v_pad: int, active_blocks: int):
-    """(nsplit, tiles_per_split): split each expert's vocab tiles over
-    enough blocks that about two blocks per SM have work."""
-    n_tiles = -(-v_pad // TV)
-    want = max(1, -(-2 * SMS // max(1, active_blocks)))
-    tps = -(-n_tiles // min(want, n_tiles))
-    return -(-n_tiles // tps), tps

@@ -1,12 +1,17 @@
 """Per-token DS-Softmax retrieval (the legacy serve path, fp tables only).
 
 Wrapper over ``csrc/dss_topk.cu`` (replaces the Pallas kernel
-``repro/kernels/dss_topk.py::dss_topk``). Each token streams only its own
-expert's packed rows against ``h_scaled``, the token already multiplied
-by its gate value (``ops.dss_topk`` does the fold), and the ``(B, k)``
-result comes out directly: no per-block candidate spill and second top-k
-as on the TPU. An expert with fewer than k real rows fills the tail with
-its padding rows, ``(-1e9, -1)``. For CPU tensors it runs the plain
+``repro/kernels/dss_topk.py::dss_topk``). Each token is scored against
+only its own expert's packed rows, ``h_scaled`` being the token already
+multiplied by its gate value (``ops.dss_topk`` does the fold). The kernel
+is the streaming retrieval of the decode kernels
+(``csrc/retrieve_stream.cuh``) over the tokens grouped by expert: each
+expert that holds a token is read once per group of up to
+``retrieve_stream.token_group(d)`` of its tokens, in row chunks that a
+fixed grid (:func:`launch_plan`) shares out on the device, and a merge
+writes the ``(B, k)`` result directly. An expert with fewer than k real
+rows fills the tail with its padding rows, ``(-1e9, -1)``; an expert id
+outside ``[0, K)`` gives ``(-inf, -1)``. For CPU tensors it runs the plain
 version, ``ref.dss_topk_ref``.
 """
 from __future__ import annotations
@@ -15,6 +20,13 @@ import torch
 
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.retrieve_stream import StreamPlan, row_vec_bytes, stream_plan
+
+
+def launch_plan(B: int, K: int, v_pad: int, d: int, wdtype: torch.dtype) -> StreamPlan:
+    """The retrieval's launch from the shapes alone: ``min(B, K)`` experts
+    can hold a token (``retrieve_stream.stream_plan``)."""
+    return stream_plan(min(B, K), v_pad, d, wdtype)
 
 
 def dss_topk(weights, ids, h_scaled, expert_idx, k: int = 8, *, device="cuda"):
@@ -41,19 +53,20 @@ def dss_topk(weights, ids, h_scaled, expert_idx, k: int = 8, *, device="cuda"):
         raise ValueError(f"k={k} must be in [1, min(64, v_pad={v_pad})]")
     weights, ids, h_scaled, expert_idx = (
         t.contiguous() for t in (weights, ids, h_scaled, expert_idx))
-    nsplit, tps = _build.vocab_split(v_pad, max(B, 1))
-    out_v = torch.empty((B, k), dtype=torch.float32, device=h_scaled.device)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=h_scaled.device)
-    part_v = part_i = None
-    if nsplit > 1:
-        part_v = torch.empty((nsplit, B, k), dtype=torch.float32, device=h_scaled.device)
-        part_i = torch.empty((nsplit, B, k), dtype=torch.int32, device=h_scaled.device)
+    plan = launch_plan(B, K, v_pad, d, weights.dtype)
+    vb = row_vec_bytes(d, weights.element_size(), weights.data_ptr())
+    cuda_dev = h_scaled.device
+    out_v = torch.empty((B, k), dtype=torch.float32, device=cuda_dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=cuda_dev)
+    part_v = torch.empty((plan.max_chunks, B, k), dtype=torch.float32, device=cuda_dev)
+    part_p = torch.empty((plan.max_chunks, B, k), dtype=torch.int32, device=cuda_dev)
+    n_sel = torch.empty((1,), dtype=torch.int32, device=cuda_dev)
     lib = _build.load("dss_topk")
     err = lib.dss_topk(
         weights.data_ptr(), ids.data_ptr(), h_scaled.data_ptr(), expert_idx.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), _build.ptr(part_v), _build.ptr(part_i),
-        K, B, v_pad, d, k, nsplit, tps, _build.dtype_code(h_scaled),
-        torch.cuda.current_stream(h_scaled.device).cuda_stream)
+        out_v.data_ptr(), out_i.data_ptr(), part_v.data_ptr(), part_p.data_ptr(),
+        n_sel.data_ptr(), K, B, v_pad, d, k, plan.grid, vb, _build.dtype_code(h_scaled),
+        torch.cuda.current_stream(cuda_dev).cuda_stream)
     _build.check(lib, err, "dss_topk")
     dss_topk.launches += 1
     return out_v, out_i

@@ -18,6 +18,8 @@ counts its own launches (``launches_wgmma``, ``launches``).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.device import check_on, resolve_device
@@ -26,6 +28,31 @@ from repro_torch.kernels import _build, ref
 MAX_DH = 256
 WGMMA_MAX_DH = 128
 WGMMA, SIMT = "flash_attention_wgmma", "flash_attention"
+# query rows per block and kv rows per tile of the CUDA-core body (simt::kB)
+SIMT_ROWS = 64
+
+
+class SimtTile(NamedTuple):
+    """The CUDA-core body's build for a head dim (``simt::Cfg<DH>`` in the
+    .cu): ``dh_class`` the head dim it is compiled for (dh rounded up to
+    64, 128 or 256), ``threads`` per block, ``blocks_per_sm`` its launch
+    bound, ``smem_bytes`` of dynamic shared memory per block (Q and two
+    K/V tile slots in the input type, P in fp32)."""
+
+    dh_class: int
+    threads: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+
+def simt_tile(dh: int, dtype: torch.dtype) -> SimtTile:
+    """The CUDA-core body's tiles for head dim ``dh`` (1 to 256)."""
+    if not 1 <= dh <= MAX_DH:
+        raise ValueError(f"head dim {dh} outside [1, {MAX_DH}]")
+    dhc = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    elem = torch.empty((), dtype=dtype).element_size()
+    return SimtTile(dhc, 128 if dhc <= 128 else 256, 2 if dhc <= 128 else 1,
+                    3 * SIMT_ROWS * dhc * elem + SIMT_ROWS * SIMT_ROWS * 4)
 
 
 def select_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:

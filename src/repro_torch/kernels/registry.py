@@ -21,8 +21,9 @@ A quantized table (``KernelContext.quantized``: int8 rows, ``wbytes``
 is served only by specs with ``quantized_ok``; naming any other raises.
 
 The cost model is bytes moved, the formulas of ``repro``'s registry
-without its TPU constants. The fused path and the grouped path at decode
-capacities are priced by what the port's streaming retrieval reads: each
+without its TPU constants. The fused path, the per-token path and the
+grouped path at decode capacities are priced by what the port's streaming
+retrieval reads: each
 expert that holds a token, its rows once per group of
 ``retrieve_stream.token_group(d)`` of its tokens (not the TPU's 128 rows).
 The grouped kernel's bodies are priced by what bounds each on the H100:
@@ -318,12 +319,15 @@ def _cost_cuda_fused(c: KernelContext) -> int:
 
 def _cost_cuda_pertoken(c: KernelContext) -> int:
     # gate_top1 first (the gate matrix and h read, (B,) ids + g written),
-    # the fold writes h_scaled, then every TOKEN reads its expert's rows
-    # and ids and its h_scaled, ids and g: never below the fused path.
+    # the fold (h and g read, h_scaled written), then the streaming
+    # retrieval: the experts that hold a token once per token group, as the
+    # fused path reads them, h_scaled and the (B,) expert ids. The same rows
+    # as the fused path plus the gate's and the fold's round trips, so never
+    # below it.
     gate = c.K * c.d * c.hbytes + c.B * c.d * c.hbytes + c.B * 8
-    fold = 2 * c.B * c.d * c.hbytes
-    return (gate + fold + c.B * c.v_pad * (_row_bytes(c) + 4)
-            + c.B * c.d * c.hbytes + c.B * 8 + c.out_bytes)
+    fold = 2 * c.B * c.d * c.hbytes + c.B * 4
+    return (gate + fold + fused_expert_reads(c.B, c.K, c.d) * c.v_pad * _row_bytes(c)
+            + c.B * c.d * c.hbytes + c.B * 4 + c.out_bytes)
 
 
 register_kernel(KernelSpec(

@@ -1,10 +1,11 @@
 """The launch plan of the streaming retrieval (``csrc/retrieve_stream.cuh``).
 
-The fused decode kernel and the decode body of the grouped kernel share
-one retrieval: a grid fixed by the shapes (``BLOCKS_PER_SM`` blocks on each
-SM) walks a work list that the kernel builds on the device, the experts
-that hold a token cut into row chunks (:func:`chunk_rows`, which mirrors
-the kernel's ``chunk_rows_for``). The constants mirror the kernel's.
+The fused decode kernel, the decode body of the grouped kernel and the
+per-token kernel share one retrieval: a grid fixed by the shapes
+(``BLOCKS_PER_SM`` blocks on each SM) walks a work list that the kernel
+builds on the device, the experts that hold a token cut into row chunks
+(:func:`chunk_rows`, which mirrors the kernel's ``chunk_rows_for``). The
+constants mirror the kernel's.
 """
 from __future__ import annotations
 

@@ -707,49 +707,132 @@ def test_auto_picks_the_fused_kernel_on_the_head_path(dev, quantize, B):
     _same(got, ds.serve_topk(gate, table, h, k, kernel="jnp"), atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,k", [(8, 8), (37, 1), (300, 16)])
-def test_pertoken_kernel(dev, dtype, B, k):
-    """Expert 1 holds 5 real rows: its tokens' tails are (-1e9, -1)."""
-    from repro_torch.kernels import ops, ref
-
-    K, d, v_pad = 4, 128, 900
-    w, ids, g = _table(dev, K, v_pad, d, dtype, seed=B, dup=True)
+def _pertoken_inputs(dev, dtype, B, K, d, v_pad, spread, seed):
+    """A table whose expert 1 holds 5 real rows (its tokens' tails are
+    (-1e9, -1)) and every odd row a copy of the even one before it (ties),
+    tokens h, gate values, and each token's expert: its own (``own``, K =
+    B), random (``random``), or all on expert 2 but token 0 (``one``);
+    token 0 is on expert 1."""
+    w, ids, g = _table(dev, K, v_pad, d, dtype, seed=seed, dup=True)
     ids[1, 5:] = -1
     w[1, 5:] = 0
     h = torch.randn((B, d), generator=g, device=dev).to(dtype)
-    e = torch.randint(0, K, (B,), generator=g, device=dev).to(torch.int32)
+    if spread == "own":  # expert 1 first, then the others in random order
+        perm = torch.randperm(K, generator=g, device=dev)
+        e = torch.cat([perm[perm == 1], perm[perm != 1]])[:B]
+    elif spread == "one":
+        e = torch.full((B,), 2, device=dev)
+    else:
+        e = torch.randint(0, K, (B,), generator=g, device=dev)
+    e = e.to(torch.int32)
     e[0] = 1
     gv = torch.rand((B,), generator=g, device=dev)
+    return w, ids, h, e, gv
+
+
+# (B, K, k, d, spread): d 37 and 36 take 4-byte or element row loads
+PERTOKEN_CASES = [(1, 4, 8, 128, "random"), (8, 8, 8, 128, "own"), (64, 64, 1, 64, "own"),
+                  (37, 4, 1, 37, "random"), (300, 4, 16, 128, "random"),
+                  (300, 4, 64, 200, "one"), (100, 8, 64, 36, "one"), (16, 16, 8, 1536, "own")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,k,d,spread", PERTOKEN_CASES)
+def test_pertoken_kernel(dev, dtype, B, K, k, d, spread):
+    """The streaming retrieval over tokens grouped by expert, against the
+    plain version: one token to many on an expert, every token on its own
+    expert, k 1 to 64, d that no 16-byte load divides; expert 1 holds 5
+    real rows, so its tokens' tails are (-1e9, -1) and no -inf is
+    emitted."""
+    from repro_torch.kernels import ops, ref
+
+    w, ids, h, e, gv = _pertoken_inputs(dev, dtype, B, K, d, 900, spread, seed=B + k + d)
     n = ops.launch_counts()["dss_topk"]
     got = ops.dss_topk(w, ids, h, e, gv, k)
     assert ops.launch_counts()["dss_topk"] == n + 1
     h_scaled = (h.float() * gv[:, None]).to(dtype)
     _same(got, ref.dss_topk_ref(w, ids, h_scaled, e, k))
+    assert not torch.isinf(got[0]).any()
     short = e == 1
     if k > 5:
         assert (got[1][short, 5:] == -1).all() and (got[0][short, 5:] == -1e9).all()
 
 
-@pytest.mark.parametrize("B,k,nsplit", [(1, 64, 188), (2, 8, 94), (3, 1, 63)])
-def test_pertoken_kernel_merges_many_splits(dev, B, k, nsplit):
-    """So few tokens that dss_topk splits a vocab of 188 64-row tiles 188,
-    94 and 63 ways: the split merge (a warp per row, up to 9 splits per
-    lane) against the plain version, every odd tile a copy of the one
-    before it, so equal values cross split boundaries (ties go to the
-    lower position)."""
-    from repro_torch.kernels import _build, ops, ref
+def test_pertoken_kernel_tokens_of_no_expert(dev):
+    """An expert id of K or -1 emits (-inf, -1); the other tokens get the
+    plain version's result."""
+    from repro_torch.kernels import ops, ref
+
+    B, K, k, d = 12, 4, 8, 128
+    w, ids, h, e, gv = _pertoken_inputs(dev, torch.float32, B, K, d, 900, "random", seed=3)
+    e[3], e[7] = K, -1
+    got = ops.dss_topk(w, ids, h, e, gv, k)
+    off = torch.zeros(B, dtype=torch.bool, device=dev)
+    off[[3, 7]] = True
+    assert (got[0][off] == float("-inf")).all() and (got[1][off] == -1).all()
+    on = ~off
+    want = ref.dss_topk_ref(w, ids, h[on] * gv[on, None], e[on], k)
+    _same((got[0][on], got[1][on]), want)
+
+
+@pytest.mark.parametrize("experts,k", [((1,), 64), ((0, 1), 8), ((1, 0, 1), 1), ((1, 1), 64)])
+def test_pertoken_kernel_ties_across_chunk_boundaries(dev, experts, k):
+    """Rows on both sides of every chunk boundary of the retrieval
+    (``retrieve_stream.chunk_rows`` for the experts the tokens hold) are
+    copies of each other and score above every other row: each pair ties
+    exactly, and the merge of the chunks' lists gives the lower position
+    first, as the plain version does."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk import launch_plan
+    from repro_torch.kernels.retrieve_stream import chunk_rows
 
     K, d, v_pad = 2, 64, 12032
-    assert _build.vocab_split(v_pad, B)[0] == nsplit
-    w, ids, g = _table(dev, K, v_pad, d, torch.float32, seed=B)
-    tiles = w.view(K, v_pad // 64, 64, d)
-    tiles[:, 1::2] = tiles[:, 0::2]
-    h = torch.randn((B, d), generator=g, device=dev)
-    e = torch.randint(0, K, (B,), generator=g, device=dev).to(torch.int32)
-    gv = torch.rand((B,), generator=g, device=dev)
+    B = len(experts)
+    g = torch.Generator(device=dev).manual_seed(B * k)
+    w = torch.randn((K, v_pad, d), generator=g, device=dev) / d ** 0.5
+    ids = torch.randperm(K * v_pad, generator=g, device=dev).reshape(K, v_pad).to(torch.int32)
+    h = torch.randn((B, d), generator=g, device=dev).abs()
+    e = torch.tensor(experts, dtype=torch.int32, device=dev)
+    rows = chunk_rows(len(set(experts)), v_pad, launch_plan(B, K, v_pad, d, torch.float32).grid)
+    for c in range(1, -(-v_pad // rows)):
+        w[:, c * rows - 1] = w[:, c * rows] = 1 + c / 1000
+    gv = torch.rand((B,), generator=g, device=dev) + 0.5
     got = ops.dss_topk(w, ids, h, e, gv, k)
-    _same(got, ref.dss_topk_ref(w, ids, h * gv[:, None], e, k))
+    want = ref.dss_topk_ref(w, ids, h * gv[:, None], e, k)
+    _same(got, want)
+    if k > 1:  # the top of every token is a tied pair
+        assert torch.equal(got[0][:, 0], got[0][:, 1])
+
+
+def test_pertoken_kernel_replays_in_a_cuda_graph(dev):
+    """The wrapper captured once in a CUDA graph (no host sync, no
+    allocation in the kernels) and replayed on new tokens and experts
+    copied into the captured buffers gives the eager call's result
+    exactly."""
+    from repro_torch.kernels import ops
+
+    B, K, k, d = 8, 8, 8, 128
+    w, ids, h, e, gv = _pertoken_inputs(dev, torch.bfloat16, B, K, d, 900, "random", seed=5)
+    hs = (h.float() * gv[:, None]).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.dss_topk_kernel(w, ids, hs, e, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.dss_topk_kernel(w, ids, hs, e, k)
+    for seed in (6, 7):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        h_new = torch.randn((B, d), generator=gen, device=dev).to(torch.bfloat16)
+        e_new = torch.randint(0, K, (B,), generator=gen, device=dev).to(torch.int32)
+        hs.copy_(h_new)
+        e.copy_(e_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.dss_topk_kernel(w, ids, h_new, e_new, k)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
 
 
 def test_quantized_serve_with_fallback_experts(dev):
@@ -1094,6 +1177,60 @@ def test_flash_attention_kernel_strided_views(dev, dtype):
     o = _run_flash(q, k, v, body)
     assert o.transpose(1, 2).is_contiguous()
     _assert_within_limit(o, q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 2048])
+@pytest.mark.parametrize("dh", [64, 80, 96, 128, 256])
+@pytest.mark.parametrize("H,H_kv", [(12, 2), (4, 4)])
+def test_flash_attention_cuda_core_body(dev, dtype, S, dh, H, H_kv):
+    """The CUDA-core body, forced for bf16 too, at the edges of its 64-row
+    tiles and its two-slot K/V ring, for every head-dim class (dh 80 and 96
+    in the 128 class), with GQA and without; (B, S, H, dh) tensors passed
+    as their transpose views (rows copied 16 bytes at a time); each element
+    within the limit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import SIMT, launch_body
+
+    B = 1 if S == 2048 else 2
+    q, k, v = _attn_inputs(dev, B, H, H_kv, S, dh, dtype, seed=S + dh + H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    n = ops.launch_counts()
+    o = launch_body(qt, kt, vt, SIMT)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[SIMT] == n[SIMT] + 1
+    assert o.transpose(1, 2).is_contiguous()
+    _assert_within_limit(o, qt, kt, vt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["strided", "no 16-byte stride", "unaligned base"])
+def test_flash_attention_cuda_core_body_views(dev, dtype, case):
+    """The CUDA-core body on views that are not dense: every other position
+    of wider buffers (16-byte aligned rows: the asynchronous copies), rows
+    dh + 1 elements apart (no 16-byte stride: copied one element at a
+    time) and a base one element past a 16-byte boundary; S 300 (five
+    tiles and a ragged one), dh 128, GQA 12/2."""
+    from repro_torch.kernels.flash_attention import SIMT, launch_body
+
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    S, dh, H, H_kv = 300, 128, 12, 2
+    if case == "strided":
+        qb = torch.randn((1, 2 * S, H, dh + 32), generator=g, device=dev).to(dtype)
+        kvb = torch.randn((1, 2 * S, H_kv, 2, dh), generator=g, device=dev).to(dtype)
+        q = qb[:, ::2, :, 16:16 + dh]
+        k, v = (kvb[:, ::2, :, j] for j in (0, 1))
+    elif case == "no 16-byte stride":
+        q, k, v = (torch.randn((1, S, h, dh + 1), generator=g, device=dev).to(dtype)[..., :dh]
+                   for h in (H, H_kv, H_kv))
+    else:
+        flat = [torch.randn(1 + S * h * dh, generator=g, device=dev).to(dtype)
+                for h in (H, H_kv, H_kv)]
+        q, k, v = (f[1:].view(1, S, h, dh) for f, h in zip(flat, (H, H_kv, H_kv)))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = launch_body(qt, kt, vt, SIMT)
+    torch.cuda.synchronize()
+    _assert_within_limit(o, qt, kt, vt)
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):

@@ -176,3 +176,30 @@ def test_body_selection_rule(case, want):
     n = ops.launch_counts()
     ops.flash_attention(q, k, v, device="cpu")  # CPU tensors: the plain version, no launch
     assert ops.launch_counts() == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,dh_class", [(1, 64), (16, 64), (64, 64), (65, 128), (80, 128),
+                                         (96, 128), (128, 128), (129, 256), (192, 256),
+                                         (256, 256)])
+def test_cuda_core_body_tile_by_head_dim(dtype, dh, dh_class):
+    """The CUDA-core body is compiled for three head-dim classes (dh rounded
+    up to 64, 128 or 256): 128 threads for the first two, 256 for the last,
+    and as many blocks per SM as its launch bound names fit in the H100's
+    shared memory (227 KB a block, 228 KB an SM with 1 KB reserved per
+    block) and registers (65,536 an SM); fp32 qwen2-1.5b attention (dh 128)
+    two blocks of 112 KB: Q and two K/V tile slots of 64 rows, and P."""
+    from repro_torch.kernels.flash_attention import SIMT_ROWS, simt_tile
+
+    t = simt_tile(dh, dtype)
+    elem = 4 if dtype == torch.float32 else 2
+    assert t.dh_class == dh_class and dh <= t.dh_class
+    assert t.threads == (128 if dh_class <= 128 else 256)
+    assert t.smem_bytes <= 232448
+    assert t.blocks_per_sm * (t.smem_bytes + 1024) <= 233472
+    assert t.blocks_per_sm * t.threads <= 256  # up to 255 registers a thread
+    assert t.smem_bytes == 3 * SIMT_ROWS * dh_class * elem + SIMT_ROWS * SIMT_ROWS * 4
+    if dtype == torch.float32 and dh == 128:
+        assert (t.blocks_per_sm, t.smem_bytes) == (2, 112 * 1024)
+    with pytest.raises(ValueError):
+        simt_tile(257, dtype)

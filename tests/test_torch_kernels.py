@@ -237,6 +237,55 @@ def test_fused_token_group_fits_the_staged_tokens(d, group):
 
 
 # ---------------------------------------------------------------------------
+# The per-token kernel (kernels/dss_topk.py): the streaming retrieval over
+# the tokens grouped by their expert, and its price in the registry.
+# ---------------------------------------------------------------------------
+
+_pertoken = importlib.import_module("repro_torch.kernels.dss_topk")
+
+
+@pytest.mark.parametrize("B,K,v_pad,d,dtype", [
+    (8, 16, 12032, 1536, torch.bfloat16), (1, 16, 12032, 1536, torch.float32),
+    (300, 16, 12032, 1536, torch.bfloat16), (37, 4, 900, 37, torch.float32),
+    (2, 64, 64, 128, torch.bfloat16), (64, 16, 12032, 200, torch.bfloat16)])
+def test_pertoken_plan_is_the_streaming_retrieval_over_its_experts(B, K, v_pad, d, dtype):
+    """dss_topk launches the retrieval of the decode kernels for min(B, K)
+    experts that can hold a token: the grid is two blocks per SM (fewer
+    where those experts' 16-row chunks cannot use them), the partial lists
+    hold the chunks of any number of experts from 1 to min(B, K), and the
+    row loads are 16 bytes where d allows them."""
+    plan = _pertoken.launch_plan(B, K, v_pad, d, dtype)
+    slots = min(B, K)
+    assert plan.grid == min(2 * _build.SMS, slots * -(-v_pad // _stream.ROW_STEP))
+    for n_sel in range(1, slots + 1):
+        assert -(-v_pad // _stream.chunk_rows(n_sel, v_pad, plan.grid)) <= plan.max_chunks
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert plan.vec_bytes == (16 if d * elem % 16 == 0 else 4 if d * elem % 4 == 0 else elem)
+
+
+@pytest.mark.parametrize("B,reads", [(1, 1), (8, 8), (64, 16 + 48 // 6)])
+def test_cost_cuda_pertoken_prices_each_expert_per_token_group(B, reads):
+    """qwen2-1.5b's head (K 16, d 1536, V_pad 12,032, k 8, bf16): the
+    per-token path reads the experts that hold a token once per group of 6
+    (token_group(1536)) of their tokens, as the fused path does, plus the
+    gate (the gate matrix and h read, ids and g written), the fold (h and g
+    read, h_scaled written), h_scaled and the expert ids read by the
+    retrieval, and the outputs; so it stays above the fused path."""
+    from repro_torch.kernels import registry
+
+    K, d, v_pad, k = 16, 1536, 12032, 8
+    ctx = registry.KernelContext(B=B, d=d, K=K, v_pad=v_pad, k=k, backend="cuda",
+                                 wbytes=2, hbytes=2)
+    want = (reads * v_pad * d * 2                      # the experts' rows
+            + K * d * 2 + B * d * 2 + B * 8            # gate_top1
+            + 2 * B * d * 2 + B * 4                    # the fold
+            + B * d * 2 + B * 4                        # h_scaled, expert ids
+            + B * k * 8)                               # outputs
+    assert registry.get_spec("cuda_pertoken").bytes_moved(ctx) == want
+    assert want > registry.get_spec("cuda_fused").bytes_moved(ctx)
+
+
+# ---------------------------------------------------------------------------
 # The grouped kernel's decode body (kernels/dss_topk_grouped.py): its launch
 # plan and work list, mirrored in Python, and the body rule by capacity.
 # ---------------------------------------------------------------------------
@@ -511,11 +560,9 @@ def test_grouped_tiled_stages_by_tma_only_where_aligned(d, wdtype, ptr, ok):
 def test_split_plans_stay_within_the_merge(v_pad, B):
     """Every body that splits the vocab hands the one split merge
     (merge_splits_kernel in csrc/topk_common.cuh: a warp per row, 9 splits
-    per lane) at most MAX_SPLITS partial lists per row: dss_topk's
-    vocab_split, the tensor-core body's splits and the tiled body's
-    chunks."""
+    per lane) at most MAX_SPLITS partial lists per row: the tensor-core
+    body's splits and the tiled body's chunks."""
     assert _build.MAX_SPLITS == 32 * 9
-    assert 1 <= _build.vocab_split(v_pad, B)[0] <= _build.MAX_SPLITS
     for K, C in ((1, 3), (16, 256), (4, B)):
         assert _grouped.wgmma_plan(K, C, v_pad, 8, False).nsplit <= _build.MAX_SPLITS
         assert _grouped.tiled_plan(K, C, v_pad, 8).nchunk <= _build.MAX_SPLITS
