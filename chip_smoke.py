@@ -85,7 +85,10 @@ Phases, in order (any failure exits non-zero before the result line):
    through 8 slots, 12 requests (one prompt of 2048 tokens: its prefill
    runs the flash_attention kernel over 16 kv tiles of 128 rows).
    Every session here keeps the overflow breaker off and must end on the
-   kernel it names.
+   kernel it names; like every session of phases 3, 5 and 6 it runs the
+   default decode step (the backbone captured once as a CUDA graph and
+   replayed, the head eager after it) and must have captured exactly once
+   (``stats()["decode_graphs"] == 1``).
    (fp) For each ``kernel=`` of cuda_fused, cuda_grouped, auto and jnp:
    once as a user calls ``run()`` (tokens/s), once with every prefill and
    decode step synchronized and timed; greedy streams token-identical.
@@ -112,10 +115,15 @@ Phases, in order (any failure exits non-zero before the result line):
    ``auto`` picked must launch, no other grouped body; held
    against the plain ``grouped`` path (ids equal but at near-ties).
 4. Decode-step profile: 8 residents at prompt length 512, for cuda_fused
-   and jnp on the fp table and cuda_fused on the int8 table: step ms
-   (median of 20), then ``torch.profiler`` over 5 steps for device-busy
-   time, the device's idle share, device ops and host syncs per step, and
-   the ten device ops that take the most time.
+   and jnp on the fp table and cuda_fused on the int8 table, each twice on
+   identical requests: the eager step (``decode_graph=False``), then the
+   default (the graph). After the admitting step and the graph's warm-up
+   steps: step ms (median of 20), then ``torch.profiler`` over 5 steps for
+   device-busy time, the device's idle share, device ops, host launches
+   and host syncs per step, ``decode_graphs``, and the ten device ops that
+   take the most time; for the graph also its memory pool (MiB) and one
+   replay's device ms by CUDA events. The greedy streams must be
+   token-identical and the graph session must have captured once.
 5. Adapt: qwen2-1.5b at full width on ``skew_gate`` params (every token
    to expert 0: at capacity factor 2.0, K 16 and 8 slots, 7 of 8 tokens
    overflow), 8 requests. (i) One ``repack_for_traffic`` (re-prune at the
@@ -132,8 +140,9 @@ Phases, in order (any failure exits non-zero before the result line):
    1.0) adapted once stays quantized, with a fresh gate report, and its
    int8 grouped body launches after the swap. Every kernel body of the
    path (both grouped bodies, ``gate_top1``, the fused body,
-   ``lasso_prune``) must have launched. Repack, swap and lasso times are
-   printed.
+   ``lasso_prune``) must have launched. Every session keeps one decode
+   graph across its swap or its trips (``decode_graphs == 1``). Repack,
+   swap and lasso times are printed.
 6. Prefill: qwen2-1.5b at full width. (a) One 2048-token whole-prompt
    prefill through the kernel against the same prefill with the plain
    attention (``chunked_causal_attention``) swapped in by this script:
@@ -294,6 +303,10 @@ BF16_DRIFT = 2.0 ** -4
 FP32_DRIFT = 1e-4
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaMemcpyAsync", "cudaEventSynchronize")
+# host-side runtime calls that put work on the device, one per kernel, copy,
+# fill or graph
+LAUNCH_OPS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+              "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 # ``--parent DIR``: an unpacked checkout of the parent commit. Its
 # dss_topk.cu and flash_attention.cu are built with this tree's nvcc flags
 # and their bodies timed beside this tree's on the same inputs in this
@@ -1432,8 +1445,10 @@ def _watch_gate():
 
 
 class Recorder:
-    """Wraps a session's model calls (``sess.bundle``: prefill,
-    prefill_chunk, decode_step): synchronized wall times, the most pages in
+    """Wraps a session's model calls (``sess.bundle``'s prefill and
+    prefill_chunk, and the session's decode step ``sess._decode``: the
+    backbone, replayed from its CUDA graph or eager, and the head):
+    synchronized wall times, the most pages in
     use at once (``stats()["paged"]``), and each request's per-emission
     (values, ids) for divergence reports. A request's prefill time is the
     sum of its model calls (one whole-prompt prefill, or its chunks); a
@@ -1509,12 +1524,14 @@ class Recorder:
                 pending[0] = 0.0
             return out
 
-        def decode_step(p, t, cache, tok, pos, **kw):
+        decode_fn = sess._decode
+
+        def decode():
             # a prefill still under way was cut short by the arena
             self.aborted_s += pending[0]
             pending[0] = 0.0
             owners = [s.req if s is not None else None for s in sess.scheduler.slots]
-            out, dt = timed(bundle.decode_step, p, t, cache, tok, pos, **kw)
+            out, dt = timed(decode_fn)
             self.decode_s.append(dt)
             vals, ids = out[0].cpu(), out[1].cpu()
             for b, r in enumerate(owners):
@@ -1524,8 +1541,8 @@ class Recorder:
                         self.gates[index[id(r)]].append(_LAST_GATE[0][b])
             return out
 
-        sess.bundle = dataclasses.replace(bundle, prefill=prefill, prefill_chunk=prefill_chunk,
-                                          decode_step=decode_step)
+        sess.bundle = dataclasses.replace(bundle, prefill=prefill, prefill_chunk=prefill_chunk)
+        sess._decode = decode
 
 
 def _diverge_check(label, streams, heads, kerns, ref_kern, rtol, greedy_only=False,
@@ -1612,6 +1629,8 @@ def slice_phase(results: dict, card: str):
         if st["effective_kernel"] != kern or st["breaker_trips"] != 0:
             raise SmokeFailure(f"{label} {kern}: served through {st['effective_kernel']!r} "
                                f"after {st['breaker_trips']} breaker trips")
+        if st["decode_graphs"] != 1:
+            raise SmokeFailure(f"{label} {kern}: {st['decode_graphs']} decode graph captures")
         return [list(r.out_tokens) for r in reqs], wall, rec, st, setup_s, sess.table
 
     def row_of(label, kern, streams, wall, rec, delta, **extra):
@@ -1820,54 +1839,154 @@ def _dev_time(e) -> float:
     return 0.0
 
 
+def graph_pool_mib(graph):
+    """The bytes the allocator holds in ``graph``'s private memory pool, in
+    MiB (None where the snapshot does not name segment pools)."""
+    import torch
+
+    pool = tuple(graph.pool())
+    segs = [s["total_size"] for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == pool]
+    return sum(segs) / 2**20 if segs else None
+
+
+def replay_ms(graph, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+    """Device ms of one replay of ``graph`` (``calls`` replays between two
+    CUDA events, median of ``replays``). A decode graph replayed on the same
+    inputs writes the same K/V rows again."""
+    import torch
+
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def backbone_bytes(params, cfg, pos) -> int:
+    """The bytes one decode step's backbone must move: every layer weight
+    and norm once, one embedding row per slot, each slot's K and V rows up
+    to its position (``pos``, the slots' positions), read once."""
+    def leaves(t):
+        return [x for v in t.values() for x in leaves(v)] if isinstance(t, dict) else [t]
+
+    weights = sum(t.nbytes for t in leaves(params["layers"]) + leaves(params["final_norm"]))
+    emb = params["embed"]["table"]
+    item = emb.element_size()
+    rows = len(pos) * emb.shape[1] * item
+    kv = cfg.n_layers * int(sum(int(p) + 1 for p in pos)) * cfg.n_kv_heads * cfg.hd * 2 * item
+    return weights + rows + kv
+
+
 def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
+    """Each case twice on identical requests: the eager step
+    (``decode_graph=False``), then the default (the backbone replayed from
+    its CUDA graph). Greedy streams token-identical, one capture."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import Request, SamplingParams, ServeSession
+    from repro_torch.train.serve import GRAPH_WARMUP_STEPS
 
     rng = np.random.RandomState(SEED + 2)
     for label, table in cases:
         kern = label.split()[0]
-        sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
-                            k=K_TOP, kernel=kern, device="cuda")
-        for _ in range(N_SLOTS):
-            sess.submit(Request(
-                prompt=rng.randint(0, cfg.vocab_size, PROFILE_PROMPT).astype(np.int32),
-                sampling=SamplingParams(max_new_tokens=PROFILE_STEPS + PROFILE_TRACED + 4)))
-        sess.step()  # admits (prefills) all slots and runs the first decode step
-        times = []
-        for _ in range(PROFILE_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sess.step()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_TRACED):
+        prompts = [rng.randint(0, cfg.vocab_size, PROFILE_PROMPT).astype(np.int32)
+                   for _ in range(N_SLOTS)]
+        rows = {}
+        for graph in (False, None):
+            sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
+                                k=K_TOP, kernel=kern, device="cuda", decode_graph=graph)
+            reqs = [Request(prompt=p, sampling=SamplingParams(
+                max_new_tokens=PROFILE_STEPS + PROFILE_TRACED + GRAPH_WARMUP_STEPS + 4))
+                for p in prompts]
+            for r in reqs:
+                sess.submit(r)
+            sess.step()  # admits (prefills) all slots and runs the first decode step
+            for _ in range(GRAPH_WARMUP_STEPS):  # a graph session captures in the last
                 sess.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        dev = [e for e in events if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
-        busy_us = sum(_dev_time(e) for e in dev)
-        row = {
-            "kernel": label, "card": card,
-            "step_ms_median": 1e3 * statistics.median(times),
-            "traced_step_ms": 1e3 * wall / PROFILE_TRACED,
-            "device_busy_ms_per_step": busy_us / 1e3 / PROFILE_TRACED,
-            "device_idle_share": (1.0 - busy_us / 1e6 / wall) if busy_us else None,
-            "device_ops_per_step": sum(e.count for e in dev) / PROFILE_TRACED,
-            "host_syncs_and_copies_per_step":
-                sum(e.count for e in events if e.key in SYNC_OPS) / PROFILE_TRACED,
-            "top_device_ops_ms_per_step": [
-                (e.key[:80], _dev_time(e) / 1e3 / PROFILE_TRACED)
-                for e in sorted(dev, key=_dev_time, reverse=True)[:10]],
-        }
-        results.setdefault("profile", []).append(row)
-        print(f"[profile] {json.dumps(row)}", flush=True)
+            times = []
+            for _ in range(PROFILE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sess.step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILE_TRACED):
+                    sess.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = prof.key_averages()
+            dev = [e for e in events
+                   if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
+            busy_us = sum(_dev_time(e) for e in dev)
+            st = sess.stats()
+            mode = "eager" if graph is False else "graph"
+            row = {
+                "kernel": label, "decode_graph": mode, "card": card,
+                "step_ms_median": 1e3 * statistics.median(times),
+                "traced_step_ms": 1e3 * wall / PROFILE_TRACED,
+                "device_busy_ms_per_step": busy_us / 1e3 / PROFILE_TRACED,
+                "device_idle_share": (1.0 - busy_us / 1e6 / wall) if busy_us else None,
+                # the same share against the untraced steps' median: the
+                # profiler's own host work lengthens the traced steps
+                "device_idle_share_untraced":
+                    (1.0 - busy_us / 1e3 / PROFILE_TRACED / (1e3 * statistics.median(times)))
+                    if busy_us else None,
+                "device_ops_per_step": sum(e.count for e in dev) / PROFILE_TRACED,
+                "host_launches_per_step":
+                    sum(e.count for e in events if e.key in LAUNCH_OPS) / PROFILE_TRACED,
+                "host_syncs_and_copies_per_step":
+                    sum(e.count for e in events if e.key in SYNC_OPS) / PROFILE_TRACED,
+                "decode_graphs": st["decode_graphs"],
+                "top_device_ops_ms_per_step": [
+                    (e.key[:80], _dev_time(e) / 1e3 / PROFILE_TRACED)
+                    for e in sorted(dev, key=_dev_time, reverse=True)[:10]],
+            }
+            if graph is None:
+                g = sess._graph.graph
+                row["graph_pool_mib"] = graph_pool_mib(g)
+                row["replay_ms"] = replay_ms(g)
+                row["backbone_bytes_bound_ms"] = (
+                    backbone_bytes(params, cfg, sess._pos) / HBM_BYTES_PER_S * 1e3)
+            want = 1 if graph is None else 0
+            if st["decode_graphs"] != want:
+                raise SmokeFailure(f"profile {label} {mode}: decode_graphs "
+                                   f"{st['decode_graphs']}, expected {want}")
+            rows[mode] = (row, [list(r.out_tokens) for r in reqs])
+            results.setdefault("profile", []).append(row)
+            print(f"[profile] {json.dumps(row)}", flush=True)
+            del sess
+        (eager, s_eager), (graphed, s_graph) = rows["eager"], rows["graph"]
+        if s_graph != s_eager:
+            bad = [i for i, (a, b) in enumerate(zip(s_graph, s_eager)) if a != b]
+            raise SmokeFailure(f"profile {label}: the graph session's greedy streams leave "
+                               f"the eager session's for requests {bad}")
+        ratio = graphed["device_busy_ms_per_step"] / eager["device_busy_ms_per_step"]
+        graphed["busy_over_eager"] = ratio
+        print(f"[profile] {label}: graph against eager, streams token-identical over "
+              f"{len(s_graph[0])} tokens each; step ms {eager['step_ms_median']:.3f} -> "
+              f"{graphed['step_ms_median']:.3f}; device busy ms "
+              f"{eager['device_busy_ms_per_step']:.3f} -> "
+              f"{graphed['device_busy_ms_per_step']:.3f} ({ratio:.3f}x; the replay alone "
+              f"{graphed['replay_ms']:.3f} ms by CUDA events, its bytes bound "
+              f"{graphed['backbone_bytes_bound_ms']:.3f} ms); idle share traced "
+              f"{eager['device_idle_share']:.3f} -> {graphed['device_idle_share']:.3f}, "
+              f"untraced {eager['device_idle_share_untraced']:.3f} -> "
+              f"{graphed['device_idle_share_untraced']:.3f}; host "
+              f"launches {eager['host_launches_per_step']:.0f} -> "
+              f"{graphed['host_launches_per_step']:.0f}; graph pool "
+              f"{graphed['graph_pool_mib']} MiB; card {card}", flush=True)
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1958,7 +2077,8 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
                 capacity_factor=res.capacity_factor))
             streams[kern], st = drained(f"(i) {kern}", sess, reqs)
             heads[kern] = rec.heads
-            if st["n_swaps"] != 1 or st["decode_builds"] != 2 or sess.table_version != 1:
+            if st["n_swaps"] != 1 or st["decode_builds"] != 2 or sess.table_version != 1 \
+                    or st["decode_graphs"] != 1:
                 raise SmokeFailure(f"adapt (i) {kern}: swap accounting {st}")
         n_div = _diverge_check("adapt (i)", streams, heads, ADAPT_KERNELS[:-1], "jnp",
                                TIE_RTOL, sampled=None)
@@ -2005,12 +2125,13 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
             (st["rows_pruned"] > 0, "no row pruned"),
             (ops.launch_counts()["lasso_prune"] - n_lasso >= 1, "lasso_prune never launched"),
             (st["decode_builds"] == 1 + st["n_swaps"], f"decode_builds {st['decode_builds']}"),
+            (st["decode_graphs"] == 1, f"decode_graphs {st['decode_graphs']}"),
             (sess.table.v_pad < v_pad_first, f"v_pad {v_pad_first} -> {sess.table.v_pad}"),
         ) if not ok]
         if fails:
             raise SmokeFailure(f"adapt (ii): {'; '.join(fails)}")
         out["online_loop"] = {k: st[k] for k in (
-            "n_swaps", "decode_builds", "rows_pruned", "effective_capacity_factor",
+            "n_swaps", "decode_builds", "decode_graphs", "rows_pruned", "effective_capacity_factor",
             "overflow_rate_window", "breaker_trips")}
         out["online_loop"].update(overflow_rate_window_before=before, v_pad_before=v_pad_first,
                                   v_pad=int(sess.table.v_pad))
@@ -2031,8 +2152,8 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
         fused_after = ops.launch_counts()["dss_topk_fused"] - (fused_at_trip2 or 0)
         if st["breaker_trips"] != 2 or st["effective_kernel"] != "cuda_fused" \
                 or st["effective_capacity_factor"] != 2 * cfg.ds.capacity_factor \
-                or st["decode_builds"] != 3 or fused_at_trip2 != fused_first \
-                or fused_after < 1:
+                or st["decode_builds"] != 3 or st["decode_graphs"] != 1 \
+                or fused_at_trip2 != fused_first or fused_after < 1:
             raise SmokeFailure(f"adapt (iii): breaker state {st}; dss_topk_fused launches "
                                f"before trip 2 {(fused_at_trip2 or fused_first) - fused_first}, "
                                f"after it {fused_after}")
@@ -2043,7 +2164,7 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
                                "jnp", TIE_RTOL, sampled=None)
         out["breaker"] = {k: st[k] for k in ("breaker_trips", "effective_kernel",
                                               "effective_capacity_factor", "decode_builds",
-                                              "overflow_rate")}
+                                              "decode_graphs", "overflow_rate")}
         out["breaker"]["fused_launches_after_trip_2"] = fused_after
         print(f"[adapt] (iii) breaker: {st['breaker_trips']} trips, capacity factor "
               f"{st['effective_capacity_factor']}, then kernel {st['effective_kernel']!r} "
@@ -2069,6 +2190,7 @@ def adapt_phase(results: dict, card: str, cfg, bundle, params, mask, gamma: floa
         after_q = {n: ops.launch_counts()[n] - before_q[n] for n in int8_bodies}
         n_q = sum(after_q.values())
         if not isinstance(sess.table, ds.QuantizedServeTable) or st["n_swaps"] != 1 \
+                or st["decode_graphs"] != 1 \
                 or len(rep_after["per_expert_flip_rate"]) != K + 1 \
                 or len(rep_before["per_expert_flip_rate"]) != K or n_q < 1:
             raise SmokeFailure(f"adapt (iv): after the swap the table is "
@@ -2378,6 +2500,8 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
             if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != NEW_TOKENS:
                 raise SmokeFailure(f"prefill {label}: request ended {r.status} ({r.error}) "
                                    f"with {len(r.out_tokens)} tokens")
+        if st["decode_graphs"] != 1:
+            raise SmokeFailure(f"prefill {label}: {st['decode_graphs']} decode graph captures")
         if "paged" in st and (st["paged"]["pages_in_use"]
                               or st["paged"]["pages_free"] != st["paged"]["pages_total"]):
             raise SmokeFailure(f"prefill {label}: pages still held after the session "

@@ -21,6 +21,10 @@ class ModelBundle:
     init: Callable[[torch.Generator], Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
+    # the decode step's backbone, up to the hidden state the head reads
+    # (``transformer.decode_hidden``); ``ServeSession`` captures it as a
+    # CUDA graph
+    decode_hidden: Callable[..., Any]
     # chunked prefill into an existing cache (``transformer.prefill_chunk``)
     prefill_chunk: Optional[Callable[..., Any]] = None
 
@@ -40,6 +44,8 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         capacity_factor=None, with_stats=False, pages=None: transformer.decode_step(
             p, t, cfg, cache, tok, pos, k=k, kernel=kernel,
             capacity_factor=capacity_factor, with_stats=with_stats, pages=pages),
+        decode_hidden=lambda p, cache, tok, pos, pages=None: transformer.decode_hidden(
+            p, cfg, cache, tok, pos, pages=pages),
         prefill_chunk=lambda p, t, cache, tokens, pos0, n_valid, k=8, kernel=None,
         pages=None: transformer.prefill_chunk(p, t, cfg, cache, tokens, pos0, n_valid,
                                               k=k, kernel=kernel, pages=pages),

@@ -135,20 +135,29 @@ def _chunk_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pa
     return rmsnorm(params["final_norm"], x)
 
 
-def decode_step(params, table, cfg: ModelConfig, cache: DecodeCache, token, pos,
-                k: int = 8, kernel=None, capacity_factor=None, with_stats=False,
-                pages=None):
-    """One-token decode. token: (B,) int; pos: (B,) int per-slot positions.
-    The cache is updated in place; ``pages`` ((B, n_pg) page table) selects
-    the paged arena. Returns (vals, ids, cache) — plus the head's
-    per-expert telemetry when ``with_stats=True``."""
+def decode_hidden(params, cfg: ModelConfig, cache: DecodeCache, token, pos, pages=None):
+    """The decode backbone: embed one token per row, run the L layers
+    against the cache (written in place at ``pos``) and the final norm.
+    token: (B,) int; pos: (B,) int per-slot positions; ``pages`` ((B, n_pg)
+    page table) selects the paged arena. Returns the hidden state (B, d)
+    the head reads. Device ops only, no host sync and no data-dependent
+    shape: a CUDA graph can capture it."""
     x = embed(params["embed"], token)[:, None, :]
     for i in range(cfg.n_layers):
         lp = _layer_params(params["layers"], i)
         h, _, _ = attention_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
                                    cache.k[i], cache.v[i], pos, pages=pages)
         x = _mlp_residual(lp, cfg, x + h)
-    h = rmsnorm(params["final_norm"], x)[:, 0]
+    return rmsnorm(params["final_norm"], x)[:, 0]
+
+
+def decode_step(params, table, cfg: ModelConfig, cache: DecodeCache, token, pos,
+                k: int = 8, kernel=None, capacity_factor=None, with_stats=False,
+                pages=None):
+    """One-token decode: :func:`decode_hidden`, then the head. The cache is
+    updated in place. Returns (vals, ids, cache) — plus the head's
+    per-expert telemetry when ``with_stats=True``."""
+    h = decode_hidden(params, cfg, cache, token, pos, pages=pages)
     out = heads.head_topk(params["head"], table, cfg, h, k,
                           embed_table=params["embed"]["table"], kernel=kernel,
                           capacity_factor=capacity_factor, with_stats=with_stats)

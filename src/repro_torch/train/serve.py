@@ -29,10 +29,18 @@ decode steps, and ``adapt_policy=`` runs the repack online from the
 step-stamped per-expert stats window. An overflow circuit breaker degrades
 a session whose capacity buffers keep overflowing (trip 1 doubles the
 capacity factor; trip 2 serves through the ``'cuda_fused'`` kernel, which
-has no capacity buffers, where ``repro`` moves to ``'jnp'``). The port has
-no jit:
-where ``repro`` re-traces its decode step, the port rebinds it (once at
+has no capacity buffers, where ``repro`` moves to ``'jnp'``). Where
+``repro`` re-traces its decode step, the port rebinds its head (once at
 init, once per swap, once per breaker trip; ``stats()['decode_builds']``).
+
+Where ``repro`` compiles the decode step once (``jax.jit``), the port
+captures the step's backbone (``bundle.decode_hidden``: the embedding, the
+layers and the final norm) once per session as a CUDA graph and replays it
+every step; the DS head runs eagerly after the replay on the graph's
+hidden-state output (its overflow fixup branches on the host). The backbone
+reads no table, so swaps and breaker trips rebind the head and never
+recapture (``stats()['decode_graphs']`` counts captures). On the CPU the
+step runs eagerly.
 
 Prefill into a slot is whole-prompt (one ``bundle.prefill`` at the prompt's
 length; on the card its attention runs the ``flash_attention`` kernel) or
@@ -67,6 +75,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import dssoftmax as ds
 from repro_torch.device import check_on, resolve_device
+from repro_torch.models import heads
 from repro_torch.models.model_zoo import ModelBundle, cache_specs, paged_cache_specs
 from repro_torch.models.transformer import DecodeCache
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheManager, prefix_hash
@@ -80,6 +89,10 @@ from repro_torch.serve.table_manager import (
 log = logging.getLogger("repro_torch.serve")
 
 _SALT_SAMPLE = 0x5A17_0001   # plain top-k Gumbel-max sampling
+# eager decode steps on a side stream before the capture (lazy cuBLAS and
+# allocator set-up must not happen under capture), as PyTorch's own
+# make_graphed_callables warms up
+GRAPH_WARMUP_STEPS = 3
 
 
 def _uniforms(seed: int, salt: int, m: int, n: int) -> np.ndarray:
@@ -266,6 +279,89 @@ class Scheduler:
         self.n_released += 1
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class _DecodeGraph:
+    """The decode backbone captured once as a CUDA graph, replayed every
+    step.
+
+    Holds the static device inputs the graph reads (tokens and positions
+    as one ``(2, n_slots)`` tensor, the ``(n_slots, n_pg)`` page table of a
+    paged session) and its static output ``h``. The cache needs no copy:
+    the session allocates it once and writes it only in place. The first
+    ``GRAPH_WARMUP_STEPS`` steps run the backbone eagerly on a side stream;
+    the next one captures it in a private memory pool (``torch.cuda.graph``)
+    and replays. The graph records the tensors it read (the backbone's
+    parameters and the cache leaves); a step that finds one of them
+    replaced captures again. A failed capture raises: nothing falls back to
+    the eager step."""
+
+    def __init__(self, n_slots: int, tables: Optional[np.ndarray], device: torch.device):
+        self.device = device
+        # pinned staging: the copies into the static inputs are
+        # asynchronous, and the host rewrites a staging buffer only in the
+        # next step's load, after this step's read-back synchronized the
+        # stream behind the copy
+        self._stage = torch.zeros((2, n_slots), dtype=torch.int64, pin_memory=True)
+        self.tok_pos = torch.zeros((2, n_slots), dtype=torch.int64, device=device)
+        self._page_stage = self.pages = None
+        if tables is not None:
+            self._page_stage = torch.from_numpy(tables).pin_memory()
+            self.pages = torch.zeros(tables.shape, dtype=self._page_stage.dtype, device=device)
+        self._stream = torch.cuda.Stream(device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.h: Optional[torch.Tensor] = None
+        self._captured: tuple = ()
+        self._warmup_left = GRAPH_WARMUP_STEPS
+        self.n_captures = 0
+
+    def load(self, tok: np.ndarray, pos: np.ndarray, tables: Optional[np.ndarray]) -> None:
+        """Copy the host's tokens, positions and page table in."""
+        st = self._stage.numpy()
+        st[0], st[1] = tok, pos
+        self.tok_pos.copy_(self._stage, non_blocking=True)
+        if tables is not None:
+            self._page_stage.numpy()[:] = tables
+            self.pages.copy_(self._page_stage, non_blocking=True)
+
+    def hidden(self, decode_hidden, params, cache: DecodeCache) -> torch.Tensor:
+        """The backbone's hidden state (n_slots, d) for the inputs loaded."""
+        leaves = tuple(_leaves({n: p for n, p in params.items() if n != "head"})) + tuple(cache)
+        if self.graph is not None and (len(leaves) != len(self._captured) or any(
+                a is not b for a, b in zip(leaves, self._captured))):
+            self.graph = self.h = None  # a tensor it reads was replaced
+        run = lambda: decode_hidden(params, cache, self.tok_pos[0], self.tok_pos[1],
+                                    pages=self.pages)
+        main = torch.cuda.current_stream(self.device)
+        if self.graph is None and self._warmup_left > 0:
+            self._warmup_left -= 1
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                h = run()
+            main.wait_stream(self._stream)
+            h.record_stream(main)
+            return h
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, stream=self._stream):
+                    h = run()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"capturing the decode step as a CUDA graph failed ({e}); "
+                    "ServeSession(decode_graph=False) runs the step eagerly") from e
+            self.graph, self.h, self._captured = graph, h, leaves
+            self.n_captures += 1
+        self.graph.replay()
+        return self.h
+
+
 class ServeSession:
     """Continuous-batching serving session over one model bundle.
 
@@ -336,6 +432,10 @@ class ServeSession:
             chunked only).
         device: where the cache lives and the steps run; ``cuda`` unless
             the caller passes ``'cpu'``.
+        decode_graph: capture the decode step's backbone once as a CUDA
+            graph and replay it every step (the head runs eagerly after
+            it). ``None``: on where ``device`` is CUDA, off on the CPU;
+            ``False`` runs every step eagerly; ``True`` on the CPU raises.
     """
 
     def __init__(self, bundle: ModelBundle, params, ds_state_or_table, *,
@@ -354,9 +454,15 @@ class ServeSession:
                  paged: bool = False, page_size: int = 16,
                  page_arena: Optional[int] = None,
                  prefix_sharing: bool = True,
-                 device="cuda"):
+                 device="cuda",
+                 decode_graph: Optional[bool] = None):
         self.device = resolve_device(device)
         cfg = bundle.cfg
+        if decode_graph is None:
+            decode_graph = self.device.type == "cuda"
+        elif decode_graph and self.device.type != "cuda":
+            raise ValueError(f"decode_graph=True needs a CUDA device (a CUDA graph captures "
+                             f"the decode step); this session runs on {self.device}")
         if prefill_chunk is not None and bundle.prefill_chunk is None:
             raise ValueError(f"family {cfg.family!r} has no chunked prefill; "
                              "use whole-prompt prefill (prefill_chunk=None)")
@@ -435,6 +541,8 @@ class ServeSession:
         self.scheduler = Scheduler(n_slots, queue_limit=queue_limit)
         self._tok = np.zeros(n_slots, np.int64)
         self._pos = np.zeros(n_slots, np.int64)
+        self._graph = (_DecodeGraph(n_slots, None if self._mgr is None else self._mgr.tables,
+                                    self.device) if decode_graph else None)
         self._outcomes: collections.Counter = collections.Counter()
         self._overflow_threshold = overflow_threshold
         self._overflow_hist: Deque[float] = collections.deque(maxlen=max(1, overflow_window))
@@ -462,20 +570,38 @@ class ServeSession:
         return self._table_res.version
 
     def _build_decode_fn(self) -> None:
-        """(Re)bind the decode step to the effective kernel and capacity
-        factor: once at init, once per :meth:`swap_table` and once per
-        breaker trip (``decode_builds`` counts them). ``serve_topk``
+        """(Re)bind the decode step's head to the effective kernel and
+        capacity factor: once at init, once per :meth:`swap_table` and once
+        per breaker trip (``decode_builds`` counts them). ``serve_topk``
         resolves the bound kernel against the table each step is given,
-        which is the current version. The step is looked up on
-        ``self.bundle`` at call time."""
+        which is the current version. The backbone reads no table, so a
+        rebind leaves the decode graph as it is."""
         self._n_decode_builds += 1
-        kernel, cf, k = self._eff_kernel, self._eff_capacity_factor, self.k
+        cfg, kernel, cf, k = self.cfg, self._eff_kernel, self._eff_capacity_factor, self.k
 
-        def _decode(p, t, c, tok, pos, **paged):
-            return self.bundle.decode_step(p, t, c, tok, pos, k=k, kernel=kernel,
-                                           capacity_factor=cf, with_stats=True, **paged)
+        def _head(p, t, h):
+            return heads.head_topk(p["head"], t, cfg, h, k, embed_table=p["embed"]["table"],
+                                   kernel=kernel, capacity_factor=cf, with_stats=True)
 
-        self._decode_fn = _decode
+        self._head_fn = _head
+
+    def _decode(self):
+        """One decode step over the slot batch from the host's tokens,
+        positions and page table: ``bundle.decode_hidden`` (replayed from the
+        decode graph, or eager), then the bound head. Returns (vals, ids,
+        stats) on the device."""
+        tables = None if self._mgr is None else self._mgr.tables
+        g = self._graph
+        if g is not None:
+            g.load(self._tok, self._pos, tables)
+            h = g.hidden(self.bundle.decode_hidden, self.params, self._cache)
+        else:
+            dev = self.device
+            h = self.bundle.decode_hidden(
+                self.params, self._cache, torch.from_numpy(self._tok).to(dev),
+                torch.from_numpy(self._pos).to(dev),
+                pages=None if tables is None else torch.from_numpy(tables).to(dev))
+        return self._head_fn(self.params, self.table, h)
 
     # -- table hot-swap + online adaptation -----------------------------------
 
@@ -684,17 +810,12 @@ class ServeSession:
         remains."""
         self._expire_queue()
         self._admit()
-        paged = {}
         if self._mgr is not None:
             self._prepare_decode_writes()
-            paged["pages"] = torch.from_numpy(self._mgr.tables).to(self.device)
         act = self.scheduler.active()
         if not act:
             return self.scheduler.has_work()
-        vals, ids, self._cache, stats = self._decode_fn(
-            self.params, self.table, self._cache,
-            torch.from_numpy(self._tok).to(self.device),
-            torch.from_numpy(self._pos).to(self.device), **paged)
+        vals, ids, stats = self._decode()
         self.n_steps += 1
         vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
         self._record_load(stats)
@@ -731,7 +852,10 @@ class ServeSession:
         :meth:`traffic_profile` reads), the circuit breaker's state, the
         table-swap accounting (``table_version``, ``n_swaps``,
         ``decode_builds``; ``rows_pruned`` sums the adaptive repacks'
-        re-prunes, a key ``repro`` does not have), the int8 mode with
+        re-prunes, a key ``repro`` does not have), ``decode_graphs`` (the
+        decode backbone's CUDA graph captures: 0 on an eager session, 1
+        once a graph session has warmed up; ``repro`` has no such key),
+        the int8 mode with
         its exactness-gate report (``ExactnessReport.as_dict()``, None when
         the table was not quantized here), and for a paged session
         ``paged``: the page table's counters, ``preemptions``,
@@ -766,6 +890,7 @@ class ServeSession:
             "n_swaps": self._n_swaps,
             "decode_builds": self._n_decode_builds,
             "rows_pruned": self._rows_pruned,
+            "decode_graphs": 0 if self._graph is None else self._graph.n_captures,
             "quantize": self._quantize,
             "quantize_report": (None if self._quantize_report is None
                                 else self._quantize_report.as_dict()),

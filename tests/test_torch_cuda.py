@@ -1066,6 +1066,130 @@ def test_breaker_trip_2_serves_through_the_fused_kernel(dev):
 
 
 # ---------------------------------------------------------------------------
+# the decode graph (ServeSession's backbone captured once, replayed per step)
+# ---------------------------------------------------------------------------
+
+_GRAPH_CASES = [(table, cache, kern) for table in ("fp", "int8") for cache in ("contiguous", "paged")
+                for kern in ("jnp", "cuda_grouped", "cuda_fused", "cuda_pertoken", "auto")
+                if not (table == "int8" and kern == "cuda_pertoken")]
+
+
+def _graph_model(dev, dtype="bfloat16", skewed=False):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import build
+    from repro_torch.testing import skew_gate
+
+    cfg = reduce_config(get_config("qwen2-1.5b"), vocab=1024).replace(dtype=dtype)
+    if skewed:
+        cfg = cfg.replace(ds=cfg.ds.replace(capacity_factor=0.25))
+    bundle = build(cfg)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    return cfg, bundle, (skew_gate(params) if skewed else params), state
+
+
+def _graph_requests(n, seed, max_new, sampled=None):
+    from repro_torch.train import Request, SamplingParams
+
+    rng = np.random.RandomState(seed)
+    return [Request(prompt=rng.randint(0, 1024, rng.randint(3, 60)).astype(np.int32),
+                    sampling=SamplingParams(max_new_tokens=max_new, seed=seed + i,
+                                            temperature=0.8 if i == sampled else 0.0))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("table,cache,kern", _GRAPH_CASES)
+def test_decode_graph_streams_equal_the_eager_step(dev, table, cache, kern):
+    """The graph session (the default on CUDA) against ``decode_graph=False``
+    on the same requests: greedy streams and one sampled stream
+    token-identical, one capture, the same head launches. The int8 table
+    keeps experts 0 and 2 on int8 rows and serves 1 and 3 from fp fallback
+    rows."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops
+    from repro_torch.train import ServeSession
+
+    _, bundle, params, state = _graph_model(dev)
+    tbl = ds.pack_experts(params["head"], state)
+    if table == "int8":
+        tbl = ds.quantize_table(tbl, fb_mask=torch.arange(4) % 2 == 1)
+        assert 0 < tbl.n_fallback < 4
+    kw = dict(paged=True, page_size=16) if cache == "paged" else {}
+    streams, launches = {}, {}
+    for graph in (False, None):
+        ops.reset_launch_counts()
+        sess = ServeSession(bundle, params, tbl, n_slots=2, max_seq_len=128, kernel=kern,
+                            decode_graph=graph, **kw)
+        reqs = _graph_requests(5, 4, 8, sampled=2)
+        sess.run(reqs)
+        streams[graph] = [r.out_tokens for r in reqs]
+        launches[graph] = ops.launch_counts()
+        st = sess.stats()
+        assert st["decode_graphs"] == (1 if graph is None else 0)
+        assert st["decode_builds"] == 1 and st["n_completed"] == 5
+    assert streams[None] == streams[False]
+    assert launches[None] == launches[False]
+
+
+def test_decode_graph_survives_swaps_and_breaker_trips(dev):
+    """One graph session on skewed traffic: a mid-stream ``swap_table``
+    after the capture, then the breaker's two trips. ``decode_builds``
+    counts 1 + 1 + 2, as without the graph, ``decode_graphs`` stays 1, and
+    the streams equal the eager session's doing the same."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.train import ServeSession
+
+    _, bundle, params, state = _graph_model(dev, dtype="float32", skewed=True)
+    streams = {}
+    for graph in (False, None):
+        sess = ServeSession(bundle, params, state, n_slots=8, max_seq_len=96,
+                            kernel="cuda_grouped", overflow_threshold=0.3, overflow_window=4,
+                            decode_graph=graph)
+        reqs = _graph_requests(8, 5, 24)
+        for r in reqs:
+            sess.submit(r)
+        swapped = False
+        while sess.step():
+            if not swapped and sess.n_steps == 5:
+                sess.swap_table(ds.pack_experts(params["head"], state))
+                swapped = True
+        st = sess.stats()
+        assert swapped and st["n_swaps"] == 1 and st["breaker_trips"] == 2
+        assert st["decode_builds"] == 4 and st["effective_kernel"] == "cuda_fused"
+        assert st["decode_graphs"] == (1 if graph is None else 0)
+        streams[graph] = [r.out_tokens for r in reqs]
+    assert streams[None] == streams[False]
+
+
+def test_decode_graph_capture_failure_raises(dev):
+    """A backbone that cannot be captured makes the capturing step raise;
+    the session does not carry on eagerly."""
+    import dataclasses
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.train import ServeSession
+    from repro_torch.train.serve import GRAPH_WARMUP_STEPS
+
+    _, bundle, params, state = _graph_model(dev)
+
+    def decode_hidden(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("this backbone refuses capture")
+        return bundle.decode_hidden(*a, **kw)
+
+    sess = ServeSession(dataclasses.replace(bundle, decode_hidden=decode_hidden), params,
+                        ds.pack_experts(params["head"], state), n_slots=2, max_seq_len=128,
+                        kernel="cuda_fused")
+    for r in _graph_requests(2, 6, 16):
+        sess.submit(r)
+    for _ in range(GRAPH_WARMUP_STEPS):
+        sess.step()
+    with pytest.raises(RuntimeError, match="capturing the decode step as a CUDA graph failed"):
+        sess.step()
+    assert sess.stats()["decode_graphs"] == 0
+    assert sess.n_steps == GRAPH_WARMUP_STEPS
+
+
+# ---------------------------------------------------------------------------
 # flash_attention
 # ---------------------------------------------------------------------------
 

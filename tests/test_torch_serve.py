@@ -171,3 +171,24 @@ def test_session_without_device_needs_cuda():
     _, bundle, params, state = _setup("float32")
     with pytest.raises(RuntimeError, match="cuda"):
         ServeSession(bundle, params, state, n_slots=2, max_seq_len=32)
+
+
+def test_decode_graph_on_the_cpu_raises():
+    _, bundle, params, state = _setup("float32")
+    with pytest.raises(ValueError, match="decode_graph=True needs a CUDA device"):
+        ServeSession(bundle, params, state, n_slots=2, max_seq_len=32, device="cpu",
+                     decode_graph=True)
+
+
+@pytest.mark.parametrize("decode_graph", [None, False], ids=["default", "off"])
+def test_cpu_session_steps_eagerly(decode_graph):
+    """On the CPU the default session captures nothing (``decode_graphs``
+    0) and its streams are repro's, as with the graph turned off."""
+    expected, bundle, params, state = _setup("float32")
+    sess = ServeSession(bundle, params, state, n_slots=2, max_seq_len=32, kernel="jnp",
+                        device="cpu", decode_graph=decode_graph)
+    reqs = [Request(prompt=p, sampling=_sp(SamplingParams, i, m))
+            for i, (p, m) in enumerate(zip(_prompts(), MAX_NEWS))]
+    sess.run(reqs)
+    assert [r.out_tokens for r in reqs] == expected
+    assert sess._graph is None and sess.stats()["decode_graphs"] == 0

@@ -129,6 +129,63 @@ def test_prefill_and_decode_match_repro(monkeypatch, dtype):
         tok = np.asarray(ji[:, 0])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_decode_hidden_then_head_is_decode_step(monkeypatch, dtype, paged):
+    """``decode_hidden`` followed by ``heads.head_topk`` gives what
+    ``decode_step`` gives, bit for bit (values, ids, the hidden state its
+    head saw and the cache it wrote), on a random cache at per-row
+    positions, contiguous or paged (disjoint shuffled pages; row 2's last
+    page the zero page, past its position). Both match ``repro``'s
+    ``decode_step`` on the same inputs to the tolerances of
+    ``test_prefill_and_decode_match_repro``."""
+    jb, jp, jt, tb, tp, tt = _models(dtype)
+    jh, th = [], []
+    _capture(monkeypatch, jheads, jh)
+    _capture(monkeypatch, heads, th)
+    tol = TOL[dtype]
+    cfg = tb.cfg
+    rng = np.random.RandomState(6)
+    B, L, KV, dh = 3, cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    tok = rng.randint(0, 256, B).astype(np.int32)
+    pos = np.array([9, 3, 6], np.int32)
+    if paged:
+        ps, n_pg = 4, 4
+        pages = (2 + rng.permutation(B * n_pg)).reshape(B, n_pg).astype(np.int32)
+        pages[2, 3] = 0
+        shape = (L, 2 + B * n_pg, ps, KV, dh)
+    else:
+        pages, shape = None, (L, B, 16, KV, dh)
+    kv = [rng.randn(*shape).astype(np.float32) for _ in range(2)]
+    if paged:
+        for a in kv:
+            a[:, 0] = 0.0  # the zero page
+    jcache = JDecodeCache(*(jnp.asarray(a).astype(jb.cfg.jdtype) for a in kv))
+    caches = [TDecodeCache(*(to_tensor(np.asarray(a), "cpu") for a in jcache)) for _ in range(2)]
+    ttok, tpos = torch.from_numpy(tok).long(), torch.from_numpy(pos).long()
+    tpages = None if pages is None else torch.from_numpy(pages)
+
+    h = tb.decode_hidden(tp, caches[0], ttok, tpos, pages=tpages)
+    split = heads.head_topk(tp["head"], tt, cfg, h, 8, embed_table=tp["embed"]["table"],
+                            kernel="jnp")
+    whole = tb.decode_step(tp, tt, caches[1], ttok, tpos, kernel="jnp", pages=tpages)
+    assert torch.equal(th[0], h) and torch.equal(th[1], h)
+    assert torch.equal(split[0], whole[0]) and torch.equal(split[1], whole[1])
+    assert whole[2] is caches[1]
+    assert torch.equal(caches[0].k, caches[1].k) and torch.equal(caches[0].v, caches[1].v)
+
+    dec = _strict_jit(lambda p, t, c, tk, ps_, pg: jb.decode_step(
+        p, t, c, tk, ps_, kernel="jnp", pages=pg), jh)
+    (jv, ji, jcache), jhid = dec(jp, jt, jcache, jnp.asarray(tok), jnp.asarray(pos),
+                                 None if pages is None else jnp.asarray(pages))
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    np.testing.assert_allclose(h.float().numpy(), np.asarray(jhid), **tol)
+    np.testing.assert_array_equal(split[1].numpy(), np.asarray(ji))
+    np.testing.assert_allclose(split[0].numpy(), np.asarray(jv), **HEAD_TOL)
+    for a, b in ((caches[0].k, jcache.k), (caches[0].v, jcache.v)):
+        np.testing.assert_allclose(a.float().numpy(), f32(b), **tol)
+
+
 def test_long_prompt_runs_chunked_attention(monkeypatch):
     """A prompt longer than attn_q_chunk (64 in the reduced config) takes
     chunked_causal_attention (two 64-row query chunks, an unmasked history
