@@ -170,7 +170,34 @@ Phases, in order (any failure exits non-zero before the result line):
    chunks; E preempts and completes every request; every page is free
    after a paged session. Prefill ms (median, total; the model's calls,
    without the cache insert) and decode-step ms per session.
-7. Report: one ``{"kernels": [...]}`` line (thirteen kernel bodies, each
+7. Train: lm-100m, the repo's real-hardware training preset
+   (``examples/train_lm_dssoftmax.py:31-37``: 12 layers, d 768, 12 heads,
+   kv 4, d_ff 2048, V 50,304, K 8), built here, at full width in bf16 on
+   seeded weights and ``TopicLMStream`` batches of 8 x 512 tokens.
+   (a0) Every parameter gets a finite, non-zero gradient from one
+   ``value_and_grad`` and no kernel body launches (the train path is the
+   differentiable plain code). (a) The port's ``Trainer`` runs 24 steps
+   with mitosis 8 -> 16 at step 12 and checkpoints at 16 and 24: step ms
+   (median), tokens/s, peak ``max_memory_allocated``, the step's model
+   FLOPs (the count printed) as a share of the 989 TFLOP/s bf16 peak, CE at
+   the first and last step (it must fall), expert sizes, ``memory_ratio``,
+   checkpoint seconds. (a1) Three more steps under ``torch.profiler``:
+   device-busy ms, idle share, device ops, host launches and syncs per
+   step, the top device ops. (a2) The last checkpoint removed, a fresh
+   Trainer resumes at 16 (the restored state must equal the saved one bit
+   for bit) and runs to 24: its final state bit-identical to the
+   uninterrupted run's, or, where a CUDA scatter sums in another order,
+   params within 2·lr per resumed step, moments and the CE curve within
+   rtol 1e-3, masks equal (which one is printed). (b) The trained head
+   packed (``pack_experts``) and served by ``ServeSession`` on the trained
+   params through cuda_fused, cuda_grouped, auto and jnp (8 greedy prompts
+   of the corpus, 16 new tokens): streams token-identical to jnp's, or
+   parting only at a near-tie (counted), every path's kernel bodies
+   launched; ``serve_topk`` over 256 hidden states of the trained model
+   (every 16th position of a held-out batch) on each path against the
+   top-k of ``logits_dense`` restricted to the trained mask: ids equal but
+   at near-ties, values within the kernel tolerance.
+8. Report: one ``{"kernels": [...]}`` line (thirteen kernel bodies, each
    with its host-timed and device-only times), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -2575,6 +2602,367 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
           f"every page free", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training (lm-100m at full width) and serving the trained table
+# ---------------------------------------------------------------------------
+
+# lm-100m, the repo's real-hardware training preset, as
+# examples/train_lm_dssoftmax.py:31-37 writes it (12 layers, d 768, 12
+# heads, kv 4, d_ff 2048, V 50,304 padded to 50,688, K 8; bf16, remat
+# 'layer'); mitosis takes it to K 16 at TRAIN_MITOSIS_AT.
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS, TRAIN_MITOSIS_AT, TRAIN_CKPT_AT = 24, 12, 16
+# the example's lr and warm-up (cosine over the run, as its total_steps
+# is its --steps)
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 20
+TRAIN_PROFILED = 3
+TRAIN_PROMPT_LENS = (16, 40, 100, 300, 24, 64, 200, 500)
+TRAIN_NEW = 16
+# hidden states for serve_topk against logits_dense: every 16th position
+# of a held-out batch (8 x 32 rows)
+TRAIN_HIDDEN_STRIDE = 16
+
+
+def lm_100m_config():
+    from repro_torch.configs.base import DSSoftmaxConfig, ModelConfig
+
+    return ModelConfig(
+        name="lm-100m", family="dense", n_layers=12, d_model=768, n_heads=12,
+        n_kv_heads=4, d_ff=2048, vocab_size=50304,
+        head="ds", ds=DSSoftmaxConfig(num_experts=8, lambda_lasso=1e-5,
+                                      lambda_expert=1e-5,
+                                      prune_task_loss_threshold=6.0),
+    )
+
+
+def train_model_flops(cfg, params, tokens: int) -> dict:
+    """Model FLOPs of one train step (forward and backward, no recompute):
+    6·N·T for the layer weights, 12·L·H·dh·S per token for attention
+    (the non-causal count of PaLM's appendix B), 6·T·N_pad·d for the DS
+    head's logits (each token against its expert's whole table) and
+    6·T·K·d for its gate."""
+    n_layer = sum(v.numel() for v in _leaves(params["layers"]))
+    K = params["head"]["gate"].shape[0]
+    out = {"layer_weights": 6 * n_layer * tokens,
+           "attention": 12 * cfg.n_layers * cfg.n_heads * cfg.hd * TRAIN_SEQ * tokens,
+           "head_logits": 6 * tokens * cfg.padded_vocab * cfg.d_model,
+           "head_gate": 6 * tokens * K * cfg.d_model}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.utils import flatten_dict
+
+    return list(flatten_dict(tree).values())
+
+
+def train_phase(results: dict, card: str) -> None:
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataPipeline, TopicLMStream
+    from repro_torch.models import build
+    from repro_torch.train import Trainer
+
+    cfg = lm_100m_config()
+    out = results.setdefault("train", {"card": card, "config": dataclasses.asdict(cfg)})
+    ckpt_root = ROOT / "build" / "chip_train"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    stream = TopicLMStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=SEED)
+    batch_at = lambda i: {"tokens": torch.from_numpy(stream.batch_at(i)).cuda()}  # noqa: E731
+
+    def trainer(hooks=None):
+        pipe = DataPipeline(lambda i: {"tokens": stream.batch_at(i)})
+        tcfg = TrainConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+                           ckpt_dir=str(ckpt_root), ckpt_every=TRAIN_CKPT_AT, keep_ckpts=2,
+                           seed=SEED)
+        tr = Trainer(build(cfg, device="cuda"), tcfg, iter(pipe), pipeline=pipe,
+                     mitosis_steps={TRAIN_MITOSIS_AT: 2 * cfg.ds.num_experts},
+                     hooks=hooks or {})
+        ckpt_s = []
+        save = tr._checkpoint
+
+        def timed_checkpoint(step, state):  # the time the loop waits on a save
+            t0 = time.perf_counter()
+            save(step, state)
+            ckpt_s.append((step, time.perf_counter() - t0))
+
+        tr._checkpoint = timed_checkpoint
+        return tr, pipe, ckpt_s
+
+    # each checkpoint's background write (npz, fsync, rename), timed on
+    # its thread
+    write_s, real_write = [], checkpointer.save
+
+    def timed_write(path, tree, *, meta=None):
+        t0 = time.perf_counter()
+        real_write(path, tree, meta=meta)
+        write_s.append((os.path.basename(path), time.perf_counter() - t0))
+
+    checkpointer.save = timed_write
+    try:
+        _train_and_serve(cfg, out, stream, batch_at, trainer, write_s, ckpt_root)
+    finally:
+        checkpointer.save = real_write
+
+
+def _train_and_serve(cfg, out, stream, batch_at, trainer, write_s, ckpt_root) -> None:
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.core import mitosis
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import topk_stable
+    from repro_torch.models import transformer
+    from repro_torch.train import Request, SamplingParams, ServeSession
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.utils import flatten_dict
+
+    card = out["card"]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # (a0) every parameter of the full-width model gets a finite, non-zero
+    # gradient on the card, and the train step launches no kernel body
+    tr, _, ckpt_a = trainer()
+    t0 = time.perf_counter()
+    state0 = tr.init_state(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = {k: sum(v.numel() for v in _leaves(state0.params[k]))
+                for k in state0.params}
+    ops.reset_launch_counts()
+    (loss0, _), grads = value_and_grad(tr.bundle, state0.params, state0.ds_state, batch_at(0))
+    bad = [k for k, g in flatten_dict(grads).items()
+           if not (torch.isfinite(g.float()).all() and g.float().abs().sum() > 0)]
+    if bad or not torch.isfinite(loss0):
+        raise SmokeFailure(f"train: parameters without a finite non-zero gradient: {bad}")
+    if any(ops.launch_counts().values()):
+        raise SmokeFailure(f"train: the train step launched kernel bodies {ops.launch_counts()}")
+    out["params"] = n_params
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}), K {cfg.ds.num_experts}, {cfg.dtype}, "
+          f"remat {cfg.remat}; params {json.dumps(n_params)}; init {init_s:.1f} s; all "
+          f"{len(flatten_dict(grads))} parameters get a finite non-zero gradient, no kernel "
+          f"body launched", flush=True)
+    del grads
+
+    # (a) the uninterrupted run: mitosis 8 -> 16, a checkpoint at 16
+    snaps = {}
+    tr.hooks["on_step"] = lambda s, m, st: snaps.setdefault(s, st) if s == TRAIN_CKPT_AT - 1 \
+        else None
+    t0 = time.perf_counter()
+    final = tr.train(state=state0)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.metrics_history
+    dts = [m["dt"] for m in hist]
+    step_s = statistics.median(dts)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_model_flops(tr.cfg, final.params, tokens)
+    sizes = final.ds_state.mask.sum(dim=1).tolist()
+    K_final = final.params["head"]["gate"].shape[0]
+    if K_final != 2 * cfg.ds.num_experts or tr.cfg.ds.num_experts != K_final:
+        raise SmokeFailure(f"train: mitosis left K {K_final} (cfg {tr.cfg.ds.num_experts})")
+    ce = [m["ce"] for m in hist]
+    if not all(np.isfinite([m["loss"] for m in hist])) or not ce[-1] < ce[0]:
+        raise SmokeFailure(f"train: CE did not fall ({ce[0]} -> {ce[-1]}) or a loss is not finite")
+    out["run"] = {
+        "steps": len(hist), "wall_s": wall, "step_ms_median": 1e3 * step_s,
+        "step_ms_first": 1e3 * dts[0], "step_ms_mitosis": 1e3 * dts[TRAIN_MITOSIS_AT],
+        "tokens_per_s": tokens / step_s, "peak_memory_gib": peak / 2**30,
+        "model_flops_per_step": flops, "mfu_bf16_peak": flops["total"] / step_s
+        / PEAK_FLOPS["bfloat16"],
+        "ce_first": ce[0], "ce_last": ce[-1], "ce": ce,
+        "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+        "grad_norm_last": hist[-1]["grad_norm"], "drop_frac_last": hist[-1]["ds_drop_frac"],
+        "drop_frac": [m["ds_drop_frac"] for m in hist], "load": [m["ds_load"] for m in hist],
+        "expert_sizes": sizes, "memory_ratio": mitosis.memory_ratio(final.ds_state),
+        "checkpoint_blocking_s": ckpt_a, "checkpoint_write_s": list(write_s),
+        "step_ms_after_checkpoint": 1e3 * dts[TRAIN_CKPT_AT]}
+    print(f"[train] (a) {len(hist)} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in {wall:.1f} s: "
+          f"step ms median {1e3 * step_s:.2f} (first {1e3 * dts[0]:.1f}, after mitosis "
+          f"{1e3 * dts[TRAIN_MITOSIS_AT]:.1f}) = {tokens / step_s:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; model FLOPs per step {json.dumps(flops)} = "
+          f"{out['run']['mfu_bf16_peak']:.4f} of the 989 TFLOP/s bf16 peak; CE "
+          f"{ce[0]:.4f} -> {ce[-1]:.4f}; K {cfg.ds.num_experts} -> {K_final}; expert sizes "
+          f"{sizes}; memory_ratio {out['run']['memory_ratio']:.3f}; checkpoints: the loop "
+          f"waits {[(s, round(t, 2)) for s, t in ckpt_a]} (step, s), the background writes "
+          f"take {[(p, round(t, 2)) for p, t in write_s]}, the step after the first "
+          f"{1e3 * dts[TRAIN_CKPT_AT]:.1f} ms; card {card}", flush=True)
+    # CE is over the tokens that fit their expert's capacity: the share
+    # that did not, and the load term, say what the gate did meanwhile
+    print(f"[train] (a) per step: tokens over capacity (ds_drop_frac) "
+          f"{[round(d, 4) for d in out['run']['drop_frac']]}; load term "
+          f"{[round(v, 4) for v in out['run']['load']]}; CE {[round(c, 4) for c in ce]}",
+          flush=True)
+
+    # (a1) a few steps profiled on the trained state (not kept)
+    step_fn = tr._step_fn
+    batches = [batch_at(TRAIN_STEPS + i) for i in range(TRAIN_PROFILED + 1)]
+    st, _ = step_fn(final, batches[0])
+    del st
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            st, m = step_fn(final, b)
+            del st, m
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = [e for e in events if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
+    busy_us = sum(_dev_time(e) for e in dev)
+    prof_row = {
+        "traced_step_ms": 1e3 * traced / TRAIN_PROFILED,
+        "device_busy_ms_per_step": busy_us / 1e3 / TRAIN_PROFILED,
+        "device_idle_share": 1.0 - busy_us / 1e6 / traced,
+        "device_idle_share_untraced": 1.0 - busy_us / 1e3 / TRAIN_PROFILED / (1e3 * step_s),
+        "device_ops_per_step": sum(e.count for e in dev) / TRAIN_PROFILED,
+        "host_launches_per_step":
+            sum(e.count for e in events if e.key in LAUNCH_OPS) / TRAIN_PROFILED,
+        "host_syncs_and_copies_per_step":
+            sum(e.count for e in events if e.key in SYNC_OPS) / TRAIN_PROFILED,
+        "top_device_ops_ms_per_step": [
+            (e.key[:80], _dev_time(e) / 1e3 / TRAIN_PROFILED)
+            for e in sorted(dev, key=_dev_time, reverse=True)[:12]]}
+    out["profile"] = prof_row
+    print(f"[train] (a1) profiled {TRAIN_PROFILED} steps: {json.dumps(prof_row)}", flush=True)
+    del batches
+
+    # (a2) resume: drop the final checkpoint, a fresh Trainer (a K-8
+    # bundle) resumes at TRAIN_CKPT_AT and runs to the end
+    tr_r, pipe_r, ckpt_r = trainer()
+    if tr_r.mgr.all_steps() != [TRAIN_CKPT_AT, TRAIN_STEPS]:
+        raise SmokeFailure(f"train: checkpoints {tr_r.mgr.all_steps()}")
+    shutil.rmtree(tr_r.mgr.step_dir(TRAIN_STEPS))
+    snap = snaps[TRAIN_CKPT_AT - 1]
+    t0 = time.perf_counter()
+    restored, meta = tr_r.mgr.restore(like=snap)
+    restore_s = time.perf_counter() - t0
+    fs, fr = flatten_dict(snap), flatten_dict(restored)
+    if set(fs) != set(fr) or not all(torch.equal(fs[k], fr[k]) and fs[k].dtype == fr[k].dtype
+                                     for k in fs):
+        raise SmokeFailure("train: the restored checkpoint differs from the state it saved")
+    del restored, fr
+    resumed = tr_r.train()
+    if tr_r.metrics_history[0]["step"] != TRAIN_CKPT_AT or pipe_r.state.step != TRAIN_STEPS \
+            or tr_r.cfg.ds.num_experts != K_final:
+        raise SmokeFailure(f"train: the resumed run started at "
+                           f"{tr_r.metrics_history[0]['step']}, pipeline at "
+                           f"{pipe_r.state.step}, K {tr_r.cfg.ds.num_experts}")
+    fa, fb = flatten_dict(final), flatten_dict(resumed)
+    exact = [k for k in fa if torch.equal(fa[k], fb[k])]
+    diff = {k: float((fa[k].float() - fb[k].float()).abs().max()) for k in fa if k not in exact}
+    ce_r = [m["ce"] for m in tr_r.metrics_history]
+    ce_a = ce[TRAIN_CKPT_AT:]
+    out["resume"] = {"bit_identical": len(exact) == len(fa), "leaves": len(fa),
+                     "leaves_equal": len(exact), "max_abs_diff": diff, "ce_resumed": ce_r,
+                     "restore_s": restore_s, "restore_bit_identical": True,
+                     "checkpoint_blocking_s": ckpt_r}
+    print(f"[train] (a2) resumed at step {TRAIN_CKPT_AT} from a fresh K-{cfg.ds.num_experts} "
+          f"Trainer (restore {restore_s:.1f} s, restored state bit-identical to the saved "
+          f"one): final state {'bit-identical' if len(exact) == len(fa) else 'not bit-identical'}"
+          f" to the uninterrupted run ({len(exact)} of {len(fa)} leaves equal"
+          f"{'; max |diff| ' + json.dumps(diff) if diff else ''}); CE over the resumed steps "
+          f"{[round(c, 5) for c in ce_r]} against {[round(c, 5) for c in ce_a]}", flush=True)
+    if len(exact) != len(fa):  # bit for bit: a non-deterministic kernel fails here
+        raise SmokeFailure("train: the resumed run left the uninterrupted one")
+    del resumed, snap, snaps, fa, fb, fs, tr_r
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) serve the trained table through the kernels
+    bundle, params, state = tr.bundle, final.params, final.ds_state
+    del tr
+    table = ds.pack_experts(params["head"], state)
+    torch.cuda.synchronize()
+    print(f"[train] (b) trained table: K {table.ids.shape[0]}, v_pad {table.v_pad}, d "
+          f"{cfg.d_model}, {table.weights.dtype}", flush=True)
+    rng_prompts = [stream.batch_at(10_000 + i)[0, :n] for i, n in enumerate(TRAIN_PROMPT_LENS)]
+    max_seq = max(TRAIN_PROMPT_LENS) + TRAIN_NEW
+    streams, heads, serve_rows = {}, {}, []
+    for kern in SESSION_KERNELS:
+        sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=max_seq,
+                            k=K_TOP, kernel=kern, device="cuda", overflow_threshold=BREAKER_OFF)
+        reqs = [Request(prompt=p.astype(np.int32),
+                        sampling=SamplingParams(max_new_tokens=TRAIN_NEW))
+                for p in rng_prompts]
+        rec = Recorder(sess, reqs)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = ops.launch_counts()
+        st = sess.stats()
+        for r in reqs:
+            if len(r.out_tokens) != TRAIN_NEW or not all(0 <= t < cfg.vocab_size
+                                                         for t in r.out_tokens):
+                raise SmokeFailure(f"train serve {kern}: a stream of {len(r.out_tokens)} tokens "
+                                   f"or a token outside the vocabulary")
+        need = NEEDS[(kern, False)] if kern != "auto" else ()
+        if any(delta[n] < 1 for n in need + (FLASH_TC,)) or delta[FLASH_SIMT] or (
+                kern == "auto" and not any(c for n, c in delta.items()
+                                           if n not in (FLASH_TC, FLASH_SIMT))) or (
+                kern == "jnp" and any(c for n, c in delta.items()
+                                      if n not in (FLASH_TC, FLASH_SIMT))):
+            raise SmokeFailure(f"train serve {kern}: launches {delta}")
+        if st["effective_kernel"] != kern or st["decode_graphs"] != 1:
+            raise SmokeFailure(f"train serve {kern}: {st['effective_kernel']}, "
+                               f"{st['decode_graphs']} decode graphs")
+        streams[kern], heads[kern] = [list(r.out_tokens) for r in reqs], rec.heads
+        row = {"kernel": kern, "wall_s": wall,
+               "decode_step_ms_median": 1e3 * statistics.median(rec.decode_s),
+               "launches": {n: c for n, c in delta.items() if c}}
+        serve_rows.append(row)
+        print(f"[train] (b) serve kernel={kern:12s} {json.dumps(row)}", flush=True)
+        del sess
+    n_div = _diverge_check("train serve", streams, heads, SESSION_KERNELS[:-1], "jnp",
+                           TIE_RTOL, sampled=None)
+    out["serve"] = {"sessions": serve_rows, "divergences": n_div}
+    print(f"[train] (b) greedy streams over the trained table: "
+          f"{'token-identical' if n_div == 0 else f'{n_div} near-tie divergences'} across "
+          f"{', '.join(SESSION_KERNELS)}", flush=True)
+
+    # serve_topk over real hidden states against logits_dense on the trained mask
+    with torch.no_grad():
+        toks = torch.from_numpy(stream.batch_at(20_000)[:, :-1]).cuda()
+        x, pos, _ = transformer.embed_inputs(params, bundle.cfg, {"tokens": toks})
+        h, _ = transformer.forward_hidden(params, bundle.cfg, x, pos)
+        h = h[:, ::TRAIN_HIDDEN_STRIDE].reshape(-1, cfg.d_model).contiguous()
+        z, (eidx, _, _) = ds.logits_dense(params["head"], state, h, bundle.cfg.ds)
+        z = torch.where(state.mask[eidx.long()], z, float("-inf"))
+        wv, wi = topk_stable(z, K_TOP)
+        del z
+        topk_rows = {}
+        for kern in SESSION_KERNELS:
+            ops.reset_launch_counts()
+            gv, gi = ds.serve_topk(params["head"]["gate"], table, h, K_TOP, kernel=kern,
+                                   capacity_factor=bundle.cfg.ds.capacity_factor,
+                                   device=h.device)
+            delta = {n: c for n, c in ops.launch_counts().items() if c}
+            if kern != "jnp" and not delta:
+                raise SmokeFailure(f"train serve_topk {kern}: no kernel launched")
+            err, parted = _compare("train serve_topk", kern, (gv, gi.long()), (wv, wi.long()))
+            topk_rows[kern] = {"max_abs_err": err, "rows_parted_at_ties": parted,
+                               "launches": delta}
+    out["serve_topk"] = {"rows": h.shape[0], **topk_rows}
+    print(f"[train] (b) serve_topk over {h.shape[0]} hidden states of the trained model "
+          f"against top-{K_TOP} of logits_dense on the trained mask: {json.dumps(topk_rows)}",
+          flush=True)
+    del params, state, final, table, h
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2632,6 +3020,8 @@ def main() -> int:
     timed("profile", profile_phase, results, card, cfg, bundle, params, cases)
     timed("adapt", adapt_phase, results, card, cfg, bundle, params, mask, gamma)
     timed("prefill", prefill_phase, results, card, cfg, bundle, params, cases[0][1])
+    del bundle, params, cases
+    timed("train", train_phase, results, card)
 
     from repro_torch.kernels import ops
 

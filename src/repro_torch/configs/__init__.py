@@ -8,7 +8,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs import paper_lm, qwen2_1_5b
-from repro_torch.configs.base import DSSoftmaxConfig, ModelConfig, ShapeConfig
+from repro_torch.configs.base import DSSoftmaxConfig, ModelConfig, ShapeConfig, TrainConfig
 
 _CONFIGS: Dict[str, ModelConfig] = {
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
@@ -18,15 +18,15 @@ _CONFIGS: Dict[str, ModelConfig] = {
 }
 
 # Archs of repro's registry whose family is not ported yet (ROADMAP.md,
-# Queue 1 item 7) — dense ones among them need nothing beyond a config.
+# Queue 1 item 6) — dense ones among them need nothing beyond a config.
 _LATER = {
-    "mamba2-130m": "the ssm family (Queue 1 item 7)",
-    "zamba2-7b": "the hybrid family (Queue 1 item 7)",
-    "olmoe-1b-7b": "the moe family (Queue 1 item 7)",
-    "qwen3-moe-235b-a22b": "the moe family (Queue 1 item 7)",
-    "whisper-base": "the encdec family (Queue 1 item 7)",
-    "paper-envi": "the encdec family (Queue 1 item 7)",
-    "internvl2-26b": "the vlm family (Queue 1 item 7)",
+    "mamba2-130m": "the ssm family (Queue 1 item 6)",
+    "zamba2-7b": "the hybrid family (Queue 1 item 6)",
+    "olmoe-1b-7b": "the moe family (Queue 1 item 6)",
+    "qwen3-moe-235b-a22b": "the moe family (Queue 1 item 6)",
+    "whisper-base": "the encdec family (Queue 1 item 6)",
+    "paper-envi": "the encdec family (Queue 1 item 6)",
+    "internvl2-26b": "the vlm family (Queue 1 item 6)",
     "granite-20b": "a later slice that ports its config file",
     "llama3.2-3b": "a later slice that ports its config file",
     "deepseek-67b": "a later slice that ports its config file",
@@ -51,6 +51,7 @@ def reduce_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
         d_model=64,
         d_ff=128,
         vocab_size=vocab,
+        remat="none",
         attn_q_chunk=64,
         attn_kv_chunk=64,
     )
@@ -64,6 +65,7 @@ __all__ = [
     "DSSoftmaxConfig",
     "ModelConfig",
     "ShapeConfig",
+    "TrainConfig",
     "get_config",
     "reduce_config",
 ]

@@ -1,12 +1,14 @@
-"""Config dataclasses for the models and the DS-Softmax head.
+"""Config dataclasses for the models, the DS-Softmax head and training.
 
 Plain frozen dataclasses, copied from ``repro.configs.base`` with the
-fields this slice reads. ``jdtype`` keeps its name from ``repro`` and is
+fields the port reads. ``jdtype`` keeps its name from ``repro`` and is
 the torch dtype of ``dtype`` here.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -18,6 +20,12 @@ class DSSoftmaxConfig:
     """Doubly-Sparse softmax head configuration (the paper's technique)."""
 
     num_experts: int = 8           # K
+    lambda_lasso: float = 1.0      # group-lasso weight (tuned per task in paper)
+    lambda_expert: float = 1.0     # expert-level lasso weight (== lambda_lasso in paper)
+    lambda_load: float = 10.0      # load-balance CV^2 weight (fixed =10 in paper)
+    gamma: float = 0.01            # pruning threshold on row l2 norm (fixed in paper)
+    prune_task_loss_threshold: float = float("inf")  # prune only when task loss < t
+    mask_mode: str = "zero"        # 'zero' (paper-faithful) | 'neg_inf' (beyond-paper)
     # Serving: padded active-set size per expert. None => the largest
     # expert rounded up to a multiple of 128.
     serve_pad: Optional[int] = None
@@ -52,6 +60,9 @@ class ModelConfig:
     ds: DSSoftmaxConfig = field(default_factory=DSSoftmaxConfig)
     attn_q_chunk: int = 1024
     attn_kv_chunk: int = 1024
+    # remat policy for train: 'none' | 'layer' (checkpoint each layer) |
+    # 'dots' (each layer, saving its weight matmuls' outputs)
+    remat: str = "layer"
     pad_vocab_to: int = 512
 
     def replace(self, **kw) -> "ModelConfig":
@@ -82,3 +93,23 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # 'train' | 'prefill' | 'decode'
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "cosine"          # constant | linear | cosine
+    microbatches: int = 1             # gradient accumulation
+    seed: int = 0
+    # checkpointing (the default directory lies under the temp directory)
+    ckpt_dir: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ckpt_every: int = 200
+    keep_ckpts: int = 3

@@ -16,7 +16,8 @@ PTB = ModelConfig(
     vocab_size=10000,
     pad_vocab_to=1,
     head="ds",
-    ds=DSSoftmaxConfig(num_experts=8),
+    ds=DSSoftmaxConfig(num_experts=8, lambda_lasso=1.0, lambda_expert=1.0),
+    remat="none",
 )
 
 # WikiText-2-scale: |V|=33,278.
@@ -35,6 +36,7 @@ CASIA = ModelConfig(
     pad_vocab_to=1,
     head="ds",
     ds=DSSoftmaxConfig(num_experts=8),
+    remat="none",
 )
 
 CONFIG = PTB

@@ -1,5 +1,5 @@
-"""Convert a JAX parameter pytree, DS head or serve table (as numpy
-arrays) into the port's.
+"""Convert a JAX parameter pytree, DS head, serve table or train state (as
+numpy arrays) into the port's.
 
 ``repro`` and the port share the parameter layout — ``(d_in, d_out)``
 weights, per-layer params stacked on a leading ``(L, …)`` axis, the same
@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dssoftmax import DSState, QuantizedServeTable, ServeTable
 from repro_torch.device import resolve_device
+from repro_torch.utils.tree import unflatten_dict
 
 MASK_KEY = "ds_state/mask"
 
@@ -142,3 +143,49 @@ def table_from_jax(np_fields: Dict[str, np.ndarray], device="cuda"):
         raise ValueError("table fields disagree in shape: "
                          + ", ".join(f"{f} {tuple(v.shape)}" for f, v in t.items()))
     return kind(**t)
+
+
+def _subtree(np_state: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    return {k[len(prefix):]: v for k, v in np_state.items() if k.startswith(prefix)}
+
+
+def train_state_from_jax(np_state: Dict[str, np.ndarray], cfg: ModelConfig, device="cuda"):
+    """A ``repro`` ``TrainState`` flattened to numpy arrays (e.g.
+    ``flatten_paths({"params": params, "opt": opt._asdict(), "ds_state":
+    ds_state._asdict()})`` after ``jax.tree.map(np.asarray, ...)``: keys
+    ``"params/…"``, ``"opt/step"``, ``"opt/m/…"``, ``"opt/v/…"`` and
+    ``"ds_state/mask"`` for a DS head) → the port's
+    :class:`~repro_torch.train.train_step.TrainState` on ``device``: the
+    params (checked as :func:`params_from_jax` checks them), the DS mask,
+    the fp32 Adam moments (one per param, same shape) and the step count
+    as a 0-d int32 tensor. bf16 is copied bit for bit."""
+    from repro_torch.optim import OptState
+    from repro_torch.train.train_step import TrainState
+
+    dev = resolve_device(device)
+    tree = _subtree(np_state, "params/")
+    if cfg.head == "ds":
+        if "ds_state/mask" not in np_state:
+            raise KeyError("missing 'ds_state/mask' for a DS head")
+        tree[MASK_KEY] = np_state["ds_state/mask"]
+    params, ds_state = params_from_jax(tree, cfg, device=dev)
+    moments = []
+    for name in ("m", "v"):
+        flat = _subtree(np_state, f"opt/{name}/")
+        want = {k for k in tree if k != MASK_KEY}
+        if set(flat) != want:
+            raise KeyError(f"opt/{name} paths differ from the params': "
+                           f"{sorted(set(flat) ^ want)[:8]}")
+        for path, a in flat.items():
+            a = np.asarray(a)
+            if a.dtype != np.float32 or a.shape != np.asarray(tree[path]).shape:
+                raise ValueError(f"opt/{name}/{path}: {a.dtype} {a.shape}, expected fp32 "
+                                 f"{np.asarray(tree[path]).shape}")
+        moment = unflatten_dict({path: to_tensor(np.asarray(a), dev) for path, a in flat.items()})
+        moment.setdefault("head", {})
+        moments.append(moment)
+    if "opt/step" not in np_state:
+        raise KeyError("missing 'opt/step'")
+    step = torch.tensor(int(np.asarray(np_state["opt/step"])), dtype=torch.int32, device=dev)
+    return TrainState(params=params, opt=OptState(step=step, m=moments[0], v=moments[1]),
+                      ds_state=ds_state)

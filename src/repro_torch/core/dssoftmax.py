@@ -14,7 +14,13 @@ the product, padding rows at ``NEG_INF``, ties to the lowest packed
 position. A :class:`QuantizedServeTable` holds int8 rows with per-row fp32
 scales; every path casts the rows to the token dtype, forms the fp32
 product, and multiplies the accumulator by the row scale and then by
-``g``. The training half of ``repro.core.dssoftmax`` is a later slice.
+``g``.
+
+Training (``loss``, ``loss_rows``, ``update_mask``) follows the paper:
+logits are scaled by the *un-renormalized* top-1 gate value (Eq. 2), and
+pruned classes contribute ``exp(0)`` to the train normalizer in
+``mask_mode='zero'`` or are excluded via ``NEG_INF`` in ``'neg_inf'``.
+Gradients come from ``torch.autograd``.
 """
 from __future__ import annotations
 
@@ -25,8 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DSSoftmaxConfig
+from repro_torch.core import losses as L
+from repro_torch.core import pruning
 from repro_torch.core.dispatch import dispatch_indices, dispatch_load
-from repro_torch.core.gating import top1_gate
+from repro_torch.core.gating import sparse_gate_matrix, top1_gate
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
@@ -37,6 +45,16 @@ NEG_INF = ref.NEG_INF
 
 class DSState(NamedTuple):
     mask: torch.Tensor  # (K, N) bool
+
+
+class DSAux(NamedTuple):
+    """Auxiliary losses + diagnostics returned by :func:`loss`."""
+
+    lasso: torch.Tensor
+    expert_lasso: torch.Tensor
+    load: torch.Tensor
+    drop_frac: torch.Tensor  # sorted dispatch only; 0.0 for dense
+    gate_entropy: torch.Tensor
 
 
 class ServeTable(NamedTuple):
@@ -236,6 +254,194 @@ def init(generator: torch.Generator, d: int, n_classes: int, cfg: DSSoftmaxConfi
     if n_valid is not None and n_valid < n_classes:
         mask[:, n_valid:] = False
     return params, DSState(mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# Training forward / loss
+# ---------------------------------------------------------------------------
+
+
+def _masked_logits(z: torch.Tensor, mask: torch.Tensor, mode: str) -> torch.Tensor:
+    """Apply the class mask to raw logits z (…, N) with mask (…, N)."""
+    if mode == "zero":
+        # Faithful: pruned rows are zero weights => logit exactly 0.
+        return z * mask.to(z.dtype)
+    return torch.where(mask, z, NEG_INF)
+
+
+def logits_dense(params, state: DSState, h: torch.Tensor, cfg: DSSoftmaxConfig):
+    """Reference path: full (T, N) mixture logits via the sparse gate.
+
+    h: (T, d) → logits (T, N) float32, plus (expert_idx, g, G). Every
+    expert's logits for every token (O(K·T·N·d)), then the one-hot select."""
+    expert_idx, g, G = top1_gate(params["gate"], h)
+    w = pruning.apply_mask(params["experts"], state.mask)  # (K, N, d)
+    z_all = torch.einsum("td,knd->tkn", h.float(), w.float())
+    Gs = sparse_gate_matrix(G)  # (T, K) — only top-1 nonzero, grads flow
+    z = torch.einsum("tkn,tk->tn", z_all, Gs)
+    sel_mask = state.mask[expert_idx.long()]  # (T, N)
+    return _masked_logits(z, sel_mask, cfg.mask_mode), (expert_idx, g, G)
+
+
+def _scatter_rows(values: torch.Tensor, row: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """A (n_rows, …) buffer of zeros with ``values[i]`` written at row
+    ``row[i]``. ``row == n_rows`` is a trash row, cut off before return:
+    the writes JAX's ``mode="drop"`` would drop land there. The gradient
+    reaches every value written to a kept row and is zero for the others."""
+    buf = torch.zeros((n_rows + 1,) + values.shape[1:], dtype=values.dtype,
+                      device=values.device)
+    return buf.index_put((row,), values)[:n_rows]
+
+
+def _aux(params, state: DSState, cfg: DSSoftmaxConfig, G, Gs, drop) -> DSAux:
+    w = params["experts"]
+    return DSAux(
+        lasso=L.group_lasso(w, state.mask, cfg.gamma),
+        expert_lasso=L.expert_lasso(w, state.mask),
+        load=L.load_balance(torch.sum(Gs.reshape(-1, Gs.shape[-1]), dim=0)),
+        drop_frac=drop,
+        gate_entropy=-torch.mean(torch.sum(G * torch.log(G + 1e-10), dim=-1)),
+    )
+
+
+def loss(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
+         cfg: DSSoftmaxConfig, *, dispatch: str = "dense", capacity_factor: float = 2.0):
+    """Mean cross-entropy + the paper's aux losses.
+
+    h: (T, d), labels: (T,) int. Returns (task_ce, DSAux). Total train
+    objective = task_ce + λ_lasso·lasso + λ_expert·expert + λ_load·load
+    (assembled by the caller, :func:`total_loss`).
+
+    ``dispatch='dense'`` is the exact reference (every expert's logits);
+    ``'sorted'`` groups tokens by top-1 expert into (K, C, d) buffers, C =
+    round(T/K·capacity_factor), one product per expert; tokens past an
+    expert's capacity are dropped from the mean (``drop_frac``)."""
+    T, d = h.shape
+    K, N, _ = params["experts"].shape
+    if dispatch == "dense":
+        z, (expert_idx, g, G) = logits_dense(params, state, h, cfg)
+        ce = _ce_from_logits(z, labels)
+        drop = torch.zeros((), dtype=torch.float32, device=h.device)
+    elif dispatch == "sorted":
+        expert_idx, g, G = top1_gate(params["gate"], h)
+        capacity = int(max(1, round(T / K * capacity_factor)))
+        slot, valid = dispatch_indices(expert_idx, K, capacity)
+        e = expert_idx.long()
+        w = pruning.apply_mask(params["experts"], state.mask)
+        g_kept = torch.sum(sparse_gate_matrix(G), dim=-1)  # == g, with Eq-1 gradients
+        row = torch.where(valid, e * capacity + slot.long(), K * capacity)
+        buf = _scatter_rows(h, row, K * capacity).view(K, capacity, d)
+        lab_buf = _scatter_rows(labels.long(), row, K * capacity).view(K, capacity)
+        g_buf = _scatter_rows(g_kept, row, K * capacity).view(K, capacity)
+        z = torch.einsum("kcd,knd->kcn", buf.float(), w.float()) * g_buf[..., None]
+        z = _masked_logits(z, state.mask[:, None, :], cfg.mask_mode)
+        ce_buf = _ce_from_logits(z.reshape(K * capacity, N), lab_buf.reshape(-1),
+                                 mean=False).reshape(K, capacity)
+        tok_ce = torch.where(valid, ce_buf[e, slot.long().clamp(max=capacity - 1)], 0.0)
+        n_valid = torch.clamp(torch.sum(valid.float()), min=1.0)
+        ce = torch.sum(tok_ce) / n_valid
+        drop = 1.0 - n_valid / T
+    else:
+        raise ValueError(f"unknown dispatch {dispatch!r}")
+    return ce, _aux(params, state, cfg, G, sparse_gate_matrix(G), drop)
+
+
+def _ce_chunk(buf_i, lab_i, g_i, w32, mask, mode: str):
+    """CE of one capacity chunk: buf_i (B, K, cc, d), lab_i/g_i (B, K, cc),
+    w32 (K, N, d) fp32 → (B, K, cc)."""
+    z = torch.einsum("bkcd,knd->bkcn", buf_i.float(), w32) * g_i[..., None]
+    z = _masked_logits(z, mask[None, :, None, :], mode)
+    return _ce_from_logits(z, lab_i, mean=False)
+
+
+def loss_rows(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
+              cfg: DSSoftmaxConfig, *, capacity_factor: float = 1.25,
+              label_mask: Optional[torch.Tensor] = None):
+    """Sorted-dispatch CE over batched rows. h: (B, S, d), labels: (B, S).
+
+    Tokens are grouped by expert *within each row*: the B rows dispatch at
+    once over B·K row-offset expert ids (a stable sort groups by row, then
+    by expert, keeping each row's token order), into (B, K, C, d) buffers
+    with C = round(S/K·capacity_factor). The (B, K, C, N) fp32 logits are
+    never materialized whole: the capacity runs in up to 8 chunks under
+    ``torch.utils.checkpoint``, so one chunk's logits are live at a time
+    and the backward recomputes them. ``label_mask`` (B, S) excludes
+    positions from the CE. Returns (task_ce, DSAux)."""
+    B, S, d = h.shape
+    K, N, _ = params["experts"].shape
+    expert_idx, g, G = top1_gate(params["gate"], h)          # (B,S), (B,S), (B,S,K)
+    Gs = sparse_gate_matrix(G)
+    g_kept = torch.sum(Gs, dim=-1)                           # (B,S) — g with Eq-1 grads
+    capacity = int(max(1, round(S / K * capacity_factor)))
+    w = pruning.apply_mask(params["experts"], state.mask)
+
+    rows = torch.arange(B, device=h.device)[:, None]
+    e_flat = (rows * K + expert_idx.long()).reshape(-1)      # row-offset expert ids
+    slot, valid = dispatch_indices(e_flat, B * K, capacity)
+    n_slots = B * K * capacity
+    row = torch.where(valid, e_flat * capacity + slot.long(), n_slots)
+    buf = _scatter_rows(h.reshape(B * S, d), row, n_slots).view(B, K, capacity, d)
+    lab_buf = _scatter_rows(labels.reshape(-1).long(), row, n_slots).view(B, K, capacity)
+    g_buf = _scatter_rows(g_kept.reshape(-1), row, n_slots).view(B, K, capacity)
+
+    n_chunks = 1
+    for cand in (8, 4, 2):
+        if capacity % cand == 0 and capacity // cand >= 8:
+            n_chunks = cand
+            break
+    cc = capacity // n_chunks
+    w32 = w.float()
+    if n_chunks > 1:
+        from torch.utils.checkpoint import checkpoint
+
+        ce_buf = torch.cat([
+            checkpoint(_ce_chunk, *(t[:, :, i * cc:(i + 1) * cc] for t in (buf, lab_buf, g_buf)),
+                       w32, state.mask, cfg.mask_mode, use_reentrant=False)
+            for i in range(n_chunks)], dim=2)
+    else:
+        ce_buf = _ce_chunk(buf, lab_buf, g_buf, w32, state.mask, cfg.mask_mode)
+
+    tok_ce = ce_buf.reshape(-1)[torch.where(valid, row, 0)]
+    tok_ce = torch.where(valid, tok_ce, 0.0).view(B, S)
+    valid = valid.view(B, S)
+    if label_mask is not None:
+        valid = valid & label_mask.bool()
+    n_valid = torch.clamp(torch.sum(valid.float()), min=1.0)
+    ce = torch.sum(torch.where(valid, tok_ce, 0.0)) / n_valid
+    if label_mask is None:  # a Python count: no host-to-device copy
+        drop = 1.0 - n_valid / (B * S)
+    else:
+        drop = 1.0 - n_valid / torch.clamp(torch.sum(label_mask.float()), min=1.0)
+    return ce, _aux(params, state, cfg, G, Gs, drop)
+
+
+def total_loss(params, state, h, labels, cfg: DSSoftmaxConfig, **kw):
+    """task CE + λ-weighted aux losses (paper Algorithm 1's L_all)."""
+    ce, aux = loss(params, state, h, labels, cfg, **kw)
+    full = (ce + cfg.lambda_lasso * aux.lasso + cfg.lambda_expert * aux.expert_lasso
+            + cfg.lambda_load * aux.load)
+    return full, (ce, aux)
+
+
+def _ce_from_logits(z: torch.Tensor, labels: torch.Tensor, mean: bool = True) -> torch.Tensor:
+    """CE from fp32 logits: logsumexp minus the gold logit."""
+    lse = torch.logsumexp(z, dim=-1)
+    gold = torch.gather(z, -1, labels.long()[..., None])[..., 0]
+    ce = lse - gold
+    return torch.mean(ce) if mean else ce
+
+
+# ---------------------------------------------------------------------------
+# Pruning step (between optimizer steps)
+# ---------------------------------------------------------------------------
+
+
+def update_mask(params, state: DSState, task_loss, cfg: DSSoftmaxConfig) -> DSState:
+    """Algorithm 1's prune: the new mask, gated on ``task_loss`` (a 0-d
+    tensor or a float) below ``cfg.prune_task_loss_threshold``."""
+    return DSState(mask=pruning.prune_step(
+        params["experts"], state.mask, task_loss, gamma=cfg.gamma,
+        threshold=cfg.prune_task_loss_threshold))
 
 
 def _round_up(x: int, m: int = 128) -> int:
@@ -483,3 +689,25 @@ def _serve_topk_fused(gate_w, table: AnyServeTable, h, k: int, *, with_stats: bo
         return vals, ids
     dispatched, zero = dispatch_load(eidx, table.ids.shape[0])
     return vals, ids, {"dispatched": dispatched, "overflow": zero}
+
+
+def as_serve_table(table):
+    """Unwrap a versioned table resource to its current table: anything
+    exposing a ``.table`` that is a :class:`ServeTable` or
+    :class:`QuantizedServeTable` (``serve.table_manager.TableResource``)
+    unwraps to it; a raw table passes through unchanged."""
+    inner = getattr(table, "table", None)
+    return inner if isinstance(inner, (ServeTable, QuantizedServeTable)) else table
+
+
+def serve_full_probs(gate_w: torch.Tensor, table, h: torch.Tensor,
+                     n_classes: int) -> torch.Tensor:
+    """Full sparse categorical distribution (probability mass only on the
+    chosen expert's surviving classes). For evaluation/debug. (B, N)."""
+    table = as_serve_table(table)
+    expert_idx, g, _ = top1_gate(gate_w, h)
+    z, ids_sel = _exact_rows_logits(table, expert_idx, h.float())
+    z = torch.where(ids_sel >= 0, z * g[:, None], NEG_INF)
+    p = torch.softmax(z, dim=-1)
+    out = torch.zeros((h.shape[0], n_classes), dtype=torch.float32, device=h.device)
+    return out.scatter_add_(1, ids_sel.long().clamp(min=0), torch.where(ids_sel >= 0, p, 0.0))

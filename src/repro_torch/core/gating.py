@@ -3,6 +3,7 @@
 ``G_k(h) = softmax(U h)_k``; only the top-1 expert's gate value is kept,
 *after* normalization, so ``g`` is the max softmax probability and is not
 renormalized. Logits are fp32 whatever the dtype of ``h`` and ``U``.
+``sparse_gate_matrix`` is the training form of the same top-1 gate.
 """
 from __future__ import annotations
 
@@ -23,3 +24,16 @@ def top1_gate(gate_w: torch.Tensor, h: torch.Tensor):
     expert_idx = torch.argmax(G, dim=-1).to(torch.int32)  # first maximum
     g = torch.amax(G, dim=-1)
     return expert_idx, g, G
+
+
+def sparse_gate_matrix(G: torch.Tensor) -> torch.Tensor:
+    """G' (…, K): the paper's masked gate — top-1 kept, others zero.
+
+    Differentiable w.r.t. G; the argmax mask itself gets no gradient
+    (Eq. 1). Ties go to the lowest index."""
+    with torch.no_grad():
+        top = torch.amax(G, dim=-1, keepdim=True)
+        mask = (G >= top).to(G.dtype)
+        first = torch.cumsum(mask, dim=-1) <= 1
+        mask = mask * first.to(G.dtype)
+    return G * mask

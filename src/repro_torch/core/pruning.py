@@ -1,15 +1,19 @@
-"""Group-lasso pruning of expert class rows (paper Algorithm 1), the parts
-serving needs.
+"""Group-lasso pruning of expert class rows (paper Algorithm 1).
 
-A boolean ``mask`` (K, N) tracks the surviving classes of each expert. The
-paper's footnote 4 keeps at least one copy of every class across all
-experts; :func:`keep_one_copy` enforces it. ``prune_step`` comes with the
-training slice: it reads ``losses.row_norms``, whose ``+1e-12`` inside the
-square root ``kernels.lasso_prune`` does not have.
+A boolean ``mask`` (K, N) tracks the surviving classes of each expert.
+Pruning runs between optimizer steps, gated on the task loss being below
+a threshold ``t``; once pruned, a row stays pruned. The paper's footnote 4
+keeps at least one copy of every class across all experts;
+:func:`keep_one_copy` enforces it. ``prune_step`` reads
+``losses.row_norms``, whose ``+1e-12`` inside the square root the
+``lasso_prune`` kernel does not have, so the train step never calls the
+kernel: the two differ on rows whose norm is near zero.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.losses import row_norms
 
 
 def keep_one_copy(candidate_mask: torch.Tensor, norms: torch.Tensor,
@@ -23,6 +27,19 @@ def keep_one_copy(candidate_mask: torch.Tensor, norms: torch.Tensor,
     experts = torch.arange(norms.shape[0], device=norms.device)
     resurrection = (experts[:, None] == best_k[None, :]) & col_ever[None, :]
     return torch.where(col_alive[None, :], candidate_mask, resurrection)
+
+
+def prune_step(experts_w: torch.Tensor, mask: torch.Tensor, task_loss: torch.Tensor, *,
+               gamma: float, threshold: float) -> torch.Tensor:
+    """One pruning update → the new mask. Branch-free: the gate on the
+    task loss is a ``torch.where`` on the 0-d tensor, so nothing waits for
+    the device. Computes no gradient."""
+    with torch.no_grad():
+        norms = row_norms(experts_w, mask)
+        candidate = keep_one_copy(mask & (norms > gamma), norms, mask)
+        do_prune = torch.as_tensor(task_loss, dtype=torch.float32,
+                                   device=mask.device) < threshold
+        return torch.where(do_prune, candidate, mask)
 
 
 def apply_mask(experts_w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

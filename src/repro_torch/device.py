@@ -2,7 +2,9 @@
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Asking for ``cuda`` on a host without CUDA raises: nothing carries on
-quietly on the CPU.
+quietly on the CPU. The hand-written kernels are forward-only: their
+wrappers raise (:func:`check_forward_only`) rather than return a result
+autograd cannot differentiate.
 """
 from __future__ import annotations
 
@@ -28,3 +30,17 @@ def check_on(dev: torch.device, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.device.type != dev.type:
             raise ValueError(f"{name} lies on {t.device}, expected {dev.type}")
+
+
+def check_forward_only(kernel: str, **tensors) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad: the
+    kernel ``kernel`` has no backward, and a result without a ``grad_fn``
+    would silently cut the gradient. ``None`` entries are skipped."""
+    if not torch.is_grad_enabled():
+        return
+    needs = [name for name, t in tensors.items() if t is not None and t.requires_grad]
+    if needs:
+        raise RuntimeError(
+            f"{kernel} is a forward-only kernel, but {', '.join(needs)} require grad with "
+            "grad mode on; call it under torch.no_grad() or use the differentiable "
+            "plain version (training takes the plain attention and head loss)")

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_forward_only, check_on, resolve_device
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.retrieve_stream import StreamPlan, row_vec_bytes, stream_plan
 
@@ -34,6 +34,7 @@ def dss_topk(weights, ids, h_scaled, expert_idx, k: int = 8, *, device="cuda"):
     bfloat16), ids (K, V_pad) int32 with -1 as padding, expert_idx (B,)
     int32 in [0, K) → (vals (B, k) fp32, ids (B, k) int32)."""
     dev = resolve_device(device)
+    check_forward_only("dss_topk", weights=weights, h_scaled=h_scaled)
     check_on(dev, weights=weights, ids=ids, h_scaled=h_scaled, expert_idx=expert_idx)
     if weights.dtype == torch.int8:
         raise TypeError("dss_topk serves fp tables only; int8 rows take "

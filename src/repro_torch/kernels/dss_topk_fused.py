@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_forward_only, check_on, resolve_device
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.retrieve_stream import StreamPlan, row_vec_bytes, stream_plan
 
@@ -36,6 +36,7 @@ def dss_topk_fused(gate_w, weights, ids, h, k: int = 8, *, scales=None, e_base: 
     is the global id of ``weights[0]``; tokens whose expert lies outside
     ``[e_base, e_base + K)`` emit ``(-inf, -1)`` rows."""
     dev = resolve_device(device)
+    check_forward_only("dss_topk_fused", gate_w=gate_w, weights=weights, h=h, scales=scales)
     check_on(dev, gate_w=gate_w, weights=weights, ids=ids, h=h)
     ref.check_scales(weights, scales)
     quantized = scales is not None

@@ -42,7 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_forward_only, check_on, resolve_device
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.retrieve_stream import StreamPlan, row_vec_bytes, stream_plan
 
@@ -233,6 +233,7 @@ def dss_topk_grouped(weights, ids, buf, g_buf, k: int = 8, *, scales=None, devic
     with -1 as padding; g_buf (K, C) fp32, 0 on an empty slot → (vals
     (K, C, k) fp32, ids (K, C, k) int32)."""
     dev = resolve_device(device)
+    check_forward_only("dss_topk_grouped", weights=weights, buf=buf, g_buf=g_buf, scales=scales)
     check_on(dev, weights=weights, ids=ids, buf=buf, g_buf=g_buf)
     ref.check_scales(weights, scales)
     quantized = scales is not None

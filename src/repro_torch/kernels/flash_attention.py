@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_forward_only, check_on, resolve_device
 from repro_torch.kernels import _build, ref
 
 MAX_DH = 256
@@ -87,6 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, device
     attention with fp32 scores times 1/√dh, -1e9 masking and an fp32
     online softmax whose p is rounded to v's dtype before p·v."""
     dev = resolve_device(device)
+    check_forward_only("flash_attention", q=q, k=k, v=v)
     check_on(dev, q=q, k=k, v=v)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be (B, H, S, dh) and k {tuple(k.shape)}, "

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_forward_only, check_on, resolve_device
 from repro_torch.kernels import _build, ref
 
 
@@ -17,6 +17,7 @@ def gate_top1(gate_w: torch.Tensor, h: torch.Tensor, *, device="cuda"):
     bfloat16) → (idx (B,) int32 = first argmax of softmax, g (B,) fp32 =
     its probability)."""
     dev = resolve_device(device)
+    check_forward_only("gate_top1", gate_w=gate_w, h=h)
     check_on(dev, gate_w=gate_w, h=h)
     if dev.type == "cpu":
         return ref.gate_top1_ref(gate_w, h)

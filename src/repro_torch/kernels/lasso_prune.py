@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_forward_only, check_on, resolve_device
 from repro_torch.kernels import _build, ref
 
 # Blocks per SM: 8 blocks of 8 warps fill an SM's 64 warp slots.
@@ -23,6 +23,7 @@ def lasso_prune(weights: torch.Tensor, mask: torch.Tensor, gamma: float = 0.01, 
     """weights (K, N, d) float32 or bfloat16, mask (K, N) bool → (norms
     (K, N) fp32, new_mask (K, N) bool)."""
     dev = resolve_device(device)
+    check_forward_only("lasso_prune", weights=weights)
     check_on(dev, weights=weights, mask=mask)
     if weights.dim() != 3 or mask.shape != weights.shape[:2]:
         raise ValueError(f"weights {tuple(weights.shape)} must be (K, N, d) and mask "

@@ -3,7 +3,9 @@
 A head is a dict of tensors under ``params['head']`` plus, for DS, a
 ``DSState`` mask packed into a :class:`~repro_torch.core.dssoftmax.ServeTable`
 (or its int8 :class:`~repro_torch.core.dssoftmax.QuantizedServeTable`) for
-serving. Only serving (``head_topk``) is ported so far.
+serving. Both heads expose ``head_loss`` (mean CE over (B, S) positions +
+an aux-loss dict) and ``head_topk`` (top-k classes from final hidden
+states).
 """
 from __future__ import annotations
 
@@ -25,6 +27,61 @@ def init_head(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
         return {}, None
     w = torch.empty((cfg.padded_vocab, cfg.d_model), dtype=cfg.jdtype, device=device)
     return {"unembed": ds.normal_(w, generator, 1.0 / math.sqrt(cfg.padded_vocab))}, None
+
+
+def _full_ce_chunk(h_i, lab_i, w):
+    z = h_i.float() @ w.float().T                                  # (B, cc, N)
+    lse = torch.logsumexp(z, dim=-1)
+    gold = torch.sum(h_i.float() * w[lab_i.long()].float(), dim=-1)
+    return lse - gold
+
+
+def _full_ce(w, h, labels, label_mask):
+    """Full-softmax CE. w: (N, d); h: (B, S, d); labels: (B, S). The gold
+    logit is h·w[label]. The sequence runs in up to 8 chunks under
+    ``torch.utils.checkpoint``, so one chunk's (B, cc, N) fp32 logits are
+    live at a time and the backward recomputes them."""
+    B, S, _ = h.shape
+    n_chunks = 1
+    for cand in (8, 4, 2):
+        if S % cand == 0 and S // cand >= 8:
+            n_chunks = cand
+            break
+    if n_chunks > 1:
+        from torch.utils.checkpoint import checkpoint
+
+        cc = S // n_chunks
+        ce = torch.cat([checkpoint(_full_ce_chunk, h[:, i * cc:(i + 1) * cc],
+                                   labels[:, i * cc:(i + 1) * cc], w, use_reentrant=False)
+                        for i in range(n_chunks)], dim=1)
+    else:
+        ce = _full_ce_chunk(h, labels, w)
+    if label_mask is not None:
+        m = label_mask.float()
+        return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(ce)
+
+
+def head_loss(head_params, ds_state, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
+              embed_table: Optional[torch.Tensor] = None,
+              label_mask: Optional[torch.Tensor] = None):
+    """→ (task_ce, aux_losses_dict). h: (B, S, d)."""
+    if cfg.head == "ds":
+        ce, aux = ds.loss_rows(head_params, ds_state, h, labels, cfg.ds,
+                               label_mask=label_mask)
+        dcfg = cfg.ds
+        aux_total = (dcfg.lambda_lasso * aux.lasso + dcfg.lambda_expert * aux.expert_lasso
+                     + dcfg.lambda_load * aux.load)
+        return ce, {
+            "ds_lasso": aux.lasso,
+            "ds_expert_lasso": aux.expert_lasso,
+            "ds_load": aux.load,
+            "ds_drop_frac": aux.drop_frac,
+            "head_aux_total": aux_total,
+        }
+    w = embed_table if cfg.tie_embeddings else head_params["unembed"]
+    ce = _full_ce(w, h, labels, label_mask)
+    return ce, {"head_aux_total": torch.zeros((), dtype=torch.float32, device=h.device)}
 
 
 def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: int,

@@ -14,6 +14,9 @@ a copy):
   the JAX einsums (``chunked_causal_attention`` above ``attn_q_chunk``,
   else ``full_attention``), as do decode and chunked prefill on either
   device: masks at -1e9, fp32 softmax;
+* training (``attention_block(..., train=True)``) always takes that plain,
+  differentiable code, as ``repro`` trains: the kernel is forward-only,
+  and its wrapper raises when autograd would need a gradient through it;
 * the caches are written in place (``repro`` returns updated arrays):
   contiguous ``(B, S_max, KV, dh)`` rows, or, with ``pages=``, an arena of
   ``(n_pages, page_size, KV, dh)`` pages addressed through a per-row page
@@ -165,17 +168,19 @@ def full_attention(q, k, v, causal: bool) -> torch.Tensor:
     return o.to(q.dtype)
 
 
-def attention_block(params, cfg: ModelConfig, x: torch.Tensor, positions, *, causal=True):
-    """Self-attention over whole sequences (prefill). Returns the output
-    projection and the (k, v) tensors for the cache.
+def attention_block(params, cfg: ModelConfig, x: torch.Tensor, positions, *, causal=True,
+                    train=False):
+    """Self-attention over whole sequences (prefill, training). Returns the
+    output projection and the (k, v) tensors for the cache.
 
     Causal attention on CUDA tensors runs the ``flash_attention`` kernel,
     whatever S: the (B, S, H, dh) tensors pass as (B, H, S, dh) views and
     the output comes back in the (B, S, H, dh) layout ``wo`` reads. CPU
-    tensors take the plain code, as ``repro`` does."""
+    tensors, and every call with ``train=True``, take the plain
+    differentiable code, as ``repro`` does."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     B, S = x.shape[:2]
-    if causal and q.is_cuda:
+    if causal and q.is_cuda and not train:
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             device=q.device).transpose(1, 2)
     elif causal and S > cfg.attn_q_chunk:

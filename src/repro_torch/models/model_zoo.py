@@ -1,4 +1,5 @@
-"""Uniform model API: ``build(cfg)`` returns a :class:`ModelBundle`.
+"""Uniform model API: ``build(cfg)`` returns a :class:`ModelBundle`: the
+model's init, train loss and serving functions over one config.
 
 Only the dense family is ported so far; other families raise.
 """
@@ -19,6 +20,8 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init: Callable[[torch.Generator], Any]
+    # (params, ds_state, batch) → (total loss, metrics)
+    train_loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     # the decode step's backbone, up to the hidden state the head reads
@@ -38,6 +41,7 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         cfg=cfg,
         device=dev,
         init=lambda gen: transformer.init_params(gen, cfg, device=dev),
+        train_loss=lambda p, s, batch: transformer.train_loss(p, s, cfg, batch),
         prefill=lambda p, t, batch, k=8, kernel=None: transformer.prefill(
             p, t, cfg, batch, k=k, kernel=kernel),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None,

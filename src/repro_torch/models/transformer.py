@@ -2,13 +2,19 @@
 
 Per-layer parameters are stacked on axis 0 (``(L, …)``, as in
 ``repro.models.transformer``) and consumed by a Python loop over layers.
+``cfg.remat`` sets what the train forward keeps for the backward: 'layer'
+checkpoints each layer (``torch.utils.checkpoint``), 'dots' each layer
+but saving its weight matmuls' outputs, 'none' everything.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dssoftmax import normal_
@@ -77,6 +83,70 @@ def _layer_params(stacked, i: int):
 
 def _mlp_residual(lp, cfg: ModelConfig, x):
     return x + mlp(lp["mlp"], cfg, rmsnorm(lp["ln2"], x))
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _layer_body(cfg: ModelConfig, x, layer_params, positions):
+    """One train layer: the differentiable attention, then the MLP."""
+    h, _ = attention_block(layer_params["attn"], cfg, rmsnorm(layer_params["ln1"], x),
+                           positions, train=True)
+    return _mlp_residual(layer_params, cfg, x + h)
+
+
+# The weight matmuls (``x @ W``, with or without a bias) reach aten as mm /
+# addmm; attention's products carry a batch axis and reach it as bmm.
+_WEIGHT_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """'dots' policy: keep the weight matmuls' outputs, recompute the rest
+    (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions):
+    """x: (B, S, d) embeddings → (final normed hidden (B, S, d), the MoE
+    aux sum: a 0-d zero for the dense family)."""
+    body = functools.partial(_layer_body, cfg)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params["layers"], i)
+        if cfg.remat == "layer":
+            x = checkpoint(body, x, lp, positions, use_reentrant=False)
+        elif cfg.remat == "dots":
+            x = checkpoint(body, x, lp, positions, use_reentrant=False,
+                           context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                        _save_weight_matmuls))
+        elif cfg.remat == "none":
+            x = body(x, lp, positions)
+        else:
+            raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rmsnorm(params["final_norm"], x), aux
+
+
+def embed_inputs(params, cfg: ModelConfig, batch):
+    """Token embedding → (x (B, S, d), positions (B, S), label_mask None)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    return embed(params["embed"], tokens), positions, None
+
+
+def train_loss(params, ds_state, cfg: ModelConfig, batch):
+    """batch: tokens (B, S+1). → (total_loss, metrics dict of 0-d tensors)."""
+    tokens = batch["tokens"]
+    x, positions, _ = embed_inputs(params, cfg, {"tokens": tokens[:, :-1]})
+    labels = tokens[:, 1:]
+    h, moe_aux = forward_hidden(params, cfg, x, positions)
+    ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
+                              embed_table=params["embed"]["table"], label_mask=None)
+    total = ce + aux["head_aux_total"]
+    return total, {"ce": ce, "moe_aux": moe_aux, **aux}
 
 
 def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None):

@@ -1,0 +1,14 @@
+"""Global-norm gradient clipping."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.utils.tree import tree_global_norm, tree_map
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """→ (grads scaled by min(1, max_norm / (norm + 1e-9)) in fp32 and cast
+    back to each grad's dtype, the fp32 global norm as a 0-d tensor)."""
+    norm = tree_global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm

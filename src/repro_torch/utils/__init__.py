@@ -1,0 +1,11 @@
+from repro_torch.utils.logging import get_logger
+from repro_torch.utils.tree import (
+    flatten_dict,
+    tree_global_norm,
+    tree_leaves,
+    tree_map,
+    unflatten_dict,
+)
+
+__all__ = ["flatten_dict", "get_logger", "tree_global_norm", "tree_leaves", "tree_map",
+           "unflatten_dict"]

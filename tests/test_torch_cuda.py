@@ -1424,3 +1424,125 @@ def test_paged_chunked_session_preempts_on_the_card(dev):
         assert ops.launch_counts()["flash_attention"] == len(prompts) * cfg.n_layers
         streams[paged] = [r.out_tokens for r in reqs]
     assert streams[True] == streams[False]
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(dev_cpu_or_cuda, dtype="float32", **kw):
+    """Reduced qwen2-1.5b seeded on the CPU, then moved to the device."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import build
+    from repro_torch.optim import adam_init
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.utils import tree_map
+
+    cfg = reduce_config(get_config("qwen2-1.5b"), vocab=256).replace(dtype=dtype, **kw)
+    cfg = cfg.replace(ds=cfg.ds.replace(lambda_lasso=1e-3, lambda_expert=1e-3, gamma=1.0))
+    params, st = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    move = lambda t: t.to(dev_cpu_or_cuda)  # noqa: E731
+    params, st = tree_map(move, params), st._replace(mask=move(st.mask))
+    return build(cfg, device=dev_cpu_or_cuda), TrainState(params, adam_init(params), st)
+
+
+def _batch(device, B=4, S=33, seed=1):
+    tokens = np.random.RandomState(seed).randint(0, 256, (B, S)).astype(np.int32)
+    return {"tokens": torch.from_numpy(tokens).to(device)}
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """Three fp32 steps on the card against the CPU: loss and grad norm
+    rtol 1e-5; params within 2·lr per step (Adam's first steps are ≈
+    lr·sign(g), and a gradient near zero may take either sign) and rtol
+    1e-4 elsewhere on average; masks equal."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.utils import flatten_dict
+
+    lr = 1e-3
+    out = {}
+    for device in ("cpu", dev):
+        bundle, state = _train_setup(device)
+        step = make_train_step(bundle, TrainConfig(lr=lr))
+        hist = []
+        for i in range(3):
+            state, m = step(state, _batch(device, seed=i))
+            hist.append((float(m["loss"]), float(m["grad_norm"]), float(m["ce"])))
+        out[str(torch.device(device).type)] = (state, hist)
+    (sc, hc), (sg, hg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(np.array(hg), np.array(hc), rtol=1e-5)
+    assert torch.equal(sg.ds_state.mask.cpu(), sc.ds_state.mask)
+    for k, v in flatten_dict(sc.params).items():
+        g = flatten_dict(sg.params)[k].cpu()
+        assert (g - v).abs().max() <= 3 * 2 * lr + 1e-6, k
+        assert float((g - v).abs().mean()) <= 1e-4 * float(v.abs().mean()) + 1e-6, k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("remat", ["layer", "none"])
+def test_every_param_gets_a_gradient_on_cuda(dev, dtype, remat):
+    """The train path on the card: every parameter gets a finite, non-zero
+    gradient (the attention is the differentiable one, not the forward-only
+    kernel), and no kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.utils import flatten_dict
+
+    bundle, state = _train_setup(dev, dtype=dtype, remat=remat)
+    ops.reset_launch_counts()
+    (loss, _), grads = value_and_grad(bundle, state.params, state.ds_state, _batch(dev))
+    assert torch.isfinite(loss)
+    assert sum(ops.launch_counts().values()) == 0
+    for k, g in flatten_dict(grads).items():
+        assert g.device.type == dev.type and g.dtype == flatten_dict(state.params)[k].dtype, k
+        assert torch.isfinite(g.float()).all() and g.float().abs().sum() > 0, k
+
+
+@pytest.mark.parametrize("name", ["gate_top1", "dss_topk_grouped", "dss_topk_fused",
+                                  "dss_topk_kernel", "lasso_prune", "flash_attention"])
+def test_kernel_wrappers_raise_on_grad_inputs_on_cuda(dev, name):
+    from repro_torch.kernels import ops
+
+    fn = getattr(ops, name)
+    args = {
+        "gate_top1": (torch.randn(4, 8, device=dev), torch.randn(2, 8, device=dev)),
+        "dss_topk_grouped": (torch.randn(4, 16, 8, device=dev),
+                             torch.zeros(4, 16, dtype=torch.int32, device=dev),
+                             torch.randn(4, 2, 8, device=dev), torch.ones(4, 2, device=dev), 2),
+        "dss_topk_fused": (torch.randn(4, 8, device=dev), torch.randn(4, 16, 8, device=dev),
+                           torch.zeros(4, 16, dtype=torch.int32, device=dev),
+                           torch.randn(2, 8, device=dev), 2),
+        "dss_topk_kernel": (torch.randn(4, 16, 8, device=dev),
+                            torch.zeros(4, 16, dtype=torch.int32, device=dev),
+                            torch.randn(2, 8, device=dev),
+                            torch.zeros(2, dtype=torch.int32, device=dev), 2),
+        "lasso_prune": (torch.randn(4, 16, 8, device=dev),
+                        torch.ones(4, 16, dtype=torch.bool, device=dev), 0.5),
+        "flash_attention": (torch.randn(1, 4, 8, 16, device=dev),
+                            torch.randn(1, 2, 8, 16, device=dev),
+                            torch.randn(1, 2, 8, 16, device=dev)),
+    }[name]
+    req = [a.requires_grad_(True) if torch.is_tensor(a) and a.is_floating_point() else a
+           for a in args]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fn(*req)
+    with torch.no_grad():
+        fn(*req)
+
+
+def test_checkpoint_round_trip_on_cuda(dev, tmp_path):
+    """A bf16 train state saved from the card and restored onto it: every
+    tensor bit-equal, on the card, in its dtype."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.utils import flatten_dict
+
+    _, state = _train_setup(dev, dtype="bfloat16")
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    mgr.save(3, state, meta={"pipeline": {"step": 3, "seed": 0}})
+    back, meta = mgr.restore(like=state)
+    assert meta["step"] == 3 and meta["pipeline"]["step"] == 3
+    for k, v in flatten_dict(state).items():
+        got = flatten_dict(back)[k]
+        assert got.device.type == dev.type and got.dtype == v.dtype and torch.equal(got, v), k

@@ -37,7 +37,12 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "kernels/lasso_prune.py", "serve/paged_cache.py",
                                     "kernels/flash_attention.py", "models/layers.py",
                                     "models/transformer.py", "models/model_zoo.py",
-                                    "train/serve.py"])
+                                    "train/serve.py", "optim/adam.py", "optim/clip.py",
+                                    "optim/schedules.py", "train/train_step.py",
+                                    "train/trainer.py", "checkpoint/checkpointer.py",
+                                    "checkpoint/manager.py", "data/synthetic.py",
+                                    "data/pipeline.py", "launch/train.py", "core/losses.py",
+                                    "core/mitosis.py", "utils/tree.py", "utils/logging.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()
