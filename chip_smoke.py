@@ -72,8 +72,9 @@ Phases, in order (any failure exits non-zero before the result line):
    fp32 ``bmm`` + ``topk`` over (K, C, d)). These grouped cases run last
    in phase 2, on a generator of their own.
    The head-path step: ``serve_topk`` at qwen2-1.5b's head shape on a
-   stand-in fp table and its int8 table at B 1, 8, 64 and 2048 (C 1, 1,
-   8, 256) with bf16 tokens, and on an fp32 copy of the table and its int8
+   stand-in fp table and its int8 table at B 1, 8, 40, 64 and 2048 (C 1,
+   1, 5, 8, 256; B 40 is a speculative verify step at 8 slots and gamma 4)
+   with bf16 tokens, and on an fp32 copy of the table and its int8
    table at B 64 and 2048 with fp32 tokens, through jnp, grouped,
    cuda_grouped and cuda_fused, and on the fp tables cuda_pertoken,
    interleaved round-robin, device time from the profiler; every path's
@@ -170,6 +171,42 @@ Phases, in order (any failure exits non-zero before the result line):
    chunks; E preempts and completes every request; every page is free
    after a paged session. Prefill ms (median, total; the model's calls,
    without the cache insert) and decode-step ms per session.
+6b. Spec (``spec_phase``). (a) Speculative decoding: llama3.2-3b at full
+   width in bf16 (28 layers, d 3072, GQA 24/8, V 128,256, K 16; seeded
+   weights, the seeded stand-in mask), 8 slots, 8 greedy prompts of
+   16-512 tokens, 32 new tokens, ``kernel='auto'``, the default graphs.
+   Four sessions on the same requests: the baseline (no draft), a
+   self-draft (gamma 4), a shallow draft (llama3.2-3b's widths, 2 layers,
+   its own seed; gamma 4) and the self-draft paged with chunked prefill
+   (chunk 128), and the self-draft without the draft's backfill (what
+   ``repro`` does; its accept rate printed, not required). Each runs twice: once as a user calls ``run()``
+   (tokens/s), once instrumented (a ``Recorder``: verify ms as the replay
+   plus the head, draft ms per call and per step, medians over the calls
+   replayed from the graphs; each emission's head and gate). The steady
+   state's tokens/s: tokens emitted per verify step over (verify ms +
+   draft ms per step); the baseline's: 8 over its decode step ms. Every speculative greedy stream is held to the baseline's
+   by ``_held_within_drift`` (BF16_DRIFT; partings only at token or gate
+   near-ties, counted and printed); the self-draft accepts at least
+   SPEC_ACCEPT_MIN of its proposals; a sampled self-draft run
+   (temperature 0.8, top-k 8, fixed seeds) repeats token for token; the
+   baseline captures one decode graph, each speculative session one draft
+   graph and one verify graph and no decode graph; every page is free
+   after the paged session; the verify head's body (what ``auto`` picks
+   at B 40), the fused decode body (the draft's and prefill's heads) and
+   the tensor-core attention body launch. (b) granite-20b at full width
+   (52 layers, d 6144, MQA 48/1, gelu, V 49,152, K 8), 8 prompts of
+   16-1024 tokens, 16 new tokens: layer 0's attention of the 1024-token
+   prompt through ``flash_attention_wgmma`` at H 48, H_kv 1, every
+   element within ``flash_attention_limit``; every stream finite; 52
+   tensor-core attention launches per prefill; the decode step's median
+   ms beside the backbone's bytes bound. (c) ``serve_topk`` at the head
+   shapes of llama3.2-3b, granite-20b and deepseek-67b (K 16/8/8, d
+   3072/6144/8192, V_pad from each stand-in mask) on seeded stand-in fp
+   and int8 tables at B 8 and 40: cuda_grouped, cuda_fused and (fp)
+   cuda_pertoken against jnp, ids equal but at near-ties and values
+   within VAL_ATOL/VAL_RTOL (cuda_pertoken against its own plain version,
+   its ids against jnp's at FOLD_RTOL); device ms per call from the
+   profiler.
 7. Train: lm-100m, the repo's real-hardware training preset
    (``examples/train_lm_dssoftmax.py:31-37``: 12 layers, d 768, 12 heads,
    kv 4, d_ff 2048, V 50,304, K 8), built here, at full width in bf16 on
@@ -197,6 +234,12 @@ Phases, in order (any failure exits non-zero before the result line):
    (every 16th position of a held-out batch) on each path against the
    top-k of ``logits_dense`` restricted to the trained mask: ids equal but
    at near-ties, values within the kernel tolerance.
+Every profile opens with a head of one-element adds that it does not
+count, and must find the device record of each launch after them, or it
+is taken again with a longer head (``traced``): Kineto loses the records
+of a profile's first launches, more as the process ages
+(``tools/profiler_window.py``). The ``[profiler]`` line says how many
+profiles were taken again.
 8. Report: one ``{"kernels": [...]}`` line (thirteen kernel bodies, each
    with its host-timed and device-only times), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -255,9 +298,10 @@ HEAD_PATHS = ("jnp", "grouped", "cuda_grouped", "cuda_fused")
 # the per-token path serves fp tables only
 FP_HEAD_PATHS = HEAD_PATHS + ("cuda_pertoken",)
 HEAD_ROUNDS, HEAD_CALLS, AUTO_SLACK = 3, 5, 1.5
-# prefill's last position, decode at 8 slots, a speculative verify step's
-# size, a whole prompt scored at once (C 1, 1, 8 and 256 at cf 2.0, K 16)
-HEAD_BATCHES = (1, 8, 64, 2048)
+# prefill's last position, decode at 8 slots, a speculative verify step at
+# 8 slots and gamma 4 (8 x 5 rows), a verify step at 8 slots and gamma 7, a
+# whole prompt scored at once (C 1, 1, 5, 8 and 256 at cf 2.0, K 16)
+HEAD_BATCHES = (1, 8, 40, 64, 2048)
 # fp32 tokens (an fp32 copy of the table): a verify step's size and a whole
 # prompt (C 8 and 256)
 HEAD_BATCHES_FP32 = (64, 2048)
@@ -1186,16 +1230,16 @@ def device_ms_by_op(fn, calls: int = HEAD_CALLS) -> dict:
     """Device time of one ``fn()`` in ms per device op (kernel or copy),
     from the profiler over ``calls`` calls after one warm call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def body():
+        t = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:80]: _dev_time(e) / 1e3 / calls for e in prof.key_averages()
-            if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()}
+        return time.perf_counter() - t
+
+    fn()
+    return {op: us / 1e3 / calls for op, us in traced("device_ms_by_op", body).by_op().items()}
 
 
 def profiled_device_ms(fn, calls: int = HEAD_CALLS) -> float:
@@ -1247,26 +1291,26 @@ def head_path_step(results: dict, gen) -> None:
                         times[path].append(profiled_device_ms(
                             lambda: ds.serve_topk(gw, table, h, k, kernel=path)))
                 for path, t in times.items():
-                    for _ in range(HEAD_ROUNDS):  # a round whose profile held no device op
-                        if min(t) > 0:
-                            break
-                        t[t.index(0.0)] = profiled_device_ms(
-                            lambda: ds.serve_topk(gw, table, h, k, kernel=path))
                     if min(t) <= 0:
                         raise SmokeFailure(f"head path {path} ({kind}, B={B}): the profiler "
                                            f"saw no device time in {t}")
                 med = {path: statistics.median(t) for path, t in times.items()}
                 pick = registry.resolve_kernel("auto", ds.serve_kernel_context(table, h, k))
                 fastest = min(med, key=med.get)
+                # the tokens over capacity, which the grouped paths fix up by
+                # the gather path after the kernel
+                over = int(ds.serve_topk(gw, table, h, k, kernel="cuda_grouped",
+                                         with_stats=True)[2]["overflow"].sum())
                 row = {"table": kind, "tokens": str(tok)[6:], "B": B, "device_ms": med,
-                       "auto": pick, "fastest": fastest,
+                       "grouped_overflow": over, "auto": pick, "fastest": fastest,
                        "auto_over_fastest": med[pick] / med[fastest],
                        "rows_parted_from_jnp_at_ties": parted}
                 rows.append(row)
                 print(f"[head] {kind:9s} B={B}: " + "  ".join(
                     f"{path} {t:.4f}" for path, t in med.items())
                     + f" ms (device)  auto -> {pick} ({row['auto_over_fastest']:.2f}x the fastest, "
-                    f"{fastest}); rows parted from jnp at near-ties {parted}", flush=True)
+                    f"{fastest}); grouped overflow {over} tokens; rows parted from jnp at "
+                    f"near-ties {parted}", flush=True)
                 if med[pick] > AUTO_SLACK * med[fastest]:
                     failed.append(f"{kind} B={B}: auto picks {pick}, {med[pick]:.4f} ms, against "
                                   f"{fastest} {med[fastest]:.4f} ms")
@@ -1483,7 +1527,11 @@ class Recorder:
     output not recorded; the chunks of a prefill the arena cut short are
     timed apart too (``aborted_s``). While :func:`_watch_gate` watches the
     head, each emission's gate probabilities are kept beside its (values,
-    ids) in ``gates``."""
+    ids) in ``gates``. In a speculative session the session's verify step
+    (``sess._verify``: the backbone, replayed or eager, and the head over
+    every block) and its draft decodes (``sess._draft_decode``) are timed
+    (``verify_s``, ``draft_s``), and each emitted token is recorded with
+    the verify row it came from (wrapping ``sess._emit``)."""
 
     def __init__(self, sess, reqs):
         import numpy as np
@@ -1492,6 +1540,7 @@ class Recorder:
         self.heads = {i: [] for i in range(len(reqs))}
         self.gates = {i: [] for i in range(len(reqs))}
         self.prefill_s, self.resume_s, self.decode_s = {}, {}, []
+        self.verify_s, self.draft_s = [], []
         self.aborted_s, self.peak_pages = 0.0, 0
         paged = "paged" in sess.stats()
         index = {id(r): i for i, r in enumerate(reqs)}
@@ -1570,6 +1619,43 @@ class Recorder:
 
         sess.bundle = dataclasses.replace(bundle, prefill=prefill, prefill_chunk=prefill_chunk)
         sess._decode = decode
+        if sess._draft is None:
+            return
+        verify_fn, draft_fn, emit_fn = sess._verify, sess._draft_decode, sess._emit
+        block = {}  # slot -> (its request, the unread (vals, ids, gate) rows of its block)
+
+        def draft_decode(tok, pos):
+            out, dt = timed(draft_fn, tok, pos)
+            self.draft_s.append(dt)
+            return out
+
+        def verify(blocks, pos0):
+            self.aborted_s += pending[0]
+            pending[0] = 0.0
+            owners = [s.req if s is not None else None for s in sess.scheduler.slots]
+            out, dt = timed(verify_fn, blocks, pos0)
+            self.verify_s.append(dt)
+            vals, ids = out[0].cpu(), out[1].cpu()
+            W = vals.shape[1]
+            gate = _LAST_GATE[0] if _LAST_GATE else None
+            block.clear()
+            for b, r in enumerate(owners):
+                if r is not None:
+                    block[b] = (r, [(vals[b, w], ids[b, w],
+                                     None if gate is None else gate[b * W + w])
+                                    for w in range(W)])
+            return out
+
+        def emit(i, slot, token):
+            got = block.get(i)
+            if got is not None and got[0] is slot.req and got[1]:
+                v, d, g = got[1].pop(0)
+                self.heads[index[id(slot.req)]].append((v, d))
+                if g is not None:
+                    self.gates[index[id(slot.req)]].append(g)
+            return emit_fn(i, slot, token)
+
+        sess._verify, sess._draft_decode, sess._emit = verify, draft_decode, emit
 
 
 def _diverge_check(label, streams, heads, kerns, ref_kern, rtol, greedy_only=False,
@@ -1858,12 +1944,90 @@ def batch_phase(results: dict, card: str, params, cases) -> None:
 # Phase 4: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
-def _dev_time(e) -> float:
-    """Self device time (µs) of a profiler event average, across versions."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(e, attr):
-            return float(getattr(e, attr))
-    return 0.0
+# Kineto's results lose the device records of a profile's first launches,
+# more of them as the process ages (tools/profiler_window.py on an H100: none
+# in a fresh process, 26 of 75 after 7 minutes, at times all 75; a later
+# launch or a host sleep after the calls does not bring them back). So
+# every profile here opens with PROFILE_HEAD one-element adds that it does
+# not count, and holds each launch after them to its device record by
+# correlation id (``traced``).
+PROFILE_HEAD, PROFILE_ATTEMPTS = 64, 4
+PROFILE_CHECKS: list = []  # one row per profile: the head, the launches lost
+
+
+class Trace:
+    """What one sound profile saw after its head: device records (name,
+    µs), host runtime calls by name, and the body's wall seconds."""
+
+    def __init__(self, prof, head: int, wall: float):
+        recs, host = {}, []
+        for e in prof.profiler.kineto_results.events():
+            if "cuda" in str(e.device_type()).lower():
+                if not e.is_user_annotation():
+                    recs.setdefault(e.correlation_id(), []).append(
+                        (e.name(), e.duration_ns() / 1e3))
+            else:
+                host.append((e.start_ns(), e.name(), e.correlation_id()))
+        host.sort()
+        launches = [(n, c) for _, n, c in host if n in LAUNCH_OPS]
+        skip = {c for _, c in launches[:head]}
+        body = launches[head:]
+        # a launch without its record, or a replay of one graph that kept
+        # fewer of its kernels' records than another
+        per_graph = [len(recs.get(c, ())) for n, c in body if n == "cudaGraphLaunch"]
+        self.lost = (sum(1 for _, c in body if c not in recs)
+                     + sum(max(per_graph) - k for k in per_graph))
+        self.device = [r for c, rs in recs.items() if c not in skip for r in rs]
+        self.host = {}
+        for _, n, c in host:
+            if c not in skip:
+                self.host[n] = self.host.get(n, 0) + 1
+        self.wall = wall
+
+    def busy_us(self) -> float:
+        return sum(us for _, us in self.device)
+
+    def by_op(self) -> dict:
+        """Device µs per op name (the first 80 characters)."""
+        out: dict = {}
+        for n, us in self.device:
+            out[n[:80]] = out.get(n[:80], 0.0) + us
+        return out
+
+    def top(self, n: int, per: float = 1.0) -> list:
+        return [(k, us / 1e3 / per) for k, us in sorted(self.by_op().items(),
+                                                          key=lambda kv: -kv[1])[:n]]
+
+    def count(self, names) -> int:
+        return sum(self.host.get(n, 0) for n in names)
+
+
+def traced(where: str, body) -> Trace:
+    """``body()`` (which returns its wall seconds) under ``torch.profiler``
+    (CPU and CUDA) after PROFILE_HEAD one-element adds; again with a head
+    four times as long while a launch of the body lost its device record,
+    PROFILE_ATTEMPTS times in all, then SmokeFailure. ``body`` must be
+    safe to run again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(1, device="cuda")
+    head = PROFILE_HEAD
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(head):
+                pad.add_(1)
+            wall = body()
+        t = Trace(prof, head, wall)
+        PROFILE_CHECKS.append({"where": where, "head": head, "lost": t.lost,
+                               "launches": t.count(LAUNCH_OPS)})
+        if not t.lost:
+            return t
+        print(f"[profiler] {where}: {t.lost} launches of {t.count(LAUNCH_OPS)} without "
+              f"their device records after a head of {head}; again", flush=True)
+        head *= 4
+    raise SmokeFailure(f"{where}: the profiler lost device records in {PROFILE_ATTEMPTS} tries")
 
 
 def graph_pool_mib(graph):
@@ -1917,7 +2081,6 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
     its CUDA graph). Greedy streams token-identical, one capture."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import Request, SamplingParams, ServeSession
     from repro_torch.train.serve import GRAPH_WARMUP_STEPS
@@ -1932,7 +2095,8 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
             sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
                                 k=K_TOP, kernel=kern, device="cuda", decode_graph=graph)
             reqs = [Request(prompt=p, sampling=SamplingParams(
-                max_new_tokens=PROFILE_STEPS + PROFILE_TRACED + GRAPH_WARMUP_STEPS + 4))
+                max_new_tokens=PROFILE_STEPS + PROFILE_ATTEMPTS * PROFILE_TRACED
+                + GRAPH_WARMUP_STEPS + 4))
                 for p in prompts]
             for r in reqs:
                 sess.submit(r)
@@ -1946,18 +2110,17 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
                 sess.step()
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            def steps():
                 t0 = time.perf_counter()
                 for _ in range(PROFILE_TRACED):
                     sess.step()
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            events = prof.key_averages()
-            dev = [e for e in events
-                   if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
-            busy_us = sum(_dev_time(e) for e in dev)
-            st = sess.stats()
+                return time.perf_counter() - t0
+
             mode = "eager" if graph is False else "graph"
+            tr = traced(f"profile {label} {mode}", steps)
+            wall, busy_us = tr.wall, tr.busy_us()
+            st = sess.stats()
             row = {
                 "kernel": label, "decode_graph": mode, "card": card,
                 "step_ms_median": 1e3 * statistics.median(times),
@@ -1969,15 +2132,11 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
                 "device_idle_share_untraced":
                     (1.0 - busy_us / 1e3 / PROFILE_TRACED / (1e3 * statistics.median(times)))
                     if busy_us else None,
-                "device_ops_per_step": sum(e.count for e in dev) / PROFILE_TRACED,
-                "host_launches_per_step":
-                    sum(e.count for e in events if e.key in LAUNCH_OPS) / PROFILE_TRACED,
-                "host_syncs_and_copies_per_step":
-                    sum(e.count for e in events if e.key in SYNC_OPS) / PROFILE_TRACED,
+                "device_ops_per_step": len(tr.device) / PROFILE_TRACED,
+                "host_launches_per_step": tr.count(LAUNCH_OPS) / PROFILE_TRACED,
+                "host_syncs_and_copies_per_step": tr.count(SYNC_OPS) / PROFILE_TRACED,
                 "decode_graphs": st["decode_graphs"],
-                "top_device_ops_ms_per_step": [
-                    (e.key[:80], _dev_time(e) / 1e3 / PROFILE_TRACED)
-                    for e in sorted(dev, key=_dev_time, reverse=True)[:10]],
+                "top_device_ops_ms_per_step": tr.top(10, PROFILE_TRACED),
             }
             if graph is None:
                 g = sess._graph.graph
@@ -1989,6 +2148,7 @@ def profile_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
             if st["decode_graphs"] != want:
                 raise SmokeFailure(f"profile {label} {mode}: decode_graphs "
                                    f"{st['decode_graphs']}, expected {want}")
+            sess.run()  # a profile taken again stepped further: finish every stream
             rows[mode] = (row, [list(r.out_tokens) for r in reqs])
             results.setdefault("profile", []).append(row)
             print(f"[profile] {json.dumps(row)}", flush=True)
@@ -2272,7 +2432,7 @@ def _topk_parts_only_at_ties(label, vk, ik, vp, ip, tol) -> None:
                                f"at a gap of {gap:.4g} > {tol:.4g}")
 
 
-def _held_within_drift(label, a_run, ref_run, rtol=BF16_DRIFT) -> dict:
+def _held_within_drift(label, a_run, ref_run, rtol=BF16_DRIFT, tag="prefill") -> dict:
     """Each request's greedy stream against the reference's; a run is
     (streams, Recorder) with the gate watched. While the streams agree,
     each emission's top-1 value and top-1 gate probability stay within
@@ -2313,7 +2473,7 @@ def _held_within_drift(label, a_run, ref_run, rtol=BF16_DRIFT) -> dict:
         kind = "gate" if e_a != e_ref else "token"
         if (g_gap if kind == "gate" else gap) > 2 * rtol:
             kind = None
-        print(f"[prefill] {label}: request {i} leaves the reference at emission {n}: "
+        print(f"[{tag}] {label}: request {i} leaves the reference at emission {n}: "
               f"reference top-2 {rv[:2].tolist()} ids {ri[:2].tolist()}, token {a[n]} "
               f"{'at ' + format(other, '.6g') if len(at) else 'outside its top-k'} (gap "
               f"{gap:.3g} of the top-1); experts {e_ref} / {e_a}, gate gap {g_gap:.3g}: "
@@ -2333,22 +2493,17 @@ def warm_prefill_profile(prefill, label="(a)") -> dict:
     device-busy ms, the device's idle share, device ops, the
     flash_attention kernels' device ms, the five ops that take most."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     warm = [sync_s(prefill)[1] * 1e3 for _ in range(3)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = sync_s(prefill)
-    dev = [e for e in prof.key_averages()
-           if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
-    busy_ms = sum(_dev_time(e) for e in dev) / 1e3
-    flash_ms = sum(_dev_time(e) for e in dev
-                   if "fa_wgmma_kernel" in e.key or "fa_simt_kernel" in e.key
-                   or "flash_attention_kernel" in e.key) / 1e3
+    tr = traced(f"prefill {label}", lambda: sync_s(prefill)[1])
+    wall, busy_ms = tr.wall, tr.busy_us() / 1e3
+    flash_ms = sum(us for n, us in tr.device
+                   if "fa_wgmma_kernel" in n or "fa_simt_kernel" in n
+                   or "flash_attention_kernel" in n) / 1e3
     rec = {"ms_median_of_3": statistics.median(warm), "traced_ms": wall * 1e3,
            "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
-           "device_ops": sum(e.count for e in dev), "flash_attention_device_ms": flash_ms,
-           "top_device_ops_ms": [(e.key[:80], _dev_time(e) / 1e3)
-                                 for e in sorted(dev, key=_dev_time, reverse=True)[:5]]}
+           "device_ops": len(tr.device), "flash_attention_device_ms": flash_ms,
+           "top_device_ops_ms": tr.top(5)}
     print(f"[prefill] {label} warm: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -2603,6 +2758,384 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Spec phase: speculative decoding at llama3.2-3b's full width, granite-20b
+# served at full width, the head paths at the three new head shapes
+# ---------------------------------------------------------------------------
+
+SPEC_ARCH, SPEC_GAMMA, SPEC_NEW = "llama3.2-3b", 4, 32
+SPEC_PROMPT_LENS = (16, 512, 40, 300, 100, 64, 200, 24)
+SPEC_CHUNK = 128                 # the paged session's prefill chunk
+SPEC_SEQ = 640                   # >= 512 + 32 - 1 + 4; a multiple of 16 and 128
+SPEC_SHALLOW_LAYERS = 2          # the shallow draft: llama3.2-3b's widths, 2 layers
+SPEC_ACCEPT_MIN = 0.9            # the self-draft's accept rate, at least
+SPEC_SAMPLING = dict(temperature=0.8, top_k=8)
+# step times are medians over the calls replayed from a graph: past the
+# graph's warm-up calls (train.serve.GRAPH_WARMUP_STEPS, 3) and its capture
+REPLAYED = 4
+GRANITE_PROMPT_LENS = (16, 1024, 40, 300, 100, 700, 64, 200)
+GRANITE_NEW = 16
+GRANITE_SEQ = 1040               # >= 1024 + 16 - 1, a multiple of 16
+WIDE_HEAD_ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b")
+WIDE_HEAD_BATCHES = (8, 40)      # decode at 8 slots; a verify step at 8 slots, gamma 4
+WIDE_HEAD_PATHS = ("cuda_grouped", "cuda_fused", "cuda_pertoken")
+
+
+def _seeded_model(arch, seed, **replace):
+    """``arch`` at full width (``replace`` applied to its config) with
+    seeded weights, its head packed on the seeded stand-in mask; the
+    experts are dropped after packing (a session reads the gate and the
+    table). Returns (cfg, bundle, params, table)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.models import build
+
+    cfg = get_config(arch).replace(**replace)
+    bundle = build(cfg, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(seed))
+    table = ds.pack_experts(params["head"], ds.DSState(mask=stand_in_mask(cfg, "cuda")))
+    params["head"] = {"gate": params["head"]["gate"]}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, bundle, params, table
+
+
+def spec_phase(results: dict, card: str) -> None:
+    """(a) speculative decoding of llama3.2-3b at full width, (b)
+    granite-20b served at full width, (c) the head paths at the head shapes
+    of llama3.2-3b, granite-20b and deepseek-67b."""
+    import torch
+
+    out = results.setdefault("spec", {"card": card})
+    spec_sessions(out, card)
+    torch.cuda.empty_cache()
+    granite_serving(out, card)
+    torch.cuda.empty_cache()
+    wide_heads(out, card)
+    torch.cuda.empty_cache()
+
+
+def spec_sessions(out: dict, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, registry
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    t0 = time.perf_counter()
+    cfg, bundle, params, table = _seeded_model(SPEC_ARCH, SEED)
+    _, d_bundle, d_params, d_table = _seeded_model(SPEC_ARCH, SEED + 7,
+                                                   n_layers=SPEC_SHALLOW_LAYERS)
+    print(f"[spec] (a) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, H {cfg.n_heads}, "
+          f"H_kv {cfg.n_kv_heads}, vocab {cfg.padded_vocab}, K {cfg.ds.num_experts}; table "
+          f"v_pad {table.v_pad}; shallow draft {SPEC_SHALLOW_LAYERS} layers (seed {SEED + 7}, "
+          f"v_pad {d_table.v_pad}); init + pack {time.perf_counter() - t0:.1f} s; device "
+          f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.RandomState(SEED + 8)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in SPEC_PROMPT_LENS]
+    drafts = {"self": (bundle, params, table), "shallow": (d_bundle, d_params, d_table)}
+    # the verify head's path and body at this batch (what auto picks)
+    h40 = torch.zeros((N_SLOTS * (SPEC_GAMMA + 1), cfg.d_model), dtype=cfg.jdtype,
+                      device="cuda")
+    vctx = ds.serve_kernel_context(table, h40, K_TOP)
+    vpath = registry.resolve_kernel("auto", vctx)
+    vbody = {"cuda_grouped": registry.grouped_body(vctx), "cuda_fused": "dss_topk_fused",
+             "cuda_pertoken": "dss_topk"}.get(vpath)
+
+    def session(label, draft=None, sampled=False, record=False, backfill=True, **kw):
+        sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=SPEC_SEQ,
+                            k=K_TOP, kernel="auto", overflow_threshold=BREAKER_OFF,
+                            device="cuda", gamma=SPEC_GAMMA,
+                            draft=None if draft is None else drafts[draft], **kw)
+        sess._draft_backfill = backfill  # False: repro's draft schedule
+        sp = SPEC_SAMPLING if sampled else {}
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=SPEC_NEW,
+                                                          seed=SEED + i, **sp))
+                for i, p in enumerate(prompts)]
+        rec = Recorder(sess, reqs) if record else None
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        st = sess.stats()
+        for r in reqs:
+            if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != SPEC_NEW:
+                raise SmokeFailure(f"spec {label}: request ended {r.status} ({r.error}) with "
+                                   f"{len(r.out_tokens)} tokens")
+            if not all(0 <= x < cfg.vocab_size for x in r.out_tokens):
+                raise SmokeFailure(f"spec {label}: token outside the vocabulary")
+        want = ({"decode_graphs": 1, "draft_graphs": 0, "verify_graphs": 0} if draft is None
+                else {"decode_graphs": 0, "draft_graphs": 1, "verify_graphs": 1})
+        got = {n: st[n] for n in want}
+        if got != want:
+            raise SmokeFailure(f"spec {label}: graph captures {got}, want {want}")
+        if "paged" in st and (st["paged"]["pages_in_use"]
+                              or st["paged"]["pages_free"] != st["paged"]["pages_total"]):
+            raise SmokeFailure(f"spec {label}: pages still held after the session "
+                               f"({st['paged']})")
+        if st["effective_kernel"] != "auto" or st["breaker_trips"]:
+            raise SmokeFailure(f"spec {label}: served through {st['effective_kernel']!r}")
+        return [list(r.out_tokens) for r in reqs], wall, rec, st, ops.launch_counts(), sess
+
+    rows, runs = [], {}
+    restore = _watch_gate()
+    try:
+        for label, draft, kw in (("baseline", None, {}), ("self-draft", "self", {}),
+                                 ("shallow draft", "shallow", {}),
+                                 ("self-draft, paged chunked", "self",
+                                  dict(paged=True, page_size=PAGE_SIZE,
+                                       prefill_chunk=SPEC_CHUNK)),
+                                 ("self-draft, no backfill", "self",
+                                  dict(backfill=False))):
+            # tokens/s from run() as a user calls it; step times, the heads
+            # and the gates from a second, instrumented run
+            streams, wall, _, st, launches, sess = session(label, draft, **kw)
+            again, _, rec, _, _, _ = session(label, draft, record=True, **kw)
+            if again != streams:
+                raise SmokeFailure(f"spec {label}: two runs on the same requests gave other "
+                                   "tokens")
+            runs[label] = (streams, rec)
+            n_tok = sum(map(len, streams))
+            row = {"session": label, "tokens": n_tok, "wall_s": wall,
+                   "tokens_per_s": n_tok / wall, "launches": launches,
+                   "graph_captures": {n: st[n] for n in ("decode_graphs", "draft_graphs",
+                                                          "verify_graphs")},
+                   "paged": st.get("paged"), "card": card, **kw}
+            if draft is None:
+                step = statistics.median(rec.decode_s[REPLAYED:])
+                row.update(decode_step_ms_median=1e3 * step,
+                           steady_tokens_per_s=N_SLOTS / step)
+                row["decode_graph_pool_mib"] = graph_pool_mib(sess._graph.graph)
+                if launches[FLASH_TC] < 1 or launches[FLASH_SIMT]:
+                    raise SmokeFailure(f"spec {label}: prefill launches {launches}")
+            else:
+                spec = st["speculative"]
+                verify = statistics.median(rec.verify_s[REPLAYED:])
+                draft_call = statistics.median(rec.draft_s[REPLAYED:])
+                calls = len(rec.draft_s) / len(rec.verify_s)  # gamma, plus the backfills
+                row.update(speculative=spec, verify_ms_median=1e3 * verify,
+                           draft_call_ms_median=1e3 * draft_call, draft_calls_per_step=calls,
+                           draft_ms_per_step=1e3 * calls * draft_call,
+                           steady_tokens_per_s=spec["emitted_per_step"]
+                           / (verify + calls * draft_call),
+                           verify_graph_pool_mib=graph_pool_mib(sess._verify_graph.graph),
+                           draft_graph_pool_mib=graph_pool_mib(sess._draft_graph.graph))
+                need = [vbody, "dss_topk_fused"] + ([] if "prefill_chunk" in kw else [FLASH_TC])
+                if vpath == "cuda_grouped":
+                    need.append("gate_top1")
+                if any(launches[n] < 1 for n in need if n) or launches[FLASH_SIMT]:
+                    raise SmokeFailure(f"spec {label}: a kernel body of the path never "
+                                       f"launched (need {need}): {launches}")
+            rows.append(row)
+            print(f"[spec] (a) {label}: {n_tok} tokens in {wall:.3f} s = "
+                  f"{row['tokens_per_s']:.2f} tokens/s"
+                  + f" (steady state {row['steady_tokens_per_s']:.1f})"
+                  + (f"; decode step median {row['decode_step_ms_median']:.2f} ms, graph pool "
+                     f"{row['decode_graph_pool_mib']} MiB" if draft is None else
+                     f"; {spec['emitted_per_step']:.3f} tokens and "
+                     f"{spec['accepted_per_step']:.3f} accepted per verify step "
+                     f"({spec['spec_steps']} steps), accept rate {spec['accept_rate']:.4f}; "
+                     f"verify {row['verify_ms_median']:.2f} ms (replay + head, median), "
+                     f"draft {row['draft_call_ms_median']:.2f} ms a call, "
+                     f"{row['draft_calls_per_step']:.2f} calls and {row['draft_ms_per_step']:.2f} "
+                     f"ms a step; pools verify "
+                     f"{row['verify_graph_pool_mib']} MiB, draft "
+                     f"{row['draft_graph_pool_mib']} MiB")
+                  + f"; captures {row['graph_captures']}; launches {launches}; card {card}",
+                  flush=True)
+    finally:
+        restore()
+    base = runs["baseline"]
+    drift = {label: _held_within_drift(f"{label} / baseline", run, base, tag="spec")
+             for label, run in runs.items() if label != "baseline"}
+    self_rate = rows[1]["speculative"]["accept_rate"]
+    if self_rate < SPEC_ACCEPT_MIN:
+        raise SmokeFailure(f"spec: the self-draft accepts {self_rate:.4f} of its proposals "
+                           f"(< {SPEC_ACCEPT_MIN})")
+    sampled = [session("sampled self-draft", "self", sampled=True)[0] for _ in range(2)]
+    if sampled[0] != sampled[1]:
+        raise SmokeFailure("spec: a sampled speculative run did not repeat token for token")
+    out.update(sessions=rows, drift={"allowed": BF16_DRIFT, **drift},
+               verify_path=vpath, verify_body=vbody, sampled_repeats=True)
+    print(f"[spec] (a) every speculative greedy stream held to the baseline's (drift allowed "
+          f"{BF16_DRIFT:.3g}, near-ties twice that): {json.dumps(drift)}; the verify head "
+          f"(B {h40.shape[0]}) on {vpath} ({vbody}); the sampled self-draft run "
+          f"({SPEC_SAMPLING}) repeats token for token; card {card}", flush=True)
+
+
+def granite_serving(out: dict, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    from repro_torch.testing import flash_attention_limit
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    t0 = time.perf_counter()
+    cfg, bundle, params, table = _seeded_model("granite-20b", SEED)
+    print(f"[spec] (b) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, H {cfg.n_heads}, "
+          f"H_kv {cfg.n_kv_heads}, act {cfg.act}, vocab {cfg.padded_vocab}, K "
+          f"{cfg.ds.num_experts}; table v_pad {table.v_pad}; init + pack "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.RandomState(SEED + 9)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in GRANITE_PROMPT_LENS]
+
+    # layer 0's attention of the longest prompt's prefill, through the kernel
+    long = torch.from_numpy(prompts[1][None].astype(np.int64)).to("cuda")
+    lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    x = layers.rmsnorm({"scale": params["layers"]["ln1"]["scale"][0]},
+                       layers.embed(params["embed"], long))
+    positions = torch.arange(long.shape[1], device="cuda")[None]
+    q, k, v = (t.transpose(1, 2) for t in layers._project_qkv(lp, cfg, x, positions))
+    before = ops.launch_counts()
+    o = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    if after[FLASH_TC] != before[FLASH_TC] + 1 or after[FLASH_SIMT] != before[FLASH_SIMT]:
+        raise SmokeFailure(f"granite: layer 0's prefill attention did not run {FLASH_TC} "
+                           f"({before} -> {after})")
+    want = ref.flash_attention_ref(q, k, v)
+    err = (o.float() - want.float()).abs()
+    limit = flash_attention_limit(q, k, v, want)
+    worst = float((err / limit).max())
+    if worst > 1.0:
+        raise SmokeFailure(f"granite: flash_attention at H {cfg.n_heads}, H_kv "
+                           f"{cfg.n_kv_heads} exceeds its limit ({worst:.3g} of it)")
+    del o, want, err, limit, q, k, v, x
+    print(f"[spec] (b) {FLASH_TC} at H {cfg.n_heads}, H_kv {cfg.n_kv_heads}, S "
+          f"{long.shape[1]}, dh {cfg.hd}: every element within flash_attention_limit "
+          f"(largest {worst:.3g} of it)", flush=True)
+
+    sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=GRANITE_SEQ,
+                        k=K_TOP, kernel="auto", overflow_threshold=BREAKER_OFF, device="cuda")
+    reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=GRANITE_NEW))
+            for p in prompts]
+    rec = Recorder(sess, reqs)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sess.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ops.launch_counts()
+    st = sess.stats()
+    for r in reqs:
+        if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != GRANITE_NEW \
+                or not all(0 <= x < cfg.vocab_size for x in r.out_tokens):
+            raise SmokeFailure(f"granite: request ended {r.status} ({r.error}) with "
+                               f"{r.out_tokens}")
+    for i, hs in rec.heads.items():
+        if not all(bool(torch.isfinite(vv).all()) for vv, _ in hs):
+            raise SmokeFailure(f"granite: request {i} saw a non-finite top-k value")
+    if st["decode_graphs"] != 1:
+        raise SmokeFailure(f"granite: {st['decode_graphs']} decode graph captures")
+    if launches[FLASH_TC] != len(prompts) * cfg.n_layers or launches[FLASH_SIMT]:
+        raise SmokeFailure(f"granite: {launches[FLASH_TC]} {FLASH_TC} launches for "
+                           f"{len(prompts)} prefills of {cfg.n_layers} layers ({launches})")
+    # the bytes a decode step at the session's median position must move
+    pos = [len(p) + GRANITE_NEW // 2 for p in prompts]
+    nbytes = backbone_bytes(params, cfg, pos)
+    step_ms = 1e3 * statistics.median(rec.decode_s[REPLAYED:])
+    row = {"tokens": sum(len(r.out_tokens) for r in reqs), "wall_s": wall,
+           "decode_step_ms_median": step_ms, "decode_steps": len(rec.decode_s),
+           "backbone_bytes": nbytes, "backbone_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "prefill_ms_longest": 1e3 * rec.prefill_s[1],
+           "decode_graph_pool_mib": graph_pool_mib(sess._graph.graph), "launches": launches,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    out["granite"] = row
+    print(f"[spec] (b) {row['tokens']} tokens in {wall:.3f} s; decode step median "
+          f"{step_ms:.2f} ms against a bytes bound of {row['backbone_bound_ms']:.2f} ms "
+          f"(the backbone's {nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"the {len(prompts[1])}-token prefill {row['prefill_ms_longest']:.1f} ms; "
+          f"graph pool {row['decode_graph_pool_mib']} MiB; every stream finite; launches "
+          f"{launches}; peak memory {row['peak_memory_gib']:.2f} GiB; card {card}", flush=True)
+    del sess, rec, params, table, bundle
+
+
+def wide_heads(out: dict, card: str) -> None:
+    """``serve_topk`` at the head shapes of WIDE_HEAD_ARCHS (K, d from the
+    config, V_pad from its stand-in mask) on a seeded stand-in table and its
+    int8 table, at B 8 and 40 with bf16 tokens: every exact path against
+    jnp (ids equal but at near-ties, values within phase 2's tolerance);
+    cuda_pertoken, which folds g·h to bf16, against its own plain version
+    (``gate_top1_ref``, the fold, ``dss_topk_ref``) to that tolerance and
+    against jnp's ids at FOLD_RTOL. Each call's device time from the
+    profiler (``traced``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, ref, registry
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rows = []
+    for arch in WIDE_HEAD_ARCHS:
+        cfg = get_config(arch)
+        K, d = cfg.ds.num_experts, cfg.d_model
+        v_pad = -(-int(stand_in_mask(cfg, "cuda").sum(1).max()) // 128) * 128
+        w, ids = _table(gen, K, v_pad, d, torch.bfloat16)
+        fp = ds.ServeTable(ids=ids, weights=w)
+        tables = {"fp": fp, "int8": ds.quantize_table(fp)}
+        gate = torch.randn((K, d), generator=gen, device="cuda").mul_(d ** -0.5).to(torch.bfloat16)
+        for B in WIDE_HEAD_BATCHES:
+            h = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for kind, table in tables.items():
+                want = ds.serve_topk(gate, table, h, K_TOP, kernel="jnp")
+                ms = {"jnp": profiled_device_ms(
+                    lambda: ds.serve_topk(gate, table, h, K_TOP, kernel="jnp"))}
+                errs, parted, bodies = {}, {}, {}
+                ctx = ds.serve_kernel_context(table, h, K_TOP)
+                sfx = "_q" if kind == "int8" else ""
+                needs = {"cuda_grouped": ("gate_top1", registry.grouped_body(ctx) + sfx),
+                         "cuda_fused": ("dss_topk_fused" + sfx,),
+                         "cuda_pertoken": ("gate_top1", "dss_topk")}
+                for path in WIDE_HEAD_PATHS:
+                    if path == "cuda_pertoken" and kind == "int8":
+                        continue
+                    ops.reset_launch_counts()
+                    got = ds.serve_topk(gate, table, h, K_TOP, kernel=path)
+                    torch.cuda.synchronize()
+                    bodies[path] = {n: c for n, c in ops.launch_counts().items() if c}
+                    case = f"{arch} {kind} B={B} {path}"
+                    if any(bodies[path].get(n, 0) < 1 for n in needs[path]):
+                        raise SmokeFailure(f"wide head {case}: launched {bodies[path]}, "
+                                           f"needs {needs[path]}")
+                    if path == "cuda_pertoken":
+                        e, g = ref.gate_top1_ref(gate, h)
+                        h_scaled = (h.float() * g[:, None]).to(h.dtype)
+                        plain = ref.dss_topk_ref(table.weights, table.ids, h_scaled, e, K_TOP)
+                        errs[path], parted[path] = _compare("wide head", case, got, plain)
+                        parted[path + " ids vs jnp"] = _parted_rows(
+                            f"wide head {case} (against jnp)", *got, *want, rtol=FOLD_RTOL)
+                    else:
+                        errs[path], parted[path] = _compare("wide head", case, got, want)
+                    ms[path] = profiled_device_ms(
+                        lambda: ds.serve_topk(gate, table, h, K_TOP, kernel=path))
+                over = int(ds.serve_topk(gate, table, h, K_TOP, kernel="cuda_grouped",
+                                         with_stats=True)[2]["overflow"].sum())
+                row = {"arch": arch, "K": K, "d": d, "v_pad": v_pad, "table": kind, "B": B,
+                       "capacity": ctx.capacity, "grouped_overflow": over, "device_ms": ms,
+                       "max_abs_err": errs,
+                       "rows_parted_at_ties": parted, "launches": bodies,
+                       "auto": registry.resolve_kernel("auto", ctx)}
+                rows.append(row)
+                print(f"[spec] (c) {arch} head (K {K}, d {d}, V_pad {v_pad}) {kind:4s} B={B:2d} "
+                      f"C={ctx.capacity}: " + "  ".join(f"{p} {t:.4f}" for p, t in ms.items())
+                      + f" ms (device, profiler); auto -> {row['auto']}; grouped overflow "
+                      f"{over} tokens; bodies {bodies}; max |err| {errs}; rows parted at "
+                      f"near-ties {parted}", flush=True)
+        del w, ids, fp, tables
+        torch.cuda.empty_cache()
+    out["wide_heads"] = rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: training (lm-100m at full width) and serving the trained table
 # ---------------------------------------------------------------------------
 
@@ -2715,7 +3248,6 @@ def _train_and_serve(cfg, out, stream, batch_at, trainer, write_s, ckpt_root) ->
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import dssoftmax as ds
     from repro_torch.core import mitosis
@@ -2811,29 +3343,25 @@ def _train_and_serve(cfg, out, stream, batch_at, trainer, write_s, ckpt_root) ->
     st, _ = step_fn(final, batches[0])
     del st
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def steps():
         t0 = time.perf_counter()
         for b in batches[1:]:
             st, m = step_fn(final, b)
             del st, m
         torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev = [e for e in events if _dev_time(e) > 0 and "cuda" in str(e.device_type).lower()]
-    busy_us = sum(_dev_time(e) for e in dev)
+        return time.perf_counter() - t0
+
+    tr_prof = traced("train (a1)", steps)
+    wall, busy_us = tr_prof.wall, tr_prof.busy_us()
     prof_row = {
-        "traced_step_ms": 1e3 * traced / TRAIN_PROFILED,
+        "traced_step_ms": 1e3 * wall / TRAIN_PROFILED,
         "device_busy_ms_per_step": busy_us / 1e3 / TRAIN_PROFILED,
-        "device_idle_share": 1.0 - busy_us / 1e6 / traced,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_idle_share_untraced": 1.0 - busy_us / 1e3 / TRAIN_PROFILED / (1e3 * step_s),
-        "device_ops_per_step": sum(e.count for e in dev) / TRAIN_PROFILED,
-        "host_launches_per_step":
-            sum(e.count for e in events if e.key in LAUNCH_OPS) / TRAIN_PROFILED,
-        "host_syncs_and_copies_per_step":
-            sum(e.count for e in events if e.key in SYNC_OPS) / TRAIN_PROFILED,
-        "top_device_ops_ms_per_step": [
-            (e.key[:80], _dev_time(e) / 1e3 / TRAIN_PROFILED)
-            for e in sorted(dev, key=_dev_time, reverse=True)[:12]]}
+        "device_ops_per_step": len(tr_prof.device) / TRAIN_PROFILED,
+        "host_launches_per_step": tr_prof.count(LAUNCH_OPS) / TRAIN_PROFILED,
+        "host_syncs_and_copies_per_step": tr_prof.count(SYNC_OPS) / TRAIN_PROFILED,
+        "top_device_ops_ms_per_step": tr_prof.top(12, TRAIN_PROFILED)}
     out["profile"] = prof_row
     print(f"[train] (a1) profiled {TRAIN_PROFILED} steps: {json.dumps(prof_row)}", flush=True)
     del batches
@@ -3021,6 +3549,8 @@ def main() -> int:
     timed("adapt", adapt_phase, results, card, cfg, bundle, params, mask, gamma)
     timed("prefill", prefill_phase, results, card, cfg, bundle, params, cases[0][1])
     del bundle, params, cases
+    torch.cuda.empty_cache()
+    timed("spec", spec_phase, results, card)
     timed("train", train_phase, results, card)
 
     from repro_torch.kernels import ops
@@ -3066,6 +3596,11 @@ def main() -> int:
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                         "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                         "library_device_ms": m["library_device_ms"]})
+    results["profile_checks"] = PROFILE_CHECKS
+    again = [c for c in PROFILE_CHECKS if c["lost"]]
+    print(f"[profiler] {len(PROFILE_CHECKS)} profiles, {len(again)} of them taken again "
+          f"after a launch lost its device record (heads {sorted({c['head'] for c in again})}, "
+          f"at most {max((c['lost'] for c in again), default=0)} lost)", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))

@@ -1,24 +1,27 @@
 """Architecture registry: ``get_config(arch)`` and ``reduce_config``.
 
-Only the dense architectures this slice of the port can build are listed;
-the others raise ``KeyError`` naming the slice that adds their family.
+Every dense architecture of ``repro``'s registry is listed; the others
+raise ``KeyError`` naming the work that adds their family.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import paper_lm, qwen2_1_5b
+from repro_torch.configs import deepseek_67b, granite_20b, llama3_2_3b, paper_lm, qwen2_1_5b
 from repro_torch.configs.base import DSSoftmaxConfig, ModelConfig, ShapeConfig, TrainConfig
 
 _CONFIGS: Dict[str, ModelConfig] = {
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
+    "llama3.2-3b": llama3_2_3b.CONFIG,
+    "granite-20b": granite_20b.CONFIG,
+    "deepseek-67b": deepseek_67b.CONFIG,
     "paper-ptb": paper_lm.PTB,
     "paper-wiki2": paper_lm.WIKI2,
     "paper-casia": paper_lm.CASIA,
 }
 
 # Archs of repro's registry whose family is not ported yet (ROADMAP.md,
-# Queue 1 item 6) — dense ones among them need nothing beyond a config.
+# Queue 1 item 6).
 _LATER = {
     "mamba2-130m": "the ssm family (Queue 1 item 6)",
     "zamba2-7b": "the hybrid family (Queue 1 item 6)",
@@ -27,9 +30,6 @@ _LATER = {
     "whisper-base": "the encdec family (Queue 1 item 6)",
     "paper-envi": "the encdec family (Queue 1 item 6)",
     "internvl2-26b": "the vlm family (Queue 1 item 6)",
-    "granite-20b": "a later slice that ports its config file",
-    "llama3.2-3b": "a later slice that ports its config file",
-    "deepseek-67b": "a later slice that ports its config file",
 }
 
 

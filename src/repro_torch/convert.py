@@ -57,11 +57,29 @@ def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         "layers/mlp/w_down": (L, ff, d),
         "final_norm/scale": (d,),
     }
+    if cfg.act == "swiglu":
+        shapes["layers/mlp/w_gate"] = (L, d, ff)
     if cfg.head == "ds":
         K = cfg.ds.num_experts
         shapes.update({"head/gate": (K, d), "head/experts": (K, cfg.padded_vocab, d),
                        MASK_KEY: (K, cfg.padded_vocab)})
     return shapes
+
+
+def check_shapes(np_tree: Dict[str, np.ndarray], cfg: ModelConfig) -> None:
+    """Raise unless ``np_tree`` (the form :func:`params_from_jax` takes) has
+    every leaf the config needs at its shape: ``KeyError`` for a missing
+    leaf, ``ValueError`` for a wrong shape or for an MLP gate
+    (``layers/mlp/w_gate``) where ``cfg.act`` is not 'swiglu'."""
+    for path, shape in _expected_shapes(cfg).items():
+        if path not in np_tree:
+            raise KeyError(f"missing parameter {path!r}")
+        if tuple(np_tree[path].shape) != shape:
+            raise ValueError(f"{path}: shape {tuple(np_tree[path].shape)}, "
+                             f"expected {shape} for {cfg.name}")
+    if cfg.act != "swiglu" and "layers/mlp/w_gate" in np_tree:
+        raise ValueError(f"layers/mlp/w_gate given, but {cfg.name}'s MLP is {cfg.act!r} "
+                         "(no gate)")
 
 
 def params_from_jax(np_tree: Dict[str, np.ndarray], cfg: ModelConfig,
@@ -72,12 +90,7 @@ def params_from_jax(np_tree: Dict[str, np.ndarray], cfg: ModelConfig,
     on ``device``. Raises if a leaf the config needs is missing or has
     the wrong shape."""
     dev = resolve_device(device)
-    for path, shape in _expected_shapes(cfg).items():
-        if path not in np_tree:
-            raise KeyError(f"missing parameter {path!r}")
-        if tuple(np_tree[path].shape) != shape:
-            raise ValueError(f"{path}: shape {tuple(np_tree[path].shape)}, "
-                             f"expected {shape} for {cfg.name}")
+    check_shapes(np_tree, cfg)
     params: dict = {}
     state = None
     for path, a in np_tree.items():

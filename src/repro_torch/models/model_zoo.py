@@ -30,6 +30,19 @@ class ModelBundle:
     decode_hidden: Callable[..., Any]
     # chunked prefill into an existing cache (``transformer.prefill_chunk``)
     prefill_chunk: Optional[Callable[..., Any]] = None
+    # speculative draft–verify: a (B, W) candidate block at per-slot (B,)
+    # positions scored in one chunk-shaped call, the head over all B·W rows
+    # → (vals, ids) (B, W, k) (``transformer.verify_step``); K/V committed
+    # in place, masking makes rollback free
+    verify_step: Optional[Callable[..., Any]] = None
+    # its backbone, up to the (B, W, d) hidden states the head reads
+    # (``transformer.verify_hidden``); ``ServeSession`` captures it as a
+    # CUDA graph
+    verify_hidden: Optional[Callable[..., Any]] = None
+    # True for families whose verify step leaves recurrent state alone and
+    # needs a commit pass after acceptance (the ssm/hybrid families of
+    # ``repro``); never for the dense family
+    verify_needs_state_commit: bool = False
 
 
 def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
@@ -53,6 +66,12 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         prefill_chunk=lambda p, t, cache, tokens, pos0, n_valid, k=8, kernel=None,
         pages=None: transformer.prefill_chunk(p, t, cfg, cache, tokens, pos0, n_valid,
                                               k=k, kernel=kernel, pages=pages),
+        verify_step=lambda p, t, cache, tokens, pos0, k=8, kernel=None, capacity_factor=None,
+        with_stats=False, pages=None: transformer.verify_step(
+            p, t, cfg, cache, tokens, pos0, k=k, kernel=kernel,
+            capacity_factor=capacity_factor, with_stats=with_stats, pages=pages),
+        verify_hidden=lambda p, cache, tokens, pos0, pages=None: transformer.verify_hidden(
+            p, cfg, cache, tokens, pos0, pages=pages),
     )
 
 

@@ -205,6 +205,39 @@ def _chunk_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pa
     return rmsnorm(params["final_norm"], x)
 
 
+def verify_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pages=None):
+    """The verify backbone: :func:`_chunk_hidden` over a (B, W) block at
+    per-row starts ``pos0`` ((B,) int tensor), the cache written in place.
+    Returns the hidden states (B, W, d). With a tensor ``pos0`` it makes no
+    host sync and has no data-dependent shape: a CUDA graph can capture
+    it."""
+    return _chunk_hidden(params, cfg, cache, tokens, pos0, pages=pages)
+
+
+def verify_step(params, table, cfg: ModelConfig, cache: DecodeCache, tokens, pos0,
+                k: int = 8, kernel=None, capacity_factor=None, with_stats=False, pages=None):
+    """Speculative draft–verify: score a (B, W) block of candidate tokens.
+
+    tokens: (B, W) int; row b holds ``[t_b, d_1 .. d_{W-1}]`` (the slot's
+    last committed token, then the draft's proposals) at positions
+    ``pos0[b] .. pos0[b]+W-1``, ``pos0`` a (B,) int tensor. The chunk
+    backbone (:func:`verify_hidden`), then the head once over all B·W rows
+    (the grouped regime of the head at serving batch sizes). Returns (vals,
+    ids) of shape (B, W, k) and the cache: position w scores the target's
+    candidates for the token after the w-th input; plus the head's
+    per-expert telemetry when ``with_stats=True``.
+
+    K/V of all W positions are committed as written. Positions past a
+    slot's accepted prefix need no rollback: they stay masked, and the
+    next real token at each of them overwrites it."""
+    h = verify_hidden(params, cfg, cache, tokens, pos0, pages=pages)
+    B, W, d = h.shape
+    out = heads.head_topk(params["head"], table, cfg, h.reshape(B * W, d), k,
+                          embed_table=params["embed"]["table"], kernel=kernel,
+                          capacity_factor=capacity_factor, with_stats=with_stats)
+    return (out[0].reshape(B, W, k), out[1].reshape(B, W, k), cache, *out[2:])
+
+
 def decode_hidden(params, cfg: ModelConfig, cache: DecodeCache, token, pos, pages=None):
     """The decode backbone: embed one token per row, run the L layers
     against the cache (written in place at ``pos``) and the final norm.

@@ -58,8 +58,25 @@ preempted request resumes by re-prefilling ``prompt ++ out_tokens[:-1]``
 and continues its sampling stream at the preserved emission count. The
 decode step runs the same attention math on the gathered page view.
 
-Speculative decoding and the families with recurrent state (state pages)
-are later slices.
+``draft=(bundle, params, ds_state_or_table)`` turns on exact draft–verify
+speculative decoding, as in ``repro.train.serve``: each step the draft
+proposes ``gamma`` tokens per resident (sequential n_slots-token draft
+decodes against the draft's own contiguous cache), the target scores every
+resident's (gamma+1)-token block in one ``bundle.verify_step``-shaped call
+(the chunk backbone at per-slot positions, the head over all
+n_slots·(gamma+1) rows), and a host-side pass accepts: greedy emits the
+longest draft prefix that matches the target's argmax chain plus the
+target's token after it; sampled requests run rejection sampling over the
+head's top-k candidates, every uniform keyed by ``(seed, emission index)``
+(the acceptance rule and its Philox salts are copied from ``repro``, so
+the same blocks draw the same uniforms). Unlike ``repro``'s, the draft
+decodes the last proposal of a block the target accepted whole before its
+next round, so its cache holds every accepted token. On the card the draft's backbone
+and the verify backbone are each captured once as a CUDA graph (a
+:class:`_DecodeGraph` of width 1 over the draft's params and cache, and
+one of width gamma+1 over the target's), their heads eager after the
+replays. The recurrent-state families' commit pass is not ported (no such
+family is).
 """
 from __future__ import annotations
 
@@ -88,7 +105,13 @@ from repro_torch.serve.table_manager import (
 
 log = logging.getLogger("repro_torch.serve")
 
+# One Philox uniform stream per decision kind, each keyed by (seed, absolute
+# emission index): a stream's uniforms do not depend on how speculative
+# blocks were aligned, so a preempted request resumes identically.
 _SALT_SAMPLE = 0x5A17_0001   # plain top-k Gumbel-max sampling
+_SALT_DRAFT = 0x5A17_0002    # draft proposal sampling
+_SALT_ACCEPT = 0x5A17_0003   # speculative accept/reject uniform
+_SALT_RESID = 0x5A17_0004    # speculative residual draw
 # eager decode steps on a side stream before the capture (lazy cuBLAS and
 # allocator set-up must not happen under capture), as PyTorch's own
 # make_graphed_callables warms up
@@ -288,28 +311,32 @@ def _leaves(tree):
 
 
 class _DecodeGraph:
-    """The decode backbone captured once as a CUDA graph, replayed every
-    step.
+    """A step's backbone captured once as a CUDA graph, replayed every step.
 
-    Holds the static device inputs the graph reads (tokens and positions
-    as one ``(2, n_slots)`` tensor, the ``(n_slots, n_pg)`` page table of a
-    paged session) and its static output ``h``. The cache needs no copy:
-    the session allocates it once and writes it only in place. The first
-    ``GRAPH_WARMUP_STEPS`` steps run the backbone eagerly on a side stream;
-    the next one captures it in a private memory pool (``torch.cuda.graph``)
-    and replays. The graph records the tensors it read (the backbone's
-    parameters and the cache leaves); a step that finds one of them
-    replaced captures again. A failed capture raises: nothing falls back to
-    the eager step."""
+    Width 1 is the decode backbone (one token per slot); width W > 1 the
+    verify backbone ((n_slots, W) token blocks at per-slot starts). Holds
+    the static device inputs the graph reads (tokens and positions as one
+    ``(width + 1, n_slots)`` tensor: row w holds each slot's w-th token,
+    the last row the slots' positions; the ``(n_slots, n_pg)`` page table
+    of a paged session) and its static output ``h``. The cache needs no
+    copy: the session allocates it once and writes it only in place. The
+    first ``GRAPH_WARMUP_STEPS`` calls run the backbone eagerly on a side
+    stream; the next one captures it in a private memory pool
+    (``torch.cuda.graph``) and replays. The graph records the tensors it
+    read (the backbone's parameters and the cache leaves); a call that
+    finds one of them replaced captures again. A failed capture raises:
+    nothing falls back to the eager step."""
 
-    def __init__(self, n_slots: int, tables: Optional[np.ndarray], device: torch.device):
+    def __init__(self, n_slots: int, tables: Optional[np.ndarray], device: torch.device,
+                 width: int = 1, what: str = "decode step"):
         self.device = device
+        self.what = what
         # pinned staging: the copies into the static inputs are
         # asynchronous, and the host rewrites a staging buffer only in the
-        # next step's load, after this step's read-back synchronized the
+        # next call's load, after this call's read-back synchronized the
         # stream behind the copy
-        self._stage = torch.zeros((2, n_slots), dtype=torch.int64, pin_memory=True)
-        self.tok_pos = torch.zeros((2, n_slots), dtype=torch.int64, device=device)
+        self._stage = torch.zeros((width + 1, n_slots), dtype=torch.int64, pin_memory=True)
+        self.tok_pos = torch.zeros((width + 1, n_slots), dtype=torch.int64, device=device)
         self._page_stage = self.pages = None
         if tables is not None:
             self._page_stage = torch.from_numpy(tables).pin_memory()
@@ -322,22 +349,25 @@ class _DecodeGraph:
         self.n_captures = 0
 
     def load(self, tok: np.ndarray, pos: np.ndarray, tables: Optional[np.ndarray]) -> None:
-        """Copy the host's tokens, positions and page table in."""
+        """Copy the host's tokens ((n_slots,) or (n_slots, width)),
+        positions and page table in."""
         st = self._stage.numpy()
-        st[0], st[1] = tok, pos
+        st[:-1] = tok.reshape(len(pos), -1).T
+        st[-1] = pos
         self.tok_pos.copy_(self._stage, non_blocking=True)
         if tables is not None:
             self._page_stage.numpy()[:] = tables
             self.pages.copy_(self._page_stage, non_blocking=True)
 
-    def hidden(self, decode_hidden, params, cache: DecodeCache) -> torch.Tensor:
-        """The backbone's hidden state (n_slots, d) for the inputs loaded."""
+    def hidden(self, backbone, params, cache: DecodeCache) -> torch.Tensor:
+        """The backbone's hidden state for the inputs loaded:
+        ``backbone(params, cache, tokens (width, n_slots), pos (n_slots,),
+        pages)``."""
         leaves = tuple(_leaves({n: p for n, p in params.items() if n != "head"})) + tuple(cache)
         if self.graph is not None and (len(leaves) != len(self._captured) or any(
                 a is not b for a, b in zip(leaves, self._captured))):
             self.graph = self.h = None  # a tensor it reads was replaced
-        run = lambda: decode_hidden(params, cache, self.tok_pos[0], self.tok_pos[1],
-                                    pages=self.pages)
+        run = lambda: backbone(params, cache, self.tok_pos[:-1], self.tok_pos[-1], self.pages)
         main = torch.cuda.current_stream(self.device)
         if self.graph is None and self._warmup_left > 0:
             self._warmup_left -= 1
@@ -354,12 +384,24 @@ class _DecodeGraph:
                     h = run()
             except RuntimeError as e:
                 raise RuntimeError(
-                    f"capturing the decode step as a CUDA graph failed ({e}); "
+                    f"capturing the {self.what} as a CUDA graph failed ({e}); "
                     "ServeSession(decode_graph=False) runs the step eagerly") from e
             self.graph, self.h, self._captured = graph, h, leaves
             self.n_captures += 1
         self.graph.replay()
         return self.h
+
+
+def _decode_backbone(bundle: ModelBundle):
+    """``bundle.decode_hidden`` in the form :meth:`_DecodeGraph.hidden` calls."""
+    return lambda p, cache, toks, pos, pages: bundle.decode_hidden(p, cache, toks[0], pos,
+                                                                   pages=pages)
+
+
+def _verify_backbone(bundle: ModelBundle):
+    """``bundle.verify_hidden`` in the form :meth:`_DecodeGraph.hidden` calls."""
+    return lambda p, cache, toks, pos, pages: bundle.verify_hidden(p, cache, toks.T, pos,
+                                                                   pages=pages)
 
 
 class ServeSession:
@@ -434,8 +476,23 @@ class ServeSession:
             the caller passes ``'cpu'``.
         decode_graph: capture the decode step's backbone once as a CUDA
             graph and replay it every step (the head runs eagerly after
-            it). ``None``: on where ``device`` is CUDA, off on the CPU;
-            ``False`` runs every step eagerly; ``True`` on the CPU raises.
+            it); in a speculative session the draft's decode backbone and
+            the verify backbone, one graph each. ``None``: on where
+            ``device`` is CUDA, off on the CPU; ``False`` runs every step
+            eagerly; ``True`` on the CPU raises.
+        draft: ``(draft_bundle, draft_params, draft_ds_state_or_table)``, a
+            same-vocab dense model that turns on exact draft–verify
+            speculative decoding: each step it proposes ``gamma`` tokens per
+            resident from its own contiguous cache, the target scores every
+            resident's ``gamma+1``-token block in one verify step, and a
+            host-side pass emits the longest accepted prefix plus one target
+            token. Greedy output equals the non-speculative stream wherever
+            the verify and decode math agree on the argmax (on the CPU in
+            fp32 everywhere a test looks); sampled output is distributed
+            exactly as the target's. Requests must leave ``gamma`` cache
+            positions of headroom (checked at ``submit``).
+        gamma: draft tokens proposed per slot per speculative step (the
+            verify block is ``gamma + 1`` wide).
     """
 
     def __init__(self, bundle: ModelBundle, params, ds_state_or_table, *,
@@ -455,7 +512,9 @@ class ServeSession:
                  page_arena: Optional[int] = None,
                  prefix_sharing: bool = True,
                  device="cuda",
-                 decode_graph: Optional[bool] = None):
+                 decode_graph: Optional[bool] = None,
+                 draft: Optional[tuple] = None,
+                 gamma: int = 4):
         self.device = resolve_device(device)
         cfg = bundle.cfg
         if decode_graph is None:
@@ -482,6 +541,23 @@ class ServeSession:
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         if quantize is not None and cfg.head != "ds":
             raise ValueError("quantize= requires a DS head (serve table)")
+        if draft is not None:
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            if bundle.verify_step is None:
+                raise ValueError(f"family {cfg.family!r} has no verify_step; speculative "
+                                 "decoding needs the chunk-shaped verify path")
+            d_cfg = draft[0].cfg
+            if d_cfg.family != "dense":
+                raise ValueError(f"draft family {d_cfg.family!r} is not ported yet (ROADMAP.md, "
+                                 "Queue 1 item 6); the port drafts with a dense model")
+            if d_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab_size ({d_cfg.vocab_size}) must match the "
+                                 f"target's ({cfg.vocab_size}): acceptance compares token ids "
+                                 "across the two distributions")
+            if prefill_chunk is not None and draft[0].prefill_chunk is None:
+                raise ValueError(f"draft family {d_cfg.family!r} has no chunked prefill; use "
+                                 "whole-prompt prefill (prefill_chunk=None)")
         self.bundle = bundle
         self.cfg = cfg
         self.params = params
@@ -541,8 +617,52 @@ class ServeSession:
         self.scheduler = Scheduler(n_slots, queue_limit=queue_limit)
         self._tok = np.zeros(n_slots, np.int64)
         self._pos = np.zeros(n_slots, np.int64)
-        self._graph = (_DecodeGraph(n_slots, None if self._mgr is None else self._mgr.tables,
-                                    self.device) if decode_graph else None)
+        tables = None if self._mgr is None else self._mgr.tables
+        # ---- speculative decoding (draft model) ----------------------------
+        self.gamma = int(gamma)
+        self._draft = None
+        self._spec_stats = {"steps": 0, "slot_steps": 0, "accepted": 0, "emitted": 0}
+        # After a block in which the target accepted every proposal, the
+        # draft is fed its last proposal (one more draft decode before the
+        # next round, for the slots that swept clean), so that its cache
+        # holds every accepted token. repro's draft never decodes its last
+        # proposal: after a clean sweep its cache keeps a stale row at that
+        # position, and its later proposals read it. Set False before the
+        # first step to propose what repro proposes (the parity tests do).
+        self._draft_backfill = True
+        self._backfill: dict = {}  # slot -> (its _Slot, token, position) the draft lacks
+        self._graph = self._draft_graph = self._verify_graph = None
+        if draft is not None:
+            d_bundle, d_params, d_state = draft
+            check_on(self.device, draft_params=d_params["embed"]["table"])
+            d_table = d_state
+            if d_bundle.cfg.head == "ds" and not isinstance(
+                    d_state, (ds.ServeTable, ds.QuantizedServeTable)):
+                d_table = ds.pack_experts(d_params["head"], d_state)
+            self._draft = {"bundle": d_bundle, "params": d_params, "table": d_table}
+            # the draft's cache is always a contiguous (n_slots, max_seq_len)
+            # block, even when the target is paged: speculation changes the
+            # arena's accounting by the verify block's gamma rows only
+            d_specs = cache_specs(d_bundle.cfg, ShapeConfig(
+                name="serve_draft", seq_len=max_seq_len, global_batch=n_slots, kind="decode"))
+            self._draft_cache = DecodeCache(*(torch.zeros(s.shape, dtype=s.dtype,
+                                                          device=self.device)
+                                              for s in d_specs))
+            d_cfg, k = d_bundle.cfg, self.k
+
+            def _dhead(p, t, h):
+                return heads.head_topk(p["head"], t, d_cfg, h, k, embed_table=p["embed"]["table"])
+
+            self._draft_head = _dhead
+            if decode_graph:
+                self._draft_graph = _DecodeGraph(n_slots, None, self.device,
+                                                 what="draft's decode step")
+                self._verify_graph = _DecodeGraph(n_slots, tables, self.device,
+                                                  width=self.gamma + 1, what="verify step")
+            log.info("speculative decoding: draft=%s gamma=%d (verify block %d x %d)",
+                     d_bundle.cfg.name, self.gamma, n_slots, self.gamma + 1)
+        elif decode_graph:
+            self._graph = _DecodeGraph(n_slots, tables, self.device)
         self._outcomes: collections.Counter = collections.Counter()
         self._overflow_threshold = overflow_threshold
         self._overflow_hist: Deque[float] = collections.deque(maxlen=max(1, overflow_window))
@@ -594,7 +714,7 @@ class ServeSession:
         g = self._graph
         if g is not None:
             g.load(self._tok, self._pos, tables)
-            h = g.hidden(self.bundle.decode_hidden, self.params, self._cache)
+            h = g.hidden(_decode_backbone(self.bundle), self.params, self._cache)
         else:
             dev = self.device
             h = self.bundle.decode_hidden(
@@ -602,6 +722,42 @@ class ServeSession:
                 torch.from_numpy(self._pos).to(dev),
                 pages=None if tables is None else torch.from_numpy(tables).to(dev))
         return self._head_fn(self.params, self.table, h)
+
+    def _draft_decode(self, tok: np.ndarray, pos: np.ndarray):
+        """One draft decode over the slot batch: the draft's backbone
+        (replayed from its graph, or eager) against its own cache, then its
+        head. Returns (vals, ids) on the device."""
+        d, g = self._draft, self._draft_graph
+        if g is not None:
+            g.load(tok, pos, None)
+            h = g.hidden(_decode_backbone(d["bundle"]), d["params"], self._draft_cache)
+        else:
+            dev = self.device
+            h = d["bundle"].decode_hidden(d["params"], self._draft_cache,
+                                          torch.from_numpy(tok).to(dev),
+                                          torch.from_numpy(pos).to(dev))
+        return self._draft_head(d["params"], d["table"], h)
+
+    def _verify(self, blocks: np.ndarray, pos0: np.ndarray):
+        """One verify step over the (n_slots, W) blocks at per-slot starts
+        ``pos0``: ``bundle.verify_hidden`` (replayed from the verify graph,
+        or eager), then the bound head over all n_slots·W rows. Returns
+        (vals, ids) of shape (n_slots, W, k) and the head's stats, on the
+        device."""
+        tables = None if self._mgr is None else self._mgr.tables
+        g = self._verify_graph
+        if g is not None:
+            g.load(blocks, pos0, tables)
+            h = g.hidden(_verify_backbone(self.bundle), self.params, self._cache)
+        else:
+            dev = self.device
+            h = self.bundle.verify_hidden(
+                self.params, self._cache, torch.from_numpy(blocks).to(dev),
+                torch.from_numpy(pos0).to(dev),
+                pages=None if tables is None else torch.from_numpy(tables).to(dev))
+        n, W, dm = h.shape
+        vals, ids, stats = self._head_fn(self.params, self.table, h.reshape(n * W, dm))
+        return vals.reshape(n, W, -1), ids.reshape(n, W, -1), stats
 
     # -- table hot-swap + online adaptation -----------------------------------
 
@@ -756,9 +912,13 @@ class ServeSession:
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             bad = prompt[(prompt < 0) | (prompt >= self.cfg.vocab_size)][0]
             reject(f"prompt contains token id {bad} outside [0, {self.cfg.vocab_size})")
-        if S + sp.max_new_tokens - 1 > self.max_seq_len:
-            reject(f"prompt_len ({S}) + max_new_tokens ({sp.max_new_tokens}) - 1 "
-                   f"exceeds max_seq_len ({self.max_seq_len})")
+        # a speculative step writes gamma draft positions past the slot's
+        # last emitted token before acceptance prunes them
+        spec_pad = self.gamma if self._draft is not None else 0
+        if S + sp.max_new_tokens - 1 + spec_pad > self.max_seq_len:
+            reject(f"prompt_len ({S}) + max_new_tokens ({sp.max_new_tokens}) - 1"
+                   + (f" + speculative headroom ({spec_pad})" if spec_pad else "")
+                   + f" exceeds max_seq_len ({self.max_seq_len})")
         if self.prefill_chunk is not None:
             # the tail chunk writes all prefill_chunk rows, padding included;
             # none may fall past the cache end
@@ -772,7 +932,7 @@ class ServeSession:
             # the worst-case footprint must fit the arena ALONE: a request
             # that cannot run with every resident preempted would wedge the
             # queue
-            worst = S + sp.max_new_tokens - 1
+            worst = S + sp.max_new_tokens - 1 + spec_pad
             if self.prefill_chunk is not None:
                 worst = max(worst, -(-S // self.prefill_chunk) * self.prefill_chunk)
             need = -(-worst // self._mgr.page_size)
@@ -806,10 +966,12 @@ class ServeSession:
     @torch.no_grad()
     def step(self) -> bool:
         """Expire overdue queued requests, admit into free slots, then run
-        ONE decode step over the slot batch. Returns True while work
-        remains."""
+        ONE decode step over the slot batch (one draft–verify block when
+        ``draft=`` is set). Returns True while work remains."""
         self._expire_queue()
         self._admit()
+        if self._draft is not None:
+            return self._step_speculative()
         if self._mgr is not None:
             self._prepare_decode_writes()
         act = self.scheduler.active()
@@ -835,6 +997,183 @@ class ServeSession:
             self._maybe_adapt()
         return self.scheduler.has_work()
 
+    def _step_speculative(self) -> bool:
+        """One draft–verify block: gamma sequential draft proposals per slot,
+        ONE verify over every resident's (gamma+1)-token block, host-side
+        exact acceptance, then per-slot emission (slots are released only
+        after every device call of the step)."""
+        W = self.gamma + 1
+        if self._mgr is not None:
+            # verify writes the whole block: secure [pos, pos+W) per slot
+            self._prepare_decode_writes(width=W)
+        act = self.scheduler.active()
+        if not act:
+            return self.scheduler.has_work()
+        n = self.n_slots
+        base_tok, base_pos = self._tok.copy(), self._pos.copy()
+        if self._backfill:
+            # the last proposal of each block a slot swept clean, fed to the
+            # draft at its position; every other slot writes its own next
+            # input, which the first round below writes again the same
+            ftok, fpos = base_tok.copy(), base_pos.copy()
+            for i, (slot, t, p) in self._backfill.items():
+                if self.scheduler.slots[i] is slot:
+                    ftok[i], fpos[i] = t, p
+            self._backfill.clear()
+            # the read-back orders the next call's staging write after
+            # this call's copies
+            self._draft_decode(ftok, fpos)[0].cpu()
+        # -- draft proposals: gamma sequential n_slots-token draft decodes --
+        dtok, dpos = base_tok.copy(), base_pos.copy()
+        props = np.zeros((n, self.gamma), np.int64)
+        # per (slot, j): the draft's (vals, ids) behind proposal j, or None
+        # where the proposal is a point mass (a greedy draft row needs no q;
+        # a poisoned draft row proposes token 0 as a point mass, and the
+        # target supplies the real token)
+        prop_q: list = [[None] * self.gamma for _ in range(n)]
+        for j in range(self.gamma):
+            dvals, dids = self._draft_decode(dtok, dpos)
+            dvals, dids = dvals.cpu().numpy(), dids.cpu().numpy()
+            for i, slot in act:
+                sp = slot.req.sampling_params
+                m = slot.n_emitted + j  # absolute index of the proposed token
+                if not np.isfinite(dvals[i]).all() or dids[i, 0] < 0:
+                    props[i, j] = dtok[i] = 0
+                    continue
+                if sp.temperature <= 0.0:
+                    t = int(dids[i, 0])
+                else:
+                    k_eff = dids.shape[1] if sp.top_k is None else min(sp.top_k, dids.shape[1])
+                    u = _uniforms(sp.seed, _SALT_DRAFT, m, k_eff)
+                    with np.errstate(divide="ignore"):
+                        g = -np.log(-np.log(u))
+                    t = int(dids[i, int(np.argmax(
+                        dvals[i, :k_eff].astype(np.float64) / sp.temperature + g))])
+                    prop_q[i][j] = (dvals[i].copy(), dids[i].copy())
+                props[i, j] = dtok[i] = t
+            dpos += 1
+        # -- ONE chunk-shaped verify over every block ------------------------
+        blocks = np.zeros((n, W), np.int64)
+        blocks[:, 0] = base_tok
+        blocks[:, 1:] = props
+        vvals, vids, stats = self._verify(blocks, base_pos)
+        self.n_steps += 1
+        vvals, vids = vvals.cpu().numpy(), vids.cpu().numpy()
+        self._record_load(stats)
+        # -- host-side exact acceptance --------------------------------------
+        emitted: dict = {}
+        poisoned: List[int] = []
+        for i, slot in act:
+            if not np.isfinite(vvals[i]).all() or (vids[i, :, 0] < 0).any():
+                poisoned.append(i)
+                continue
+            toks, n_acc = self._accept_block(vvals[i], vids[i], props[i], prop_q[i],
+                                             slot.req.sampling_params, slot.n_emitted)
+            emitted[i] = toks
+            self._spec_stats["slot_steps"] += 1
+            self._spec_stats["accepted"] += n_acc
+            if n_acc == self.gamma and self._draft_backfill:
+                self._backfill[i] = (slot, int(props[i, -1]), int(base_pos[i]) + self.gamma)
+        self._spec_stats["steps"] += 1
+        # -- quarantine, then emit -------------------------------------------
+        # (a dense draft needs no rollback: its next round overwrites each
+        # position past its accepted prefix before reading it, and stale
+        # rows past that stay masked)
+        for i in poisoned:
+            self._finish_slot(i, RequestStatus.FAILED,
+                              "non-finite verify output (slot quarantined)")
+        for i, slot in act:
+            if self.scheduler.slots[i] is not slot:
+                continue
+            for t in emitted.get(i, ()):
+                self._emit(i, slot, t)
+                # tokens actually emitted: eos, max_new_tokens or a deadline
+                # cut an accepted block short
+                self._spec_stats["emitted"] += 1
+                if self.scheduler.slots[i] is not slot:
+                    break
+        if self._adapt_policy is not None:
+            self._maybe_adapt()
+        return self.scheduler.has_work()
+
+    def _accept_block(self, vals_w: np.ndarray, ids_w: np.ndarray, props: np.ndarray,
+                      prop_q: list, sp: SamplingParams, m0: int) -> tuple:
+        """Exact acceptance of one slot's verified block (copied from
+        ``repro.train.serve``). Returns ``(tokens_to_emit, n_accepted)``:
+        the accepted draft prefix plus exactly one target token (the
+        correction at the first mismatch or rejection, the bonus after a
+        clean sweep).
+
+        Greedy is a prefix match against the target's argmax chain. Sampled
+        mode is speculative rejection sampling over the head's
+        top-k-truncated distributions: accept proposal d ~ q with
+        probability min(1, p(d)/q(d)); on rejection draw from the residual
+        (p - q)^+ on the target's candidates. The emitted token is then
+        distributed exactly as p, point-mass proposals and disjoint supports
+        included. Every uniform keys on ``(seed, absolute emission
+        index)``."""
+        gamma = len(props)
+        out: List[int] = []
+        n_acc = 0
+        if sp.temperature <= 0.0:
+            for j in range(gamma):
+                tgt = int(ids_w[j, 0])
+                out.append(tgt)
+                if int(props[j]) != tgt:
+                    return out, n_acc  # the correction token
+                n_acc += 1
+            out.append(int(ids_w[gamma, 0]))  # the bonus token
+            return out, n_acc
+        k = ids_w.shape[1]
+        k_eff = k if sp.top_k is None else min(sp.top_k, k)
+        for j in range(gamma):
+            m = m0 + j
+            pv = vals_w[j, :k_eff].astype(np.float64) / sp.temperature
+            pv -= pv.max()
+            p = np.exp(pv)
+            p /= p.sum()
+            pid = ids_w[j, :k_eff].astype(np.int64)
+            d_tok = int(props[j])
+            q_on_p = np.zeros_like(p)  # q mapped onto the target's support
+            if prop_q[j] is None:
+                qd = 1.0  # a point mass on the proposal
+                hits = np.nonzero(pid == d_tok)[0]
+                if len(hits):
+                    q_on_p[hits[0]] = 1.0
+            else:
+                dvals, dids = prop_q[j]
+                dk_eff = len(dids) if sp.top_k is None else min(sp.top_k, len(dids))
+                qv = dvals[:dk_eff].astype(np.float64) / sp.temperature
+                qv -= qv.max()
+                q = np.exp(qv)
+                q /= q.sum()
+                did = dids[:dk_eff].astype(np.int64)
+                qd = float(q[np.nonzero(did == d_tok)[0][0]])
+                for a, cid in enumerate(pid):
+                    hit = np.nonzero(did == cid)[0]
+                    if len(hit):
+                        q_on_p[a] = q[hit[0]]
+            hits = np.nonzero(pid == d_tok)[0]
+            pd = float(p[hits[0]]) if len(hits) else 0.0
+            u = float(_uniforms(sp.seed, _SALT_ACCEPT, m, 1)[0])
+            if u * qd <= pd:  # accept with probability min(1, p/q)
+                out.append(d_tok)
+                n_acc += 1
+                continue
+            res = np.maximum(p - q_on_p, 0.0)
+            z = res.sum()
+            # z is the rejection probability on p's support; z <= 0 only
+            # where q covers p exactly there: resample from p itself
+            res = res / z if z > 0.0 else p
+            r = float(_uniforms(sp.seed, _SALT_RESID, m, 1)[0])
+            idx = int(np.searchsorted(np.cumsum(res), r, side="right"))
+            out.append(int(pid[min(idx, k_eff - 1)]))
+            return out, n_acc
+        # a clean sweep: the bonus token is the plain stream's sample from
+        # the last row, keyed like any other emission
+        out.append(self._sample(vals_w[gamma], ids_w[gamma], sp, m0 + gamma))
+        return out, n_acc
+
     def run(self, requests: Optional[List[Request]] = None) -> List[Request]:
         """Submit ``requests`` and step until the queue drains. Returns
         every request this session has served."""
@@ -855,11 +1194,17 @@ class ServeSession:
         re-prunes, a key ``repro`` does not have), ``decode_graphs`` (the
         decode backbone's CUDA graph captures: 0 on an eager session, 1
         once a graph session has warmed up; ``repro`` has no such key),
-        the int8 mode with
+        ``draft_graphs`` and ``verify_graphs`` (the same for a speculative
+        session's draft decode and verify backbones; the plain decode step
+        never runs there), the int8 mode with
         its exactness-gate report (``ExactnessReport.as_dict()``, None when
-        the table was not quantized here), and for a paged session
-        ``paged``: the page table's counters, ``preemptions``,
-        ``prefill_chunks`` and ``prefill_chunks_saved``."""
+        the table was not quantized here), for a paged session ``paged``:
+        the page table's counters, ``preemptions``, ``prefill_chunks`` and
+        ``prefill_chunks_saved``, and for a speculative session
+        ``speculative`` with ``repro``'s keys: ``gamma``, ``spec_steps``,
+        ``draft_accepted``, ``spec_emitted``, ``emitted_per_step`` and
+        ``accepted_per_step`` (per verify step, summed over residents) and
+        ``accept_rate`` (of the proposed tokens)."""
         o = self._outcomes
         hist = self._overflow_hist
         eff_cf = None
@@ -891,6 +1236,8 @@ class ServeSession:
             "decode_builds": self._n_decode_builds,
             "rows_pruned": self._rows_pruned,
             "decode_graphs": 0 if self._graph is None else self._graph.n_captures,
+            "draft_graphs": 0 if self._draft_graph is None else self._draft_graph.n_captures,
+            "verify_graphs": 0 if self._verify_graph is None else self._verify_graph.n_captures,
             "quantize": self._quantize,
             "quantize_report": (None if self._quantize_report is None
                                 else self._quantize_report.as_dict()),
@@ -906,6 +1253,18 @@ class ServeSession:
             out["paged"] = {**self._mgr.stats(), "preemptions": self._n_preempted,
                             "prefill_chunks": self._n_prefill_chunks,
                             "prefill_chunks_saved": self._n_prefill_chunks_saved}
+        if self._draft is not None:
+            ss = self._spec_stats
+            steps = max(1, ss["steps"])
+            out["speculative"] = {
+                "gamma": self.gamma,
+                "spec_steps": ss["steps"],
+                "draft_accepted": ss["accepted"],
+                "spec_emitted": ss["emitted"],
+                "emitted_per_step": ss["emitted"] / steps,
+                "accepted_per_step": ss["accepted"] / steps,
+                "accept_rate": ss["accepted"] / max(1, ss["slot_steps"] * self.gamma),
+            }
         return out
 
     # -- internals ------------------------------------------------------------
@@ -951,14 +1310,18 @@ class ServeSession:
             # through its co-owners)
             self._release_slot_pages(i, scrub=status is RequestStatus.FAILED)
         elif status is RequestStatus.FAILED:
-            self._scrub(i)
+            self._scrub(self._cache, i)
+        if self._draft is not None and status is RequestStatus.FAILED:
+            # the draft's contiguous row may carry the same poison
+            self._scrub(self._draft_cache, i)
 
-    def _scrub(self, i: int) -> None:
-        # Zero every cache row of slot i: a later, shorter tenant's prefill
-        # would not overwrite a residual NaN row, and masked attention
-        # still multiplies it (0·NaN = NaN).
-        self._cache.k[:, i] = 0
-        self._cache.v[:, i] = 0
+    @staticmethod
+    def _scrub(cache: DecodeCache, i: int) -> None:
+        # Zero every row of slot i: a later, shorter tenant's prefill would
+        # not overwrite a residual NaN row, and masked attention still
+        # multiplies it (0·NaN = NaN).
+        cache.k[:, i] = 0
+        cache.v[:, i] = 0
 
     def _expire_queue(self) -> None:
         overdue = [r for r in self.scheduler.queue
@@ -1056,13 +1419,17 @@ class ServeSession:
                 if self._mgr is not None:
                     self._release_slot_pages(i, scrub=True)
                 else:
-                    self._scrub(i)
+                    self._scrub(self._cache, i)
                 continue
             # prefixes become adoptable only after the finite check
             for key, length in pending:
                 self._mgr.register_prefix(i, key, length)
             slot = sched.admit(i, req, S)
             req.status = RequestStatus.ACTIVE
+            if self._draft is not None:
+                # the draft mirrors the slot's token history in its own
+                # contiguous cache (prefilled from scratch on a resume)
+                self._draft_prefill_slot(toks, i)
             if n_resume:
                 # the re-prefill's head output is dropped: those tokens were
                 # emitted before the preemption; the sampling stream goes on
@@ -1150,6 +1517,29 @@ class ServeSession:
             self.params, self.table, cache, torch.from_numpy(buf).to(self.device), lo,
             len(tail), k=self.k, kernel=self.kernel, pages=pages)
 
+    def _draft_prefill_slot(self, toks: np.ndarray, i: int) -> None:
+        """Prefill the draft's cache row of slot ``i`` with the slot's whole
+        token history (its head output is dropped: the draft first speaks
+        in the next proposal round), whole-prompt or chunked as the
+        session prefills."""
+        d = self._draft
+        if self.prefill_chunk is None:
+            _, _, row = d["bundle"].prefill(
+                d["params"], d["table"], {"tokens": torch.from_numpy(toks[None]).to(self.device)},
+                k=self.k)
+            self._draft_cache.k[:, i, :len(toks)] = row.k[:, 0]
+            self._draft_cache.v[:, i, :len(toks)] = row.v[:, 0]
+            return
+        cp = self.prefill_chunk
+        cache = DecodeCache(k=self._draft_cache.k[:, i:i + 1], v=self._draft_cache.v[:, i:i + 1])
+        for lo in range(0, len(toks), cp):
+            tail = toks[lo: lo + cp]
+            buf = np.zeros((1, cp), np.int64)
+            buf[0, : len(tail)] = tail
+            d["bundle"].prefill_chunk(d["params"], d["table"], cache,
+                                      torch.from_numpy(buf).to(self.device), lo, len(tail),
+                                      k=self.k)
+
     # -- paged-arena management -------------------------------------------------
 
     def _prepare_kv_write_range(self, i: int, lo: int, hi: int, priority: int) -> bool:
@@ -1171,16 +1561,17 @@ class ServeSession:
                     leaf[:, plan.dst] = leaf[:, plan.src]
         return True
 
-    def _prepare_decode_writes(self) -> None:
-        """Before the decode step, secure each resident's write position. A
-        resident that cannot get its page even after preempting every
-        lower-priority batchmate preempts ITSELF: its freed pages unblock
-        the others, and it resumes once capacity returns."""
+    def _prepare_decode_writes(self, width: int = 1) -> None:
+        """Before the decode step, secure each resident's write positions
+        (``width`` of them: 1 for a decode step, gamma+1 for a verify
+        block). A resident that cannot get its pages even after preempting
+        every lower-priority batchmate preempts ITSELF: its freed pages
+        unblock the others, and it resumes once capacity returns."""
         for i, slot in list(self.scheduler.active()):
             if self.scheduler.slots[i] is not slot:
                 continue  # preempted by an earlier iteration
             pos = int(self._pos[i])
-            if not self._prepare_kv_write_range(i, pos, pos + 1,
+            if not self._prepare_kv_write_range(i, pos, pos + width,
                                                 slot.req.sampling_params.priority):
                 self._preempt_slot(i)
 

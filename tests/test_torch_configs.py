@@ -1,0 +1,143 @@
+"""Port parity: the dense configs llama3.2-3b, granite-20b and deepseek-67b
+(``repro_torch.configs``) against ``repro.configs``, and the shape check of
+``convert.params_from_jax``.
+
+* ``get_config`` gives each config with ``repro``'s field values (every
+  field the port's ``ModelConfig`` has).
+* ``reduce_config`` of each builds a model whose whole-prompt prefill and
+  two decode steps at per-row positions give ``repro``'s ids, with values
+  within rtol 1e-6, atol 2e-6 (``tests/test_kernels.py:103``), in fp32 on
+  the same JAX-initialized weights. granite-20b runs the gelu MLP (no gate)
+  and one kv head.
+* ``convert.check_shapes`` accepts each config's full-width shape set
+  (zero-stride numpy views, no memory), and refuses a swiglu tree without
+  ``layers/mlp/w_gate`` and a gelu tree with one.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduce_config as jreduce_config
+from repro.core import dssoftmax as jds
+from repro.models import build as jbuild
+from repro.models.transformer import DecodeCache as JDecodeCache
+from repro_torch import configs
+from repro_torch.convert import MASK_KEY, _expected_shapes, check_shapes, flatten_paths, \
+    params_from_jax, to_tensor
+from repro_torch.core import dssoftmax as ds
+from repro_torch.models import build
+from repro_torch.models.transformer import DecodeCache
+
+ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b")
+HEAD_TOL = dict(rtol=1e-6, atol=2e-6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tensors here are small, and beside other
+    test processes torch's default pool makes each small op wait."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_get_config_equals_repro(arch):
+    mine, ref = configs.get_config(arch), jget_config(arch)
+    for f in dataclasses.fields(mine):
+        if f.name == "ds":
+            for g in dataclasses.fields(mine.ds):
+                assert getattr(mine.ds, g.name) == getattr(ref.ds, g.name), (arch, g.name)
+        else:
+            assert getattr(mine, f.name) == getattr(ref, f.name), (arch, f.name)
+    assert mine.padded_vocab == ref.padded_vocab and mine.hd == ref.hd
+    red = configs.reduce_config(mine, vocab=256)
+    assert (red.n_layers, red.d_model, red.n_heads, red.n_kv_heads, red.act,
+            red.tie_embeddings) == (2, 64, 4, min(mine.n_kv_heads, 2), mine.act,
+                                    mine.tie_embeddings)
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch):
+    jcfg = jreduce_config(jget_config(arch), vocab=256).replace(dtype="float32")
+    tcfg = configs.reduce_config(configs.get_config(arch), vocab=256).replace(dtype="float32")
+    jb = jbuild(jcfg)
+    params, state = jb.init(jax.random.PRNGKey(0))
+    rng = np.random.RandomState(0)
+    mask = np.asarray(state.mask) & (rng.rand(*state.mask.shape) < 0.6)
+    mask[rng.randint(0, mask.shape[0], mask.shape[1]), np.arange(mask.shape[1])] = True
+    state = jds.DSState(mask=jnp.asarray(mask))
+    tree = flatten_paths(jax.tree.map(np.asarray, params))
+    tree[MASK_KEY] = mask
+    tparams, tstate = params_from_jax(tree, tcfg, device="cpu")
+    return (jb, params, jds.pack_experts(params["head"], state),
+            build(tcfg, device="cpu"), tparams, ds.pack_experts(tparams["head"], tstate))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reduced_prefill_and_decode_match_repro(arch):
+    jb, jp, jt, tb, tp, tt = _models(arch)
+    assert ("w_gate" in tp["layers"]["mlp"]) == (tb.cfg.act == "swiglu")
+    rng = np.random.RandomState(1)
+    B, S = 3, 9
+    tokens = rng.randint(0, 256, (B, S)).astype(np.int32)
+    jv, ji, jc = jax.jit(lambda p, t, b: jb.prefill(p, t, b, kernel="jnp"))(
+        jp, jt, {"tokens": jnp.asarray(tokens)})
+    tv, ti, tc = tb.prefill(tp, tt, {"tokens": torch.from_numpy(tokens).long()}, kernel="jnp")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **HEAD_TOL)
+    grow = lambda c: jnp.concatenate([c, jnp.zeros(c.shape[:2] + (4,) + c.shape[3:], c.dtype)],
+                                     axis=2)
+    jcache = JDecodeCache(k=grow(jc.k), v=grow(jc.v))
+    tcache = DecodeCache(k=to_tensor(np.asarray(jcache.k), "cpu"),
+                         v=to_tensor(np.asarray(jcache.v), "cpu"))
+    dec = jax.jit(lambda p, t, c, tok, pos: jb.decode_step(p, t, c, tok, pos, kernel="jnp"))
+    tok = np.asarray(ji[:, 0])
+    pos = np.array([S, S - 2, S - 5], np.int32)
+    for step in range(2):
+        jv, ji, jcache = dec(jp, jt, jcache, jnp.asarray(tok), jnp.asarray(pos + step))
+        tv, ti, tcache = tb.decode_step(tp, tt, tcache, torch.tensor(tok, dtype=torch.long),
+                                        torch.from_numpy(pos + step).long(), kernel="jnp")
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **HEAD_TOL)
+        for a, b in ((tcache.k, jcache.k), (tcache.v, jcache.v)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+        tok = np.asarray(ji[:, 0])
+
+
+def _zero_views(cfg, act=None):
+    """Every leaf the config needs at full width as a zero-stride view."""
+    shapes = _expected_shapes(cfg if act is None else cfg.replace(act=act))
+    return {p: np.broadcast_to(np.zeros((), bool if p == MASK_KEY else np.float32), s)
+            for p, s in shapes.items()}
+
+
+@pytest.mark.parametrize("arch", ("qwen2-1.5b",) + ARCHS)
+def test_check_shapes_takes_the_full_width_set(arch):
+    cfg = configs.get_config(arch)
+    tree = _zero_views(cfg)
+    check_shapes(tree, cfg)
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    assert ("layers/mlp/w_gate" in tree) == (cfg.act == "swiglu")
+    assert tree["head/experts"].shape == (cfg.ds.num_experts, cfg.padded_vocab, d)
+    if cfg.act == "swiglu":
+        assert tree["layers/mlp/w_gate"].shape == (L, d, ff)
+        gateless = {p: a for p, a in tree.items() if p != "layers/mlp/w_gate"}
+        with pytest.raises(KeyError, match="w_gate"):
+            check_shapes(gateless, cfg)
+        with pytest.raises(KeyError, match="w_gate"):
+            params_from_jax(gateless, cfg, device="cpu")
+        bad = dict(tree, **{"layers/mlp/w_gate": np.broadcast_to(np.float32(0), (L, ff, d))})
+        with pytest.raises(ValueError, match="w_gate"):
+            check_shapes(bad, cfg)
+    else:
+        gated = _zero_views(cfg, act="swiglu")
+        with pytest.raises(ValueError, match="w_gate"):
+            check_shapes(gated, cfg)

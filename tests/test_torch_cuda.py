@@ -1546,3 +1546,148 @@ def test_checkpoint_round_trip_on_cuda(dev, tmp_path):
     for k, v in flatten_dict(state).items():
         got = flatten_dict(back)[k]
         assert got.device.type == dev.type and got.dtype == v.dtype and torch.equal(got, v), k
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding, the wide heads, attention at MQA 48/1
+# ---------------------------------------------------------------------------
+
+def _spec_model(dev, dtype, n_layers=None, seed=0):
+    """Reduced llama3.2-3b (vocab 1024) on the card, its table packed."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.models import build
+
+    cfg = reduce_config(get_config("llama3.2-3b"), vocab=1024).replace(dtype=dtype)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    bundle = build(cfg)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    return bundle, params, ds.pack_experts(params["head"], state)
+
+
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_verify_graph_streams_equal_the_eager_verify(dev, cache):
+    """A bf16 speculative session (self-draft, gamma 3) with its draft and
+    verify backbones replayed from graphs, against the same session run
+    eagerly (``decode_graph=False``): greedy streams and one sampled stream
+    token-identical; one draft graph and one verify graph, no decode
+    graph (speculation never runs the plain decode step)."""
+    from repro_torch.train import ServeSession
+
+    model = _spec_model(dev, "bfloat16")
+    kw = dict(paged=True, page_size=16, prefill_chunk=16) if cache == "paged" else {}
+    streams = {}
+    for graph in (False, None):
+        sess = ServeSession(*model, n_slots=2, max_seq_len=128, draft=model, gamma=3,
+                            decode_graph=graph, **kw)
+        reqs = _graph_requests(5, 8, 12, sampled=1)
+        sess.run(reqs)
+        streams[graph] = [r.out_tokens for r in reqs]
+        st = sess.stats()
+        n = 1 if graph is None else 0
+        assert (st["draft_graphs"], st["verify_graphs"], st["decode_graphs"]) == (n, n, 0)
+        assert st["n_completed"] == 5 and st["speculative"]["spec_steps"] > 3
+        if cache == "paged":
+            assert st["paged"]["pages_in_use"] == 0
+    assert streams[None] == streams[False]
+
+
+@pytest.mark.parametrize("draft", ["self", "shallow"])
+def test_speculative_greedy_session_equals_its_baseline_on_the_card(dev, draft):
+    """fp32 on the card: the speculative greedy streams (a self-draft, and
+    a 1-layer draft of its own seed, whose proposals the target rejects)
+    equal the non-speculative session's, through the graphs."""
+    from repro_torch.train import ServeSession
+
+    model = _spec_model(dev, "float32")
+    d = model if draft == "self" else _spec_model(dev, "float32", n_layers=1, seed=5)
+    streams = {}
+    for spec in (False, True):
+        sess = ServeSession(*model, n_slots=2, max_seq_len=128,
+                            **(dict(draft=d, gamma=4) if spec else {}))
+        reqs = _graph_requests(5, 9, 10)
+        sess.run(reqs)
+        streams[spec] = [r.out_tokens for r in reqs]
+    assert streams[True] == streams[False]
+    rate = sess.stats()["speculative"]["accept_rate"]
+    assert rate > 0.5 if draft == "self" else rate < 0.5
+
+
+WIDE_D = [3072, 6144, 8192]   # llama3.2-3b, granite-20b, deepseek-67b
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("C,body_of", [(1, "DECODE"), (2, "DECODE"), (5, "WGMMA"),
+                                       (10, "WGMMA"), (10, "TILED")])
+@pytest.mark.parametrize("d", WIDE_D)
+def test_grouped_bodies_at_the_wide_heads(dev, quantized, C, body_of, d):
+    """The grouped bodies at the new head widths and at the verify step's
+    capacities (C 5 at K 16, C 10 at K 8): the decode bodies (their
+    streaming plan stages one fp32 token of d 6144 or 8192, and one or two
+    bf16 rows), the tensor-core bodies (bf16 tokens) and the tiled bodies
+    (fp32 tokens), on the exact inputs of the decode-body tests (every fp32
+    sum exact at d 8192, so ids equal)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import DECODE, TILED, WGMMA, launch_body
+
+    body = {"DECODE": DECODE, "WGMMA": WGMMA, "TILED": TILED}[body_of]
+    dtype = torch.float32 if body == TILED else torch.bfloat16
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, dtype, C, d, seed=C + d, quantized=quantized)
+    name = body + ("_q" if quantized else "")
+    n = ops.launch_counts()[name]
+    got = launch_body(w, ids, buf, g_buf, 8, kw.get("scales"), body)
+    assert ops.launch_counts()[name] == n + 1
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, 8, **kw), g_buf, 8)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B", [8, 40])
+@pytest.mark.parametrize("d", WIDE_D)
+def test_fused_kernel_at_the_wide_heads(dev, quantized, B, d):
+    """The fused kernel (gate, streaming retrieval, merge) at the new head
+    widths, at decode (B 8) and verify (B 40) batches, fp and int8 rows."""
+    from repro_torch.kernels import ops, ref
+
+    gate, h, w, ids = _fused_inputs(dev, torch.bfloat16, B, d, 0, 4, seed=B + d)
+    kw = {}
+    if quantized:
+        w, kw["scales"] = _quantize(w)
+    else:
+        w = w.to(torch.bfloat16)
+    name = "dss_topk_fused" + ("_q" if quantized else "")
+    n = ops.launch_counts()[name]
+    got = ops.dss_topk_fused(gate, w, ids, h, 8, **kw)
+    assert ops.launch_counts()[name] == n + 1
+    _check_fused(got, ref.dss_topk_fused_ref(gate, w, ids, h, 8, 0, **kw), 0, 4)
+
+
+@pytest.mark.parametrize("B", [8, 40])
+@pytest.mark.parametrize("d", WIDE_D)
+def test_gate_and_pertoken_kernels_at_the_wide_heads(dev, B, d):
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(B + d)
+    u = (torch.randn((8, d), generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+    hh = torch.randn((B, d), generator=g, device=dev).to(torch.bfloat16)
+    i1, g1 = ops.gate_top1(u, hh)
+    i2, g2 = ref.gate_top1_ref(u, hh)
+    assert torch.equal(i1, i2)
+    torch.testing.assert_close(g1, g2, rtol=1e-5, atol=1e-7)
+    w, ids, h, e, gv = _pertoken_inputs(dev, torch.bfloat16, B, 8, d, 900, "random", seed=B + d)
+    n = ops.launch_counts()["dss_topk"]
+    got = ops.dss_topk(w, ids, h, e, gv, 8)
+    assert ops.launch_counts()["dss_topk"] == n + 1
+    h_scaled = (h.float() * gv[:, None]).to(torch.bfloat16)
+    _same(got, ref.dss_topk_ref(w, ids, h_scaled, e, 8), atol=1e-4)
+    assert not torch.isinf(got[0]).any()
+
+
+@pytest.mark.parametrize("S", [1, 129, 1024])
+def test_flash_attention_tensor_core_body_at_mqa_48(dev, S):
+    """granite-20b's attention: H 48 over one kv head (G 48), dh 128, bf16,
+    through the tensor-core body, every element within the limit."""
+    q, k, v = _attn_inputs(dev, 1, 48, 1, S, 128, torch.bfloat16, seed=S + 48)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = _run_flash(qt, kt, vt, "flash_attention_wgmma")
+    _assert_within_limit(o, qt, kt, vt)

@@ -176,12 +176,15 @@ def test_registry_names_and_unknown_kernel(fx32):
 @pytest.mark.parametrize("B,backend,expected", [
     (1, "cpu", "jnp"), (8, "cpu", "jnp"), (2048, "cpu", "grouped"),
     (1, "cuda", "cuda_fused"), (8, "cuda", "cuda_fused"), (2048, "cuda", "cuda_grouped"),
-    (64, "cuda", "cuda_grouped"),
+    (64, "cuda", "cuda_grouped"), (40, "cuda", "cuda_fused"),
 ])
 def test_auto_policy_at_serving_shapes(B, backend, expected):
     """qwen2-1.5b head shapes (K 16, V_pad 12032, d 1536, bf16): the CUDA
     kernels are never picked on the CPU; on CUDA the fused kernel wins at
-    decode and the grouped one at batch shapes."""
+    decode and at a speculative verify step of 8 slots at gamma 4 (B 40,
+    C 5, where the tokens that overflow the grouped path's capacity, 0.83
+    expected, each cost a gather of their expert's rows), and the grouped
+    one at batch shapes."""
     hist = []
     ctx = registry.KernelContext(B=B, d=1536, K=16, v_pad=12032, k=8, backend=backend,
                                  wbytes=2, hbytes=2)
@@ -237,7 +240,9 @@ def test_cost_cuda_grouped_prices_live_experts_per_token_group(B, K, d, reads):
             assert registry.grouped_body(ctx) == grouped.WGMMA
             passes = K  # one token tile
         want = passes * 12032 * row + 2 * K * C * d * 2 + K * C * 8 * 8 + B * 8 * 8
-        assert registry.get_spec("cuda_grouped").bytes_moved(ctx) == want
+        fixup = int(registry.expected_overflow(B, K, C) * 12032) * (3 * row + 8 * d)
+        assert registry.fixup_rows(ctx) == int(registry.expected_overflow(B, K, C) * 12032)
+        assert registry.get_spec("cuda_grouped").bytes_moved(ctx) == want + fixup
     big = registry.KernelContext(B=2048, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
                                  wbytes=2, hbytes=2)
     assert big.capacity == 256
@@ -262,9 +267,10 @@ def test_cost_cuda_grouped_prices_the_bound_of_its_body(B, quantized):
     row = 1536 * ctx.wbytes + (4 if quantized else 0)
     nbytes = 16 * 12032 * row + 2 * 16 * C * 1536 * 2 + 16 * C * 64 + B * 64
     ops = int(2 * 16 * C * 12032 * 1536 * 3.35e12 / 989e12)
+    fixup = registry.fixup_rows(ctx) * (3 * row + 8 * 1536)
     got = registry.get_spec("cuda_grouped").bytes_moved(ctx)
-    assert got == max(nbytes, ops)
-    assert (got == ops) == (quantized and B == 2048)
+    assert got == max(nbytes, ops) + fixup
+    assert (max(nbytes, ops) == ops) == (quantized and B == 2048)
     assert registry.resolve_kernel("auto", ctx) == "cuda_grouped"
     fp32 = registry.KernelContext(B=B, d=1536, K=16, v_pad=12032, k=8, backend="cuda",
                                   wbytes=1 if quantized else 4, hbytes=4, quantized=quantized)
@@ -297,6 +303,38 @@ def test_tiled_live_tiles_is_the_expected_count_of_a_random_dispatch(B, K, C, n_
     assert registry.tiled_live_tiles(B, K, C, n_tile) == pytest.approx(float(want), rel=1e-9)
 
 
+@pytest.mark.parametrize("B,K,C", [(40, 16, 5), (64, 16, 8), (8, 16, 1), (9, 3, 2), (5, 1, 2),
+                                   (3, 4, 64)])
+def test_expected_overflow_is_the_expected_overflow_of_a_random_dispatch(B, K, C):
+    """The grouped paths' overflowed tokens, in exact rational arithmetic:
+    each of B tokens picks one of K experts with probability 1/K, and an
+    expert chosen X times at capacity C leaves max(0, X − C) to the gather
+    fixup."""
+    from fractions import Fraction
+    from math import comb
+
+    p = Fraction(1, K)
+    want = K * sum((x - C) * comb(B, x) * p ** x * (1 - p) ** (B - x) for x in range(C + 1, B + 1))
+    assert registry.expected_overflow(B, K, C) == pytest.approx(float(want), rel=1e-9, abs=1e-12)
+
+
+@pytest.mark.parametrize("d,v_pad,quantized,expected", [
+    (1536, 12032, False, "cuda_fused"), (1536, 12032, True, "cuda_fused"),
+    (3072, 10112, False, "cuda_grouped"), (6144, 7808, False, "cuda_grouped"),
+    (8192, 16128, True, "cuda_grouped")])
+def test_auto_policy_at_the_verify_batch(d, v_pad, quantized, expected):
+    """A verify step of 8 slots at gamma 4 (B 40, bf16 tokens) at the head
+    shapes of qwen2-1.5b (K 16, C 5) and of llama3.2-3b, granite-20b and
+    deepseek-67b (V_pad of their stand-in masks): at d 1536 the expected
+    overflow's gather fixup tips it to the fused kernel; at d 3072 and up
+    (K 8 there: C 10, 0.10 tokens expected over) the fused kernel reads an
+    expert once per token or two, and the grouped kernel's one pass wins."""
+    K = 16 if d <= 3072 else 8
+    ctx = registry.KernelContext(B=40, d=d, K=K, v_pad=v_pad, k=8, backend="cuda",
+                                 wbytes=1 if quantized else 2, hbytes=2, quantized=quantized)
+    assert registry.resolve_kernel("auto", ctx) == expected
+
+
 def test_tiled_live_tiles_at_the_batch_path_is_what_a_gate_left_live():
     """At the fp32 batch path's shape (B 2048, K 16, C 256, 128-slot tiles)
     the price counts 23.6 of the 32 token tiles live: chip_smoke.py's gate
@@ -323,7 +361,7 @@ def test_cost_grouped_adds_its_products_on_the_card_only(B, hbytes, wbytes, quan
     C = cpu.capacity
     row = 1536 * wbytes + (4 if quantized else 0)
     nbytes = (16 * 12032 * row + 2 * 16 * C * 1536 * hbytes + 2 * 16 * C * 12032 * 4
-              + B * 8 * 8)
+              + B * 8 * 8 + registry.fixup_rows(cpu) * (3 * row + 8 * 1536))
     spec = registry.get_spec("grouped")
     assert spec.bytes_moved(cpu) == nbytes
     rate = 67e12 if hbytes == 4 else 989e12

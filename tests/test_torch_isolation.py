@@ -42,7 +42,10 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "train/trainer.py", "checkpoint/checkpointer.py",
                                     "checkpoint/manager.py", "data/synthetic.py",
                                     "data/pipeline.py", "launch/train.py", "core/losses.py",
-                                    "core/mitosis.py", "utils/tree.py", "utils/logging.py"])
+                                    "core/mitosis.py", "utils/tree.py", "utils/logging.py",
+                                    "launch/serve.py", "configs/__init__.py",
+                                    "configs/llama3_2_3b.py", "configs/granite_20b.py",
+                                    "configs/deepseek_67b.py", "convert.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()

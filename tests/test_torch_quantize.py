@@ -367,7 +367,8 @@ def test_registry_prices_quantized_tables():
     4-byte scale per packed row it reads (the grouped kernel where its
     price is its bytes: 4 tokens, capacity 2, the decode body; at
     capacity 8 fp32 tokens run the tiled body, priced by its fp32
-    products); cuda_pertoken is infeasible on a quantized table and naming
+    products; the grouped paths' gather fixup reads each of its rows three
+    times); cuda_pertoken is infeasible on a quantized table and naming
     it raises."""
     params, _, jtable = _fixture()
     tt = _port(jtable)
@@ -378,7 +379,8 @@ def test_registry_prices_quantized_tables():
     K, v = cq.K, cq.v_pad
     decode_q = dataclasses.replace(cq, B=4)
     assert registry.grouped_body(decode_q) == "dss_topk_grouped"
-    for name, ctx, rows in (("grouped", cq, K * v), ("cuda_grouped", decode_q, K * v),
+    for name, ctx, rows in (("grouped", cq, K * v + 3 * registry.fixup_rows(cq)),
+                            ("cuda_grouped", decode_q, K * v + 3 * registry.fixup_rows(decode_q)),
                             ("jnp", cq, 2 * 16 * v)):
         spec = registry.get_spec(name)
         plain1 = dataclasses.replace(ctx, quantized=False)
