@@ -37,8 +37,11 @@ Phases, in order (any failure exits non-zero before the result line):
    the same S 2048 inputs, fp32 at S 2048 (the CUDA-core body's main
    path) and at H = H_kv = 2, dh 64, S 256, bf16 views that are not
    dense, and fp32 at S 2048 with dh 64 and 256 (the CUDA-core body's
-   other head-dim classes); each case must launch the body ``select_body`` names, each
-   element within
+   other head-dim classes), and the tensor-core body at the other configs'
+   attention: llama3.2-3b (H 24, H_kv 8, S 2048), granite-20b (H 48, H_kv
+   1, S 1024) and lm-100m (H 12, H_kv 4, dh 64, S 512), each with its
+   schedule's makespan in kv-tile steps and the µs per step; each case
+   must launch the body ``select_body`` names, each element within
    ``repro_torch.testing.flash_attention_limit`` (bf16: one rounding of p,
    2^-8·(softmax(s)·|v|), plus 2^-7·|o|); the yardstick is
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
@@ -59,7 +62,10 @@ Phases, in order (any failure exits non-zero before the result line):
    C 256 for bf16 tokens (their main case the batch path's shape, V_pad
    12,032; also V_pad 12,000 with an all-padding expert), the CUDA-core
    tiled bodies at C 256 for fp32 tokens (their main case the fp32 batch
-   path's shape, every slot live). The main cases of the two-launch bodies
+   path's shape, every slot live), the tensor-core bodies at a speculative
+   verify step's head (B 40: C 5 or 10) for qwen2-1.5b and the wide heads
+   of phase 6b (c) (``VERIFY_HEADS``, device ms). The main cases of the
+   two-launch bodies
    (``dss_topk_fused``, the grouped decode bodies) are split by kernel
    with the profiler (``kernels_split_ms``). The capacity sweeps: the
    decode body beside the tensor-core body (bf16 tokens on bf16 rows and
@@ -246,10 +252,15 @@ profiles were taken again.
 
 With ``--parent DIR`` (an unpacked checkout of the parent commit, e.g.
 ``git archive HEAD~1 | tar -x -C build/parent``) phase 2 also builds the
-parent's ``dss_topk.cu`` and ``flash_attention.cu`` and times their bodies
-beside this tree's on the same inputs in this process (``[parent]``
-lines, ``against_parent`` in the JSON): every ``dss_topk`` case and the
-CUDA-core ``flash_attention`` cases at S 2048.
+parent's ``dss_topk.cu``, ``flash_attention.cu`` and ``dss_topk_grouped.cu``
+and times their bodies beside this tree's on the same inputs in this
+process (``[parent]`` lines, ``against_parent`` in the JSON; parent, this,
+this, parent, device-only): every ``dss_topk`` case, the CUDA-core
+``flash_attention`` cases at S 2048, every tensor-core ``flash_attention``
+case, and the tensor-core grouped bodies at C 256 and at ``VERIFY_HEADS``;
+the tensor-core bodies' outputs must equal the parent's bit for bit
+(``bit_identical_to_parent``). Phase 6 (a) and (a2) also profile the warm
+prefill through the parent's attention body.
 
 Without CUDA it exits with code 2 and prints no result. It imports only
 torch, numpy and the port.
@@ -258,6 +269,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import importlib
 import json
 import math
@@ -379,12 +391,12 @@ SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
 LAUNCH_OPS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
               "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 # ``--parent DIR``: an unpacked checkout of the parent commit. Its
-# dss_topk.cu and flash_attention.cu are built with this tree's nvcc flags
-# and their bodies timed beside this tree's on the same inputs in this
-# process (parent, this tree, this tree, parent; device-only). Without the
-# option none of this runs.
+# dss_topk.cu, flash_attention.cu and dss_topk_grouped.cu are built with
+# this tree's nvcc flags and their bodies timed beside this tree's on the
+# same inputs in this process (parent, this tree, this tree, parent;
+# device-only). Without the option none of this runs.
 PARENT = None
-PARENT_SOURCES = ("dss_topk", "flash_attention")
+PARENT_SOURCES = ("dss_topk", "flash_attention", "dss_topk_grouped")
 # A host whose card is present but whose CUDA driver does not initialize yet
 # (as while an HGX board's fabric manager starts) is given this long, tried
 # again every CUDA_RETRY_S seconds in a fresh process, before the script
@@ -549,46 +561,43 @@ def build_parent() -> dict:
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _PARENT_LIBS[n] = lib
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # the parent's C signatures: dss_topk (w, ids, h_scaled, expert_idx,
-    # out_v, out_i, part_v, part_i, K, B, v_pad, d, k, nsplit,
-    # tiles_per_split, dtype, stream); flash_attention as this tree's
-    _PARENT_LIBS["dss_topk"].dss_topk.argtypes = [P] * 8 + [I] * 8 + [P]
-    _PARENT_LIBS["flash_attention"].flash_attention.argtypes = [P] * 4 + [L] * 12 + [I] * 7 + [P]
+    # the parent's C signatures, each as this tree's
+    for n, entry in (("dss_topk", "dss_topk"), ("flash_attention", "flash_attention"),
+                     ("dss_topk_grouped", "dss_topk_grouped_wgmma")):
+        getattr(_PARENT_LIBS[n], entry).argtypes = _build.SIGNATURES[entry]
     return seconds
 
 
 def parent_dss_topk(w, ids, hs, e, k):
-    """The parent's dss_topk body: a block per (token, vocab split), the
-    vocab split so that about two blocks per SM have work (the parent's
-    ``_build.vocab_split``), the splits merged by ``merge_splits_kernel``."""
+    """The parent's dss_topk body (the streaming retrieval, the same C
+    signature as this tree's) with this tree's launch plan."""
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dss_topk import launch_plan
+    from repro_torch.kernels.retrieve_stream import row_vec_bytes
 
     K, v_pad, d = w.shape
     B = hs.shape[0]
-    n_tiles = -(-v_pad // 64)
-    want = max(1, -(-2 * _build.SMS // max(1, B)))
-    tps = -(-n_tiles // min(want, n_tiles))
-    nsplit = -(-n_tiles // tps)
+    plan = launch_plan(B, K, v_pad, d, w.dtype)
     out_v = torch.empty((B, k), dtype=torch.float32, device=hs.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=hs.device)
-    part_v = part_i = None
-    if nsplit > 1:
-        part_v = torch.empty((nsplit, B, k), dtype=torch.float32, device=hs.device)
-        part_i = torch.empty((nsplit, B, k), dtype=torch.int32, device=hs.device)
+    part_v = torch.empty((plan.max_chunks, B, k), dtype=torch.float32, device=hs.device)
+    part_p = torch.empty((plan.max_chunks, B, k), dtype=torch.int32, device=hs.device)
+    n_sel = torch.empty((1,), dtype=torch.int32, device=hs.device)
     lib = _PARENT_LIBS["dss_topk"]
     err = lib.dss_topk(w.data_ptr(), ids.data_ptr(), hs.data_ptr(), e.data_ptr(),
-                       out_v.data_ptr(), out_i.data_ptr(), _build.ptr(part_v),
-                       _build.ptr(part_i), K, B, v_pad, d, k, nsplit, tps,
-                       _build.dtype_code(hs), torch.cuda.current_stream().cuda_stream)
+                       out_v.data_ptr(), out_i.data_ptr(), part_v.data_ptr(), part_p.data_ptr(),
+                       n_sel.data_ptr(), K, B, v_pad, d, k, plan.grid,
+                       row_vec_bytes(d, w.element_size(), w.data_ptr()), _build.dtype_code(hs),
+                       torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "parent dss_topk")
     return out_v, out_i
 
 
-def parent_flash_simt(q, k, v):
-    """The parent's CUDA-core flash_attention body on the same views."""
+def parent_flash(q, k, v, body: str):
+    """The parent's flash_attention body ``body`` (``FLASH_SIMT`` or
+    ``FLASH_TC``) on the same views."""
     import torch
 
     from repro_torch.kernels import _build
@@ -598,10 +607,54 @@ def parent_flash_simt(q, k, v):
     lib = _PARENT_LIBS["flash_attention"]
     err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                              *o.stride()[:3], B, H, k.shape[1], S, dh, _build.dtype_code(q), 0,
-                              torch.cuda.current_stream().cuda_stream)
+                              *o.stride()[:3], B, H, k.shape[1], S, dh, _build.dtype_code(q),
+                              int(body == FLASH_TC), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "parent flash_attention")
     return o
+
+
+def parent_grouped_wgmma(w, ids, buf, g_buf, k, scales):
+    """The parent's tensor-core grouped body on the same inputs, with this
+    tree's plan (``wgmma_plan``, which both trees share)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    K, v_pad, d = w.shape
+    C = buf.shape[1]
+    plan = _grouped().wgmma_plan(K, C, v_pad, k, scales is not None)
+    out_v = torch.empty((K, C, k), dtype=torch.float32, device=buf.device)
+    out_i = torch.empty((K, C, k), dtype=torch.int32, device=buf.device)
+    part_v = part_i = None
+    if plan.nsplit > 1:
+        part_v = torch.empty((plan.nsplit, K, C, k), dtype=torch.float32, device=buf.device)
+        part_i = torch.empty((plan.nsplit, K, C, k), dtype=torch.int32, device=buf.device)
+    lib = _PARENT_LIBS["dss_topk_grouped"]
+    err = lib.dss_topk_grouped_wgmma(
+        buf.data_ptr(), g_buf.data_ptr(), w.data_ptr(), ids.data_ptr(), _build.ptr(scales),
+        out_v.data_ptr(), out_i.data_ptr(), _build.ptr(part_v), _build.ptr(part_i), K, C, v_pad,
+        d, k, plan.n_tile, plan.nsplit, plan.tiles_per_split, plan.stages,
+        _build.weight_code(w), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "parent dss_topk_grouped_wgmma")
+    return out_v, out_i
+
+
+def bit_identical_to_parent(results, name, case, got, parent_fn) -> None:
+    """With ``--parent``: whether this tree's output equals the parent's
+    body's on the same inputs bit for bit (recorded and printed; the tensor-
+    core bodies keep their products' order, so they must)."""
+    import torch
+
+    if PARENT is None:
+        return
+    want = parent_fn()
+    same = all(torch.equal(a, b) for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                                 want if isinstance(want, tuple) else (want,)))
+    results.setdefault("bit_identical_to_parent", []).append(
+        {"name": name, "case": case, "equal": same})
+    print(f"[parent] {name:17s} {case:46s} bit for bit the parent's: {same}", flush=True)
+    if not same:
+        raise SmokeFailure(f"{name} {case}: the output differs from the parent's body")
 
 
 def against_parent(results, name, case, this_fn, parent_fn) -> None:
@@ -1113,13 +1166,72 @@ def grouped_cases(results) -> None:
                                  lambda: torch.topk(torch.bmm(buf, yard_w.transpose(1, 2)), k)),
                     real_rows * (d * w.element_size() + 4 + row_extra) + K * C * (d * 2 + 4)
                     + K * C * k * 8, 2 * C * real_rows * d, bf16, main=True)
+        case = f"{'int8 rows, ' if quantized else ''}C={C} v_pad={v_pad}"
+        bit_identical_to_parent(results, name, case,
+                                ops.dss_topk_grouped(w, ids, buf, g_buf, k, scales=sc),
+                                lambda: parent_grouped_wgmma(w, ids, buf, g_buf, k, sc))
+        against_parent(results, name, case,
+                       lambda: ops.dss_topk_grouped(w, ids, buf, g_buf, k, scales=sc),
+                       lambda: parent_grouped_wgmma(w, ids, buf, g_buf, k, sc))
         del w, yard_w, buf
+    grouped_head_cases(results)
     for quantized in (False, True):
         grouped_dispatch_case(results, gen, quantized)
     capacity_sweep(results, gen)
     for quantized in (False, True):
         tiled_dispatch_case(results, gen, quantized)
     tiled_schedule(results, gen)
+
+
+# The tensor-core grouped body at a speculative verify step's head (B 40:
+# 8 slots, gamma 4; capacity factor 2): qwen2-1.5b's and the wide heads of
+# phase 6b (c), V_pad from their stand-in masks. (name, K, C, d, V_pad)
+VERIFY_HEADS = (("qwen2-1.5b", 16, 5, 1536, 12032), ("llama3.2-3b", 16, 5, 3072, 10112),
+                ("granite-20b", 8, 10, 6144, 7808), ("deepseek-67b", 8, 10, 8192, 16128))
+
+
+def grouped_head_cases(results) -> None:
+    """The tensor-core grouped body at VERIFY_HEADS on seeded stand-in
+    tables (every slot live), fp and int8 rows: against its plain version
+    (ids equal but at near-ties), device-only ms, and with ``--parent`` the
+    parent's body on the same inputs (bit for bit, and timed parent, this,
+    this, parent), on a generator of their own."""
+    import torch
+
+    from repro_torch.core.dssoftmax import ServeTable, quantize_table
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    k, bf16 = 8, torch.bfloat16
+    for arch, K, C, d, v_pad in VERIFY_HEADS:
+        w, ids = _table(gen, K, v_pad, d, bf16)
+        buf = torch.randn((K, C, d), generator=gen, device="cuda").to(bf16)
+        g_buf = torch.rand((K, C), generator=gen, device="cuda")
+        for quantized in (False, True):
+            sc = None
+            if quantized:
+                qt = quantize_table(ServeTable(ids=ids, weights=w))
+                w, sc = qt.qweights, qt.scales
+                del qt
+            name = _grouped().select_body(C, bf16) + ("_q" if quantized else "")
+            case = f"{arch} head{', int8 rows' if quantized else ''} C={C} d={d} v_pad={v_pad}"
+            got = ops.dss_topk_grouped(w, ids, buf, g_buf, k, scales=sc)
+            err, parted = _compare(name, case, got,
+                                   ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, scales=sc))
+            dev = device_ms(lambda: ops.dss_topk_grouped(w, ids, buf, g_buf, k, scales=sc))
+            plan = _grouped().wgmma_plan(K, C, v_pad, k, quantized)
+            results.setdefault("verify_heads", []).append(
+                {"name": name, "case": case, "device_ms": dev, "max_abs_err": err,
+                 "rows_parted_at_ties": parted, "plan": plan._asdict()})
+            print(f"[kernel] {name:17s} {case:50s} device {dev:.4f} ms  max|dv| {err:.3g}  rows "
+                  f"parted at ties {parted}  plan {tuple(plan)}", flush=True)
+            bit_identical_to_parent(results, name, case, got,
+                                    lambda: parent_grouped_wgmma(w, ids, buf, g_buf, k, sc))
+            against_parent(results, name, case,
+                           lambda: ops.dss_topk_grouped(w, ids, buf, g_buf, k, scales=sc),
+                           lambda: parent_grouped_wgmma(w, ids, buf, g_buf, k, sc))
+        del w, buf
+    torch.cuda.empty_cache()
 
 
 def tiled_schedule(results, gen) -> None:
@@ -1336,7 +1448,8 @@ def flash_cases(results, gen) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import launch_body, select_body, simt_tile
+    from repro_torch.kernels.flash_attention import (launch_body, select_body, simt_tile,
+                                                     wgmma_schedule)
     from repro_torch.testing import flash_attention_limit
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1350,6 +1463,12 @@ def flash_cases(results, gen) -> None:
     # own (so the head-path step draws what it always drew)
     own = torch.Generator(device="cuda").manual_seed(SEED + 13)
     cases += [(1, 12, 2, 2048, dh, f32, False, False, None, own) for dh in (64, 256)]
+    # the tensor-core body at the other dense configs' attention: llama3.2-3b
+    # (24 / 8 heads, S 2048), granite-20b (48 / 1, S 1024) and lm-100m (dh 64,
+    # 12 / 4, S 512), on a generator of their own too
+    wide = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    cases += [(1, H, H_kv, S, dh, bf16, False, False, None, wide)
+              for H, H_kv, S, dh in ((24, 8, 2048, 128), (48, 1, 1024, 128), (12, 4, 512, 64))]
     for B, H, H_kv, S, dh, dtype, main, strided, forced, case_gen in cases:
         if strided:  # every other position of wider buffers, dh sliced out
             qb = torch.randn((B, 2 * S, H, dh + 32), generator=case_gen, device="cuda").to(dtype)
@@ -1395,6 +1514,12 @@ def flash_cases(results, gen) -> None:
             row["host_us_launch_only"] = host_us(lambda: launch_body(q, k, v, body))
         if body == FLASH_SIMT:  # the build the CUDA-core body launches
             row["simt_tile"] = simt_tile(dh, dtype)._asdict()
+        if body == FLASH_TC:  # the schedule's makespan in kv-tile steps, and each one's µs
+            # the grid the kernel launched: one block per SM of this card
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            steps = max(sum(qt + 1 for qt, _, _ in blk) for blk in wgmma_schedule(B, H, S, sms))
+            row["makespan_kv_steps"] = steps
+            row["us_per_kv_step"] = times["device_ms"] * 1e3 / steps
         results.setdefault("cases", []).append(row)
         if main:
             results.setdefault("main", {})[body] = row
@@ -1403,10 +1528,16 @@ def flash_cases(results, gen) -> None:
               f"{width:.3g} of the median |o|)"
               + (f"; launch alone {row['host_us_launch_only']:.1f} us on the host"
                  if "host_us_launch_only" in row else "")
-              + (f"; tile {tuple(row['simt_tile'].values())}" if "simt_tile" in row else ""),
+              + (f"; tile {tuple(row['simt_tile'].values())}" if "simt_tile" in row else "")
+              + (f"; {row['us_per_kv_step']:.3f} us per kv-tile step over a makespan of "
+                 f"{row['makespan_kv_steps']}" if "makespan_kv_steps" in row else ""),
               flush=True)
         if body == FLASH_SIMT and S == 2048:
-            against_parent(results, body, case, run, lambda: parent_flash_simt(q, k, v))
+            against_parent(results, body, case, run, lambda: parent_flash(q, k, v, FLASH_SIMT))
+        if body == FLASH_TC:  # every case of the tensor-core body
+            bit_identical_to_parent(results, body, case, got,
+                                    lambda: parent_flash(q, k, v, FLASH_TC))
+            against_parent(results, body, case, run, lambda: parent_flash(q, k, v, FLASH_TC))
         del q, k, v, got, want, diff, limit
     torch.cuda.empty_cache()
 
@@ -2548,7 +2679,7 @@ def fp32_prefill(results, cfg, params, table, tokens) -> dict:
     warm = {"this": warm_prefill_profile(prefill, "(a2) fp32")}
     orig = layers.flash_attention
     if PARENT is not None:  # the same warm prefill through the parent's body
-        layers.flash_attention = lambda q, k, v, device: parent_flash_simt(q, k, v)
+        layers.flash_attention = lambda q, k, v, device: parent_flash(q, k, v, FLASH_SIMT)
         try:
             warm["parent"] = warm_prefill_profile(prefill, "(a2) fp32, the parent's body")
         finally:
@@ -2634,6 +2765,13 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
                           "kernel_ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
                           "ids_equal": bool(same.all()), "max_drift": drift,
                           "warm": warm_prefill_profile(prefill)}
+    if PARENT is not None:  # the same warm prefill through the parent's tensor-core body
+        layers.flash_attention = lambda q, k, v, device: parent_flash(q, k, v, FLASH_TC)
+        try:
+            out["one_prefill"]["warm_parent"] = warm_prefill_profile(
+                prefill, "(a), the parent's body")
+        finally:
+            layers.flash_attention = orig
     print(f"[prefill] (a) {tokens.shape[1]}-token prefill: {FLASH_TC} launched {launches} "
           f"times ({cfg.n_layers} layers), plain versions never called; {t_kernel * 1e3:.1f} ms "
           f"against {t_plain * 1e3:.1f} ms with chunked_causal_attention swapped in; top-k ids "
@@ -2808,11 +2946,18 @@ def spec_phase(results: dict, card: str) -> None:
     import torch
 
     out = results.setdefault("spec", {"card": card})
+    # Sessions hold reference cycles (graphs, closures over the session), so
+    # a model's device memory is freed only when the collector runs: collect
+    # before the next model (granite-20b's 41.6 GB, deepseek-67b's head
+    # checks) needs the room.
     spec_sessions(out, card)
+    gc.collect()
     torch.cuda.empty_cache()
     granite_serving(out, card)
+    gc.collect()
     torch.cuda.empty_cache()
     wide_heads(out, card)
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -3522,9 +3667,10 @@ def main() -> int:
     per_lib = _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(per_lib) or 'nothing (cached)'}; "
           f"per library {json.dumps({n: round(s, 2) for n, s in per_lib.items()})}")
-    for n in _build.SOURCES:
+    for n in _build.SOURCES:  # registers, spills and ptxas warnings (wgmma serialized: C7510)
         for line in _build.build_log(n).splitlines():
-            if "Used" in line:
+            if "Used" in line or "warning" in line or (
+                    "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line):
                 print(f"[build] {n}: {line.strip()}")
 
     results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -3549,6 +3695,7 @@ def main() -> int:
     timed("adapt", adapt_phase, results, card, cfg, bundle, params, mask, gamma)
     timed("prefill", prefill_phase, results, card, cfg, bundle, params, cases[0][1])
     del bundle, params, cases
+    gc.collect()
     torch.cuda.empty_cache()
     timed("spec", spec_phase, results, card)
     timed("train", train_phase, results, card)

@@ -78,9 +78,14 @@
 //   (8 bytes each), plus g and 1 KB of alignment; at N 256, k 8: 3 stages,
 //   214 KB bf16, 190 KB int8, of the 227 KB a block may use. The plan
 //   lowers the stage count, then N, until it fits.
-// - Measured (chip_smoke.py phase 2, PERF.md): the epilogue still stalls
-//   the tensor cores (both warpgroups reach it together); overlapping it
-//   with the next tile's products is the next step.
+// - What bounds it (an H100 80GB HBM3 at 700 W; PERF.md section 6): rows
+//   stream from device memory and token slices from L2 while the products
+//   run, and the top-k epilogue (37% of the time at C 256) runs with no
+//   product in flight and the ring full. Both warpgroups share each ring
+//   stage, so neither can run ahead into the next tile; a second set of
+//   N / 2 accumulators does not fit at N 256, nor does a deeper ring beside
+//   the top-k state. Loading the token slice once for the first row tile
+//   only took a twentieth off (the L2 token stream is not what binds).
 //
 // dss_topk_grouped_tiled, the CUDA-core tiled body (fp32 tokens at prefill
 // capacities, where tensor cores would need TF32 and change the function;
@@ -924,9 +929,7 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
+using repro::bar_sync;
 // A named barrier that also returns whether any participant passed true.
 __device__ __forceinline__ bool bar_any(int id, int n, bool p) {
   uint32_t r;

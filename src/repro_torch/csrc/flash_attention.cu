@@ -20,25 +20,30 @@
 // dtype, head dim and alignment; each checks again what it takes.
 //
 // Body "wgmma" (bf16; dh a multiple of 16 up to 128; 16-byte aligned data
-// pointers and batch/head/sequence strides), the tensor-core body:
-// - One block of 288 threads per (128-row query tile, head, batch row):
-//   two consumer warpgroups own 64 query rows each; warp 8 is the producer.
-//   Grid order puts the heaviest query tiles (most kv tiles) first across
-//   all heads: at qwen2-1.5b's S 2048, 16 x 12 = 192 blocks for 132 SMs,
-//   the first wave holds exactly the 132 tiles with 6-16 kv tiles and the
-//   60 light ones fill in behind them, so the makespan is the heaviest
-//   tile's 16 kv tiles against a mean of 12.4 (77% balance).
-// - The producer's lane 0 issues TMA loads (cp.async.bulk.tensor, 4-D
-//   tensor maps over (dh, S, heads, B) built on the host from the element
-//   strides, passed as __grid_constant__): Q once, then whole 128-row K and
-//   V tiles into a ring of 2 stages with full/empty mbarriers, so tile j+1
-//   is in flight while tile j's products run. Rows >= S and head-dim
+// pointers and batch/head/sequence strides), the tensor-core body, in the
+// pattern of FlashAttention-3:
+// - Work items of (128-row query tile, head, batch row), heaviest first
+//   (most kv tiles), dealt over a persistent grid of min(SMs, items) blocks
+//   of 384 threads, one per SM, in rows of the grid size, every other row
+//   backwards (tc::item_at; kernels/flash_attention.py::wgmma_schedule
+//   mirrors it): at qwen2-1.5b's S 2048, 192 items on 132 SMs, the makespan
+//   the heaviest item's 16 kv tiles against a mean of 12.4.
+// - A producer warpgroup that gives its registers up (setmaxnreg: 40 per
+//   thread, 232 for each consumer thread) and two consumer warpgroups that
+//   own 64 query rows each. The producer's lane 0 issues TMA loads
+//   (cp.async.bulk.tensor, 4-D tensor maps over (dh, S, heads, B) built on
+//   the host from the element strides, passed as __grid_constant__): an
+//   item's Q once the consumers have read the previous item's Q for the
+//   last time (so the next Q lands while the current item finishes), then
+//   whole 128-row K and V tiles into two rings (2 stages at dh 128, 4 at dh
+//   64) with full/empty mbarriers of their own. Rows >= S and head-dim
 //   columns >= dh arrive as TMA's zero fill (no masked loads).
 // - Shared memory holds each tile as 64-column (128-byte) regions with the
-//   128-byte swizzle: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB at
-//   dh 128 (one block per SM).
-// - S = Q K^T is wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate), Q
-//   and K read K-major from shared memory; two n64 halves per k16 slice.
+//   128-byte swizzle: Q, the K ring, the V ring and an O staging tile, 192
+//   KB at dh 128 (161 KB at dh 64).
+// - S = Q K^T is wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate), Q
+//   and K read K-major from shared memory, one product per k16 slice over
+//   all 128 kv rows (two n64 halves would read Q from shared memory twice).
 //   The online softmax runs on the accumulator registers (each row's m and
 //   l shared by the 4 lanes holding it, quad shuffles), in the log2 domain
 //   (ex2 of the scores times log2(e)/sqrt(dh)); the causal mask (-1e9)
@@ -47,16 +52,26 @@
 //   accumulator after the softmax, rounded to bf16 (the Pallas kernel's
 //   p.astype(v.dtype)), repacked in place (the m64nNk16 accumulator layout
 //   of two n8 column blocks is the A fragment of one k16 slice). V is read
-//   from the same swizzled tiles through wgmma's transpose bit (MN-major B).
-// - Each warpgroup waits on its own products (no ping-pong between the two
-//   warpgroups yet); the epilogue stores o / l from registers, 4 bytes per
-//   lane, in q's axis order.
+//   from the same swizzled tiles through wgmma's transpose bit (MN-major B),
+//   all dh columns in one product per k16 slice.
+// - Pipelined inside each warpgroup: S of kv tile j and P V of tile j - 1
+//   issue together; the softmax of tile j runs while P V is in flight, and
+//   O is rescaled once it has landed. Across the two warpgroups, named
+//   barriers make them take turns to issue (ping-pong), so one warpgroup's
+//   softmax runs under the other's products.
+// - Each output element sees the same products, roundings and rescales in
+//   the same order as in a body that waits on every product (the pipeline
+//   moves only when they issue), so the output is bit for bit that body's,
+//   whichever block or turn computes an item.
+// - The epilogue writes o / l in bf16 into the staging tile (16-byte chunks
+//   XOR-swizzled by row) and stores it with 16-byte coalesced stores, in
+//   q's axis order.
 //
 // Body "simt" (the CUDA-core body: fp32, dh not a multiple of 16 or above
 // 128, data TMA cannot address; dh <= 256), bound by the fp32 FMAs of the
 // two products. Templated on the head-dim class DH (64, 128, 256: dh
 // rounded up). One block per (64-row query tile, head, batch row), the
-// heaviest query tiles first across all heads (the 1-D grid of the wgmma
+// heaviest query tiles first across all heads (the item order of the wgmma
 // body); 128 threads for DH 64 and 128 (two blocks per SM), 256
 // for DH 256. Thread (ty, tx) of a 16-wide grid owns query rows
 // ty + RT i (RT = threads / 16) and, of each 64-row kv tile, score columns
@@ -416,24 +431,53 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, Strid
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// Body "wgmma": tensor cores on TMA-staged K/V (bf16)
+// Body "wgmma": tensor cores on TMA-staged Q/K/V (bf16)
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-constexpr int kBQ = 128;                // query rows per block (two warpgroups)
-constexpr int kBK = 128;                // kv rows per tile
-constexpr int kStages = 2;              // K/V ring depth
-constexpr int kConsumers = 256;         // two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;  // + one producer warp
-constexpr int kRegion = 128 * 128;      // bytes of one 64-column region of a 128-row tile
+constexpr int kBQ = 128;                   // query rows per work item (two warpgroups)
+constexpr int kBK = 128;                   // kv rows per tile
+constexpr int kConsumers = 256;            // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128; // + the producer warpgroup
+constexpr int kRegion = 128 * 128;         // bytes of one 64-column region of a 128-row tile
 constexpr int kMaxDh = 128;
+// Registers per thread after setmaxnreg: the producer warpgroup gives its
+// registers up to the consumers, which hold O (NC x 32 fp32), S (64 fp32)
+// and the P fragments of the product in flight (32): 128 x 40 + 256 x 232
+// <= 65,536.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// Named barriers: 1 and 2 order the two warpgroups' products (warpgroup
+// w issues on 1 + w), 3 and 4 are each warpgroup's own.
+constexpr int kTurnBar = 1, kOwnBar = 3;
 
-template <int NC>  // 64-column regions over the (zero-padded) head dim
-constexpr int smem_bytes() {
-  return NC * kRegion + kStages * 2 * NC * kRegion + 8 * (2 * kStages + 1) + 1024;
+// K and V ring depth of the head-dim class (NC 64-column regions): 2 at
+// dh 128, 4 at dh 64.
+template <int NC>
+__host__ __device__ constexpr int stages() {
+  return NC == 1 ? 4 : 2;
 }
 
+// Q, the K ring, the V ring and the O staging tile (a 128-row tile each
+// slot), 4 barriers per stage and 2 for Q, 1 KB to align the base:
+// 197,712 bytes at dh 128, 165,008 at dh 64.
+template <int NC>
+constexpr int smem_bytes() {
+  return (2 + 2 * stages<NC>()) * NC * kRegion + 8 * (4 * stages<NC>() + 2) + 1024;
+}
+
+// Work item r of block `blk` in a grid of G blocks: the items, heaviest
+// first (item L is query tile n_q - 1 - L / (H * B), head L % H, batch row
+// (L / H) % B), are dealt in rows of G, every other row backwards, so a
+// block that took a heavy item in one row takes a light one in the next
+// (kernels/flash_attention.py::wgmma_schedule mirrors it).
+__device__ __forceinline__ int item_at(int r, int blk, int G) {
+  return r * G + ((r & 1) ? G - 1 - blk : blk);
+}
+
+using repro::bar_arrive;
+using repro::bar_sync;
 using repro::mbar_arrive;
 using repro::mbar_expect_tx;
 using repro::mbar_init;
@@ -447,196 +491,312 @@ using repro::tma_load_4d;
 using repro::wgmma_commit;
 using repro::wgmma_fence;
 using repro::wgmma_rs_tb;
-using repro::wgmma_ss;
-using repro::wgmma_wait_all;
+using repro::wgmma_wait;
 
-// Block L of the 1-D grid: query tile n_q - 1 - L / (H * B) (heaviest
-// first across all heads), head L % H, batch row (L / H) % B.
+// S = Q K^T for this warpgroup's 64 query rows over the 128 kv rows, one
+// m64n128k16 product per k16 slice of the NC regions (columns past dh are
+// TMA's zero fill and add exact zeros; a product under a branch would make
+// ptxas serialize them).
+template <int NC>
+__device__ __forceinline__ void issue_qk(float (&sacc)[64], uint32_t q_wg, uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NC; ++kk) {
+    const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
+    repro::Mma<128>::ss(sacc, sw128_desc(q_wg + off), sw128_desc(kt + off), kk > 0);
+  }
+}
+
+// O += P V: P the bf16 A fragments in registers, V transposed by the
+// descriptor (MN-major B). At NC 2 one m64n128k16 product per k16 slice
+// reads both 64-column regions of V (the descriptor's leading byte offset
+// is the region stride), each region's accumulators the halves of O.
+template <int NC>
+__device__ __forceinline__ void issue_pv(float (&oacc)[NC][32], const uint32_t (&pa)[8][4],
+                                         uint32_t vt) {
+  if constexpr (NC == 2) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs_tb(oacc[0], oacc[1], pa[kk], sw128_desc(vt + kk * 16 * 128, kRegion));
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_rs_tb(oacc[0], pa[kk], sw128_desc(vt + kk * 16 * 128));
+  }
+}
+
+// The online softmax of one kv tile on this thread's score accumulators
+// (log2 domain; the causal mask on the diagonal tile only, DIAG): the new
+// row maxima m, alpha = exp2(m_old - m_new), p in place of s, l = l alpha +
+// sum p (each row's m and l shared by the 4 lanes holding it).
+template <bool DIAG>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[64], float scale_log2, int k0,
+                                             int row0, int tq4, float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2]) {
+  float mx[2] = {repro::kNegInfMask, repro::kNegInfMask};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int rr = (i >> 1) & 1;
+    float x = sacc[i] * scale_log2;
+    if (DIAG && k0 + 8 * (i >> 2) + 2 * tq4 + (i & 1) > row0 + 8 * rr) x = repro::kNegInfMask;
+    sacc[i] = x;
+    mx[rr] = fmaxf(mx[rr], x);
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+    const float m_new = fmaxf(m[rr], mx[rr]);
+    alpha[rr] = ex2(m[rr] - m_new);
+    m[rr] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int rr = (i >> 1) & 1;
+    const float p = ex2(sacc[i] - m[rr]);
+    sacc[i] = p;
+    rs[rr] += p;
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 1);
+    rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 2);
+    l[rr] = l[rr] * alpha[rr] + rs[rr];
+  }
+}
+
+// O *= alpha, then P (bf16) as A fragments: slice kk covers kv rows
+// 16 kk .. 16 kk + 15 (the m64nNk16 accumulator layout of two n8 column
+// blocks is the A fragment of one k16 slice).
+template <int NC>
+__device__ __forceinline__ void rescale_and_pack(float (&oacc)[NC][32], const float (&sacc)[64],
+                                                 uint32_t (&pa)[8][4], const float (&alpha)[2]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[c][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int i0 = 8 * kk;
+    pa[kk][0] = pack_bf16(sacc[i0 + 0], sacc[i0 + 1]);  // row g,     k 2 tq4 ..
+    pa[kk][1] = pack_bf16(sacc[i0 + 2], sacc[i0 + 3]);  // row g + 8, k 2 tq4 ..
+    pa[kk][2] = pack_bf16(sacc[i0 + 4], sacc[i0 + 5]);  // row g,     k 8 + 2 tq4 ..
+    pa[kk][3] = pack_bf16(sacc[i0 + 6], sacc[i0 + 7]);  // row g + 8, k 8 + 2 tq4 ..
+  }
+}
+
+// One block of 384 threads per SM (at most one per work item) walks its
+// work items (item_at); per item, warpgroup wg of the two consumers owns
+// query rows q0 + 64 wg .. + 63.
 template <int NC>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                 Strides os, int H, int B, int group, int S, int dh, int n_q, float scale_log2) {
+  constexpr int ST = stages<NC>();
+  constexpr int TILE = NC * kRegion;  // one 128-row tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base;                    // Q: NC regions of 128 rows
-  const uint32_t skv = sq + NC * kRegion;      // stage s: K, then V, NC regions each
-  const uint32_t bars = skv + kStages * 2 * NC * kRegion;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
-  const uint32_t qbar = bars + 8u * (2 * kStages);
-
-  const int L = blockIdx.x;
-  const int hb = L % (H * B);
-  const int qt = n_q - 1 - L / (H * B);
-  const int h = hb % H, b = hb / H, hk = h / group;
-  const int q0 = qt * kBQ;
-  const int n_kv = qt + 1;  // kBK == kBQ: the last tile holds the diagonal
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base;               // Q: NC regions of 128 rows
+  const uint32_t sk = sq + TILE;          // K ring, ST tiles
+  const uint32_t sv = sk + ST * TILE;     // V ring, ST tiles
+  const uint32_t so = sv + ST * TILE;     // O staging: 128 rows of dh bf16
+  const uint32_t bars = so + TILE;
+  unsigned char* so_ptr = smem_raw + (so - raw);
+  auto full_k = [&](int s) { return bars + 8u * s; };
+  auto full_v = [&](int s) { return bars + 8u * (ST + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (2 * ST + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (3 * ST + s); };
+  const uint32_t q_full = bars + 8u * (4 * ST), q_empty = q_full + 8u;
+  const int n_items = n_q * H * B;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumers);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), kConsumers);
+      mbar_init(empty_v(s), kConsumers);
     }
-    mbar_init(qbar, 1);
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == kConsumers / 32) {
-    // -- producer: one lane issues every TMA load ------------------------
-    if (lane == 0) {
-      mbar_expect_tx(qbar, NC * kRegion);
-      for (int c = 0; c < NC; ++c) tma_load_4d(sq + c * kRegion, &tq, qbar, 64 * c, q0, h, b);
-      for (int kt = 0; kt < n_kv; ++kt) {
-        const int s = kt % kStages;
-        if (kt >= kStages) mbar_wait(empty(s), ((kt / kStages) - 1) & 1);
-        mbar_expect_tx(full(s), 2 * NC * kRegion);
-        const uint32_t sk = skv + s * 2 * NC * kRegion, sv = sk + NC * kRegion;
-        for (int c = 0; c < NC; ++c) {
-          tma_load_4d(sk + c * kRegion, &tk, full(s), 64 * c, kt * kBK, hk, b);
-          tma_load_4d(sv + c * kRegion, &tv, full(s), 64 * c, kt * kBK, hk, b);
+  if (warp >= kConsumers / 32) {
+    // -- producer warpgroup: one lane issues every TMA load. Per item: Q
+    // once the consumers are done with the previous item's Q (q_empty),
+    // then K and V of each kv tile into the rings. ----------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      int kv = 0;  // kv tiles loaded so far by this block (ring position)
+      for (int r = 0;; ++r) {
+        const int L = item_at(r, blockIdx.x, gridDim.x);
+        if (L >= n_items) break;
+        const int hb = L % (H * B), qt = n_q - 1 - L / (H * B);
+        const int h = hb % H, b = hb / H, hk = h / group;
+        if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
+        mbar_expect_tx(q_full, TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(sq + c * kRegion, &tq, q_full, 64 * c, qt * kBQ, h, b);
+        for (int kt = 0; kt <= qt; ++kt, ++kv) {
+          const int s = kv % ST;
+          const uint32_t ph = ((kv / ST) - 1) & 1;
+          if (kv >= ST) mbar_wait(empty_k(s), ph);
+          mbar_expect_tx(full_k(s), TILE);
+          for (int c = 0; c < NC; ++c)
+            tma_load_4d(sk + s * TILE + c * kRegion, &tk, full_k(s), 64 * c, kt * kBK, hk, b);
+          if (kv >= ST) mbar_wait(empty_v(s), ph);
+          mbar_expect_tx(full_v(s), TILE);
+          for (int c = 0; c < NC; ++c)
+            tma_load_4d(sv + s * TILE + c * kRegion, &tv, full_v(s), 64 * c, kt * kBK, hk, b);
         }
       }
     }
     return;
   }
 
-  // -- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----------
+  // -- consumers --------------------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int wg = warp / 4, w = warp % 4;
   const int g = lane / 4, tq4 = lane % 4;
-  // accumulator element i of a 64 x 64 product: row 16 w + g + 8 ((i >> 1) & 1),
-  // column 8 (i >> 2) + 2 tq4 + (i & 1)
-  const int row0 = q0 + 64 * wg + 16 * w + g;
-  const int ks = dh / 16;  // k16 slices that hold head-dim data
+  const int my_turn = kTurnBar + wg, other_turn = kTurnBar + 1 - wg;
   const uint32_t q_wg = sq + wg * 64 * 128;
-  float m[2] = {repro::kNegInfMask, repro::kNegInfMask}, l[2] = {0.f, 0.f};
-  float oacc[NC][32];
+  // accumulator element i of a 64 x N product: row 16 w + g + 8 ((i >> 1) & 1),
+  // column 8 (i >> 2) + 2 tq4 + (i & 1)
+  float sacc[64], oacc[NC][32];
+  uint32_t pa[8][4];
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
+  for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+  // Ping-pong: the warpgroups take turns to issue their products, so one
+  // softmax runs under the other warpgroup's products. Warpgroup 0 goes
+  // first.
+  if (wg == 1) bar_arrive(kTurnBar, kConsumers);
 
-  mbar_wait(qbar, 0);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int s = kt % kStages;
-    mbar_wait(full(s), (kt / kStages) & 1);
-    const uint32_t sk = skv + s * 2 * NC * kRegion, sv = sk + NC * kRegion;
-
-    // S = Q K^T: two 64-column halves of the 128 kv rows
-    float sacc[2][32];
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sacc[nb][i] = 0.f;
-    fence_regs(sacc[0]);
-    fence_regs(sacc[1]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * NC; ++kk) {
-      if (kk < ks) {
-        const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
-        const uint64_t da = sw128_desc(q_wg + off);
-        wgmma_ss(sacc[0], da, sw128_desc(sk + off), kk > 0);
-        wgmma_ss(sacc[1], da, sw128_desc(sk + off + 64 * 128), kk > 0);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(sacc[0]);
-    fence_regs(sacc[1]);
-
-    // online softmax on the accumulators (log2 domain), causal mask on the
-    // diagonal tile only
-    const int k0 = kt * kBK;
-    const bool diag = kt == n_kv - 1;
-    float mx[2] = {repro::kNegInfMask, repro::kNegInfMask};
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int rr = (i >> 1) & 1;
-        float x = sacc[nb][i] * scale_log2;
-        if (diag && k0 + 64 * nb + 8 * (i >> 2) + 2 * tq4 + (i & 1) > row0 + 8 * rr)
-          x = repro::kNegInfMask;
-        sacc[nb][i] = x;
-        mx[rr] = fmaxf(mx[rr], x);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m[rr], mx[rr]);
-      alpha[rr] = ex2(m[rr] - m_new);
-      m[rr] = m_new;
-    }
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int rr = (i >> 1) & 1;
-        const float p = ex2(sacc[nb][i] - m[rr]);
-        sacc[nb][i] = p;
-        rs[rr] += p;
-      }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 1);
-      rs[rr] += __shfl_xor_sync(0xffffffffu, rs[rr], 2);
-      l[rr] = l[rr] * alpha[rr] + rs[rr];
-    }
+  int kv = 0;  // kv tiles consumed by this block, as the producer counts them
+  for (int r = 0;; ++r) {
+    const int L = item_at(r, blockIdx.x, gridDim.x);
+    if (L >= n_items) break;
+    const int hb = L % (H * B), qt = n_q - 1 - L / (H * B);
+    const int h = hb % H, b = hb / H;
+    const int q0 = qt * kBQ, n_kv = qt + 1;  // kBK == kBQ: the last tile holds the diagonal
+    const int row0 = q0 + 64 * wg + 16 * w + g;
+    float m[2] = {repro::kNegInfMask, repro::kNegInfMask}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) oacc[c][i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
+    mbar_wait(q_full, r & 1);
 
-    // P (bf16) as A fragments: slice kk covers kv rows 16 kk .. 16 kk + 15
-    uint32_t pa[8][4];
+    // kv tile 0: S alone
+    {
+      const int s = kv % ST;
+      mbar_wait(full_k(s), (kv / ST) & 1);
+      bar_sync(my_turn, kConsumers);
+      fence_regs(sacc);
+      wgmma_fence();
+      issue_qk<NC>(sacc, q_wg, sk + s * TILE);
+      wgmma_commit();
+      bar_arrive(other_turn, kConsumers);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      mbar_arrive(empty_k(s));
+      if (n_kv == 1) mbar_arrive(q_empty);
+      if (n_kv == 1)
+        softmax_tile<true>(sacc, scale_log2, 0, row0, tq4, m, l, alpha);
+      else
+        softmax_tile<false>(sacc, scale_log2, 0, row0, tq4, m, l, alpha);
+      rescale_and_pack<NC>(oacc, sacc, pa, alpha);
+    }
+    // kv tile kt: S of tile kt and O += P V of tile kt - 1 issued together;
+    // the softmax of tile kt runs while P V is in flight, and O is rescaled
+    // once P V has landed.
+    for (int kt = 1; kt < n_kv; ++kt) {
+      const int sp = kv % ST;
+      const uint32_t php = (kv / ST) & 1;
+      ++kv;
+      const int s = kv % ST;
+      mbar_wait(full_k(s), (kv / ST) & 1);
+      mbar_wait(full_v(sp), php);
+      bar_sync(my_turn, kConsumers);
+      fence_regs(sacc);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int nb = kk / 4, i0 = 8 * (kk % 4);
-      pa[kk][0] = pack_bf16(sacc[nb][i0 + 0], sacc[nb][i0 + 1]);  // row g,     k 2 tq4 ..
-      pa[kk][1] = pack_bf16(sacc[nb][i0 + 2], sacc[nb][i0 + 3]);  // row g + 8, k 2 tq4 ..
-      pa[kk][2] = pack_bf16(sacc[nb][i0 + 4], sacc[nb][i0 + 5]);  // row g,     k 8 + 2 tq4 ..
-      pa[kk][3] = pack_bf16(sacc[nb][i0 + 6], sacc[nb][i0 + 7]);  // row g + 8, k 8 + 2 tq4 ..
+      for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
+      wgmma_fence();
+      issue_qk<NC>(sacc, q_wg, sk + s * TILE);
+      wgmma_commit();
+      issue_pv<NC>(oacc, pa, sv + sp * TILE);
+      wgmma_commit();
+      bar_arrive(other_turn, kConsumers);
+      wgmma_wait<1>();  // S has landed; P V may still run
+      fence_regs(sacc);
+      mbar_arrive(empty_k(s));
+      if (kt == n_kv - 1) mbar_arrive(q_empty);  // the item's last read of Q
+      if (kt == n_kv - 1)
+        softmax_tile<true>(sacc, scale_log2, kt * kBK, row0, tq4, m, l, alpha);
+      else
+        softmax_tile<false>(sacc, scale_log2, kt * kBK, row0, tq4, m, l, alpha);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
+      mbar_arrive(empty_v(sp));
+      rescale_and_pack<NC>(oacc, sacc, pa, alpha);
+    }
+    // the last tile's P V
+    {
+      const int sp = kv % ST;
+      mbar_wait(full_v(sp), (kv / ST) & 1);
+      ++kv;
+      bar_sync(my_turn, kConsumers);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
+      wgmma_fence();
+      issue_pv<NC>(oacc, pa, sv + sp * TILE);
+      wgmma_commit();
+      bar_arrive(other_turn, kConsumers);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
+      mbar_arrive(empty_v(sp));
     }
 
-    // O += P V, V transposed by the descriptor (MN-major B)
+    // epilogue: o = acc / l in bf16 into this warpgroup's 64 rows of the
+    // staging tile (row pitch NC x 128 bytes, 16-byte chunk c of row rw at
+    // c ^ (rw & 7): a warp's 4-byte writes and a quarter-warp's 16-byte
+    // reads hit distinct banks), then 16-byte coalesced stores in q's axis
+    // order.
+    constexpr int CH = NC * 8;  // 16-byte chunks per staged row
+    unsigned char* so_wg = so_ptr + wg * 64 * CH * 16;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int rr = 0; rr < 2; ++rr) {
+      const int rw = 16 * w + g + 8 * rr;
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        wgmma_rs_tb(oacc[c], pa[kk], sw128_desc(sv + c * kRegion + kk * 16 * 128));
-    wgmma_commit();
-    wgmma_wait_all();
 #pragma unroll
-    for (int c = 0; c < NC; ++c) fence_regs(oacc[c]);
-    mbar_arrive(empty(s));  // this thread no longer reads stage s
-  }
-
-  // epilogue: o = acc / l in bf16, q's axis order
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int r = row0 + 8 * rr;
-    if (r >= S) continue;
-    __nv_bfloat16* orow = o + b * os.b + h * os.h + static_cast<long long>(r) * os.s;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = 64 * c + 8 * j + 2 * tq4;
-        if (col < dh) {
+        for (int j = 0; j < 8; ++j) {
           const int i = 4 * j + 2 * rr;
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(oacc[c][i] / l[rr], oacc[c][i + 1] / l[rr]);
+          *reinterpret_cast<uint32_t*>(so_wg + rw * CH * 16 + (((8 * c + j) ^ (rw & 7)) << 4) +
+                                       4 * tq4) =
+              pack_bf16(oacc[c][i] / l[rr], oacc[c][i + 1] / l[rr]);
         }
-      }
+    }
+    bar_sync(kOwnBar + wg, 128);
+    __nv_bfloat16* ob = o + b * os.b + h * os.h;
+    const int ct = threadIdx.x % 128;
+#pragma unroll
+    for (int p = 0; p < 64 * CH / 128; ++p) {
+      const int idx = 128 * p + ct, rw = idx / CH, c16 = idx % CH;
+      const int row = q0 + 64 * wg + rw;
+      if (row < S && c16 * 8 < dh)
+        *reinterpret_cast<uint4*>(ob + static_cast<long long>(row) * os.s + c16 * 8) =
+            *reinterpret_cast<const uint4*>(so_wg + rw * CH * 16 + ((c16 ^ (rw & 7)) << 4));
+    }
+    // The staging tile is written again only after this warpgroup's next
+    // turn barrier, which every one of its threads reaches after these reads.
   }
+  // warpgroup 1's last turn signal, so no barrier is left half arrived
+  if (wg == 0) bar_sync(kTurnBar, kConsumers);
 }
 
 using repro::encode_fn;
@@ -677,6 +837,16 @@ bool takes(const void* p, Strides st, int B, int heads, int S, int dh) {
          (S == 1 || st.s * e % 16 == 0);
 }
 
+// Streaming multiprocessors of the current device, read once per device.
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
 template <int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides qs, Strides ks,
                    Strides vs, Strides os, int B, int H, int H_kv, int S, int dh,
@@ -690,10 +860,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
   auto kern = fa_wgmma_kernel<NC>;
   err = smem_limit_once(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return err;
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
   const int n_q = (S + kBQ - 1) / kBQ;
+  const long long items = static_cast<long long>(n_q) * H * B;
+  const int grid = static_cast<int>(items < sms ? items : sms);
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(dh));
-  kern<<<n_q * H * B, kThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), os,
-                                                  H, B, H / H_kv, S, dh, n_q, scale_log2);
+  kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), os, H, B,
+                                         H / H_kv, S, dh, n_q, scale_log2);
   return cudaGetLastError();
 }
 
@@ -722,6 +896,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   if (body == 1) {
     if (dtype != repro::kDtypeBF16 || !tc::takes(q, qs, B, H, S, dh) ||
         !tc::takes(k, ks, B, H_kv, S, dh) || !tc::takes(v, vs, B, H_kv, S, dh) ||
+        !tc::takes(o, os, B, H, S, dh) ||
         static_cast<long long>((S + tc::kBQ - 1) / tc::kBQ) * H * B > 0x7fffffffLL)
       return cudaErrorInvalidValue;
     if (dh <= 64) return tc::launch<1>(q, k, v, o, qs, ks, vs, os, B, H, H_kv, S, dh, s);

@@ -3,10 +3,11 @@
 // bodies. Host side: the dynamic shared-memory limit set once per kernel and
 // device, and cuTensorMapEncodeTiled reached through the runtime (nothing
 // links -lcuda). Device side: the 128-byte-swizzle shared-memory descriptor,
-// TMA tile loads, the wgmma fences, and the m64nNk16 bf16 products with fp32
-// accumulators, A from shared memory (ss) or from registers (rs), B read
-// K-major from shared memory. Mma<N>'s operand lists are spelled out for
-// each token-tile width N the grouped kernel instantiates.
+// TMA tile loads, named barriers, the wgmma fences, and the m64nNk16 bf16
+// products with fp32 accumulators, A from shared memory (ss) or from
+// registers (rs), B read K-major from shared memory. Mma<N>'s operand lists
+// are spelled out for each token-tile width N the grouped kernel
+// instantiates (and N 128 for attention's scores).
 #pragma once
 
 #include <cuda.h>
@@ -64,9 +65,11 @@ inline EncodeTiledFn encode_fn() {
 
 // wgmma shared-memory descriptor of a K-major or MN-major tile stored as
 // 128-byte rows with the 128-byte swizzle: 8-row groups 1024 bytes apart
-// (SBO); LBO is unused for a 64-wide (128-byte) operand.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+// (SBO). LBO is unused for a 64-wide (128-byte) operand; an MN-major
+// operand wider than 64 takes its 64-wide parts `lbo` bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
@@ -88,14 +91,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Named barriers (ids 1-15; 0 is __syncthreads): every one of the n
+// threads syncs, or some sync and the others only arrive.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 // Wait until at most PENDING committed groups of products are in flight.
 template <int PENDING>
@@ -108,25 +117,6 @@ template <int M>
 __device__ __forceinline__ void fence_regs(float (&d)[M]) {
 #pragma unroll
   for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64, fp32) = (scale_d ? d : 0) + A (64 x 16) . B (16 x 64), A and
-// B bf16 in shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 64, fp32) += A (64 x 16, bf16 in registers) . B (16 x 64), B
@@ -145,6 +135,32 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32: d0 columns 0-63, d1 64-127) += A (64 x 16, bf16 in
+// registers) . B (16 x 128), B read MN-major (transposed) from shared memory.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d0)[32], float (&d1)[32],
+                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]),
+        "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]),
+        "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]),
+        "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]),
+        "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]),
+        "+f"(d0[31]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]),
+        "+f"(d1[6]), "+f"(d1[7]), "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]),
+        "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]), "+f"(d1[28]), "+f"(d1[29]),
+        "+f"(d1[30]), "+f"(d1[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

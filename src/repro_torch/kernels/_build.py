@@ -158,6 +158,7 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
 MAX_K = 64         # largest top-k width (kMaxK)
 MAX_SPLITS = 288   # partial lists per row the split merge takes (kMaxSplits)
 SMS = 132          # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448  # shared memory a block may use on an H100 (kSmemMax)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 INT8_CODE = 2      # kDtypeI8: int8 table rows (with per-row fp32 scales)
 

@@ -63,7 +63,7 @@ WGMMA_SLICE = 64          # d elements per ring stage (kSlice)
 WGMMA_TILES = (16, 32, 64, 128, 256)  # token tiles N the kernel instantiates
 WGMMA_CAND = 8            # candidate slots per token and warpgroup (kCand)
 WGMMA_STAGES = (4, 3, 2)  # ring depths, deepest first
-SMEM_MAX = 232448         # shared memory a block may use (kSmemMax)
+SMEM_MAX = _build.SMEM_MAX
 
 # The CUDA-core tiled body's constants (csrc/dss_topk_grouped.cu, namespace simt)
 TILED_ROWS = 128          # vocab rows per tile (kRows)

@@ -12,9 +12,11 @@ gets its output back in that layout. For CPU tensors it
 runs the plain version, ``ref.flash_attention_ref``.
 
 On CUDA tensors one of the kernel's two bodies runs, by the rule in
-:func:`select_body`: the tensor-core body (``wgmma`` on TMA-staged K/V)
-for bf16 that TMA can address, the CUDA-core body for the rest. Each body
-counts its own launches (``launches_wgmma``, ``launches``).
+:func:`select_body`: the tensor-core body (``wgmma`` on TMA-staged Q/K/V,
+a persistent grid over :func:`wgmma_schedule`, shared memory
+:func:`wgmma_smem_bytes`) for bf16 that TMA can address, the CUDA-core
+body for the rest. Each body counts its own launches (``launches_wgmma``,
+``launches``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,47 @@ WGMMA_MAX_DH = 128
 WGMMA, SIMT = "flash_attention_wgmma", "flash_attention"
 # query rows per block and kv rows per tile of the CUDA-core body (simt::kB)
 SIMT_ROWS = 64
+# The tensor-core body's constants (csrc/flash_attention.cu, namespace tc)
+WGMMA_ROWS = 128          # query rows per work item and kv rows per tile (kBQ, kBK)
+WGMMA_REGION = 128 * 128  # bytes of one 64-column region of a 128-row bf16 tile (kRegion)
+
+
+def wgmma_stages(dh: int) -> int:
+    """The tensor-core body's K and V ring depth for head dim ``dh``
+    (``tc::stages<NC>``): 4 at dh up to 64, 2 above."""
+    return 4 if dh <= 64 else 2
+
+
+def wgmma_smem_bytes(dh: int) -> int:
+    """Shared memory of one tensor-core block (``tc::smem_bytes<NC>``): Q,
+    the K ring, the V ring and the O staging tile, each slot a 128-row tile
+    of NC 64-column regions (NC = dh / 64 rounded up); 4 mbarriers per ring
+    stage and 2 for Q; 1 KB to align the base for the 128-byte swizzle."""
+    nc, st = -(-dh // 64), wgmma_stages(dh)
+    return (2 + 2 * st) * nc * WGMMA_REGION + 8 * (4 * st + 2) + 1024
+
+
+def wgmma_schedule(B: int, H: int, S: int, sms: int = _build.SMS):
+    """The tensor-core body's persistent schedule (``tc::item_at``): a
+    list per block of the grid (``min(sms, items)`` blocks) of the work
+    items it walks, in order, each as (query tile, head, batch row). Items
+    are numbered heaviest first (item L: query tile n_q - 1 - L // (H B),
+    head L % H, batch row (L // H) % B; a query tile qt walks qt + 1 kv
+    tiles) and dealt in rows of the grid size, every other row backwards."""
+    n_q = -(-S // WGMMA_ROWS)
+    n = n_q * H * B
+    G = min(sms, n)
+    blocks = []
+    for blk in range(G):
+        items = []
+        for r in range(-(-n // G)):
+            L = r * G + (G - 1 - blk if r % 2 else blk)
+            if L >= n:
+                break
+            hb = L % (H * B)
+            items.append((n_q - 1 - L // (H * B), hb % H, hb // H))
+        blocks.append(items)
+    return blocks
 
 
 class SimtTile(NamedTuple):

@@ -1691,3 +1691,149 @@ def test_flash_attention_tensor_core_body_at_mqa_48(dev, S):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     o = _run_flash(qt, kt, vt, "flash_attention_wgmma")
     _assert_within_limit(o, qt, kt, vt)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core attention body's persistent, pipelined design
+# ---------------------------------------------------------------------------
+
+# Every S class of its 128-row items (one row, a tile less one, a tile, a
+# tile and one row, two tiles less one, and the 2048-token prefill, whose
+# 192 items at H 12 walk more than one per block), GQA 12/2 and 24/8 and
+# MQA 48/1, B 1 and 3, dh 64, 80 (zero fill past dh in the 128 class) and
+# 128; each element within the limit. At B 3 each batch row is also run
+# alone: an item's output does not depend on which block or which
+# warpgroup turn computed it, bit for bit.
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 255, 2047, 2048])
+@pytest.mark.parametrize("H,H_kv", [(12, 2), (24, 8), (48, 1)])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_flash_attention_tensor_core_persistent_schedule(dev, S, H, H_kv, B, dh):
+    from repro_torch.kernels import ops
+
+    q, k, v = _attn_inputs(dev, B, H, H_kv, S, dh, torch.bfloat16, seed=S + H + B + dh)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = _run_flash(qt, kt, vt, "flash_attention_wgmma")
+    _assert_within_limit(o, qt, kt, vt)
+    if B > 1:
+        for b in range(B):
+            assert torch.equal(ops.flash_attention(qt[b:b + 1], kt[b:b + 1], vt[b:b + 1]),
+                               o[b:b + 1])
+
+
+@pytest.mark.parametrize("S,B,H,H_kv", [(4096, 1, 12, 2), (4096, 3, 12, 2), (8192, 1, 12, 2),
+                                        (8192, 1, 2, 1)])
+def test_flash_attention_tensor_core_long_sequences(dev, S, B, H, H_kv):
+    """Long prompts: up to 64 kv tiles per item through the two-stage K and
+    V rings, and up to 2304 items over the persistent grid."""
+    q, k, v = _attn_inputs(dev, B, H, H_kv, S, 128, torch.bfloat16, seed=S + B + H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = _run_flash(qt, kt, vt, "flash_attention_wgmma")
+    _assert_within_limit(o, qt, kt, vt)
+
+
+def test_flash_attention_tensor_core_body_replays_in_a_cuda_graph(dev):
+    """The tensor-core body captured once in a CUDA graph (tensor maps are
+    kernel parameters, the schedule a function of the shapes) and replayed
+    on new q, k, v copied into the captured buffers gives the eager call's
+    output bit for bit."""
+    from repro_torch.kernels import ops
+
+    B, H, H_kv, S, dh = 2, 12, 2, 1000, 128
+    q, k, v = (t.transpose(1, 2)
+               for t in _attn_inputs(dev, B, H, H_kv, S, dh, torch.bfloat16, seed=7))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_attention(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    n = ops.launch_counts()["flash_attention_wgmma"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention_wgmma"] == n + 1
+    for seed in (8, 9):
+        new = [t.transpose(1, 2)
+               for t in _attn_inputs(dev, B, H, H_kv, S, dh, torch.bfloat16, seed=seed)]
+        for dst, src in zip((q, k, v), new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.flash_attention(*new))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core grouped body (first-tile threshold, wide heads, overflow)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("C", [5, 10, 16, 100, 256])
+@pytest.mark.parametrize("k", [1, 8, 16])
+@pytest.mark.parametrize("d", [3072, 8192])
+def test_grouped_wgmma_body_at_wide_heads(dev, quantized, C, k, d):
+    """The decode body's exact inputs (test_grouped_wgmma_body) at the wide
+    heads' widths, d 3072 and 8192, with the verify step's capacities (5,
+    10) and token tiles of 16 to 256: equal to the plain version."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import WGMMA, launch_body
+
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=C + d + k,
+                                            quantized=quantized)
+    body = WGMMA + ("_q" if quantized else "")
+    n = ops.launch_counts()[body]
+    got = launch_body(w, ids, buf, g_buf, k, kw.get("scales"), WGMMA)
+    assert ops.launch_counts()[body] == n + 1
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw), g_buf, k)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 8])
+def test_grouped_wgmma_first_tile_threshold_with_the_top_in_one_warp(dev, quantized, k):
+    """The first row tile's thresholds (the smallest of each warpgroup's 4
+    warps' top 2) when each expert's best rows all sit in one warp's 16 rows
+    of that tile, and on later tiles rows tie with them exactly: equal to
+    the plain version (ties to the lowest position)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import WGMMA, launch_body
+
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, 40, 1536, seed=41 + k,
+                                            quantized=False)
+    w = w.float()
+    w[:, 16:32] += 1.0
+    w[:, 300:316] = w[:, 16:32]
+    w[ids < 0] = 0.0
+    if quantized:
+        w, kw["scales"] = _quantize(w)
+    else:
+        w = w.to(torch.bfloat16)
+    got = launch_body(w, ids, buf, g_buf, k, kw.get("scales"), WGMMA)
+    torch.cuda.synchronize()
+    _same(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw))
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_grouped_wgmma_body_on_an_overflowing_dispatch(dev, quantize):
+    """Every one of 40 tokens chooses expert 3 (a verify step's batch at 16
+    experts: capacity 5), so 35 overflow into the gather fixup:
+    cuda_grouped launches the tensor-core body once and equals the jnp
+    path (rows on the 1/64 grid, integer tokens: exact sums)."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops
+
+    K, d, v_pad, k, B = 16, 1536, 1000, 8, 40
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = (torch.randint(-128, 129, (K, v_pad, d), generator=g, device=dev) / 64).to(torch.bfloat16)
+    ids = torch.randperm(K * v_pad, generator=g, device=dev).reshape(K, v_pad).to(torch.int32)
+    table = ds.ServeTable(ids=ids, weights=w)
+    if quantize:
+        table = ds.quantize_table(table)
+    gate = torch.zeros((K, d), device=dev, dtype=torch.bfloat16)
+    gate[3] = 0.01
+    h = torch.randint(1, 9, (B, d), generator=g, device=dev).to(torch.bfloat16)
+    body = "dss_topk_grouped_wgmma" + ("_q" if quantize else "")
+    ops.reset_launch_counts()
+    got = ds.serve_topk(gate, table, h, k, kernel="cuda_grouped")
+    assert ops.launch_counts()[body] == 1
+    want = ds.serve_topk(gate, table, h, k, kernel="jnp")
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)

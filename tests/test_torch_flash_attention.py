@@ -16,6 +16,9 @@ bf16 before p·v and the plain version does not, the per-element limit
 ``repro_torch.testing.flash_attention_limit``: 2^-8·(softmax(s)·|v|) for
 the rounding of p, plus 2^-7·|o| for the two outputs' own rounding.
 """
+import heapq
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +28,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import to_tensor
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.models import layers
 from repro_torch.testing import flash_attention_limit
 
@@ -203,3 +206,79 @@ def test_cuda_core_body_tile_by_head_dim(dtype, dh, dh_class):
         assert (t.blocks_per_sm, t.smem_bytes) == (2, 112 * 1024)
     with pytest.raises(ValueError):
         simt_tile(257, dtype)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body's host-side plans (kernels/flash_attention.py mirrors
+# csrc/flash_attention.cu, namespace tc): the persistent schedule and the
+# shared memory of one block
+# ---------------------------------------------------------------------------
+
+_FA = importlib.import_module("repro_torch.kernels.flash_attention")
+
+
+def _attn_shape(arch):
+    """(H, H_kv, dh) of an architecture's attention; lm-100m is the training
+    preset of examples/train_lm_dssoftmax.py (12 heads, 4 kv heads, d 768)."""
+    if arch == "lm-100m":
+        return 12, 4, 64
+    cfg = get_config(arch)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.d_model // cfg.n_heads
+
+
+def _lpt_makespan(weights, blocks):
+    """Greedy longest-first: each item, heaviest first, to the least loaded
+    block."""
+    heap = [0] * blocks
+    for w in sorted(weights, reverse=True):
+        heapq.heappush(heap, heapq.heappop(heap) + w)
+    return max(heap)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-3b", "granite-20b", "lm-100m"])
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 1000, 2048, 4096])
+@pytest.mark.parametrize("B", [1, 3])
+def test_wgmma_schedule_visits_every_item_once_heaviest_first(arch, S, B):
+    """The persistent grid (``tc::item_at``) takes min(SMs, items) blocks;
+    every (query tile, head, batch row) item is walked by exactly one block,
+    each block walks its items heaviest first (query tile qt walks qt + 1 kv
+    tiles), and the makespan in kv-tile steps is within one step of the
+    greedy longest-first schedule's."""
+    H, _, _ = _attn_shape(arch)
+    n_q = -(-S // _FA.WGMMA_ROWS)
+    blocks = _FA.wgmma_schedule(B, H, S)
+    assert len(blocks) == min(_build.SMS, n_q * H * B)
+    items = [it for blk in blocks for it in blk]
+    assert sorted(items) == [(qt, h, b) for qt in range(n_q) for h in range(H) for b in range(B)]
+    for blk in blocks:
+        tiles = [qt for qt, _, _ in blk]
+        assert tiles == sorted(tiles, reverse=True)
+    makespan = max(sum(qt + 1 for qt, _, _ in blk) for blk in blocks)
+    assert makespan <= _lpt_makespan([qt + 1 for qt, _, _ in items], len(blocks)) + 1
+
+
+def test_wgmma_schedule_at_the_main_case_is_the_heaviest_item():
+    """qwen2-1.5b's 2048-token prefill: 192 items on 132 SMs, and no block
+    walks more kv tiles than the heaviest item's 16."""
+    blocks = _FA.wgmma_schedule(1, 12, 2048)
+    assert sum(len(blk) for blk in blocks) == 192 and len(blocks) == 132
+    assert max(sum(qt + 1 for qt, _, _ in blk) for blk in blocks) == 16
+
+
+@pytest.mark.parametrize("dh", [16, 64, 80, 128])
+def test_wgmma_shared_memory_fits_one_block_per_sm(dh):
+    """Q, the K and V rings and the O staging tile (each slot a 128-row
+    tile of dh rounded up to 64-column regions), 4 mbarriers per ring stage
+    and 2 for Q, 1 KB of alignment: within the 232,448 bytes an H100 block
+    may use, 2 stages at dh 128 and 4 at dh 64."""
+    nc, st = -(-dh // 64), _FA.wgmma_stages(dh)
+    assert st == (4 if dh <= 64 else 2)
+    assert _FA.wgmma_smem_bytes(dh) == (2 + 2 * st) * nc * 128 * 128 + 8 * (4 * st + 2) + 1024
+    assert _FA.wgmma_smem_bytes(dh) <= _build.SMEM_MAX
+    if dh > 64:  # one more stage would not fit
+        assert (2 + 2 * (st + 1)) * nc * 128 * 128 > _build.SMEM_MAX
+
+
+def test_wgmma_shared_memory_of_the_two_head_dim_classes():
+    assert _FA.wgmma_smem_bytes(128) == 197712
+    assert _FA.wgmma_smem_bytes(64) == 165008

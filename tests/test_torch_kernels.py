@@ -656,3 +656,71 @@ def test_grouped_tiled_empty_slots_follow_the_rule_in_every_chunk(quantized, k):
         merged = _merge_splits(lists, k)
         assert [i for _, i in merged] == out_ids[ex, c].tolist()
         assert [v for v, _ in merged] == vals[ex, c].tolist()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("C", list(_grouped.WGMMA_TILES))
+def test_grouped_wgmma_plan_fits_at_every_token_tile_and_k(C, k, quantized):
+    """At every token tile the kernel instantiates and k up to 32, the
+    tensor-core body's plan fits one block in the 232,448 bytes of shared
+    memory an H100 block may use (the plan gives up stages, then tile width,
+    before it would not), and the first tile's exchange (8 consumer warps x
+    N tokens x a top-2 pair) fits in the ring it borrows."""
+    p = _grouped.wgmma_plan(16, C, 12032, k, quantized)
+    assert p.smem == _grouped.wgmma_smem_bytes(p.n_tile, k, p.stages, quantized)
+    assert p.smem <= _grouped.SMEM_MAX
+    assert p.n_tile <= C and 2 <= p.stages <= 4
+    row = _grouped.WGMMA_ROWS * _grouped.WGMMA_SLICE * (1 if quantized else 2)
+    assert 8 * p.n_tile * 8 <= p.stages * (row + p.n_tile * _grouped.WGMMA_SLICE * 2)
+
+
+def _wgmma_topk_mirror(z, k):
+    """The tensor-core body's top-k rule on one token's logits z (rows in
+    packed-position order, a whole number of 128-row tiles): warpgroup w
+    holds rows 64 w .. 64 w + 63 of each tile, its warp j rows 16 j .. 16 j +
+    15 of those. For k <= 8 the first tile seeds each warpgroup's threshold
+    with the smallest of its 4 warps' top 2 and takes its values at or above
+    it; later tiles take a warpgroup's value when it beats the warpgroup's
+    own k-th value strictly and is at or above the other's; each warpgroup
+    keeps its own k-entry list (value desc, position asc); the two lists
+    merge at the end. Returns (values, positions)."""
+    def top(entries):
+        return sorted(entries, key=lambda e: (-e[0], e[1]))[:k]
+
+    lists, th = [[], []], [-np.inf, -np.inf]
+    for t0 in range(0, len(z), 128):
+        tile = [(float(z[t0 + r]), t0 + r) for r in range(128)]
+        first = t0 == 0 and k <= 8
+        if first:
+            th = [min(sorted(z[t0 + 64 * w + 16 * j:t0 + 64 * w + 16 * j + 16])[-2]
+                      for j in range(4)) for w in range(2)]
+        before = list(th)
+        for w in range(2):
+            part = tile[64 * w:64 * w + 64]
+            if first:
+                cand = [e for e in part if e[0] >= before[w]]
+            else:
+                cand = [e for e in part if e[0] > before[w] and e[0] >= before[1 - w]]
+            lists[w] = top(lists[w] + cand)
+            th[w] = lists[w][k - 1][0] if len(lists[w]) == k else -np.inf
+    return [v for v, _ in top(lists[0] + lists[1])], [p for _, p in top(lists[0] + lists[1])]
+
+
+@pytest.mark.parametrize("top_warp", [None, 1, 6])
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+def test_grouped_wgmma_threshold_rule_keeps_the_exact_topk(seed, k, top_warp):
+    """The filter the tensor-core body applies before its candidate slots
+    (each warpgroup's first-tile threshold, then its own k-th value, strict
+    against its own and at-or-above against the other's) loses no value of
+    the top k: on integer logits with many ties, and with the top rows all
+    in one warp of the first tile (of either warpgroup), the mirror's top k
+    equals a plain sort's (value desc, position asc)."""
+    rng = np.random.RandomState(seed)
+    z = rng.randint(-6, 7, 4 * 128).astype(np.float64)
+    if top_warp is not None:
+        z[16 * top_warp:16 * top_warp + 16] += 20.0  # the first tile's top rows in one warp
+    want = sorted(range(len(z)), key=lambda i: (-z[i], i))[:k]
+    vals, pos = _wgmma_topk_mirror(z, k)
+    assert pos == want and vals == [z[i] for i in want]
