@@ -528,6 +528,44 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def wgmma_registers(log: str) -> dict:
+    """The tensor-core grouped bodies' registers and spills from the build
+    log (``-Xptxas -v``), one line per body: ptxas's count at launch and
+    each token tile's spill stores and loads; the consumer and producer
+    warpgroups' counts after setmaxnreg (``kConsumerRegs`` /
+    ``kProducerRegs``) come from the wrapper's mirror. Raises if a token
+    tile spills or ptxas serializes its products (C75xx)."""
+    grouped = _grouped()
+    lines = log.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"wgmma_kernelILi(\d+)ELb([01])E", line)
+        if m is None:
+            continue
+        body = grouped.WGMMA + ("_q" if m.group(2) == "1" else "")
+        if "(C75" in line:
+            raise SmokeFailure(f"{body} N {m.group(1)}: ptxas serializes the products: {line}")
+        if "Compiling entry" not in line:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 2])
+        regs = re.search(r"Used (\d+) registers", lines[i + 3])
+        out.setdefault(body, {})[int(m.group(1))] = {
+            "registers": int(regs.group(1)), "spill_stores": int(spills.group(1)),
+            "spill_loads": int(spills.group(2))}
+    for body, tiles in out.items():
+        launch = max(t["registers"] for t in tiles.values())
+        print(f"[build] {body}: consumers {grouped.WGMMA_CONSUMER_REGS} registers, producer "
+              f"{grouped.WGMMA_PRODUCER_REGS} (setmaxnreg; {launch} at launch); spill "
+              f"stores/loads by token tile "
+              + ", ".join(f"N {n}: {t['spill_stores']}/{t['spill_loads']}"
+                          for n, t in sorted(tiles.items())), flush=True)
+        if any(t["spill_stores"] or t["spill_loads"] for t in tiles.values()):
+            raise SmokeFailure(f"{body}: the consumers spill ({tiles})")
+    if sorted(out) != sorted([grouped.WGMMA, grouped.WGMMA + "_q"]):
+        raise SmokeFailure(f"the build log names no tensor-core grouped bodies ({sorted(out)})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The parent commit's bodies (``--parent``), timed in this process
 # ---------------------------------------------------------------------------
@@ -561,11 +599,28 @@ def build_parent() -> dict:
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _PARENT_LIBS[n] = lib
-    # the parent's C signatures, each as this tree's
+    # the parent's C signatures, from its own _build.py
+    signatures = _parent_module("_build").SIGNATURES
     for n, entry in (("dss_topk", "dss_topk"), ("flash_attention", "flash_attention"),
                      ("dss_topk_grouped", "dss_topk_grouped_wgmma")):
-        getattr(_PARENT_LIBS[n], entry).argtypes = _build.SIGNATURES[entry]
+        getattr(_PARENT_LIBS[n], entry).argtypes = signatures[entry]
     return seconds
+
+
+def _parent_module(name: str):
+    """The parent's ``repro_torch/kernels/<name>.py``, loaded from its tree
+    (imports resolve to this tree's package): its launch plans and C
+    signatures, which may differ from this tree's."""
+    import importlib.util
+
+    key = f"module {name}"
+    if key not in _PARENT_LIBS:
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", Path(PARENT) / "src" / "repro_torch" / "kernels" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _PARENT_LIBS[key] = mod
+    return _PARENT_LIBS[key]
 
 
 def parent_dss_topk(w, ids, hs, e, k):
@@ -614,26 +669,31 @@ def parent_flash(q, k, v, body: str):
 
 
 def parent_grouped_wgmma(w, ids, buf, g_buf, k, scales):
-    """The parent's tensor-core grouped body on the same inputs, with this
-    tree's plan (``wgmma_plan``, which both trees share)."""
+    """The parent's tensor-core grouped body on the same inputs, with the
+    parent's plan (``wgmma_plan`` from its tree)."""
     import torch
 
     from repro_torch.kernels import _build
 
     K, v_pad, d = w.shape
     C = buf.shape[1]
-    plan = _grouped().wgmma_plan(K, C, v_pad, k, scales is not None)
+    mod = _parent_module("dss_topk_grouped")
+    plan = mod.wgmma_plan(K, C, v_pad, k, scales is not None)
     out_v = torch.empty((K, C, k), dtype=torch.float32, device=buf.device)
     out_i = torch.empty((K, C, k), dtype=torch.int32, device=buf.device)
     part_v = part_i = None
     if plan.nsplit > 1:
         part_v = torch.empty((plan.nsplit, K, C, k), dtype=torch.float32, device=buf.device)
         part_i = torch.empty((plan.nsplit, K, C, k), dtype=torch.int32, device=buf.device)
+    # a parent whose body takes a spill area gets one
+    spill = ([torch.empty((mod.wgmma_spill_pairs(plan, K), 2), dtype=torch.float32,
+                          device=buf.device).data_ptr()]
+             if hasattr(mod, "wgmma_spill_pairs") else [])
     lib = _PARENT_LIBS["dss_topk_grouped"]
     err = lib.dss_topk_grouped_wgmma(
         buf.data_ptr(), g_buf.data_ptr(), w.data_ptr(), ids.data_ptr(), _build.ptr(scales),
-        out_v.data_ptr(), out_i.data_ptr(), _build.ptr(part_v), _build.ptr(part_i), K, C, v_pad,
-        d, k, plan.n_tile, plan.nsplit, plan.tiles_per_split, plan.stages,
+        out_v.data_ptr(), out_i.data_ptr(), _build.ptr(part_v), _build.ptr(part_i), *spill, K,
+        C, v_pad, d, k, plan.n_tile, plan.nsplit, plan.tiles_per_split, plan.stages,
         _build.weight_code(w), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "parent dss_topk_grouped_wgmma")
     return out_v, out_i
@@ -3667,13 +3727,15 @@ def main() -> int:
     per_lib = _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(per_lib) or 'nothing (cached)'}; "
           f"per library {json.dumps({n: round(s, 2) for n, s in per_lib.items()})}")
-    for n in _build.SOURCES:  # registers, spills and ptxas warnings (wgmma serialized: C7510)
+    for n in _build.SOURCES:  # registers, spills and ptxas warnings (wgmma serialized: C75xx)
         for line in _build.build_log(n).splitlines():
-            if "Used" in line or "warning" in line or (
+            if "Used" in line or "warning" in line or "(C75" in line or (
                     "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line):
                 print(f"[build] {n}: {line.strip()}")
+    results_regs = wgmma_registers(_build.build_log("dss_topk_grouped"))
 
-    results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                     "wgmma_registers": results_regs}
     phase_s = results.setdefault("phase_s", {"build": time.perf_counter() - t0})
     if PARENT is not None:
         print(f"[build] the parent's {PARENT_SOURCES} from {PARENT}: "

@@ -50,42 +50,50 @@
 //   full/empty mbarriers (TMA, 3-D maps over (d, rows, K); rows past V_pad,
 //   tokens past C and d past its end arrive as zero fill, so every k16
 //   slice is issued: a product under a branch makes ptxas serialize them).
+//   Waiting threads sleep in the barrier (try_wait with a time hint).
 // - bf16 rows: both operands from shared memory (128-byte swizzle),
 //   m64nNk16 with one group of products in flight while the next stage's
-//   are issued. int8 rows: the stage holds (128 x 64) int8 bytes without
-//   swizzle; each thread widens its two rows to bf16 in registers (exact)
-//   as the m64k16 A fragments and wgmma reads A from registers.
-// - The epilogue runs on the accumulator registers: x scale[row] (int8),
-//   x g[token], padding -> -1e9, then one compare per value against its
-//   token's current k-th value (shared memory), branch-free, into bits.
-//   Only values above it take a slot (a shared-memory atomic, unrolled and
-//   predicated: branches that diverge across a warp's lanes cost every
-//   lane) in a per-token buffer of kCand; the warpgroup's 128 threads then
-//   insert them, one thread per token, into the token's sorted list (value
-//   desc, position asc; for k <= 8 the list sits in registers meanwhile).
-//   Values that found the slots full go in further rounds. Lists and slots
-//   are stored slot-major, so the threads of consecutive tokens hit
-//   consecutive banks. Each warpgroup keeps its own lists, merged per token
-//   at the end.
-// - The first tile would make every value a candidate: each token starts
-//   from the smallest of its 4 warps' top 2 (warp shuffles; at least 8 of
-//   the tile's values reach it, so for k <= 8 no value below it can be in
-//   the top k), exchanged through the ring while the producer waits on a
-//   `seed` barrier. Larger k start from -inf.
+//   are issued, and the tile's last wait unconditional (a wait ptxas cannot
+//   prove taken before the epilogue reads the accumulators makes it
+//   serialize every product: C7518). int8 rows: the stage holds (128 x 64)
+//   int8 bytes without swizzle; each thread widens its two rows to bf16 in
+//   registers (exact) as the m64k16 A fragments and wgmma reads A from
+//   registers.
+// - The top-k, per tile, on the accumulators. Each token keeps one list of
+//   k 64-bit keys (the value's bits made order-preserving, then the
+//   position's complement: value desc, position asc in one compare) and a
+//   threshold, the list's k-th entry (value, position); since the list only
+//   gains, a value that does not beat the threshold of any earlier state
+//   of the list is not in the top k. Pass 1, a few instructions a value:
+//   a bit per (token, row pair) when either row's u = acc x scale reaches
+//   the token's bound on u (u_bound of the threshold and g; padding rows
+//   compare z = -1e9 with the threshold itself). Pass 2, one copy of the
+//   loop body for the pairs that passed: both values picked from the
+//   accumulators by a chain of selects, z = u x g (padding -1e9) compared
+//   exactly, and each candidate takes a slot in its token's queue by a
+//   shared-memory atomic (past 16 slots, in a spill area in device memory
+//   that holds a tile's 128 rows, so nothing is dropped). After a named
+//   barrier one thread per token merges its queue into its list (in
+//   registers for k <= 8) and publishes the new threshold; the next tile's
+//   filter starts after another barrier.
+// - The first tile starts from a threshold: the k-th largest of the 8
+//   consumer warps' top 2 per token (k <= 16; warp shuffles, exchanged
+//   through the queue), or for padding rows (all -1e9, a tie) one past the
+//   tile's k-th padding row. Empty slots (g 0) take no candidate: their
+//   list follows from ids alone, as in the decode body.
 // - Shared memory (wgmma_smem_bytes): the ring, stages x (row tile 16 KB
-//   bf16 / 8 KB int8 + N x 128 B tokens), plus per warpgroup and token the
-//   k-th value, a slot count, kCand candidate slots and the k-entry list
-//   (8 bytes each), plus g and 1 KB of alignment; at N 256, k 8: 3 stages,
-//   214 KB bf16, 190 KB int8, of the 227 KB a block may use. The plan
-//   lowers the stage count, then N, until it fits.
-// - What bounds it (an H100 80GB HBM3 at 700 W; PERF.md section 6): rows
-//   stream from device memory and token slices from L2 while the products
-//   run, and the top-k epilogue (37% of the time at C 256) runs with no
-//   product in flight and the ring full. Both warpgroups share each ring
-//   stage, so neither can run ahead into the next tile; a second set of
-//   N / 2 accumulators does not fit at N 256, nor does a deeper ring beside
-//   the top-k state. Loading the token slice once for the first row tile
-//   only took a twentieth off (the L2 token stream is not what binds).
+//   bf16 / 8 KB int8 + N x 128 B tokens) and its barriers, plus per token
+//   the k-key list, the threshold and bound, 16 queue slots (8 bytes each),
+//   a count and g, plus 1 KB of alignment; at N 256, k 8: 3 stages (202 KB)
+//   bf16, 4 (218 KB) int8, of the 227 KB a block may use. The plan lowers
+//   the stage count, then N, until it fits.
+// - What bounds it (an H100 80GB HBM3 at 700 W; PERF.md section 6): the
+//   products run as fast as rows (HBM) and token slices (L2) arrive (17 us
+//   a 128-row tile at C 256, bf16); the epilogue adds ~6 us a tile with no
+//   product in flight, its cost set by code size (it runs once a tile from
+//   an instruction cache that the memory stream leaves cold) and by the two
+//   barriers. Top-k warps merging beside the products slowed the products
+//   by 3.5 us a tile, so the merge runs in the epilogue.
 //
 // dss_topk_grouped_tiled, the CUDA-core tiled body (fp32 tokens at prefill
 // capacities, where tensor cores would need TF32 and change the function;
@@ -889,112 +897,118 @@ namespace wg {
 constexpr int kRows = 128;                 // vocab rows per tile: 64 per consumer warpgroup
 constexpr int kSlice = 64;                 // d elements per ring stage (128 bytes of bf16)
 constexpr int kConsumers = 256;            // two consumer warpgroups
+constexpr int kWarps = kConsumers / 32;    // consumer warps: 16 rows of a tile each
 constexpr int kThreads = kConsumers + 128; // + the producer warpgroup
-// Registers per thread after setmaxnreg: the producer warpgroup gives its
-// registers up to the two consumer warpgroups, which hold N / 2 fp32
-// accumulators each (128 at N 256) beside the epilogue's state: 128 x 40 +
-// 256 x 232 <= 65,536. Without it a 384-thread block gets 168 each and the
-// epilogue spills.
+// Registers per thread after setmaxnreg. The launch gives every thread 168
+// (65,536 / 384, in steps of 8), and the consumers can take only what the
+// producer warpgroup gives up: 128 x (168 - 40) = 256 x (232 - 168). The
+// consumers hold N / 2 fp32 accumulators (128 at N 256) beside the filter.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr int kCand = 8;                   // candidate slots per token, warpgroup and round
-constexpr int kTop2K = 8;                  // the first tile's threshold serves k up to this
+constexpr int kQueue = 16;                 // queue slots per token in shared memory
+constexpr int kSpill = kRows - kQueue;     // the rest of a tile's rows, in device memory
+constexpr int kSeedK = 16;                 // the first tile's threshold serves k up to this
+constexpr int kRegK = 8;                   // a list being merged sits in registers up to this k
 
 __host__ __device__ constexpr int row_tile_bytes(bool q) { return kRows * kSlice * (q ? 1 : 2); }
 
 // Byte offsets from the 1024-aligned base of the dynamic shared memory.
 struct Layout {
   int stage;   // bytes of one ring stage: the row tile, then the token tile
-  int bars;    // full[stages], empty[stages], then seed
+  int bars;    // full[stages], empty[stages]
+  int thr;     // [N] each token's threshold (value, position bound): a
+               // candidate beats it; from its list's k-th entry
+  int lob;     // [N] the bound on u that the threshold implies (u_bound)
+  int list;    // [k][N] the token's top-k keys, largest first (slot-major: the
+               // threads of consecutive tokens hit consecutive banks)
+  int queue;   // [kQueue][N] the tile's candidates (value, position); the
+               // first tile's seed scratch before that
+  int cnt;     // [N] candidates of the tile
   int g;       // [N] gate value per token
-  int thresh;  // [2][N] each warpgroup's current k-th value per token
-  int cnt;     // [2][N] candidate slots taken this round
-  int cand_v;  // [2][kCand][N] candidate values (slot-major: the threads of
-               // consecutive tokens hit consecutive banks)
-  int cand_p;  // [2][kCand][N] candidate packed positions
-  int list_v;  // [2][k][N] running top-k values, (value desc, position asc)
-  int list_p;  // [2][k][N] their packed positions
   int total;   // bytes to request, with 1 KB to align the base
   __host__ __device__ Layout(int N, int k, int stages, bool q) {
     stage = row_tile_bytes(q) + N * kSlice * 2;
     bars = stages * stage;
-    g = bars + 16 * stages + 16;
-    thresh = g + 4 * N;
-    cnt = thresh + 8 * N;
-    cand_v = cnt + 8 * N;
-    cand_p = cand_v + 8 * N * kCand;
-    list_v = cand_p + 8 * N * kCand;
-    list_p = list_v + 8 * N * k;
-    total = list_p + 8 * N * k + 1024;
+    thr = bars + 16 * stages;
+    lob = thr + 8 * N;
+    list = lob + 4 * N;
+    queue = list + 8 * N * k;
+    cnt = queue + 8 * kQueue * N;
+    g = cnt + 4 * N;
+    total = g + 4 * N + 1024;
   }
 };
 
 using repro::bar_sync;
-// A named barrier that also returns whether any participant passed true.
-__device__ __forceinline__ bool bar_any(int id, int n, bool p) {
-  uint32_t r;
-  asm volatile(
-      "{\n.reg .pred q, o;\nsetp.ne.u32 q, %1, 0;\n"
-      "bar.red.or.pred o, %2, %3, q;\nselp.u32 %0, 1, 0, o;\n}\n"
-      : "=r"(r)
-      : "r"(static_cast<uint32_t>(p)), "r"(id), "r"(n)
-      : "memory");
-  return r != 0;
+
+// A list entry as one 64-bit key: the value's bits made order-preserving
+// (both zeros alike, as the float compare has them), then the complement
+// of its packed position, so a larger key comes first in the list order
+// (value desc, position asc) and one compare decides.
+__device__ __forceinline__ uint64_t key_of(float v, int pos) {
+  const uint32_t u = v == 0.f ? 0u : __float_as_uint(v);
+  const uint32_t o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<uint64_t>(o) << 32) | (0xffffffffu - static_cast<uint32_t>(pos));
+}
+__device__ __forceinline__ float key_value(uint64_t key) {
+  const uint32_t o = static_cast<uint32_t>(key >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+__device__ __forceinline__ int key_pos(uint64_t key) {
+  return static_cast<int>(0xffffffffu - static_cast<uint32_t>(key));
 }
 
-// Insert (v, p) into a sorted list of k entries, entry j at lv[j * S].
+// A bound on u (a row's value before x g) below which z = u x g cannot
+// reach the threshold value tv: for g > 0 rounding keeps the order, and the
+// margins (relative 2^-20, absolute 2^-100 / g) cover the roundings of z
+// and of the bound itself (tv x 1/g, each rounded once), underflow to zero
+// included. Empty slots (g 0) admit nothing; g < 0 leaves every row to the
+// exact compare.
+__device__ __forceinline__ float u_bound(float tv, float g) {
+  if (!(g > 0.f)) return g == 0.f ? CUDART_INF_F : -CUDART_INF_F;
+  const float r = __frcp_rn(g), q = tv * r;
+  return q - fabsf(q) * 0x1p-20f - 0x1p-100f * r;
+}
+
+// Insert key x into a sorted list of k keys, entry j at l[j * S].
 template <int S>
-__device__ __forceinline__ void insert(float* lv, int* lp, int k, float v, int p) {
-  if (!before(v, p, lv[(k - 1) * S], lp[(k - 1) * S])) return;
+__device__ __forceinline__ void insert_key(uint64_t* l, int k, uint64_t x) {
+  if (x <= l[(k - 1) * S]) return;
   int j = k - 1;
-  while (j > 0 && before(v, p, lv[(j - 1) * S], lp[(j - 1) * S])) {
-    lv[j * S] = lv[(j - 1) * S];
-    lp[j * S] = lp[(j - 1) * S];
+  while (j > 0 && x > l[(j - 1) * S]) {
+    l[j * S] = l[(j - 1) * S];
     --j;
   }
-  lv[j * S] = v;
-  lp[j * S] = p;
+  l[j * S] = x;
 }
 
-// A token's list in registers while one thread inserts a round's
-// candidates into it (k up to kRegK): the list's loads are independent and
-// each insertion is a fixed chain of compares and selects, where the list
-// in shared memory made each insertion a chain of dependent loads. Entries
-// past k hold (-inf, kNoPos) or values pushed out of the first k; only the
+// A token's list in registers while one thread inserts a tile's candidates
+// into it (k up to kRegK): each insertion is a fixed chain of compares and
+// selects instead of a chain of dependent shared-memory loads. Entries past
+// k hold 0 (below every key) or keys pushed out of the first k; only the
 // first k are stored back.
-constexpr int kRegK = 8;
-
-template <int S>  // stride between a list's entries in shared memory
-struct RegList {
-  float v[kRegK];
-  int p[kRegK];
-  __device__ __forceinline__ void load(const float* lv, const int* lp, int k) {
-#pragma unroll
-    for (int j = 0; j < kRegK; ++j) {
-      v[j] = j < k ? lv[j * S] : -CUDART_INF_F;
-      p[j] = j < k ? lp[j * S] : kNoPos;
-    }
-  }
-  __device__ __forceinline__ void insert(float x, int q) {
+struct RegKeys {
+  uint64_t v[kRegK];
+  __device__ __forceinline__ void insert(uint64_t x) {
 #pragma unroll
     for (int j = kRegK - 1; j >= 0; --j) {
-      const bool up = j > 0 && before(x, q, v[j > 0 ? j - 1 : 0], p[j > 0 ? j - 1 : 0]);
-      const bool here = before(x, q, v[j], p[j]);
-      const float nv = up ? v[j > 0 ? j - 1 : 0] : (here ? x : v[j]);
-      const int np = up ? p[j > 0 ? j - 1 : 0] : (here ? q : p[j]);
-      v[j] = nv;
-      p[j] = np;
+      const uint64_t above = v[j > 0 ? j - 1 : 0];
+      v[j] = (j > 0 && x > above) ? above : (x > v[j] ? x : v[j]);
     }
   }
-  __device__ __forceinline__ void store(float* lv, int* lp, int k) const {
-#pragma unroll
-    for (int j = 0; j < kRegK; ++j)
-      if (j < k) {
-        lv[j * S] = v[j];
-        lp[j * S] = p[j];
-      }
-  }
 };
+
+// Wait for a barrier's phase with the thread suspended in hardware until
+// it completes (a time hint of 10 ms a try): a wait that spins takes issue
+// slots and shared-memory bandwidth from the warps that work meanwhile.
+__device__ __forceinline__ void mbar_sleep(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1, %2;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity), "r"(10000000u)
+      : "memory");
+}
 
 // The m64k16 A fragments of the four k16 slices of one stage for this
 // thread's rows row0 and row0 + 8 of the (128 x 64) int8 row tile, widened
@@ -1021,16 +1035,23 @@ __device__ __forceinline__ void int8_fragments(uint32_t (&a)[4][4],
 
 // One block per (vocab split blockIdx.x, token tile blockIdx.y, expert
 // blockIdx.z); writes the split's top-k (value, class id) of each token of
-// the tile to out (nsplit, K, C, k) at split blockIdx.x.
+// the tile to out (nsplit, K, C, k) at split blockIdx.x. spill: N x kSpill
+// (value, position) pairs per block, a token's candidates in a tile past its
+// kQueue slots.
 template <int N, bool Q>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tx,
              const float* __restrict__ g_buf, const int* __restrict__ ids,
              const float* __restrict__ scales, float* __restrict__ out_v,
-             int* __restrict__ out_i, int K, int C, int v_pad, int d, int k,
-             int tiles_per_split, int stages) {
-  constexpr int NA = N / 2;          // accumulator registers per thread
-  constexpr int NW = (NA + 31) / 32;  // words of one bit per accumulator
+             int* __restrict__ out_i, float2* __restrict__ spill, int K, int C, int v_pad,
+             int d, int k, int tiles_per_split, int stages) {
+  constexpr int NA = N / 2;  // accumulator registers per thread
+  // int8 rows at token tiles of 128 and more: the next stage's fragments
+  // are widened while this stage's products run (two fragment buffers, one
+  // group in flight), over an even number of slices (the last zero fill
+  // past d). At narrower tiles (the verify heads) widening in series
+  // measured faster.
+  constexpr bool kPipe = Q && N >= 128;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = repro::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1038,7 +1059,11 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUt
   const Layout L(N, k, stages, Q);
   auto full = [&](int s) { return base + L.bars + 8u * s; };
   auto empty = [&](int s) { return base + L.bars + 8u * (stages + s); };
-  const uint32_t seed = base + L.bars + 16u * stages;  // the first tile's lists are seeded
+  float2* thr = reinterpret_cast<float2*>(sm + L.thr);
+  float* lob = reinterpret_cast<float*>(sm + L.lob);
+  uint64_t* lst = reinterpret_cast<uint64_t*>(sm + L.list);
+  float2* que = reinterpret_cast<float2*>(sm + L.queue);
+  int* cnt = reinterpret_cast<int*>(sm + L.cnt);
   float* gs = reinterpret_cast<float*>(sm + L.g);
 
   const int sp = blockIdx.x, t0 = blockIdx.y * N, e = blockIdx.z;
@@ -1046,45 +1071,40 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUt
   const int v_lo = sp * tiles_per_split * kRows;
   const int v_hi = min(v_pad, v_lo + tiles_per_split * kRows);
   const int n_tiles = v_hi > v_lo ? (v_hi - v_lo + kRows - 1) / kRows : 0;
-  const int n_sl = (d + kSlice - 1) / kSlice;
+  const int n_sl = kPipe ? (d + 2 * kSlice - 1) / (2 * kSlice) * 2 : (d + kSlice - 1) / kSlice;
   const int steps = n_tiles * n_sl;
+  const int* idp = ids + static_cast<size_t>(e) * v_pad;
+  spill += ((static_cast<size_t>(e) * gridDim.y + blockIdx.y) * gridDim.x + sp) * N * kSpill;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       repro::mbar_init(full(s), 1);
       repro::mbar_init(empty(s), kConsumers);
     }
-    repro::mbar_init(seed, kConsumers);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  {
-    float* th = reinterpret_cast<float*>(sm + L.thresh);
-    int* cn = reinterpret_cast<int*>(sm + L.cnt);
-    float* lv = reinterpret_cast<float*>(sm + L.list_v);
-    int* lp = reinterpret_cast<int*>(sm + L.list_p);
-    for (int t = threadIdx.x; t < N; t += kThreads)
-      gs[t] = t < n_tok ? g_buf[static_cast<size_t>(e) * C + t0 + t] : 0.f;
-    for (int i = threadIdx.x; i < 2 * N; i += kThreads) {
-      th[i] = i % N < n_tok ? -CUDART_INF_F : CUDART_INF_F;  // slots past C: never a candidate
-      cn[i] = 0;
-    }
-    for (int i = threadIdx.x; i < 2 * N * k; i += kThreads) {
-      lv[i] = -CUDART_INF_F;
-      lp[i] = kNoPos;
-    }
+  // A threshold (v, b) admits z > v, and z == v at a position below b.
+  // Empty slots and slots past C admit nothing (+inf); the rest everything.
+  for (int t = threadIdx.x; t < N; t += kThreads) {
+    const float g = t < n_tok ? g_buf[static_cast<size_t>(e) * C + t0 + t] : 0.f;
+    gs[t] = g;
+    thr[t] = make_float2(g != 0.f ? -CUDART_INF_F : CUDART_INF_F, 0.f);
+    lob[t] = u_bound(thr[t].x, g);
   }
+  for (int i = threadIdx.x; i < N; i += kThreads) cnt[i] = 0;
+  const uint64_t none = key_of(-CUDART_INF_F, kNoPos);
+  for (int i = threadIdx.x; i < N * k; i += kThreads) lst[i] = none;
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp >= kConsumers / 32) {
-    // -- producer warpgroup: one lane issues every TMA load ----------------
+  if (warp >= kWarps) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (warp == kConsumers / 32 && lane == 0) {
+    // -- one lane issues every TMA load ------------------------------------
+    if (warp == kWarps && lane == 0) {
       const uint32_t bytes = L.stage;
       for (int st = 0; st < steps; ++st) {
         const int s = st % stages;
-        if (st == n_sl) repro::mbar_wait(seed, 0);  // the ring holds the seed scratch
-        if (st >= stages) repro::mbar_wait(empty(s), ((st / stages) - 1) & 1);
+        if (st >= stages) mbar_sleep(empty(s), ((st / stages) - 1) & 1);
         repro::mbar_expect_tx(full(s), bytes);
         const int tile = st / n_sl, sl = st % n_sl;
         const uint32_t dst = base + s * L.stage;
@@ -1097,271 +1117,343 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUt
 
   // -- consumers: warpgroup wgi owns rows 64 wgi .. 64 wgi + 63 of each tile
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  const int wgi = warp / 4, wi = warp % 4, q4 = lane % 4;
-  const int ct = threadIdx.x % 128;
-  const int bar_id = 1 + wgi;
-  float* th = reinterpret_cast<float*>(sm + L.thresh) + wgi * N;
-  // The other warpgroup's k-th values: its list holds k values at or above
-  // them, so a value below one of them cannot reach the merged top k. It
-  // only rises, so a read that races its update is still a bound; a tie
-  // may come from a lower position of the current tile and is kept.
-  const float* th_other = reinterpret_cast<const float*>(sm + L.thresh) + (1 - wgi) * N;
-  int* cn = reinterpret_cast<int*>(sm + L.cnt) + wgi * N;
-  float* cv = reinterpret_cast<float*>(sm + L.cand_v) + wgi * N * kCand;
-  int* cp = reinterpret_cast<int*>(sm + L.cand_p) + wgi * N * kCand;
-  float* lv = reinterpret_cast<float*>(sm + L.list_v) + wgi * N * k;
-  int* lp = reinterpret_cast<int*>(sm + L.list_p) + wgi * N * k;
-  const int* idp = ids + static_cast<size_t>(e) * v_pad;
-  const int row0 = 64 * wgi + 16 * wi + lane / 4;  // this thread's rows: row0, row0 + 8
-
-  // The warpgroup inserts this round's candidates, one thread per token,
-  // and publishes each token's new k-th value.
-  auto insert_round = [&]() {
-    for (int t = ct; t < n_tok; t += 128) {
-      const int n = min(cn[t], kCand);
-      float* v = lv + t;
-      int* p = lp + t;
-      if (k <= kRegK) {
-        if (n > 0) {
-          RegList<N> l;
-          l.load(v, p, k);
-          for (int j = 0; j < n; ++j) l.insert(cv[j * N + t], cp[j * N + t]);
-          l.store(v, p, k);
-        }
-      } else {
-        for (int j = 0; j < n; ++j) insert<N>(v, p, k, cv[j * N + t], cp[j * N + t]);
-      }
-      cn[t] = 0;
-      th[t] = v[(k - 1) * N];
-    }
-  };
+  const int wgi = warp / 4, q4 = lane % 4;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     int pos[2];
-    bool masked[2];
+    bool in[2], masked[2];
     float mask_val[2], sc[2];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       pos[rr] = v_lo + tile * kRows + row0 + 8 * rr;
-      const bool in = pos[rr] < v_hi;
-      masked[rr] = !in || idp[pos[rr]] < 0;
-      mask_val[rr] = in ? repro::kNegInfMask : -CUDART_INF_F;
-      sc[rr] = (Q && in) ? scales[static_cast<size_t>(e) * v_pad + pos[rr]] : 1.f;
+      in[rr] = pos[rr] < v_hi;
+      masked[rr] = !in[rr] || idp[pos[rr]] < 0;
+      mask_val[rr] = in[rr] ? repro::kNegInfMask : -CUDART_INF_F;
+      sc[rr] = (Q && in[rr]) ? scales[static_cast<size_t>(e) * v_pad + pos[rr]] : 1.f;
     }
     float acc[NA];
 #pragma unroll
     for (int i = 0; i < NA; ++i) acc[i] = 0.f;
 
-    // The set bits of pend take candidate slots (a shared-memory atomic per
-    // value); a value that finds its token's slots full stays pending. With
-    // redo, a pending value first meets the token's current k-th values
-    // again (>=: ties go on to insertion) and leaves if below one. Unrolled
-    // and predicated (branches that diverge across a warp's lanes cost every
-    // lane); a group of 8 values is skipped when no lane of the warp has a
-    // candidate in it, and its 8 atomics issue back to back before their
-    // results are used, instead of one atomic's latency per value.
-    auto take_slots = [&](uint32_t (&pend)[NW], bool redo) {
-#pragma unroll
-      for (int gq = 0; gq < NA / 8; ++gq) {
-        const uint32_t bits = (pend[gq / 4] >> (8 * (gq % 4))) & 0xffu;
-        if (!__any_sync(0xffffffffu, bits != 0u)) continue;
-        bool on[8];
-        int slot[8];
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          const int i = 8 * gq + b;
-          const int col = 8 * (i >> 2) + 2 * q4 + (i & 1);
-          on[b] = (bits >> b) & 1u;
-          if (redo && on[b]) on[b] = acc[i] >= th[col] && acc[i] >= th_other[col];
-        }
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          const int i = 8 * gq + b;
-          slot[b] = on[b] ? atomicAdd(&cn[8 * (i >> 2) + 2 * q4 + (i & 1)], 1) : kCand;
-        }
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          const int i = 8 * gq + b;
-          const int col = 8 * (i >> 2) + 2 * q4 + (i & 1);
-          if (slot[b] < kCand) {
-            cv[slot[b] * N + col] = acc[i];
-            cp[slot[b] * N + col] = (i & 2) ? pos[1] : pos[0];
-          }
-          const uint32_t keep = (on[b] && slot[b] >= kCand) ? 1u : 0u;
-          pend[i / 32] = (pend[i / 32] & ~(1u << (i % 32))) | (keep << (i % 32));
-        }
-      }
-    };
-
-    int prev = -1;
-    for (int sl = 0; sl < n_sl; ++sl) {
-      const int st = tile * n_sl + sl, s = st % stages;
-      repro::mbar_wait(full(s), (st / stages) & 1);
-      const uint32_t rows = base + s * L.stage, toks = rows + row_tile_bytes(Q);
-      // Every k16 slice is issued, past d too (zero fill, zero products):
-      // a product under a branch would make ptxas serialize them all.
-      if constexpr (Q) {
-        uint32_t a[4][4];
-        int8_fragments(a, sm + s * L.stage, row0, q4);
+    if constexpr (kPipe) {
+      uint32_t fa[4][4], fb[4][4];
+      auto widen = [&](uint32_t (&f)[4][4], int sl) {
+        const int st = tile * n_sl + sl, s = st % stages;
+        repro::mbar_wait(full(s), (st / stages) & 1);
+        int8_fragments(f, sm + s * L.stage, row0, q4);
+      };
+      auto issue = [&](uint32_t (&f)[4][4], int sl) {
+        const uint32_t toks = base + ((tile * n_sl + sl) % stages) * L.stage + row_tile_bytes(Q);
         repro::fence_regs(acc);
         repro::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          repro::Mma<N>::rs(acc, a[kk], repro::sw128_desc(toks + kk * 32), sl > 0 || kk > 0);
-        repro::wgmma_commit();
-        repro::wgmma_wait<0>();
-        repro::fence_regs(acc);
-        repro::mbar_arrive(empty(s));
-      } else {
-        const uint32_t a0 = rows + wgi * 64 * 128;
-        repro::fence_regs(acc);
-        repro::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          repro::Mma<N>::ss(acc, repro::sw128_desc(a0 + kk * 32),
-                            repro::sw128_desc(toks + kk * 32), sl > 0 || kk > 0);
+          repro::Mma<N>::rs(acc, f[kk], repro::sw128_desc(toks + kk * 32), sl > 0 || kk > 0);
         repro::wgmma_commit();
         repro::wgmma_wait<1>();  // the previous stage's products are done
         repro::fence_regs(acc);
-        if (prev >= 0) repro::mbar_arrive(empty(prev));
-        prev = s;
+      };
+      auto retire = [&](int sl) { repro::mbar_arrive(empty((tile * n_sl + sl) % stages)); };
+      widen(fa, 0);
+      for (int sl = 0; sl < n_sl; sl += 2) {
+        issue(fa, sl);
+        if (sl > 0) retire(sl - 1);
+        widen(fb, sl + 1);
+        issue(fb, sl + 1);
+        retire(sl);
+        if (sl + 2 < n_sl) widen(fa, sl + 2);
       }
-    }
-    if constexpr (!Q) {
-      if (prev >= 0) {
+      repro::wgmma_wait<0>();
+      repro::fence_regs(acc);
+      retire(n_sl - 1);
+    } else {
+      int prev = -1;
+      for (int sl = 0; sl < n_sl; ++sl) {
+        const int st = tile * n_sl + sl, s = st % stages;
+        mbar_sleep(full(s), (st / stages) & 1);
+        const uint32_t rows = base + s * L.stage, toks = rows + row_tile_bytes(Q);
+        // Every k16 slice is issued, past d too (zero fill, zero products):
+        // a product under a branch would make ptxas serialize them all.
+        if constexpr (Q) {
+          uint32_t a[4][4];
+          int8_fragments(a, sm + s * L.stage, row0, q4);
+          repro::fence_regs(acc);
+          repro::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            repro::Mma<N>::rs(acc, a[kk], repro::sw128_desc(toks + kk * 32), sl > 0 || kk > 0);
+          repro::wgmma_commit();
+          repro::wgmma_wait<0>();
+          repro::fence_regs(acc);
+          repro::mbar_arrive(empty(s));
+        } else {
+          const uint32_t a0 = rows + wgi * 64 * 128;
+          repro::fence_regs(acc);
+          repro::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            repro::Mma<N>::ss(acc, repro::sw128_desc(a0 + kk * 32),
+                              repro::sw128_desc(toks + kk * 32), sl > 0 || kk > 0);
+          repro::wgmma_commit();
+          repro::wgmma_wait<1>();  // the previous stage's products are done
+          repro::fence_regs(acc);
+          if (prev >= 0) repro::mbar_arrive(empty(prev));
+          prev = s;
+        }
+      }
+      if constexpr (!Q) {
+        // Unconditional: the epilogue's branches read the accumulators, and
+        // a wait ptxas cannot prove taken makes it serialize every product
+        // (C7518).
         repro::wgmma_wait<0>();
         repro::fence_regs(acc);
-        repro::mbar_arrive(empty(prev));
+        if (prev >= 0) repro::mbar_arrive(empty(prev));
       }
     }
 
-    // z on the accumulators, in place: x scale[row] (int8 rows), x g[token],
-    // padding rows -1e9; rows outside the split -inf (never a candidate).
-    // Round 0's pass bits in the same pass, branch-free: a candidate must
-    // beat the token's k-th value, all of whose positions come from earlier
-    // tiles (lower positions), so a tie loses and the compare is strict.
-    uint32_t pend[NW];
+    // a row's value before x g: x scale[row] (int8 rows); padding and rows
+    // outside the split left out (-inf) of the seed below
+    auto unscaled = [&](int i) {
+      const int rr = (i >> 1) & 1;
+      return masked[rr] ? -CUDART_INF_F : (Q ? acc[i] * sc[rr] : acc[i]);
+    };
+    if (tile == 0 && k <= kSeedK) {
+      // The first tile would make every value a candidate. Each warp's top 2
+      // of its 16 rows per token (shuffles over the 8 lanes holding them),
+      // before x g, meet in the queue, empty yet; a token's threshold starts
+      // at the k-th largest u of those 16, times g: at least k of the tile's
+      // rows have u >= it, and for g > 0 rounding keeps the order, so their
+      // z = u x g reach the threshold. No value below it is in the top k;
+      // values at it are candidates. Larger k, and g < 0, start from -inf.
+      // Padding rows (all -1e9, a tie) are left out of that and give a
+      // threshold of their own: (-1e9, one past the tile's k-th padding
+      // row), which a tile of padding alone needs to take only k rows.
+      float2* top = que;  // [kWarps][N]
+      uint32_t* padm = reinterpret_cast<uint32_t*>(top + kWarps * N);  // [kWarps] 16 rows each
+      {
+        // lane 4 i holds rows 16 warp + i (rr 0) and 16 warp + 8 + i (rr 1)
+        const uint32_t p0 = __ballot_sync(0xffffffffu, masked[0] && in[0]);
+        const uint32_t p1 = __ballot_sync(0xffffffffu, masked[1] && in[1]);
+        uint32_t m16 = 0u;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) pend[w] = 0u;
+        for (int i = 0; i < 8; ++i)
+          m16 |= (((p0 >> (4 * i)) & 1u) << i) | (((p1 >> (4 * i)) & 1u) << (8 + i));
+        if (lane == 0) padm[warp] = m16;
+      }
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const float2 gg = *reinterpret_cast<const float2*>(gs + 8 * j + 2 * q4);
-      const float2 tt = *reinterpret_cast<const float2*>(th + 8 * j + 2 * q4);
-      const float2 to = *reinterpret_cast<const float2*>(th_other + 8 * j + 2 * q4);
+      for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+          const float x = unscaled(4 * j + h), y = unscaled(4 * j + 2 + h);
+          float a1 = fmaxf(x, y), a2 = fminf(x, y);
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int i = 4 * j + 2 * rr + h;
-          float z = acc[i];
-          if (Q) z *= sc[rr];
-          z *= h ? gg.y : gg.x;
-          z = masked[rr] ? mask_val[rr] : z;
-          acc[i] = z;
-          pend[i / 32] |= static_cast<uint32_t>(z > (h ? tt.y : tt.x) && z >= (h ? to.y : to.x))
-                          << (i % 32);
+          for (int off = 4; off < 32; off *= 2) {
+            const float b1 = __shfl_xor_sync(0xffffffffu, a1, off);
+            const float b2 = __shfl_xor_sync(0xffffffffu, a2, off);
+            a2 = fmaxf(fminf(a1, b1), fmaxf(a2, b2));
+            a1 = fmaxf(a1, b1);
+          }
+          if (lane < 4) top[warp * N + 8 * j + 2 * q4 + h] = make_float2(a1, a2);
         }
+      bar_sync(1, kConsumers);
+      int t;  // the thread index read again: kept across the shuffles, it spilled
+      asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+      if (t < n_tok && gs[t] > 0.f) {
+        // the k-th largest: (#values above it) < k <= (#values at or above
+        // it), the 16 read from shared memory in turn
+        const float* x = reinterpret_cast<const float*>(top) + 2 * t;
+        float kth = -CUDART_INF_F;
+#pragma unroll 1
+        for (int a = 0; a < 2 * kWarps; ++a) {
+          const float xa = x[(a >> 1) * 2 * N + (a & 1)];
+          int gt = 0, ge = 0;
+#pragma unroll
+          for (int b = 0; b < 2 * kWarps; ++b) {
+            const float xb = x[(b >> 1) * 2 * N + (b & 1)];
+            gt += xb > xa;
+            ge += xb >= xa;
+          }
+          kth = (gt < k && ge >= k) ? xa : kth;
+        }
+        float2 th = make_float2(kth * gs[t], __uint_as_float(0xffffffffu));  // z >= kth x g
+        // the k-th padding row of the tile, if there are k
+        int need = k;
+#pragma unroll 1
+        for (int w = 0; w < kWarps && need > 0; ++w) {
+          uint32_t m = padm[w];
+          const int c = __popc(m);
+          if (need > c) {
+            need -= c;
+            continue;
+          }
+          for (; need > 1; --need) m &= m - 1u;
+          need = 0;
+          const uint32_t b = static_cast<uint32_t>(v_lo + 16 * w + __ffs(static_cast<int>(m)));
+          if (!(th.x > repro::kNegInfMask))
+            th = make_float2(repro::kNegInfMask, __uint_as_float(b));
+        }
+        thr[t] = th;
+        lob[t] = u_bound(th.x, gs[t]);
+      }
+      bar_sync(1, kConsumers);  // thresholds set, scratch read: the queue may fill
     }
 
-    if (tile == 0) {
-      // The first tile: every value would pass the empty lists, so each
-      // token starts from a threshold instead: the smallest of its 4 warps'
-      // top 2 (8 values, so at least k >= 8 of the tile's values reach it:
-      // a value below it is out). The warps' top 2 per token by shuffles
-      // over the 8 lanes holding a token's 16 rows, exchanged through the
-      // ring (idle: the producer waits on `seed` before the second tile).
-      // Larger k start from -inf. Then round 0 takes every value at or
-      // above the threshold (ties go on to insertion).
-      if (k <= kTop2K) {
-        bar_sync(3, kConsumers);  // both warpgroups are done reading the ring
-        float2* top2 = reinterpret_cast<float2*>(sm) + wgi * 4 * N;  // [4 warps][N]
+    // After the barrier the previous tile is merged: the queue is empty, and
+    // the thresholds cover every earlier tile. z = u x g[token] (padding
+    // -1e9, rows outside the split -inf) is a candidate when it beats its
+    // token's threshold: the threshold is a list's k-th entry, and the list
+    // only gains, so the compare is exact whatever tile the entry comes
+    // from. Code size sets the epilogue's time (it runs once a tile, from an
+    // instruction cache the products' memory stream leaves cold), so each
+    // value gets a few instructions of unrolled code and one copy of a loop
+    // handles the few candidates. The spill area holds a tile's 128 rows of
+    // a token, so no candidate is ever dropped.
+    if (tile > 0) bar_sync(1, kConsumers);
+    // A row outside the split (-inf) never passes: its position bound is
+    // the largest there is.
+    const uint32_t upos[2] = {in[0] ? static_cast<uint32_t>(pos[0]) : 0xffffffffu,
+                              in[1] ? static_cast<uint32_t>(pos[1]) : 0xffffffffu};
+    auto u_of = [&](float v, int rr) { return Q ? v * sc[rr] : v; };
+    // Pass 1, a few instructions a value: a bit per (j, h), the two rows
+    // of token 8 j + 2 (lane % 4) + h this thread holds, set when either
+    // may be a candidate: its u reaches the token's bound lob (in a warp
+    // with padding, a padding row's z = -1e9 is compared with the threshold
+    // itself).
+    constexpr int NP = N / 4;  // (j, h) pairs
+    uint32_t pass[(NP + 31) / 32];
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float x = acc[4 * j + h], y = acc[4 * j + 2 + h];
-            float a1 = fmaxf(x, y), a2 = fminf(x, y);
-#pragma unroll
-            for (int off = 4; off < 32; off *= 2) {
-              const float b1 = __shfl_xor_sync(0xffffffffu, a1, off);
-              const float b2 = __shfl_xor_sync(0xffffffffu, a2, off);
-              a2 = fmaxf(fminf(a1, b1), fmaxf(a2, b2));
-              a1 = fmaxf(a1, b1);
-            }
-            if (lane < 4) top2[wi * N + 8 * j + 2 * q4 + h] = make_float2(a1, a2);
-          }
-        bar_sync(bar_id, 128);
-        for (int t = ct; t < n_tok; t += 128) {
-          float m = CUDART_INF_F;
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            const float2 x = top2[w * N + t];
-            m = fminf(m, x.y);  // x.y <= x.x
-          }
-          th[t] = m;
-        }
-        bar_sync(bar_id, 128);
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      repro::mbar_arrive(seed);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) pend[w] = 0u;
+    for (int w = 0; w < (NP + 31) / 32; ++w) pass[w] = 0u;
+    if (!__any_sync(0xffffffffu, masked[0] | masked[1])) {
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
-        const float2 tt = *reinterpret_cast<const float2*>(th + 8 * j + 2 * q4);
+        const float2 lo = *reinterpret_cast<const float2*>(lob + 8 * j + 2 * q4);
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int i = 4 * j + b;
-          pend[i / 32] |= static_cast<uint32_t>(acc[i] > -CUDART_INF_F &&
-                                                acc[i] >= ((b & 1) ? tt.y : tt.x))
-                          << (i % 32);
+        for (int h = 0; h < 2; ++h) {
+          const float m = fmaxf(u_of(acc[4 * j + h], 0), u_of(acc[4 * j + 2 + h], 1));
+          pass[(2 * j + h) / 32] |= static_cast<uint32_t>(m >= (h ? lo.y : lo.x))
+                                    << ((2 * j + h) % 32);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float2 lo = *reinterpret_cast<const float2*>(lob + 8 * j + 2 * q4);
+        const float4 tt = *reinterpret_cast<const float4*>(thr + 8 * j + 2 * q4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float tv = h ? tt.z : tt.x;
+          const uint32_t tb = __float_as_uint(h ? tt.w : tt.y);
+          bool p = false;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            p |= masked[rr] ? (mask_val[rr] > tv) | ((mask_val[rr] == tv) & (upos[rr] < tb))
+                            : u_of(acc[4 * j + 2 * rr + h], rr) >= (h ? lo.y : lo.x);
+          pass[(2 * j + h) / 32] |= static_cast<uint32_t>(p) << ((2 * j + h) % 32);
         }
       }
     }
-
-    take_slots(pend, false);
-    bool any_pend = false;
+    // Pass 2, one copy of the loop body for the few pairs that passed: both
+    // rows picked from the accumulators by a chain of selects (an index into
+    // them would move them to local memory), z exact and compared with the
+    // threshold; a candidate takes a slot in its token's queue by a
+    // shared-memory atomic, past kQueue one in the block's spill area.
+    uint32_t bits = pass[0];
+    for (int wbase = 0;;) {
+      while (bits != 0u) {
+        const int pr = wbase + __ffs(static_cast<int>(bits)) - 1, j = pr >> 1, h = pr & 1;
+        bits &= bits - 1u;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int w = 0; w < NW; ++w) any_pend |= pend[w] != 0u;
-    bool more = bar_any(bar_id, 128, any_pend);
-    insert_round();
-    bar_sync(bar_id, 128);
-    // Further rounds: the candidates that found no slot, against k-th
-    // values that may now come from this tile, so ties go on to insertion.
-    while (more) {
-      take_slots(pend, true);
-      any_pend = false;
+        for (int jj = 0; jj < N / 8; ++jj)
 #pragma unroll
-      for (int w = 0; w < NW; ++w) any_pend |= pend[w] != 0u;
-      more = bar_any(bar_id, 128, any_pend);
-      insert_round();
-      bar_sync(bar_id, 128);
+          for (int x = 0; x < 4; ++x) v[x] = jj == j ? acc[4 * jj + x] : v[x];
+        const int col = 8 * j + 2 * q4 + h;
+        const float g = gs[col];
+        const float2 t = thr[col];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float z = u_of(h ? v[2 * rr + 1] : v[2 * rr], rr) * g;
+          z = masked[rr] ? mask_val[rr] : z;
+          if ((z > t.x) | ((z == t.x) & (upos[rr] < __float_as_uint(t.y)))) {
+            const float2 e = make_float2(z, __int_as_float(pos[rr]));
+            const int slot = atomicAdd(&cnt[col], 1);
+            if (slot < kQueue)
+              que[slot * N + col] = e;
+            else
+              spill[col * kSpill + slot - kQueue] = e;
+          }
+        }
+      }
+      if ((wbase += 32) >= NP) break;
+#pragma unroll
+      for (int w = 1; w < (NP + 31) / 32; ++w)
+        if (w * 32 == wbase) bits = pass[w];
+    }
+    // Every candidate is queued: one thread per token merges its token's
+    // into the list and publishes the token's new threshold (read from the
+    // next tile's filter on, after its barrier).
+    bar_sync(1, kConsumers);
+    const int t = threadIdx.x;
+    const int n = t < n_tok ? cnt[t] : 0;
+    if (n > 0) {
+      cnt[t] = 0;
+      uint64_t* l = lst + t;
+      RegKeys r;
+      if (k <= kRegK) {
+#pragma unroll
+        for (int j = 0; j < kRegK; ++j) r.v[j] = j < k ? l[j * N] : 0ull;
+      }
+#pragma unroll 1
+      for (int j = 0; j < n; ++j) {
+        const float2 c = j < kQueue ? que[j * N + t] : spill[t * kSpill + j - kQueue];
+        const uint64_t x = key_of(c.x, __float_as_int(c.y));
+        if (k <= kRegK)
+          r.insert(x);
+        else
+          insert_key<N>(l, k, x);
+      }
+      if (k <= kRegK) {
+#pragma unroll
+        for (int j = 0; j < kRegK; ++j)
+          if (j < k) l[j * N] = r.v[j];
+      }
+      const uint64_t kth = l[(k - 1) * N];
+      thr[t] = make_float2(key_value(kth), __uint_as_float(static_cast<uint32_t>(key_pos(kth))));
+      lob[t] = u_bound(key_value(kth), gs[t]);
     }
   }
 
-  // both warpgroups' lists, merged per token; positions become class ids
-  bar_sync(3, kConsumers);
-  const float* lv_all = reinterpret_cast<const float*>(sm + L.list_v);
-  const int* lp_all = reinterpret_cast<const int*>(sm + L.list_p);
-  for (int t = threadIdx.x; t < n_tok; t += kConsumers) {
-    const float* av = lv_all + t;
-    const int* ap = lp_all + t;
-    const float* bv = lv_all + N * k + t;
-    const int* bp = lp_all + N * k + t;
-    const size_t row = (static_cast<size_t>(sp) * K + e) * C + t0 + t;
-    int ia = 0, ib = 0;
-    for (int j = 0; j < k; ++j) {
-      float v;
-      int p;
-      if (before(av[ia * N], ap[ia * N], bv[ib * N], bp[ib * N])) {
-        v = av[ia * N];
-        p = ap[N * ia++];
-      } else {
-        v = bv[ib * N];
-        p = bp[N * ib++];
+  // The lists out, each by the thread that merged it; positions become
+  // class ids. An empty slot (g 0) took no candidate: its list follows from
+  // ids alone, as in the decode body (for finite rows and tokens every real
+  // row scores x . w * 0 = +-0, a tie, and every padding row -1e9): (0, id)
+  // on the split's first k real packed positions, then (-1e9, -1) while its
+  // rows last, then (-inf, -1).
+  const int t = threadIdx.x;
+  if (t < n_tok) {
+    float* ov = out_v + ((static_cast<size_t>(sp) * K + e) * C + t0 + t) * k;
+    int* oi = out_i + ((static_cast<size_t>(sp) * K + e) * C + t0 + t) * k;
+    if (gs[t] != 0.f) {
+      for (int j = 0; j < k; ++j) {
+        const uint64_t x = lst[j * N + t];
+        const int p = key_pos(x);
+        ov[j] = key_value(x);
+        oi[j] = p == kNoPos ? -1 : idp[p];
       }
-      out_v[row * k + j] = v;
-      out_i[row * k + j] = p == kNoPos ? -1 : idp[p];
+    } else {
+      int j = 0;
+      for (int p = v_lo; p < v_hi && j < k; ++p) {
+        const int id = idp[p];
+        if (id >= 0) {
+          ov[j] = 0.f;
+          oi[j++] = id;
+        }
+      }
+      for (int pads = max(0, v_hi - v_lo - j), jj = j; jj < k; ++jj) {
+        ov[jj] = jj - j < pads ? repro::kNegInfMask : -CUDART_INF_F;
+        oi[jj] = -1;
+      }
     }
   }
 }
@@ -1373,6 +1465,7 @@ struct Args {
   const float* scales;
   float *out_v, *part_v;
   int *out_i, *part_i;
+  float2* spill;
   int K, C, v_pad, d, k, nsplit, tiles_per_split, stages;
   cudaStream_t stream;
 };
@@ -1396,8 +1489,9 @@ cudaError_t launch(const Args& a) {
   const dim3 grid(a.nsplit, (a.C + N - 1) / N, a.K);
   float* dst_v = a.nsplit > 1 ? a.part_v : a.out_v;
   int* dst_i = a.nsplit > 1 ? a.part_i : a.out_i;
-  kern<<<grid, kThreads, smem, a.stream>>>(mw, mx, a.g_buf, a.ids, a.scales, dst_v, dst_i, a.K,
-                                           a.C, a.v_pad, a.d, a.k, a.tiles_per_split, a.stages);
+  kern<<<grid, kThreads, smem, a.stream>>>(mw, mx, a.g_buf, a.ids, a.scales, dst_v, dst_i,
+                                           a.spill, a.K, a.C, a.v_pad, a.d, a.k,
+                                           a.tiles_per_split, a.stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return err;
   return repro::launch_merge(a.part_v, a.part_i, a.out_v, a.out_i, a.K * a.C, a.k, a.nsplit,
@@ -1498,26 +1592,30 @@ extern "C" int dss_topk_grouped_tiled(const void* buf, const void* g_buf, const 
 // scales null) or int8 rows (kDtypeI8, (K, v_pad) fp32 scales). d a
 // multiple of 8 (16 for int8 rows) and 16-byte aligned buf and weights, as
 // TMA requires. part_v, part_i (nsplit, K, C, k) are scratch when nsplit >
-// 1; n_tile (16, 32, 64, 128 or 256), nsplit, tiles_per_split and stages
-// come from kernels/dss_topk_grouped.py::wgmma_plan.
+// 1; spill (8-byte aligned) is scratch of (nsplit x token tiles x K blocks)
+// x n_tile x 112 (fp32, int32) pairs (wgmma_spill_pairs); n_tile (16, 32,
+// 64, 128 or 256), nsplit, tiles_per_split and stages come from
+// kernels/dss_topk_grouped.py::wgmma_plan.
 extern "C" int dss_topk_grouped_wgmma(const void* buf, const void* g_buf, const void* w,
                                       const void* ids, const void* scales, void* out_v,
-                                      void* out_i, void* part_v, void* part_i, int K, int C,
-                                      int v_pad, int d, int k, int n_tile, int nsplit,
-                                      int tiles_per_split, int stages, int wdtype, void* stream) {
+                                      void* out_i, void* part_v, void* part_i, void* spill,
+                                      int K, int C, int v_pad, int d, int k, int n_tile,
+                                      int nsplit, int tiles_per_split, int stages, int wdtype,
+                                      void* stream) {
   const bool q = wdtype == repro::kDtypeI8;
   if (k < 1 || k > repro::kMaxK || k > v_pad || K < 1 || K > 65535 || C < 1 || d < 1 ||
       nsplit < 1 || nsplit > 65535 || tiles_per_split < 1 || stages < 2 || stages > 4 ||
       (C + n_tile - 1) / std::max(n_tile, 1) > 65535)
     return cudaErrorInvalidValue;
   if (!q && wdtype != repro::kDtypeBF16) return cudaErrorInvalidValue;
+  if (spill == nullptr || reinterpret_cast<uintptr_t>(spill) % 8 != 0) return cudaErrorInvalidValue;
   if (q != (scales != nullptr) || d % (q ? 16 : 8) != 0 ||
       reinterpret_cast<uintptr_t>(buf) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return cudaErrorInvalidValue;
   const wg::Args a{buf, w, static_cast<const float*>(g_buf), static_cast<const int*>(ids),
                    static_cast<const float*>(scales), static_cast<float*>(out_v),
                    static_cast<float*>(part_v), static_cast<int*>(out_i),
-                   static_cast<int*>(part_i), K, C, v_pad, d, k, nsplit, tiles_per_split,
-                   stages, static_cast<cudaStream_t>(stream)};
+                   static_cast<int*>(part_i), static_cast<float2*>(spill), K, C, v_pad, d, k,
+                   nsplit, tiles_per_split, stages, static_cast<cudaStream_t>(stream)};
   return q ? wg::launch_n<true>(n_tile, a) : wg::launch_n<false>(n_tile, a);
 }

@@ -38,9 +38,9 @@ SIGNATURES = {
     # lows, K, C, v_pad, d, k, n_tile, tiles_per_chunk, big_tiles, nchunk,
     # tma, dtype, wdtype, stream
     "dss_topk_grouped_tiled": [_P] * 11 + [_I] * 12 + [_P],
-    # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i,
+    # buf, g_buf, w, ids, scales, out_v, out_i, part_v, part_i, spill,
     # K, C, v_pad, d, k, n_tile, nsplit, tiles_per_split, stages, wdtype, stream
-    "dss_topk_grouped_wgmma": [_P] * 9 + [_I] * 10 + [_P],
+    "dss_topk_grouped_wgmma": [_P] * 10 + [_I] * 10 + [_P],
     # gate_w, w, ids, scales, h, out_v, out_i, out_e, g, part_v, part_p,
     # n_sel, K_real, K, B, v_pad, d, k, e_base, grid, vec_bytes, dtype,
     # wdtype, stream

@@ -19,9 +19,12 @@ and the token dtype (:func:`select_body`):
   device; an empty slot's output comes from ``ids`` alone.
 - ``WGMMA`` (bf16 tokens above ``TILED_ABOVE``, where TMA can address the
   rows and tokens): tensor cores, vocab rows as wgmma's M operand and a
-  token tile of up to 256 slots as its N operand, both staged by TMA; the
-  top-k runs on the accumulator registers (:func:`wgmma_plan`). Each
-  expert's rows are read once per token tile.
+  token tile of up to 256 slots as its N operand, both staged by TMA; per
+  row tile the accumulators are filtered against each token's threshold
+  (a bound on the value before x g, then an exact compare), the few
+  candidates queued (a spill area in device memory takes a queue's
+  overflow, :func:`wgmma_spill_pairs`) and merged into one list per token
+  (:func:`wgmma_plan`). Each expert's rows are read once per token tile.
 - ``TILED`` (fp32 tokens above ``SIMT_TILED_ABOVE``, and bf16 that TMA
   cannot address): CUDA cores, a register-tiled fp32 product of 128 vocab
   rows by a token tile of 16 to 128 slots, staged by TMA through a ring of
@@ -61,7 +64,10 @@ SIMT_TILED_ABOVE = 4
 WGMMA_ROWS = 128          # vocab rows per tile (kRows)
 WGMMA_SLICE = 64          # d elements per ring stage (kSlice)
 WGMMA_TILES = (16, 32, 64, 128, 256)  # token tiles N the kernel instantiates
-WGMMA_CAND = 8            # candidate slots per token and warpgroup (kCand)
+WGMMA_QUEUE = 16          # queue slots per token in shared memory (kQueue)
+WGMMA_CONSUMER_REGS = 232  # registers a consumer thread holds after setmaxnreg (kConsumerRegs)
+WGMMA_PRODUCER_REGS = 40   # and a producer thread (kProducerRegs)
+WGMMA_SPILL = WGMMA_ROWS - WGMMA_QUEUE  # a token's further candidates in a tile (kSpill)
 WGMMA_STAGES = (4, 3, 2)  # ring depths, deepest first
 SMEM_MAX = _build.SMEM_MAX
 
@@ -186,13 +192,22 @@ class WgmmaPlan(NamedTuple):
 
 def wgmma_smem_bytes(n_tile: int, k: int, stages: int, quantized: bool) -> int:
     """Shared memory of one block (the kernel's ``wg::Layout``): the ring
-    (a 128-row tile of 64 d, then n_tile tokens of 64 d, per stage), its
-    barriers and the seed barrier, g per token, and per warpgroup and token
-    the k-th value, a slot count, WGMMA_CAND candidates and the k-entry
-    list; 1 KB to align."""
+    (a 128-row tile of 64 d, then n_tile tokens of 64 d, per stage) and its
+    barriers; per token one list of k 8-byte keys, its threshold (8 bytes)
+    and bound (4), a queue of WGMMA_QUEUE 8-byte candidates, their count
+    and g; 1 KB to align."""
     row = WGMMA_ROWS * WGMMA_SLICE * (1 if quantized else 2)
-    return (stages * (row + n_tile * WGMMA_SLICE * 2) + 16 * stages + 16 + 4 * n_tile
-            + 16 * n_tile + 16 * n_tile * WGMMA_CAND + 16 * n_tile * k + 1024)
+    return (stages * (row + n_tile * WGMMA_SLICE * 2) + 16 * stages
+            + 8 * n_tile * (1 + k + WGMMA_QUEUE) + 12 * n_tile + 1024)
+
+
+def wgmma_spill_pairs(plan: "WgmmaPlan", K: int) -> int:
+    """(value, position) pairs of the spill area the tensor-core body takes:
+    per block (nsplit x token tiles x K), WGMMA_SPILL per token of the tile,
+    a token's candidates in one row tile past its WGMMA_QUEUE slots in
+    shared memory (a tile has 128 rows, so none is ever dropped). Written
+    only when a token has more than WGMMA_QUEUE candidates in a tile."""
+    return plan.nsplit * plan.token_tiles * K * plan.n_tile * WGMMA_SPILL
 
 
 def wgmma_split(v_pad: int, blocks_per_split: int):
@@ -214,8 +229,12 @@ def wgmma_split(v_pad: int, blocks_per_split: int):
 def wgmma_plan(K: int, C: int, v_pad: int, k: int, quantized: bool) -> WgmmaPlan:
     """The tensor-core body's launch from the shapes: the smallest token
     tile that holds C (at most 256), the deepest ring that fits the shared
-    memory, a smaller tile where even two stages do not (large k), and
-    vocab splits from :func:`wgmma_split`."""
+    memory beside the lists and queues (:func:`wgmma_smem_bytes`: 3 stages
+    at N 256, k 8 for bf16 rows, 4 for int8), a smaller tile where even two
+    stages do not (large k), and vocab splits from :func:`wgmma_split`. The
+    ring feeds products that run at the rate rows and token slices arrive;
+    the per-tile filter and merge after them are a few microseconds a row
+    tile at C 256 (PERF.md section 6)."""
     fits = [n for n in WGMMA_TILES if n >= C]
     top = WGMMA_TILES.index(fits[0] if fits else WGMMA_TILES[-1])
     for n in reversed(WGMMA_TILES[:top + 1]):
@@ -315,11 +334,14 @@ def launch_body(weights, ids, buf, g_buf, k: int, scales, body: str,
         if plan.nsplit > 1:
             part_v = torch.empty((plan.nsplit, K, C, k), dtype=torch.float32, device=buf.device)
             part_i = torch.empty((plan.nsplit, K, C, k), dtype=torch.int32, device=buf.device)
+        spill = torch.empty((wgmma_spill_pairs(plan, K), 2), dtype=torch.float32,
+                            device=buf.device)
         err = lib.dss_topk_grouped_wgmma(
             buf.data_ptr(), g_buf.data_ptr(), weights.data_ptr(), ids.data_ptr(),
             _build.ptr(scales), out_v.data_ptr(), out_i.data_ptr(),
-            _build.ptr(part_v), _build.ptr(part_i), K, C, v_pad, d, k, plan.n_tile,
-            plan.nsplit, plan.tiles_per_split, plan.stages, _build.weight_code(weights), stream)
+            _build.ptr(part_v), _build.ptr(part_i), spill.data_ptr(), K, C, v_pad, d, k,
+            plan.n_tile, plan.nsplit, plan.tiles_per_split, plan.stages,
+            _build.weight_code(weights), stream)
     else:
         raise ValueError(f"unknown body {body!r}: expected one of {tuple(COUNTERS)}")
     _build.check(lib, err, body)

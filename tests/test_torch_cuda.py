@@ -1837,3 +1837,129 @@ def test_grouped_wgmma_body_on_an_overflowing_dispatch(dev, quantize):
     want = ds.serve_topk(gate, table, h, k, kernel="jnp")
     assert torch.equal(got[1], want[1])
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core grouped body's queue: spills, capacities, fallback, graphs
+# ---------------------------------------------------------------------------
+
+def _ordered_inputs(dev, K, C, v_pad, quantized, kind):
+    """Integer logits, exact in fp32: z = position (``ascending``: each row
+    tile raises every token's threshold past all the earlier rows, so all
+    128 rows of a tile are candidates and 112 of them spill past the
+    queue) or z = 1 on every row (``equal``: all tied, the lowest positions
+    win), d 64, the last 3 rows of each expert padding, g 1."""
+    d = 64
+    pos = torch.arange(v_pad, device=dev)
+    x = torch.zeros(d, device=dev)
+    if kind == "ascending":
+        rows = ((pos[:, None] >> torch.arange(d, device=dev)[None, :]) & 1).float()
+        rows[:, 16:] = 0
+        x[:16] = 2.0 ** torch.arange(16, device=dev).float()
+    else:
+        rows = torch.zeros((v_pad, d), device=dev)
+        rows[:, 0] = 1
+        x[0] = 1
+    ids = torch.arange(K * v_pad, device=dev, dtype=torch.int32).reshape(K, v_pad)
+    ids[:, v_pad - 3:] = -1
+    w = torch.where((ids >= 0)[..., None], rows.expand(K, v_pad, d), 0.0)
+    buf = x.expand(K, C, d).to(torch.bfloat16).contiguous()
+    g_buf = torch.ones((K, C), device=dev)
+    if quantized:
+        return w.to(torch.int8).contiguous(), ids, buf, g_buf, {"scales": torch.ones((K, v_pad),
+                                                                                  device=dev)}
+    return w.to(torch.bfloat16).contiguous(), ids, buf, g_buf, {}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("kind", ["ascending", "equal"])
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
+@pytest.mark.parametrize("C,v_pad", [(37, 700), (256, 1200)])
+def test_grouped_wgmma_queue_spills_and_keeps_the_exact_topk(dev, quantized, kind, k, C, v_pad):
+    """Ascending logits fill every token's queue past its 16 slots on every
+    row tile (the spill area takes the rest); logits all equal make every
+    row tie with the threshold: the tensor-core body's values and ids equal
+    the plain version's exactly."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import WGMMA, launch_body
+
+    w, ids, buf, g_buf, kw = _ordered_inputs(dev, 3, C, v_pad, quantized, kind)
+    body = WGMMA + ("_q" if quantized else "")
+    n = ops.launch_counts()[body]
+    got = launch_body(w, ids, buf, g_buf, k, kw.get("scales"), WGMMA)
+    assert ops.launch_counts()[body] == n + 1
+    want = ref.dss_topk_grouped_ref(w, ids, buf, g_buf, k, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("C", [3, 4, 17, 100, 255, 257, 384, 512])
+def test_grouped_wgmma_body_from_capacity_3_to_512(dev, quantized, C):
+    """The decode body's exact inputs (test_grouped_wgmma_body) at every
+    token tile from 16 to 256 and at two and more token tiles (C 257 to
+    512): equal to the plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dss_topk_grouped import WGMMA, launch_body
+
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, 144, seed=C + 3,
+                                            quantized=quantized)
+    got = launch_body(w, ids, buf, g_buf, 8, kw.get("scales"), WGMMA)
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, 8, **kw), g_buf, 8)
+
+
+def test_grouped_wgmma_body_on_an_int8_table_with_fallback_experts(dev):
+    """On an int8 table the fallback experts' tokens go to the sentinel K
+    before dispatch: those experts hold no live slot, and the int8
+    tensor-core body's output (C 8 > TILED_ABOVE) equals the plain
+    version's on every slot."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import WGMMA, launch_body
+
+    K, d, v_pad, B, k = 8, 128, 640, 32, 8
+    w, ids, g = _table(dev, K, v_pad, d, torch.bfloat16, seed=19)
+    qt = ds.quantize_table(ds.ServeTable(ids=ids, weights=w), fb_mask=torch.arange(K) % 2 == 1)
+    gate = torch.randn((K, d), generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn((B, d), generator=g, device=dev).to(torch.bfloat16)
+    e, gv = ops.gate_top1(gate, h)
+    fb_tok = qt.fb_index[e.long()] >= 0
+    assert fb_tok.any()
+    buf, g_buf, _, _ = ds._group_tokens(h, gv, torch.where(fb_tok, K, e), K, 8)
+    assert (g_buf[1::2] == 0).all()
+    n = ops.launch_counts()["dss_topk_grouped_wgmma_q"]
+    got = launch_body(qt.qweights, ids, buf, g_buf, k, qt.scales, WGMMA)
+    assert ops.launch_counts()["dss_topk_grouped_wgmma_q"] == n + 1
+    _same(got, ref.dss_topk_grouped_ref(qt.qweights, ids, buf, g_buf, k, scales=qt.scales))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_grouped_wgmma_body_replays_spilling_tokens_in_a_cuda_graph(dev, quantized):
+    """The tensor-core body at C 256 captured once in a CUDA graph (the
+    spill area is allocated at capture) and replayed on tokens that make
+    every row tile spill (ascending logits), then on the same tokens
+    negated, every fifth slot random in both: each replay equals the eager
+    call exactly."""
+    from repro_torch.kernels import ops
+
+    K, C, v_pad, k = 3, 256, 1200, 8
+    w, ids, buf, g_buf, kw = _ordered_inputs(dev, K, C, v_pad, quantized, "ascending")
+    buf = buf.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.dss_topk_grouped(w, ids, buf, g_buf, k, **kw)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for scale in (1.0, -1.0):
+        new = (buf.float() * scale).to(buf.dtype)
+        new[:, ::5] = torch.randint(-8, 9, new[:, ::5].shape, generator=gen, device=dev).to(
+            buf.dtype)
+        buf.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.dss_topk_grouped(w, ids, new, g_buf, k, **kw)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)

@@ -427,19 +427,25 @@ def test_grouped_wgmma_plan_fills_the_sms_at_the_batch_shape():
 def test_grouped_wgmma_smem_matches_the_kernel_layout():
     """wgmma_smem_bytes is the kernel's wg::Layout: per stage a 128 x 64
     row tile (2 bytes an element, 1 for int8) and N x 64 bf16 tokens; 16
-    bytes of barriers per stage and 16 for the seed barrier; 4 bytes of g,
-    16 of k-th value and slot count (two warpgroups), 16 per candidate slot
-    and 16 per list entry per token; 1 KB to align the base. The first
-    tile's exchange (two warpgroups x 4 warps x N tokens x a top-2 pair)
-    fits in the ring it borrows."""
+    bytes of barriers per stage; per token 8 bytes of threshold, 4 of bound,
+    8 per list entry, 8 per queue slot (WGMMA_QUEUE of them), 4 of count and
+    4 of g; 1 KB to align the base. The first tile's exchange (8 consumer
+    warps x N tokens x a top-2 pair, then a 16-row padding mask per warp)
+    fits in the queue it borrows. At N 256 and k 8 the ring keeps 3 stages
+    of 48 KB (4 of 40 KB for int8 rows)."""
+    assert _grouped.WGMMA_QUEUE == 16 and _grouped.WGMMA_SPILL == 128 - 16
     assert _grouped.wgmma_smem_bytes(256, 8, 3, False) == (
-        3 * (16384 + 32768) + 48 + 16 + 4 * 256 + 16 * 256 + 16 * 256 * 8 + 16 * 256 * 8
-        + 1024)
-    assert _grouped.wgmma_smem_bytes(256, 8, 3, False) == 219200
-    assert _grouped.wgmma_smem_bytes(256, 8, 3, True) == 219200 - 3 * 8192
+        3 * (16384 + 32768) + 48 + 8 * 256 + 4 * 256 + 8 * 256 * 8 + 8 * 256 * 16
+        + 4 * 256 + 4 * 256 + 1024)
+    assert _grouped.wgmma_smem_bytes(256, 8, 3, False) == 202800
+    assert _grouped.wgmma_smem_bytes(256, 8, 3, True) == 202800 - 3 * 8192
     assert _grouped.wgmma_smem_bytes(256, 8, 4, False) > 232448
+    assert _grouped.wgmma_smem_bytes(256, 8, 4, True) <= 232448
+    p = _grouped.wgmma_plan(16, 256, 12032, 8, False)
+    q = _grouped.wgmma_plan(16, 256, 12032, 8, True)
+    assert (p.n_tile, p.stages, q.n_tile, q.stages) == (256, 3, 256, 4)
     for n in _grouped.WGMMA_TILES:
-        assert 2 * 4 * n * 8 <= 2 * (8192 + n * 64 * 2)
+        assert 8 * n * 8 + 4 * 8 <= 8 * n * _grouped.WGMMA_QUEUE
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -665,62 +671,139 @@ def test_grouped_wgmma_plan_fits_at_every_token_tile_and_k(C, k, quantized):
     """At every token tile the kernel instantiates and k up to 32, the
     tensor-core body's plan fits one block in the 232,448 bytes of shared
     memory an H100 block may use (the plan gives up stages, then tile width,
-    before it would not), and the first tile's exchange (8 consumer warps x
-    N tokens x a top-2 pair) fits in the ring it borrows."""
+    before it would not), the first tile's exchange (8 consumer warps x N
+    tokens x a top-2 pair, and 8 padding masks) fits in the queue it
+    borrows, and the spill area holds a tile's rows past the queue for every
+    token of every block."""
     p = _grouped.wgmma_plan(16, C, 12032, k, quantized)
     assert p.smem == _grouped.wgmma_smem_bytes(p.n_tile, k, p.stages, quantized)
     assert p.smem <= _grouped.SMEM_MAX
     assert p.n_tile <= C and 2 <= p.stages <= 4
-    row = _grouped.WGMMA_ROWS * _grouped.WGMMA_SLICE * (1 if quantized else 2)
-    assert 8 * p.n_tile * 8 <= p.stages * (row + p.n_tile * _grouped.WGMMA_SLICE * 2)
+    assert 8 * p.n_tile * 8 + 4 * 8 <= 8 * p.n_tile * _grouped.WGMMA_QUEUE
+    assert _grouped.wgmma_spill_pairs(p, 16) == (
+        p.nsplit * p.token_tiles * 16 * p.n_tile * (_grouped.WGMMA_ROWS - _grouped.WGMMA_QUEUE))
 
 
-def _wgmma_topk_mirror(z, k):
-    """The tensor-core body's top-k rule on one token's logits z (rows in
-    packed-position order, a whole number of 128-row tiles): warpgroup w
-    holds rows 64 w .. 64 w + 63 of each tile, its warp j rows 16 j .. 16 j +
-    15 of those. For k <= 8 the first tile seeds each warpgroup's threshold
-    with the smallest of its 4 warps' top 2 and takes its values at or above
-    it; later tiles take a warpgroup's value when it beats the warpgroup's
-    own k-th value strictly and is at or above the other's; each warpgroup
-    keeps its own k-entry list (value desc, position asc); the two lists
-    merge at the end. Returns (values, positions)."""
-    def top(entries):
-        return sorted(entries, key=lambda e: (-e[0], e[1]))[:k]
+def _u_bound(tv, g):
+    """The kernel's ``wg::u_bound`` in float32: a bound on u below which
+    z = u x g (rounded) cannot reach tv, for g > 0; +inf for g 0 (nothing
+    passes), -inf for g < 0 (everything goes to the exact compare)."""
+    f = np.float32
+    tv, g = f(tv), f(g)
+    if not g > 0:
+        return f(np.inf) if g == 0 else f(-np.inf)
+    with np.errstate(invalid="ignore", over="ignore"):
+        r = f(1) / g
+        q = tv * r
+        return q - np.abs(q) * f(2.0 ** -20) - f(2.0 ** -100) * r
 
-    lists, th = [[], []], [-np.inf, -np.inf]
+
+def _wgmma_topk_mirror(u, pad, g, k, stale=0):
+    """The tensor-core body's top-k rule for one token over one split (rows
+    in packed-position order, a whole number of 128-row tiles): u the rows'
+    values before x g (float32), pad the padding rows (z = -1e9), g > 0.
+    One list of (value, position) (value desc, position asc), its threshold
+    (value, position bound) the k-th entry, (-inf, no position) while the
+    list has fewer. The first tile (k <= 16) starts from the k-th largest of
+    the 8 warps' (16 rows each) top 2 of u, times g, admitting ties, or for
+    padding (-1e9, one past the tile's k-th padding row). Each tile's filter
+    reads the threshold published ``stale`` merges ago. Pass 1 passes a row
+    pair (rows r, r + 8 of a warp, one thread's) when a real row's u reaches
+    u_bound or a padding row beats the threshold; pass 2 takes each row of a
+    passed pair whose z beats the threshold exactly; the queue takes 16, the
+    spill area the rest of a tile's 128. Returns (values, positions) and
+    asserts that pass 1 never drops a row pass 2 would take."""
+    f = np.float32
+    u = np.asarray(u, f)
+    z = np.where(pad, f(-1e9), u * f(g)).astype(f)
+    no_pos = 0x7FFFFFFF
+    lst = []
+    published = [(f(-np.inf), 0)]  # thresholds, oldest first
     for t0 in range(0, len(z), 128):
-        tile = [(float(z[t0 + r]), t0 + r) for r in range(128)]
-        first = t0 == 0 and k <= 8
-        if first:
-            th = [min(sorted(z[t0 + 64 * w + 16 * j:t0 + 64 * w + 16 * j + 16])[-2]
-                      for j in range(4)) for w in range(2)]
-        before = list(th)
-        for w in range(2):
-            part = tile[64 * w:64 * w + 64]
-            if first:
-                cand = [e for e in part if e[0] >= before[w]]
-            else:
-                cand = [e for e in part if e[0] > before[w] and e[0] >= before[1 - w]]
-            lists[w] = top(lists[w] + cand)
-            th[w] = lists[w][k - 1][0] if len(lists[w]) == k else -np.inf
-    return [v for v, _ in top(lists[0] + lists[1])], [p for _, p in top(lists[0] + lists[1])]
+        rows = range(t0, t0 + 128)
+        if t0 == 0 and k <= 16:
+            uu = np.where(pad, f(-np.inf), u)
+            tops = [x for w in range(8) for x in sorted(uu[16 * w:16 * w + 16])[-2:]]
+            kth = next(x for x in tops if sum(y > x for y in tops) < k <= sum(y >= x for y in tops))
+            th = (f(kth) * f(g), 0xFFFFFFFF)
+            pads = [r for r in rows if pad[r]]
+            if len(pads) >= k and not th[0] > f(-1e9):
+                th = (f(-1e9), pads[k - 1] + 1)
+            published = [th]
+        tv, tb = published[max(0, len(published) - 1 - stale)]
+        lo = _u_bound(tv, g)
+
+        def beats(r):
+            return z[r] > tv or (z[r] == tv and r < tb)
+
+        cand = []
+        for w in range(8):
+            for lane_row in range(8):
+                pair = (t0 + 16 * w + lane_row, t0 + 16 * w + lane_row + 8)
+                passed = any(beats(r) if pad[r] else u[r] >= lo for r in pair)
+                taken = [r for r in pair if beats(r)]
+                assert passed or not taken, (pair, [z[r] for r in pair], tv, lo)
+                if passed:
+                    cand += taken
+        assert len(cand) <= 128  # the queue's 16 slots and the spill area's 112
+        lst = sorted(lst + [(z[r], r) for r in cand], key=lambda e: (-e[0], e[1]))[:k]
+        published.append((lst[-1][0], lst[-1][1]) if len(lst) == k else (f(-np.inf), no_pos))
+    return [v for v, _ in lst], [p for _, p in lst]
 
 
-@pytest.mark.parametrize("top_warp", [None, 1, 6])
-@pytest.mark.parametrize("seed", range(4))
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
-def test_grouped_wgmma_threshold_rule_keeps_the_exact_topk(seed, k, top_warp):
-    """The filter the tensor-core body applies before its candidate slots
-    (each warpgroup's first-tile threshold, then its own k-th value, strict
-    against its own and at-or-above against the other's) loses no value of
-    the top k: on integer logits with many ties, and with the top rows all
-    in one warp of the first tile (of either warpgroup), the mirror's top k
-    equals a plain sort's (value desc, position asc)."""
+@pytest.mark.parametrize("stale", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["ties", "top_warp", "ascending", "equal", "padding"])
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 32])
+def test_grouped_wgmma_threshold_rule_keeps_the_exact_topk(seed, k, kind, stale):
+    """The tensor-core body's candidate rule (the first tile's seeded
+    threshold, one list per token whose k-th entry bounds every later tile,
+    a u-space bound that pre-filters row pairs, an exact compare, a queue
+    that spills but never drops) loses no value of the top k, with the
+    thresholds read up to two merges stale: on integer logits with many
+    ties, with the first tile's top rows all in one warp, on ascending
+    logits (every tile raises every threshold, so every row of a tile is a
+    candidate), on logits all equal, and with padding rows (-1e9) after the
+    real ones and in a tile of their own; the mirror's top k equals a plain
+    stable sort's (value desc, position asc)."""
     rng = np.random.RandomState(seed)
-    z = rng.randint(-6, 7, 4 * 128).astype(np.float64)
-    if top_warp is not None:
-        z[16 * top_warp:16 * top_warp + 16] += 20.0  # the first tile's top rows in one warp
-    want = sorted(range(len(z)), key=lambda i: (-z[i], i))[:k]
-    vals, pos = _wgmma_topk_mirror(z, k)
+    n = 4 * 128
+    g = np.float32(rng.uniform(0.05, 1.0))
+    pad = np.zeros(n, bool)
+    if kind == "ties":
+        u = rng.randint(-6, 7, n)
+    elif kind == "top_warp":
+        u = rng.randint(-6, 7, n) + np.where(np.arange(n) // 16 == 1 + 5 * seed, 20, 0)
+    elif kind == "ascending":
+        u = np.arange(n) - 100
+    elif kind == "equal":
+        u = np.full(n, 3)
+    else:
+        u = rng.randint(-6, 7, n)
+        pad[rng.randint(2, 200) if seed else 0:] = True  # the first tile of padding alone
+        pad[300:310] = False
+    u = u.astype(np.float32) * np.float32(0.37)
+    z = np.where(pad, np.float32(-1e9), u * g).astype(np.float32)
+    want = sorted(range(n), key=lambda i: (-z[i], i))[:k]
+    vals, pos = _wgmma_topk_mirror(u, pad, g, k, stale)
     assert pos == want and vals == [z[i] for i in want]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_grouped_wgmma_u_bound_never_drops_a_candidate(seed):
+    """``u_bound(tv, g)`` (float32, as the kernel computes it) is below
+    every u whose rounded z = u x g reaches tv, near the boundary and at
+    zero (underflow), for thresholds of either sign and gates from 2^-20
+    to 64: the pre-filter is a superset of the exact compare."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    for _ in range(400):
+        g = f(2.0 ** rng.uniform(-20, 6))
+        tv = f(rng.choice([0.0, rng.randn() * 10.0 ** rng.randint(-30, 9)]))
+        lo = _u_bound(tv, g)
+        q = tv / g
+        for u in [f(q), np.nextafter(f(q), f(-np.inf)), np.nextafter(f(q), f(np.inf)), lo,
+                  np.nextafter(lo, f(-np.inf)), f(0.0), f(-1e-38), f(-1e-45)]:
+            if f(u * g) >= tv:
+                assert u >= lo, (u, g, tv, lo)
+    assert _u_bound(1.0, 0.0) == np.inf and _u_bound(1.0, -0.5) == -np.inf
