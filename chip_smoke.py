@@ -39,7 +39,9 @@ Phases, in order (any failure exits non-zero before the result line):
    dense, and fp32 at S 2048 with dh 64 and 256 (the CUDA-core body's
    other head-dim classes), and the tensor-core body at the other configs'
    attention: llama3.2-3b (H 24, H_kv 8, S 2048), granite-20b (H 48, H_kv
-   1, S 1024) and lm-100m (H 12, H_kv 4, dh 64, S 512), each with its
+   1, S 1024), lm-100m (H 12, H_kv 4, dh 64, S 512), olmoe-1b-7b (H 16,
+   H_kv 16, S 2048), qwen3-moe-235b-a22b (H 64, H_kv 4, S 1024) and
+   internvl2-26b (H 48, H_kv 8, S 512), each with its
    schedule's makespan in kv-tile steps and the µs per step; each case
    must launch the body ``select_body`` names, each element within
    ``repro_torch.testing.flash_attention_limit`` (bf16: one rounding of p,
@@ -212,7 +214,53 @@ Phases, in order (any failure exits non-zero before the result line):
    cuda_pertoken against jnp, ids equal but at near-ties and values
    within VAL_ATOL/VAL_RTOL (cuda_pertoken against its own plain version,
    its ids against jnp's at FOLD_RTOL); device ms per call from the
-   profiler.
+   profiler. Also at the heads of olmoe-1b-7b, qwen3-moe-235b-a22b and
+   internvl2-26b (K 8/16/8, d 2048/4096/6144).
+6c. Families (``family_phase``): the moe and vlm families at full width,
+   each model freed before the next, each part's seconds printed.
+   (a) olmoe-1b-7b at full width and depth (16 layers, d 2048, MHA 16/16,
+   64 experts top-8, f 1024, V 50,304, K 8; seeded weights, the seeded
+   stand-in mask), 8 slots, 8 greedy prompts of 16-2048 tokens, 24 new
+   tokens: sessions A (``kernel='auto'``, the default decode graph), B
+   (the plain head, ``jnp``), C (paged, chunked prefill of 128, ``auto``)
+   and D (chunked 128, ``jnp``); A held to B and C to D by
+   ``_held_within_drift`` at TIE_RTOL (the backbones are the same code on
+   the same inputs, the heads exact). The attention: one 2048-token
+   prefill with each of its 16 ``flash_attention_wgmma`` calls held per
+   element to ``flash_attention_limit`` on its own inputs, then with the
+   plain attention swapped in: bf16 roundings move the MoE router, so the
+   two runs' routes are compared and, in the first layer where a token's
+   expert set differs, every such expert must sit within ROUTER_TIE of
+   the k-th router probability (a near-tie); the flips per layer are
+   printed. The 2048-token request served alone equals its stream in the
+   batch token for token; each session captures one decode graph,
+   completes every request, keeps ``stats()`` finite; every page is free
+   after C; A launches the decode head's body (what ``auto`` picks at B 8)
+   and the tensor-core attention body. The decode step: its
+   median (replay + head), one replay by CUDA events beside the bound of
+   reading every expert once (``moe_expert_bytes``: 12.9 GB, 3.85 ms at
+   3.35 TB/s) and the backbone's bytes bound, the 16 MoE blocks alone at
+   B 8 (a CUDA graph of their own) as a share of the replay, and the
+   profiler's top device ops of a replay; the 2048-token prefill ms (in
+   session A, then warm: median of 3 and one profiled); peak memory. An
+   int8-table session (flip threshold 1.0) serves with its experts on int8
+   rows (an ``_q`` body launches); a self-draft session (gamma 4) runs
+   twice token for token, its accept rate printed, its verify head's body
+   (``auto`` at B 40) and its decode head's body launched.
+   (b) qwen3-moe-235b-a22b at full width with 2 of its 94 layers (128
+   experts top-8, H 64, H_kv 4, dh 128, V 151,936, K 16; the whole head
+   before packing): layer 0's attention of a 1024-token prompt through
+   ``flash_attention_wgmma`` against the plain version, every element
+   within ``flash_attention_limit``; 4 greedy streams of 16 tokens
+   complete and finite, one decode graph; ``serve_topk(kernel='auto')`` on
+   its table at B 8 and 40 against ``jnp`` (ids equal but at near-ties).
+   (c) internvl2-26b at full width and depth (48 layers, d 6144, GQA 48/8,
+   V 92,553, K 8): layer 0's attention of 256 stub patches + 256 tokens
+   within the limit; the whole prefill of that input through the kernels
+   (48 tensor-core attention launches) against the plain path (``jnp``
+   head, plain attention): ids equal but at near-ties, values within
+   BF16_DRIFT of the top-1, both timed on the first call and warm (median
+   of 3); then a text-only session of 4 streams.
 7. Train: lm-100m, the repo's real-hardware training preset
    (``examples/train_lm_dssoftmax.py:31-37``: 12 layers, d 768, 12 heads,
    kv 4, d_ff 2048, V 50,304, K 8), built here, at full width in bf16 on
@@ -1247,7 +1295,9 @@ def grouped_cases(results) -> None:
 # 8 slots, gamma 4; capacity factor 2): qwen2-1.5b's and the wide heads of
 # phase 6b (c), V_pad from their stand-in masks. (name, K, C, d, V_pad)
 VERIFY_HEADS = (("qwen2-1.5b", 16, 5, 1536, 12032), ("llama3.2-3b", 16, 5, 3072, 10112),
-                ("granite-20b", 8, 10, 6144, 7808), ("deepseek-67b", 8, 10, 8192, 16128))
+                ("granite-20b", 8, 10, 6144, 7808), ("deepseek-67b", 8, 10, 8192, 16128),
+                ("olmoe-1b-7b", 8, 10, 2048, 7936), ("qwen3-moe-235b-a22b", 16, 5, 4096, 12032),
+                ("internvl2-26b", 8, 10, 6144, 14592))
 
 
 def grouped_head_cases(results) -> None:
@@ -1523,12 +1573,16 @@ def flash_cases(results, gen) -> None:
     # own (so the head-path step draws what it always drew)
     own = torch.Generator(device="cuda").manual_seed(SEED + 13)
     cases += [(1, 12, 2, 2048, dh, f32, False, False, None, own) for dh in (64, 256)]
-    # the tensor-core body at the other dense configs' attention: llama3.2-3b
-    # (24 / 8 heads, S 2048), granite-20b (48 / 1, S 1024) and lm-100m (dh 64,
-    # 12 / 4, S 512), on a generator of their own too
+    # the tensor-core body at the other configs' attention: llama3.2-3b
+    # (24 / 8 heads, S 2048), granite-20b (48 / 1, S 1024), lm-100m (dh 64,
+    # 12 / 4, S 512), olmoe-1b-7b (16 / 16, S 2048), qwen3-moe-235b-a22b
+    # (64 / 4, S 1024) and internvl2-26b (48 / 8, S 512: 256 patches + 256
+    # tokens), on a generator of their own too
     wide = torch.Generator(device="cuda").manual_seed(SEED + 17)
     cases += [(1, H, H_kv, S, dh, bf16, False, False, None, wide)
-              for H, H_kv, S, dh in ((24, 8, 2048, 128), (48, 1, 1024, 128), (12, 4, 512, 64))]
+              for H, H_kv, S, dh in ((24, 8, 2048, 128), (48, 1, 1024, 128), (12, 4, 512, 64),
+                                     (16, 16, 2048, 128), (64, 4, 1024, 128),
+                                     (48, 8, 512, 128))]
     for B, H, H_kv, S, dh, dtype, main, strided, forced, case_gen in cases:
         if strided:  # every other position of wider buffers, dh sliced out
             qb = torch.randn((B, 2 * S, H, dh + 32), generator=case_gen, device="cuda").to(dtype)
@@ -2744,12 +2798,11 @@ def fp32_prefill(results, cfg, params, table, tokens) -> dict:
             warm["parent"] = warm_prefill_profile(prefill, "(a2) fp32, the parent's body")
         finally:
             layers.flash_attention = orig
-    layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
-        cfg32, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    restore = _plain_attention(cfg32)
     try:
         (vp, ip, _), t_plain = sync_s(prefill)
     finally:
-        layers.flash_attention = orig
+        restore()
     vk, ik, vp, ip = vk[0].cpu(), ik[0].cpu(), vp[0].cpu(), ip[0].cpu()
     same = ik == ip
     top = abs(float(vp[0]))
@@ -2803,16 +2856,15 @@ def prefill_phase(results: dict, card: str, cfg, bundle, params, table) -> None:
         raise SmokeFailure(f"prefill (a): {launches} tensor-core kernel launches for "
                            f"{cfg.n_layers} layers, {counts[FLASH_SIMT]} on the CUDA-core body; "
                            f"plain versions called {plain_calls[0]} + {chunk_calls[0]} times")
-    orig = layers.flash_attention
-    layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
-        cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    restore = _plain_attention(cfg)
     try:
         ops.reset_launch_counts()
         (vp, ip, _), t_plain = sync_s(prefill)
         if ops.launch_counts()[FLASH_TC] or ops.launch_counts()[FLASH_SIMT]:
             raise SmokeFailure("prefill (a): the plain run launched the kernel")
     finally:
-        layers.flash_attention = orig
+        restore()
+    orig = layers.flash_attention
     vk, ik, vp, ip = vk[0].cpu(), ik[0].cpu(), vp[0].cpu(), ip[0].cpu()
     same = ik == ip
     top = abs(float(vp[0]))
@@ -2973,7 +3025,8 @@ REPLAYED = 4
 GRANITE_PROMPT_LENS = (16, 1024, 40, 300, 100, 700, 64, 200)
 GRANITE_NEW = 16
 GRANITE_SEQ = 1040               # >= 1024 + 16 - 1, a multiple of 16
-WIDE_HEAD_ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b")
+WIDE_HEAD_ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b", "olmoe-1b-7b",
+                   "qwen3-moe-235b-a22b", "internvl2-26b")
 WIDE_HEAD_BATCHES = (8, 40)      # decode at 8 slots; a verify step at 8 slots, gamma 4
 WIDE_HEAD_PATHS = ("cuda_grouped", "cuda_fused", "cuda_pertoken")
 
@@ -3002,7 +3055,7 @@ def _seeded_model(arch, seed, **replace):
 def spec_phase(results: dict, card: str) -> None:
     """(a) speculative decoding of llama3.2-3b at full width, (b)
     granite-20b served at full width, (c) the head paths at the head shapes
-    of llama3.2-3b, granite-20b and deepseek-67b."""
+    of WIDE_HEAD_ARCHS."""
     import torch
 
     out = results.setdefault("spec", {"card": card})
@@ -3176,9 +3229,7 @@ def granite_serving(out: dict, card: str) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.models import layers
-    from repro_torch.testing import flash_attention_limit
+    from repro_torch.kernels import ops
     from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
 
     t0 = time.perf_counter()
@@ -3193,29 +3244,7 @@ def granite_serving(out: dict, card: str) -> None:
 
     # layer 0's attention of the longest prompt's prefill, through the kernel
     long = torch.from_numpy(prompts[1][None].astype(np.int64)).to("cuda")
-    lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
-    x = layers.rmsnorm({"scale": params["layers"]["ln1"]["scale"][0]},
-                       layers.embed(params["embed"], long))
-    positions = torch.arange(long.shape[1], device="cuda")[None]
-    q, k, v = (t.transpose(1, 2) for t in layers._project_qkv(lp, cfg, x, positions))
-    before = ops.launch_counts()
-    o = ops.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    after = ops.launch_counts()
-    if after[FLASH_TC] != before[FLASH_TC] + 1 or after[FLASH_SIMT] != before[FLASH_SIMT]:
-        raise SmokeFailure(f"granite: layer 0's prefill attention did not run {FLASH_TC} "
-                           f"({before} -> {after})")
-    want = ref.flash_attention_ref(q, k, v)
-    err = (o.float() - want.float()).abs()
-    limit = flash_attention_limit(q, k, v, want)
-    worst = float((err / limit).max())
-    if worst > 1.0:
-        raise SmokeFailure(f"granite: flash_attention at H {cfg.n_heads}, H_kv "
-                           f"{cfg.n_kv_heads} exceeds its limit ({worst:.3g} of it)")
-    del o, want, err, limit, q, k, v, x
-    print(f"[spec] (b) {FLASH_TC} at H {cfg.n_heads}, H_kv {cfg.n_kv_heads}, S "
-          f"{long.shape[1]}, dh {cfg.hd}: every element within flash_attention_limit "
-          f"(largest {worst:.3g} of it)", flush=True)
+    _layer0_attention("(b) granite-20b layer 0", cfg, params, long, tag="spec")
 
     sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=GRANITE_SEQ,
                         k=K_TOP, kernel="auto", overflow_threshold=BREAKER_OFF, device="cuda")
@@ -3338,6 +3367,546 @@ def wide_heads(out: dict, card: str) -> None:
         del w, ids, fp, tables
         torch.cuda.empty_cache()
     out["wide_heads"] = rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: the moe and vlm families (olmoe-1b-7b at full width and depth,
+# qwen3-moe-235b-a22b at full width with 2 layers, internvl2-26b at full
+# width)
+# ---------------------------------------------------------------------------
+
+FAMILY_PROMPT_LENS = (16, 2048, 40, 300, 100, 700, 64, 200)
+FAMILY_NEW = 24
+FAMILY_CHUNK = 128
+FAMILY_GAMMA = 4
+# >= 2048 + 24 - 1 + gamma; a multiple of the page size and of the chunk
+FAMILY_SEQ = 2176
+FAMILY_SOLO = 1                  # the request also served alone (the 2048-token prompt)
+QWEN3_LAYERS = 2                 # of 94: its 4.83 GB of experts a layer
+QWEN3_PROMPT_LENS = (1024, 16, 300, 64)
+QWEN3_NEW = 16
+QWEN3_SEQ = 1040                 # >= 1024 + 16 - 1, a multiple of 16
+INTERNVL_LAYERS = 48             # all of them: ~47.8 GB in bf16 with the head
+INTERNVL_PATCHES, INTERNVL_TEXT = 256, 256
+INTERNVL_PROMPT_LENS = (16, 200, 40, 100)
+INTERNVL_NEW = 8
+INTERNVL_SEQ = 224               # >= 200 + 8 - 1, a multiple of 16
+
+
+def moe_expert_bytes(cfg) -> int:
+    """The bytes of every layer's expert weights (w_gate, w_up, w_down):
+    what a decode step reads when its tokens choose every expert, as the
+    expert products of ``moe_block`` compute every expert."""
+    mc = cfg.moe
+    return cfg.n_layers * 3 * mc.num_experts * cfg.d_model * mc.d_ff_expert * cfg.jdtype.itemsize
+
+
+def _finite_stats(label, st) -> None:
+    """Every number in a session's ``stats()`` is finite."""
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}/{i}")
+        elif isinstance(x, float) and not math.isfinite(x):
+            raise SmokeFailure(f"{label}: stats(){path} is {x}")
+    walk(st, "")
+
+
+def _plain_attention(cfg):
+    """Swap ``layers.flash_attention`` for the plain chunked attention;
+    returns a function that restores the kernel."""
+    from repro_torch.models import layers
+
+    orig = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
+        cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    return lambda: setattr(layers, "flash_attention", orig)
+
+
+def _layer0_attention(label, cfg, params, tokens, patches=None, tag="family") -> float:
+    """Layer 0's causal attention of one prompt through ``ops.flash_attention``
+    (it must launch the tensor-core body once) against the plain version,
+    every element within ``flash_attention_limit``; returns the largest
+    share of the limit used."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers, transformer
+    from repro_torch.testing import flash_attention_limit
+
+    lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    batch = {"tokens": tokens} if patches is None else {"tokens": tokens, "patches": patches}
+    x, positions, _ = transformer.embed_inputs(params, cfg, batch)
+    x = layers.rmsnorm({"scale": params["layers"]["ln1"]["scale"][0]}, x)
+    q, k, v = (t.transpose(1, 2) for t in layers._project_qkv(lp, cfg, x, positions))
+    before = ops.launch_counts()
+    o = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    if after[FLASH_TC] != before[FLASH_TC] + 1 or after[FLASH_SIMT] != before[FLASH_SIMT]:
+        raise SmokeFailure(f"{label}: layer 0's attention did not run {FLASH_TC} once "
+                           f"({before} -> {after})")
+    want = ref.flash_attention_ref(q, k, v)
+    worst = float(((o.float() - want.float()).abs() / flash_attention_limit(q, k, v, want)).max())
+    if worst > 1.0:
+        raise SmokeFailure(f"{label}: flash_attention at H {cfg.n_heads}, H_kv "
+                           f"{cfg.n_kv_heads}, dh {cfg.hd} exceeds its limit ({worst:.3g} of it)")
+    print(f"[{tag}] {label}: {FLASH_TC} at H {cfg.n_heads}, H_kv {cfg.n_kv_heads}, S "
+          f"{q.shape[2]}, dh {cfg.hd}: every element within flash_attention_limit (largest "
+          f"{worst:.3g} of it)", flush=True)
+    return worst
+
+
+def family_phase(results: dict, card: str) -> None:
+    """(a) olmoe-1b-7b served at full width and depth, (b) qwen3-moe-235b-a22b
+    at full width with QWEN3_LAYERS layers and its whole head, (c)
+    internvl2-26b at full width with INTERNVL_LAYERS layers and a stub
+    patch prefix; each model freed before the next."""
+    import torch
+
+    out = results.setdefault("family", {"card": card})
+    for fn in (olmoe_serving, qwen3_moe_serving, internvl2_serving):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn(out, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[family] {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def olmoe_serving(out: dict, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, registry
+    from repro_torch.models import moe
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    t0 = time.perf_counter()
+    cfg, bundle, params, table = _seeded_model("olmoe-1b-7b", SEED)
+    mc = cfg.moe
+    print(f"[family] (a) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, H {cfg.n_heads}, "
+          f"H_kv {cfg.n_kv_heads}, {mc.num_experts} experts top-{mc.top_k} (f "
+          f"{mc.d_ff_expert}), vocab {cfg.padded_vocab}, K {cfg.ds.num_experts}; table v_pad "
+          f"{table.v_pad}; init + pack {time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.RandomState(SEED + 20)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in FAMILY_PROMPT_LENS]
+    # the verify head's path and body at this batch (what auto picks)
+    h40 = torch.zeros((N_SLOTS * (FAMILY_GAMMA + 1), cfg.d_model), dtype=cfg.jdtype,
+                      device="cuda")
+    vctx = ds.serve_kernel_context(table, h40, K_TOP)
+    vpath = registry.resolve_kernel("auto", vctx)
+    vbody = {"cuda_grouped": registry.grouped_body(vctx), "cuda_fused": "dss_topk_fused",
+             "cuda_pertoken": "dss_topk"}[vpath]
+    # the decode head's (B = N_SLOTS)
+    dctx = ds.serve_kernel_context(table, h40[:N_SLOTS], K_TOP)
+    dpath = registry.resolve_kernel("auto", dctx)
+    dbody = {"cuda_grouped": registry.grouped_body(dctx), "cuda_fused": "dss_topk_fused",
+             "cuda_pertoken": "dss_topk"}[dpath]
+
+    def session(label, kernel="auto", which=None, draft=False, record=True, **kw):
+        sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=FAMILY_SEQ,
+                            k=K_TOP, kernel=kernel, overflow_threshold=BREAKER_OFF,
+                            device="cuda", **(dict(draft=(bundle, params, table),
+                                                   gamma=FAMILY_GAMMA) if draft else {}), **kw)
+        reqs = [Request(prompt=prompts[i],
+                        sampling=SamplingParams(max_new_tokens=FAMILY_NEW))
+                for i in (range(len(prompts)) if which is None else which)]
+        rec = Recorder(sess, reqs) if record else None
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = ops.launch_counts()
+        st = sess.stats()
+        for r in reqs:
+            if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != FAMILY_NEW \
+                    or not all(0 <= x < cfg.vocab_size for x in r.out_tokens):
+                raise SmokeFailure(f"olmoe {label}: request ended {r.status} ({r.error}) with "
+                                   f"{r.out_tokens}")
+        if rec is not None:
+            for i, hs in rec.heads.items():
+                if not all(bool(torch.isfinite(v).all()) for v, _ in hs):
+                    raise SmokeFailure(f"olmoe {label}: request {i} saw a non-finite value")
+        want = ({"decode_graphs": 0, "draft_graphs": 1, "verify_graphs": 1} if draft
+                else {"decode_graphs": 1})
+        if {n: st[n] for n in want} != want:
+            raise SmokeFailure(f"olmoe {label}: graph captures "
+                               f"{ {n: st[n] for n in want} }, want {want}")
+        if "paged" in st and (st["paged"]["pages_in_use"]
+                              or st["paged"]["pages_free"] != st["paged"]["pages_total"]):
+            raise SmokeFailure(f"olmoe {label}: pages still held ({st['paged']})")
+        if st["effective_kernel"] != kernel or st["breaker_trips"]:
+            raise SmokeFailure(f"olmoe {label}: served through {st['effective_kernel']!r}")
+        _finite_stats(f"olmoe {label}", st)
+        streams = [list(r.out_tokens) for r in reqs]
+        print(f"[family] (a) {label}: {sum(map(len, streams))} tokens in {wall:.3f} s; "
+              f"captures { {n: st[n] for n in want} }; launches "
+              f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+        return streams, rec, st, launches, sess, wall
+
+    restore_gate = _watch_gate()
+    try:
+        sA, rA, _, lA, sessA, wallA = session("A kernels (auto)")
+        sB, rB, _, _, _, _ = session("B plain head (jnp)", kernel="jnp")
+        sC, rC, stC, _, _, _ = session("C paged chunked (auto)", paged=True, page_size=PAGE_SIZE,
+                                       prefill_chunk=FAMILY_CHUNK)
+        sD, rD, _, _, _, _ = session("D chunked plain head (jnp)", kernel="jnp",
+                                     prefill_chunk=FAMILY_CHUNK)
+    finally:
+        restore_gate()
+    # the backbones are the same code on the same inputs: only the head's
+    # path differs, and both heads are exact
+    ab = _held_within_drift("olmoe A/B", (sA, rA), (sB, rB), rtol=TIE_RTOL, tag="family")
+    cd = _held_within_drift("olmoe C/D", (sC, rC), (sD, rD), rtol=TIE_RTOL, tag="family")
+    need = (dbody, FLASH_TC)
+    if any(lA[n] < 1 for n in need) or lA[FLASH_SIMT]:
+        raise SmokeFailure(f"olmoe A: a kernel body of the path never launched (need {need}): "
+                           f"{lA}")
+    attention = olmoe_prefill_attention(cfg, bundle, params, table, prompts[FAMILY_SOLO])
+    solo, _, _, _, _, _ = session("solo (request 1 alone)", which=[FAMILY_SOLO], record=False)
+    if solo[0] != sA[FAMILY_SOLO]:
+        raise SmokeFailure("olmoe: request 1 served alone differs from its stream in the batch")
+
+    # the decode step: the graph's replay, its bound, where its time goes
+    g = sessA._graph.graph
+    replay = replay_ms(g)
+    step_ms = 1e3 * statistics.median(rA.decode_s[REPLAYED:])
+    expert_bytes = moe_expert_bytes(cfg)
+    pos = [len(p) + FAMILY_NEW for p in prompts]
+    nbytes = backbone_bytes(params, cfg, pos)
+    x8 = torch.randn((N_SLOTS, 1, cfg.d_model), generator=torch.Generator(device="cuda")
+                     .manual_seed(SEED + 21), device="cuda").to(cfg.jdtype)
+    lps = [{k: v[i] for k, v in params["layers"]["moe"].items()} for i in range(cfg.n_layers)]
+    moe_ms = device_ms(lambda: [moe.moe_block(lp, cfg, x8) for lp in lps], calls=4)
+    tr = traced("family olmoe decode replay", lambda: sync_s(
+        lambda: [g.replay() for _ in range(3)])[1])
+    top = tr.top(10, 3)
+    decode = {"step_ms_median": step_ms, "replay_ms": replay,
+              "expert_bytes": expert_bytes,
+              "expert_bytes_bound_ms": 1e3 * expert_bytes / HBM_BYTES_PER_S,
+              "backbone_bytes": nbytes, "backbone_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+              "moe_blocks_device_ms": moe_ms, "moe_share_of_replay": moe_ms / replay,
+              "replay_device_busy_ms": tr.busy_us() / 1e3 / 3,
+              "replay_device_ops": len(tr.device) / 3, "top_device_ops_ms": top,
+              "graph_pool_mib": graph_pool_mib(g)}
+    prefill_ms = 1e3 * rA.prefill_s[FAMILY_SOLO]
+    long = torch.from_numpy(prompts[FAMILY_SOLO][None].astype(np.int64)).to("cuda")
+    warm = warm_prefill_profile(lambda: bundle.prefill(params, table, {"tokens": long},
+                                                       k=K_TOP, kernel="auto"),
+                                "(6c) olmoe-1b-7b, 2048 tokens")
+    print(f"[family] (a) decode step: {step_ms:.3f} ms (median, replay + head), one replay "
+          f"{replay:.3f} ms (CUDA events) against the expert-bytes bound "
+          f"{decode['expert_bytes_bound_ms']:.3f} ms ({expert_bytes / 1e9:.2f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) and the backbone's "
+          f"{decode['backbone_bound_ms']:.3f} ms; the {cfg.n_layers} MoE blocks alone "
+          f"{moe_ms:.3f} ms ({decode['moe_share_of_replay']:.1%} of the replay); top device ops "
+          f"of a replay {json.dumps(top)}; prefill of {len(long[0])} tokens {prefill_ms:.1f} "
+          f"ms in session A, warm {warm['ms_median_of_3']:.1f} ms; card {card}", flush=True)
+    del x8, lps, sessA
+
+    # int8 table: every expert on int8 rows (flip threshold 1.0)
+    _, _, st8, l8, _, _ = session("int8 (flip threshold 1.0)", record=False,
+                                   quantize="int8", quantize_flip_threshold=1.0)
+    rep = st8["quantize_report"]
+    if rep["n_fallback"] >= cfg.ds.num_experts or not any(
+            c for n, c in l8.items() if n.endswith("_q")):
+        raise SmokeFailure(f"olmoe int8: no expert served from int8 rows ({rep['n_fallback']} "
+                           f"fallbacks; launches {l8})")
+    # the self-draft, twice
+    spec = [session(f"self-draft gamma {FAMILY_GAMMA} run {i}", draft=True, record=False)
+            for i in (1, 2)]
+    if spec[0][0] != spec[1][0]:
+        raise SmokeFailure("olmoe: a speculative run did not repeat token for token")
+    sp = spec[0][2]["speculative"]
+    ls = spec[0][3]
+    if ls[vbody] < 1 or ls[dbody] < 1:
+        raise SmokeFailure(f"olmoe speculative: the verify head's {vbody} or the draft's "
+                           f"{dbody} never launched ({ls})")
+    out["olmoe"] = {
+        "layers": cfg.n_layers, "v_pad": table.v_pad, "tokens": sum(map(len, sA)),
+        "wall_s_A": wallA, "decode": decode, "prefill_ms_2048": prefill_ms,
+        "prefill_2048_warm": warm,
+        "drift": {"allowed": TIE_RTOL, "A/B": ab, "C/D": cd}, "solo_equal": True,
+        "prefill_attention": attention,
+        "launches_A": lA, "int8": {"n_fallback": rep["n_fallback"], "launches": l8},
+        "speculative": sp, "verify_path": vpath, "verify_body": vbody,
+        "decode_path": dpath, "decode_body": dbody,
+        "speculative_launches": ls, "pages_C": stC["paged"],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    print(f"[family] (a) A/B {json.dumps(ab)}; C/D {json.dumps(cd)} (drift allowed "
+          f"{TIE_RTOL:.3g}); request 1 alone equals its stream; int8 {rep['n_fallback']} "
+          f"fallback experts of {cfg.ds.num_experts}; self-draft accept rate "
+          f"{sp['accept_rate']:.4f} ({sp['emitted_per_step']:.3f} tokens a verify step), two runs "
+          f"token for token, verify head on {vpath} ({vbody}), decode head on {dpath} "
+          f"({dbody}); peak memory "
+          f"{out['olmoe']['peak_memory_gib']:.2f} GiB; card {card}", flush=True)
+    del params, table, bundle, spec
+
+
+ROUTER_TIE = 2.0 ** -5           # a routing flip's router gap, at most (relative)
+
+
+def olmoe_prefill_attention(cfg, bundle, params, table, prompt) -> dict:
+    """One whole-prompt prefill of ``prompt`` with every attention call
+    recorded: each of the L calls through ``flash_attention_wgmma``, held
+    per element within ``flash_attention_limit`` against the plain version
+    on the same inputs. Then the same prefill with the plain attention
+    swapped in: bf16 attention rounds otherwise, and the MoE router turns
+    a rounding into another expert where two experts' probabilities are
+    near-equal, after which the two runs' hidden states part by far more
+    than the drift rule allows. So the runs' routes are compared layer by
+    layer: in the first layer where a token's expert set differs, every
+    expert only one run chose must sit within ROUTER_TIE of the k-th
+    probability in both runs (a near-tie of the router). Returns the
+    readings."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers, moe
+    from repro_torch.testing import flash_attention_limit
+
+    tokens = torch.from_numpy(prompt[None].astype("int64")).to("cuda")
+    K = cfg.moe.top_k
+
+    def run(plain):
+        calls, routes = [], []
+        orig_attn, orig_route = layers.flash_attention, moe.route
+
+        def attn(q, k, v, device):
+            o = orig_attn(q, k, v, device=device)
+            calls.append((q, k, v, o))
+            return o
+
+        def route(p, c, x):
+            out = orig_route(p, c, x)
+            routes.append((out[0][0].cpu(), out[2][0].cpu()))   # probs (S, E), top_e (S, K)
+            return out
+
+        restore = _plain_attention(cfg) if plain else None
+        if not plain:
+            layers.flash_attention = attn
+        moe.route = route
+        try:
+            ops.reset_launch_counts()
+            vals, ids, _ = bundle.prefill(params, table, {"tokens": tokens}, k=K_TOP,
+                                          kernel="jnp")
+            torch.cuda.synchronize()
+        finally:
+            moe.route = orig_route
+            layers.flash_attention = orig_attn
+            if restore is not None:
+                restore()
+        return vals[0].cpu(), ids[0].cpu(), calls, routes, ops.launch_counts()
+
+    vk, ik, calls, rk, counts = run(False)
+    if counts[FLASH_TC] != cfg.n_layers or counts[FLASH_SIMT] or len(calls) != cfg.n_layers:
+        raise SmokeFailure(f"olmoe prefill: {len(calls)} attention calls, launches {counts}")
+    used = []
+    for q, k, v, o in calls:
+        want = ref.flash_attention_ref(q, k, v)
+        used.append(float(((o.float() - want.float()).abs()
+                           / flash_attention_limit(q, k, v, want)).max()))
+        del want
+    del calls
+    if max(used) > 1.0:
+        raise SmokeFailure(f"olmoe prefill: an attention call exceeds flash_attention_limit "
+                           f"({max(used):.3g} of it)")
+    vp, ip, _, rp, _ = run(True)
+    flips, first, worst = [], None, 0.0
+    for layer, ((pk, ek), (pp, ep)) in enumerate(zip(rk, rp)):
+        differ = (ek.sort(-1).values != ep.sort(-1).values).any(-1)
+        flips.append(int(differ.sum()))
+        if first is not None or not bool(differ.any()):
+            continue
+        first = layer
+        kth_k, kth_p = pk.sort(-1, descending=True).values[:, K - 1], \
+            pp.sort(-1, descending=True).values[:, K - 1]
+        for t in differ.nonzero()[:, 0].tolist():
+            only = set(ek[t].tolist()) ^ set(ep[t].tolist())
+            for e in only:
+                gap = max(float((kth_k[t] - pk[t, e]).abs() / kth_k[t]),
+                          float((kth_p[t] - pp[t, e]).abs() / kth_p[t]))
+                worst = max(worst, gap)
+                if gap > ROUTER_TIE:
+                    raise SmokeFailure(f"olmoe prefill: layer {layer}, token {t}: expert {e} "
+                                       f"chosen by one run only at a router gap of {gap:.3g} "
+                                       f"(> {ROUTER_TIE:.3g})")
+    top = abs(float(vp[0]))
+    rec = {"tokens": int(tokens.shape[1]), "attention_limit_used": used,
+           "routing_flips_per_layer": flips, "first_layer_with_a_flip": first,
+           "first_flips_max_router_gap": worst, "ids_equal_to_plain": bool((ik == ip).all()),
+           "top1_drift_from_plain": abs(float(vk[0]) - float(vp[0])) / top}
+    print(f"[family] (a) prefill of {tokens.shape[1]} tokens: {cfg.n_layers} calls of {FLASH_TC}, "
+          f"each within flash_attention_limit (largest {max(used):.3g} of it); against the plain "
+          f"attention the router parts at {flips} tokens a layer, first in layer {first}, each "
+          f"there at a router near-tie (largest gap {worst:.3g}, allowed {ROUTER_TIE:.3g}); top-k "
+          f"ids {'equal' if rec['ids_equal_to_plain'] else 'not equal'} to the plain run's, "
+          f"top-1 {rec['top1_drift_from_plain']:.3g} apart (relative)", flush=True)
+    return rec
+
+
+def qwen3_moe_serving(out: dict, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, registry
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    t0 = time.perf_counter()
+    cfg, bundle, params, table = _seeded_model("qwen3-moe-235b-a22b", SEED,
+                                               n_layers=QWEN3_LAYERS)
+    print(f"[family] (b) {cfg.name}: {cfg.n_layers} of 94 layers, d {cfg.d_model}, H "
+          f"{cfg.n_heads}, H_kv {cfg.n_kv_heads}, dh {cfg.hd}, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k}, vocab {cfg.padded_vocab}, K {cfg.ds.num_experts}; table v_pad "
+          f"{table.v_pad}; init + pack {time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.RandomState(SEED + 22)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in QWEN3_PROMPT_LENS]
+    worst = _layer0_attention("(b) qwen3-moe layer 0", cfg, params,
+                              torch.from_numpy(prompts[0][None].astype(np.int64)).to("cuda"))
+    sess = ServeSession(bundle, params, table, n_slots=len(prompts), max_seq_len=QWEN3_SEQ,
+                        k=K_TOP, kernel="auto", overflow_threshold=BREAKER_OFF, device="cuda")
+    reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=QWEN3_NEW)) for p in prompts]
+    rec = Recorder(sess, reqs)
+    ops.reset_launch_counts()
+    sess.run(reqs)
+    launches = ops.launch_counts()
+    st = sess.stats()
+    for i, r in enumerate(reqs):
+        if r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != QWEN3_NEW \
+                or not all(bool(torch.isfinite(v).all()) for v, _ in rec.heads[i]):
+            raise SmokeFailure(f"qwen3-moe: request {i} ended {r.status} ({r.error}) or saw a "
+                               "non-finite value")
+    if st["decode_graphs"] != 1 or launches[FLASH_TC] != len(prompts) * cfg.n_layers:
+        raise SmokeFailure(f"qwen3-moe: {st['decode_graphs']} decode graphs, launches {launches}")
+    _finite_stats("qwen3-moe", st)
+    # the head at B 8 and 40 through auto against jnp
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    gate = params["head"]["gate"]
+    heads_ = {}
+    for B in (8, 40):
+        h = torch.randn((B, cfg.d_model), generator=gen, device="cuda").to(cfg.jdtype)
+        ctx = ds.serve_kernel_context(table, h, K_TOP)
+        ops.reset_launch_counts()
+        got = ds.serve_topk(gate, table, h, K_TOP, kernel="auto")
+        torch.cuda.synchronize()
+        bodies = {n: c for n, c in ops.launch_counts().items() if c}
+        if not bodies:
+            raise SmokeFailure(f"qwen3-moe head B={B}: auto launched no kernel body")
+        err, parted = _compare("qwen3-moe head", f"B={B} auto",
+                               got, ds.serve_topk(gate, table, h, K_TOP, kernel="jnp"))
+        heads_[B] = {"auto": registry.resolve_kernel("auto", ctx), "capacity": ctx.capacity,
+                     "bodies": bodies,
+                     "max_abs_err": err, "rows_parted_at_ties": parted,
+                     "device_ms": profiled_device_ms(
+                         lambda: ds.serve_topk(gate, table, h, K_TOP, kernel="auto"))}
+    out["qwen3_moe"] = {
+        "layers": cfg.n_layers, "v_pad": table.v_pad, "layer0_attention_limit_used": worst,
+        "decode_step_ms_median": 1e3 * statistics.median(rec.decode_s[REPLAYED:]),
+        "prefill_ms_1024": 1e3 * rec.prefill_s[0], "launches": launches, "heads": heads_,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    print(f"[family] (b) {len(prompts)} streams of {QWEN3_NEW} tokens, finite; decode step "
+          f"{out['qwen3_moe']['decode_step_ms_median']:.2f} ms (median); the 1024-token prefill "
+          f"{out['qwen3_moe']['prefill_ms_1024']:.1f} ms; heads {json.dumps(heads_)}; peak "
+          f"memory {out['qwen3_moe']['peak_memory_gib']:.2f} GiB; card {card}", flush=True)
+    del sess, rec, params, table, bundle
+
+
+def internvl2_serving(out: dict, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    t0 = time.perf_counter()
+    cfg, bundle, params, table = _seeded_model("internvl2-26b", SEED,
+                                               n_layers=INTERNVL_LAYERS)
+    print(f"[family] (c) {cfg.name}: {cfg.n_layers} of 48 layers, d {cfg.d_model}, H "
+          f"{cfg.n_heads}, H_kv {cfg.n_kv_heads}, vocab {cfg.padded_vocab}, K "
+          f"{cfg.ds.num_experts}; table v_pad {table.v_pad}; init + pack "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    tokens = torch.randint(0, cfg.vocab_size, (1, INTERNVL_TEXT), generator=gen, device="cuda")
+    patches = torch.randn((1, INTERNVL_PATCHES, cfg.d_model), generator=gen, device="cuda")
+    batch = {"tokens": tokens, "patches": patches}
+    worst = _layer0_attention("(c) internvl2 layer 0 (patches + text)", cfg, params, tokens,
+                              patches)
+
+    def prefill(kernel):
+        return bundle.prefill(params, table, batch, k=K_TOP, kernel=kernel)
+
+    ops.reset_launch_counts()
+    (vk, ik, ck), t_kernel = sync_s(lambda: prefill("auto"))
+    counts = ops.launch_counts()
+    if counts[FLASH_TC] != cfg.n_layers or counts[FLASH_SIMT] \
+            or ck.k.shape[2] != INTERNVL_PATCHES + INTERNVL_TEXT:
+        raise SmokeFailure(f"internvl2 prefill: launches {counts}, cache {tuple(ck.k.shape)}")
+    restore = _plain_attention(cfg)
+    try:
+        ops.reset_launch_counts()
+        (vp, ip, _), t_plain = sync_s(lambda: prefill("jnp"))
+        if any(ops.launch_counts().values()):
+            raise SmokeFailure(f"internvl2: the plain prefill launched {ops.launch_counts()}")
+    finally:
+        restore()
+    del ck
+    # warm: the median of 3 calls each, kernels and plain
+    warm_kernel = statistics.median(1e3 * sync_s(lambda: prefill("auto"))[1] for _ in range(3))
+    restore = _plain_attention(cfg)
+    try:
+        warm_plain = statistics.median(1e3 * sync_s(lambda: prefill("jnp"))[1] for _ in range(3))
+    finally:
+        restore()
+    vk, ik, vp, ip = vk[0].cpu(), ik[0].cpu(), vp[0].cpu(), ip[0].cpu()
+    same = ik == ip
+    top = abs(float(vp[0]))
+    drift = float((vk[same] - vp[same]).abs().max()) / top if bool(same.any()) else 0.0
+    if drift > BF16_DRIFT:
+        raise SmokeFailure(f"internvl2 prefill: top-k values differ by {drift:.3g} of the top-1")
+    _topk_parts_only_at_ties("internvl2 prefill", vk, ik, vp, ip, 2 * BF16_DRIFT * top)
+    # a short text-only session
+    rng = np.random.RandomState(SEED + 25)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in INTERNVL_PROMPT_LENS]
+    sess = ServeSession(bundle, params, table, n_slots=len(prompts), max_seq_len=INTERNVL_SEQ,
+                        k=K_TOP, kernel="auto", overflow_threshold=BREAKER_OFF, device="cuda")
+    reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=INTERNVL_NEW))
+            for p in prompts]
+    sess.run(reqs)
+    st = sess.stats()
+    if st["decode_graphs"] != 1 or any(
+            r.status is not RequestStatus.COMPLETED or len(r.out_tokens) != INTERNVL_NEW
+            for r in reqs):
+        raise SmokeFailure(f"internvl2 text session: {st['decode_graphs']} decode graphs, "
+                           f"{[r.status for r in reqs]}")
+    _finite_stats("internvl2", st)
+    out["internvl2"] = {
+        "layers": cfg.n_layers, "v_pad": table.v_pad, "layer0_attention_limit_used": worst,
+        "prefill_tokens": INTERNVL_PATCHES + INTERNVL_TEXT, "kernel_launches": counts,
+        "kernel_ms": 1e3 * t_kernel, "plain_ms": 1e3 * t_plain,
+        "kernel_ms_warm_median_of_3": warm_kernel, "plain_ms_warm_median_of_3": warm_plain,
+        "ids_equal": bool(same.all()),
+        "max_drift": drift, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card": card}
+    print(f"[family] (c) prefill of {INTERNVL_PATCHES} patches + {INTERNVL_TEXT} tokens: "
+          f"{FLASH_TC} launched {counts[FLASH_TC]} times; {1e3 * t_kernel:.1f} ms against "
+          f"{1e3 * t_plain:.1f} ms plain (jnp head, chunked attention) on the first call, "
+          f"{warm_kernel:.1f} against {warm_plain:.1f} ms warm (median of 3); top-k ids "
+          f"{'equal' if bool(same.all()) else 'equal up to near-ties'}, values within "
+          f"{drift:.3g} of the top-1 (allowed {BF16_DRIFT:.3g}); text-only session of "
+          f"{len(prompts)} streams complete; peak memory "
+          f"{out['internvl2']['peak_memory_gib']:.2f} GiB; card {card}", flush=True)
+    del sess, params, table, bundle
 
 
 # ---------------------------------------------------------------------------
@@ -3760,6 +4329,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("spec", spec_phase, results, card)
+    timed("family", family_phase, results, card)
     timed("train", train_phase, results, card)
 
     from repro_torch.kernels import ops

@@ -1,20 +1,25 @@
 """Architecture registry: ``get_config(arch)`` and ``reduce_config``.
 
-Every dense architecture of ``repro``'s registry is listed; the others
-raise ``KeyError`` naming the work that adds their family.
+Every dense, moe and vlm architecture of ``repro``'s registry is listed;
+the others raise ``KeyError`` naming the work that adds their family.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import deepseek_67b, granite_20b, llama3_2_3b, paper_lm, qwen2_1_5b
-from repro_torch.configs.base import DSSoftmaxConfig, ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.configs import (deepseek_67b, granite_20b, internvl2_26b, llama3_2_3b,
+                                 olmoe_1b_7b, paper_lm, qwen2_1_5b, qwen3_moe_235b)
+from repro_torch.configs.base import (DSSoftmaxConfig, ModelConfig, MoEConfig, ShapeConfig,
+                                      TrainConfig, VisionStubConfig)
 
 _CONFIGS: Dict[str, ModelConfig] = {
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
     "llama3.2-3b": llama3_2_3b.CONFIG,
     "granite-20b": granite_20b.CONFIG,
     "deepseek-67b": deepseek_67b.CONFIG,
+    "olmoe-1b-7b": olmoe_1b_7b.CONFIG,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
+    "internvl2-26b": internvl2_26b.CONFIG,
     "paper-ptb": paper_lm.PTB,
     "paper-wiki2": paper_lm.WIKI2,
     "paper-casia": paper_lm.CASIA,
@@ -25,11 +30,8 @@ _CONFIGS: Dict[str, ModelConfig] = {
 _LATER = {
     "mamba2-130m": "the ssm family (Queue 1 item 6)",
     "zamba2-7b": "the hybrid family (Queue 1 item 6)",
-    "olmoe-1b-7b": "the moe family (Queue 1 item 6)",
-    "qwen3-moe-235b-a22b": "the moe family (Queue 1 item 6)",
     "whisper-base": "the encdec family (Queue 1 item 6)",
     "paper-envi": "the encdec family (Queue 1 item 6)",
-    "internvl2-26b": "the vlm family (Queue 1 item 6)",
 }
 
 
@@ -44,8 +46,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def reduce_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
     """A tiny config of the same family for CPU tests (as in ``repro``)."""
-    if cfg.family != "dense":
-        raise KeyError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise KeyError(f"family {cfg.family!r} is not ported yet (Queue 1 item 6)")
     kw = dict(
         n_layers=2,
         d_model=64,
@@ -57,6 +59,10 @@ def reduce_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
     )
     if cfg.n_heads:
         kw.update(n_heads=4, n_kv_heads=max(1, min(cfg.n_kv_heads, 2)), head_dim=16)
+    if cfg.moe is not None:
+        kw.update(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
+    if cfg.vision is not None:
+        kw.update(vision=VisionStubConfig(num_patches=8))
     kw.update(ds=cfg.ds.replace(num_experts=4))
     return cfg.replace(**kw)
 
@@ -64,8 +70,10 @@ def reduce_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
 __all__ = [
     "DSSoftmaxConfig",
     "ModelConfig",
+    "MoEConfig",
     "ShapeConfig",
     "TrainConfig",
+    "VisionStubConfig",
     "get_config",
     "reduce_config",
 ]

@@ -41,9 +41,28 @@ class DSSoftmaxConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice MoE FFN configuration (for moe-family backbones)."""
+
+    num_experts: int = 64
+    top_k: int = 8
+    d_ff_expert: int = 1024
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class VisionStubConfig:
+    """Modality frontend stub: precomputed patch/frame embeddings."""
+
+    num_patches: int = 256   # patches (vlm) or frames (audio) per example
+    embed_dim: int = 0       # 0 => d_model
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"
+    family: str = "dense"                 # dense | moe | vlm (ported); ssm | hybrid | encdec
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -56,6 +75,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     act: str = "swiglu"                   # swiglu | gelu
     dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None       # the MoE FFN of a moe-family backbone
+    vision: Optional[VisionStubConfig] = None  # the vlm family's patch-prefix stub
     head: str = "ds"                      # 'full' | 'ds'
     ds: DSSoftmaxConfig = field(default_factory=DSSoftmaxConfig)
     attn_q_chunk: int = 1024

@@ -53,12 +53,16 @@ def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         "layers/attn/wk": (L, d, KV * dh),
         "layers/attn/wv": (L, d, KV * dh),
         "layers/attn/wo": (L, H * dh, d),
-        "layers/mlp/w_up": (L, d, ff),
-        "layers/mlp/w_down": (L, ff, d),
         "final_norm/scale": (d,),
     }
-    if cfg.act == "swiglu":
-        shapes["layers/mlp/w_gate"] = (L, d, ff)
+    if cfg.moe is not None:
+        E, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        shapes.update({"layers/moe/router": (L, d, E), "layers/moe/w_gate": (L, E, d, f),
+                       "layers/moe/w_up": (L, E, d, f), "layers/moe/w_down": (L, E, f, d)})
+    else:
+        shapes.update({"layers/mlp/w_up": (L, d, ff), "layers/mlp/w_down": (L, ff, d)})
+        if cfg.act == "swiglu":
+            shapes["layers/mlp/w_gate"] = (L, d, ff)
     if cfg.head == "ds":
         K = cfg.ds.num_experts
         shapes.update({"head/gate": (K, d), "head/experts": (K, cfg.padded_vocab, d),
@@ -69,17 +73,23 @@ def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
 def check_shapes(np_tree: Dict[str, np.ndarray], cfg: ModelConfig) -> None:
     """Raise unless ``np_tree`` (the form :func:`params_from_jax` takes) has
     every leaf the config needs at its shape: ``KeyError`` for a missing
-    leaf, ``ValueError`` for a wrong shape or for an MLP gate
-    (``layers/mlp/w_gate``) where ``cfg.act`` is not 'swiglu'."""
+    leaf, ``ValueError`` for a wrong shape, for an MLP gate
+    (``layers/mlp/w_gate``) where ``cfg.act`` is not 'swiglu', or for an
+    MLP in a moe config or an MoE block in another."""
     for path, shape in _expected_shapes(cfg).items():
         if path not in np_tree:
             raise KeyError(f"missing parameter {path!r}")
         if tuple(np_tree[path].shape) != shape:
             raise ValueError(f"{path}: shape {tuple(np_tree[path].shape)}, "
                              f"expected {shape} for {cfg.name}")
-    if cfg.act != "swiglu" and "layers/mlp/w_gate" in np_tree:
+    if cfg.act != "swiglu" and cfg.moe is None and "layers/mlp/w_gate" in np_tree:
         raise ValueError(f"layers/mlp/w_gate given, but {cfg.name}'s MLP is {cfg.act!r} "
                          "(no gate)")
+    other = "layers/mlp/" if cfg.moe is not None else "layers/moe/"
+    extra = sorted(p for p in np_tree if p.startswith(other))
+    if extra:
+        raise ValueError(f"{extra[0]} given, but {cfg.name}'s FFN is "
+                         f"{'an MoE block' if cfg.moe is not None else 'an MLP'}")
 
 
 def params_from_jax(np_tree: Dict[str, np.ndarray], cfg: ModelConfig,

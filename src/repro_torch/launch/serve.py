@@ -85,9 +85,9 @@ def main(argv=None) -> ServeSession:
     ap.add_argument("--quantize-flip-threshold", type=float, default=0.0,
                     help="per-expert flip-rate bound before fp fallback")
     ap.add_argument("--draft", default=None, metavar="ARCH",
-                    help="speculative decoding: a dense config (reduced with --reduced, and "
-                         "put on the target's vocab) proposes --gamma tokens per slot per "
-                         "step, verified by the target in one chunk-shaped step")
+                    help="speculative decoding: a dense, moe or vlm config (reduced with "
+                         "--reduced, and put on the target's vocab) proposes --gamma tokens "
+                         "per slot per step, verified by the target in one chunk-shaped step")
     ap.add_argument("--gamma", type=int, default=4,
                     help="draft tokens proposed per slot per speculative step")
     args = ap.parse_args(argv)

@@ -1,7 +1,8 @@
 """Uniform model API: ``build(cfg)`` returns a :class:`ModelBundle`: the
 model's init, train loss and serving functions over one config.
 
-Only the dense family is ported so far; other families raise.
+The dense, moe and vlm families are ported (all three run through
+``transformer``); the others raise, naming ROADMAP.md Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -13,6 +14,12 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+
+
+def _check_family(cfg: ModelConfig, what: str = "family") -> None:
+    if cfg.family not in transformer.FAMILIES:
+        raise ValueError(f"{what} {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1 item 6; "
+                         f"ported: {', '.join(transformer.FAMILIES)})")
 
 
 @dataclass(frozen=True)
@@ -48,8 +55,7 @@ class ModelBundle:
 def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
     """The model's functions, with ``init`` placing params on ``device``."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+    _check_family(cfg)
     return ModelBundle(
         cfg=cfg,
         device=dev,
@@ -82,8 +88,7 @@ class TensorSpec(NamedTuple):
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
     """Decode-cache specs sized to the cell's seq_len and batch."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+    _check_family(cfg)
     kv = TensorSpec((cfg.n_layers, shape.global_batch, shape.seq_len,
                      cfg.n_kv_heads, cfg.hd), cfg.jdtype)
     return transformer.DecodeCache(k=kv, v=kv)
@@ -96,15 +101,13 @@ def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int):
     (``repro_torch.serve.paged_cache.PagedCacheManager``). At the default
     arena size the bytes equal the contiguous cache's: paging buys
     sharing and cheap preemption, not smaller buffers."""
-    if cfg.family != "dense":
-        raise ValueError(f"no paged cache for family {cfg.family!r} (dense only)")
+    _check_family(cfg, "paged cache for family")
     kv = TensorSpec((cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd), cfg.jdtype)
     return transformer.DecodeCache(k=kv, v=kv)
 
 
 def cache_kv_leaves(cfg: ModelConfig):
     """Per-leaf bool: True for position-indexed attention K/V leaves (paged
-    over KV pages). The dense family has no state leaves."""
-    if cfg.family != "dense":
-        raise ValueError(f"no paged cache for family {cfg.family!r} (dense only)")
+    over KV pages). The transformer families have no state leaves."""
+    _check_family(cfg, "paged cache for family")
     return transformer.DecodeCache(k=True, v=True)

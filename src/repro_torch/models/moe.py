@@ -1,0 +1,130 @@
+"""Token-choice top-k MoE FFN (olmoe / qwen3-moe backbones).
+
+Sort-based dispatch per batch row (as ``repro.models.moe``): a row's
+tokens are grouped by expert within that row only, so one row's tokens
+never change another row's drops, and greedy streams stay the same across
+batching. Per-row capacity is ``C = max(1, round(S·top_k/E ·
+capacity_factor))``; an assignment past it falls back to its residual
+stream (counted in ``MoEAux.drop_frac``).
+
+Every row is dispatched by one ``dispatch_indices`` call, row b's expert
+ids offset by ``b·E``; the call makes no host sync and has no
+data-dependent shape, so a CUDA graph captures the block. The dispatch
+buffer is ``(E, B·C, d)`` plus one trash row that every dropped
+assignment writes to, for torch raises where JAX's ``mode="drop"``
+scatter drops.
+
+The expert products are plain batched matrix products (``repro``
+computes them outside any kernel too). On the CPU both operands of the
+gate and up products are widened to fp32, as ``repro``'s CPU branch does;
+on the card they take bf16 operands with fp32 outputs
+(``preferred_element_type=jnp.float32`` in ``repro``'s expert-parallel
+branch), with no fp32 copy of the ``(E, d, f)`` weights.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dispatch import dispatch_indices
+from repro_torch.core.dssoftmax import normal_
+from repro_torch.kernels.ref import topk_stable
+
+
+class MoEAux(NamedTuple):
+    load_loss: torch.Tensor
+    drop_frac: torch.Tensor
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig, n_layers: int, device="cuda"):
+    """Seeded MoE params of ``n_layers`` layers, stacked on a leading
+    ``(L, …)`` axis: router fp32 (d, E), ``w_gate``/``w_up`` (E, d, f),
+    ``w_down`` (E, f, d) in the config dtype, each N(0, 1/fan_in) with
+    ``repro``'s ``dense_init`` fan-in (the first axis; f for ``w_down``)."""
+    d, mc, dt = cfg.d_model, cfg.moe, cfg.jdtype
+    E, f = mc.num_experts, mc.d_ff_expert
+
+    def init(shape, dtype, fan_in=None):
+        w = torch.empty((n_layers,) + shape, dtype=dtype, device=device)
+        return normal_(w, generator, 1.0 / math.sqrt(fan_in or shape[0]))
+
+    return {
+        "router": init((d, E), torch.float32),
+        "w_gate": init((E, d, f), dt),
+        "w_up": init((E, d, f), dt),
+        "w_down": init((E, f, d), dt, fan_in=f),
+    }
+
+
+def capacity(cfg: ModelConfig, S: int) -> int:
+    """Per-row expert capacity for a row of ``S`` tokens."""
+    mc = cfg.moe
+    return int(max(1, round(S * mc.top_k / mc.num_experts * mc.capacity_factor)))
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with fp32 outputs: bf16 operands on the card, both widened
+    to fp32 on the CPU (which has no ``aten::bmm.dtype`` kernel)."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def route(params, cfg: ModelConfig, x: torch.Tensor):
+    """The router and the per-row dispatch of x (B, S, d) → (probs (B, S, E)
+    fp32, top_p (B, S, K) renormalized, top_e (B, S, K), slot (B, S, K)
+    long, valid (B, S, K) bool): the top-k experts of fp32 softmax(x·R),
+    ties to the lower id as ``jax.lax.top_k`` breaks them, and each
+    assignment's rank within its (row, expert), valid below the row's
+    capacity."""
+    B, S, _ = x.shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    top_p, top_e = topk_stable(probs, K)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    # every row in one call: row b's ids offset by b·E
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    slot, valid = dispatch_indices((top_e + rows * E).reshape(-1), B * E, capacity(cfg, S))
+    return probs, top_p, top_e, slot.reshape(B, S, K).long(), valid.reshape(B, S, K)
+
+
+def moe_block(params, cfg: ModelConfig, x: torch.Tensor):
+    """x: (B, S, d) → ((B, S, d), MoEAux), Switch-style aux load loss."""
+    B, S, d = x.shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    C = capacity(cfg, S)
+    probs, top_p, top_e, slot, valid = route(params, cfg, x)
+    rows = torch.arange(B, device=x.device)[:, None, None]
+
+    # buffer row (e·B + b)·C + slot; dropped assignments go to the trash row
+    base = (top_e * B + rows) * C                                    # (B, S, K)
+    trash = E * B * C
+    dst = torch.where(valid, base + slot, trash)
+    buf = torch.zeros((trash + 1, d), dtype=x.dtype, device=x.device)
+    xr = x.reshape(B * S, d)
+    for k in range(K):
+        buf.index_copy_(0, dst[..., k].reshape(-1), xr)
+    buf = buf[:trash].view(E, B * C, d)
+
+    g = F.silu(_bmm_f32(buf, params["w_gate"]))
+    u = _bmm_f32(buf, params["w_up"])
+    yb = torch.bmm((g * u).to(x.dtype), params["w_down"]).view(E * B * C, d)
+
+    src = base + torch.clamp(slot, max=C - 1)
+    w = torch.where(valid, top_p, 0.0)
+    y = torch.zeros((B * S, d), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        y = y + yb[src[..., k].reshape(-1)].float() * w[..., k].reshape(-1, 1)
+
+    # Switch aux loss: E · Σ_e f_e · P_e (f: top-1 token fraction, P: mean prob)
+    top1 = top_e[..., 0].reshape(-1)
+    ones = torch.ones(top1.shape, dtype=torch.float32, device=x.device)
+    f = torch.zeros(E, device=x.device).index_add_(0, top1, ones) / (B * S)
+    P = probs.reshape(-1, E).mean(dim=0)
+    load_loss = E * torch.sum(f * P)
+    drop = 1.0 - valid.float().mean()
+    return y.view(B, S, d).to(x.dtype), MoEAux(load_loss=load_loss, drop_frac=drop)

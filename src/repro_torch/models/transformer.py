@@ -1,10 +1,14 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM (dense / moe / vlm families).
 
 Per-layer parameters are stacked on axis 0 (``(L, …)``, as in
 ``repro.models.transformer``) and consumed by a Python loop over layers.
 ``cfg.remat`` sets what the train forward keeps for the backward: 'layer'
 checkpoints each layer (``torch.utils.checkpoint``), 'dots' each layer
-but saving its weight matmuls' outputs, 'none' everything.
+but saving its weight matmuls' outputs, 'none' everything. A moe config
+runs ``moe.moe_block`` where a dense one runs its MLP; a vlm config
+prepends ``batch["patches"]`` (precomputed patch embeddings, a stub of the
+vision tower) to the token embeddings in training and whole-prompt
+prefill.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dssoftmax import normal_
-from repro_torch.models import heads
+from repro_torch.models import heads, moe
 from repro_torch.models.layers import (
     attention_block,
     attention_decode,
@@ -27,6 +31,11 @@ from repro_torch.models.layers import (
     mlp,
     rmsnorm,
 )
+
+
+# the families this module builds (``repro`` builds them through its
+# ``transformer`` too)
+FAMILIES = ("dense", "moe", "vlm")
 
 
 class DecodeCache(NamedTuple):
@@ -41,8 +50,8 @@ def _dense(gen, L, shape, dtype, device, fan_in=None):
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     """Seeded params on ``device`` → (params, ds_state)."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not ported yet (Queue 1 item 6)")
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt, gen = cfg.jdtype, generator
@@ -56,18 +65,20 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
         attn["bq"] = torch.zeros((L, H * dh), dtype=dt, device=device)
         attn["bk"] = torch.zeros((L, KV * dh), dtype=dt, device=device)
         attn["bv"] = torch.zeros((L, KV * dh), dtype=dt, device=device)
-    if cfg.act == "swiglu":
-        mlp_p = {"w_gate": _dense(gen, L, (d, ff), dt, device),
-                 "w_up": _dense(gen, L, (d, ff), dt, device),
-                 "w_down": _dense(gen, L, (ff, d), dt, device)}
+    if cfg.moe is not None:
+        ffn = {"moe": moe.init_moe(gen, cfg, L, device=device)}
+    elif cfg.act == "swiglu":
+        ffn = {"mlp": {"w_gate": _dense(gen, L, (d, ff), dt, device),
+                       "w_up": _dense(gen, L, (d, ff), dt, device),
+                       "w_down": _dense(gen, L, (ff, d), dt, device)}}
     else:
-        mlp_p = {"w_up": _dense(gen, L, (d, ff), dt, device),
-                 "w_down": _dense(gen, L, (ff, d), dt, device)}
+        ffn = {"mlp": {"w_up": _dense(gen, L, (d, ff), dt, device),
+                       "w_down": _dense(gen, L, (ff, d), dt, device)}}
     ones = lambda: {"scale": torch.ones((L, d), dtype=torch.float32, device=device)}
     table = torch.empty((cfg.padded_vocab, d), dtype=dt, device=device)
     params = {
         "embed": {"table": normal_(table, gen, 1.0 / math.sqrt(d))},
-        "layers": {"ln1": ones(), "attn": attn, "ln2": ones(), "mlp": mlp_p},
+        "layers": {"ln1": ones(), "attn": attn, "ln2": ones(), **ffn},
         "final_norm": {"scale": torch.ones((d,), dtype=torch.float32, device=device)},
     }
     params["head"], ds_state = heads.init_head(gen, cfg, device=device)
@@ -81,8 +92,14 @@ def _layer_params(stacked, i: int):
     return stacked[i]
 
 
-def _mlp_residual(lp, cfg: ModelConfig, x):
-    return x + mlp(lp["mlp"], cfg, rmsnorm(lp["ln2"], x))
+def _ffn_residual(lp, cfg: ModelConfig, x):
+    """x + the layer's FFN (the MoE block or the MLP) of norm(x) → (new x,
+    the MoE's aux load loss; None for an MLP)."""
+    xn = rmsnorm(lp["ln2"], x)
+    if cfg.moe is not None:
+        y, aux = moe.moe_block(lp["moe"], cfg, xn)
+        return x + y, aux.load_loss
+    return x + mlp(lp["mlp"], cfg, xn), None
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +108,12 @@ def _mlp_residual(lp, cfg: ModelConfig, x):
 
 
 def _layer_body(cfg: ModelConfig, x, layer_params, positions):
-    """One train layer: the differentiable attention, then the MLP."""
+    """One train layer: the differentiable attention, then the FFN. →
+    (new x, the layer's MoE aux load loss, 0-d; zero for an MLP)."""
     h, _ = attention_block(layer_params["attn"], cfg, rmsnorm(layer_params["ln1"], x),
                            positions, train=True)
-    return _mlp_residual(layer_params, cfg, x + h)
+    x, aux = _ffn_residual(layer_params, cfg, x + h)
+    return x, (torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux)
 
 
 # The weight matmuls (``x @ W``, with or without a bias) reach aten as mm /
@@ -110,58 +129,75 @@ def _save_weight_matmuls(ctx, op, *args, **kwargs):
 
 
 def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions):
-    """x: (B, S, d) embeddings → (final normed hidden (B, S, d), the MoE
-    aux sum: a 0-d zero for the dense family)."""
+    """x: (B, S, d) embeddings → (final normed hidden (B, S, d), the sum of
+    the layers' MoE aux load losses: a 0-d zero without MoE)."""
     body = functools.partial(_layer_body, cfg)
+    auxs = []
     for i in range(cfg.n_layers):
         lp = _layer_params(params["layers"], i)
         if cfg.remat == "layer":
-            x = checkpoint(body, x, lp, positions, use_reentrant=False)
+            x, aux = checkpoint(body, x, lp, positions, use_reentrant=False)
         elif cfg.remat == "dots":
-            x = checkpoint(body, x, lp, positions, use_reentrant=False,
-                           context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                                        _save_weight_matmuls))
+            x, aux = checkpoint(body, x, lp, positions, use_reentrant=False,
+                                context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                             _save_weight_matmuls))
         elif cfg.remat == "none":
-            x = body(x, lp, positions)
+            x, aux = body(x, lp, positions)
         else:
             raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return rmsnorm(params["final_norm"], x), aux
+        auxs.append(aux)
+    return rmsnorm(params["final_norm"], x), torch.sum(torch.stack(auxs))
 
 
 def embed_inputs(params, cfg: ModelConfig, batch):
-    """Token embedding → (x (B, S, d), positions (B, S), label_mask None)."""
+    """Token (+ vision-prefix) embedding → (x (B, S, d), positions (B, S),
+    label_mask). With a vlm config and ``batch["patches"]`` ((B, P, d)
+    stub patch embeddings, cast to the embedding dtype) the patches come
+    first and ``label_mask`` (B, P + S_text) marks the text positions;
+    else ``label_mask`` is None."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return embed(params["embed"], tokens), positions, None
+    x = embed(params["embed"], tokens)
+    label_mask = None
+    if cfg.vision is not None and "patches" in batch:
+        patches = batch["patches"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        label_mask = torch.cat([torch.zeros(patches.shape[:2], dtype=torch.bool,
+                                            device=x.device),
+                                torch.ones(tokens.shape, dtype=torch.bool, device=x.device)],
+                               dim=1)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    return x, positions, label_mask
 
 
 def train_loss(params, ds_state, cfg: ModelConfig, batch):
-    """batch: tokens (B, S+1). → (total_loss, metrics dict of 0-d tensors)."""
+    """batch: tokens (B, S+1) [+ patches (B, P, d)]. → (total_loss, metrics
+    dict of 0-d tensors). The CE covers the text positions only; a moe
+    config adds ``router_aux_weight`` × the layers' aux load losses."""
     tokens = batch["tokens"]
-    x, positions, _ = embed_inputs(params, cfg, {"tokens": tokens[:, :-1]})
+    x, positions, label_mask = embed_inputs(params, cfg, {**batch, "tokens": tokens[:, :-1]})
     labels = tokens[:, 1:]
     h, moe_aux = forward_hidden(params, cfg, x, positions)
+    if label_mask is not None:  # labels align with the text suffix
+        h = h[:, x.shape[1] - labels.shape[1]:]
     ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
                               embed_table=params["embed"]["table"], label_mask=None)
-    total = ce + aux["head_aux_total"]
+    moe_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+    total = ce + aux["head_aux_total"] + moe_w * moe_aux
     return total, {"ce": ce, "moe_aux": moe_aux, **aux}
 
 
 def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None):
-    """Run the whole prompt; returns (topk_vals, topk_ids, DecodeCache) with
-    the cache sized to the prompt length and the head applied to the last
-    position."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed(params["embed"], tokens)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    """Run the whole prompt (``batch["tokens"]``, after ``batch["patches"]``
+    for a vlm config); returns (topk_vals, topk_ids, DecodeCache) with the
+    cache sized to the prompt length (patches included) and the head
+    applied to the last position."""
+    x, positions, _ = embed_inputs(params, cfg, batch)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer_params(params["layers"], i)
         h, (kk, vv) = attention_block(lp["attn"], cfg, rmsnorm(lp["ln1"], x), positions)
-        x = _mlp_residual(lp, cfg, x + h)
+        x, _ = _ffn_residual(lp, cfg, x + h)
         ks.append(kk)
         vs.append(vv)
     h = rmsnorm(params["final_norm"], x)[:, -1]
@@ -201,7 +237,7 @@ def _chunk_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pa
         lp = _layer_params(params["layers"], i)
         h, _, _ = attention_prefill_chunk(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
                                           cache.k[i], cache.v[i], pos0, pages=pages)
-        x = _mlp_residual(lp, cfg, x + h)
+        x, _ = _ffn_residual(lp, cfg, x + h)
     return rmsnorm(params["final_norm"], x)
 
 
@@ -250,7 +286,7 @@ def decode_hidden(params, cfg: ModelConfig, cache: DecodeCache, token, pos, page
         lp = _layer_params(params["layers"], i)
         h, _, _ = attention_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
                                    cache.k[i], cache.v[i], pos, pages=pages)
-        x = _mlp_residual(lp, cfg, x + h)
+        x, _ = _ffn_residual(lp, cfg, x + h)
     return rmsnorm(params["final_norm"], x)[:, 0]
 
 

@@ -94,7 +94,7 @@ from repro_torch.core import dssoftmax as ds
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import heads
 from repro_torch.models.model_zoo import ModelBundle, cache_specs, paged_cache_specs
-from repro_torch.models.transformer import DecodeCache
+from repro_torch.models.transformer import FAMILIES, DecodeCache
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheManager, prefix_hash
 from repro_torch.serve.table_manager import (
     AdaptPolicy,
@@ -481,7 +481,7 @@ class ServeSession:
             ``device`` is CUDA, off on the CPU; ``False`` runs every step
             eagerly; ``True`` on the CPU raises.
         draft: ``(draft_bundle, draft_params, draft_ds_state_or_table)``, a
-            same-vocab dense model that turns on exact draft–verify
+            same-vocab dense, moe or vlm model that turns on exact draft–verify
             speculative decoding: each step it proposes ``gamma`` tokens per
             resident from its own contiguous cache, the target scores every
             resident's ``gamma+1``-token block in one verify step, and a
@@ -548,9 +548,10 @@ class ServeSession:
                 raise ValueError(f"family {cfg.family!r} has no verify_step; speculative "
                                  "decoding needs the chunk-shaped verify path")
             d_cfg = draft[0].cfg
-            if d_cfg.family != "dense":
+            if d_cfg.family not in FAMILIES:
                 raise ValueError(f"draft family {d_cfg.family!r} is not ported yet (ROADMAP.md, "
-                                 "Queue 1 item 6); the port drafts with a dense model")
+                                 "Queue 1 item 6); the port drafts with a dense, moe or vlm "
+                                 "model")
             if d_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(f"draft vocab_size ({d_cfg.vocab_size}) must match the "
                                  f"target's ({cfg.vocab_size}): acceptance compares token ids "
@@ -1076,7 +1077,7 @@ class ServeSession:
                 self._backfill[i] = (slot, int(props[i, -1]), int(base_pos[i]) + self.gamma)
         self._spec_stats["steps"] += 1
         # -- quarantine, then emit -------------------------------------------
-        # (a dense draft needs no rollback: its next round overwrites each
+        # (a KV-cache draft needs no rollback: its next round overwrites each
         # position past its accepted prefix before reading it, and stale
         # rows past that stay masked)
         for i in poisoned:
@@ -1532,6 +1533,11 @@ class ServeSession:
             return
         cp = self.prefill_chunk
         cache = DecodeCache(k=self._draft_cache.k[:, i:i + 1], v=self._draft_cache.v[:, i:i + 1])
+        # a zeroed row, as repro prefills a zero row into the slot: a row the
+        # draft never wrote (repro's schedule leaves one after a clean sweep)
+        # holds zeros, not the previous occupant's K/V
+        cache.k.zero_()
+        cache.v.zero_()
         for lo in range(0, len(toks), cp):
             tail = toks[lo: lo + cp]
             buf = np.zeros((1, cp), np.int64)

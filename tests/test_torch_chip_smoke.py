@@ -185,3 +185,105 @@ def test_trace_sums_ops_that_share_a_name_prefix(smoke):
     ev = _launches(1, 2, 0, long + "A>", us=1.0) + _launches(10, 1, 10, long + "B>", us=2.0)
     t = smoke.Trace(_prof(ev), head=0, wall=0.01)
     assert t.by_op() == {long[:80]: 4.0}
+
+
+# ---------------------------------------------------------------------------
+# phase 6c (the moe and vlm families): what can be checked without a card
+# ---------------------------------------------------------------------------
+
+PHASES = ("kernel_phase", "slice_phase", "batch_phase", "lasso_phase", "profile_phase",
+          "adapt_phase", "prefill_phase", "spec_phase", "family_phase", "train_phase")
+
+
+def test_main_runs_the_family_phase_after_spec_and_before_train(smoke, monkeypatch):
+    """With every phase stubbed, main() calls them in order: phase 6c
+    (``family_phase``) right after 6b and before 7."""
+    from repro_torch.kernels import _build
+
+    calls = []
+
+    class Stop(Exception):
+        pass
+
+    def stub(name):
+        def run(results, *a):
+            calls.append(name)
+            if name == "train_phase":
+                raise Stop
+            return (None, None, {"head": {"experts": None}}, [(None, None)]) \
+                if name == "slice_phase" else None
+        return run
+
+    for name in PHASES:
+        monkeypatch.setattr(smoke, name, stub(name))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "card_line", lambda: "a card, 700 W")
+    monkeypatch.setattr(smoke, "stand_in_mask", lambda cfg, dev: None)
+    monkeypatch.setattr(smoke, "wgmma_registers", lambda log: {})
+    monkeypatch.setattr(_build, "build_all", lambda: {})
+    monkeypatch.setattr(_build, "build_log", lambda name: "")
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    with pytest.raises(Stop):
+        smoke.main()
+    assert calls == list(PHASES)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b", "internvl2-26b"])
+def test_new_heads_are_in_the_verify_and_wide_head_cases(smoke, arch):
+    """Each new config's head is in phase 2's verify-head cases with its K, d,
+    the verify step's capacity (B 40 at the config's capacity factor) and
+    the V_pad of its stand-in mask, and in phase 6b (c)'s head cases."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    rows = {name: rest for name, *rest in smoke.VERIFY_HEADS}
+    K, C, d, v_pad = rows[arch]
+    mask = smoke.stand_in_mask(cfg, "cpu")
+    assert (K, d) == (cfg.ds.num_experts, cfg.d_model)
+    assert C == max(1, round(smoke.N_SLOTS * (smoke.FAMILY_GAMMA + 1) / K
+                             * cfg.ds.capacity_factor))
+    assert v_pad == -(-int(mask.sum(1).max()) // 128) * 128
+    assert arch in smoke.WIDE_HEAD_ARCHS
+
+
+def test_family_phase_sizes(smoke):
+    """The expert-bytes bound of an olmoe-1b-7b decode step (every expert
+    read once: 12.88 GB, 3.85 ms at 3.35 TB/s); every session's
+    max_seq_len holds its longest prompt, its new tokens and a verify
+    block, and divides into pages and chunks; the models' weights fit the
+    card one at a time."""
+    from repro_torch.configs import get_config
+
+    olmoe = get_config("olmoe-1b-7b")
+    nbytes = smoke.moe_expert_bytes(olmoe)
+    assert nbytes == 16 * 3 * 64 * 2048 * 1024 * 2
+    assert 1e3 * nbytes / smoke.HBM_BYTES_PER_S == pytest.approx(3.846, abs=1e-3)
+    assert smoke.FAMILY_SEQ >= max(smoke.FAMILY_PROMPT_LENS) + smoke.FAMILY_NEW - 1 \
+        + smoke.FAMILY_GAMMA
+    assert smoke.FAMILY_SEQ % smoke.PAGE_SIZE == 0 and smoke.FAMILY_SEQ % smoke.FAMILY_CHUNK == 0
+    assert len(smoke.FAMILY_PROMPT_LENS) == smoke.N_SLOTS
+    assert smoke.FAMILY_PROMPT_LENS[smoke.FAMILY_SOLO] == max(smoke.FAMILY_PROMPT_LENS)
+    assert smoke.QWEN3_SEQ >= max(smoke.QWEN3_PROMPT_LENS) + smoke.QWEN3_NEW - 1
+    assert smoke.INTERNVL_SEQ >= max(smoke.INTERNVL_PROMPT_LENS) + smoke.INTERNVL_NEW - 1
+    assert smoke.QWEN3_SEQ % 16 == 0 and smoke.INTERNVL_SEQ % 16 == 0
+
+    def weight_gb(arch, n_layers):
+        cfg = get_config(arch).replace(n_layers=n_layers)
+        d, L, H, KV, dh = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        attn = d * H * dh * 2 + 2 * d * KV * dh
+        ffn = (3 * cfg.moe.num_experts * d * cfg.moe.d_ff_expert + d * cfg.moe.num_experts
+               if cfg.moe is not None else 3 * d * cfg.d_ff)
+        head = cfg.ds.num_experts * cfg.padded_vocab * d
+        return 2 * (L * (attn + ffn) + cfg.padded_vocab * d + head) / 1e9
+
+    assert weight_gb("olmoe-1b-7b", 16) == pytest.approx(15.0, abs=0.5)
+    for arch, layers in (("olmoe-1b-7b", 16), ("qwen3-moe-235b-a22b", smoke.QWEN3_LAYERS),
+                         ("internvl2-26b", smoke.INTERNVL_LAYERS)):
+        assert weight_gb(arch, layers) < 60, arch
+
+
+def test_finite_stats_finds_a_nan_anywhere(smoke):
+    smoke._finite_stats("ok", {"a": 1.0, "b": [2, {"c": 0.5}], "d": None, "e": "x"})
+    for bad in ({"a": float("nan")}, {"b": [1.0, {"c": float("inf")}]}):
+        with pytest.raises(smoke.SmokeFailure, match="stats"):
+            smoke._finite_stats("bad", bad)

@@ -1,17 +1,22 @@
-"""Port parity: the dense configs llama3.2-3b, granite-20b and deepseek-67b
-(``repro_torch.configs``) against ``repro.configs``, and the shape check of
-``convert.params_from_jax``.
+"""Port parity: the dense configs llama3.2-3b, granite-20b and deepseek-67b,
+the moe configs olmoe-1b-7b and qwen3-moe-235b-a22b and the vlm config
+internvl2-26b (``repro_torch.configs``) against ``repro.configs``, and the
+shape check of ``convert.params_from_jax``.
 
 * ``get_config`` gives each config with ``repro``'s field values (every
-  field the port's ``ModelConfig`` has).
+  field the port's ``ModelConfig`` has; the nested ``ds``, ``moe`` and
+  ``vision`` configs field by field).
 * ``reduce_config`` of each builds a model whose whole-prompt prefill and
   two decode steps at per-row positions give ``repro``'s ids, with values
   within rtol 1e-6, atol 2e-6 (``tests/test_kernels.py:103``), in fp32 on
   the same JAX-initialized weights. granite-20b runs the gelu MLP (no gate)
-  and one kv head.
+  and one kv head; the moe configs their MoE FFN (4 experts, top-2);
+  internvl2-26b a text-only prompt (its patches: ``test_torch_vlm.py``).
 * ``convert.check_shapes`` accepts each config's full-width shape set
   (zero-stride numpy views, no memory), and refuses a swiglu tree without
-  ``layers/mlp/w_gate`` and a gelu tree with one.
+  its FFN gate (``layers/mlp/w_gate``, or ``layers/moe/w_gate`` for an MoE
+  block) or with one of the wrong shape, a gelu tree with a gate, and an
+  MLP in a moe tree or an MoE block in another.
 """
 import dataclasses
 import functools
@@ -34,7 +39,9 @@ from repro_torch.core import dssoftmax as ds
 from repro_torch.models import build
 from repro_torch.models.transformer import DecodeCache
 
-ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b")
+ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b", "olmoe-1b-7b", "qwen3-moe-235b-a22b",
+         "internvl2-26b")
+NESTED = ("ds", "moe", "vision")
 HEAD_TOL = dict(rtol=1e-6, atol=2e-6)
 
 
@@ -52,16 +59,30 @@ def _one_thread():
 def test_get_config_equals_repro(arch):
     mine, ref = configs.get_config(arch), jget_config(arch)
     for f in dataclasses.fields(mine):
-        if f.name == "ds":
-            for g in dataclasses.fields(mine.ds):
-                assert getattr(mine.ds, g.name) == getattr(ref.ds, g.name), (arch, g.name)
+        a, b = getattr(mine, f.name), getattr(ref, f.name)
+        if f.name in NESTED and a is not None:
+            # two dataclasses of different classes never compare equal
+            assert b is not None, (arch, f.name)
+            assert {g.name for g in dataclasses.fields(a)} <= {g.name for g in
+                                                               dataclasses.fields(b)}
+            for g in dataclasses.fields(a):
+                assert getattr(a, g.name) == getattr(b, g.name), (arch, f.name, g.name)
         else:
-            assert getattr(mine, f.name) == getattr(ref, f.name), (arch, f.name)
+            assert a == b, (arch, f.name)
+    if mine.moe is not None:  # every field of repro's, none left out
+        assert {g.name for g in dataclasses.fields(mine.moe)} == {
+            g.name for g in dataclasses.fields(ref.moe)}
     assert mine.padded_vocab == ref.padded_vocab and mine.hd == ref.hd
     red = configs.reduce_config(mine, vocab=256)
     assert (red.n_layers, red.d_model, red.n_heads, red.n_kv_heads, red.act,
             red.tie_embeddings) == (2, 64, 4, min(mine.n_kv_heads, 2), mine.act,
                                     mine.tie_embeddings)
+    jred = jreduce_config(ref, vocab=256)
+    for name in ("moe", "vision"):
+        a, b = getattr(red, name), getattr(jred, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), (arch, name)
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,7 +105,9 @@ def _models(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_prefill_and_decode_match_repro(arch):
     jb, jp, jt, tb, tp, tt = _models(arch)
-    assert ("w_gate" in tp["layers"]["mlp"]) == (tb.cfg.act == "swiglu")
+    ffn = "moe" if tb.cfg.moe is not None else "mlp"
+    assert set(tp["layers"]) == {"ln1", "attn", "ln2", ffn}
+    assert ("w_gate" in tp["layers"][ffn]) == (tb.cfg.act == "swiglu")
     rng = np.random.RandomState(1)
     B, S = 3, 9
     tokens = rng.randint(0, 256, (B, S)).astype(np.int32)
@@ -125,18 +148,34 @@ def test_check_shapes_takes_the_full_width_set(arch):
     tree = _zero_views(cfg)
     check_shapes(tree, cfg)
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
-    assert ("layers/mlp/w_gate" in tree) == (cfg.act == "swiglu")
+    gate = "layers/moe/w_gate" if cfg.moe is not None else "layers/mlp/w_gate"
+    assert (gate in tree) == (cfg.act == "swiglu")
     assert tree["head/experts"].shape == (cfg.ds.num_experts, cfg.padded_vocab, d)
+    if cfg.moe is not None:
+        E, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        assert tree["layers/moe/router"].shape == (L, d, E)
+        assert tree[gate].shape == (L, E, d, f) and tree["layers/moe/w_down"].shape == (L, E, f, d)
+        assert not any(p.startswith("layers/mlp/") for p in tree)
+        wrong = np.broadcast_to(np.float32(0), (L, E, f, d))
+        mlp = dict(tree, **{"layers/mlp/w_up": np.broadcast_to(np.float32(0), (L, d, ff))})
+        with pytest.raises(ValueError, match="layers/mlp/w_up"):
+            check_shapes(mlp, cfg)
+    else:
+        wrong = np.broadcast_to(np.float32(0), (L, ff, d))
+        stray = dict(tree, **{"layers/moe/router": np.broadcast_to(np.float32(0), (L, d, 4))})
+        with pytest.raises(ValueError, match="layers/moe/router"):
+            check_shapes(stray, cfg)
     if cfg.act == "swiglu":
-        assert tree["layers/mlp/w_gate"].shape == (L, d, ff)
-        gateless = {p: a for p, a in tree.items() if p != "layers/mlp/w_gate"}
-        with pytest.raises(KeyError, match="w_gate"):
+        gateless = {p: a for p, a in tree.items() if p != gate}
+        with pytest.raises(KeyError, match=gate):
             check_shapes(gateless, cfg)
-        with pytest.raises(KeyError, match="w_gate"):
+        with pytest.raises(KeyError, match=gate):
             params_from_jax(gateless, cfg, device="cpu")
-        bad = dict(tree, **{"layers/mlp/w_gate": np.broadcast_to(np.float32(0), (L, ff, d))})
-        with pytest.raises(ValueError, match="w_gate"):
+        bad = dict(tree, **{gate: wrong})
+        with pytest.raises(ValueError, match=gate):
             check_shapes(bad, cfg)
+        with pytest.raises(ValueError, match=gate):
+            params_from_jax(bad, cfg, device="cpu")
     else:
         gated = _zero_views(cfg, act="swiglu")
         with pytest.raises(ValueError, match="w_gate"):

@@ -1963,3 +1963,167 @@ def test_grouped_wgmma_body_replays_spilling_tokens_in_a_cuda_graph(dev, quantiz
         want = ops.dss_topk_grouped(w, ids, new, g_buf, k, **kw)
         for a, b in zip(out, want):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the moe and vlm families
+# ---------------------------------------------------------------------------
+
+def _moe_inputs(dtype, widths, B, S, seed=0):
+    """One layer's MoE params at ``reduce_config(olmoe-1b-7b)``'s widths
+    ("reduced": d 64, 4 experts, top-2, f 64) or at olmoe-1b-7b's ("olmoe":
+    d 2048, 64 experts, top-8, f 1024), and x (B, S, d), seeded, on the
+    CPU."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe-1b-7b")
+    if widths == "reduced":
+        cfg = reduce_config(cfg)
+    cfg = cfg.replace(dtype=dtype)
+    g = torch.Generator().manual_seed(seed)
+    params = {k: v[0] for k, v in moe.init_moe(g, cfg, 1, device="cpu").items()}
+    x = torch.randn((B, S, cfg.d_model), generator=g).to(cfg.jdtype)
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths,B,S", [("reduced", 3, 7), ("reduced", 2, 33),
+                                        ("olmoe", 8, 1), ("olmoe", 1, 96), ("olmoe", 8, 5)])
+def test_moe_block_on_the_card_matches_its_cpu_run(dev, dtype, widths, B, S):
+    """``moe_block`` on CUDA tensors against the same call on the CPU (its
+    plain run: fp32-widened expert products): the router's ids, slots and
+    drops equal (the drop fraction, 1 - a mean in another order, within
+    2^-23: one fp32 ulp of the mean); fp32 outputs within max|y|·2^-16
+    (sums in other orders); bf16 outputs within one bf16 ulp (2^-7) of
+    max|y| (bf16 products with fp32 outputs on the card, exact fp32
+    products on the CPU; the same roundings after them). B 8 × S 1 is a decode step, B 1 ×
+    S 96 a prefill, B 8 × S 5 a verify block of gamma 4."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_inputs(dtype, widths, B, S)
+    want, aux = moe.moe_block(params, cfg, x)
+    route = moe.route(params, cfg, x)
+    on = {k: v.to(dev) for k, v in params.items()}
+    got, gaux = moe.moe_block(on, cfg, x.to(dev))
+    groute = moe.route(on, cfg, x.to(dev))
+    for a, b in zip(groute[2:], route[2:]):
+        assert torch.equal(a.cpu(), b)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    scale = float(want.float().abs().max())
+    atol = scale * (2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -16)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(gaux.drop_frac.cpu(), aux.drop_frac, rtol=0, atol=2.0 ** -23)
+    torch.testing.assert_close(gaux.load_loss.cpu(), aux.load_loss, rtol=1e-5, atol=0)
+
+
+def test_moe_block_replays_in_a_cuda_graph(dev):
+    """``moe_block`` at a decode step's shape (B 8, S 1, olmoe's widths,
+    bf16) captured once in a CUDA graph (it makes no host sync) and
+    replayed on new tokens: each replay equals the eager call bit for
+    bit."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_inputs("bfloat16", "olmoe", 8, 1)
+    on = {k: v.to(dev) for k, v in params.items()}
+    x = x.to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_block(on, cfg, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = moe.moe_block(on, cfg, x)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=gen, device=dev).to(x.dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, moe.moe_block(on, cfg, x)[0])
+
+
+def _family_model(dev, arch, dtype="bfloat16"):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.models import build
+
+    cfg = reduce_config(get_config(arch), vocab=1024).replace(dtype=dtype)
+    bundle = build(cfg)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    return bundle, params, ds.pack_experts(params["head"], state)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b", "internvl2-26b"])
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_family_decode_graph_streams_equal_the_eager_step(dev, arch, cache):
+    """A reduced moe or vlm model in bf16 served with its decode backbone
+    replayed from a CUDA graph against the eager step on the same
+    requests: greedy streams and one sampled stream token-identical, one
+    capture, pages all free after the paged session."""
+    from repro_torch.train import ServeSession
+
+    model = _family_model(dev, arch)
+    kw = dict(paged=True, page_size=16, prefill_chunk=16) if cache == "paged" else {}
+    streams = {}
+    for graph in (False, None):
+        sess = ServeSession(*model, n_slots=2, max_seq_len=128, decode_graph=graph, **kw)
+        reqs = _graph_requests(5, 6, 10, sampled=3)
+        sess.run(reqs)
+        streams[graph] = [r.out_tokens for r in reqs]
+        st = sess.stats()
+        assert st["decode_graphs"] == (1 if graph is None else 0) and st["n_completed"] == 5
+        if cache == "paged":
+            assert st["paged"]["pages_in_use"] == 0
+    assert streams[None] == streams[False]
+
+
+def test_moe_speculative_session_repeats_through_its_graphs(dev):
+    """A reduced olmoe self-draft (gamma 4, bf16) through its draft and
+    verify graphs: two runs on the same requests give the same tokens, and
+    the eager run (``decode_graph=False``) gives them too."""
+    from repro_torch.train import ServeSession
+
+    model = _family_model(dev, "olmoe-1b-7b")
+    runs = []
+    for graph in (None, None, False):
+        sess = ServeSession(*model, n_slots=2, max_seq_len=128, draft=model, gamma=4,
+                            decode_graph=graph)
+        reqs = _graph_requests(5, 7, 10)
+        sess.run(reqs)
+        runs.append([r.out_tokens for r in reqs])
+        n = 1 if graph is None else 0
+        st = sess.stats()
+        assert (st["draft_graphs"], st["verify_graphs"]) == (n, n)
+    assert runs[0] == runs[1] == runs[2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_prefill_with_patches_runs_the_attention_kernel(dev, dtype):
+    """A reduced internvl2-26b prefill of 8 patches + 40 tokens on the card:
+    one ``flash_attention`` launch per layer (the body ``select_body``
+    picks), the same top-k ids as the prefill with the plain attention
+    swapped in, values within 2^-4 (bf16) or 1e-4 (fp32) of the top-1."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    bundle, params, table = _family_model(dev, "internvl2-26b", dtype)
+    cfg = bundle.cfg
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, 1024, (1, 40), generator=g, device=dev),
+             "patches": torch.randn((1, 8, cfg.d_model), generator=g, device=dev)}
+    ops.reset_launch_counts()
+    vk, ik, cache = bundle.prefill(params, table, batch)
+    assert cache.k.shape[2] == 48
+    assert sum(ops.launch_counts()[n] for n in ("flash_attention", "flash_attention_wgmma")) \
+        == cfg.n_layers
+    orig = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
+        cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    try:
+        vp, ip, _ = bundle.prefill(params, table, batch)
+    finally:
+        layers.flash_attention = orig
+    assert torch.equal(ik, ip)
+    tol = 2.0 ** -4 if dtype == "bfloat16" else 1e-4
+    assert float((vk - vp).abs().max()) <= tol * float(vp[:, 0].abs().max())

@@ -45,7 +45,9 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "core/mitosis.py", "utils/tree.py", "utils/logging.py",
                                     "launch/serve.py", "configs/__init__.py",
                                     "configs/llama3_2_3b.py", "configs/granite_20b.py",
-                                    "configs/deepseek_67b.py", "convert.py"])
+                                    "configs/deepseek_67b.py", "convert.py", "models/moe.py",
+                                    "configs/olmoe_1b_7b.py", "configs/qwen3_moe_235b.py",
+                                    "configs/internvl2_26b.py", "configs/base.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()
