@@ -62,7 +62,7 @@ class VisionStubConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"                 # dense | moe | vlm (ported); ssm | hybrid | encdec
+    family: str = "dense"                 # dense | moe | vlm | ssm | hybrid (ported); encdec
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -72,9 +72,20 @@ class ModelConfig:
     head_dim: Optional[int] = None        # None => d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    norm_eps: float = 1e-5                # the Mamba2 block's gated norm
     tie_embeddings: bool = False
     act: str = "swiglu"                   # swiglu | gelu
     dtype: str = "bfloat16"
+    # SSM (mamba2 / hybrid)
+    ssm_state: int = 0                    # N (state dim); 0 => no ssm
+    ssm_expand: int = 2                   # d_inner = expand * d_model
+    ssm_headdim: int = 64                 # P
+    ssm_ngroups: int = 1                  # B/C groups
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256                  # SSD chunk length
+    # hybrid (zamba2-style): the shared attention block is applied after
+    # every ``attn_period`` ssm layers
+    attn_period: int = 6
     moe: Optional[MoEConfig] = None       # the MoE FFN of a moe-family backbone
     vision: Optional[VisionStubConfig] = None  # the vlm family's patch-prefix stub
     head: str = "ds"                      # 'full' | 'ds'
@@ -104,6 +115,14 @@ class ModelConfig:
     def jdtype(self) -> torch.dtype:
         """The torch dtype named by ``dtype``."""
         return getattr(torch, self.dtype)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
 
 @dataclass(frozen=True)

@@ -44,22 +44,46 @@ def flatten_paths(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _state_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The ssm and hybrid families' leaves: each layer's norm and Mamba2
+    block, stacked ``(L, …)``, and the hybrid's one shared attention+MLP
+    block."""
+    L, d, di = cfg.n_layers, cfg.d_model, cfg.d_inner
+    H, GN = cfg.ssm_nheads, cfg.ssm_ngroups * cfg.ssm_state
+    m = "layers/mamba/"
+    shapes = {
+        "layers/ln/scale": (L, d),
+        m + "in_zx": (L, d, 2 * di), m + "in_bc": (L, d, 2 * GN), m + "in_dt": (L, d, H),
+        m + "conv_w": (L, cfg.ssm_conv_width, di + 2 * GN), m + "conv_b": (L, di + 2 * GN),
+        m + "A_log": (L, H), m + "dt_bias": (L, H), m + "D": (L, H),
+        m + "norm_scale": (L, di), m + "out_proj": (L, di, d),
+    }
+    if cfg.family == "hybrid":
+        Hq, KV, dh, ff = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+        sa = "shared_attn/"
+        shapes.update({sa + "ln1/scale": (d,), sa + "ln2/scale": (d,),
+                       sa + "attn/wq": (d, Hq * dh), sa + "attn/wk": (d, KV * dh),
+                       sa + "attn/wv": (d, KV * dh), sa + "attn/wo": (Hq * dh, d),
+                       sa + "mlp/w_up": (d, ff), sa + "mlp/w_down": (ff, d)})
+        if cfg.act == "swiglu":
+            shapes[sa + "mlp/w_gate"] = (d, ff)
+    return shapes
+
+
 def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    shapes = {
-        "embed/table": (cfg.padded_vocab, d),
-        "layers/attn/wq": (L, d, H * dh),
-        "layers/attn/wk": (L, d, KV * dh),
-        "layers/attn/wv": (L, d, KV * dh),
-        "layers/attn/wo": (L, H * dh, d),
-        "final_norm/scale": (d,),
-    }
+    shapes = {"embed/table": (cfg.padded_vocab, d), "final_norm/scale": (d,)}
+    if cfg.family in ("ssm", "hybrid"):
+        shapes.update(_state_shapes(cfg))
+    else:
+        shapes.update({"layers/attn/wq": (L, d, H * dh), "layers/attn/wk": (L, d, KV * dh),
+                       "layers/attn/wv": (L, d, KV * dh), "layers/attn/wo": (L, H * dh, d)})
     if cfg.moe is not None:
         E, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
         shapes.update({"layers/moe/router": (L, d, E), "layers/moe/w_gate": (L, E, d, f),
                        "layers/moe/w_up": (L, E, d, f), "layers/moe/w_down": (L, E, f, d)})
-    else:
+    elif cfg.family not in ("ssm", "hybrid"):
         shapes.update({"layers/mlp/w_up": (L, d, ff), "layers/mlp/w_down": (L, ff, d)})
         if cfg.act == "swiglu":
             shapes["layers/mlp/w_gate"] = (L, d, ff)
@@ -74,17 +98,32 @@ def check_shapes(np_tree: Dict[str, np.ndarray], cfg: ModelConfig) -> None:
     """Raise unless ``np_tree`` (the form :func:`params_from_jax` takes) has
     every leaf the config needs at its shape: ``KeyError`` for a missing
     leaf, ``ValueError`` for a wrong shape, for an MLP gate
-    (``layers/mlp/w_gate``) where ``cfg.act`` is not 'swiglu', or for an
-    MLP in a moe config or an MoE block in another."""
-    for path, shape in _expected_shapes(cfg).items():
+    (``layers/mlp/w_gate``, ``shared_attn/mlp/w_gate``) where ``cfg.act``
+    is not 'swiglu', for an MLP in a moe config or an MoE block in another,
+    or for a leaf of another family's backbone (``layers/attn/…`` in an
+    ssm or hybrid tree, ``layers/mamba/…`` or ``shared_attn/…`` in
+    another)."""
+    expected = _expected_shapes(cfg)
+    for path, shape in expected.items():
         if path not in np_tree:
             raise KeyError(f"missing parameter {path!r}")
         if tuple(np_tree[path].shape) != shape:
             raise ValueError(f"{path}: shape {tuple(np_tree[path].shape)}, "
                              f"expected {shape} for {cfg.name}")
-    if cfg.act != "swiglu" and cfg.moe is None and "layers/mlp/w_gate" in np_tree:
-        raise ValueError(f"layers/mlp/w_gate given, but {cfg.name}'s MLP is {cfg.act!r} "
-                         "(no gate)")
+    for gate in ("layers/mlp/w_gate", "shared_attn/mlp/w_gate"):
+        if cfg.act != "swiglu" and cfg.moe is None and gate in np_tree:
+            raise ValueError(f"{gate} given, but {cfg.name}'s MLP is {cfg.act!r} (no gate)")
+    if cfg.family in ("ssm", "hybrid"):
+        foreign = ("layers/attn/", "layers/mlp/", "layers/moe/", "layers/ln1/", "layers/ln2/")
+        if cfg.family == "ssm":
+            foreign += ("shared_attn/",)
+        extra = sorted(p for p in np_tree if p.startswith(foreign) and p not in expected)
+        if extra:
+            raise ValueError(f"{extra[0]} given, but {cfg.name} is a {cfg.family} model")
+        return
+    extra = sorted(p for p in np_tree if p.startswith(("layers/mamba/", "shared_attn/")))
+    if extra:
+        raise ValueError(f"{extra[0]} given, but {cfg.name} is a {cfg.family} model")
     other = "layers/mlp/" if cfg.moe is not None else "layers/moe/"
     extra = sorted(p for p in np_tree if p.startswith(other))
     if extra:

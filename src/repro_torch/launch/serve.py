@@ -10,7 +10,9 @@ share); ``--quantize int8`` serves the DS table from int8 rows under the
 exactness gate and prints its report (exits non-zero when unguarded id
 flips survive the fallback); ``--adapt`` runs the online repack; ``--draft
 <arch> --gamma G`` turns on exact speculative decoding and the report adds
-the tokens per verify step and the acceptance rate.
+the tokens per verify step and the acceptance rate. Every ported family
+serves: dense, moe, vlm (token prompts), and the ssm and hybrid state
+families.
 
 Runs on CUDA unless given ``--device cpu``; ``--reduced`` takes the small
 config of the same family (the draft's too). Weights are seeded (target 0,
@@ -85,7 +87,7 @@ def main(argv=None) -> ServeSession:
     ap.add_argument("--quantize-flip-threshold", type=float, default=0.0,
                     help="per-expert flip-rate bound before fp fallback")
     ap.add_argument("--draft", default=None, metavar="ARCH",
-                    help="speculative decoding: a dense, moe or vlm config (reduced with "
+                    help="speculative decoding: a config of any ported family (reduced with "
                          "--reduced, and put on the target's vocab) proposes --gamma tokens "
                          "per slot per step, verified by the target in one chunk-shaped step")
     ap.add_argument("--gamma", type=int, default=4,

@@ -4,9 +4,9 @@ Trains an architecture of ``repro_torch.configs`` on the synthetic topic
 corpus (text only) through the :class:`~repro_torch.train.Trainer`
 (checkpoints, auto-resume, preemption handling). Runs on CUDA unless
 given ``--device cpu``; ``--reduced`` takes the small config of the same
-family. The moe and vlm train losses are held against ``repro`` on the
-CPU; only the dense family has trained on the card. The ssm, hybrid and
-encdec families raise ``get_config``'s ``KeyError``.
+family. The moe, vlm, ssm and hybrid train losses are held against
+``repro`` on the CPU; only the dense family has trained on the card. The
+encdec family raises ``get_config``'s ``KeyError``.
 """
 import argparse
 import os

@@ -1,0 +1,375 @@
+"""SSM and hybrid LMs: mamba2-130m (a pure SSD stack) and zamba2-7b (a
+Mamba2 backbone with one *shared* attention block applied every
+``attn_period`` layers, zamba-style), as ``repro.models.hybrid`` builds
+them.
+
+Layer layout for hybrid (L mamba layers, period p):
+    [m m m m m m A] x n_groups  [m] x remainder
+where every ``A`` is the SAME parameter set (the shared block). Per-layer
+mamba params are stacked on axis 0 (``(L, …)``) and consumed by a Python
+loop over layers.
+
+Serving writes the :class:`HybridCache` in place (``repro`` returns new
+arrays): each layer's new conv/ssm state is copied into its leaf, so a
+CUDA graph that captured a step replays it against the same tensors. With
+``state_pages`` ((B,) int state-page ids) the conv/ssm leaves are arenas
+``(L, n_state_pages, …)``: each row's state lives in the page it owns,
+gathered before and scattered after each layer's update. ``pages`` ((B,
+n_pg) page table) pages the shared block's K/V as ``layers`` pages the
+transformer's.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dssoftmax import normal_
+from repro_torch.models import heads
+from repro_torch.models.layers import (
+    attention_block,
+    attention_decode,
+    attention_prefill_chunk,
+    embed,
+    mlp,
+    rmsnorm,
+)
+from repro_torch.models.mamba2 import (
+    init_mamba2,
+    mamba2_block,
+    mamba2_decode,
+    mamba2_prefill_chunk,
+    mamba2_verify_scan,
+)
+from repro_torch.models.transformer import _save_weight_matmuls
+
+FAMILIES = ("ssm", "hybrid")
+
+
+class HybridCache(NamedTuple):
+    conv: torch.Tensor    # (L, B, W-1, conv_dim)
+    ssm: torch.Tensor     # (L, B, H, P, N) fp32
+    attn_k: torch.Tensor  # (n_apps, B, S_max, KV, dh); zero-sized (0 apps) for pure ssm
+    attn_v: torch.Tensor
+
+
+def _layout(cfg: ModelConfig) -> tuple:
+    """(n_groups, remainder) of the mamba stack around the shared-attention
+    points."""
+    if cfg.family != "hybrid":
+        return 0, cfg.n_layers
+    return cfg.n_layers // cfg.attn_period, cfg.n_layers % cfg.attn_period
+
+
+def n_attn_apps(cfg: ModelConfig) -> int:
+    return _layout(cfg)[0]
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
+    """Seeded params on ``device`` → (params, ds_state)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not built by models.hybrid")
+    d, dt, gen = cfg.d_model, cfg.jdtype, generator
+    table = torch.empty((cfg.padded_vocab, d), dtype=dt, device=device)
+    ones = lambda *lead: {"scale": torch.ones(lead + (d,), dtype=torch.float32, device=device)}
+    params = {
+        "embed": {"table": normal_(table, gen, 1.0 / math.sqrt(d))},
+        "layers": {"ln": ones(cfg.n_layers),
+                   "mamba": init_mamba2(gen, cfg, cfg.n_layers, device=device)},
+        "final_norm": ones(),
+    }
+    if cfg.family == "hybrid":
+        H, KV, dh, ff = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+
+        def dense(shape, fan_in=None):
+            w = torch.empty(shape, dtype=dt, device=device)
+            return normal_(w, gen, 1.0 / math.sqrt(fan_in or shape[0]))
+
+        attn = {"wq": dense((d, H * dh)), "wk": dense((d, KV * dh)),
+                "wv": dense((d, KV * dh)), "wo": dense((H * dh, d))}
+        if cfg.qkv_bias:
+            attn.update({n: torch.zeros((w,), dtype=dt, device=device)
+                         for n, w in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh))})
+        mlp_p = {"w_up": dense((d, ff)), "w_down": dense((ff, d))}
+        if cfg.act == "swiglu":
+            mlp_p["w_gate"] = dense((d, ff))
+        params["shared_attn"] = {"ln1": ones(), "attn": attn, "ln2": ones(), "mlp": mlp_p}
+    params["head"], ds_state = heads.init_head(gen, cfg, device=device)
+    return params, ds_state
+
+
+def _layer_params(stacked, i: int):
+    if isinstance(stacked, dict):
+        return {key: _layer_params(v, i) for key, v in stacked.items()}
+    return stacked[i]
+
+
+def _groups(cfg: ModelConfig) -> list:
+    """Group lengths of the mamba stack; the shared block follows each of
+    the first ``n_attn_apps`` groups."""
+    n_groups, rem = _layout(cfg)
+    if cfg.family != "hybrid":
+        return [cfg.n_layers]
+    return [cfg.attn_period] * n_groups + ([rem] if rem else [])
+
+
+def _shared_block(sa, cfg: ModelConfig, x, attn):
+    """x + attention(norm(x)), then + MLP(norm(x)); ``attn(xn) -> h``."""
+    x = x + attn(rmsnorm(sa["ln1"], x))
+    return x + mlp(sa["mlp"], cfg, rmsnorm(sa["ln2"], x))
+
+
+def _walk(params, cfg: ModelConfig, x, mamba_op, attn_op):
+    """The serving scaffold: ``mamba_op(layer_params, i, x) -> x`` over the
+    stack, ``attn_op(x, app_index) -> x`` after each full group."""
+    n_apps = n_attn_apps(cfg)
+    i = 0
+    for gi, glen in enumerate(_groups(cfg)):
+        for _ in range(glen):
+            x = mamba_op(_layer_params(params["layers"], i), i, x)
+            i += 1
+        if gi < n_apps:
+            x = attn_op(x, gi)
+    return x
+
+
+def _mamba_residual(cfg: ModelConfig, x, lp):
+    return x + mamba2_block(lp["mamba"], cfg, rmsnorm(lp["ln"], x))
+
+
+def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=False, train=False):
+    """x: (B, S, d) embeddings → (final normed hidden, aux 0, and with
+    ``collect_state`` the :class:`HybridCache` sized to S). In training
+    (``train=True``) ``cfg.remat`` checkpoints each mamba layer as
+    ``transformer.forward_hidden`` checkpoints each layer."""
+    conv, ssm, ks, vs = [], [], [], []
+    body = functools.partial(_mamba_residual, cfg)
+
+    def mamba_op(lp, i, x):
+        if collect_state:
+            out, (c, s) = mamba2_block(lp["mamba"], cfg, rmsnorm(lp["ln"], x),
+                                       return_state=True)
+            conv.append(c)
+            ssm.append(s)
+            return x + out
+        if train and cfg.remat == "layer":
+            return checkpoint(body, x, lp, use_reentrant=False)
+        if train and cfg.remat == "dots":
+            return checkpoint(body, x, lp, use_reentrant=False,
+                              context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                           _save_weight_matmuls))
+        return body(x, lp)
+
+    def attn_op(x, gi):
+        def attn(xn):
+            h, (k, v) = attention_block(params["shared_attn"]["attn"], cfg, xn, positions,
+                                        train=train)
+            ks.append(k)
+            vs.append(v)
+            return h
+        return _shared_block(params["shared_attn"], cfg, x, attn)
+
+    x = _walk(params, cfg, x, mamba_op, attn_op)
+    h = rmsnorm(params["final_norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not collect_state:
+        return h, aux
+    if ks:
+        ak, av = torch.stack(ks), torch.stack(vs)
+    else:
+        B, S = x.shape[:2]
+        ak = av = torch.zeros((0, B, S, max(cfg.n_kv_heads, 1), max(cfg.hd, 1)),
+                              dtype=cfg.jdtype, device=x.device)
+    return h, HybridCache(conv=torch.stack(conv), ssm=torch.stack(ssm), attn_k=ak, attn_v=av)
+
+
+def train_loss(params, ds_state, cfg: ModelConfig, batch):
+    """batch: tokens (B, S+1). → (total loss, metrics dict of 0-d tensors)."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    x = embed(params["embed"], inputs)
+    B, S = inputs.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    h, _ = forward_hidden(params, cfg, x, positions, train=True)
+    ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
+                              embed_table=params["embed"]["table"], label_mask=None)
+    return ce + aux["head_aux_total"], {"ce": ce, **aux}
+
+
+def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None):
+    """The whole prompt (``batch["tokens"]``) → (vals, ids, HybridCache sized
+    to the prompt), the head on the last position. On CUDA tensors the
+    shared block's attention runs the ``flash_attention`` kernel."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    h, cache = forward_hidden(params, cfg, x, positions, collect_state=True)
+    vals, ids = heads.head_topk(params["head"], table, cfg, h[:, -1], k,
+                                embed_table=params["embed"]["table"], kernel=kernel)
+    return vals, ids, cache
+
+
+def _state_io(cache: HybridCache, i: int, state_pages):
+    """Layer ``i``'s (conv, ssm) rows for this batch and a function that
+    writes the new ones back in place."""
+    conv, ssm = cache.conv[i], cache.ssm[i]
+    if state_pages is None:
+        def put(nc, ns):
+            conv.copy_(nc)
+            ssm.copy_(ns)
+        return conv, ssm, put
+    idx = state_pages.long()
+
+    def put(nc, ns):
+        conv.index_copy_(0, idx, nc.to(conv.dtype))
+        ssm.index_copy_(0, idx, ns)
+    return conv[idx], ssm[idx], put
+
+
+def _chunk_attn(params, cfg, cache, pos0, pages):
+    def attn_op(x, gi):
+        def attn(xn):
+            h, _, _ = attention_prefill_chunk(params["shared_attn"]["attn"], cfg, xn,
+                                              cache.attn_k[gi], cache.attn_v[gi], pos0,
+                                              pages=pages)
+            return h
+        return _shared_block(params["shared_attn"], cfg, x, attn)
+    return attn_op
+
+
+def _chunk_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_valid,
+                  pages=None, state_pages=None):
+    """The chunk backbone: per-layer conv/ssm threaded through the cache
+    (seeded from it, written back after the last valid row), the shared
+    block through ``attention_prefill_chunk``. Returns (B, C, d) hidden."""
+    x = embed(params["embed"], tokens)
+
+    def mamba_op(lp, i, x):
+        conv, ssm, put = _state_io(cache, i, state_pages)
+        out, nconv, nssm = mamba2_prefill_chunk(lp["mamba"], cfg, rmsnorm(lp["ln"], x),
+                                                conv, ssm, n_valid)
+        put(nconv, nssm)
+        return x + out
+
+    x = _walk(params, cfg, x, mamba_op, _chunk_attn(params, cfg, cache, pos0, pages))
+    return rmsnorm(params["final_norm"], x)
+
+
+def prefill_chunk(params, table, cfg: ModelConfig, cache: HybridCache, tokens, pos0,
+                  n_valid, k: int = 8, kernel=None, pages=None, state_pages=None):
+    """State-passing chunked prefill: one (B, C) prompt chunk at positions
+    ``pos0 .. pos0+C-1`` against the cache, written in place. Rows at or
+    past ``n_valid`` are right-padding. Returns (vals, ids, cache) with the
+    head on the hidden state of token ``n_valid - 1``; only a prompt's last
+    chunk gives a meaningful top-k."""
+    h = _chunk_hidden(params, cfg, cache, tokens, pos0, n_valid, pages, state_pages)
+    if torch.is_tensor(n_valid):
+        h_last = h[torch.arange(h.shape[0], device=h.device), n_valid.long() - 1]
+    else:
+        h_last = h[:, n_valid - 1]
+    vals, ids = heads.head_topk(params["head"], table, cfg, h_last, k,
+                                embed_table=params["embed"]["table"], kernel=kernel)
+    return vals, ids, cache
+
+
+def _scan_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_valid,
+                 commit: bool, pages=None, state_pages=None):
+    """A (B, W) block through :func:`mamba2_verify_scan` (the one-token
+    recurrence unrolled) and the shared block at per-row starts ``pos0``.
+    With ``commit`` each row's conv/ssm advance by its ``n_valid`` tokens,
+    in place; without, they are left as they were."""
+    x = embed(params["embed"], tokens)
+    W = tokens.shape[1]
+
+    def mamba_op(lp, i, x):
+        conv, ssm, put = _state_io(cache, i, state_pages)
+        out, nconv, nssm = mamba2_verify_scan(lp["mamba"], cfg, rmsnorm(lp["ln"], x),
+                                              conv, ssm, n_valid if commit else W)
+        if commit:
+            put(nconv, nssm)
+        return x + out
+
+    x = _walk(params, cfg, x, mamba_op, _chunk_attn(params, cfg, cache, pos0, pages))
+    return rmsnorm(params["final_norm"], x)
+
+
+def verify_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, pages=None,
+                  state_pages=None):
+    """The verify backbone: a (B, W) block at per-row starts ``pos0`` ((B,)
+    int tensor) → hidden (B, W, d). The conv/ssm leaves are left untouched
+    (a rejected token's update cannot be rolled back; :func:`commit_block`
+    advances each row by its accepted prefix afterwards); the shared block's
+    K/V are written in place, as masking makes their rollback free. No host
+    sync, no data-dependent shape: a CUDA graph can capture it."""
+    return _scan_hidden(params, cfg, cache, tokens, pos0, None, False, pages, state_pages)
+
+
+def verify_step(params, table, cfg: ModelConfig, cache: HybridCache, tokens, pos0,
+                k: int = 8, kernel=None, capacity_factor=None, with_stats=False, pages=None,
+                state_pages=None):
+    """Speculative draft–verify for the state families: :func:`verify_hidden`,
+    then the head once over all B·W rows. Returns (vals, ids) of shape (B,
+    W, k), the cache, and the head's telemetry with ``with_stats``."""
+    h = verify_hidden(params, cfg, cache, tokens, pos0, pages, state_pages)
+    B, W, d = h.shape
+    out = heads.head_topk(params["head"], table, cfg, h.reshape(B * W, d), k,
+                          embed_table=params["embed"]["table"], kernel=kernel,
+                          capacity_factor=capacity_factor, with_stats=with_stats)
+    return (out[0].reshape(B, W, k), out[1].reshape(B, W, k), cache, *out[2:])
+
+
+def commit_block(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_valid,
+                 pages=None, state_pages=None):
+    """The commit pass after a verify: advance each row's conv/ssm by its
+    accepted prefix only (``n_valid`` (B,) = accepted + 1), in place, through
+    the one-token recurrence, so the committed state equals decoding the
+    accepted tokens one at a time. The shared blocks run (their outputs feed
+    later layers) and write the K/V verify wrote. No head. Returns the
+    cache."""
+    _scan_hidden(params, cfg, cache, tokens, pos0, n_valid, True, pages, state_pages)
+    return cache
+
+
+def decode_hidden(params, cfg: ModelConfig, cache: HybridCache, token, pos, pages=None,
+                  state_pages=None):
+    """The decode backbone: embed one token per row, run the stack against
+    the cache (conv/ssm copied in place, the shared block's K/V written at
+    ``pos``) and the final norm. token: (B,) int; pos: (B,) int. Returns
+    the (B, d) hidden state. Device ops only, no host sync: a CUDA graph
+    can capture it."""
+    x = embed(params["embed"], token)[:, None, :]
+
+    def mamba_op(lp, i, x):
+        conv, ssm, put = _state_io(cache, i, state_pages)
+        out, nconv, nssm = mamba2_decode(lp["mamba"], cfg, rmsnorm(lp["ln"], x), conv, ssm)
+        put(nconv, nssm)
+        return x + out
+
+    def attn_op(x, gi):
+        def attn(xn):
+            h, _, _ = attention_decode(params["shared_attn"]["attn"], cfg, xn,
+                                       cache.attn_k[gi], cache.attn_v[gi], pos, pages=pages)
+            return h
+        return _shared_block(params["shared_attn"], cfg, x, attn)
+
+    x = _walk(params, cfg, x, mamba_op, attn_op)
+    return rmsnorm(params["final_norm"], x)[:, 0]
+
+
+def decode_step(params, table, cfg: ModelConfig, cache: HybridCache, token, pos, k: int = 8,
+                kernel=None, capacity_factor=None, with_stats=False, pages=None,
+                state_pages=None):
+    """One-token decode: :func:`decode_hidden`, then the head. The state
+    recurrence never reads the table, so a hot-swap keeps resident state.
+    Returns (vals, ids, cache) and the head's telemetry with
+    ``with_stats``."""
+    h = decode_hidden(params, cfg, cache, token, pos, pages, state_pages)
+    out = heads.head_topk(params["head"], table, cfg, h, k,
+                          embed_table=params["embed"]["table"], kernel=kernel,
+                          capacity_factor=capacity_factor, with_stats=with_stats)
+    return (*out[:2], cache, *out[2:])

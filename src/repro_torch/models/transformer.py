@@ -34,7 +34,7 @@ from repro_torch.models.layers import (
 
 
 # the families this module builds (``repro`` builds them through its
-# ``transformer`` too)
+# ``transformer`` too; ssm and hybrid: ``models.hybrid``)
 FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -51,7 +51,7 @@ def _dense(gen, L, shape, dtype, device, fan_in=None):
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     """Seeded params on ``device`` → (params, ds_state)."""
     if cfg.family not in FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported yet (Queue 1 item 6)")
+        raise ValueError(f"family {cfg.family!r} is not built by models.transformer")
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt, gen = cfg.jdtype, generator

@@ -75,8 +75,21 @@ next round, so its cache holds every accepted token. On the card the draft's bac
 and the verify backbone are each captured once as a CUDA graph (a
 :class:`_DecodeGraph` of width 1 over the draft's params and cache, and
 one of width gamma+1 over the target's), their heads eager after the
-replays. The recurrent-state families' commit pass is not ported (no such
-family is).
+replays.
+
+The recurrent-state families (ssm, hybrid) keep each slot's conv/ssm state
+in the cache beside the shared attention block's K/V (a
+:class:`~repro_torch.models.hybrid.HybridCache`): a whole-prompt prefill
+writes the slot's state row, a chunked one threads it through the slot's
+row from zero. Paged, each slot owns one state page of a state arena
+(``state_arena`` pages, default ``4 * n_slots``), and a prefix registered
+at a full-chunk boundary carries a snapshot page of the state there, which
+an adopter copies into its own page. Their verify step leaves conv/ssm
+untouched (a rejected token's update cannot be rolled back); after
+acceptance ``bundle.commit_block`` advances each slot by its accepted
+prefix through the one-token recurrence, eagerly. A state-family draft
+copies its conv/ssm before proposing and commits from that copy, as
+``repro``'s draft commits from its pre-block snapshot.
 """
 from __future__ import annotations
 
@@ -93,8 +106,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import dssoftmax as ds
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import heads
-from repro_torch.models.model_zoo import ModelBundle, cache_specs, paged_cache_specs
-from repro_torch.models.transformer import FAMILIES, DecodeCache
+from repro_torch.models.model_zoo import (FAMILIES, ModelBundle, cache_kv_leaves, cache_specs,
+                                          paged_cache_specs)
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheManager, prefix_hash
 from repro_torch.serve.table_manager import (
     AdaptPolicy,
@@ -302,6 +315,11 @@ class Scheduler:
         self.n_released += 1
 
 
+def _zeros(specs, device):
+    """A cache of zeros on ``device``, the NamedTuple of ``specs``."""
+    return type(specs)(*(torch.zeros(s.shape, dtype=s.dtype, device=device) for s in specs))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -318,7 +336,8 @@ class _DecodeGraph:
     the static device inputs the graph reads (tokens and positions as one
     ``(width + 1, n_slots)`` tensor: row w holds each slot's w-th token,
     the last row the slots' positions; the ``(n_slots, n_pg)`` page table
-    of a paged session) and its static output ``h``. The cache needs no
+    of a paged session and, for a state family, the ``(n_slots,)`` state
+    page ids) and its static output ``h``. The cache needs no
     copy: the session allocates it once and writes it only in place. The
     first ``GRAPH_WARMUP_STEPS`` calls run the backbone eagerly on a side
     stream; the next one captures it in a private memory pool
@@ -328,7 +347,8 @@ class _DecodeGraph:
     nothing falls back to the eager step."""
 
     def __init__(self, n_slots: int, tables: Optional[np.ndarray], device: torch.device,
-                 width: int = 1, what: str = "decode step"):
+                 width: int = 1, what: str = "decode step",
+                 state_pid: Optional[np.ndarray] = None):
         self.device = device
         self.what = what
         # pinned staging: the copies into the static inputs are
@@ -341,6 +361,11 @@ class _DecodeGraph:
         if tables is not None:
             self._page_stage = torch.from_numpy(tables).pin_memory()
             self.pages = torch.zeros(tables.shape, dtype=self._page_stage.dtype, device=device)
+        self._spid_stage = self.state_pages = None
+        if state_pid is not None:
+            self._spid_stage = torch.from_numpy(state_pid).pin_memory()
+            self.state_pages = torch.zeros(state_pid.shape, dtype=self._spid_stage.dtype,
+                                           device=device)
         self._stream = torch.cuda.Stream(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.h: Optional[torch.Tensor] = None
@@ -348,9 +373,10 @@ class _DecodeGraph:
         self._warmup_left = GRAPH_WARMUP_STEPS
         self.n_captures = 0
 
-    def load(self, tok: np.ndarray, pos: np.ndarray, tables: Optional[np.ndarray]) -> None:
+    def load(self, tok: np.ndarray, pos: np.ndarray, tables: Optional[np.ndarray],
+             state_pid: Optional[np.ndarray] = None) -> None:
         """Copy the host's tokens ((n_slots,) or (n_slots, width)),
-        positions and page table in."""
+        positions, page table and state page ids in."""
         st = self._stage.numpy()
         st[:-1] = tok.reshape(len(pos), -1).T
         st[-1] = pos
@@ -358,16 +384,20 @@ class _DecodeGraph:
         if tables is not None:
             self._page_stage.numpy()[:] = tables
             self.pages.copy_(self._page_stage, non_blocking=True)
+        if state_pid is not None:
+            self._spid_stage.numpy()[:] = state_pid
+            self.state_pages.copy_(self._spid_stage, non_blocking=True)
 
-    def hidden(self, backbone, params, cache: DecodeCache) -> torch.Tensor:
+    def hidden(self, backbone, params, cache) -> torch.Tensor:
         """The backbone's hidden state for the inputs loaded:
         ``backbone(params, cache, tokens (width, n_slots), pos (n_slots,),
-        pages)``."""
+        pages, state_pages)``."""
         leaves = tuple(_leaves({n: p for n, p in params.items() if n != "head"})) + tuple(cache)
         if self.graph is not None and (len(leaves) != len(self._captured) or any(
                 a is not b for a, b in zip(leaves, self._captured))):
             self.graph = self.h = None  # a tensor it reads was replaced
-        run = lambda: backbone(params, cache, self.tok_pos[:-1], self.tok_pos[-1], self.pages)
+        run = lambda: backbone(params, cache, self.tok_pos[:-1], self.tok_pos[-1], self.pages,
+                               self.state_pages)
         main = torch.cuda.current_stream(self.device)
         if self.graph is None and self._warmup_left > 0:
             self._warmup_left -= 1
@@ -394,14 +424,14 @@ class _DecodeGraph:
 
 def _decode_backbone(bundle: ModelBundle):
     """``bundle.decode_hidden`` in the form :meth:`_DecodeGraph.hidden` calls."""
-    return lambda p, cache, toks, pos, pages: bundle.decode_hidden(p, cache, toks[0], pos,
-                                                                   pages=pages)
+    return lambda p, cache, toks, pos, pages, spages=None: bundle.decode_hidden(
+        p, cache, toks[0], pos, pages=pages, state_pages=spages)
 
 
 def _verify_backbone(bundle: ModelBundle):
     """``bundle.verify_hidden`` in the form :meth:`_DecodeGraph.hidden` calls."""
-    return lambda p, cache, toks, pos, pages: bundle.verify_hidden(p, cache, toks.T, pos,
-                                                                   pages=pages)
+    return lambda p, cache, toks, pos, pages, spages=None: bundle.verify_hidden(
+        p, cache, toks.T, pos, pages=pages, state_pages=spages)
 
 
 class ServeSession:
@@ -470,6 +500,9 @@ class ServeSession:
         page_arena: allocatable pages. Default ``n_slots * max_seq_len /
             page_size`` (the contiguous capacity), plus the reserved zero and
             garbage pages.
+        state_arena: allocatable conv/ssm state pages of a paged ssm or
+            hybrid session: one live page per resident plus the prefix
+            snapshots. Default ``4 * n_slots``.
         prefix_sharing: register and adopt shared prompt prefixes (paged and
             chunked only).
         device: where the cache lives and the steps run; ``cuda`` unless
@@ -481,10 +514,11 @@ class ServeSession:
             ``device`` is CUDA, off on the CPU; ``False`` runs every step
             eagerly; ``True`` on the CPU raises.
         draft: ``(draft_bundle, draft_params, draft_ds_state_or_table)``, a
-            same-vocab dense, moe or vlm model that turns on exact draft–verify
-            speculative decoding: each step it proposes ``gamma`` tokens per
-            resident from its own contiguous cache, the target scores every
-            resident's ``gamma+1``-token block in one verify step, and a
+            same-vocab model of any ported family that turns on exact
+            draft–verify speculative decoding: each step it proposes
+            ``gamma`` tokens per resident from its own contiguous cache,
+            the target scores every resident's ``gamma+1``-token block in
+            one verify step, and a
             host-side pass emits the longest accepted prefix plus one target
             token. Greedy output equals the non-speculative stream wherever
             the verify and decode math agree on the argmax (on the CPU in
@@ -510,6 +544,7 @@ class ServeSession:
                  adapt_policy: Optional[AdaptPolicy] = None,
                  paged: bool = False, page_size: int = 16,
                  page_arena: Optional[int] = None,
+                 state_arena: Optional[int] = None,
                  prefix_sharing: bool = True,
                  device="cuda",
                  decode_graph: Optional[bool] = None,
@@ -550,7 +585,7 @@ class ServeSession:
             d_cfg = draft[0].cfg
             if d_cfg.family not in FAMILIES:
                 raise ValueError(f"draft family {d_cfg.family!r} is not ported yet (ROADMAP.md, "
-                                 "Queue 1 item 6); the port drafts with a dense, moe or vlm "
+                                 f"Queue 1 item 6); the port drafts with a {', '.join(FAMILIES)} "
                                  "model")
             if d_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(f"draft vocab_size ({d_cfg.vocab_size}) must match the "
@@ -604,21 +639,33 @@ class ServeSession:
         self._n_preempted = 0
         self._n_prefill_chunks = 0
         self._n_prefill_chunks_saved = 0
+        # per cache leaf: True for attention K/V (position-indexed), False
+        # for the state families' conv/ssm (one row per slot or state page)
+        self._kv_leaf = tuple(cache_kv_leaves(cfg))
         if paged:
+            has_state = not all(self._kv_leaf)
             n_alloc = page_arena if page_arena is not None else n_slots * (max_seq_len // page_size)
-            self._mgr = PagedCacheManager(n_slots=n_slots, n_pages=N_RESERVED + n_alloc,
-                                          page_size=page_size, max_seq_len=max_seq_len)
-            specs = paged_cache_specs(cfg, N_RESERVED + n_alloc, page_size)
-            log.info("paged cache: %d pages x %d positions", n_alloc, page_size)
+            n_state = (state_arena if state_arena is not None else 4 * n_slots) \
+                if has_state else 0
+            specs = paged_cache_specs(cfg, N_RESERVED + n_alloc, page_size,
+                                      (N_RESERVED + n_state) if has_state else 0)
+            self._mgr = PagedCacheManager(
+                n_slots=n_slots, n_pages=N_RESERVED + n_alloc, page_size=page_size,
+                max_seq_len=max_seq_len, has_state=has_state,
+                # a model without attention (pure ssm) has no K/V pages
+                has_kv=any(kv and s.shape[0] for s, kv in zip(specs, self._kv_leaf)),
+                n_state_pages=(N_RESERVED + n_state) if has_state else None)
+            log.info("paged cache: %d pages x %d positions (+%d state pages)", n_alloc,
+                     page_size, n_state)
         else:
             specs = cache_specs(cfg, ShapeConfig(name="serve", seq_len=max_seq_len,
                                                  global_batch=n_slots, kind="decode"))
-        self._cache = DecodeCache(*(torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                                    for s in specs))
+        self._cache = _zeros(specs, self.device)
         self.scheduler = Scheduler(n_slots, queue_limit=queue_limit)
         self._tok = np.zeros(n_slots, np.int64)
         self._pos = np.zeros(n_slots, np.int64)
         tables = None if self._mgr is None else self._mgr.tables
+        spid = self._state_pid()
         # ---- speculative decoding (draft model) ----------------------------
         self.gamma = int(gamma)
         self._draft = None
@@ -632,6 +679,7 @@ class ServeSession:
         # first step to propose what repro proposes (the parity tests do).
         self._draft_backfill = True
         self._backfill: dict = {}  # slot -> (its _Slot, token, position) the draft lacks
+        self._draft_commits = False
         self._graph = self._draft_graph = self._verify_graph = None
         if draft is not None:
             d_bundle, d_params, d_state = draft
@@ -646,9 +694,14 @@ class ServeSession:
             # arena's accounting by the verify block's gamma rows only
             d_specs = cache_specs(d_bundle.cfg, ShapeConfig(
                 name="serve_draft", seq_len=max_seq_len, global_batch=n_slots, kind="decode"))
-            self._draft_cache = DecodeCache(*(torch.zeros(s.shape, dtype=s.dtype,
-                                                          device=self.device)
-                                              for s in d_specs))
+            self._draft_cache = _zeros(d_specs, self.device)
+            self._draft_kv_leaf = tuple(cache_kv_leaves(d_bundle.cfg))
+            # a state-family draft commits each block from a copy of its
+            # conv/ssm taken before the proposals; it never needs the
+            # backfill (the commit covers every accepted token)
+            self._draft_commits = d_bundle.verify_needs_state_commit
+            self._draft_state = [leaf for leaf, kv in zip(self._draft_cache,
+                                                          self._draft_kv_leaf) if not kv]
             d_cfg, k = d_bundle.cfg, self.k
 
             def _dhead(p, t, h):
@@ -659,11 +712,12 @@ class ServeSession:
                 self._draft_graph = _DecodeGraph(n_slots, None, self.device,
                                                  what="draft's decode step")
                 self._verify_graph = _DecodeGraph(n_slots, tables, self.device,
-                                                  width=self.gamma + 1, what="verify step")
+                                                  width=self.gamma + 1, what="verify step",
+                                                  state_pid=spid)
             log.info("speculative decoding: draft=%s gamma=%d (verify block %d x %d)",
                      d_bundle.cfg.name, self.gamma, n_slots, self.gamma + 1)
         elif decode_graph:
-            self._graph = _DecodeGraph(n_slots, tables, self.device)
+            self._graph = _DecodeGraph(n_slots, tables, self.device, state_pid=spid)
         self._outcomes: collections.Counter = collections.Counter()
         self._overflow_threshold = overflow_threshold
         self._overflow_hist: Deque[float] = collections.deque(maxlen=max(1, overflow_window))
@@ -712,17 +766,27 @@ class ServeSession:
         decode graph, or eager), then the bound head. Returns (vals, ids,
         stats) on the device."""
         tables = None if self._mgr is None else self._mgr.tables
+        spid = self._state_pid()
         g = self._graph
         if g is not None:
-            g.load(self._tok, self._pos, tables)
+            g.load(self._tok, self._pos, tables, spid)
             h = g.hidden(_decode_backbone(self.bundle), self.params, self._cache)
         else:
             dev = self.device
             h = self.bundle.decode_hidden(
                 self.params, self._cache, torch.from_numpy(self._tok).to(dev),
-                torch.from_numpy(self._pos).to(dev),
-                pages=None if tables is None else torch.from_numpy(tables).to(dev))
+                torch.from_numpy(self._pos).to(dev), pages=self._on_device(tables),
+                state_pages=self._on_device(spid))
         return self._head_fn(self.params, self.table, h)
+
+    def _state_pid(self) -> Optional[np.ndarray]:
+        """The slots' state page ids of a paged state-family session (the
+        host array the page table keeps), else None."""
+        m = self._mgr
+        return m.state_pid if m is not None and m.has_state else None
+
+    def _on_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        return None if a is None else torch.from_numpy(a).to(self.device)
 
     def _draft_decode(self, tok: np.ndarray, pos: np.ndarray):
         """One draft decode over the slot batch: the draft's backbone
@@ -746,16 +810,17 @@ class ServeSession:
         (vals, ids) of shape (n_slots, W, k) and the head's stats, on the
         device."""
         tables = None if self._mgr is None else self._mgr.tables
+        spid = self._state_pid()
         g = self._verify_graph
         if g is not None:
-            g.load(blocks, pos0, tables)
+            g.load(blocks, pos0, tables, spid)
             h = g.hidden(_verify_backbone(self.bundle), self.params, self._cache)
         else:
             dev = self.device
             h = self.bundle.verify_hidden(
                 self.params, self._cache, torch.from_numpy(blocks).to(dev),
-                torch.from_numpy(pos0).to(dev),
-                pages=None if tables is None else torch.from_numpy(tables).to(dev))
+                torch.from_numpy(pos0).to(dev), pages=self._on_device(tables),
+                state_pages=self._on_device(spid))
         n, W, dm = h.shape
         vals, ids, stats = self._head_fn(self.params, self.table, h.reshape(n * W, dm))
         return vals.reshape(n, W, -1), ids.reshape(n, W, -1), stats
@@ -929,7 +994,7 @@ class ServeSession:
                 reject(f"chunked prefill rounds the prompt up to a multiple of "
                        f"prefill_chunk ({cp}): needs {needed} cache rows > max_seq_len "
                        f"({self.max_seq_len}); raise max_seq_len or lower prefill_chunk")
-        if self._mgr is not None:
+        if self._mgr is not None and self._mgr.has_kv:
             # the worst-case footprint must fit the arena ALONE: a request
             # that cannot run with every resident preempted would wedge the
             # queue
@@ -1012,6 +1077,9 @@ class ServeSession:
             return self.scheduler.has_work()
         n = self.n_slots
         base_tok, base_pos = self._tok.copy(), self._pos.copy()
+        # a state draft's conv/ssm before the proposals: its commit pass
+        # re-advances them from here by each slot's accepted prefix
+        d_state0 = [leaf.clone() for leaf in self._draft_state] if self._draft_commits else []
         if self._backfill:
             # the last proposal of each block a slot swept clean, fed to the
             # draft at its position; every other slot writes its own next
@@ -1063,6 +1131,7 @@ class ServeSession:
         self._record_load(stats)
         # -- host-side exact acceptance --------------------------------------
         emitted: dict = {}
+        n_valid = np.ones(n, np.int64)
         poisoned: List[int] = []
         for i, slot in act:
             if not np.isfinite(vvals[i]).all() or (vids[i, :, 0] < 0).any():
@@ -1071,11 +1140,26 @@ class ServeSession:
             toks, n_acc = self._accept_block(vvals[i], vids[i], props[i], prop_q[i],
                                              slot.req.sampling_params, slot.n_emitted)
             emitted[i] = toks
+            n_valid[i] = n_acc + 1
             self._spec_stats["slot_steps"] += 1
             self._spec_stats["accepted"] += n_acc
-            if n_acc == self.gamma and self._draft_backfill:
+            if n_acc == self.gamma and self._draft_backfill and not self._draft_commits:
                 self._backfill[i] = (slot, int(props[i, -1]), int(base_pos[i]) + self.gamma)
         self._spec_stats["steps"] += 1
+        # -- commit the accepted prefixes (recurrent state cannot roll back) --
+        if self.bundle.verify_needs_state_commit or self._draft_commits:
+            dev = self.device
+            blk, p0, nv = (torch.from_numpy(a).to(dev) for a in (blocks, base_pos, n_valid))
+            if self.bundle.verify_needs_state_commit:
+                self.bundle.commit_block(
+                    self.params, self._cache, blk, p0, nv,
+                    pages=self._on_device(None if self._mgr is None else self._mgr.tables),
+                    state_pages=self._on_device(self._state_pid()))
+            if self._draft_commits:
+                for leaf, old in zip(self._draft_state, d_state0):
+                    leaf.copy_(old)
+                d = self._draft
+                d["bundle"].commit_block(d["params"], self._draft_cache, blk, p0, nv)
         # -- quarantine, then emit -------------------------------------------
         # (a KV-cache draft needs no rollback: its next round overwrites each
         # position past its accepted prefix before reading it, and stale
@@ -1317,12 +1401,12 @@ class ServeSession:
             self._scrub(self._draft_cache, i)
 
     @staticmethod
-    def _scrub(cache: DecodeCache, i: int) -> None:
+    def _scrub(cache, i: int) -> None:
         # Zero every row of slot i: a later, shorter tenant's prefill would
         # not overwrite a residual NaN row, and masked attention still
-        # multiplies it (0·NaN = NaN).
-        cache.k[:, i] = 0
-        cache.v[:, i] = 0
+        # multiplies it (0·NaN = NaN); conv/ssm state rows go too.
+        for leaf in cache:
+            leaf[:, i] = 0
 
     def _expire_queue(self) -> None:
         overdue = [r for r in self.scheduler.queue
@@ -1423,8 +1507,8 @@ class ServeSession:
                     self._scrub(self._cache, i)
                 continue
             # prefixes become adoptable only after the finite check
-            for key, length in pending:
-                self._mgr.register_prefix(i, key, length)
+            for key, length, snap in pending:
+                self._mgr.register_prefix(i, key, length, state_snapshot=snap)
             slot = sched.admit(i, req, S)
             req.status = RequestStatus.ACTIVE
             if self._draft is not None:
@@ -1448,6 +1532,8 @@ class ServeSession:
         S = len(toks)
         m = self._mgr
         pending: List[tuple] = []
+        if m is not None and not self._alloc_state_page(i, priority):
+            return None
         if self.prefill_chunk is None:
             if m is not None:
                 if not self._prepare_kv_write_range(i, 0, S, priority):
@@ -1458,25 +1544,20 @@ class ServeSession:
                 self.params, self.table,
                 {"tokens": torch.from_numpy(toks[None]).to(self.device)},
                 k=self.k, kernel=self.kernel)
-            if m is not None:
-                pos = np.arange(S)
-                pid = torch.from_numpy(m.tables[i][pos // m.page_size].astype(np.int64))
-                off = torch.from_numpy(pos % m.page_size)
-                pid, off = pid.to(self.device), off.to(self.device)
-                # positions past S in the last page keep stale (finite) rows,
-                # masked like the contiguous cache's tail
-                self._cache.k[:, pid, off] = row.k[:, 0]
-                self._cache.v[:, pid, off] = row.v[:, 0]
+            if m is None:
+                self._insert(self._cache, self._kv_leaf, row, i, S)
             else:
-                # positions >= S keep stale rows; they stay masked until this
-                # slot's own decode steps overwrite them
-                self._cache.k[:, i, :S] = row.k[:, 0]
-                self._cache.v[:, i, :S] = row.v[:, 0]
+                pos = np.arange(S)
+                pid = self._on_device(m.tables[i][pos // m.page_size].astype(np.int64))
+                self._insert(self._cache, self._kv_leaf, row, i, S,
+                             pages=(pid, self._on_device(pos % m.page_size)),
+                             state_page=int(m.state_pid[i]) if m.has_state else None)
             return vals, ids, pending
         cp = self.prefill_chunk
         if m is None:
-            # slot i's (L, 1, S_max, KV, dh) rows, written in place
-            cache = DecodeCache(k=self._cache.k[:, i:i + 1], v=self._cache.v[:, i:i + 1])
+            # slot i's (·, 1, ·) rows, written in place; its recurrent state
+            # starts from zeros, as a whole prompt's does
+            cache = self._slot_rows(self._cache, self._kv_leaf, i)
             for lo in range(0, S, cp):
                 vals, ids, _ = self._chunk(cache, toks, lo)
             return vals, ids, pending
@@ -1488,26 +1569,66 @@ class ServeSession:
             e = m.match_prefix(toks, cp, S - 1)
             if e is not None:
                 m.adopt_prefix(i, e)
+                if e.state is not None:
+                    # the recurrent state at the prefix's end, copied into
+                    # the slot's own page
+                    self._copy_state_page(e.state[0], int(m.state_pid[i]))
                 pos0 = e.length
                 self._n_prefill_chunks_saved += pos0 // cp
         m.activate_slot(i)
         vals = ids = None
+        spages = None if not m.has_state else self._on_device(m.state_pid[i:i + 1])
         for lo in range(pos0, S, cp):
             # the chunk writes all cp rows (tail padding included), so the
             # prepared range covers the whole chunk
             if not self._prepare_kv_write_range(i, lo, lo + cp, priority):
                 self._release_slot_pages(i, scrub=False)
                 return None
-            vals, ids, _ = self._chunk(self._cache, toks, lo,
-                                       torch.from_numpy(m.tables[i:i + 1]).to(self.device))
+            vals, ids, _ = self._chunk(self._cache, toks, lo, self._on_device(m.tables[i:i + 1]),
+                                       spages)
             self._n_prefill_chunks += 1
             hi = min(lo + cp, S)
             if self._prefix_sharing and hi == lo + cp \
                     and not m.has_prefix(prefix_hash(toks[:hi]), hi):
-                pending.append((prefix_hash(toks[:hi]), hi))
+                # a state family's prefix carries a copy of the state at its
+                # end (taken only from a free page: nobody is preempted for a
+                # snapshot)
+                snap = None
+                if m.has_state:
+                    snap = m.alloc_state()
+                    if snap is None:
+                        continue
+                    self._copy_state_page(int(m.state_pid[i]), snap)
+                    m.state_holdings[i].append(snap)
+                pending.append((prefix_hash(toks[:hi]), hi, snap))
         return vals, ids, pending
 
-    def _chunk(self, cache: DecodeCache, toks: np.ndarray, lo: int, pages=None):
+    @staticmethod
+    def _insert(cache, kv_leaf, row, i: int, S: int, pages=None, state_page=None) -> None:
+        """Write a whole-prompt prefill's ``(·, 1, ·)`` cache ``row`` (S
+        positions) into slot ``i``: K/V leaves at positions ``[0, S)``
+        (through the page table row ``pages`` when paged; later positions
+        keep stale rows, masked until this slot's own steps overwrite them),
+        conv/ssm leaves whole (into ``state_page`` when paged)."""
+        for leaf, r, kv in zip(cache, row, kv_leaf):
+            if kv and pages is not None:
+                leaf[:, pages[0], pages[1]] = r[:, 0]
+            elif kv:
+                leaf[:, i, :S] = r[:, 0]
+            else:
+                leaf[:, i if state_page is None else state_page] = r[:, 0].to(leaf.dtype)
+
+    @staticmethod
+    def _slot_rows(cache, kv_leaf, i: int):
+        """Slot ``i``'s ``(·, 1, ·)`` rows of a contiguous cache as views,
+        its conv/ssm rows zeroed (a prefill starts from zero state)."""
+        rows = type(cache)(*(leaf[:, i:i + 1] for leaf in cache))
+        for r, kv in zip(rows, kv_leaf):
+            if not kv:
+                r.zero_()
+        return rows
+
+    def _chunk(self, cache, toks: np.ndarray, lo: int, pages=None, state_pages=None):
         """One (1, prefill_chunk) chunk of ``toks`` from position ``lo``,
         right-padded with token 0, through ``bundle.prefill_chunk``."""
         cp = self.prefill_chunk
@@ -1516,7 +1637,7 @@ class ServeSession:
         buf[0, : len(tail)] = tail
         return self.bundle.prefill_chunk(
             self.params, self.table, cache, torch.from_numpy(buf).to(self.device), lo,
-            len(tail), k=self.k, kernel=self.kernel, pages=pages)
+            len(tail), k=self.k, kernel=self.kernel, pages=pages, state_pages=state_pages)
 
     def _draft_prefill_slot(self, toks: np.ndarray, i: int) -> None:
         """Prefill the draft's cache row of slot ``i`` with the slot's whole
@@ -1528,16 +1649,15 @@ class ServeSession:
             _, _, row = d["bundle"].prefill(
                 d["params"], d["table"], {"tokens": torch.from_numpy(toks[None]).to(self.device)},
                 k=self.k)
-            self._draft_cache.k[:, i, :len(toks)] = row.k[:, 0]
-            self._draft_cache.v[:, i, :len(toks)] = row.v[:, 0]
+            self._insert(self._draft_cache, self._draft_kv_leaf, row, i, len(toks))
             return
         cp = self.prefill_chunk
-        cache = DecodeCache(k=self._draft_cache.k[:, i:i + 1], v=self._draft_cache.v[:, i:i + 1])
+        cache = type(self._draft_cache)(*(leaf[:, i:i + 1] for leaf in self._draft_cache))
         # a zeroed row, as repro prefills a zero row into the slot: a row the
         # draft never wrote (repro's schedule leaves one after a clean sweep)
-        # holds zeros, not the previous occupant's K/V
-        cache.k.zero_()
-        cache.v.zero_()
+        # holds zeros, not the previous occupant's K/V or state
+        for leaf in cache:
+            leaf.zero_()
         for lo in range(0, len(toks), cp):
             tail = toks[lo: lo + cp]
             buf = np.zeros((1, cp), np.int64)
@@ -1548,13 +1668,44 @@ class ServeSession:
 
     # -- paged-arena management -------------------------------------------------
 
+    def _alloc_state_page(self, i: int, priority: int) -> bool:
+        """Give slot ``i`` a private, zeroed live state page (the recurrence
+        starts from zeros, as a contiguous row's does), preempting
+        strictly-lower-priority residents while the state arena is
+        exhausted. True at once for a family without state."""
+        m = self._mgr
+        if not m.has_state:
+            return True
+        while True:
+            pid = m.alloc_state()
+            if pid is not None:
+                break
+            if not self._preempt_lowest_below(priority):
+                return False
+        m.state_pid[i] = pid
+        self._zero_state_page(pid)
+        return True
+
+    def _copy_state_page(self, src: int, dst: int) -> None:
+        for leaf, kv in zip(self._cache, self._kv_leaf):
+            if not kv:
+                leaf[:, dst] = leaf[:, src]
+
+    def _zero_state_page(self, pid: int) -> None:
+        for leaf, kv in zip(self._cache, self._kv_leaf):
+            if not kv:
+                leaf[:, pid] = 0
+
     def _prepare_kv_write_range(self, i: int, lo: int, hi: int, priority: int) -> bool:
         """Make every page covering positions ``[lo, hi)`` of slot ``i``
         exclusively writable: fresh pages for unmapped entries, a copy for
         shared ones (copy-on-write: the copy runs here, before the write
         that needs it), preempting strictly-lower-priority residents while
-        the arena is exhausted. False when even that failed."""
+        the arena is exhausted. False when even that failed; True at once
+        for a model without K/V pages."""
         m = self._mgr
+        if not m.has_kv:
+            return True
         for j in range(lo // m.page_size, (hi - 1) // m.page_size + 1):
             while True:
                 plan = m.prepare_write(i, j)
@@ -1563,8 +1714,9 @@ class ServeSession:
                 if not self._preempt_lowest_below(priority):
                     return False
             if plan.kind == "cow":
-                for leaf in self._cache:
-                    leaf[:, plan.dst] = leaf[:, plan.src]
+                for leaf, kv in zip(self._cache, self._kv_leaf):
+                    if kv:
+                        leaf[:, plan.dst] = leaf[:, plan.src]
         return True
 
     def _prepare_decode_writes(self, width: int = 1) -> None:
@@ -1618,16 +1770,24 @@ class ServeSession:
                  i, req.sampling_params.priority, slot.n_emitted)
 
     def _release_slot_pages(self, i: int, scrub: bool) -> None:
-        """Drop every page reference of slot ``i`` and point its table row at
-        the garbage sink again. ``scrub`` zeroes each page that actually
-        returns to the free list (FAILED tenants: their rows may be
+        """Drop every page reference of slot ``i`` (K/V pages, its state
+        page and state snapshots) and point its table row at the garbage
+        sink again. ``scrub`` zeroes each page that actually returns to the
+        free list (FAILED tenants: their rows may be
         non-finite; a still-shared page is zeroed by whichever failing
         co-owner drops the last reference)."""
         m = self._mgr
         for pid in m.mapped_kv_pages(i):
             if m.decref(pid) and scrub:
-                for leaf in self._cache:
-                    leaf[:, pid] = 0
+                for leaf, kv in zip(self._cache, self._kv_leaf):
+                    if kv:
+                        leaf[:, pid] = 0
+        if m.has_state:
+            # the live page, then the snapshots it registered or adopted
+            live = int(m.state_pid[i])
+            for pid in ([live] if live >= N_RESERVED else []) + list(m.state_holdings[i]):
+                if m.decref_state(pid) and scrub:
+                    self._zero_state_page(pid)
         m.reset_slot(i)
 
     def _sample(self, vals: np.ndarray, ids: np.ndarray, sp: SamplingParams,

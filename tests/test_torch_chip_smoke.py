@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -192,12 +193,14 @@ def test_trace_sums_ops_that_share_a_name_prefix(smoke):
 # ---------------------------------------------------------------------------
 
 PHASES = ("kernel_phase", "slice_phase", "batch_phase", "lasso_phase", "profile_phase",
-          "adapt_phase", "prefill_phase", "spec_phase", "family_phase", "train_phase")
+          "adapt_phase", "prefill_phase", "spec_phase", "family_phase", "state_phase",
+          "train_phase")
 
 
 def test_main_runs_the_family_phase_after_spec_and_before_train(smoke, monkeypatch):
     """With every phase stubbed, main() calls them in order: phase 6c
-    (``family_phase``) right after 6b and before 7."""
+    (``family_phase``) right after 6b, then 6d (``state_phase``), and 7
+    last."""
     from repro_torch.kernels import _build
 
     calls = []
@@ -287,3 +290,88 @@ def test_finite_stats_finds_a_nan_anywhere(smoke):
     for bad in ({"a": float("nan")}, {"b": [1.0, {"c": float("inf")}]}):
         with pytest.raises(smoke.SmokeFailure, match="stats"):
             smoke._finite_stats("bad", bad)
+
+
+# ---------------------------------------------------------------------------
+# phase 6d (the ssm and hybrid families): what can be checked without a card
+# ---------------------------------------------------------------------------
+
+def test_state_phase_sizes(smoke):
+    """Every 6d session's max_seq_len holds its longest prompt, its new
+    tokens and a verify block, and divides into pages and chunks; the
+    shared system prompt is whole chunks; mamba2-130m runs at full depth and
+    zamba2-7b with all 81 layers (13 shared-block applications and a
+    remainder of 3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import _layout
+
+    assert smoke.STATE_SEQ >= max(smoke.STATE_PROMPT_LENS) + smoke.STATE_NEW - 1 \
+        + smoke.STATE_GAMMA
+    assert smoke.STATE_SEQ >= smoke.STATE_SYSTEM + max(smoke.STATE_TAILS) + smoke.STATE_NEW - 1
+    assert smoke.STATE_SEQ >= max(smoke.PREEMPT_LENS) + smoke.STATE_NEW - 1
+    for seq in (smoke.STATE_SEQ, smoke.ZAMBA_SEQ):
+        assert seq % smoke.PAGE_SIZE == 0 and seq % smoke.STATE_CHUNK == 0
+    assert smoke.ZAMBA_SEQ >= max(smoke.ZAMBA_PROMPT_LENS) + smoke.ZAMBA_NEW - 1
+    assert smoke.STATE_SYSTEM % smoke.STATE_CHUNK == 0 and smoke.STATE_SYSTEM > 0
+    assert len(smoke.STATE_PROMPT_LENS) == smoke.N_SLOTS
+    assert len(smoke.ZAMBA_PROMPT_LENS) == 4 and len(smoke.STATE_TAILS) == 4
+    assert get_config("mamba2-130m").n_layers == 24
+    assert _layout(get_config("zamba2-7b")) == (13, 3)
+    assert smoke.ZAMBA_PREFILL == 2048
+
+
+def _weight_bytes(cfg):
+    """The backbone's layer and final-norm bytes and the shared block's,
+    from the full-width leaf shapes (fp32 norms, A_log, dt_bias and D; the
+    rest in the config dtype)."""
+    from repro_torch.convert import _expected_shapes
+
+    fp32 = ("scale", "A_log", "dt_bias", "D", "norm_scale")
+    layers = shared = 0
+    for path, shape in _expected_shapes(cfg).items():
+        n = int(np.prod(shape)) * (4 if path.rsplit("/", 1)[-1] in fp32 else 2)
+        if path.startswith(("layers/", "final_norm/")):
+            layers += n
+        elif path.startswith("shared_attn/"):
+            shared += n
+    return layers, shared
+
+
+def test_state_decode_bytes_from_the_specs(smoke):
+    """The bytes bounds of 6d's decode steps. mamba2-130m: a slot's ssm
+    state is 24 x 786,432 B (fp32 (24, 64, 128) a layer), read and written
+    each step: 37.7 MB a slot, 302 MB at 8 slots, more than the backbone's
+    bf16 weights. zamba2-7b: 81 x 1,835,008 B of ssm state a slot (297 MB
+    read and written), 12.6 GB of layer weights and the shared block's
+    0.41 GB read 13 times (5.3 GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import paged_cache_specs
+
+    mamba = get_config("mamba2-130m")
+    ssm, conv = smoke.state_bytes(mamba)
+    assert ssm == 24 * 786_432 and conv == 24 * 3 * 1792 * 2
+    w, shared = _weight_bytes(mamba)
+    assert shared == 0 and 0.17e9 < w < 0.19e9
+    pos = [n + smoke.STATE_NEW for n in smoke.STATE_PROMPT_LENS]
+    b = smoke.state_decode_bytes(mamba, w, shared, 768 * 2, pos)
+    assert b["state_read_write"] == 2 * 8 * (ssm + conv)
+    assert 2 * 8 * ssm == pytest.approx(302e6, rel=1e-3) and 2 * 8 * ssm > w
+    assert b["kv_read"] == 0 and b["shared_block"] == 0
+    assert b["total"] == w + 8 * 768 * 2 + b["state_read_write"]
+
+    zamba = get_config("zamba2-7b")
+    ssm, conv = smoke.state_bytes(zamba)
+    assert ssm == 81 * 1_835_008 and conv == 81 * 3 * 7296 * 2
+    assert 2 * ssm == pytest.approx(297.3e6, rel=1e-3)
+    w, shared = _weight_bytes(zamba)
+    assert w == pytest.approx(12.63e9, rel=2e-3) and shared == pytest.approx(411e6, rel=2e-3)
+    pos = [n + smoke.ZAMBA_NEW for n in smoke.ZAMBA_PROMPT_LENS] + [0] * 4
+    b = smoke.state_decode_bytes(zamba, w, shared, 3584 * 2, pos)
+    assert b["shared_block"] == 13 * shared == pytest.approx(5.34e9, rel=2e-3)
+    assert b["kv_read"] == 13 * sum(p + 1 for p in pos) * 2 * 32 * 112 * 2
+    assert b["total"] == sum(v for k, v in b.items() if k != "total")
+    # the paged state arena at 8 slots: 4 x 8 pages (and 2 reserved) of a
+    # slot's 148.6 MB of ssm state
+    arena = paged_cache_specs(zamba, 2, smoke.PAGE_SIZE, 2 + 4 * smoke.N_SLOTS).ssm
+    assert arena.shape == (81, 34, 112, 64, 64)
+    assert int(np.prod(arena.shape)) * 4 == 34 * ssm

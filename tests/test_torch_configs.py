@@ -1,7 +1,8 @@
 """Port parity: the dense configs llama3.2-3b, granite-20b and deepseek-67b,
-the moe configs olmoe-1b-7b and qwen3-moe-235b-a22b and the vlm config
-internvl2-26b (``repro_torch.configs``) against ``repro.configs``, and the
-shape check of ``convert.params_from_jax``.
+the moe configs olmoe-1b-7b and qwen3-moe-235b-a22b, the vlm config
+internvl2-26b and the state configs mamba2-130m (ssm) and zamba2-7b (hybrid)
+(``repro_torch.configs``) against ``repro.configs``, and the shape check of
+``convert.params_from_jax``.
 
 * ``get_config`` gives each config with ``repro``'s field values (every
   field the port's ``ModelConfig`` has; the nested ``ds``, ``moe`` and
@@ -16,7 +17,9 @@ shape check of ``convert.params_from_jax``.
   (zero-stride numpy views, no memory), and refuses a swiglu tree without
   its FFN gate (``layers/mlp/w_gate``, or ``layers/moe/w_gate`` for an MoE
   block) or with one of the wrong shape, a gelu tree with a gate, and an
-  MLP in a moe tree or an MoE block in another.
+  MLP in a moe tree or an MoE block in another; for the state configs a
+  wrong ``layers/mamba/in_zx`` and a transformer layer in their tree.
+  (Their model parity: ``tests/test_torch_hybrid.py``.)
 """
 import dataclasses
 import functools
@@ -41,6 +44,7 @@ from repro_torch.models.transformer import DecodeCache
 
 ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b", "olmoe-1b-7b", "qwen3-moe-235b-a22b",
          "internvl2-26b")
+STATE_ARCHS = ("mamba2-130m", "zamba2-7b")
 NESTED = ("ds", "moe", "vision")
 HEAD_TOL = dict(rtol=1e-6, atol=2e-6)
 
@@ -55,7 +59,7 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + STATE_ARCHS)
 def test_get_config_equals_repro(arch):
     mine, ref = configs.get_config(arch), jget_config(arch)
     for f in dataclasses.fields(mine):
@@ -73,11 +77,17 @@ def test_get_config_equals_repro(arch):
         assert {g.name for g in dataclasses.fields(mine.moe)} == {
             g.name for g in dataclasses.fields(ref.moe)}
     assert mine.padded_vocab == ref.padded_vocab and mine.hd == ref.hd
+    assert mine.d_inner == ref.d_inner and mine.ssm_nheads == ref.ssm_nheads
     red = configs.reduce_config(mine, vocab=256)
-    assert (red.n_layers, red.d_model, red.n_heads, red.n_kv_heads, red.act,
-            red.tie_embeddings) == (2, 64, 4, min(mine.n_kv_heads, 2), mine.act,
-                                    mine.tie_embeddings)
     jred = jreduce_config(ref, vocab=256)
+    if arch in STATE_ARCHS:
+        for f in dataclasses.fields(red):
+            if f.name not in NESTED:
+                assert getattr(red, f.name) == getattr(jred, f.name), (arch, f.name)
+    else:
+        assert (red.n_layers, red.d_model, red.n_heads, red.n_kv_heads, red.act,
+                red.tie_embeddings) == (2, 64, 4, min(mine.n_kv_heads, 2), mine.act,
+                                        mine.tie_embeddings)
     for name in ("moe", "vision"):
         a, b = getattr(red, name), getattr(jred, name)
         assert (a is None) == (b is None)
@@ -180,3 +190,37 @@ def test_check_shapes_takes_the_full_width_set(arch):
         gated = _zero_views(cfg, act="swiglu")
         with pytest.raises(ValueError, match="w_gate"):
             check_shapes(gated, cfg)
+
+
+@pytest.mark.parametrize("arch", STATE_ARCHS)
+def test_check_shapes_takes_the_state_full_width_set(arch):
+    """The full-width leaves of an ssm or hybrid config (zamba2-7b: 81
+    stacked Mamba2 blocks and one shared attention+MLP block); a wrong
+    ``layers/mamba/in_zx`` raises naming it, as does a transformer layer's
+    leaf in the tree or, for the pure ssm, a shared block."""
+    cfg = configs.get_config(arch)
+    tree = _zero_views(cfg)
+    check_shapes(tree, cfg)
+    L, d, di = cfg.n_layers, cfg.d_model, cfg.d_inner
+    assert tree["layers/mamba/in_zx"].shape == (L, d, 2 * di)
+    assert tree["layers/mamba/out_proj"].shape == (L, di, d)
+    assert tree["layers/mamba/conv_w"].shape == (L, 4, di + 2 * cfg.ssm_state)
+    assert ("shared_attn/attn/wq" in tree) == (cfg.family == "hybrid")
+    if cfg.family == "hybrid":
+        assert tree["shared_attn/attn/wq"].shape == (d, 3584) and cfg.hd == 112
+        assert tree["shared_attn/mlp/w_gate"].shape == (d, cfg.d_ff)
+    assert not any(p.startswith("layers/attn/") for p in tree)
+    bad = dict(tree, **{"layers/mamba/in_zx": np.broadcast_to(np.float32(0), (L, d, di))})
+    with pytest.raises(ValueError, match="layers/mamba/in_zx"):
+        check_shapes(bad, cfg)
+    with pytest.raises(ValueError, match="layers/mamba/in_zx"):
+        params_from_jax(bad, cfg, device="cpu")
+    with pytest.raises(KeyError, match="layers/mamba/A_log"):
+        check_shapes({p: a for p, a in tree.items() if p != "layers/mamba/A_log"}, cfg)
+    stray = dict(tree, **{"layers/attn/wq": np.broadcast_to(np.float32(0), (L, d, d))})
+    with pytest.raises(ValueError, match="layers/attn/wq"):
+        check_shapes(stray, cfg)
+    dense = configs.get_config("llama3.2-3b")
+    with pytest.raises(ValueError, match="layers/mamba/in_zx"):
+        check_shapes(dict(_zero_views(dense), **{"layers/mamba/in_zx": tree["layers/mamba/in_zx"]}),
+                     dense)

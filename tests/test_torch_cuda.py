@@ -2127,3 +2127,125 @@ def test_vlm_prefill_with_patches_runs_the_attention_kernel(dev, dtype):
     assert torch.equal(ik, ip)
     tol = 2.0 ** -4 if dtype == "bfloat16" else 1e-4
     assert float((vk - vp).abs().max()) <= tol * float(vp[:, 0].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The ssm and hybrid families: the SSD block on the card, zamba2-7b's dh 112
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 129, 2048])
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_attention_tensor_core_body_at_dh_112(dev, S, B):
+    """zamba2-7b's shared attention: MHA 32/32 at dh 112 (3584 / 32), bf16,
+    through the tensor-core body (112 is a multiple of 16 and at most 128),
+    every element within the limit."""
+    q, k, v = _attn_inputs(dev, B, 32, 32, S, 112, torch.bfloat16, seed=S + B + 112)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = _run_flash(qt, kt, vt, "flash_attention_wgmma")
+    _assert_within_limit(o, qt, kt, vt)
+
+
+def _ssd_inputs(S, H, G, N, P=64, b=2, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, S, H), generator=g))
+    A = -torch.exp(torch.randn((H,), generator=g))
+    B = torch.randn((b, S, G, N), generator=g)
+    C = torch.randn((b, S, G, N), generator=g)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("S,H,G,N,chunk", [(37, 8, 2, 16, 8), (512, 24, 1, 128, 256),
+                                           (300, 112, 1, 64, 256)])
+def test_ssd_chunked_on_the_card_matches_its_cpu_run(dev, S, H, G, N, chunk):
+    """``ssd_chunked`` on CUDA tensors against the same call on the CPU, at a
+    small shape and at mamba2-130m's (H 24, N 128) and zamba2-7b's (H 112,
+    N 64) head shapes with S not a chunk multiple: outputs and final states
+    within 2^-7 of their largest magnitude (the bf16 operands of the
+    intra-chunk products round identically; a one-ulp difference of an fp32
+    sum ahead of a bf16 rounding moves a term by one bf16 ulp), and with a
+    relative RMS difference below 1e-5. TF32 stays off."""
+    from repro_torch.models import mamba2
+
+    args = _ssd_inputs(S, H, G, N, seed=S)
+    want = mamba2.ssd_chunked(*args, chunk=chunk)
+    got = mamba2.ssd_chunked(*(a.to(dev) for a in args), chunk=chunk)
+    for a, b in zip(got, want):
+        a = a.cpu()
+        big = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=2.0 ** -7 * big)
+        assert float((a - b).pow(2).mean().sqrt()) <= 1e-5 * big
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_decode_on_the_card_matches_its_cpu_run(dev, dtype):
+    """``mamba2_decode`` (B 8, mamba2-130m's widths) on the card against its
+    CPU run: fp32 within 1e-5 of each tensor's largest magnitude, bf16
+    within one bf16 ulp (2^-7) of it; the rows the new conv state shifts
+    along from the old one bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2
+
+    cfg = get_config("mamba2-130m").replace(dtype=dtype)
+    g = torch.Generator().manual_seed(3)
+    p = {k: v[0] for k, v in mamba2.init_mamba2(g, cfg, 1, device="cpu").items()}
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    u = torch.randn((8, 1, cfg.d_model), generator=g).to(cfg.jdtype)
+    cs = torch.randn((8, 3, conv_dim), generator=g).to(cfg.jdtype)
+    ss = torch.randn((8, cfg.ssm_nheads, 64, cfg.ssm_state), generator=g) * 0.1
+    want = mamba2.mamba2_decode(p, cfg, u, cs, ss)
+    got = mamba2.mamba2_decode({k: v.to(dev) for k, v in p.items()}, cfg, u.to(dev),
+                               cs.to(dev), ss.to(dev))
+    rel = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=0,
+                                   atol=rel * float(b.float().abs().max()))
+    assert torch.equal(got[1][:, :-1].cpu(), want[1][:, :-1])
+    assert torch.equal(got[1][:, :-1].cpu(), cs[:, 1:])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_state_family_decode_graph_streams_equal_the_eager_step(dev, arch, cache):
+    """A reduced ssm or hybrid model in bf16 with its decode backbone (the
+    conv/ssm state copied in place, the state page ids a static input when
+    paged) replayed from a CUDA graph against the eager step: greedy
+    streams and one sampled stream token-identical, one capture, every
+    page and state page free after the paged session."""
+    from repro_torch.train import ServeSession
+
+    model = _family_model(dev, arch)
+    kw = dict(paged=True, page_size=16, prefill_chunk=16) if cache == "paged" else {}
+    streams = {}
+    for graph in (False, None):
+        sess = ServeSession(*model, n_slots=2, max_seq_len=128, decode_graph=graph, **kw)
+        reqs = _graph_requests(5, 6, 10, sampled=3)
+        sess.run(reqs)
+        streams[graph] = [r.out_tokens for r in reqs]
+        st = sess.stats()
+        assert st["decode_graphs"] == (1 if graph is None else 0) and st["n_completed"] == 5
+        if cache == "paged":
+            assert st["paged"]["pages_in_use"] == 0 and st["paged"]["state_pages_in_use"] == 0
+    assert streams[None] == streams[False]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_state_family_speculative_session_repeats_through_its_graphs(dev, arch):
+    """A reduced ssm or hybrid self-draft (gamma 4, bf16, paged chunked)
+    through its draft and verify graphs, the commit passes eager: two runs
+    give the same tokens, and so does the eager run."""
+    from repro_torch.train import ServeSession
+
+    model = _family_model(dev, arch)
+    runs = []
+    for graph in (None, None, False):
+        sess = ServeSession(*model, n_slots=2, max_seq_len=128, draft=model, gamma=4,
+                            decode_graph=graph, paged=True, page_size=16, prefill_chunk=16)
+        reqs = _graph_requests(5, 7, 10)
+        sess.run(reqs)
+        runs.append([r.out_tokens for r in reqs])
+        n = 1 if graph is None else 0
+        st = sess.stats()
+        assert (st["draft_graphs"], st["verify_graphs"]) == (n, n)
+        assert st["paged"]["state_pages_in_use"] == 0
+    assert runs[0] == runs[1] == runs[2]

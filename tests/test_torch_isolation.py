@@ -47,7 +47,9 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "configs/llama3_2_3b.py", "configs/granite_20b.py",
                                     "configs/deepseek_67b.py", "convert.py", "models/moe.py",
                                     "configs/olmoe_1b_7b.py", "configs/qwen3_moe_235b.py",
-                                    "configs/internvl2_26b.py", "configs/base.py"])
+                                    "configs/internvl2_26b.py", "configs/base.py",
+                                    "models/mamba2.py", "models/hybrid.py",
+                                    "configs/mamba2_130m.py", "configs/zamba2_7b.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()
@@ -66,9 +68,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.core import dssoftmax
     from repro_torch.models import build
 
-    cfg = reduce_config(get_config("qwen2-1.5b"))
-    with pytest.raises(RuntimeError, match="cuda"):
-        build(cfg)
+    for arch in ("qwen2-1.5b", "mamba2-130m", "zamba2-7b"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build(reduce_config(get_config(arch)))
     h = torch.zeros(2, 8)
     table = dssoftmax.ServeTable(ids=torch.zeros(4, 8, dtype=torch.int32),
                                  weights=torch.zeros(4, 8, 8))

@@ -434,9 +434,9 @@ def test_draft_validation():
     mk = lambda **kw: ServeSession(tb, tp, ts, n_slots=1, max_seq_len=16, device="cpu", **kw)
     with pytest.raises(ValueError, match="gamma"):
         mk(draft=(tb, tp, ts), gamma=0)
-    ssm = dataclasses.replace(tb, cfg=tb.cfg.replace(family="ssm"))
+    encdec = dataclasses.replace(tb, cfg=tb.cfg.replace(family="encdec"))
     with pytest.raises(ValueError, match="Queue 1 item 6"):
-        mk(draft=(ssm, tp, ts))
+        mk(draft=(encdec, tp, ts))
     wide = dataclasses.replace(tb, cfg=tb.cfg.replace(vocab_size=2 * VOCAB))
     with pytest.raises(ValueError, match="vocab_size"):
         mk(draft=(wide, tp, ts))

@@ -579,7 +579,7 @@ def test_launch_train_cpu(tmp_path, capsys):
     assert len(tr.metrics_history) == 3 and tr.mgr.latest() == 3
     assert "step 0 loss=" in capsys.readouterr().out
     with pytest.raises(KeyError, match="not ported"):
-        launch_train.main(["--arch", "mamba2-130m", "--device", "cpu",
+        launch_train.main(["--arch", "whisper-base", "--device", "cpu",
                            "--ckpt-dir", str(tmp_path)])
 
 
