@@ -261,6 +261,25 @@ Phases, in order (any failure exits non-zero before the result line):
    head, plain attention): ids equal but at near-ties, values within
    BF16_DRIFT of the top-1, both timed on the first call and warm (median
    of 3); then a text-only session of 4 streams.
+6e. Encdec (``encdec_phase``): whisper-base at full width and depth (6
+   encoder and 6 decoder layers, d 512, MHA 8/8, V 51,865, K 8) and
+   paper-envi at full width (2 + 2 layers, d 256, V 7,709, K 8), seeded
+   weights and the seeded stand-in mask, each freed before the next. 8
+   requests of 1500 seeded stub frames (``input_specs``) and a 64-token
+   target prefix: one prefill, the self cache grown to 448 positions
+   (``encdec.pad_self_cache``; whisper's decoder context), 64 greedy
+   decode steps, through ``kernel=`` auto, cuda_fused, cuda_grouped and
+   jnp. Streams equal jnp's but at counted near-ties (TIE_RTOL), values
+   within phase 2's tolerance, each path's bodies launched (jnp none of
+   the head's), every value finite; each decoder prefill attention call
+   through ``flash_attention_wgmma`` (one a layer) held per element to
+   ``flash_attention_limit``; ``serve_topk`` at B 8 on the model's table
+   through cuda_fused and cuda_grouped against jnp. Printed: encode and
+   prefill ms (first call, then warm median of 3), the eager decode
+   step's median ms beside its bytes bound (``encdec_decode_bytes``:
+   decoder weights, the bf16 cross K/V and self cache read once, the
+   chosen experts' rows), one profiled step (device-busy ms, idle share,
+   device ops, top ops), the head's device ms, peak memory.
 7. Train: lm-100m, the repo's real-hardware training preset
    (``examples/train_lm_dssoftmax.py:31-37``: 12 layers, d 768, 12 heads,
    kv 4, d_ff 2048, V 50,304, K 8), built here, at full width in bf16 on
@@ -4427,6 +4446,260 @@ def _flat(t):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6e: the encdec family (whisper-base at full width and depth,
+# paper-envi at full width)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCHS = ("whisper-base", "paper-envi")
+ENCDEC_PREFIX = 64               # the target prefix each request brings
+ENCDEC_NEW = 64                  # greedy decode steps after the prefill
+ENCDEC_SEQ = 448                 # the self cache: whisper's decoder context (arXiv:2212.04356)
+ENCDEC_KERNELS = ("auto", "cuda_fused", "cuda_grouped", "jnp")
+ENCDEC_HEAD_PATHS = ("cuda_fused", "cuda_grouped")
+
+
+def encdec_decode_bytes(cfg, dec_weight_bytes: int, pos, frames: int, experts: int,
+                        v_pad: int) -> dict:
+    """The bytes one encdec decode step must move over the slots at
+    positions ``pos``: the decoder's weights once, each slot's token and
+    position rows, each layer's cross K and V (``frames`` rows a slot) and
+    self K and V up to the slot's position read once, and the head's gate
+    with the rows of the ``experts`` distinct experts the slots chose
+    (``v_pad`` rows each)."""
+    item = cfg.jdtype.itemsize
+    kv_row = 2 * cfg.n_kv_heads * cfg.hd * item              # a position's K and V
+    parts = {"decoder_weights": dec_weight_bytes,
+             "embedding_rows": 2 * len(pos) * cfg.d_model * item,
+             "cross_kv": cfg.n_layers * len(pos) * frames * kv_row,
+             "self_kv": cfg.n_layers * int(sum(int(p) + 1 for p in pos)) * kv_row,
+             "head": (cfg.ds.num_experts + experts * v_pad) * cfg.d_model * item}
+    return {**parts, "total": sum(parts.values())}
+
+
+def encdec_phase(results: dict, card: str) -> None:
+    """(a) whisper-base at full width and depth, (b) paper-envi at full
+    width; each model freed before the next."""
+    import torch
+
+    out = results.setdefault("encdec", {"card": card})
+    for arch in ENCDEC_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        encdec_serving(out, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.setdefault("seconds", {})[arch] = time.perf_counter() - t0
+        print(f"[encdec] {arch}: {time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+
+
+def _encdec_serve(bundle, params, table, batch, kern, record_attention=False):
+    """One prefill of ``batch`` and ENCDEC_NEW greedy decode steps on the
+    self cache grown to ENCDEC_SEQ, through head path ``kern``. Returns
+    (streams, heads: per request the (vals, ids) of each emission, the
+    decode steps' synchronized seconds, the launch counts, the decoder's
+    attention calls (q, k, v, o) when ``record_attention``, the final
+    cache, the prefill's synchronized seconds)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, layers
+
+    calls, orig = [], layers.flash_attention
+
+    def attn(q, k, v, device):
+        o = orig(q, k, v, device=device)
+        calls.append((q, k, v, o))
+        return o
+
+    ops.reset_launch_counts()
+    if record_attention:
+        layers.flash_attention = attn
+    try:
+        (vals, ids, cache), prefill_s = sync_s(lambda: bundle.prefill(params, table, batch,
+                                                                      k=K_TOP, kernel=kern))
+    finally:
+        layers.flash_attention = orig
+    cache = encdec.pad_self_cache(cache, ENCDEC_SEQ)
+    B = ids.shape[0]
+    emitted = [(vals.cpu(), ids.cpu())]
+    pos = torch.full((B,), ENCDEC_PREFIX, dtype=torch.long, device="cuda")
+    step_s = []
+    for _ in range(ENCDEC_NEW):
+        (vals, ids, cache), dt = sync_s(lambda: bundle.decode_step(
+            params, table, cache, ids[:, 0], pos, k=K_TOP, kernel=kern))
+        step_s.append(dt)
+        emitted.append((vals.cpu(), ids.cpu()))
+        pos += 1
+    launches = ops.launch_counts()
+    streams = [[int(e[1][b, 0]) for e in emitted] for b in range(B)]
+    heads = [[(e[0][b], e[1][b]) for e in emitted] for b in range(B)]
+    return streams, heads, step_s, launches, calls, cache, prefill_s
+
+
+def encdec_serving(out: dict, card: str, arch: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import encdec
+    from repro_torch.models.model_zoo import input_specs
+    from repro_torch.testing import flash_attention_limit
+
+    t0 = time.perf_counter()
+    cfg, bundle, params, table = _seeded_model(arch, SEED)
+    tag = "(a)" if arch == "whisper-base" else "(b)"
+    spec = input_specs(cfg, ShapeConfig("encdec", ENCDEC_PREFIX, N_SLOTS, "prefill"))
+    F = spec["frames"].shape[1]
+    rng = np.random.RandomState(SEED + 40)
+    frames = torch.from_numpy(rng.normal(size=(N_SLOTS, F, cfg.d_model)).astype(np.float32)
+                              ).to("cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (N_SLOTS, ENCDEC_PREFIX))).to("cuda")
+    batch = {"frames": frames, "tokens": tokens}
+    print(f"[encdec] {tag} {arch}: {cfg.n_encoder_layers} + {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, H {cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"{cfg.act}, vocab {cfg.padded_vocab}, K {cfg.ds.num_experts}, table v_pad "
+          f"{table.v_pad}; {N_SLOTS} requests of {F} frames and {ENCDEC_PREFIX} target tokens, "
+          f"{ENCDEC_NEW} greedy steps, self cache {ENCDEC_SEQ}; init + pack "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    # encode and prefill: the first call, then warm (median of 3)
+    with torch.no_grad():
+        memory, enc_first = sync_s(lambda: encdec.encode(params, cfg, frames.to(cfg.jdtype)))
+        if memory.shape != (N_SLOTS, F, cfg.d_model) or not bool(torch.isfinite(memory).all()):
+            raise SmokeFailure(f"encdec {arch}: encoder memory {tuple(memory.shape)}, finite "
+                               f"{bool(torch.isfinite(memory).all())}")
+        del memory
+        enc_warm = [sync_s(lambda: encdec.encode(params, cfg, frames.to(cfg.jdtype)))[1]
+                    for _ in range(3)]
+        runs = {kern: _encdec_serve(bundle, params, table, batch, kern,
+                                    record_attention=kern == "auto") for kern in ENCDEC_KERNELS}
+        first_prefill = runs["auto"][6]
+        pre_warm = [sync_s(lambda: bundle.prefill(params, table, batch, k=K_TOP,
+                                                  kernel="auto"))[1] for _ in range(3)]
+    # every decoder prefill call through the tensor-core attention, held per
+    # element to flash_attention_limit
+    calls = runs["auto"][4]
+    used = []
+    for q, k, v, o in calls:
+        want = ref.flash_attention_ref(q, k, v)
+        used.append(float(((o.float() - want.float()).abs()
+                           / flash_attention_limit(q, k, v, want)).max()))
+    del calls
+    runs["auto"] = runs["auto"][:4] + ((),) + runs["auto"][5:]
+    if len(used) != cfg.n_layers or max(used) > 1.0:
+        raise SmokeFailure(f"encdec {arch}: {len(used)} decoder attention calls, largest share "
+                           f"of flash_attention_limit {max(used, default=0):.3g}")
+    # each path's bodies; streams equal to jnp's but at counted near-ties
+    dpath, dbody = _head_body(table, N_SLOTS, cfg.d_model, cfg.jdtype)
+    needs = {"auto": ("gate_top1", dbody) if dpath == "cuda_grouped" else (dbody,),
+             "cuda_fused": NEEDS[("cuda_fused", False)],
+             "cuda_grouped": NEEDS[("cuda_grouped", False)], "jnp": ()}
+    head_bodies = {n for n, _, _ in ops.BODIES} - {FLASH_TC, FLASH_SIMT}
+    launches = {}
+    for kern, (streams, heads, _, counts, *_) in runs.items():
+        launches[kern] = {n: c for n, c in counts.items() if c}
+        if counts[FLASH_TC] != cfg.n_layers or counts[FLASH_SIMT]:
+            raise SmokeFailure(f"encdec {arch} {kern}: attention launches {launches[kern]}")
+        if any(counts[n] < 1 for n in needs[kern]) or (
+                kern == "jnp" and any(counts[n] for n in head_bodies)):
+            raise SmokeFailure(f"encdec {arch} {kern}: launched {launches[kern]}, needs "
+                               f"{needs[kern]}")
+        for b, hs in enumerate(heads):
+            for vals, ids in hs:
+                if not bool(torch.isfinite(vals).all()) or not bool(
+                        ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+                    raise SmokeFailure(f"encdec {arch} {kern}: request {b} emitted {vals} "
+                                       f"{ids}")
+    streams = {k: r[0] for k, r in runs.items()}
+    heads = {k: r[1] for k, r in runs.items()}
+    parted = _diverge_check(f"encdec {arch}", streams, heads, ENCDEC_KERNELS[:3], "jnp",
+                            TIE_RTOL, sampled=None)
+    errs = {}
+    for kern in ENCDEC_KERNELS[:3]:
+        got, want = [], []
+        for a, b, ha, hb in zip(streams[kern], streams["jnp"], heads[kern], heads["jnp"]):
+            n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+            got += ha[:n + 1]
+            want += hb[:n + 1]
+        gv, gi = torch.stack([v for v, _ in got]), torch.stack([i for _, i in got])
+        wv, wi = torch.stack([v for v, _ in want]), torch.stack([i for _, i in want])
+        errs[kern] = _compare(f"encdec {arch}", kern, (gv, gi), (wv, wi))
+    # the decoder's head at B 8 on this model's table, phase 2 style
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    gate = params["head"]["gate"]
+    h = torch.randn((N_SLOTS, cfg.d_model), generator=gen, device="cuda").to(cfg.jdtype)
+    want = ds.serve_topk(gate, table, h, K_TOP, kernel="jnp")
+    head = {"jnp_device_ms": profiled_device_ms(
+        lambda: ds.serve_topk(gate, table, h, K_TOP, kernel="jnp"))}
+    for path in ENCDEC_HEAD_PATHS:
+        ops.reset_launch_counts()
+        got = ds.serve_topk(gate, table, h, K_TOP, kernel=path)
+        torch.cuda.synchronize()
+        if any(ops.launch_counts()[n] < 1 for n in NEEDS[(path, False)]):
+            raise SmokeFailure(f"encdec {arch} head {path}: launched {ops.launch_counts()}")
+        head[path] = {"max_abs_err_parted": _compare(f"encdec {arch} head", path, got, want),
+                      "device_ms": profiled_device_ms(
+                          lambda: ds.serve_topk(gate, table, h, K_TOP, kernel=path))}
+    # the decode step: eager median, one profiled step, its bytes bound
+    step_ms = 1e3 * statistics.median(runs["auto"][2][1:])
+    cache = runs["auto"][5]
+    last = torch.tensor([s[-1] for s in streams["auto"]], device="cuda")
+    pos = torch.full((N_SLOTS,), ENCDEC_PREFIX + ENCDEC_NEW, dtype=torch.long, device="cuda")
+
+    def step():
+        with torch.no_grad():
+            return sync_s(lambda: bundle.decode_step(params, table, cache, last, pos, k=K_TOP,
+                                                     kernel="auto"))[1]
+    step()
+    tr = traced(f"encdec {arch} decode step", step)
+    busy = tr.busy_us() / 1e3
+    with torch.no_grad():  # the experts this step's hidden states choose
+        h_step = bundle.decode_hidden(params, cache, last, pos)
+    experts = int(torch.unique(ref.gate_top1_ref(gate, h_step)[0]).numel())
+    dec_bytes = _tree_bytes(params["dec_layers"]) + _tree_bytes(params["dec_norm"])
+    nbytes = encdec_decode_bytes(cfg, dec_bytes, [ENCDEC_PREFIX + ENCDEC_NEW] * N_SLOTS, F,
+                                 experts, table.v_pad)
+    bound = 1e3 * nbytes["total"] / HBM_BYTES_PER_S
+    rec = {"layers": [cfg.n_encoder_layers, cfg.n_layers], "d": cfg.d_model, "frames": F,
+           "v_pad": table.v_pad,
+           "encode_ms_first": 1e3 * enc_first,
+           "encode_ms_warm_median": 1e3 * statistics.median(enc_warm),
+           "prefill_ms_first": 1e3 * first_prefill,
+           "prefill_ms_warm_median": 1e3 * statistics.median(pre_warm),
+           "decode_step_ms_median": step_ms,
+           "step_traced_ms": tr.wall * 1e3, "step_device_busy_ms": busy,
+           "step_device_idle_share": 1.0 - busy / (tr.wall * 1e3),
+           "step_device_ops": len(tr.device), "step_top_device_ops_ms": tr.top(6),
+           "step_bytes": nbytes, "step_bound_ms": bound, "step_over_bound": step_ms / bound,
+           "attention_limit_used": used, "launches": launches, "decode_path": dpath,
+           "decode_body": dbody, "streams_parted_at_ties": parted,
+           "max_abs_err_parted": errs, "head_b8": head,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card}
+    out[arch] = rec
+    print(f"[encdec] {tag} {arch}: encode {rec['encode_ms_first']:.2f} ms first, "
+          f"{rec['encode_ms_warm_median']:.3f} warm; prefill {rec['prefill_ms_first']:.2f} ms "
+          f"first, {rec['prefill_ms_warm_median']:.3f} warm (median of 3); {cfg.n_layers} "
+          f"{FLASH_TC} calls each within flash_attention_limit (largest {max(used):.3g} of it); "
+          f"streams of {', '.join(ENCDEC_KERNELS[:3])} equal to jnp's but {parted} parted at "
+          f"near-ties; max |dv| and rows parted {json.dumps(errs)}; decode head {dpath} "
+          f"({dbody}); launches {json.dumps(launches)}", flush=True)
+    print(f"[encdec] {tag} {arch} decode step (eager): {step_ms:.3f} ms median against the "
+          f"bytes bound {bound:.4f} ms ({nbytes['total'] / 1e6:.2f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: decoder weights "
+          f"{nbytes['decoder_weights'] / 1e6:.2f}, cross K/V {nbytes['cross_kv'] / 1e6:.2f}, "
+          f"self K/V {nbytes['self_kv'] / 1e6:.2f}, head {nbytes['head'] / 1e6:.2f} MB over "
+          f"{experts} experts); one traced step {rec['step_traced_ms']:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {rec['step_device_idle_share']:.3f}, "
+          f"{len(tr.device)} device ops; top {json.dumps(rec['step_top_device_ops_ms'])}; head "
+          f"at B {N_SLOTS} (device ms): jnp {head['jnp_device_ms']:.4f}, "
+          + ", ".join(f"{p} {head[p]['device_ms']:.4f}" for p in ENCDEC_HEAD_PATHS)
+          + f"; peak memory {rec['peak_memory_gib']:.2f} GiB; card {card}", flush=True)
+    del runs, cache, params, table, bundle
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: training (lm-100m at full width) and serving the trained table
 # ---------------------------------------------------------------------------
 
@@ -4848,6 +5121,7 @@ def main() -> int:
     timed("spec", spec_phase, results, card)
     timed("family", family_phase, results, card)
     timed("state", state_phase, results, card)
+    timed("encdec", encdec_phase, results, card)
     timed("train", train_phase, results, card)
 
     from repro_torch.kernels import ops

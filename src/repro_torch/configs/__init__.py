@@ -1,55 +1,63 @@
-"""Architecture registry: ``get_config(arch)`` and ``reduce_config``.
-
-Every dense, moe, vlm, ssm and hybrid architecture of ``repro``'s registry
-is listed; the encdec ones raise ``KeyError`` naming the work that adds
-their family.
+"""Architecture registry: ``get_config(arch)``, the shape suite and
+``reduce_config``, as ``repro.configs`` has them: every architecture of
+``repro``'s registry, in its order.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.configs import (deepseek_67b, granite_20b, internvl2_26b, llama3_2_3b,
                                  mamba2_130m, olmoe_1b_7b, paper_lm, qwen2_1_5b,
-                                 qwen3_moe_235b, zamba2_7b)
+                                 qwen3_moe_235b, whisper_base, zamba2_7b)
 from repro_torch.configs.base import (DSSoftmaxConfig, ModelConfig, MoEConfig, ShapeConfig,
                                       TrainConfig, VisionStubConfig)
+from repro_torch.configs.shapes import SHAPES, shapes_for
 
-_CONFIGS: Dict[str, ModelConfig] = {
-    "qwen2-1.5b": qwen2_1_5b.CONFIG,
-    "llama3.2-3b": llama3_2_3b.CONFIG,
-    "granite-20b": granite_20b.CONFIG,
-    "deepseek-67b": deepseek_67b.CONFIG,
-    "olmoe-1b-7b": olmoe_1b_7b.CONFIG,
-    "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
-    "internvl2-26b": internvl2_26b.CONFIG,
-    "mamba2-130m": mamba2_130m.CONFIG,
-    "zamba2-7b": zamba2_7b.CONFIG,
-    "paper-ptb": paper_lm.PTB,
-    "paper-wiki2": paper_lm.WIKI2,
-    "paper-casia": paper_lm.CASIA,
+_MODULES = {
+    "mamba2-130m": mamba2_130m,
+    "granite-20b": granite_20b,
+    "qwen2-1.5b": qwen2_1_5b,
+    "llama3.2-3b": llama3_2_3b,
+    "deepseek-67b": deepseek_67b,
+    "whisper-base": whisper_base,
+    "zamba2-7b": zamba2_7b,
+    "internvl2-26b": internvl2_26b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b,
+    "paper-ptb": paper_lm,
 }
 
-# Archs of repro's registry whose family is not ported yet (ROADMAP.md,
-# Queue 1 item 6).
-_LATER = {
-    "whisper-base": "the encdec family (Queue 1 item 6)",
-    "paper-envi": "the encdec family (Queue 1 item 6)",
-}
+# the paper-scale configs besides paper-ptb (``paper_lm.CONFIG``)
+_PAPER = {"paper-wiki2": paper_lm.WIKI2, "paper-envi": paper_lm.ENVI,
+          "paper-casia": paper_lm.CASIA}
+
+ARCHS: Tuple[str, ...] = tuple(k for k in _MODULES if k != "paper-ptb")
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _CONFIGS:
-        return _CONFIGS[arch]
-    if arch in _LATER:
-        raise KeyError(f"arch {arch!r} is not ported yet: it comes with "
-                       f"{_LATER[arch]}; available: {sorted(_CONFIGS)}")
-    raise KeyError(f"unknown arch {arch!r}; available: {sorted(_CONFIGS)}")
+    if arch in _PAPER:
+        return _PAPER[arch]
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(_MODULES)}")
+    return _MODULES[arch].CONFIG
+
+
+def is_sub_quadratic(arch: str) -> bool:
+    return bool(getattr(_MODULES[arch], "SUB_QUADRATIC", False))
+
+
+def arch_shapes(arch: str):
+    """The runnable shape cells of ``arch``."""
+    return shapes_for(get_config(arch).family, is_sub_quadratic(arch))
+
+
+def dryrun_cells() -> list[tuple[str, ShapeConfig]]:
+    """Every (arch, shape) cell."""
+    return [(a, s) for a in ARCHS for s in arch_shapes(a)]
 
 
 def reduce_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
     """A tiny config of the same family for CPU tests (as in ``repro``)."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise KeyError(f"family {cfg.family!r} is not ported yet (Queue 1 item 6)")
     kw = dict(
         n_layers=2,
         d_model=64,
@@ -65,6 +73,8 @@ def reduce_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
         kw.update(ssm_state=16, ssm_headdim=16, ssm_chunk=32)
     if cfg.family == "hybrid":
         kw.update(attn_period=1, n_layers=3)
+    if cfg.n_encoder_layers:
+        kw.update(n_encoder_layers=2)
     if cfg.moe is not None:
         kw.update(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
     if cfg.vision is not None:
@@ -74,12 +84,17 @@ def reduce_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
 
 
 __all__ = [
+    "ARCHS",
+    "SHAPES",
     "DSSoftmaxConfig",
     "ModelConfig",
     "MoEConfig",
     "ShapeConfig",
     "TrainConfig",
     "VisionStubConfig",
+    "arch_shapes",
+    "dryrun_cells",
     "get_config",
+    "is_sub_quadratic",
     "reduce_config",
 ]

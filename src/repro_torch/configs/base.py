@@ -62,7 +62,7 @@ class VisionStubConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"                 # dense | moe | vlm | ssm | hybrid (ported); encdec
+    family: str = "dense"                 # dense | moe | vlm | ssm | hybrid | encdec
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -86,6 +86,8 @@ class ModelConfig:
     # hybrid (zamba2-style): the shared attention block is applied after
     # every ``attn_period`` ssm layers
     attn_period: int = 6
+    # enc-dec (whisper-style): encoder layers; ``n_layers`` counts the decoder's
+    n_encoder_layers: int = 0
     moe: Optional[MoEConfig] = None       # the MoE FFN of a moe-family backbone
     vision: Optional[VisionStubConfig] = None  # the vlm family's patch-prefix stub
     head: str = "ds"                      # 'full' | 'ds'

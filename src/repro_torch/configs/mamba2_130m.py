@@ -23,3 +23,5 @@ CONFIG = ModelConfig(
     head="ds",
     ds=DSSoftmaxConfig(num_experts=8),
 )
+
+SUB_QUADRATIC = True  # pure SSM: long_500k runs

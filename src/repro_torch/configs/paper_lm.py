@@ -1,6 +1,5 @@
-"""Paper-scale LM configs (dense family): PTB and WikiText-2 vocab scale.
-
-The encoder-decoder (IWSLT En-Vi) config waits for the encdec family.
+"""Paper-scale configs: PTB and WikiText-2 vocab scale (dense LMs), IWSLT
+En-Vi scale (an encoder-decoder) and CASIA scale (dense).
 """
 from repro_torch.configs.base import DSSoftmaxConfig, ModelConfig
 
@@ -22,6 +21,23 @@ PTB = ModelConfig(
 
 # WikiText-2-scale: |V|=33,278.
 WIKI2 = PTB.replace(name="paper-wiki2", vocab_size=33278)
+
+# IWSLT En-Vi scale: |V|=7,709 (seq2seq in the paper; the encdec family).
+ENVI = ModelConfig(
+    name="paper-envi",
+    family="encdec",
+    n_layers=2,
+    n_encoder_layers=2,
+    d_model=256,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=1024,
+    vocab_size=7709,
+    pad_vocab_to=1,
+    head="ds",
+    ds=DSSoftmaxConfig(num_experts=8),
+    remat="none",
+)
 
 # CASIA scale: 3,740 classes.
 CASIA = ModelConfig(

@@ -26,3 +26,5 @@ CONFIG = ModelConfig(
     head="ds",
     ds=DSSoftmaxConfig(num_experts=8),
 )
+
+SUB_QUADRATIC = True  # attention in O(1) blocks of the depth: long_500k runs

@@ -70,23 +70,59 @@ def _state_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def _attn_shapes(prefix: str, L: int, cfg: ModelConfig) -> Dict[str, tuple]:
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {prefix + "wq": (L, d, H * dh), prefix + "wk": (L, d, KV * dh),
+            prefix + "wv": (L, d, KV * dh), prefix + "wo": (L, H * dh, d)}
+
+
+def _mlp_shapes(prefix: str, L: int, cfg: ModelConfig) -> Dict[str, tuple]:
+    d, ff = cfg.d_model, cfg.d_ff
+    shapes = {prefix + "w_up": (L, d, ff), prefix + "w_down": (L, ff, d)}
+    if cfg.act == "swiglu":
+        shapes[prefix + "w_gate"] = (L, d, ff)
+    return shapes
+
+
+def _encdec_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The encdec family's leaves: the learned decoder positions, each
+    encoder layer's (ln1, attn, ln2, mlp) and each decoder layer's (ln1,
+    self_attn, ln_x, cross_attn, ln2, mlp), stacked ``(L, …)``, and the two
+    final layer norms (scale and bias each)."""
+    from repro_torch.models.model_zoo import MAX_TARGET_LEN
+
+    d = cfg.d_model
+    shapes = {"pos_embed": (MAX_TARGET_LEN, d)}
+    for stack, L, attns, norms in (
+            ("enc_layers/", cfg.n_encoder_layers, ("attn",), ("ln1", "ln2")),
+            ("dec_layers/", cfg.n_layers, ("self_attn", "cross_attn"), ("ln1", "ln_x", "ln2"))):
+        for a in attns:
+            shapes.update(_attn_shapes(f"{stack}{a}/", L, cfg))
+        shapes.update(_mlp_shapes(f"{stack}mlp/", L, cfg))
+        for n in norms:
+            shapes.update({f"{stack}{n}/scale": (L, d), f"{stack}{n}/bias": (L, d)})
+    for n in ("enc_norm", "dec_norm"):
+        shapes.update({f"{n}/scale": (d,), f"{n}/bias": (d,)})
+    return shapes
+
+
 def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    shapes = {"embed/table": (cfg.padded_vocab, d), "final_norm/scale": (d,)}
+    L, d = cfg.n_layers, cfg.d_model
+    shapes = {"embed/table": (cfg.padded_vocab, d)}
+    if cfg.family == "encdec":
+        shapes.update(_encdec_shapes(cfg))
+    else:
+        shapes["final_norm/scale"] = (d,)
     if cfg.family in ("ssm", "hybrid"):
         shapes.update(_state_shapes(cfg))
-    else:
-        shapes.update({"layers/attn/wq": (L, d, H * dh), "layers/attn/wk": (L, d, KV * dh),
-                       "layers/attn/wv": (L, d, KV * dh), "layers/attn/wo": (L, H * dh, d)})
+    elif cfg.family != "encdec":
+        shapes.update(_attn_shapes("layers/attn/", L, cfg))
     if cfg.moe is not None:
         E, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
         shapes.update({"layers/moe/router": (L, d, E), "layers/moe/w_gate": (L, E, d, f),
                        "layers/moe/w_up": (L, E, d, f), "layers/moe/w_down": (L, E, f, d)})
-    elif cfg.family not in ("ssm", "hybrid"):
-        shapes.update({"layers/mlp/w_up": (L, d, ff), "layers/mlp/w_down": (L, ff, d)})
-        if cfg.act == "swiglu":
-            shapes["layers/mlp/w_gate"] = (L, d, ff)
+    elif cfg.family not in ("ssm", "hybrid", "encdec"):
+        shapes.update(_mlp_shapes("layers/mlp/", L, cfg))
     if cfg.head == "ds":
         K = cfg.ds.num_experts
         shapes.update({"head/gate": (K, d), "head/experts": (K, cfg.padded_vocab, d),
@@ -94,15 +130,22 @@ def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
+# each backbone's own leaves, by path prefix: a leaf under another
+# family's prefix is refused
+_ENCDEC_LEAVES = ("enc_layers/", "dec_layers/", "enc_norm/", "dec_norm/", "pos_embed")
+
+
 def check_shapes(np_tree: Dict[str, np.ndarray], cfg: ModelConfig) -> None:
     """Raise unless ``np_tree`` (the form :func:`params_from_jax` takes) has
     every leaf the config needs at its shape: ``KeyError`` for a missing
     leaf, ``ValueError`` for a wrong shape, for an MLP gate
-    (``layers/mlp/w_gate``, ``shared_attn/mlp/w_gate``) where ``cfg.act``
+    (``layers/mlp/w_gate``, ``shared_attn/mlp/w_gate``,
+    ``enc_layers/mlp/w_gate``, ``dec_layers/mlp/w_gate``) where ``cfg.act``
     is not 'swiglu', for an MLP in a moe config or an MoE block in another,
     or for a leaf of another family's backbone (``layers/attn/…`` in an
     ssm or hybrid tree, ``layers/mamba/…`` or ``shared_attn/…`` in
-    another)."""
+    another, ``enc_layers/…`` or ``pos_embed`` outside an encdec tree,
+    ``layers/…`` or ``final_norm/…`` in one)."""
     expected = _expected_shapes(cfg)
     for path, shape in expected.items():
         if path not in np_tree:
@@ -110,20 +153,24 @@ def check_shapes(np_tree: Dict[str, np.ndarray], cfg: ModelConfig) -> None:
         if tuple(np_tree[path].shape) != shape:
             raise ValueError(f"{path}: shape {tuple(np_tree[path].shape)}, "
                              f"expected {shape} for {cfg.name}")
-    for gate in ("layers/mlp/w_gate", "shared_attn/mlp/w_gate"):
+    for gate in ("layers/mlp/w_gate", "shared_attn/mlp/w_gate", "enc_layers/mlp/w_gate",
+                 "dec_layers/mlp/w_gate"):
         if cfg.act != "swiglu" and cfg.moe is None and gate in np_tree:
             raise ValueError(f"{gate} given, but {cfg.name}'s MLP is {cfg.act!r} (no gate)")
-    if cfg.family in ("ssm", "hybrid"):
-        foreign = ("layers/attn/", "layers/mlp/", "layers/moe/", "layers/ln1/", "layers/ln2/")
+    if cfg.family == "encdec":
+        foreign = ("layers/", "shared_attn/", "final_norm/")
+    elif cfg.family in ("ssm", "hybrid"):
+        foreign = ("layers/attn/", "layers/mlp/", "layers/moe/", "layers/ln1/", "layers/ln2/",
+                   *_ENCDEC_LEAVES)
         if cfg.family == "ssm":
             foreign += ("shared_attn/",)
-        extra = sorted(p for p in np_tree if p.startswith(foreign) and p not in expected)
-        if extra:
-            raise ValueError(f"{extra[0]} given, but {cfg.name} is a {cfg.family} model")
-        return
-    extra = sorted(p for p in np_tree if p.startswith(("layers/mamba/", "shared_attn/")))
+    else:
+        foreign = ("layers/mamba/", "shared_attn/", *_ENCDEC_LEAVES)
+    extra = sorted(p for p in np_tree if p.startswith(foreign) and p not in expected)
     if extra:
         raise ValueError(f"{extra[0]} given, but {cfg.name} is a {cfg.family} model")
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        return
     other = "layers/mlp/" if cfg.moe is not None else "layers/moe/"
     extra = sorted(p for p in np_tree if p.startswith(other))
     if extra:

@@ -10,9 +10,11 @@ share); ``--quantize int8`` serves the DS table from int8 rows under the
 exactness gate and prints its report (exits non-zero when unguarded id
 flips survive the fallback); ``--adapt`` runs the online repack; ``--draft
 <arch> --gamma G`` turns on exact speculative decoding and the report adds
-the tokens per verify step and the acceptance rate. Every ported family
-serves: dense, moe, vlm (token prompts), and the ssm and hybrid state
-families.
+the tokens per verify step and the acceptance rate. The token-only
+families serve: dense, moe, vlm (token prompts), and the ssm and hybrid
+state families. An encdec arch raises ``ServeSession``'s ``ValueError``
+(its requests need encoder frames), as in ``repro``; so does an encdec
+``--draft``.
 
 Runs on CUDA unless given ``--device cpu``; ``--reduced`` takes the small
 config of the same family (the draft's too). Weights are seeded (target 0,
@@ -87,7 +89,7 @@ def main(argv=None) -> ServeSession:
     ap.add_argument("--quantize-flip-threshold", type=float, default=0.0,
                     help="per-expert flip-rate bound before fp fallback")
     ap.add_argument("--draft", default=None, metavar="ARCH",
-                    help="speculative decoding: a config of any ported family (reduced with "
+                    help="speculative decoding: a token-only config (reduced with "
                          "--reduced, and put on the target's vocab) proposes --gamma tokens "
                          "per slot per step, verified by the target in one chunk-shaped step")
     ap.add_argument("--gamma", type=int, default=4,

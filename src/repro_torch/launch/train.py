@@ -1,21 +1,26 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
 Trains an architecture of ``repro_torch.configs`` on the synthetic topic
-corpus (text only) through the :class:`~repro_torch.train.Trainer`
-(checkpoints, auto-resume, preemption handling). Runs on CUDA unless
-given ``--device cpu``; ``--reduced`` takes the small config of the same
-family. The moe, vlm, ssm and hybrid train losses are held against
-``repro`` on the CPU; only the dense family has trained on the card. The
-encdec family raises ``get_config``'s ``KeyError``.
+corpus through the :class:`~repro_torch.train.Trainer` (checkpoints,
+auto-resume, preemption handling): text only, and for an encdec arch each
+batch also carries stub encoder frames, ``RandomState(i).normal`` of shape
+(batch, frames, d) for batch ``i``, as ``repro.launch.train`` makes them.
+Runs on CUDA unless given ``--device cpu``; ``--reduced`` takes the small
+config of the same family. The moe, vlm, ssm, hybrid and encdec train
+losses are held against ``repro`` on the CPU; only the dense family has
+trained on the card.
 """
 import argparse
 import os
 import tempfile
 
+import numpy as np
+
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import DataPipeline, TopicLMStream
 from repro_torch.models import build
+from repro_torch.models.model_zoo import encoder_frames
 from repro_torch.train import Trainer
 
 
@@ -37,7 +42,15 @@ def main(argv=None):
         cfg = reduce_config(cfg)
     bundle = build(cfg, device=args.device)
     stream = TopicLMStream(vocab=cfg.vocab_size, seq_len=args.seq, batch=args.batch, seed=0)
-    pipe = DataPipeline(lambda i: {"tokens": stream.batch_at(i)})
+
+    def batch_fn(i):
+        b = {"tokens": stream.batch_at(i)}
+        if cfg.family == "encdec":
+            b["frames"] = np.random.RandomState(i).normal(
+                size=(args.batch, encoder_frames(cfg), cfg.d_model)).astype(np.float32)
+        return b
+
+    pipe = DataPipeline(batch_fn)
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps, warmup_steps=10,
                        ckpt_dir=args.ckpt_dir, ckpt_every=max(10, args.steps // 4))
     trainer = Trainer(bundle, tcfg, iter(pipe), pipeline=pipe,

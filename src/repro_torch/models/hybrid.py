@@ -25,8 +25,6 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
-
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dssoftmax import normal_
 from repro_torch.models import heads
@@ -45,7 +43,7 @@ from repro_torch.models.mamba2 import (
     mamba2_prefill_chunk,
     mamba2_verify_scan,
 )
-from repro_torch.models.transformer import _save_weight_matmuls
+from repro_torch.models.transformer import remat
 
 FAMILIES = ("ssm", "hybrid")
 
@@ -156,13 +154,7 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=Fals
             conv.append(c)
             ssm.append(s)
             return x + out
-        if train and cfg.remat == "layer":
-            return checkpoint(body, x, lp, use_reentrant=False)
-        if train and cfg.remat == "dots":
-            return checkpoint(body, x, lp, use_reentrant=False,
-                              context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                                           _save_weight_matmuls))
-        return body(x, lp)
+        return remat(cfg, body, x, lp) if train else body(x, lp)
 
     def attn_op(x, gi):
         def attn(xn):

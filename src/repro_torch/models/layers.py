@@ -13,7 +13,8 @@ a copy):
   sequence length; on CPU tensors it stays the plain tensor code mirroring
   the JAX einsums (``chunked_causal_attention`` above ``attn_q_chunk``,
   else ``full_attention``), as do decode and chunked prefill on either
-  device: masks at -1e9, fp32 softmax;
+  device: masks at -1e9, fp32 softmax; non-causal attention (the
+  encoder's, cross-attention) is that plain code on either device too;
 * training (``attention_block(..., train=True)``) always takes that plain,
   differentiable code, as ``repro`` trains: the kernel is forward-only,
   and its wrapper raises when autograd would need a gradient through it;
@@ -42,6 +43,14 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * params["scale"]
+    return y.to(x.dtype)
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
     return y.to(x.dtype)
 
 
@@ -284,6 +293,21 @@ def attention_prefill_chunk(params, cfg: ModelConfig, x, cache_k, cache_v, pos0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqhc,bchd->bqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
     return o.reshape(B, C, -1) @ params["wo"], cache_k, cache_v
+
+
+def cross_attention_block(params, cfg: ModelConfig, x, memory):
+    """Decoder cross-attention to the encoder's output (whisper): x (B, S,
+    d) attends to every row of ``memory`` (B, F, d); K/V come from memory,
+    without rope. Plain, non-causal attention on either device, as in
+    ``repro``."""
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    n_mem = memory.shape[1]
+    q = (x @ params["wq"]).reshape(B, S, H, dh)
+    k = (memory @ params["wk"]).reshape(B, n_mem, KV, dh)
+    v = (memory @ params["wv"]).reshape(B, n_mem, KV, dh)
+    o = full_attention(q, k, v, causal=False)
+    return o.reshape(B, S, -1) @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

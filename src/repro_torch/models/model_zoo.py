@@ -1,9 +1,12 @@
 """Uniform model API: ``build(cfg)`` returns a :class:`ModelBundle`: the
-model's init, train loss and serving functions over one config.
+model's init, train loss and serving functions over one config; and the
+input, cache and serve-table specs and the analytic parameter and FLOP
+counts of a config.
 
 The dense, moe and vlm families run through ``transformer``, the ssm and
-hybrid families through ``hybrid``; encdec raises, naming ROADMAP.md
-Queue 1 item 6.
+hybrid families through ``hybrid``, the encdec family through ``encdec``
+(whole-prompt prefill and decode only: no chunked prefill, no verify step,
+no paged cache, as in ``repro``).
 """
 from __future__ import annotations
 
@@ -13,16 +16,23 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import dssoftmax as ds
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer
 
-FAMILIES = transformer.FAMILIES + hybrid.FAMILIES
+FAMILIES = transformer.FAMILIES + hybrid.FAMILIES + encdec.FAMILIES
+MAX_TARGET_LEN = 32768  # the encdec learned-position table's rows (decode_32k)
 
 
-def _check_family(cfg: ModelConfig, what: str = "family") -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise ValueError(f"{what} {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1 item 6; "
-                         f"ported: {', '.join(FAMILIES)})")
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    _check_family(cfg)
+    if cfg.family in encdec.FAMILIES:
+        raise ValueError(f"no paged cache for family {cfg.family!r}")
 
 
 @dataclass(frozen=True)
@@ -66,6 +76,8 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
     the corresponding leaf kind ignores the extra argument."""
     dev = resolve_device(device)
     _check_family(cfg)
+    if cfg.family in encdec.FAMILIES:
+        return _build_encdec(cfg, dev)
     if cfg.family in hybrid.FAMILIES:
         mod = hybrid
         st = lambda sp: dict(state_pages=sp)
@@ -102,6 +114,24 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
     )
 
 
+def _build_encdec(cfg: ModelConfig, dev: torch.device) -> ModelBundle:
+    """Whole-prompt prefill (``batch``: frames and tokens) and decode at a
+    scalar or (B,) ``pos``; no chunked prefill, verify step or pages."""
+    return ModelBundle(
+        cfg=cfg,
+        device=dev,
+        init=lambda gen: encdec.init_params(gen, cfg, device=dev, max_target_len=MAX_TARGET_LEN),
+        train_loss=lambda p, s, batch: encdec.train_loss(p, s, cfg, batch),
+        prefill=lambda p, t, batch, k=8, kernel=None: encdec.prefill(
+            p, t, cfg, batch, k=k, kernel=kernel),
+        decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None, capacity_factor=None,
+        with_stats=False: encdec.decode_step(p, t, cfg, cache, tok, pos, k=k, kernel=kernel,
+                                             capacity_factor=capacity_factor,
+                                             with_stats=with_stats),
+        decode_hidden=lambda p, cache, tok, pos: encdec.decode_hidden(p, cfg, cache, tok, pos),
+    )
+
+
 class TensorSpec(NamedTuple):
     shape: tuple
     dtype: torch.dtype
@@ -128,6 +158,10 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
     if cfg.family in hybrid.FAMILIES:
         return _state_specs(cfg, B, (B, S))
     kv = TensorSpec((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd), cfg.jdtype)
+    if cfg.family in encdec.FAMILIES:
+        ckv = TensorSpec((cfg.n_layers, B, encoder_frames(cfg), cfg.n_kv_heads, cfg.hd),
+                         cfg.jdtype)
+        return encdec.EncDecCache(self_k=kv, self_v=kv, cross_k=ckv, cross_v=ckv)
     return transformer.DecodeCache(k=kv, v=kv)
 
 
@@ -140,7 +174,7 @@ def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int, n_state_pa
     state-page id vector. At the default arena size the K/V bytes equal the
     contiguous cache's: paging buys sharing and cheap preemption, not
     smaller buffers."""
-    _check_family(cfg, "paged cache for family")
+    _check_paged(cfg)
     if cfg.family in hybrid.FAMILIES:
         return _state_specs(cfg, n_state_pages, (n_pages, page_size))
     kv = TensorSpec((cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd), cfg.jdtype)
@@ -151,7 +185,105 @@ def cache_kv_leaves(cfg: ModelConfig):
     """Per-leaf bool: True for position-indexed attention K/V leaves (paged
     over KV pages), False for position-free conv/ssm state leaves (paged
     over state pages)."""
-    _check_family(cfg, "paged cache for family")
+    _check_paged(cfg)
     if cfg.family in hybrid.FAMILIES:
         return hybrid.HybridCache(conv=False, ssm=False, attn_k=True, attn_v=True)
     return transformer.DecodeCache(k=True, v=True)
+
+
+def cache_seq_axes(cfg: ModelConfig):
+    """Per-leaf sequence axis of a decode cache (-1: position-free state,
+    replaced whole when a slot is admitted). The batch axis is 1 for every
+    family's leaves."""
+    _check_family(cfg)
+    if cfg.family in hybrid.FAMILIES:
+        return hybrid.HybridCache(conv=-1, ssm=-1, attn_k=2, attn_v=2)
+    if cfg.family in encdec.FAMILIES:
+        return encdec.EncDecCache(self_k=2, self_v=2, cross_k=-1, cross_v=-1)
+    return transformer.DecodeCache(k=2, v=2)
+
+
+def encoder_frames(cfg: ModelConfig) -> int:
+    """The encoder's frames per example: the vision stub's, else 1500 (30 s
+    of audio)."""
+    return cfg.vision.num_patches if cfg.vision else 1500
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The batch of ``train_loss`` (kind 'train'), ``prefill`` or a decode
+    step (kind 'decode'), as tensors on the meta device: shapes and dtypes,
+    no memory."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda *sh, dtype=torch.int32: torch.empty(sh, dtype=dtype, device="meta")
+    extra = 1 if shape.kind == "train" else 0
+    if shape.kind == "decode":
+        return {"token": meta(B)}
+    if cfg.family in encdec.FAMILIES:
+        return {"frames": meta(B, encoder_frames(cfg), cfg.d_model, dtype=cfg.jdtype),
+                "tokens": meta(B, S + extra)}
+    if cfg.family == "vlm":
+        P = cfg.vision.num_patches
+        return {"patches": meta(B, P, cfg.d_model, dtype=cfg.jdtype),
+                "tokens": meta(B, S - P + extra)}
+    return {"tokens": meta(B, S + extra)}
+
+
+def _serve_pad(cfg: ModelConfig, vocab: int) -> int:
+    return cfg.ds.serve_pad or max(128, 2 * vocab // cfg.ds.num_experts)
+
+
+def serve_table_spec(cfg: ModelConfig):
+    """The specs of a DS head's packed fp serve table before any mask is
+    trained (V_pad 2·N/K rounded up to 128: the paper's ~2x mean
+    redundancy over K experts); None for a full-softmax head."""
+    if cfg.head != "ds":
+        return None
+    K = cfg.ds.num_experts
+    v_pad = cfg.ds.serve_pad or ds._round_up(max(128, 2 * cfg.padded_vocab // K))
+    return ds.ServeTable(ids=TensorSpec((K, v_pad), torch.int32),
+                         weights=TensorSpec((K, v_pad, cfg.d_model), cfg.jdtype))
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Matmul parameters a token touches (the embedding lookup left out,
+    the head counted); ``active_only`` counts a moe layer's top-k experts
+    and the served head's V_pad rows."""
+    d, ff = cfg.d_model, cfg.d_ff
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = d * H * dh + 2 * d * KV * dh + H * dh * d
+    ffn = (3 if cfg.act == "swiglu" else 2) * d * ff
+    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+    mamba = d * (2 * di + 2 * gn + cfg.ssm_nheads) + di * d  # in and out projections
+    total = 0
+    if cfg.family in ("dense", "vlm"):
+        total = cfg.n_layers * (attn + ffn)
+    elif cfg.family == "moe":
+        mc = cfg.moe
+        e = mc.top_k if active_only else mc.num_experts
+        total = cfg.n_layers * (attn + e * 3 * d * mc.d_ff_expert + d * mc.num_experts)
+    elif cfg.family == "ssm":
+        total = cfg.n_layers * mamba
+    elif cfg.family == "hybrid":
+        # the shared block's params exist once, but each application
+        # touches them again
+        apps = hybrid.n_attn_apps(cfg)
+        total = cfg.n_layers * mamba + (apps if active_only else 1) * (attn + ffn)
+    elif cfg.family == "encdec":
+        total = cfg.n_encoder_layers * (attn + ffn) + cfg.n_layers * (2 * attn + ffn)
+    if cfg.head == "ds":
+        rows = _serve_pad(cfg, cfg.vocab_size) if active_only else cfg.vocab_size
+        head = cfg.ds.num_experts * d + rows * d
+    else:
+        head = cfg.vocab_size * d
+    return int(total + head)
+
+
+def head_flops_per_token(cfg: ModelConfig, serve: bool) -> int:
+    """Forward FLOPs of the head per token (the paper's measure: 2·rows·d):
+    the gate and V_pad rows when serving a DS head, the gate and every
+    class in training, every class for the full softmax."""
+    d = cfg.d_model
+    if cfg.head != "ds":
+        return 2 * cfg.vocab_size * d
+    rows = _serve_pad(cfg, cfg.vocab_size) if serve else cfg.vocab_size
+    return 2 * (cfg.ds.num_experts * d + rows * d)

@@ -128,23 +128,28 @@ def _save_weight_matmuls(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def remat(cfg: ModelConfig, body, *args):
+    """``body(*args)`` in a train forward, kept for the backward as
+    ``cfg.remat`` says: 'layer' recomputes the whole body, 'dots' keeps its
+    weight matmuls' outputs, 'none' keeps everything."""
+    if cfg.remat == "layer":
+        return checkpoint(body, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_weight_matmuls))
+    if cfg.remat == "none":
+        return body(*args)
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions):
     """x: (B, S, d) embeddings → (final normed hidden (B, S, d), the sum of
     the layers' MoE aux load losses: a 0-d zero without MoE)."""
     body = functools.partial(_layer_body, cfg)
     auxs = []
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
-        if cfg.remat == "layer":
-            x, aux = checkpoint(body, x, lp, positions, use_reentrant=False)
-        elif cfg.remat == "dots":
-            x, aux = checkpoint(body, x, lp, positions, use_reentrant=False,
-                                context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                                             _save_weight_matmuls))
-        elif cfg.remat == "none":
-            x, aux = body(x, lp, positions)
-        else:
-            raise ValueError(f"unknown remat policy {cfg.remat!r}")
+        x, aux = remat(cfg, body, x, _layer_params(params["layers"], i), positions)
         auxs.append(aux)
     return rmsnorm(params["final_norm"], x), torch.sum(torch.stack(auxs))
 

@@ -106,7 +106,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import dssoftmax as ds
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import heads
-from repro_torch.models.model_zoo import (FAMILIES, ModelBundle, cache_kv_leaves, cache_specs,
+from repro_torch.models.model_zoo import (ModelBundle, cache_kv_leaves, cache_specs,
                                           paged_cache_specs)
 from repro_torch.serve.paged_cache import N_RESERVED, PagedCacheManager, prefix_hash
 from repro_torch.serve.table_manager import (
@@ -514,7 +514,7 @@ class ServeSession:
             ``device`` is CUDA, off on the CPU; ``False`` runs every step
             eagerly; ``True`` on the CPU raises.
         draft: ``(draft_bundle, draft_params, draft_ds_state_or_table)``, a
-            same-vocab model of any ported family that turns on exact
+            same-vocab token-only decoder (any family but encdec) that turns on exact
             draft–verify speculative decoding: each step it proposes
             ``gamma`` tokens per resident from its own contiguous cache,
             the target scores every resident's ``gamma+1``-token block in
@@ -552,6 +552,9 @@ class ServeSession:
                  gamma: int = 4):
         self.device = resolve_device(device)
         cfg = bundle.cfg
+        if cfg.family == "encdec":
+            raise ValueError("ServeSession drives token-only prompts; the encdec family "
+                             "needs per-request encoder frames")
         if decode_graph is None:
             decode_graph = self.device.type == "cuda"
         elif decode_graph and self.device.type != "cuda":
@@ -583,10 +586,8 @@ class ServeSession:
                 raise ValueError(f"family {cfg.family!r} has no verify_step; speculative "
                                  "decoding needs the chunk-shaped verify path")
             d_cfg = draft[0].cfg
-            if d_cfg.family not in FAMILIES:
-                raise ValueError(f"draft family {d_cfg.family!r} is not ported yet (ROADMAP.md, "
-                                 f"Queue 1 item 6); the port drafts with a {', '.join(FAMILIES)} "
-                                 "model")
+            if d_cfg.family == "encdec":
+                raise ValueError("the draft model must be a token-only decoder")
             if d_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(f"draft vocab_size ({d_cfg.vocab_size}) must match the "
                                  f"target's ({cfg.vocab_size}): acceptance compares token ids "

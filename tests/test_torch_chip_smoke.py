@@ -194,13 +194,13 @@ def test_trace_sums_ops_that_share_a_name_prefix(smoke):
 
 PHASES = ("kernel_phase", "slice_phase", "batch_phase", "lasso_phase", "profile_phase",
           "adapt_phase", "prefill_phase", "spec_phase", "family_phase", "state_phase",
-          "train_phase")
+          "encdec_phase", "train_phase")
 
 
 def test_main_runs_the_family_phase_after_spec_and_before_train(smoke, monkeypatch):
     """With every phase stubbed, main() calls them in order: phase 6c
-    (``family_phase``) right after 6b, then 6d (``state_phase``), and 7
-    last."""
+    (``family_phase``) right after 6b, then 6d (``state_phase``), 6e
+    (``encdec_phase``), and 7 last."""
     from repro_torch.kernels import _build
 
     calls = []
@@ -375,3 +375,55 @@ def test_state_decode_bytes_from_the_specs(smoke):
     arena = paged_cache_specs(zamba, 2, smoke.PAGE_SIZE, 2 + 4 * smoke.N_SLOTS).ssm
     assert arena.shape == (81, 34, 112, 64, 64)
     assert int(np.prod(arena.shape)) * 4 == 34 * ssm
+
+
+# ---------------------------------------------------------------------------
+# phase 6e (the encdec family): what can be checked without a card
+# ---------------------------------------------------------------------------
+
+def test_encdec_phase_sizes(smoke):
+    """6e serves whisper-base (6 + 6 layers, no cut) and paper-envi at full
+    width: 8 requests of 1500 frames (``input_specs``: whisper's stub, and
+    the default for paper-envi, which has none) and a 64-token target
+    prefix, then 64 greedy steps, on a self cache of 448 positions
+    (whisper's decoder context) that holds them; every path of the sessions'
+    head list, ``jnp`` the reference."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models.model_zoo import input_specs
+
+    assert smoke.ENCDEC_ARCHS == ("whisper-base", "paper-envi")
+    assert smoke.ENCDEC_SEQ == 448 >= smoke.ENCDEC_PREFIX + smoke.ENCDEC_NEW
+    assert (smoke.ENCDEC_PREFIX, smoke.ENCDEC_NEW) == (64, 64)
+    assert set(smoke.ENCDEC_KERNELS) == {"auto", "cuda_fused", "cuda_grouped", "jnp"}
+    assert smoke.ENCDEC_KERNELS[-1] == "jnp"
+    for arch, layers in (("whisper-base", (6, 6)), ("paper-envi", (2, 2))):
+        cfg = get_config(arch)
+        assert (cfg.n_encoder_layers, cfg.n_layers) == layers
+        spec = input_specs(cfg, ShapeConfig("e", smoke.ENCDEC_PREFIX, smoke.N_SLOTS, "prefill"))
+        assert spec["frames"].shape == (smoke.N_SLOTS, 1500, cfg.d_model)
+        assert spec["tokens"].shape == (smoke.N_SLOTS, smoke.ENCDEC_PREFIX)
+
+
+def test_encdec_decode_bytes_from_the_shapes(smoke):
+    """The bytes bound of a whisper-base decode step at 8 slots, position
+    128: the decoder's bf16 weights (6 layers of two 512 x 512 attention
+    blocks of four matrices and a 512 x 2048 gelu MLP: 50.33 MB, plus fp32
+    norms), the bf16 cross K/V of 1500 frames (147.5 MB, the largest part),
+    the self K/V up to each slot's position (12.7 MB), the token and
+    position rows, and the gate with u experts' V_pad rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import _expected_shapes
+
+    cfg = get_config("whisper-base")
+    dec = sum(int(np.prod(s)) * (4 if p.endswith(("scale", "bias")) else 2)
+              for p, s in _expected_shapes(cfg).items()
+              if p.startswith(("dec_layers/", "dec_norm/")))
+    assert dec == 6 * (8 * 512 * 512 + 2 * 512 * 2048) * 2 + 6 * 3 * 2 * 512 * 4 + 2 * 512 * 4
+    pos = [128] * 8
+    b = smoke.encdec_decode_bytes(cfg, dec, pos, 1500, 5, 8192)
+    assert b["cross_kv"] == 6 * 8 * 1500 * 2 * 512 * 2 == 147_456_000
+    assert b["self_kv"] == 6 * 8 * 129 * 2 * 512 * 2
+    assert b["embedding_rows"] == 2 * 8 * 512 * 2
+    assert b["head"] == (8 + 5 * 8192) * 512 * 2
+    assert b["total"] == sum(v for k, v in b.items() if k != "total")
+    assert 1e3 * b["total"] / smoke.HBM_BYTES_PER_S == pytest.approx(0.0754, abs=1e-4)

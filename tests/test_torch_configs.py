@@ -1,7 +1,8 @@
 """Port parity: the dense configs llama3.2-3b, granite-20b and deepseek-67b,
 the moe configs olmoe-1b-7b and qwen3-moe-235b-a22b, the vlm config
-internvl2-26b and the state configs mamba2-130m (ssm) and zamba2-7b (hybrid)
-(``repro_torch.configs``) against ``repro.configs``, and the shape check of
+internvl2-26b, the state configs mamba2-130m (ssm) and zamba2-7b (hybrid)
+and the encdec configs whisper-base and paper-envi (``repro_torch.configs``)
+against ``repro.configs``, and the shape check of
 ``convert.params_from_jax``.
 
 * ``get_config`` gives each config with ``repro``'s field values (every
@@ -18,8 +19,10 @@ internvl2-26b and the state configs mamba2-130m (ssm) and zamba2-7b (hybrid)
   its FFN gate (``layers/mlp/w_gate``, or ``layers/moe/w_gate`` for an MoE
   block) or with one of the wrong shape, a gelu tree with a gate, and an
   MLP in a moe tree or an MoE block in another; for the state configs a
-  wrong ``layers/mamba/in_zx`` and a transformer layer in their tree.
-  (Their model parity: ``tests/test_torch_hybrid.py``.)
+  wrong ``layers/mamba/in_zx`` and a transformer layer in their tree; for
+  the encdec configs a wrong leaf of each stack, a missing final norm and
+  a decoder-only leaf in their tree. (Model parity:
+  ``tests/test_torch_hybrid.py``, ``tests/test_torch_encdec.py``.)
 """
 import dataclasses
 import functools
@@ -45,6 +48,7 @@ from repro_torch.models.transformer import DecodeCache
 ARCHS = ("llama3.2-3b", "granite-20b", "deepseek-67b", "olmoe-1b-7b", "qwen3-moe-235b-a22b",
          "internvl2-26b")
 STATE_ARCHS = ("mamba2-130m", "zamba2-7b")
+ENCDEC_ARCHS = ("whisper-base", "paper-envi")
 NESTED = ("ds", "moe", "vision")
 HEAD_TOL = dict(rtol=1e-6, atol=2e-6)
 
@@ -59,7 +63,7 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("arch", ARCHS + STATE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + STATE_ARCHS + ENCDEC_ARCHS)
 def test_get_config_equals_repro(arch):
     mine, ref = configs.get_config(arch), jget_config(arch)
     for f in dataclasses.fields(mine):
@@ -80,7 +84,7 @@ def test_get_config_equals_repro(arch):
     assert mine.d_inner == ref.d_inner and mine.ssm_nheads == ref.ssm_nheads
     red = configs.reduce_config(mine, vocab=256)
     jred = jreduce_config(ref, vocab=256)
-    if arch in STATE_ARCHS:
+    if arch in STATE_ARCHS + ENCDEC_ARCHS:
         for f in dataclasses.fields(red):
             if f.name not in NESTED:
                 assert getattr(red, f.name) == getattr(jred, f.name), (arch, f.name)
@@ -224,3 +228,41 @@ def test_check_shapes_takes_the_state_full_width_set(arch):
     with pytest.raises(ValueError, match="layers/mamba/in_zx"):
         check_shapes(dict(_zero_views(dense), **{"layers/mamba/in_zx": tree["layers/mamba/in_zx"]}),
                      dense)
+
+
+@pytest.mark.parametrize("arch", ENCDEC_ARCHS)
+def test_check_shapes_takes_the_encdec_full_width_set(arch):
+    """The full-width leaves of an encdec config (whisper-base: 6 encoder
+    and 6 decoder layers, the 32,768 learned decoder positions); a wrong
+    leaf of each stack raises naming it, as do a missing final norm and a
+    decoder-only model's ``layers/…`` or ``final_norm/…`` in the tree; an
+    MLP gate where the config has none (whisper-base's gelu), or none where
+    it has one (paper-envi's swiglu)."""
+    from repro_torch.models.model_zoo import MAX_TARGET_LEN
+
+    cfg = configs.get_config(arch)
+    tree = _zero_views(cfg)
+    check_shapes(tree, cfg)
+    Le, Ld, d, ff = cfg.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.d_ff
+    assert tree["pos_embed"].shape == (MAX_TARGET_LEN, d)
+    assert tree["enc_layers/attn/wq"].shape == (Le, d, cfg.n_heads * cfg.hd)
+    assert tree["dec_layers/cross_attn/wk"].shape == (Ld, d, cfg.n_kv_heads * cfg.hd)
+    assert tree["dec_layers/ln_x/bias"].shape == (Ld, d) and tree["enc_norm/scale"].shape == (d,)
+    assert not any(p.startswith(("layers/", "final_norm/")) for p in tree)
+    for stack in ("enc_layers", "dec_layers"):
+        assert (f"{stack}/mlp/w_gate" in tree) == (cfg.act == "swiglu")
+    for leaf, shape in (("enc_layers/mlp/w_up", (Le, d, ff + 1)),
+                        ("dec_layers/self_attn/wo", (Ld, 2 * d, d)),
+                        ("pos_embed", (448, d))):
+        with pytest.raises(ValueError, match=leaf):
+            check_shapes(dict(tree, **{leaf: np.broadcast_to(np.float32(0), shape)}), cfg)
+    with pytest.raises(KeyError, match="dec_norm/scale"):
+        check_shapes({p: a for p, a in tree.items() if p != "dec_norm/scale"}, cfg)
+    with pytest.raises(ValueError, match="layers/attn/wq"):
+        check_shapes(dict(tree, **{"layers/attn/wq": tree["enc_layers/attn/wq"]}), cfg)
+    if cfg.act == "swiglu":  # paper-envi
+        with pytest.raises(KeyError, match="dec_layers/mlp/w_gate"):
+            check_shapes({p: a for p, a in tree.items() if p != "dec_layers/mlp/w_gate"}, cfg)
+    else:  # whisper-base
+        with pytest.raises(ValueError, match="w_gate"):
+            check_shapes(_zero_views(cfg, act="swiglu"), cfg)

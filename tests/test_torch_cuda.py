@@ -2249,3 +2249,143 @@ def test_state_family_speculative_session_repeats_through_its_graphs(dev, arch):
         assert (st["draft_graphs"], st["verify_graphs"]) == (n, n)
         assert st["paged"]["state_pages_in_use"] == 0
     assert runs[0] == runs[1] == runs[2]
+
+
+# ---------------------------------------------------------------------------
+# The encdec family: whisper-base and paper-envi
+# ---------------------------------------------------------------------------
+
+ENCDEC_D = [256, 512]   # paper-envi, whisper-base: narrower than any head served before
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("d", ENCDEC_D)
+def test_fused_kernel_at_the_encdec_heads(dev, quantized, B, d):
+    """The fused kernel at the encdec heads' widths (its streaming plan
+    sizes the token group from d), at prefill's last position (B 1) and at
+    decode (B 8), fp and int8 rows."""
+    from repro_torch.kernels import ops, ref
+
+    gate, h, w, ids = _fused_inputs(dev, torch.bfloat16, B, d, 0, 4, seed=B + d + 1)
+    kw = {}
+    if quantized:
+        w, kw["scales"] = _quantize(w)
+    else:
+        w = w.to(torch.bfloat16)
+    name = "dss_topk_fused" + ("_q" if quantized else "")
+    n = ops.launch_counts()[name]
+    got = ops.dss_topk_fused(gate, w, ids, h, 8, **kw)
+    assert ops.launch_counts()[name] == n + 1
+    _check_fused(got, ref.dss_topk_fused_ref(gate, w, ids, h, 8, 0, **kw), 0, 4)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("d", ENCDEC_D)
+def test_grouped_decode_body_at_the_encdec_heads(dev, quantized, C, d):
+    """The grouped decode body at the encdec heads' widths and at the
+    capacities decode gives it (C 1 and 2 at K 8, B 8)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dss_topk_grouped import DECODE, launch_body
+
+    w, ids, buf, g_buf, kw = _decode_inputs(dev, torch.bfloat16, C, d, seed=C + d + 1,
+                                            quantized=quantized)
+    name = DECODE + ("_q" if quantized else "")
+    n = ops.launch_counts()[name]
+    got = launch_body(w, ids, buf, g_buf, 8, kw.get("scales"), DECODE)
+    assert ops.launch_counts()[name] == n + 1
+    _check_decode(got, ref.dss_topk_grouped_ref(w, ids, buf, g_buf, 8, **kw), g_buf, 8)
+
+
+@pytest.mark.parametrize("S", [1, 64, 129, 448])
+@pytest.mark.parametrize("H", [8, 4])
+def test_flash_attention_tensor_core_body_at_the_encdec_heads(dev, H, S):
+    """The decoders' causal self-attention: whisper-base's MHA 8/8 and
+    paper-envi's 4/4 at dh 64, bf16, through the tensor-core body, every
+    element within the limit (S up to whisper's 448-token context)."""
+    q, k, v = _attn_inputs(dev, 2, H, H, S, 64, torch.bfloat16, seed=S + H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = _run_flash(qt, kt, vt, "flash_attention_wgmma")
+    _assert_within_limit(o, qt, kt, vt)
+
+
+def _encdec_models(dev, arch, dtype):
+    """A reduced encdec model (vocab 1024) initialized on the CPU, and the
+    same params and table on the card."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.models import build
+
+    cfg = reduce_config(get_config(arch), vocab=1024).replace(dtype=dtype)
+    cpu = build(cfg, device="cpu")
+    params, state = cpu.init(torch.Generator().manual_seed(0))
+    table = ds.pack_experts(params["head"], state)
+    on = lambda t: {k: on(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+    return ((cpu, params, table),
+            (build(cfg), on(params), type(table)(*(x.to(dev) for x in table))))
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "paper-envi"])
+def test_encdec_prefill_and_decode_on_the_card_match_the_cpu_run(dev, arch):
+    """A reduced encdec model in fp32: prefill (B 2, 8 frames, 9 target
+    tokens; the decoder's causal attention through the CUDA-core
+    ``flash_attention`` body, one launch a layer) and three decode steps at
+    a vector, then three at a scalar ``pos`` on the self cache grown to 16
+    (``encdec.pad_self_cache``), through ``kernel='auto'`` on the card and
+    the plain head on the CPU: ids equal, values within 1e-4, the self
+    cache within 1e-5."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+
+    (cb, cp, ct), (gb, gp, gt) = _encdec_models(dev, arch, "float32")
+    cfg = cb.cfg
+    g = torch.Generator().manual_seed(3)
+    batch = {"frames": torch.randn((2, 8, cfg.d_model), generator=g),
+             "tokens": torch.randint(0, 1024, (2, 9), generator=g)}
+    ops.reset_launch_counts()
+    gv, gi, gc = gb.prefill(gp, gt, {k: v.to(dev) for k, v in batch.items()}, kernel="auto")
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    cv, ci, cc = cb.prefill(cp, ct, batch, kernel="jnp")
+    _same((gv.cpu(), gi.cpu()), (cv, ci), atol=1e-4)
+    for a, b in zip(gc, cc):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    gc, cc = encdec.pad_self_cache(gc, 16), encdec.pad_self_cache(cc, 16)
+    tok = ci[:, 0]
+    for step in range(6):
+        pos = torch.tensor([9 + step, 7 + step]) if step < 3 else 9 + step
+        gpos = pos.to(dev) if torch.is_tensor(pos) else pos
+        gv, gi, gc = gb.decode_step(gp, gt, gc, tok.to(dev), gpos, kernel="auto")
+        cv, ci, cc = cb.decode_step(cp, ct, cc, tok, pos, kernel="jnp")
+        _same((gv.cpu(), gi.cpu()), (cv, ci), atol=1e-4)
+        torch.testing.assert_close(gc.self_k.cpu(), cc.self_k, rtol=0, atol=1e-5)
+        tok = ci[:, 0]
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "paper-envi"])
+def test_encdec_bf16_prefill_runs_the_tensor_core_attention(dev, arch):
+    """In bf16 the decoder's prefill attention runs ``flash_attention_wgmma``
+    once a layer and nothing else of the attention kernels; the top-k ids
+    equal the prefill's with the plain attention swapped in, values within
+    2^-4 of the top-1."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    _, (bundle, params, table) = _encdec_models(dev, arch, "bfloat16")
+    cfg = bundle.cfg
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"frames": torch.randn((2, 8, cfg.d_model), generator=g, device=dev),
+             "tokens": torch.randint(0, 1024, (2, 40), generator=g, device=dev)}
+    ops.reset_launch_counts()
+    vk, ik, _ = bundle.prefill(params, table, batch)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_wgmma"] == cfg.n_layers and counts["flash_attention"] == 0
+    orig = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, device: layers.chunked_causal_attention(
+        cfg, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    try:
+        vp, ip, _ = bundle.prefill(params, table, batch)
+    finally:
+        layers.flash_attention = orig
+    assert torch.equal(ik, ip)
+    assert float((vk - vp).abs().max()) <= 2.0 ** -4 * float(vp[:, 0].abs().max())

@@ -49,7 +49,11 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "configs/olmoe_1b_7b.py", "configs/qwen3_moe_235b.py",
                                     "configs/internvl2_26b.py", "configs/base.py",
                                     "models/mamba2.py", "models/hybrid.py",
-                                    "configs/mamba2_130m.py", "configs/zamba2_7b.py"])
+                                    "configs/mamba2_130m.py", "configs/zamba2_7b.py",
+                                    "models/encdec.py", "configs/whisper_base.py",
+                                    "configs/paper_lm.py", "configs/shapes.py",
+                                    "core/metrics.py", "core/analysis.py",
+                                    "core/baselines.py", "utils/timing.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()
@@ -68,7 +72,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.core import dssoftmax
     from repro_torch.models import build
 
-    for arch in ("qwen2-1.5b", "mamba2-130m", "zamba2-7b"):
+    for arch in ("qwen2-1.5b", "mamba2-130m", "zamba2-7b", "whisper-base", "paper-envi"):
         with pytest.raises(RuntimeError, match="cuda"):
             build(reduce_config(get_config(arch)))
     h = torch.zeros(2, 8)

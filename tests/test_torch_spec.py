@@ -435,7 +435,7 @@ def test_draft_validation():
     with pytest.raises(ValueError, match="gamma"):
         mk(draft=(tb, tp, ts), gamma=0)
     encdec = dataclasses.replace(tb, cfg=tb.cfg.replace(family="encdec"))
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="the draft model must be a token-only decoder"):
         mk(draft=(encdec, tp, ts))
     wide = dataclasses.replace(tb, cfg=tb.cfg.replace(vocab_size=2 * VOCAB))
     with pytest.raises(ValueError, match="vocab_size"):

@@ -578,8 +578,12 @@ def test_launch_train_cpu(tmp_path, capsys):
                             "--ckpt-dir", str(tmp_path)])
     assert len(tr.metrics_history) == 3 and tr.mgr.latest() == 3
     assert "step 0 loss=" in capsys.readouterr().out
-    with pytest.raises(KeyError, match="not ported"):
-        launch_train.main(["--arch", "whisper-base", "--device", "cpu",
+    tr = launch_train.main(["--arch", "whisper-base", "--reduced", "--device", "cpu",
+                            "--steps", "2", "--batch", "2", "--seq", "8",
+                            "--ckpt-dir", str(tmp_path / "whisper")])
+    assert len(tr.metrics_history) == 2 and tr.bundle.cfg.family == "encdec"
+    with pytest.raises(KeyError, match="unknown arch"):
+        launch_train.main(["--arch", "whisper-tiny", "--device", "cpu",
                            "--ckpt-dir", str(tmp_path)])
 
 
