@@ -280,6 +280,28 @@ Phases, in order (any failure exits non-zero before the result line):
    decoder weights, the bf16 cross K/V and self cache read once, the
    chosen experts' rows), one profiled step (device-busy ms, idle share,
    device ops, top ops), the head's device ms, peak memory.
+6f. Mesh (``mesh_phase``; it runs right after phase 6, on phase 3's
+   qwen2-1.5b): a 1-rank NCCL group over a file store and a 1x1 mesh. (a)
+   ``serve_topk_sharded`` on the head (K 16, d 1536, k 8, V_pad 12,032;
+   the fp table and an int8 table with every odd expert on fallback rows)
+   at B 1, 8, 40 and 2048 through auto, cuda_fused, cuda_grouped,
+   cuda_pertoken (fp) and jnp: ids and values bit for bit
+   ``serve_topk``'s on the same path, each path's bodies launched, the
+   device ms of both (profiler; the difference is the merge's cost at ep
+   1) and host µs (not timed: jnp, and the int8 table, at B 2048, where
+   the fallback experts' gather fixup takes ~0.2 s a call). (b) Each
+   model rank's local half at ep 2 and 4 on this one card, one shard
+   after another (``table_shard``; ``serve_topk_local_half``: cuda_fused
+   at ``e_base`` = r·K_loc, cuda_grouped on the owned tokens at the
+   global capacity) at B 8 and 2048, then ``merge_carries``: ids bit for
+   bit ``serve_topk``'s, values within rtol 1e-6 / atol 2e-6, the shards'
+   counts concatenated equal to its counts, no -inf in a carry, the
+   bodies launched; per-shard device ms but for the int8 table at B 2048
+   (not a multi-card measurement). (c) ``ServeSession(mesh=1x1)``,
+   replicated and ``param_mode='fsdp'``, through cuda_fused and auto on
+   phase 3's 12 requests: streams equal phase 3's, one decode graph, the
+   bodies launched; tokens/s beside phase 3's and the rank's resident
+   parameter bytes. The group is destroyed before phase 6b.
 7. Train: lm-100m, the repo's real-hardware training preset
    (``examples/train_lm_dssoftmax.py:31-37``: 12 layers, d 768, 12 heads,
    kv 4, d_ff 2048, V 50,304, K 8), built here, at full width in bf16 on
@@ -2059,6 +2081,7 @@ def slice_phase(results: dict, card: str):
               f"card {card}", flush=True)
         heads[kern] = rec.heads
     results["main_path_launches"] = {"fp": ops.launch_counts()}
+    results["fp_streams"] = streams  # phase 6f's mesh sessions must emit them
     _diverge_check("fp", streams, heads, SESSION_KERNELS[:-1], "jnp", TIE_RTOL)
     print(f"[slice] fp: greedy and sampled streams agree across {', '.join(SESSION_KERNELS)}")
 
@@ -5055,6 +5078,251 @@ def _train_and_serve(cfg, out, stream, batch_at, trainer, write_s, ckpt_root) ->
     torch.cuda.empty_cache()
 
 
+MESH_BATCHES = (1, 8, 40, 2048)     # phase 6f (a): decode, a verify step, a whole prompt
+MESH_LOCAL_BATCHES = (8, 2048)      # phase 6f (b)
+MESH_EPS = (2, 4)
+MESH_SESSION_KERNELS = ("cuda_fused", "auto")
+# the bodies a head path launches, by family (the grouped kernel's body
+# depends on the capacity, so any of its six counts)
+_MESH_BODIES = {"cuda_fused": ("dss_topk_fused", "dss_topk_fused_q"),
+                "cuda_grouped": ("dss_topk_grouped", "dss_topk_grouped_q",
+                                 "dss_topk_grouped_wgmma", "dss_topk_grouped_wgmma_q",
+                                 "dss_topk_grouped_tiled", "dss_topk_grouped_tiled_q"),
+                "cuda_pertoken": ("dss_topk",)}
+
+
+def _mesh_bodies_launched(label, path, delta) -> None:
+    """``path``'s bodies launched in ``delta`` (``auto``: whichever path it
+    took); ``jnp`` launches no head body."""
+    head = {n: c for n, c in delta.items() if not n.startswith("flash_attention")}
+    if path == "jnp":
+        if any(head.values()):
+            raise SmokeFailure(f"{label}: jnp launched head kernels ({head})")
+        return
+    fams = list(_MESH_BODIES) if path == "auto" else [path]
+    if not any(head[n] for f in fams for n in _MESH_BODIES[f]):
+        raise SmokeFailure(f"{label}: no {path} body launched ({head})")
+
+
+def mesh_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
+    """Phase 6f: serving on a mesh, on the one card: (a) the sharded head
+    in a 1-rank NCCL group, (b) the ep 2 and 4 local halves one shard after
+    another, merged, (c) 1x1 mesh sessions at full width. The process group
+    is torn down before the next phase."""
+    import tempfile
+
+    from repro_torch.launch import mesh as lmesh
+
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_")) / "store"
+    t0 = time.perf_counter()
+    lmesh.init_distributed("cuda", store=str(store), rank=0, world_size=1)
+    mesh = lmesh.parse_mesh("1x1", device="cuda")
+    out = {"nccl_init_s": time.perf_counter() - t0,
+           "nccl_socket_ifname": os.environ.get("NCCL_SOCKET_IFNAME")}
+    print(f"[mesh] a 1-rank NCCL group over a file store and a 1x1 mesh in "
+          f"{out['nccl_init_s']:.2f} s (NCCL_SOCKET_IFNAME={out['nccl_socket_ifname']}); "
+          f"card {card}", flush=True)
+    try:
+        fp = cases[0][1]
+        K = cfg.ds.num_experts
+        int8 = ds_quantize_half(fp, K)
+        _mesh_head(out, card, mesh, params["head"]["gate"], {"fp": fp, "int8": int8})
+        _mesh_local_halves(out, card, params["head"]["gate"], {"fp": fp, "int8": int8}, cfg)
+        _mesh_sessions(out, card, mesh, cfg, bundle, params, fp, results)
+    finally:
+        lmesh.destroy()
+    results["mesh"] = out
+
+
+def ds_quantize_half(table, K):
+    """The int8 table with every odd expert on exact fallback rows (the even
+    ones stay on int8 rows): the fused path's owner-rank fixup runs."""
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+
+    return ds.quantize_table(table, fb_mask=torch.arange(K) % 2 == 1)
+
+
+def _mesh_head(out, card, mesh, gate, tables) -> None:
+    """(a) ``serve_topk_sharded`` in the 1-rank NCCL group against
+    ``serve_topk`` on the same path: bit for bit, bodies launched, device ms
+    of each (the difference is the merge's cost at ep 1) and host µs."""
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    d, k = gate.shape[1], K_TOP
+    rows = []
+    for tname, table in tables.items():
+        shard = ds.shard_table(table, mesh)
+        paths = ("auto", "cuda_fused", "cuda_grouped") + (
+            ("cuda_pertoken",) if tname == "fp" else ()) + ("jnp",)
+        for B in MESH_BATCHES:
+            h = torch.randn((B, d), generator=gen, device="cuda").to(gate.dtype)
+            for path in paths:
+                label = f"mesh (a) {tname} B={B} {path}"
+                ops.reset_launch_counts()
+                got = ds.serve_topk_sharded(gate, shard, h, k, mesh=mesh, kernel=path)
+                torch.cuda.synchronize()
+                delta = ops.launch_counts()
+                _mesh_bodies_launched(label, path, delta)
+                want = ds.serve_topk(gate, table, h, k, kernel=path)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise SmokeFailure(f"{label}: the sharded head is not bit-identical to "
+                                       "serve_topk on the same path")
+                if not torch.isfinite(got[0]).all():
+                    raise SmokeFailure(f"{label}: a non-finite value reached the output")
+                row = {"table": tname, "B": B, "path": path,
+                       "launches": {n: c for n, c in delta.items() if c}}
+                # untimed: jnp at 2048 tokens, and the int8 table at 2048, whose
+                # half on fallback rows spends ~0.2 s a call in the gather fixup
+                if B != max(MESH_BATCHES) or (path != "jnp" and tname == "fp"):
+                    row["sharded_device_ms"] = profiled_device_ms(
+                        lambda: ds.serve_topk_sharded(gate, shard, h, k, mesh=mesh, kernel=path))
+                    row["serve_topk_device_ms"] = profiled_device_ms(
+                        lambda: ds.serve_topk(gate, table, h, k, kernel=path))
+                    row["sharded_host_us"] = host_us(
+                        lambda: ds.serve_topk_sharded(gate, shard, h, k, mesh=mesh, kernel=path),
+                        calls=10)
+                    row["serve_topk_host_us"] = host_us(
+                        lambda: ds.serve_topk(gate, table, h, k, kernel=path), calls=10)
+                    print(f"[mesh] (a) {tname:4s} B={B:4d} {path:13s} bit-identical; device "
+                          f"{row['sharded_device_ms']:.4f} ms sharded vs "
+                          f"{row['serve_topk_device_ms']:.4f} ms serve_topk; host "
+                          f"{row['sharded_host_us']:.0f} vs {row['serve_topk_host_us']:.0f} "
+                          f"µs/call; launches {row['launches']}; card {card}", flush=True)
+                rows.append(row)
+    out["head"] = rows
+
+
+def _mesh_local_halves(out, card, gate, tables, cfg) -> None:
+    """(b) Each rank's local half at ep 2 and 4, one shard after another on
+    this one card, through ``cuda_fused`` (``e_base`` = r·K_loc) and
+    ``cuda_grouped`` (owned tokens, capacity from the global K), then the
+    merge over the stacked carries: ids equal ``serve_topk``'s bit for bit,
+    values within rtol 1e-6 / atol 2e-6 (a rank's gather fixup multiplies
+    only its own tokens), the concatenated counts equal its counts (K 16
+    divides both degrees), no -inf."""
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    d, k, cf = gate.shape[1], K_TOP, cfg.ds.capacity_factor
+    rows = []
+    for tname, table in tables.items():
+        for B in MESH_LOCAL_BATCHES:
+            h = torch.randn((B, d), generator=gen, device="cuda").to(gate.dtype)
+            for path in ("cuda_fused", "cuda_grouped"):
+                want = ds.serve_topk(gate, table, h, k, kernel=path, capacity_factor=cf,
+                                     with_stats=True)
+                for ep in MESH_EPS:
+                    label = f"mesh (b) {tname} B={B} {path} ep={ep}"
+                    shards = [ds.table_shard(table, ep, r) for r in range(ep)]
+                    K_loc = shards[0].local.ids.shape[0]
+                    ops.reset_launch_counts()
+                    halves = [ds.serve_topk_local_half(gate, s, h, k, path, capacity_factor=cf,
+                                                       with_stats=True) for s in shards]
+                    torch.cuda.synchronize()
+                    delta = ops.launch_counts()
+                    _mesh_bodies_launched(label, path, delta)
+                    if any(torch.isinf(v).any() for v, _, _, _ in halves):
+                        raise SmokeFailure(f"{label}: a kernel's -inf reached a carry")
+                    v, i = ds.merge_carries(torch.stack([x[0] for x in halves]),
+                                            torch.stack([x[1] for x in halves]),
+                                            halves[0][2], K_loc)
+                    disp = torch.cat([x[3]["dispatched"] for x in halves])[:table.ids.shape[0]]
+                    over = torch.cat([x[3]["overflow"] for x in halves])[:table.ids.shape[0]]
+                    if not torch.equal(i, want[1]):
+                        raise SmokeFailure(f"{label}: the merged ids are not bit-identical to "
+                                           "serve_topk's")
+                    try:
+                        torch.testing.assert_close(v, want[0], rtol=1e-6, atol=2e-6)
+                    except AssertionError as e:
+                        raise SmokeFailure(f"{label}: merged values off serve_topk's: {e}")
+                    bitwise = torch.equal(v, want[0])
+                    if not (torch.equal(disp, want[2]["dispatched"])
+                            and torch.equal(over, want[2]["overflow"])):
+                        raise SmokeFailure(f"{label}: the shards' counts disagree with "
+                                           "serve_topk's")
+                    ms = None if (tname == "int8" and B == max(MESH_LOCAL_BATCHES)) else [
+                        profiled_device_ms(lambda s=s: ds.serve_topk_local_half(
+                            gate, s, h, k, path, capacity_factor=cf)) for s in shards]
+                    row = {"table": tname, "B": B, "path": path, "ep": ep, "shard_device_ms": ms,
+                           "overflow": int(over.sum()), "values_bitwise": bitwise,
+                           "launches": {n: c for n, c in delta.items() if c}}
+                    rows.append(row)
+                    print(f"[mesh] (b) {tname:4s} B={B:4d} {path:12s} ep={ep}: merged ids "
+                          f"bit-identical, values {'bit-identical' if bitwise else 'within 1e-6'}"
+                          f", counts equal; per-shard device ms "
+                          f"{ms and [round(x, 4) for x in ms]} (one card running each shard "
+                          f"in turn, not a multi-card measurement); launches {row['launches']}; "
+                          f"card {card}", flush=True)
+    out["local_halves"] = rows
+
+
+def _mesh_sessions(out, card, mesh, cfg, bundle, params, table, results) -> None:
+    """(c) ``ServeSession(mesh=1x1)`` and ``param_mode='fsdp'`` at full width
+    on phase 3's requests: streams equal phase 3's sessions without a mesh,
+    one decode graph, the path's bodies launched; tokens/s beside phase 3's,
+    the rank's resident parameter bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
+
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    base_tps = {r["kernel"]: r["tokens_per_s"] for r in results["sessions"] if r["group"] == "fp"}
+    rows = []
+    for mode in ("replicated", "fsdp"):
+        for kern in MESH_SESSION_KERNELS:
+            label = f"mesh (c) {mode} {kern}"
+            ops.reset_launch_counts()
+            sess = ServeSession(bundle, params, table, n_slots=N_SLOTS, max_seq_len=MAX_SEQ,
+                                k=K_TOP, kernel=kern, mesh=mesh, param_mode=mode, device="cuda",
+                                overflow_threshold=BREAKER_OFF)
+            reqs = [Request(prompt=p, sampling=SamplingParams(
+                max_new_tokens=NEW_TOKENS, temperature=0.8 if i == SAMPLED else 0.0,
+                seed=SEED + i)) for i, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = sess.stats()
+            delta = ops.launch_counts()
+            if any(r.status is not RequestStatus.COMPLETED for r in reqs):
+                raise SmokeFailure(f"{label}: a request did not complete")
+            if [list(r.out_tokens) for r in reqs] != results["fp_streams"][kern]:
+                raise SmokeFailure(f"{label}: the streams differ from phase 3's session "
+                                   "without a mesh")
+            if st["decode_graphs"] != 1:
+                raise SmokeFailure(f"{label}: {st['decode_graphs']} decode graph captures")
+            for n in NEEDS[(kern, False)] + (FLASH_TC,):
+                if delta[n] < 1:
+                    raise SmokeFailure(f"{label}: kernel {n} never launched ({delta})")
+            n_tok = sum(len(r.out_tokens) for r in reqs)
+            row = {"mode": mode, "kernel": kern, "tokens": n_tok, "wall_s": wall,
+                   "tokens_per_s": n_tok / wall, "no_mesh_tokens_per_s": base_tps.get(kern),
+                   "resident_param_bytes": sharding.tree_shard_bytes(sess.params),
+                   "launches": {n: c for n, c in delta.items() if c}}
+            rows.append(row)
+            print(f"[mesh] (c) {mode:10s} kernel={kern:10s} streams equal phase 3's; "
+                  f"{row['tokens_per_s']:.2f} tokens/s vs {row['no_mesh_tokens_per_s']:.2f} "
+                  f"without a mesh; resident params {row['resident_param_bytes'] / 2**30:.3f} "
+                  f"GiB on this rank; one decode graph; launches {row['launches']}; "
+                  f"card {card}", flush=True)
+            del sess
+    out["sessions"] = rows
+
+
 def main() -> int:
     import torch
 
@@ -5115,6 +5383,7 @@ def main() -> int:
     timed("profile", profile_phase, results, card, cfg, bundle, params, cases)
     timed("adapt", adapt_phase, results, card, cfg, bundle, params, mask, gamma)
     timed("prefill", prefill_phase, results, card, cfg, bundle, params, cases[0][1])
+    timed("mesh", mesh_phase, results, card, cfg, bundle, params, cases)
     del bundle, params, cases
     gc.collect()
     torch.cuda.empty_cache()

@@ -24,6 +24,7 @@ Gradients come from ``torch.autograd``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional, Union
 
@@ -71,6 +72,10 @@ class ServeTable(NamedTuple):
     def v_pad(self) -> int:
         return self.ids.shape[1]
 
+    def shard(self, mesh) -> "TableShard":
+        """This rank's expert-parallel slice over ``mesh`` (:func:`shard_table`)."""
+        return shard_table(self, mesh)
+
 
 class QuantizedServeTable(NamedTuple):
     """Int8 serve table with per-row fp32 scales.
@@ -108,6 +113,10 @@ class QuantizedServeTable(NamedTuple):
     @property
     def n_fallback(self) -> int:
         return self.fb_weights.shape[0]
+
+    def shard(self, mesh) -> "TableShard":
+        """This rank's expert-parallel slice over ``mesh`` (:func:`shard_table`)."""
+        return shard_table(self, mesh)
 
 
 AnyServeTable = Union[ServeTable, QuantizedServeTable]
@@ -481,11 +490,13 @@ def pack_experts(params, state: DSState, pad: Optional[int] = None,
 
 
 def serve_kernel_context(table: AnyServeTable, h: torch.Tensor, k: int,
-                         capacity_factor: float = 2.0) -> KernelContext:
+                         capacity_factor: float = 2.0, ep: int = 1,
+                         ndata: int = 1) -> KernelContext:
     """The :class:`KernelContext` of one ``serve_topk`` call; the backend
     is the device type of ``h``, ``wbytes`` the element size of the rows
     the kernels stream (1 for an int8 table, which also prices its
-    scales)."""
+    scales). ``ep``/``ndata``: the degrees of a ``serve_topk_sharded``
+    call."""
     return KernelContext(
         B=h.shape[0],
         d=h.shape[1],
@@ -497,6 +508,8 @@ def serve_kernel_context(table: AnyServeTable, h: torch.Tensor, k: int,
         wbytes=table_rows(table).element_size(),
         hbytes=h.element_size(),
         quantized=isinstance(table, QuantizedServeTable),
+        ep=ep,
+        ndata=ndata,
     )
 
 
@@ -527,24 +540,34 @@ def serve_topk(gate_w: torch.Tensor, table: AnyServeTable, h: torch.Tensor, k: i
     dev = resolve_device(device)
     check_on(dev, gate_w=gate_w, h=h, table_ids=table.ids, table_rows=table_rows(table))
     kernel = resolve_kernel(kernel, serve_kernel_context(table, h, k, capacity_factor))
-    if get_spec(kernel).fused:
-        return _serve_topk_fused(gate_w, table, h, k, with_stats=with_stats)
-    if kernel in ("cuda_grouped", "cuda_pertoken"):
-        expert_idx, g = kops.gate_top1(gate_w, h, device=h.device)
-    else:
-        expert_idx, g, _ = top1_gate(gate_w, h)
-    return _serve_topk_local(table, h, expert_idx, g, k, kernel,
-                             capacity_factor=capacity_factor, with_stats=with_stats)
+    if get_spec(kernel).sharded:
+        raise ValueError(f"serve kernel {kernel!r} is an expert-parallel path; call "
+                         "serve_topk_sharded(..., mesh=...) (or pass a mesh through "
+                         "ServeSession)")
+    vals, ids, _, stats = serve_topk_local_half(
+        gate_w, TableShard(table, table.ids.shape[0], 0), h, k, kernel,
+        capacity_factor=capacity_factor, with_stats=with_stats)
+    return (vals, ids, stats) if with_stats else (vals, ids)
 
 
 def _serve_topk_local(table: AnyServeTable, h, expert_idx, g, k: int, kernel: str, *,
-                      capacity_factor: float = 2.0, with_stats: bool = False):
-    """Retrieval after gating, for the non-fused paths."""
+                      capacity_factor: float = 2.0, owned=None,
+                      n_experts_global: Optional[int] = None, with_stats: bool = False):
+    """Retrieval after gating, for the non-fused paths; shared by
+    ``serve_topk`` and each rank of ``serve_topk_sharded``.
+
+    ``expert_idx`` is LOCAL to ``table`` (clipped into range by the sharded
+    caller). ``owned`` (B,) bool marks the tokens this rank answers for:
+    the others stay out of the grouped dispatch and the overflow fixup,
+    and their rows come out ``(NEG_INF, -1)``. ``n_experts_global`` sizes
+    the grouped capacity by the global expert count (a rank sees the same
+    tokens per expert as the whole run)."""
     overflow = None
     if kernel in ("grouped", "cuda_grouped"):
         vals, ids, overflow = _serve_topk_grouped(
             table, h, expert_idx, g, k, capacity_factor=capacity_factor,
-            use_kernel=kernel == "cuda_grouped")
+            use_kernel=kernel == "cuda_grouped", owned=owned,
+            n_experts_global=n_experts_global)
     elif kernel == "cuda_pertoken":
         vals, ids = kops.dss_topk(table.weights, table.ids, h, expert_idx, g, k,
                                   device=h.device)
@@ -552,10 +575,15 @@ def _serve_topk_local(table: AnyServeTable, h, expert_idx, g, k: int, kernel: st
         raise NotImplementedError(f"registered serve kernel {kernel!r} has no dispatch branch")
     else:
         vals, ids = _exact_rows_topk(table, h, expert_idx, g, k)
+    if owned is not None:
+        vals = torch.where(owned[:, None], vals, NEG_INF)
+        ids = torch.where(owned[:, None], ids, -1)
     if not with_stats:
         return vals, ids
     K = table.ids.shape[0]
-    dispatched, zero = dispatch_load(expert_idx, K)
+    # tokens of other ranks count at the sentinel K, which is dropped
+    dispatched, zero = dispatch_load(
+        expert_idx if owned is None else torch.where(owned, expert_idx, K), K)
     return vals, ids, {"dispatched": dispatched,
                        "overflow": zero if overflow is None else overflow}
 
@@ -638,27 +666,39 @@ def _overflow_fixup(table: AnyServeTable, h, g, expert_idx, valid, vals, ids, k:
 
 
 def _serve_topk_grouped(table: AnyServeTable, h, expert_idx, g, k: int,
-                        capacity_factor: float = 2.0, use_kernel: bool = False):
+                        capacity_factor: float = 2.0, use_kernel: bool = False,
+                        owned=None, n_experts_global: Optional[int] = None):
     """Expert-batched serving: one weight-stationary (C, d)×(d, V_pad)
     contraction per expert. ``use_kernel`` runs it through the
     ``dss_topk_grouped`` kernel, else through its plain version. Tokens
     overflowing an expert's capacity fall back to the gather path; on a
     quantized table so do the tokens of fallback experts, routed to the
     sentinel K before dispatch so they stay out of the int8 buffers and
-    the overflow telemetry. Returns (vals, ids, overflow (K,) int32)."""
+    the overflow telemetry. Tokens another rank owns (``owned`` False) go
+    to the sentinel too and count as valid, so they never reach the fixup;
+    ``n_experts_global`` sizes the capacity by the global expert count.
+    Returns (vals, ids, overflow (K,) int32): the owned tokens that paid
+    the fixup, per expert."""
     B = h.shape[0]
     K = table.ids.shape[0]
-    capacity = int(max(1, round(B / K * capacity_factor)))
+    capacity = int(max(1, round(B / (n_experts_global or K) * capacity_factor)))
     quantized = isinstance(table, QuantizedServeTable)
     scales = table.scales if quantized else None
-    e_disp, fb_tok = expert_idx, None
+    e_disp = expert_idx if owned is None else torch.where(owned, expert_idx, K)
+    fb_tok = None
     if quantized and table.n_fallback:
         fb_tok = table.fb_index[expert_idx.long()] >= 0
-        e_disp = torch.where(fb_tok, K, expert_idx)
+        if owned is not None:
+            fb_tok = fb_tok & owned
+        e_disp = torch.where(fb_tok, K, e_disp)
     buf, g_buf, slot, valid = _group_tokens(h, g, e_disp, K, capacity)
+    # counted before other ranks' tokens are marked valid: the owned tokens
+    # that pay the fixup here
     _, overflow = dispatch_load(e_disp, K, valid)
     if fb_tok is not None:
         valid = valid & ~fb_tok
+    if owned is not None:
+        valid = valid | ~owned
     rows = table_rows(table)
     if use_kernel:
         vals_b, ids_b = kops.dss_topk_grouped(rows, table.ids, buf, g_buf, k,
@@ -672,23 +712,225 @@ def _serve_topk_grouped(table: AnyServeTable, h, expert_idx, g, k: int,
     return vals, ids, overflow
 
 
-def _serve_topk_fused(gate_w, table: AnyServeTable, h, k: int, *, with_stats: bool = False):
-    """Single-launch decode: gating, top-1 dispatch and retrieval all in
-    the ``dss_topk_fused`` kernel. On a quantized table with fallback
-    experts, their tokens are fixed up exactly outside the kernel through
-    the gather path, with ``top1_gate``'s ``g``."""
-    quantized = isinstance(table, QuantizedServeTable)
+def _serve_topk_fused(gate_w, shard: "TableShard", h, k: int, *, with_stats: bool = False):
+    """Single-launch decode: gating over every expert, top-1 dispatch and
+    retrieval over the shard's rows all in the ``dss_topk_fused`` kernel
+    (``e_base`` = the shard's first expert). On a quantized table with
+    fallback experts, their tokens are fixed up exactly outside the kernel
+    through the gather path, with ``top1_gate``'s ``g``. → as
+    :func:`serve_topk_local_half`."""
+    tbl = shard.local
+    quantized = isinstance(tbl, QuantizedServeTable)
     vals, ids, eidx = kops.dss_topk_fused(
-        gate_w, table_rows(table), table.ids, h, k,
-        scales=table.scales if quantized else None, device=h.device)
-    if quantized and table.n_fallback:
-        fb_tok = table.fb_index[eidx.long()] >= 0
+        gate_w, table_rows(tbl), tbl.ids, h, k,
+        scales=tbl.scales if quantized else None, e_base=shard.lo, device=h.device)
+    owned, e_loc = _owned(shard, eidx)
+    if owned is not None:
+        # the kernel's -inf rows of other ranks' tokens become the finite padding
+        vals = torch.where(owned[:, None], vals, NEG_INF)
+        ids = torch.where(owned[:, None], ids, -1)
+    if quantized and tbl.n_fallback:
+        fb_tok = tbl.fb_index[e_loc.long()] >= 0
+        if owned is not None:
+            fb_tok = fb_tok & owned
         _, g, _ = top1_gate(gate_w, h)
-        vals, ids = _overflow_fixup(table, h, g, eidx, ~fb_tok, vals, ids, k)
+        vals, ids = _overflow_fixup(tbl, h, g, e_loc, ~fb_tok, vals, ids, k)
+    if not with_stats:
+        return vals, ids, eidx, None
+    K_loc = tbl.ids.shape[0]
+    # tokens of other ranks count at the sentinel K_loc, which is dropped
+    dispatched, zero = dispatch_load(e_loc if owned is None else torch.where(owned, e_loc, K_loc),
+                                     K_loc)
+    return vals, ids, eidx, {"dispatched": dispatched, "overflow": zero}
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel sharded serving
+# ---------------------------------------------------------------------------
+
+
+class TableShard(NamedTuple):
+    """One rank's expert-parallel slice of a serve table (:func:`shard_table`).
+
+    local:     the rows of experts ``[lo, lo + K_loc)`` of the padded table,
+               a :class:`ServeTable` or a :class:`QuantizedServeTable`
+               (whose ``fb_weights`` stay whole: ``fb_index`` holds global
+               rows into them).
+    n_experts: K_pad, the padded global expert count (a multiple of ep).
+    lo:        the global id of ``local``'s first expert."""
+
+    local: AnyServeTable
+    n_experts: int
+    lo: int
+
+    @property
+    def v_pad(self) -> int:
+        return self.local.ids.shape[1]
+
+
+def _pad_table_experts(table: AnyServeTable, ep: int) -> AnyServeTable:
+    """Append all-padding dummy experts so that ``ep`` divides K (gating
+    never routes to them: the gate keeps the real K rows)."""
+    K = table.ids.shape[0]
+    K_pad = -(-K // ep) * ep
+    if K_pad == K:
+        return table
+    n = K_pad - K
+    ids = torch.cat([table.ids, torch.full((n, table.v_pad), -1, dtype=table.ids.dtype,
+                                           device=table.ids.device)])
+    rows = table_rows(table)
+    zeros = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+    if isinstance(table, QuantizedServeTable):
+        return QuantizedServeTable(
+            ids=ids,
+            qweights=torch.cat([table.qweights, zeros]),
+            # scale 1.0 on dummy rows keeps the dequantization defined
+            scales=torch.cat([table.scales, torch.ones((n, table.v_pad), dtype=table.scales.dtype,
+                                                       device=table.scales.device)]),
+            fb_index=torch.cat([table.fb_index, torch.full((n,), -1, dtype=table.fb_index.dtype,
+                                                           device=table.fb_index.device)]),
+            fb_weights=table.fb_weights)
+    return ServeTable(ids=ids, weights=torch.cat([table.weights, zeros]))
+
+
+def _mesh_degrees(mesh) -> tuple:
+    """(ep, ndata): the ``model`` axis' size and the product of the
+    ``pod``/``data`` axes' sizes."""
+    from repro_torch.distributed.sharding import batch_size_on, mesh_sizes
+
+    return int(mesh_sizes(mesh).get("model", 1)), batch_size_on(mesh)
+
+
+def table_shard(table: AnyServeTable, ep: int, rank: int) -> TableShard:
+    """The slice of ``table`` that model rank ``rank`` of ``ep`` holds under
+    ``serve_table_ep_shardings``: K padded to a multiple of ep, experts
+    ``[rank·K_loc, (rank+1)·K_loc)`` kept (copies, so the whole table can
+    be freed; at ep 1 the table's own tensors)."""
+    from repro_torch.distributed.sharding import serve_table_ep_shardings, slice_leaf
+
+    table = _pad_table_experts(table, ep)
+    specs = serve_table_ep_shardings(None, table)
+    local = type(table)(*(slice_leaf(x, spec, {"model": ep}, {"model": rank})
+                          for x, spec in zip(table, specs)))
+    K_pad = table.ids.shape[0]
+    return TableShard(local=local, n_experts=K_pad, lo=rank * (K_pad // ep))
+
+
+def shard_table(table, mesh) -> TableShard:
+    """Expert-parallel placement of a packed serve table (either kind) on
+    this rank: :func:`table_shard` at this rank's ``model`` coordinate.
+    Replicated over the batch axes, which split tokens at call time. A
+    :class:`TableShard` passes through."""
+    from repro_torch.distributed.sharding import axis_index
+
+    if isinstance(table, TableShard):
+        return table
+    ep, _ = _mesh_degrees(mesh)
+    return table_shard(table, ep, axis_index(mesh, "model"))
+
+
+def _owned(shard: TableShard, expert_idx):
+    """(owned (B,) bool, local expert ids) of the tokens whose GLOBAL
+    expert lies in the shard's ``[lo, lo + K_loc)``; ``owned`` is None when
+    the shard holds every expert (a single-device call), which then pays
+    no mask."""
+    K_loc = shard.local.ids.shape[0]
+    if K_loc == shard.n_experts:
+        return None, expert_idx
+    owned = (expert_idx >= shard.lo) & (expert_idx < shard.lo + K_loc)
+    return owned, (expert_idx - shard.lo).clamp(0, K_loc - 1)
+
+
+def serve_topk_local_half(gate_w, shard: TableShard, h, k: int, kernel: str, *,
+                          capacity_factor: float = 2.0, with_stats: bool = False):
+    """One rank's half of :func:`serve_topk_sharded`, with no collective,
+    and the whole of :func:`serve_topk` (on a shard of every expert): the
+    gate over every expert, the tokens this rank owns (those whose expert
+    lies in ``[lo, lo + K_loc)``) and their retrieval over the local rows
+    through the per-rank path ``kernel`` (a base name). → (vals, ids,
+    expert_idx (B,) GLOBAL, stats or None): rows of other ranks' tokens are
+    ``(NEG_INF, -1)``; ``stats`` is the (K_loc,) ``{'dispatched',
+    'overflow'}`` of the owned tokens."""
+    if get_spec(kernel).fused:
+        return _serve_topk_fused(gate_w, shard, h, k, with_stats=with_stats)
+    if kernel in ("cuda_grouped", "cuda_pertoken"):
+        eidx, g = kops.gate_top1(gate_w, h, device=h.device)
+    else:
+        eidx, g, _ = top1_gate(gate_w, h)
+    owned, e_loc = _owned(shard, eidx)
+    out = _serve_topk_local(shard.local, h, e_loc, g, k, kernel,
+                            capacity_factor=capacity_factor, owned=owned,
+                            n_experts_global=shard.n_experts, with_stats=with_stats)
+    return out[0], out[1], eidx, (out[2] if with_stats else None)
+
+
+def merge_carries(vals_all, ids_all, expert_idx, k_loc: int):
+    """The merge of :func:`serve_topk_sharded`: from the ranks' stacked
+    (ep, B, k) carries, each token's row from the rank that owns its
+    expert (``expert_idx // k_loc``)."""
+    owner = expert_idx.long() // k_loc
+    rows = torch.arange(expert_idx.shape[0], device=expert_idx.device)
+    return vals_all[owner, rows], ids_all[owner, rows]
+
+
+def serve_topk_sharded(gate_w, table, h, k: int, *, mesh, kernel="auto",
+                       capacity_factor: float = 2.0, with_stats: bool = False):
+    """Mesh-sharded top-k retrieval, run by every rank of ``mesh`` on the
+    same (B, d) ``h``: experts over ``model``, tokens over ``pod``/``data``
+    (when they divide B), one O(B·k) all-gather merge. → (B, k) values
+    and ids on every rank.
+
+    Ids equal the single-device :func:`serve_topk`'s bit for bit: the gate
+    is computed on every rank, exactly one rank owns each token's expert,
+    and that rank runs the same per-rank path over the same rows.
+    ``table``: a :class:`TableShard` of this rank, or a whole table (placed
+    here by :func:`shard_table`). ``kernel`` resolves with the call's
+    (ep, ndata): ``'auto'`` picks among the ``*_ep`` specs at ep > 1, a
+    base name forces that per-rank path.
+
+    The only collectives: the (B_loc, k) fp32 value and int32 id carries
+    over ``model``, the merged rows over the batch axes when tokens were
+    split, and with ``with_stats=True`` the (K_loc,) counts (summed over
+    the batch axes, then gathered over ``model``): ``{'dispatched',
+    'overflow'}`` of length K_pad, global, on every rank."""
+    from repro_torch.distributed.sharding import (axis_group, batch_axes, batch_pspec,
+                                                  collective, mesh_coords, mesh_sizes,
+                                                  slice_leaf)
+
+    if h.device.type != mesh.device_type:
+        raise ValueError(f"h lies on {h.device}, the mesh on {mesh.device_type}")
+    shard = shard_table(table, mesh)
+    ep, ndata = _mesh_degrees(mesh)
+    sizes = mesh_sizes(mesh)
+    B = h.shape[0]
+    K_loc = shard.local.ids.shape[0]
+    # tokens split over the batch axes where batch_pspec places them
+    h_spec = batch_pspec(mesh, B)
+    b_split = ndata if ndata > 1 and h_spec[0] is not None else 1
+    ctx = dataclasses.replace(serve_kernel_context(shard.local, h, k, capacity_factor,
+                                                   ep=ep, ndata=b_split), K=shard.n_experts)
+    spec = get_spec(resolve_kernel(kernel, ctx))
+    local_name = spec.local_name or spec.name
+    bax = tuple(a for a in batch_axes(mesh) if sizes[a] > 1)
+    if b_split > 1:
+        h = slice_leaf(h, h_spec, sizes, mesh_coords(mesh))
+    vals, ids, eidx, stats = serve_topk_local_half(
+        gate_w, shard, h, k, local_name, capacity_factor=capacity_factor,
+        with_stats=with_stats)
+    model = axis_group(mesh, "model")
+    vals, ids = merge_carries(collective(vals, model), collective(ids, model), eidx, K_loc)
+    if b_split > 1:
+        data = axis_group(mesh, bax)
+        vals = collective(vals, data).reshape(B, k)
+        ids = collective(ids, data).reshape(B, k)
     if not with_stats:
         return vals, ids
-    dispatched, zero = dispatch_load(eidx, table.ids.shape[0])
-    return vals, ids, {"dispatched": dispatched, "overflow": zero}
+    out = {}
+    for key, count in stats.items():
+        if b_split > 1:
+            count = collective(count, axis_group(mesh, bax), "all_reduce")
+        out[key] = collective(count, model).reshape(-1)
+    return vals, ids, out
 
 
 def as_serve_table(table):

@@ -1,0 +1,395 @@
+"""Serving-side sharding rules over a ``torch.distributed`` mesh (the serving
+half of ``repro.distributed.sharding``).
+
+A placement is plain data: per dimension of a leaf, the mesh axis (or tuple
+of axes) it splits over, or ``None`` — the entries of ``repro``'s
+``PartitionSpec``, kept as a tuple. Rules match a leaf's slash path by
+regex (``_RULES``, ``repro``'s table), so every model family is placed the
+same way:
+
+* vocab-carrying tables (embed, unembed, DS expert rows) → ``model``,
+  second dim → ``data``;
+* attention/MLP weights → (d_model → ``data``, heads/ff → ``model``);
+* MoE expert stacks → (experts → ``model``, d_model → ``data``);
+* per-head vectors, norm scales, small biases → replicated.
+
+``repro`` applies a placement with ``jax.device_put``; here each rank keeps
+its slice (:func:`shard_tree`) and a gather rebuilds the whole leaf with
+one ``all_gather`` over the named axis' process group. Every collective of
+the serving path (the DS head's merge and stats, :class:`ServeParamGather`)
+runs through :func:`collective`, which records the shapes it moves when a
+:func:`record_collectives` block is open.
+
+A mesh is a ``DeviceMesh`` (``launch.mesh``), or, for the pure placement
+rules, any object with ``shape`` (axis name → size) and ``axis_names``, as
+``repro``'s tests stand a mesh in.
+"""
+from __future__ import annotations
+
+import contextlib
+import re
+import warnings
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.utils.tree import map_with_path, tree_leaves, tree_paths
+
+# torch >= 2.13 renames all_gather_into_tensor; both names do the same
+warnings.filterwarnings("ignore", message=".*all_gather_into_tensor.*",
+                        category=FutureWarning)
+
+
+# ---------------------------------------------------------------------------
+# Meshes
+# ---------------------------------------------------------------------------
+
+def mesh_sizes(mesh) -> dict:
+    """Axis name → size of a DeviceMesh (or of a stand-in whose ``shape``
+    already maps names to sizes)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (0 on an axis the mesh lacks)."""
+    if axis not in mesh_sizes(mesh):
+        return 0
+    return int(mesh.get_local_rank(axis))
+
+
+def mesh_coords(mesh) -> dict:
+    """Axis name → this rank's coordinate on it."""
+    return {a: axis_index(mesh, a) for a in mesh_sizes(mesh)}
+
+
+def axis_group(mesh, axes):
+    """The process group over one mesh axis, or over several together (the
+    (pod, data) token axes: the mesh flattened over them, made on the
+    first call, which every rank makes in step, and kept by the mesh)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def batch_axes(mesh) -> tuple:
+    names = mesh_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_size_on(mesh) -> int:
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for a in batch_axes(mesh):
+        n *= sizes[a]
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+_RECORD: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Collect ``(op, shape, dtype, group size)`` of every :func:`collective`
+    run inside the block (``shape`` is this rank's contribution)."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def collective(x: torch.Tensor, group, op: str = "all_gather") -> torch.Tensor:
+    """The one collective of the serving path. ``'all_gather'`` → the ranks'
+    tensors stacked, ``(n, *x.shape)`` in group-rank order; ``'all_reduce'``
+    → their sum, ``x.shape`` (a new tensor)."""
+    n = dist.get_world_size(group)
+    if _RECORD is not None:
+        _RECORD.append((op, tuple(x.shape), x.dtype, n))
+    x = x.contiguous()
+    if op == "all_reduce":
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+    if op != "all_gather":
+        raise ValueError(f"unknown collective {op!r}")
+    flat = x.reshape(1, -1)
+    out = torch.empty((n, flat.shape[1]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, flat, group=group)
+    return out.view((n,) + tuple(x.shape))
+
+
+def _gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The whole leaf from this rank's slice along ``dim`` (tiled)."""
+    stacked = collective(x, group)
+    return torch.cat(tuple(stacked.unbind(0)), dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# Parameter rules
+# ---------------------------------------------------------------------------
+
+_RULES: list = [
+    # --- DS-Softmax head (the paper): experts (K, N, d) vocab-TP + FSDP ---
+    (r"head/experts$", (None, "model", "data")),
+    (r"head/gate$", (None, "data")),
+    # --- embeddings: (V, d) ---
+    (r"embed/table$", ("model", "data")),
+    (r"head/unembed$", ("model", "data")),
+    (r"pos_embed$", (None, "data")),
+    # --- attention (leading L axis handled generically below) ---
+    (r"attn/wq$", ("data", "model")),
+    (r"attn/wk$", ("data", "model")),
+    (r"attn/wv$", ("data", "model")),
+    (r"attn/wo$", ("model", "data")),
+    (r"attn/b[qkv]$", ("model",)),
+    # --- dense MLP ---
+    (r"mlp/w_gate$", ("data", "model")),
+    (r"mlp/w_up$", ("data", "model")),
+    (r"mlp/w_down$", ("model", "data")),
+    # --- MoE (E, d, ff): EP over model, FSDP over data ---
+    (r"moe/router$", ("data", None)),
+    (r"moe/w_gate$", ("model", "data", None)),
+    (r"moe/w_up$", ("model", "data", None)),
+    (r"moe/w_down$", ("model", None, "data")),
+    # --- mamba2 ---
+    (r"mamba/in_zx$", ("data", "model")),
+    (r"mamba/in_bc$", ("data", "model")),
+    (r"mamba/in_dt$", ("data", None)),
+    (r"mamba/out_proj$", ("model", "data")),
+    (r"mamba/conv_w$", (None, "model")),
+    (r"mamba/conv_b$", ("model",)),
+    # small per-head vectors & norms: replicated
+    (r"mamba/(A_log|dt_bias|D)$", ()),
+    (r"(ln\d?|ln_x|norm|final_norm|enc_norm|dec_norm)/(scale|bias)$", ()),
+    (r"norm_scale$", ()),
+]
+
+_STACKED_RE = re.compile(r"(^|/)(layers|enc_layers|dec_layers)/")
+
+
+def param_pspec(path: str, ndim: int) -> tuple:
+    """Placement of one parameter leaf from its slash path: the first
+    matching rule, with a leading ``None`` for a stacked (L, …) leaf,
+    padded or cut to ``ndim``; replicated when no rule matches."""
+    stacked = bool(_STACKED_RE.search(path))
+    for pat, axes in _RULES:
+        if re.search(pat, path):
+            spec = tuple(axes)
+            if stacked:
+                spec = (None,) + spec
+            return spec[:ndim] + (None,) * max(0, ndim - len(spec))
+    return (None,) * ndim
+
+
+def _fitted_pspec(path: str, shape: tuple, mesh, keep_axes: Optional[tuple] = None) -> tuple:
+    """:func:`param_pspec` held to the leaf's shape: per dim, a rule axis
+    survives only if the mesh has it, it is wider than 1, it is in
+    ``keep_axes`` (when given) and it divides the dim; else that dim is
+    replicated. So the placement is always valid."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for dim, ax in zip(shape, param_pspec(path, len(shape))):
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        axes = tuple(a for a in axes
+                     if a is not None and a in sizes
+                     and (keep_axes is None or a in keep_axes) and sizes[a] > 1)
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        if not axes or dim % n != 0:
+            out.append(None)
+        else:
+            out.append(axes if len(axes) > 1 else axes[0])
+    return tuple(out)
+
+
+def batch_pspec(mesh, global_batch: int, extra_dims: int = 1) -> tuple:
+    """Shard the leading batch dim over (pod, data) when divisible."""
+    ba = batch_axes(mesh)
+    nb = max(1, batch_size_on(mesh))
+    if global_batch % nb != 0 or global_batch < nb:
+        ba = ()
+    return (ba if ba else None,) + (None,) * extra_dims
+
+
+def serve_table_ep_shardings(mesh, table) -> Any:
+    """Expert-parallel serving layout of a serve table: experts K → model
+    (each rank holds K/ep experts' packed rows), replicated over the batch
+    axes. A quantized table's scales and ``fb_index`` follow the experts;
+    ``fb_weights`` is replicated (``fb_index`` holds global rows into it)."""
+    if hasattr(table, "qweights"):
+        return type(table)(ids=("model", None), qweights=("model", None, None),
+                           scales=("model", None), fb_index=("model",),
+                           fb_weights=(None, None, None))
+    return type(table)(ids=("model", None), weights=("model", None, None))
+
+
+def _canonical_batch_axis(mesh):
+    ba = tuple(a for a in batch_axes(mesh) if mesh_sizes(mesh)[a] > 1)
+    return ba, batch_size_on(mesh)
+
+
+def serve_cache_shardings(mesh, cfg, cache: Any, n_slots: int) -> Any:
+    """Serving decode caches: only the slot axis (position 1) splits, over
+    the (pod, data) axes wider than 1, when they divide ``n_slots``; the
+    sequence stays whole. Replicated (``()``) otherwise."""
+    ba, nb = _canonical_batch_axis(mesh)
+    b_ok = ba and nb > 1 and n_slots % nb == 0
+    b_ax = (ba[0] if len(ba) == 1 else ba) if b_ok else None
+
+    def leaf(path, x):
+        if b_ax is None or len(x.shape) < 2:
+            return ()
+        return (None, b_ax)
+
+    return map_with_path(leaf, cache)
+
+
+def serve_paged_cache_shardings(mesh, cfg, cache: Any) -> Any:
+    """Paged serving arenas: the page axis (position 1) splits over the
+    (pod, data) axes wider than 1 where they divide it; replicated else."""
+    ba, nb = _canonical_batch_axis(mesh)
+
+    def leaf(path, x):
+        if not ba or nb <= 1 or len(x.shape) < 2 or x.shape[1] % nb != 0 or x.shape[1] == 0:
+            return ()
+        return (None, ba[0] if len(ba) == 1 else ba)
+
+    return map_with_path(leaf, cache)
+
+
+# ---------------------------------------------------------------------------
+# Serving-side FSDP parameter storage + per-layer just-in-time gather
+# ---------------------------------------------------------------------------
+
+def serve_param_pspec(path: str, shape: tuple, mesh) -> tuple:
+    """FSDP storage placement of a serving weight: the ``data`` entries of
+    its rule only (``model`` belongs to the expert-parallel table), dims
+    the data axis does not divide replicated."""
+    return _fitted_pspec(path, tuple(shape), mesh, keep_axes=("data",))
+
+
+def serve_param_shardings(mesh, params: Any) -> Any:
+    """The placement tree of FSDP-stored serving weights, keyed by path
+    (``head/gate`` is ``(None, 'data')`` whatever K is, so a swapped gate
+    keeps its placement)."""
+    return map_with_path(lambda p, x: serve_param_pspec(p, tuple(x.shape), mesh), params)
+
+
+def slice_leaf(x: torch.Tensor, spec: tuple, sizes: dict, coords: dict) -> torch.Tensor:
+    """The block of ``x`` under ``spec`` at mesh coordinates ``coords``
+    (axis name → coordinate; ``sizes``: axis name → size): a copy, so the
+    whole leaf can be freed, or ``x`` itself when nothing splits."""
+    split = False
+    for dim, ax in enumerate(spec):
+        n, c = 1, 0
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a is None or sizes.get(a, 1) == 1:
+                continue
+            # row-major over the axes, as the mesh lays ranks out
+            n *= sizes[a]
+            c = c * sizes[a] + coords[a]
+        if n > 1:
+            w = x.shape[dim] // n
+            x = x.narrow(dim, c * w, w)
+            split = True
+    return x.contiguous().clone() if split else x
+
+
+def shard_tree(mesh, tree: Any, specs: Any) -> Any:
+    """This rank's shard of every leaf of ``tree`` under the matching
+    placement in ``specs`` (what ``jax.device_put`` with a sharding tree
+    does, for one rank). A placement is a plain tuple, so a tree walk keeps
+    it whole as a leaf."""
+    paths = dict(zip(tree_paths(specs), tree_leaves(specs)))
+    sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
+    return map_with_path(lambda p, x: slice_leaf(x, paths[p], sizes, coords), tree)
+
+
+class ServeParamGather:
+    """Per-layer just-in-time all-gather of FSDP-stored serving weights.
+
+    Params live sharded over the mesh's ``data`` axis
+    (:func:`serve_param_shardings`, this rank's slice from
+    :func:`shard_tree`); model code calls back into this object for exactly
+    the weights it is about to consume:
+
+    * ``layer(key, lp)`` — one layer's slice of the stacked ``params[key]``
+      (leading layer axis already taken), gathered where the layer runs, so
+      a whole layer exists only while it runs;
+    * ``full(key, sub)`` — a non-stacked subtree (the DS gate, hybrid's
+      shared attention block), gathered at its use;
+    * ``rows(key, table, ids)`` — rows of a d-sharded ``(N, d)`` table
+      (embeddings, learned positions): each rank takes its d-slice of the
+      rows and only the O(ids·d) activation rows cross ranks.
+
+    Every gather concatenates the ranks' slices along the stored dim, so
+    gathered weights equal the replicated ones bit for bit. ``params`` is
+    the whole (unsharded) tree: the placements come from its shapes."""
+
+    def __init__(self, mesh, params: Any):
+        self.mesh = mesh
+        specs = serve_param_shardings(mesh, params)
+        self._spec = dict(zip(tree_paths(specs), tree_leaves(specs)))
+        # a data axis of 1 (or leaves it never divides) splits nothing
+        self._splits = any(ax is not None for s in self._spec.values() for ax in s)
+
+    def _gather(self, prefix: str, tree: Any, drop_leading: bool) -> Any:
+        if not self._splits:
+            return tree
+
+        def leaf(p, x):
+            s = self._spec[f"{prefix}/{p}" if p else prefix]
+            if drop_leading:
+                s = s[1:]
+            for dim in reversed(range(len(s))):
+                ax = s[dim]
+                if ax is None:
+                    continue
+                # the last axis of a multi-axis dim varies fastest: gather it first
+                for a in reversed(ax if isinstance(ax, tuple) else (ax,)):
+                    x = _gather_dim(x, axis_group(self.mesh, a), dim)
+            return x
+
+        return map_with_path(leaf, tree)
+
+    def layer(self, key: str, layer_params: Any) -> Any:
+        """Gather ONE layer's slice of the stacked ``params[key]``."""
+        return self._gather(key, layer_params, drop_leading=True)
+
+    def full(self, key: str, sub: Any) -> Any:
+        """Gather a non-stacked subtree or leaf ``params[key]`` whole."""
+        return self._gather(key, sub, drop_leading=False)
+
+    def rows(self, key: str, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """``table[ids]`` from an ``(N, d)`` table stored d-sharded: a local
+        take, then one O(ids·d) all-gather of the activation rows."""
+        if not self._splits:
+            return table[ids.long()]
+        path = key if key in self._spec else f"{key}/table"
+        spec = self._spec[path]
+        if any(ax is not None for ax in spec[:-1]):
+            # the row axis split (no serving rule does this): gather it whole
+            return self._gather(path, table, False)[ids.long()]
+        rows = table[ids.long()]
+        d_ax = spec[-1]
+        if d_ax is None:
+            return rows
+        for a in reversed(d_ax if isinstance(d_ax, tuple) else (d_ax,)):
+            rows = _gather_dim(rows, axis_group(self.mesh, a), rows.dim() - 1)
+        return rows
+
+
+def tree_shard_bytes(tree: Any) -> int:
+    """This rank's resident bytes of a tree of (local) tensors."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))

@@ -35,10 +35,23 @@ to its bytes, at the rate of the token dtype's unit.
 ``chip_smoke.py``'s head-path step times every exact path interleaved on
 the H100 at B 1, 8, 64 and 2048 and fails if ``'auto'``'s pick takes more
 than 1.5× the fastest.
+
+Expert-parallel variants register as ``*_ep`` specs, one per base path
+(``core.dssoftmax.serve_topk_sharded``): their memory price is the base
+path's at the per-rank shapes (:meth:`KernelContext.local`: K/ep experts,
+B/ndata token rows), and they add the merge's interconnect bytes, the
+(B_loc, k) value and id carries of the other ep − 1 ranks, priced at
+``ICI_HBM_BYTE_RATIO`` bytes of memory each. A sharded spec is feasible
+only at ``ctx.ep > 1`` and a base spec only at ``ctx.ep == 1``, so a
+policy never hands a sharded name to the single-device ``serve_topk``.
+So every candidate of one call pays the same merge, and the merge's price
+never changes ``AutoPolicy``'s pick: it makes the price the call's whole
+cost (what :meth:`KernelSpec.price` reports), and would weigh only if a
+path without the merge were feasible at ep > 1.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, List, Optional, Tuple
 
 import functools
@@ -56,6 +69,12 @@ _grouped = importlib.import_module("repro_torch.kernels.dss_topk_grouped")
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_BF16_OPS = 989e12
 CUDA_CORE_FP32_OPS = 67e12
+# NVLink 4 on the same card: 900 GB/s both directions together, 450 GB/s each
+# way (NVIDIA data sheet). A merge carry crosses one way, so a byte of it
+# costs HBM_BYTES_PER_S / NVLINK_BYTES_PER_S bytes of memory time (7.4).
+# A data-sheet ratio: no run of this repo has had two cards.
+NVLINK_BYTES_PER_S = 450e9
+ICI_HBM_BYTE_RATIO = HBM_BYTES_PER_S / NVLINK_BYTES_PER_S
 
 __all__ = [
     "KernelContext",
@@ -67,6 +86,7 @@ __all__ = [
     "get_spec",
     "kernel_names",
     "resolve_kernel",
+    "ICI_HBM_BYTE_RATIO",
 ]
 
 
@@ -75,7 +95,9 @@ class KernelContext:
     """Call-site shapes for kernel selection. ``backend`` is the device
     type of the hidden states (``'cpu'`` or ``'cuda'``); ``wbytes`` /
     ``hbytes`` are the element sizes of the table rows and of ``h``;
-    ``quantized`` marks an int8 table with per-row fp32 scales."""
+    ``quantized`` marks an int8 table with per-row fp32 scales; ``ep`` and
+    ``ndata`` are the call's expert-parallel degree (the mesh's ``model``
+    axis) and token-split degree (its ``pod`` × ``data`` axes)."""
 
     B: int
     d: int
@@ -87,6 +109,8 @@ class KernelContext:
     wbytes: int = 4
     hbytes: int = 4
     quantized: bool = False
+    ep: int = 1
+    ndata: int = 1
 
     @property
     def capacity(self) -> int:
@@ -99,10 +123,20 @@ class KernelContext:
         """fp32 values + int32 ids written — every path pays this."""
         return self.B * self.k * 8
 
+    def local(self) -> "KernelContext":
+        """What one rank's kernel sees inside ``serve_topk_sharded``: K/ep
+        experts, B/ndata token rows, degrees 1. ``capacity_factor`` is
+        scaled by 1/ep so that ``capacity`` is the runtime's: the sharded
+        grouped dispatch sizes its buffers by the GLOBAL expert count."""
+        return replace(self, B=-(-self.B // self.ndata), K=-(-self.K // self.ep),
+                       capacity_factor=self.capacity_factor / self.ep, ep=1, ndata=1)
+
 
 @dataclass(frozen=True)
 class KernelSpec:
-    """One registered serve path: capabilities + bytes-moved cost model."""
+    """One registered serve path: capabilities + bytes-moved cost model.
+    A ``sharded`` spec runs the base path ``local_name`` on each rank and
+    adds the merge's interconnect bytes."""
 
     name: str
     description: str
@@ -110,14 +144,28 @@ class KernelSpec:
     backends: Optional[Tuple[str, ...]] = None  # None => every device type
     fused: bool = False            # in-kernel gating (no dispatch pre-pass)
     quantized_ok: bool = True      # can serve int8 rows + per-row scales
+    sharded: bool = False          # expert-parallel execution over a mesh
+    local_name: Optional[str] = None  # the per-rank path a sharded spec runs
 
     def feasible(self, ctx: KernelContext) -> bool:
-        """Native on the call's backend and able to serve its table."""
+        """Native on the call's backend, matching its sharding (``*_ep``
+        specs at ep > 1 only) and able to serve its table."""
         return ((self.backends is None or ctx.backend in self.backends)
+                and self.sharded == (ctx.ep > 1)
                 and (self.quantized_ok or not ctx.quantized))
 
     def bytes_moved(self, ctx: KernelContext) -> int:
         return int(self.cost(ctx))
+
+    def ici_bytes(self, ctx: KernelContext) -> int:
+        """Interconnect bytes this rank receives: the merge's carries, 0
+        for a single-device path."""
+        return _ici_merge(ctx) if self.sharded else 0
+
+    def price(self, ctx: KernelContext) -> float:
+        """Memory bytes plus the interconnect bytes at
+        ``ICI_HBM_BYTE_RATIO`` bytes of memory time each."""
+        return self.bytes_moved(ctx) + self.ici_bytes(ctx) * ICI_HBM_BYTE_RATIO
 
 
 _REGISTRY: dict[str, KernelSpec] = {}
@@ -163,7 +211,7 @@ class FixedPolicy(KernelPolicy):
 
 
 class AutoPolicy(KernelPolicy):
-    """Cheapest feasible path by the bytes-moved model (ties by name).
+    """Cheapest feasible path by :meth:`KernelSpec.price` (ties by name).
     Pass ``history=[]`` to record ``(B, chosen)`` per resolution."""
 
     def __init__(self, history: Optional[List[Tuple[int, str]]] = None):
@@ -173,7 +221,7 @@ class AutoPolicy(KernelPolicy):
         feasible = [s for s in _REGISTRY.values() if s.feasible(ctx)]
         if not feasible:
             raise ValueError(f"no serve kernel supports backend {ctx.backend!r}")
-        best = min(feasible, key=lambda s: (s.bytes_moved(ctx), s.name))
+        best = min(feasible, key=lambda s: (s.price(ctx), s.name))
         if self.history is not None:
             self.history.append((ctx.B, best.name))
         return best.name
@@ -396,5 +444,34 @@ register_kernel(KernelSpec(
     backends=("cuda",),
     quantized_ok=False,
 ))
+
+
+# --- expert-parallel variants (core.dssoftmax.serve_topk_sharded) ----------
+#
+# Memory: the base path at the per-rank shapes (ctx.local(); a per-token
+# local path still streams the rows of every token it holds, owned or not).
+# Interconnect: the merge's all-gather brings this rank the other ep − 1
+# ranks' (B_loc, k) fp32 value and int32 id carries.
+
+def _ici_merge(c: KernelContext) -> int:
+    return (c.ep - 1) * -(-c.B // c.ndata) * c.k * 8
+
+
+def _register_sharded(base: KernelSpec) -> None:
+    register_kernel(KernelSpec(
+        name=f"{base.name}_ep",
+        description=f"expert-parallel '{base.name}' (K/ep experts per rank, "
+                    "O(B·k) all-gather merge)",
+        cost=lambda c, _b=base: _b.cost(c.local()),
+        backends=base.backends,
+        fused=base.fused,
+        quantized_ok=base.quantized_ok,
+        sharded=True,
+        local_name=base.name,
+    ))
+
+
+for _base in list(_REGISTRY.values()):
+    _register_sharded(_base)
 
 _POLICIES["auto"] = AutoPolicy()

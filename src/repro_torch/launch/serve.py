@@ -18,8 +18,15 @@ state families. An encdec arch raises ``ServeSession``'s ``ValueError``
 
 Runs on CUDA unless given ``--device cpu``; ``--reduced`` takes the small
 config of the same family (the draft's too). Weights are seeded (target 0,
-draft 1). ``--mesh`` and ``--param-mode fsdp`` raise: the distributed
-serving paths are not ported (ROADMAP.md, Queue 1 item 8).
+draft 1).
+
+``--mesh DxM`` serves expert-parallel over one process per rank, started by
+``torchrun --nproc-per-node N`` (N = D·M): every rank builds the same
+seeded model and drives the same requests, and prints the same report.
+``--param-mode fsdp`` (requires ``--mesh``) stores the weights split over
+the mesh's ``data`` axis. On CUDA each rank takes one card; wider worlds
+run on the CPU (``--device cpu``, ``gloo``). ``--dist-store PATH`` joins the
+ranks through a file store instead of ``torchrun``'s TCP rendezvous.
 """
 import argparse
 import sys
@@ -32,9 +39,6 @@ from repro_torch.configs import get_config, reduce_config
 from repro_torch.models import build
 from repro_torch.serve.table_manager import AdaptPolicy
 from repro_torch.train import Request, RequestStatus, SamplingParams, ServeSession
-
-NOT_PORTED = "is not ported yet: the distributed serving paths are ROADMAP.md Queue 1 item 8"
-
 
 def main(argv=None) -> ServeSession:
     ap = argparse.ArgumentParser()
@@ -49,10 +53,14 @@ def main(argv=None) -> ServeSession:
                     help="serve kernel or policy name (default: the config's 'auto')")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill into slots, in chunks of this many tokens")
-    ap.add_argument("--mesh", default=None, metavar="DxM", help=f"expert-parallel mesh: "
-                    f"{NOT_PORTED}")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="expert-parallel serving mesh (DxM or PxDxM) over the torchrun "
+                         "world: tokens over data, the DS table's experts over model")
     ap.add_argument("--param-mode", default="replicated", choices=("replicated", "fsdp"),
-                    help=f"fsdp {NOT_PORTED}")
+                    help="fsdp (requires --mesh): store the weights split over the mesh's "
+                         "data axis and gather each layer where it runs")
+    ap.add_argument("--dist-store", default=None, metavar="PATH",
+                    help="file store the ranks join through (default: torchrun's env)")
     ap.add_argument("--queue-limit", type=int, default=None,
                     help="bound the admission queue: overflow sheds the lowest-priority, "
                          "newest request (REJECTED)")
@@ -95,10 +103,13 @@ def main(argv=None) -> ServeSession:
     ap.add_argument("--gamma", type=int, default=4,
                     help="draft tokens proposed per slot per speculative step")
     args = ap.parse_args(argv)
+    if args.param_mode == "fsdp" and not args.mesh:
+        ap.error("--param-mode fsdp requires --mesh")
+    mesh = None
     if args.mesh:
-        raise ValueError(f"--mesh {NOT_PORTED}")
-    if args.param_mode == "fsdp":
-        raise ValueError(f"--param-mode fsdp {NOT_PORTED}")
+        from repro_torch.launch.mesh import parse_mesh
+
+        mesh = parse_mesh(args.mesh, device=args.device, store=args.dist_store)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -128,6 +139,8 @@ def main(argv=None) -> ServeSession:
         n_slots=min(args.slots, args.batch),
         max_seq_len=smax,
         kernel=args.kernel,
+        mesh=mesh,
+        param_mode=args.param_mode,
         prefill_chunk=args.prefill_chunk,
         queue_limit=args.queue_limit,
         paged=args.paged,
@@ -162,6 +175,10 @@ def main(argv=None) -> ServeSession:
     dt = time.perf_counter() - t0
     n = sum(len(r.out_tokens) for r in out)
     stats = session.stats()
+    if mesh is not None:
+        from repro_torch.launch.mesh import destroy
+
+        destroy()
     print(f"{n} tokens in {dt:.2f}s ({n / dt:.1f} tok/s; {stats['n_admitted']} admits over "
           f"{session.n_slots} slots)")
     print("outcomes: " + ", ".join(

@@ -32,8 +32,9 @@ from repro_torch.models.layers import (
     embed,
     layernorm,
     mlp,
+    stacked_layer,
 )
-from repro_torch.models.transformer import _dense, _layer_params, remat
+from repro_torch.models.transformer import _dense, remat
 
 FAMILIES = ("encdec",)
 
@@ -111,14 +112,18 @@ def _enc_layer(cfg: ModelConfig, train: bool, x, lp, positions):
     return x + mlp(lp["mlp"], cfg, layernorm(lp["ln2"], x))
 
 
-def encode(params, cfg: ModelConfig, frames: torch.Tensor, train: bool = False) -> torch.Tensor:
-    """frames: (B, F, d) stub embeddings → the encoder memory (B, F, d)."""
+def encode(params, cfg: ModelConfig, frames: torch.Tensor, train: bool = False,
+           gather=None) -> torch.Tensor:
+    """frames: (B, F, d) stub embeddings → the encoder memory (B, F, d).
+    ``gather`` serves from FSDP-stored weights (each layer gathered where
+    it runs)."""
     B, F, _ = frames.shape
     x = frames + sinusoidal(F, cfg.d_model, device=frames.device).to(frames.dtype)[None]
     positions = torch.arange(F, device=x.device).expand(B, F)
     body = functools.partial(_enc_layer, cfg, train)
     for i in range(cfg.n_encoder_layers):
-        x = _run(cfg, body, train, x, _layer_params(params["enc_layers"], i), positions)
+        x = _run(cfg, body, train, x, stacked_layer(params["enc_layers"], i, gather, "enc_layers"),
+                 positions)
     return layernorm(params["enc_norm"], x)
 
 
@@ -130,18 +135,20 @@ def _dec_layer(cfg: ModelConfig, train: bool, x, lp, positions, memory):
     return x + mlp(lp["mlp"], cfg, layernorm(lp["ln2"], x)), k, v
 
 
-def _decoder_hidden(params, cfg: ModelConfig, tokens, memory, train: bool = False):
+def _decoder_hidden(params, cfg: ModelConfig, tokens, memory, train: bool = False,
+                    gather=None):
     """tokens (B, S) at positions 0..S-1 against ``memory`` → (final normed
     hidden (B, S, d), the self K and V of every layer, (L, B, S, KV, dh)
     each)."""
     B, S = tokens.shape
-    x = embed(params["embed"], tokens) + params["pos_embed"][:S][None]
+    x = embed(params["embed"], tokens, gather) + _pos_rows(params, torch.arange(
+        S, device=tokens.device), gather)[None]
     positions = torch.arange(S, device=x.device).expand(B, S)
     body = functools.partial(_dec_layer, cfg, train)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = _run(cfg, body, train, x, _layer_params(params["dec_layers"], i), positions,
-                       memory)
+        x, k, v = _run(cfg, body, train, x, stacked_layer(params["dec_layers"], i, gather,
+                                                          "dec_layers"), positions, memory)
         ks.append(k)
         vs.append(v)
     return layernorm(params["dec_norm"], x), torch.stack(ks), torch.stack(vs)
@@ -159,23 +166,37 @@ def train_loss(params, ds_state, cfg: ModelConfig, batch):
     return ce + aux["head_aux_total"], {"ce": ce, **aux}
 
 
-def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None):
+def _pos_rows(params, pos, gather):
+    """The learned position embeddings at ``pos`` (rows gathered when
+    FSDP-stored)."""
+    if gather is not None:
+        return gather.rows("pos_embed", params["pos_embed"], pos)
+    return params["pos_embed"][pos]
+
+
+def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None, mesh=None,
+            gather=None):
     """batch: frames (B, F, d), tokens (B, S) (the target prefix). The
     encoder, the decoder over the prefix, each decoder layer's cross K/V
     from the memory (decode never reads the memory again), and the head on
     the last position → (vals, ids, EncDecCache) with the self K/V sized
-    to S."""
-    memory = encode(params, cfg, batch["frames"].to(cfg.jdtype))
-    h, sk, sv = _decoder_hidden(params, cfg, batch["tokens"], memory)
+    to S. ``mesh`` serves the DS head expert-parallel, ``gather`` from
+    FSDP-stored weights (as in ``transformer.prefill``)."""
+    memory = encode(params, cfg, batch["frames"].to(cfg.jdtype), gather=gather)
+    h, sk, sv = _decoder_hidden(params, cfg, batch["tokens"], memory, gather=gather)
     B, F, _ = memory.shape
     KV, dh = cfg.n_kv_heads, cfg.hd
     ca = params["dec_layers"]["cross_attn"]
     cks, cvs = [], []
     for i in range(cfg.n_layers):
-        cks.append((memory @ ca["wk"][i]).reshape(B, F, KV, dh))
-        cvs.append((memory @ ca["wv"][i]).reshape(B, F, KV, dh))
+        kv = {"wk": ca["wk"][i], "wv": ca["wv"][i]}
+        if gather is not None:
+            kv = gather.layer("dec_layers/cross_attn", kv)
+        cks.append((memory @ kv["wk"]).reshape(B, F, KV, dh))
+        cvs.append((memory @ kv["wv"]).reshape(B, F, KV, dh))
     vals, ids = heads.head_topk(params["head"], table, cfg, h[:, -1], k,
-                                embed_table=params["embed"]["table"], kernel=kernel)
+                                embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                                gather=gather)
     return vals, ids, EncDecCache(self_k=sk, self_v=sv, cross_k=torch.stack(cks),
                                   cross_v=torch.stack(cvs))
 
@@ -208,7 +229,7 @@ def _cross_decode(ca, cfg: ModelConfig, x, ck, cv):
     return (o.to(x.dtype) @ ca["wo"])[:, None]
 
 
-def decode_hidden(params, cfg: ModelConfig, cache: EncDecCache, token, pos):
+def decode_hidden(params, cfg: ModelConfig, cache: EncDecCache, token, pos, gather=None):
     """The decode backbone: embed one token per row at its learned position,
     run the decoder layers (self-attention against the cache, written in
     place at ``pos``; cross-attention against the cached K/V) and the final
@@ -218,9 +239,10 @@ def decode_hidden(params, cfg: ModelConfig, cache: EncDecCache, token, pos):
     B = token.shape[0]
     pos = torch.as_tensor(pos, device=token.device)
     pos_b = (pos.expand(B) if pos.dim() == 0 else pos).long()
-    x = embed(params["embed"], token)[:, None, :] + params["pos_embed"][pos_b][:, None]
+    x = embed(params["embed"], token, gather)[:, None, :] + _pos_rows(params, pos_b,
+                                                                      gather)[:, None]
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["dec_layers"], i)
+        lp = stacked_layer(params["dec_layers"], i, gather, "dec_layers")
         h, _, _ = attention_decode(lp["self_attn"], cfg, layernorm(lp["ln1"], x),
                                    cache.self_k[i], cache.self_v[i], pos_b)
         x = x + h
@@ -231,12 +253,14 @@ def decode_hidden(params, cfg: ModelConfig, cache: EncDecCache, token, pos):
 
 
 def decode_step(params, table, cfg: ModelConfig, cache: EncDecCache, token, pos, k: int = 8,
-                kernel=None, capacity_factor=None, with_stats=False):
+                kernel=None, capacity_factor=None, with_stats=False, mesh=None, gather=None):
     """One-token decode: :func:`decode_hidden`, then the head. The self
     cache is updated in place. Returns (vals, ids, cache), plus the head's
-    per-expert telemetry when ``with_stats=True``."""
-    h = decode_hidden(params, cfg, cache, token, pos)
+    per-expert telemetry when ``with_stats=True``. ``mesh`` and ``gather``
+    as in :func:`prefill`."""
+    h = decode_hidden(params, cfg, cache, token, pos, gather)
     out = heads.head_topk(params["head"], table, cfg, h, k,
-                          embed_table=params["embed"]["table"], kernel=kernel,
-                          capacity_factor=capacity_factor, with_stats=with_stats)
+                          embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                          gather=gather, capacity_factor=capacity_factor,
+                          with_stats=with_stats)
     return (*out[:2], cache, *out[2:])

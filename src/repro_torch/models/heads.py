@@ -85,7 +85,7 @@ def head_loss(head_params, ds_state, cfg: ModelConfig, h: torch.Tensor, labels: 
 
 
 def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: int,
-              embed_table: Optional[torch.Tensor] = None, kernel=None,
+              embed_table: Optional[torch.Tensor] = None, kernel=None, mesh=None, gather=None,
               capacity_factor: Optional[float] = None, with_stats: bool = False):
     """Top-k classes from hidden states h (B, d) → (values, ids) (B, k).
     For a DS head ``serve_table`` is either table kind.
@@ -94,10 +94,28 @@ def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: in
     name, or KernelPolicy); ``capacity_factor`` overrides
     ``cfg.ds.capacity_factor``; ``with_stats=True`` appends the per-expert
     ``{'dispatched', 'overflow'}`` telemetry (zeros of shape (1,) for the
-    full-softmax head). Runs on the device of ``h``."""
+    full-softmax head). Runs on the device of ``h``.
+
+    ``mesh`` routes a DS head through the expert-parallel
+    ``ds.serve_topk_sharded`` (``serve_table`` is then this rank's
+    ``TableShard``). ``gather`` (a
+    :class:`~repro_torch.distributed.sharding.ServeParamGather`) marks the
+    head's weights as FSDP-stored: a DS head gathers only its (K, d) gate
+    here (the expert rows live in the serve table), a full softmax its
+    whole (V, d) operand."""
+    if gather is not None:
+        if cfg.head == "ds":
+            head_params = dict(head_params, gate=gather.full("head/gate", head_params["gate"]))
+        else:
+            head_params = gather.full("head", head_params)
+            if cfg.tie_embeddings and embed_table is not None:
+                embed_table = gather.full("embed/table", embed_table)
     if cfg.head == "ds":
         kern = kernel if kernel is not None else cfg.ds.serve_kernel
         cf = capacity_factor if capacity_factor is not None else cfg.ds.capacity_factor
+        if mesh is not None:
+            return ds.serve_topk_sharded(head_params["gate"], serve_table, h, k, mesh=mesh,
+                                         kernel=kern, capacity_factor=cf, with_stats=with_stats)
         return ds.serve_topk(head_params["gate"], serve_table, h, k, kernel=kern,
                              capacity_factor=cf, with_stats=with_stats, device=h.device)
     w = embed_table if cfg.tie_embeddings else head_params["unembed"]

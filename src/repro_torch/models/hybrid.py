@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     embed,
     mlp,
     rmsnorm,
+    stacked_layer,
 )
 from repro_torch.models.mamba2 import (
     init_mamba2,
@@ -100,12 +101,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return params, ds_state
 
 
-def _layer_params(stacked, i: int):
-    if isinstance(stacked, dict):
-        return {key: _layer_params(v, i) for key, v in stacked.items()}
-    return stacked[i]
-
-
 def _groups(cfg: ModelConfig) -> list:
     """Group lengths of the mamba stack; the shared block follows each of
     the first ``n_attn_apps`` groups."""
@@ -121,29 +116,41 @@ def _shared_block(sa, cfg: ModelConfig, x, attn):
     return x + mlp(sa["mlp"], cfg, rmsnorm(sa["ln2"], x))
 
 
-def _walk(params, cfg: ModelConfig, x, mamba_op, attn_op):
+def _walk(params, cfg: ModelConfig, x, mamba_op, attn_op, gather=None):
     """The serving scaffold: ``mamba_op(layer_params, i, x) -> x`` over the
-    stack, ``attn_op(x, app_index) -> x`` after each full group."""
+    stack (each layer gathered where it runs when ``gather`` is given),
+    ``attn_op(x, app_index) -> x`` after each full group."""
     n_apps = n_attn_apps(cfg)
     i = 0
     for gi, glen in enumerate(_groups(cfg)):
         for _ in range(glen):
-            x = mamba_op(_layer_params(params["layers"], i), i, x)
+            x = mamba_op(stacked_layer(params["layers"], i, gather), i, x)
             i += 1
         if gi < n_apps:
             x = attn_op(x, gi)
     return x
 
 
+def _gather_shared(params, gather):
+    """``params`` with the shared attention block gathered whole, once per
+    call (it runs after every group), when weights are FSDP-stored."""
+    if gather is None or "shared_attn" not in params:
+        return params
+    return dict(params, shared_attn=gather.full("shared_attn", params["shared_attn"]))
+
+
 def _mamba_residual(cfg: ModelConfig, x, lp):
     return x + mamba2_block(lp["mamba"], cfg, rmsnorm(lp["ln"], x))
 
 
-def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=False, train=False):
+def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=False, train=False,
+                   gather=None):
     """x: (B, S, d) embeddings → (final normed hidden, aux 0, and with
     ``collect_state`` the :class:`HybridCache` sized to S). In training
     (``train=True``) ``cfg.remat`` checkpoints each mamba layer as
-    ``transformer.forward_hidden`` checkpoints each layer."""
+    ``transformer.forward_hidden`` checkpoints each layer. ``gather``
+    serves from FSDP-stored weights."""
+    params = _gather_shared(params, gather)
     conv, ssm, ks, vs = [], [], [], []
     body = functools.partial(_mamba_residual, cfg)
 
@@ -165,7 +172,7 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=Fals
             return h
         return _shared_block(params["shared_attn"], cfg, x, attn)
 
-    x = _walk(params, cfg, x, mamba_op, attn_op)
+    x = _walk(params, cfg, x, mamba_op, attn_op, gather)
     h = rmsnorm(params["final_norm"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_state:
@@ -192,17 +199,21 @@ def train_loss(params, ds_state, cfg: ModelConfig, batch):
     return ce + aux["head_aux_total"], {"ce": ce, **aux}
 
 
-def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None):
+def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None, mesh=None,
+            gather=None):
     """The whole prompt (``batch["tokens"]``) → (vals, ids, HybridCache sized
     to the prompt), the head on the last position. On CUDA tensors the
-    shared block's attention runs the ``flash_attention`` kernel."""
+    shared block's attention runs the ``flash_attention`` kernel. ``mesh``
+    serves the DS head expert-parallel, ``gather`` from FSDP-stored
+    weights (as in ``transformer.prefill``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, gather)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    h, cache = forward_hidden(params, cfg, x, positions, collect_state=True)
+    h, cache = forward_hidden(params, cfg, x, positions, collect_state=True, gather=gather)
     vals, ids = heads.head_topk(params["head"], table, cfg, h[:, -1], k,
-                                embed_table=params["embed"]["table"], kernel=kernel)
+                                embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                                gather=gather)
     return vals, ids, cache
 
 
@@ -235,11 +246,12 @@ def _chunk_attn(params, cfg, cache, pos0, pages):
 
 
 def _chunk_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_valid,
-                  pages=None, state_pages=None):
+                  pages=None, state_pages=None, gather=None):
     """The chunk backbone: per-layer conv/ssm threaded through the cache
     (seeded from it, written back after the last valid row), the shared
     block through ``attention_prefill_chunk``. Returns (B, C, d) hidden."""
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, gather)
+    params = _gather_shared(params, gather)
 
     def mamba_op(lp, i, x):
         conv, ssm, put = _state_io(cache, i, state_pages)
@@ -248,34 +260,37 @@ def _chunk_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_
         put(nconv, nssm)
         return x + out
 
-    x = _walk(params, cfg, x, mamba_op, _chunk_attn(params, cfg, cache, pos0, pages))
+    x = _walk(params, cfg, x, mamba_op, _chunk_attn(params, cfg, cache, pos0, pages), gather)
     return rmsnorm(params["final_norm"], x)
 
 
 def prefill_chunk(params, table, cfg: ModelConfig, cache: HybridCache, tokens, pos0,
-                  n_valid, k: int = 8, kernel=None, pages=None, state_pages=None):
+                  n_valid, k: int = 8, kernel=None, pages=None, state_pages=None, mesh=None,
+                  gather=None):
     """State-passing chunked prefill: one (B, C) prompt chunk at positions
     ``pos0 .. pos0+C-1`` against the cache, written in place. Rows at or
     past ``n_valid`` are right-padding. Returns (vals, ids, cache) with the
     head on the hidden state of token ``n_valid - 1``; only a prompt's last
     chunk gives a meaningful top-k."""
-    h = _chunk_hidden(params, cfg, cache, tokens, pos0, n_valid, pages, state_pages)
+    h = _chunk_hidden(params, cfg, cache, tokens, pos0, n_valid, pages, state_pages, gather)
     if torch.is_tensor(n_valid):
         h_last = h[torch.arange(h.shape[0], device=h.device), n_valid.long() - 1]
     else:
         h_last = h[:, n_valid - 1]
     vals, ids = heads.head_topk(params["head"], table, cfg, h_last, k,
-                                embed_table=params["embed"]["table"], kernel=kernel)
+                                embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                                gather=gather)
     return vals, ids, cache
 
 
 def _scan_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_valid,
-                 commit: bool, pages=None, state_pages=None):
+                 commit: bool, pages=None, state_pages=None, gather=None):
     """A (B, W) block through :func:`mamba2_verify_scan` (the one-token
     recurrence unrolled) and the shared block at per-row starts ``pos0``.
     With ``commit`` each row's conv/ssm advance by its ``n_valid`` tokens,
     in place; without, they are left as they were."""
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, gather)
+    params = _gather_shared(params, gather)
     W = tokens.shape[1]
 
     def mamba_op(lp, i, x):
@@ -286,55 +301,58 @@ def _scan_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_v
             put(nconv, nssm)
         return x + out
 
-    x = _walk(params, cfg, x, mamba_op, _chunk_attn(params, cfg, cache, pos0, pages))
+    x = _walk(params, cfg, x, mamba_op, _chunk_attn(params, cfg, cache, pos0, pages), gather)
     return rmsnorm(params["final_norm"], x)
 
 
 def verify_hidden(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, pages=None,
-                  state_pages=None):
+                  state_pages=None, gather=None):
     """The verify backbone: a (B, W) block at per-row starts ``pos0`` ((B,)
     int tensor) → hidden (B, W, d). The conv/ssm leaves are left untouched
     (a rejected token's update cannot be rolled back; :func:`commit_block`
     advances each row by its accepted prefix afterwards); the shared block's
     K/V are written in place, as masking makes their rollback free. No host
     sync, no data-dependent shape: a CUDA graph can capture it."""
-    return _scan_hidden(params, cfg, cache, tokens, pos0, None, False, pages, state_pages)
+    return _scan_hidden(params, cfg, cache, tokens, pos0, None, False, pages, state_pages,
+                        gather)
 
 
 def verify_step(params, table, cfg: ModelConfig, cache: HybridCache, tokens, pos0,
                 k: int = 8, kernel=None, capacity_factor=None, with_stats=False, pages=None,
-                state_pages=None):
+                state_pages=None, mesh=None, gather=None):
     """Speculative draft–verify for the state families: :func:`verify_hidden`,
     then the head once over all B·W rows. Returns (vals, ids) of shape (B,
     W, k), the cache, and the head's telemetry with ``with_stats``."""
-    h = verify_hidden(params, cfg, cache, tokens, pos0, pages, state_pages)
+    h = verify_hidden(params, cfg, cache, tokens, pos0, pages, state_pages, gather)
     B, W, d = h.shape
     out = heads.head_topk(params["head"], table, cfg, h.reshape(B * W, d), k,
-                          embed_table=params["embed"]["table"], kernel=kernel,
-                          capacity_factor=capacity_factor, with_stats=with_stats)
+                          embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                          gather=gather, capacity_factor=capacity_factor,
+                          with_stats=with_stats)
     return (out[0].reshape(B, W, k), out[1].reshape(B, W, k), cache, *out[2:])
 
 
 def commit_block(params, cfg: ModelConfig, cache: HybridCache, tokens, pos0, n_valid,
-                 pages=None, state_pages=None):
+                 pages=None, state_pages=None, gather=None):
     """The commit pass after a verify: advance each row's conv/ssm by its
     accepted prefix only (``n_valid`` (B,) = accepted + 1), in place, through
     the one-token recurrence, so the committed state equals decoding the
     accepted tokens one at a time. The shared blocks run (their outputs feed
     later layers) and write the K/V verify wrote. No head. Returns the
     cache."""
-    _scan_hidden(params, cfg, cache, tokens, pos0, n_valid, True, pages, state_pages)
+    _scan_hidden(params, cfg, cache, tokens, pos0, n_valid, True, pages, state_pages, gather)
     return cache
 
 
 def decode_hidden(params, cfg: ModelConfig, cache: HybridCache, token, pos, pages=None,
-                  state_pages=None):
+                  state_pages=None, gather=None):
     """The decode backbone: embed one token per row, run the stack against
     the cache (conv/ssm copied in place, the shared block's K/V written at
     ``pos``) and the final norm. token: (B,) int; pos: (B,) int. Returns
     the (B, d) hidden state. Device ops only, no host sync: a CUDA graph
     can capture it."""
-    x = embed(params["embed"], token)[:, None, :]
+    x = embed(params["embed"], token, gather)[:, None, :]
+    params = _gather_shared(params, gather)
 
     def mamba_op(lp, i, x):
         conv, ssm, put = _state_io(cache, i, state_pages)
@@ -349,19 +367,20 @@ def decode_hidden(params, cfg: ModelConfig, cache: HybridCache, token, pos, page
             return h
         return _shared_block(params["shared_attn"], cfg, x, attn)
 
-    x = _walk(params, cfg, x, mamba_op, attn_op)
+    x = _walk(params, cfg, x, mamba_op, attn_op, gather)
     return rmsnorm(params["final_norm"], x)[:, 0]
 
 
 def decode_step(params, table, cfg: ModelConfig, cache: HybridCache, token, pos, k: int = 8,
                 kernel=None, capacity_factor=None, with_stats=False, pages=None,
-                state_pages=None):
+                state_pages=None, mesh=None, gather=None):
     """One-token decode: :func:`decode_hidden`, then the head. The state
     recurrence never reads the table, so a hot-swap keeps resident state.
     Returns (vals, ids, cache) and the head's telemetry with
     ``with_stats``."""
-    h = decode_hidden(params, cfg, cache, token, pos, pages, state_pages)
+    h = decode_hidden(params, cfg, cache, token, pos, pages, state_pages, gather)
     out = heads.head_topk(params["head"], table, cfg, h, k,
-                          embed_table=params["embed"]["table"], kernel=kernel,
-                          capacity_factor=capacity_factor, with_stats=with_stats)
+                          embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                          gather=gather, capacity_factor=capacity_factor,
+                          with_stats=with_stats)
     return (*out[:2], cache, *out[2:])

@@ -324,5 +324,19 @@ def mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return u.to(x.dtype) @ params["w_down"]
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params, tokens: torch.Tensor, gather=None) -> torch.Tensor:
+    """Token embedding ``params["table"][tokens]``; with ``gather`` (FSDP-stored
+    serving weights, ``distributed.sharding.ServeParamGather``) each rank
+    takes its d-slice of the rows and only the rows cross ranks."""
+    if gather is not None:
+        return gather.rows("embed/table", params["table"], tokens)
     return params["table"][tokens]
+
+
+def stacked_layer(stacked, i: int, gather=None, key: str = "layers"):
+    """Layer ``i``'s slice of the stacked ``(L, …)`` params ``stacked``
+    (``params[key]``); with ``gather`` gathered whole, so the full layer
+    exists only while it runs."""
+    lp = ({name: stacked_layer(v, i) for name, v in stacked.items()}
+          if isinstance(stacked, dict) else stacked[i])
+    return lp if gather is None else gather.layer(key, lp)

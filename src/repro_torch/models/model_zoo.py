@@ -73,7 +73,9 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
     """The model's functions, with ``init`` placing params on ``device``.
     ``pages`` ((B, n_pg) page table) and ``state_pages`` ((B,) state-page
     ids) switch the serving functions to the paged arena; a family without
-    the corresponding leaf kind ignores the extra argument."""
+    the corresponding leaf kind ignores the extra argument. ``mesh`` serves
+    the DS head expert-parallel and ``gather`` from FSDP-stored weights
+    (``distributed.sharding``)."""
     dev = resolve_device(device)
     _check_family(cfg)
     if cfg.family in encdec.FAMILIES:
@@ -89,28 +91,31 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         device=dev,
         init=lambda gen: mod.init_params(gen, cfg, device=dev),
         train_loss=lambda p, s, batch: mod.train_loss(p, s, cfg, batch),
-        prefill=lambda p, t, batch, k=8, kernel=None: mod.prefill(
-            p, t, cfg, batch, k=k, kernel=kernel),
+        prefill=lambda p, t, batch, k=8, kernel=None, mesh=None, gather=None: mod.prefill(
+            p, t, cfg, batch, k=k, kernel=kernel, mesh=mesh, gather=gather),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None, capacity_factor=None,
-        with_stats=False, pages=None, state_pages=None: mod.decode_step(
+        with_stats=False, pages=None, state_pages=None, mesh=None, gather=None: mod.decode_step(
             p, t, cfg, cache, tok, pos, k=k, kernel=kernel, capacity_factor=capacity_factor,
-            with_stats=with_stats, pages=pages, **st(state_pages)),
-        decode_hidden=lambda p, cache, tok, pos, pages=None, state_pages=None: mod.decode_hidden(
-            p, cfg, cache, tok, pos, pages=pages, **st(state_pages)),
+            with_stats=with_stats, pages=pages, mesh=mesh, gather=gather, **st(state_pages)),
+        decode_hidden=lambda p, cache, tok, pos, pages=None, state_pages=None, gather=None:
+            mod.decode_hidden(p, cfg, cache, tok, pos, pages=pages, gather=gather,
+                              **st(state_pages)),
         prefill_chunk=lambda p, t, cache, tokens, pos0, n_valid, k=8, kernel=None, pages=None,
-        state_pages=None: mod.prefill_chunk(p, t, cfg, cache, tokens, pos0, n_valid, k=k,
-                                            kernel=kernel, pages=pages, **st(state_pages)),
+        state_pages=None, mesh=None, gather=None: mod.prefill_chunk(
+            p, t, cfg, cache, tokens, pos0, n_valid, k=k, kernel=kernel, pages=pages, mesh=mesh,
+            gather=gather, **st(state_pages)),
         verify_step=lambda p, t, cache, tokens, pos0, k=8, kernel=None, capacity_factor=None,
-        with_stats=False, pages=None, state_pages=None: mod.verify_step(
+        with_stats=False, pages=None, state_pages=None, mesh=None, gather=None: mod.verify_step(
             p, t, cfg, cache, tokens, pos0, k=k, kernel=kernel, capacity_factor=capacity_factor,
-            with_stats=with_stats, pages=pages, **st(state_pages)),
-        verify_hidden=lambda p, cache, tokens, pos0, pages=None, state_pages=None:
-            mod.verify_hidden(p, cfg, cache, tokens, pos0, pages=pages, **st(state_pages)),
+            with_stats=with_stats, pages=pages, mesh=mesh, gather=gather, **st(state_pages)),
+        verify_hidden=lambda p, cache, tokens, pos0, pages=None, state_pages=None, gather=None:
+            mod.verify_hidden(p, cfg, cache, tokens, pos0, pages=pages, gather=gather,
+                              **st(state_pages)),
         verify_needs_state_commit=mod is hybrid,
         commit_block=None if mod is not hybrid else (
-            lambda p, cache, tokens, pos0, n_valid, pages=None, state_pages=None:
+            lambda p, cache, tokens, pos0, n_valid, pages=None, state_pages=None, gather=None:
             hybrid.commit_block(p, cfg, cache, tokens, pos0, n_valid, pages=pages,
-                                state_pages=state_pages)),
+                                state_pages=state_pages, gather=gather)),
     )
 
 
@@ -122,13 +127,14 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> ModelBundle:
         device=dev,
         init=lambda gen: encdec.init_params(gen, cfg, device=dev, max_target_len=MAX_TARGET_LEN),
         train_loss=lambda p, s, batch: encdec.train_loss(p, s, cfg, batch),
-        prefill=lambda p, t, batch, k=8, kernel=None: encdec.prefill(
-            p, t, cfg, batch, k=k, kernel=kernel),
+        prefill=lambda p, t, batch, k=8, kernel=None, mesh=None, gather=None: encdec.prefill(
+            p, t, cfg, batch, k=k, kernel=kernel, mesh=mesh, gather=gather),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None, capacity_factor=None,
-        with_stats=False: encdec.decode_step(p, t, cfg, cache, tok, pos, k=k, kernel=kernel,
-                                             capacity_factor=capacity_factor,
-                                             with_stats=with_stats),
-        decode_hidden=lambda p, cache, tok, pos: encdec.decode_hidden(p, cfg, cache, tok, pos),
+        with_stats=False, mesh=None, gather=None: encdec.decode_step(
+            p, t, cfg, cache, tok, pos, k=k, kernel=kernel, capacity_factor=capacity_factor,
+            with_stats=with_stats, mesh=mesh, gather=gather),
+        decode_hidden=lambda p, cache, tok, pos, gather=None: encdec.decode_hidden(
+            p, cfg, cache, tok, pos, gather=gather),
     )
 
 

@@ -30,6 +30,7 @@ from repro_torch.models.layers import (
     embed,
     mlp,
     rmsnorm,
+    stacked_layer,
 )
 
 
@@ -83,13 +84,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     }
     params["head"], ds_state = heads.init_head(gen, cfg, device=device)
     return params, ds_state
-
-
-def _layer_params(stacked, i: int):
-    """Layer ``i``'s slice of the stacked ``(L, …)`` layer params."""
-    if isinstance(stacked, dict):
-        return {key: _layer_params(v, i) for key, v in stacked.items()}
-    return stacked[i]
 
 
 def _ffn_residual(lp, cfg: ModelConfig, x):
@@ -149,19 +143,20 @@ def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions):
     body = functools.partial(_layer_body, cfg)
     auxs = []
     for i in range(cfg.n_layers):
-        x, aux = remat(cfg, body, x, _layer_params(params["layers"], i), positions)
+        x, aux = remat(cfg, body, x, stacked_layer(params["layers"], i), positions)
         auxs.append(aux)
     return rmsnorm(params["final_norm"], x), torch.sum(torch.stack(auxs))
 
 
-def embed_inputs(params, cfg: ModelConfig, batch):
+def embed_inputs(params, cfg: ModelConfig, batch, gather=None):
     """Token (+ vision-prefix) embedding → (x (B, S, d), positions (B, S),
     label_mask). With a vlm config and ``batch["patches"]`` ((B, P, d)
     stub patch embeddings, cast to the embedding dtype) the patches come
     first and ``label_mask`` (B, P + S_text) marks the text positions;
-    else ``label_mask`` is None."""
+    else ``label_mask`` is None. ``gather`` serves from FSDP-stored
+    weights (the rows are gathered, never the table)."""
     tokens = batch["tokens"]
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, gather)
     label_mask = None
     if cfg.vision is not None and "patches" in batch:
         patches = batch["patches"].to(x.dtype)
@@ -192,27 +187,31 @@ def train_loss(params, ds_state, cfg: ModelConfig, batch):
     return total, {"ce": ce, "moe_aux": moe_aux, **aux}
 
 
-def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None):
+def prefill(params, table, cfg: ModelConfig, batch, k: int = 8, kernel=None, mesh=None,
+            gather=None):
     """Run the whole prompt (``batch["tokens"]``, after ``batch["patches"]``
     for a vlm config); returns (topk_vals, topk_ids, DecodeCache) with the
     cache sized to the prompt length (patches included) and the head
-    applied to the last position."""
-    x, positions, _ = embed_inputs(params, cfg, batch)
+    applied to the last position. ``mesh`` serves the DS head expert-
+    parallel (``table``: this rank's ``TableShard``); ``gather`` serves
+    from FSDP-stored weights, each layer gathered where it runs."""
+    x, positions, _ = embed_inputs(params, cfg, batch, gather)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
+        lp = stacked_layer(params["layers"], i, gather)
         h, (kk, vv) = attention_block(lp["attn"], cfg, rmsnorm(lp["ln1"], x), positions)
         x, _ = _ffn_residual(lp, cfg, x + h)
         ks.append(kk)
         vs.append(vv)
     h = rmsnorm(params["final_norm"], x)[:, -1]
     vals, ids = heads.head_topk(params["head"], table, cfg, h, k,
-                                embed_table=params["embed"]["table"], kernel=kernel)
+                                embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                                gather=gather)
     return vals, ids, DecodeCache(k=torch.stack(ks), v=torch.stack(vs))
 
 
 def prefill_chunk(params, table, cfg: ModelConfig, cache: DecodeCache, tokens, pos0,
-                  n_valid, k: int = 8, kernel=None, pages=None):
+                  n_valid, k: int = 8, kernel=None, pages=None, mesh=None, gather=None):
     """Prefill one chunk of a prompt into an existing decode cache, in place.
 
     tokens: (B, C) int at positions ``pos0 .. pos0+C-1`` (an int, or a
@@ -222,41 +221,46 @@ def prefill_chunk(params, table, cfg: ModelConfig, cache: DecodeCache, tokens, p
     applied to the hidden state of token ``n_valid - 1``; only a prompt's
     last chunk gives a meaningful top-k. ``pages`` ((B, n_pg) page table)
     switches the cache to the paged arena (``cache.k``/``cache.v``:
-    (L, n_pages, page_size, KV, dh))."""
-    h = _chunk_hidden(params, cfg, cache, tokens, pos0, pages=pages)
+    (L, n_pages, page_size, KV, dh)); ``mesh`` and ``gather`` as in
+    :func:`prefill`."""
+    h = _chunk_hidden(params, cfg, cache, tokens, pos0, pages=pages, gather=gather)
     if torch.is_tensor(n_valid):
         h_last = h[torch.arange(h.shape[0], device=h.device), n_valid.long() - 1]
     else:
         h_last = h[:, n_valid - 1]
     vals, ids = heads.head_topk(params["head"], table, cfg, h_last, k,
-                                embed_table=params["embed"]["table"], kernel=kernel)
+                                embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                                gather=gather)
     return vals, ids, cache
 
 
-def _chunk_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pages=None):
+def _chunk_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pages=None,
+                  gather=None):
     """The chunk backbone: run a (B, C) token block at positions ``pos0 ..
     pos0+C-1`` against the cache (written in place). Returns the final
     normed hidden states (B, C, d)."""
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, gather)
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
+        lp = stacked_layer(params["layers"], i, gather)
         h, _, _ = attention_prefill_chunk(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
                                           cache.k[i], cache.v[i], pos0, pages=pages)
         x, _ = _ffn_residual(lp, cfg, x + h)
     return rmsnorm(params["final_norm"], x)
 
 
-def verify_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pages=None):
+def verify_hidden(params, cfg: ModelConfig, cache: DecodeCache, tokens, pos0, pages=None,
+                  gather=None):
     """The verify backbone: :func:`_chunk_hidden` over a (B, W) block at
     per-row starts ``pos0`` ((B,) int tensor), the cache written in place.
     Returns the hidden states (B, W, d). With a tensor ``pos0`` it makes no
     host sync and has no data-dependent shape: a CUDA graph can capture
     it."""
-    return _chunk_hidden(params, cfg, cache, tokens, pos0, pages=pages)
+    return _chunk_hidden(params, cfg, cache, tokens, pos0, pages=pages, gather=gather)
 
 
 def verify_step(params, table, cfg: ModelConfig, cache: DecodeCache, tokens, pos0,
-                k: int = 8, kernel=None, capacity_factor=None, with_stats=False, pages=None):
+                k: int = 8, kernel=None, capacity_factor=None, with_stats=False, pages=None,
+                mesh=None, gather=None):
     """Speculative draft–verify: score a (B, W) block of candidate tokens.
 
     tokens: (B, W) int; row b holds ``[t_b, d_1 .. d_{W-1}]`` (the slot's
@@ -271,24 +275,27 @@ def verify_step(params, table, cfg: ModelConfig, cache: DecodeCache, tokens, pos
     K/V of all W positions are committed as written. Positions past a
     slot's accepted prefix need no rollback: they stay masked, and the
     next real token at each of them overwrites it."""
-    h = verify_hidden(params, cfg, cache, tokens, pos0, pages=pages)
+    h = verify_hidden(params, cfg, cache, tokens, pos0, pages=pages, gather=gather)
     B, W, d = h.shape
     out = heads.head_topk(params["head"], table, cfg, h.reshape(B * W, d), k,
-                          embed_table=params["embed"]["table"], kernel=kernel,
-                          capacity_factor=capacity_factor, with_stats=with_stats)
+                          embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                          gather=gather, capacity_factor=capacity_factor,
+                          with_stats=with_stats)
     return (out[0].reshape(B, W, k), out[1].reshape(B, W, k), cache, *out[2:])
 
 
-def decode_hidden(params, cfg: ModelConfig, cache: DecodeCache, token, pos, pages=None):
+def decode_hidden(params, cfg: ModelConfig, cache: DecodeCache, token, pos, pages=None,
+                  gather=None):
     """The decode backbone: embed one token per row, run the L layers
     against the cache (written in place at ``pos``) and the final norm.
     token: (B,) int; pos: (B,) int per-slot positions; ``pages`` ((B, n_pg)
     page table) selects the paged arena. Returns the hidden state (B, d)
     the head reads. Device ops only, no host sync and no data-dependent
-    shape: a CUDA graph can capture it."""
-    x = embed(params["embed"], token)[:, None, :]
+    shape: a CUDA graph can capture it. ``gather`` serves from FSDP-stored
+    weights (each layer gathered where it runs)."""
+    x = embed(params["embed"], token, gather)[:, None, :]
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
+        lp = stacked_layer(params["layers"], i, gather)
         h, _, _ = attention_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
                                    cache.k[i], cache.v[i], pos, pages=pages)
         x, _ = _ffn_residual(lp, cfg, x + h)
@@ -297,12 +304,14 @@ def decode_hidden(params, cfg: ModelConfig, cache: DecodeCache, token, pos, page
 
 def decode_step(params, table, cfg: ModelConfig, cache: DecodeCache, token, pos,
                 k: int = 8, kernel=None, capacity_factor=None, with_stats=False,
-                pages=None):
+                pages=None, mesh=None, gather=None):
     """One-token decode: :func:`decode_hidden`, then the head. The cache is
     updated in place. Returns (vals, ids, cache) — plus the head's
-    per-expert telemetry when ``with_stats=True``."""
-    h = decode_hidden(params, cfg, cache, token, pos, pages=pages)
+    per-expert telemetry when ``with_stats=True``. ``mesh`` and ``gather``
+    as in :func:`prefill`."""
+    h = decode_hidden(params, cfg, cache, token, pos, pages=pages, gather=gather)
     out = heads.head_topk(params["head"], table, cfg, h, k,
-                          embed_table=params["embed"]["table"], kernel=kernel,
-                          capacity_factor=capacity_factor, with_stats=with_stats)
+                          embed_table=params["embed"]["table"], kernel=kernel, mesh=mesh,
+                          gather=gather, capacity_factor=capacity_factor,
+                          with_stats=with_stats)
     return (*out[:2], cache, *out[2:])

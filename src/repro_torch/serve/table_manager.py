@@ -17,12 +17,10 @@ The port of ``repro.serve.table_manager``:
 * :class:`AdaptPolicy` — the knobs of ``ServeSession(adapt_policy=...)``,
   which runs this loop online, swapping only between decode steps.
 
-Differences from ``repro``: there is no distributed port yet, so
-``TableResource`` takes no mesh; it keeps no back buffer either (see its
-docstring); the
-mitosis noise comes from a ``torch.Generator`` where ``repro`` takes a
-``jax.random`` key (``generator=None`` turns mitosis off, as ``key=None``
-does), so its bits differ from JAX's.
+Differences from ``repro``: ``TableResource`` keeps no back buffer (see
+its docstring); the mitosis noise comes from a ``torch.Generator`` where
+``repro`` takes a ``jax.random`` key (``generator=None`` turns mitosis
+off, as ``key=None`` does), so its bits differ from JAX's.
 """
 from __future__ import annotations
 
@@ -52,17 +50,30 @@ class TableResource:
     :class:`~repro_torch.core.dssoftmax.ServeTable` or
     :class:`~repro_torch.core.dssoftmax.QuantizedServeTable`; non-DS heads
     store their opaque head state here unchanged (a swap still versions it).
+
+    Placement happens on the way in: with ``mesh=`` a serve table is
+    replaced by this rank's expert-parallel slice
+    (:func:`~repro_torch.core.dssoftmax.shard_table`: K padded to a multiple
+    of the ``model`` axis with all-padding dummy experts) before it becomes
+    visible, so readers only ever see placed tables.
     """
 
-    def __init__(self, table, gate: Optional[torch.Tensor] = None):
+    def __init__(self, table, gate: Optional[torch.Tensor] = None, mesh=None):
+        self.mesh = mesh
         self.version = 0
         self.gate = gate
-        self.table = table
+        self.table = self._place(table)
+
+    def _place(self, table):
+        if self.mesh is not None and isinstance(table, (ds.ServeTable, ds.QuantizedServeTable)):
+            return ds.shard_table(table, self.mesh)
+        return table
 
     def swap(self, new_table, gate: Optional[torch.Tensor] = None) -> int:
         """Install ``new_table`` (and optionally its gate) as the current
-        version and drop the old one. Returns the new version."""
-        self.table = new_table
+        version, placed on the mesh first, and drop the old one. Returns
+        the new version."""
+        self.table = self._place(new_table)
         if gate is not None:
             self.gate = gate
         self.version += 1

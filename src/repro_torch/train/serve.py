@@ -105,6 +105,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import dssoftmax as ds
 from repro_torch.device import check_on, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import heads
 from repro_torch.models.model_zoo import (ModelBundle, cache_kv_leaves, cache_specs,
                                           paged_cache_specs)
@@ -422,16 +423,17 @@ class _DecodeGraph:
         return self.h
 
 
-def _decode_backbone(bundle: ModelBundle):
-    """``bundle.decode_hidden`` in the form :meth:`_DecodeGraph.hidden` calls."""
+def _decode_backbone(bundle: ModelBundle, gather=None):
+    """``bundle.decode_hidden`` in the form :meth:`_DecodeGraph.hidden` calls
+    (``gather``: the session's FSDP gather, or None)."""
     return lambda p, cache, toks, pos, pages, spages=None: bundle.decode_hidden(
-        p, cache, toks[0], pos, pages=pages, state_pages=spages)
+        p, cache, toks[0], pos, pages=pages, state_pages=spages, gather=gather)
 
 
-def _verify_backbone(bundle: ModelBundle):
+def _verify_backbone(bundle: ModelBundle, gather=None):
     """``bundle.verify_hidden`` in the form :meth:`_DecodeGraph.hidden` calls."""
     return lambda p, cache, toks, pos, pages, spages=None: bundle.verify_hidden(
-        p, cache, toks.T, pos, pages=pages, state_pages=spages)
+        p, cache, toks.T, pos, pages=pages, state_pages=spages, gather=gather)
 
 
 class ServeSession:
@@ -450,6 +452,23 @@ class ServeSession:
         k: top-k width returned by the head (candidates for sampling).
         kernel: serve-kernel override (name, policy name, or KernelPolicy);
             ``None`` uses ``cfg.ds.serve_kernel``.
+        mesh: a ``DeviceMesh`` (``repro_torch.launch.mesh.parse_mesh``) for
+            expert-parallel serving, driven by every rank of the mesh (one
+            process per rank) with the same requests. The DS table is
+            sharded experts → ``model`` (each rank keeps K/ep experts' rows,
+            ``core.dssoftmax.shard_table``) and every head call runs
+            ``serve_topk_sharded`` (the gate on every rank, the owner
+            rank's retrieval, one O(B·k) all-gather merge); every rank
+            steps every resident slot's backbone, so the cache is
+            replicated, and the head's token rows split over ``data``.
+            Every rank sees the same merged outputs and the same global
+            per-expert stats, so every host decision (scheduling, policy,
+            breaker, repack, sampling) is the same on all ranks.
+        param_mode: ``'replicated'`` (default) or ``'fsdp'`` (requires
+            ``mesh``): every backbone weight is stored split over the
+            mesh's ``data`` axis (``distributed.sharding.
+            serve_param_shardings``) and gathered per layer where the layer
+            runs (``ServeParamGather``); streams stay token-identical.
         prefill_chunk: if set, prompts prefill through
             ``bundle.prefill_chunk`` in (1, C) chunks, the tail chunk
             right-padded and masked.
@@ -531,7 +550,7 @@ class ServeSession:
 
     def __init__(self, bundle: ModelBundle, params, ds_state_or_table, *,
                  n_slots: int = 8, max_seq_len: int = 256, k: int = 8,
-                 kernel=None,
+                 kernel=None, mesh=None, param_mode: str = "replicated",
                  prefill_chunk: Optional[int] = None,
                  stream_cb: Optional[Callable[[Request, int], None]] = None,
                  queue_limit: Optional[int] = None,
@@ -565,6 +584,13 @@ class ServeSession:
                              "use whole-prompt prefill (prefill_chunk=None)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if param_mode not in ("replicated", "fsdp"):
+            raise ValueError(f"param_mode must be 'replicated' or 'fsdp', got {param_mode!r}")
+        if param_mode == "fsdp" and mesh is None:
+            raise ValueError("param_mode='fsdp' requires mesh=")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device_type}, the session on "
+                             f"{self.device.type}")
         if paged:
             if max_seq_len % page_size:
                 raise ValueError(f"paged mode needs max_seq_len ({max_seq_len}) divisible "
@@ -598,6 +624,8 @@ class ServeSession:
         self.bundle = bundle
         self.cfg = cfg
         self.params = params
+        self.param_mode = param_mode
+        self.mesh = mesh
         self.n_slots = n_slots
         self.max_seq_len = max_seq_len
         self.k = k
@@ -622,9 +650,23 @@ class ServeSession:
             check_on(self.device, table=ds.table_rows(table))
             if quantize is not None and isinstance(table, ds.ServeTable):
                 table = self._quantize_pack(table, params["head"]["gate"])
-            self._table_res = TableResource(table, gate=params["head"]["gate"])
+            # placed on the mesh on the way in (experts → model, K padded to
+            # a multiple of ep), at init and at every swap
+            self._table_res = TableResource(table, gate=params["head"]["gate"], mesh=mesh)
         else:
             self._table_res = TableResource(ds_state_or_table)
+        self._gather = None
+        self._param_shardings = None
+        # the whole gate (FSDP stores a slice of it): quantization reads it
+        self._full_gate = params["head"].get("gate") if cfg.head == "ds" else None
+        if param_mode == "fsdp":
+            # after the table is packed (pack_experts reads the whole head):
+            # each rank keeps its data-axis slice of every leaf that splits
+            self._param_shardings = sharding.serve_param_shardings(mesh, params)
+            self._gather = sharding.ServeParamGather(mesh, params)
+            self.params = params = sharding.shard_tree(mesh, params, self._param_shardings)
+            log.info("fsdp param storage: %.2f MB on this rank",
+                     sharding.tree_shard_bytes(params) / 1e6)
         self._adapt_policy = adapt_policy
         self._n_swaps = 0
         self._rows_pruned = 0
@@ -754,10 +796,12 @@ class ServeSession:
         rebind leaves the decode graph as it is."""
         self._n_decode_builds += 1
         cfg, kernel, cf, k = self.cfg, self._eff_kernel, self._eff_capacity_factor, self.k
+        mesh, gather = self.mesh, self._gather
 
         def _head(p, t, h):
             return heads.head_topk(p["head"], t, cfg, h, k, embed_table=p["embed"]["table"],
-                                   kernel=kernel, capacity_factor=cf, with_stats=True)
+                                   kernel=kernel, mesh=mesh, gather=gather,
+                                   capacity_factor=cf, with_stats=True)
 
         self._head_fn = _head
 
@@ -771,13 +815,13 @@ class ServeSession:
         g = self._graph
         if g is not None:
             g.load(self._tok, self._pos, tables, spid)
-            h = g.hidden(_decode_backbone(self.bundle), self.params, self._cache)
+            h = g.hidden(_decode_backbone(self.bundle, self._gather), self.params, self._cache)
         else:
             dev = self.device
             h = self.bundle.decode_hidden(
                 self.params, self._cache, torch.from_numpy(self._tok).to(dev),
                 torch.from_numpy(self._pos).to(dev), pages=self._on_device(tables),
-                state_pages=self._on_device(spid))
+                state_pages=self._on_device(spid), gather=self._gather)
         return self._head_fn(self.params, self.table, h)
 
     def _state_pid(self) -> Optional[np.ndarray]:
@@ -815,13 +859,13 @@ class ServeSession:
         g = self._verify_graph
         if g is not None:
             g.load(blocks, pos0, tables, spid)
-            h = g.hidden(_verify_backbone(self.bundle), self.params, self._cache)
+            h = g.hidden(_verify_backbone(self.bundle, self._gather), self.params, self._cache)
         else:
             dev = self.device
             h = self.bundle.verify_hidden(
                 self.params, self._cache, torch.from_numpy(blocks).to(dev),
                 torch.from_numpy(pos0).to(dev), pages=self._on_device(tables),
-                state_pages=self._on_device(spid))
+                state_pages=self._on_device(spid), gather=self._gather)
         n, W, dm = h.shape
         vals, ids, stats = self._head_fn(self.params, self.table, h.reshape(n * W, dm))
         return vals.reshape(n, W, -1), ids.reshape(n, W, -1), stats
@@ -864,10 +908,15 @@ class ServeSession:
                     f"gate rows ({new_gate.shape[0]}) must match table experts ({n_table})"
                     " — gate and table swap as one versioned pair")
             check_on(self.device, new_gate=new_gate)
+            self._full_gate = new_gate
+            if self._param_shardings is not None:
+                # the path-keyed head/gate placement holds for any K
+                new_gate = sharding.shard_tree(self.mesh, {"head": {"gate": new_gate}},
+                                               self._param_shardings)["head"]["gate"]
             self.params = dict(self.params, head=dict(self.params["head"], gate=new_gate))
         if self._quantize is not None and isinstance(new_table, ds.ServeTable):
-            new_table = self._quantize_pack(new_table, self.params["head"]["gate"])
-        version = self._table_res.swap(new_table, gate=self.params["head"]["gate"])
+            new_table = self._quantize_pack(new_table, self._full_gate)
+        version = self._table_res.swap(new_table, gate=self._full_gate)
         self._n_swaps += 1
         if capacity_factor is not None:
             self._eff_capacity_factor = float(capacity_factor)
@@ -882,13 +931,17 @@ class ServeSession:
 
     def traffic_profile(self) -> Optional[TrafficProfile]:
         """The stats window as a
-        :class:`~repro_torch.serve.table_manager.TrafficProfile`, or None
-        until the current table version has served a decode step. (No
-        dummy experts to slice off: the port does not shard the table.)"""
+        :class:`~repro_torch.serve.table_manager.TrafficProfile`, sliced to
+        the real expert count (a mesh session's stats cover the dummy
+        experts ``shard_table`` pads with, which get no traffic), or None
+        until the current table version has served a decode step."""
         if not self._win:
             return None
         disp = np.sum([d for _, d, _ in self._win], axis=0, dtype=np.int64)
         over = np.sum([o for _, _, o in self._win], axis=0, dtype=np.int64)
+        if self._full_gate is not None:
+            kreal = int(self._full_gate.shape[0])
+            disp, over = disp[:kreal], over[:kreal]
         return TrafficProfile(dispatched=disp, overflow=over, steps=len(self._win),
                               start_step=self._win[0][0], end_step=self._win[-1][0])
 
@@ -1155,7 +1208,7 @@ class ServeSession:
                 self.bundle.commit_block(
                     self.params, self._cache, blk, p0, nv,
                     pages=self._on_device(None if self._mgr is None else self._mgr.tables),
-                    state_pages=self._on_device(self._state_pid()))
+                    state_pages=self._on_device(self._state_pid()), gather=self._gather)
             if self._draft_commits:
                 for leaf, old in zip(self._draft_state, d_state0):
                     leaf.copy_(old)
@@ -1544,7 +1597,7 @@ class ServeSession:
             vals, ids, row = self.bundle.prefill(
                 self.params, self.table,
                 {"tokens": torch.from_numpy(toks[None]).to(self.device)},
-                k=self.k, kernel=self.kernel)
+                k=self.k, kernel=self.kernel, mesh=self.mesh, gather=self._gather)
             if m is None:
                 self._insert(self._cache, self._kv_leaf, row, i, S)
             else:
@@ -1638,7 +1691,8 @@ class ServeSession:
         buf[0, : len(tail)] = tail
         return self.bundle.prefill_chunk(
             self.params, self.table, cache, torch.from_numpy(buf).to(self.device), lo,
-            len(tail), k=self.k, kernel=self.kernel, pages=pages, state_pages=state_pages)
+            len(tail), k=self.k, kernel=self.kernel, pages=pages, state_pages=state_pages,
+            mesh=self.mesh, gather=self._gather)
 
     def _draft_prefill_slot(self, toks: np.ndarray, i: int) -> None:
         """Prefill the draft's cache row of slot ``i`` with the slot's whole

@@ -66,3 +66,24 @@ def unflatten_dict(d: Mapping[str, Any], sep: str = "/") -> dict:
             cur = cur.setdefault(p, {})
         cur[parts[-1]] = v
     return out
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """:func:`tree_map` where ``fn`` also receives the slash-joined path of
+    the leaf (dict keys and NamedTuple field names, as ``repro``'s
+    ``map_with_path`` joins them)."""
+    if tree is None:
+        return None
+    join = lambda k: f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree, Mapping):
+        return {k: map_with_path(fn, v, join(k)) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(map_with_path(fn, v, join(f)) for f, v in zip(tree._fields, tree)))
+    return fn(prefix, tree)
+
+
+def tree_paths(tree: Any) -> list:
+    """The slash-joined path of every leaf, in :func:`tree_leaves`' order."""
+    out: list = []
+    map_with_path(lambda p, x: out.append(p), tree)
+    return out

@@ -193,14 +193,15 @@ def test_trace_sums_ops_that_share_a_name_prefix(smoke):
 # ---------------------------------------------------------------------------
 
 PHASES = ("kernel_phase", "slice_phase", "batch_phase", "lasso_phase", "profile_phase",
-          "adapt_phase", "prefill_phase", "spec_phase", "family_phase", "state_phase",
-          "encdec_phase", "train_phase")
+          "adapt_phase", "prefill_phase", "mesh_phase", "spec_phase", "family_phase",
+          "state_phase", "encdec_phase", "train_phase")
 
 
 def test_main_runs_the_family_phase_after_spec_and_before_train(smoke, monkeypatch):
-    """With every phase stubbed, main() calls them in order: phase 6c
-    (``family_phase``) right after 6b, then 6d (``state_phase``), 6e
-    (``encdec_phase``), and 7 last."""
+    """With every phase stubbed, main() calls them in order: phase 6f
+    (``mesh_phase``) right after 6, on phase 3's model, then 6b, 6c
+    (``family_phase``), 6d (``state_phase``), 6e (``encdec_phase``), and 7
+    last."""
     from repro_torch.kernels import _build
 
     calls = []
@@ -427,3 +428,43 @@ def test_encdec_decode_bytes_from_the_shapes(smoke):
     assert b["head"] == (8 + 5 * 8192) * 512 * 2
     assert b["total"] == sum(v for k, v in b.items() if k != "total")
     assert 1e3 * b["total"] / smoke.HBM_BYTES_PER_S == pytest.approx(0.0754, abs=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# phase 6f (serving on a mesh): what can be checked without a card
+# ---------------------------------------------------------------------------
+
+def test_mesh_phase_sizes(smoke):
+    """6f runs the sharded head at decode, a verify step and a whole
+    prompt; the local halves at ep 2 and 4, which divide qwen2-1.5b's 16
+    experts (no padding: the shards' counts concatenate to serve_topk's);
+    the 1x1 sessions through the fused kernel and ``auto``."""
+    from repro_torch.configs import get_config
+
+    assert smoke.MESH_BATCHES == (1, 8, 40, 2048)
+    assert smoke.MESH_LOCAL_BATCHES == (8, 2048)
+    K = get_config("qwen2-1.5b").ds.num_experts
+    assert all(K % ep == 0 for ep in smoke.MESH_EPS) and smoke.MESH_EPS == (2, 4)
+    assert set(smoke.MESH_SESSION_KERNELS) <= set(smoke.SESSION_KERNELS)
+
+
+@pytest.mark.parametrize("path,delta,ok", [
+    ("cuda_fused", {"dss_topk_fused_q": 1}, True),
+    ("cuda_fused", {"dss_topk_grouped": 1}, False),
+    ("cuda_grouped", {"dss_topk_grouped_wgmma": 2}, True),
+    ("cuda_pertoken", {"dss_topk": 1}, True),
+    ("auto", {"dss_topk_grouped_tiled": 1}, True),
+    ("auto", {}, False),
+    ("jnp", {}, True),
+    ("jnp", {"dss_topk_fused": 1}, False),
+    ("jnp", {"flash_attention_wgmma": 3}, True),
+])
+def test_mesh_phase_requires_each_paths_bodies(smoke, path, delta, ok):
+    from repro_torch.kernels import ops
+
+    counts = {name: delta.get(name, 0) for name, _, _ in ops.BODIES}
+    if ok:
+        smoke._mesh_bodies_launched("t", path, counts)
+    else:
+        with pytest.raises(smoke.SmokeFailure):
+            smoke._mesh_bodies_launched("t", path, counts)

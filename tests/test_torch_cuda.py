@@ -2389,3 +2389,90 @@ def test_encdec_bf16_prefill_runs_the_tensor_core_attention(dev, arch):
         layers.flash_attention = orig
     assert torch.equal(ik, ip)
     assert float((vk - vp).abs().max()) <= 2.0 ** -4 * float(vp[:, 0].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Serving on a mesh: the sharded head in a 1-rank NCCL group, and each
+# model rank's local half at ep 2 and 4 through the CUDA bodies, merged
+# ---------------------------------------------------------------------------
+
+def _mesh_head_inputs(dev, quantized, seed=5):
+    from repro_torch.core import dssoftmax as ds
+
+    K, v_pad, d = 6, 512, 64
+    w, ids, g = _table(dev, K, v_pad, d, torch.bfloat16, seed)
+    table = ds.ServeTable(ids=ids, weights=w)
+    if quantized:  # experts 1 and 4 on exact fallback rows, the rest int8
+        table = ds.quantize_table(table, fb_mask=torch.tensor([0, 1, 0, 0, 1, 0], dtype=bool))
+    gate = (torch.randn((K, d), generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+    return gate, table, g
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from repro_torch.launch import mesh as lmesh
+
+    lmesh.init_distributed("cuda", store=str(tmp_path_factory.mktemp("nccl") / "store"),
+                           rank=0, world_size=1)
+    yield lmesh.parse_mesh("1x1", device="cuda")
+    lmesh.destroy()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("path", ["auto", "cuda_fused", "cuda_grouped", "cuda_pertoken", "jnp"])
+def test_sharded_head_in_a_one_rank_nccl_group(dev, nccl_mesh, path, quantized):
+    """``serve_topk_sharded`` over NCCL at 1x1 equals ``serve_topk`` on the
+    same path bit for bit, at decode, verify and batch sizes."""
+    from repro_torch.core import dssoftmax as ds
+
+    if quantized and path == "cuda_pertoken":
+        pytest.skip("the per-token kernel serves fp tables only")
+    gate, table, g = _mesh_head_inputs(dev, quantized)
+    shard = ds.shard_table(table, nccl_mesh)
+    for B in (1, 8, 40, 300):
+        h = torch.randn((B, gate.shape[1]), generator=g, device=dev).to(torch.bfloat16)
+        got = ds.serve_topk_sharded(gate, shard, h, 8, mesh=nccl_mesh, kernel=path,
+                                    with_stats=True)
+        want = ds.serve_topk(gate, table, h, 8, kernel=path, with_stats=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2]["dispatched"], want[2]["dispatched"])
+        assert torch.equal(got[2]["overflow"], want[2]["overflow"])
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("ep", [2, 4])
+@pytest.mark.parametrize("path", ["cuda_fused", "cuda_grouped"])
+def test_local_halves_through_the_kernels_merge_to_serve_topk(dev, path, ep, quantized):
+    """Each model rank's half at ep 2 and 4 (K 6 pads to 8 at ep 4) on this
+    one card, one after another: the fused kernel at ``e_base`` r·K_loc, the
+    grouped kernel on owned tokens at the global capacity; merged, ids equal
+    ``serve_topk``'s bit for bit and values within rtol 1e-6 / atol 2e-6,
+    the counts concatenate to its counts, no -inf in any carry, and the
+    path's bodies launch."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.kernels import ops
+
+    gate, table, g = _mesh_head_inputs(dev, quantized, seed=9)
+    for B, cf in ((8, 2.0), (300, 2.0), (64, 0.25)):
+        h = torch.randn((B, gate.shape[1]), generator=g, device=dev).to(torch.bfloat16)
+        want = ds.serve_topk(gate, table, h, 8, kernel=path, capacity_factor=cf,
+                             with_stats=True)
+        shards = [ds.table_shard(table, ep, r) for r in range(ep)]
+        before = ops.launch_counts()
+        halves = [ds.serve_topk_local_half(gate, s, h, 8, path, capacity_factor=cf,
+                                           with_stats=True) for s in shards]
+        delta = {n: c - before[n] for n, c in ops.launch_counts().items()}
+        fam = "dss_topk_fused" if path == "cuda_fused" else "dss_topk_grouped"
+        assert sum(c for n, c in delta.items() if n.startswith(fam)) >= ep
+        assert not any(torch.isinf(v).any() for v, _, _, _ in halves)
+        K_loc = shards[0].local.ids.shape[0]
+        v, i = ds.merge_carries(torch.stack([x[0] for x in halves]),
+                                torch.stack([x[1] for x in halves]), halves[0][2], K_loc)
+        assert torch.equal(i, want[1])
+        torch.testing.assert_close(v, want[0], rtol=1e-6, atol=2e-6)
+        got = {key: torch.cat([x[3][key] for x in halves])[:6] for key in want[2]}
+        assert torch.equal(got["dispatched"], want[2]["dispatched"])
+        if 6 % ep == 0:  # else capacity is sized by the padded K, as in repro
+            assert torch.equal(got["overflow"], want[2]["overflow"])

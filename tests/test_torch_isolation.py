@@ -53,7 +53,9 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "models/encdec.py", "configs/whisper_base.py",
                                     "configs/paper_lm.py", "configs/shapes.py",
                                     "core/metrics.py", "core/analysis.py",
-                                    "core/baselines.py", "utils/timing.py"])
+                                    "core/baselines.py", "utils/timing.py",
+                                    "distributed/__init__.py", "distributed/sharding.py",
+                                    "launch/mesh.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()

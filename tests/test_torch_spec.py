@@ -463,9 +463,13 @@ def test_launch_serve_speculative_cpu(capsys):
                               "--paged", "--prefill-chunk", "4", "--shared-prefix", "8",
                               "--batch", "3", "--slots", "2", "--new-tokens", "4"])
     assert sess.stats()["paged"]["prefix_hits"] >= 1
-    for bad in (["--mesh", "1x8"], ["--param-mode", "fsdp"]):
-        with pytest.raises(ValueError, match="Queue 1 item 8"):
-            launch_serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", *bad])
+    # a mesh wider than this 1-process world, and fsdp without a mesh
+    with pytest.raises(ValueError, match="needs 8 ranks"):
+        launch_serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+                           "--mesh", "1x8"])
+    with pytest.raises(SystemExit):
+        launch_serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+                           "--param-mode", "fsdp"])
 
 
 def test_graph_backbone_adapters_call_the_bundle():
