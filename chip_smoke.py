@@ -329,6 +329,28 @@ Phases, in order (any failure exits non-zero before the result line):
    (every 16th position of a held-out batch) on each path against the
    top-k of ``logits_dense`` restricted to the trained mask: ids equal but
    at near-ties, values within the kernel tolerance.
+7m. Mesh training (``mesh_train_phase``, after phase 7): a 1-rank NCCL
+   group over a file store and a 1x1 mesh. (a) lm-100m at full width from
+   phase 7's seeded state on its batches and schedule, 6 steps of
+   microbatches 2 through ``make_train_step(mesh=)`` and through the plain
+   step: params, moments, masks and metrics equal under phase 7 (a2)'s
+   rule (which held is printed); step ms beside the plain step's, the
+   rank's resident train-state bytes and peak ``max_memory_allocated``;
+   the step launches no kernel body. (b) olmoe-1b-7b at full width (d
+   2048, E 64, top-8, f 1024): one layer's expert-parallel FFN at ep 2, 4
+   and 8, each shard's part (``moe.moe_ep_local``) run one after another
+   and summed in bf16, on a bf16 batch of 4 x 512, against ``moe_block``:
+   the forward within the sum of half a bf16 ulp of each partial and of
+   each running sum, plus half an ulp of the reference (the largest excess
+   printed); the gradients of x, the router and every expert slice within
+   MESH_EP_GRAD_TOL of each leaf's largest. Then a 2-layer olmoe-1b-7b
+   through 3 mesh steps at 1x1 (the expert-parallel FFN with one shard)
+   against the plain step under (a)'s rule. (c) (a)'s mesh-trained head
+   packed and served by ``ServeSession(mesh=1x1)`` through cuda_fused and
+   auto on 8 greedy prompts: streams token-identical to the same sessions
+   on the plain-trained head where (a) held bit for bit (else the parted
+   streams are counted), the path's bodies launched. The group is
+   destroyed at the end.
 Every profile opens with a head of one-element adds that it does not
 count, and must find the device record of each launch after them, or it
 is taken again with a longer head (``traced``): Kineto loses the records
@@ -368,6 +390,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -5323,6 +5346,394 @@ def _mesh_sessions(out, card, mesh, cfg, bundle, params, table, results) -> None
     out["sessions"] = rows
 
 
+MESH_TRAIN_STEPS, MESH_TRAIN_MICRO = 6, 2       # phase 7m (a)
+MESH_EP_SHARDS = (2, 4, 8)                      # phase 7m (b)
+MESH_EP_BATCH, MESH_EP_SEQ = 4, 512
+MESH_OLMOE_LAYERS, MESH_OLMOE_STEPS = 2, 3
+# phase 7m (b): each EP gradient against moe_block's, per leaf, within this
+# share of the leaf's largest magnitude (4 bf16 ulps there: bf16 cotangents
+# summed over the shards in another order)
+MESH_EP_GRAD_TOL = 2.0 ** -6
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of x (fp32; 2^-133 at 0)."""
+    import torch
+
+    e = torch.floor(torch.log2(torch.clamp(x.float().abs(), min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _hold_states(label, got, want, lr_sum: float) -> str:
+    """Phase 7 (a2)'s rule on two TrainStates (``want`` may wait on the
+    host): bit for bit, or params within 2·Σlr, moments within rtol 1e-3
+    (of each leaf's largest), masks equal; → which held."""
+    import torch
+
+    from repro_torch.utils import flatten_dict
+
+    fg, fw = flatten_dict(got), flatten_dict(want)
+    if set(fg) != set(fw):
+        raise SmokeFailure(f"{label}: the states hold other leaves")
+    if all(torch.equal(fg[k], fw[k].to(fg[k].device)) and fg[k].dtype == fw[k].dtype
+           for k in fw):
+        return "bit for bit"
+    for k in fw:
+        a, b = fg[k], fw[k].to(fg[k].device)
+        if a.dtype == torch.bool:
+            if not torch.equal(a, b):
+                raise SmokeFailure(f"{label}: {k} differs")
+            continue
+        diff = float((a.float() - b.float()).abs().max())
+        if k.startswith("params/"):
+            ok = diff <= 2 * lr_sum
+        elif k.startswith("opt/step"):
+            ok = diff == 0
+        else:
+            ok = diff <= 1e-3 * float(b.float().abs().max())
+        if not ok:
+            raise SmokeFailure(f"{label}: {k} differs by {diff}")
+    return "within phase 7 (a2)'s rule"
+
+
+def _timed_steps(step, state, batches):
+    """Run ``step`` over ``batches`` → (final state, metrics per step, step ms
+    per step, CUDA-synchronized)."""
+    import torch
+
+    hist, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        hist.append({k: float(v) for k, v in m.items()})
+    return state, hist, ms
+
+
+def mesh_train_phase(results: dict, card: str) -> None:
+    """Phase 7m: training on a mesh, on the one card, in a 1-rank NCCL group
+    over a file store and a 1x1 mesh: (a) lm-100m through
+    ``make_train_step(mesh=)`` against the plain step, (b) olmoe-1b-7b's
+    expert-parallel FFN at ep 2, 4 and 8 one shard after another, and a
+    2-layer olmoe-1b-7b through the mesh step, (c) (a)'s mesh-trained head
+    served by ``ServeSession(mesh=1x1)`` (run right after (a), so (a)'s
+    states leave the card before olmoe's arrive). The group is destroyed
+    at the end."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import mesh as lmesh
+
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_")) / "store"
+    lmesh.init_distributed("cuda", store=str(store), rank=0, world_size=1)
+    mesh = lmesh.parse_mesh("1x1", device="cuda")
+    out = {"card": card}
+    try:
+        _mesh_serve_trained(out, card, mesh, *_mesh_train_lm(out, card, mesh))
+        torch.cuda.empty_cache()
+        _mesh_ep_ffn(out, card)
+        _mesh_train_olmoe(out, card, mesh)
+    finally:
+        lmesh.destroy()
+        torch.cuda.empty_cache()
+    results["mesh_train"] = out
+
+
+def _mesh_steps(label, card, cfg, mesh, batches, micro, sched=None, lr=TRAIN_LR):
+    """The plain step and the mesh step from the same seeded state over the
+    same batches → (row, plain final state on the host, mesh final state,
+    bundle). Each run starts from its own seeded init and the steps alone
+    hold its state (at most two states on the card at once); the plain
+    run's end waits on the host."""
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.optim import adam_init
+    from repro_torch.train.train_step import TrainState, make_train_step
+    from repro_torch.utils import tree_map
+
+    bundle = build(cfg, device="cuda")
+
+    def state0():
+        params, ds_state = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+        return TrainState(params, adam_init(params), ds_state)
+
+    tcfg = TrainConfig(lr=lr, microbatches=micro, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    plain, p_hist, p_ms = _timed_steps(make_train_step(bundle, tcfg, sched), state0(), batches)
+    plain = tree_map(lambda t: t.cpu(), plain)
+    held_state = list(sharding.shard_train_state(mesh, state0()))
+    specs = held_state.pop()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with sharding.record_collectives() as rec:
+        meshed, m_hist, m_ms = _timed_steps(
+            make_train_step(bundle, tcfg, sched, mesh=mesh, shardings=specs), held_state.pop(),
+            batches)
+    peak = torch.cuda.max_memory_allocated()
+    if any(ops.launch_counts().values()):
+        raise SmokeFailure(f"{label}: the mesh step launched kernel bodies {ops.launch_counts()}")
+    lrs = [float(sched(i)) if sched else lr for i in range(len(batches))]
+    held = _hold_states(label, meshed, plain, sum(lrs))
+    for i, (a, b) in enumerate(zip(m_hist, p_hist)):
+        for k in b:
+            same = a[k] == b[k] or abs(a[k] - b[k]) <= 1e-3 * abs(b[k])
+            if not same or not math.isfinite(a[k]):
+                raise SmokeFailure(f"{label}: step {i} {k} {a[k]} against the plain step's {b[k]}")
+    row = {"steps": len(batches), "microbatches": micro, "held": held,
+           "metrics_equal": m_hist == p_hist,
+           "step_ms_median": statistics.median(m_ms[1:]),
+           "plain_step_ms_median": statistics.median(p_ms[1:]),
+           "resident_train_state_bytes": sharding.tree_shard_bytes(meshed),
+           "peak_memory_bytes": peak, "collectives": len(rec),
+           "loss": [m["loss"] for m in m_hist], "ce": [m["ce"] for m in m_hist],
+           "grad_norm": [m["grad_norm"] for m in m_hist]}
+    print(f"[mesh_train] {label}: {len(batches)} steps, microbatches {micro}, the mesh step "
+          f"against the plain step: {held}; metrics {'equal' if row['metrics_equal'] else 'within rtol 1e-3'}; "
+          f"step ms median {row['step_ms_median']:.2f} (plain {row['plain_step_ms_median']:.2f}); "
+          f"resident train state {row['resident_train_state_bytes'] / 2**30:.3f} GiB on this "
+          f"rank; peak {peak / 2**30:.2f} GiB; {len(rec)} collectives; CE "
+          f"{[round(c, 4) for c in row['ce']]}; card {card}", flush=True)
+    return row, plain, meshed, bundle
+
+
+MESH_PLACEMENT_SPECS = ("1x2", "2x1", "2x2", "8x1", "4x2")
+
+
+def _placement_bytes(state, spec: str) -> dict:
+    """Counts from shapes (nothing measured): one rank's resident bytes of
+    ``state`` placed on a ``spec`` mesh (``train_state_shardings``), and the
+    param bytes the mesh step's gather brings to it a step (each leaf whole,
+    or its ``model`` block for the MoE expert stacks, less what it holds)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.utils.tree import map_with_path, tree_leaves, tree_paths
+
+    d, m = (int(x) for x in spec.split("x"))
+    stand = types.SimpleNamespace(shape={"data": d, "model": m}, axis_names=("data", "model"))
+    specs = sharding.train_state_shardings(stand, state)
+
+    def split(s, skip=()):
+        n = 1
+        for ax in s:
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                if a and a not in skip:
+                    n *= stand.shape[a]
+        return n
+
+    resident = sum(x.numel() * x.element_size() // split(s)
+                   for s, x in zip(tree_leaves(specs), tree_leaves(state)))
+    p_spec = dict(zip(tree_paths(specs.params), tree_leaves(specs.params)))
+    gathered = []
+    map_with_path(lambda p, x: gathered.append(
+        x.numel() * x.element_size() * (1 / split(p_spec[p], ("data",) if
+                                                  sharding.model_local(p) else ("data", "model"))
+                                        - 1 / split(p_spec[p]))), state.params)
+    return {"resident_bytes": resident, "gathered_param_bytes_per_step": int(sum(gathered))}
+
+
+def _mesh_train_lm(out, card, mesh):
+    """(a) lm-100m at full width: phase 7's seeded state and batches, its
+    schedule, MESH_TRAIN_STEPS steps of microbatches 2."""
+    import torch
+
+    from repro_torch.data import TopicLMStream
+    from repro_torch.optim import make_schedule
+
+    cfg = lm_100m_config()
+    stream = TopicLMStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=SEED)
+    batches = [{"tokens": torch.from_numpy(stream.batch_at(i)).cuda()}
+               for i in range(MESH_TRAIN_STEPS)]
+    sched = make_schedule("cosine", TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    row, plain, meshed, bundle = _mesh_steps("(a) lm-100m", card, cfg, mesh, batches,
+                                             MESH_TRAIN_MICRO, sched)
+    row["placement_counts"] = {s: _placement_bytes(plain, s) for s in MESH_PLACEMENT_SPECS}
+    out["lm_100m"] = row
+    print(f"[mesh_train] (a) lm-100m placed on wider meshes (counts from the shapes, not "
+          f"measured: a rank's resident train-state bytes, the param bytes its gather "
+          f"brings a step): {json.dumps(row['placement_counts'])}", flush=True)
+    return bundle, plain, meshed, stream
+
+
+def _ep_inputs(cfg, gen):
+    import torch
+
+    from repro_torch.models import moe
+
+    params = {k: v[0] for k, v in moe.init_moe(gen, cfg, 1, device="cuda").items()}
+    x = torch.randn((MESH_EP_BATCH, MESH_EP_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.jdtype)
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    return params, x, dy
+
+
+def _ep_grads(params, x, run):
+    """``run(params, x)`` → (y, load loss, Σ y·dy + load) → (y, load, the
+    objective's gradients with respect to x and every param)."""
+    import torch
+
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    xr = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        y, load, obj = run(leaves, xr)
+        grads = torch.autograd.grad(obj, [xr] + list(leaves.values()))
+    return y.detach(), load.detach(), dict(zip(["x"] + list(leaves), grads))
+
+
+def _mesh_ep_ffn(out, card):
+    """(b) One layer of olmoe-1b-7b's MoE at full width, bf16 x (4, 512,
+    2048): the expert-parallel FFN at ep 2, 4 and 8, each shard's part
+    (``moe.moe_ep_local``) run one after another on the card and summed in
+    bf16, against ``moe_block``: the forward within the bf16 roundings of
+    the partial sums, every gradient within MESH_EP_GRAD_TOL of its leaf's
+    largest."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe-1b-7b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params, x, dy = _ep_inputs(cfg, gen)
+    E = cfg.moe.num_experts
+
+    def whole(p, xr):
+        y, aux = moe.moe_block(p, cfg, xr)
+        return y, aux.load_loss, torch.sum(y.float() * dy) + aux.load_loss
+
+    y_ref, load_ref, g_ref = _ep_grads(params, x, whole)
+    rows = []
+    for n in MESH_EP_SHARDS:
+        parts = []
+
+        def ep(p, xr):
+            probs, top_p, top_e, slot, valid = moe.route(p, cfg, xr)
+            parts.clear()
+            y = None
+            for m in range(n):
+                blk = {k: p[k][m * (E // n):(m + 1) * (E // n)]
+                       for k in ("w_gate", "w_up", "w_down")}
+                part = moe.moe_ep_local(blk, cfg, xr, top_e, top_p, slot, valid, m, n)
+                parts.append(part.detach())
+                y = part if y is None else y + part
+            aux = moe.switch_aux(probs, top_e, valid)
+            return y, aux.load_loss, torch.sum(y.float() * dy) + aux.load_loss
+
+        y, load, g = _ep_grads(params, x, ep)
+        # the partials' roundings, each running sum's, and the reference's
+        bound = sum(0.5 * _bf16_ulp(p) for p in parts) + 0.5 * _bf16_ulp(y_ref)
+        run = parts[0].float()
+        for p in parts[1:]:
+            run = (run + p.float()).to(torch.bfloat16).float()
+            bound = bound + 0.5 * _bf16_ulp(run)
+        excess = float(((y.float() - y_ref.float()).abs() - bound).max())
+        if excess > 0:
+            raise SmokeFailure(f"mesh_train (b) ep {n}: the forward leaves the bf16 bound by "
+                               f"{excess}")
+        errs = {}
+        for k, want in g_ref.items():
+            got = g[k]
+            errs[k] = float((got.float() - want.float()).abs().max()
+                            / want.float().abs().max())
+            if not errs[k] <= MESH_EP_GRAD_TOL:
+                raise SmokeFailure(f"mesh_train (b) ep {n}: the {k} gradient differs by "
+                                   f"{errs[k]} of its largest")
+        row = {"ep": n, "forward_largest_excess": excess,
+               "forward_max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+               "grad_rel_err": errs}
+        rows.append(row)
+        print(f"[mesh_train] (b) olmoe-1b-7b EP FFN at ep {n} (one shard after another, B "
+              f"{MESH_EP_BATCH} x S {MESH_EP_SEQ}, bf16): forward within the bf16 rounding "
+              f"bound (largest excess {excess:.3e}, max |err| "
+              f"{row['forward_max_abs_err']:.3e}); gradients of x, the router and every "
+              f"expert slice within {MESH_EP_GRAD_TOL} of each leaf's largest "
+              f"({json.dumps({k: round(v, 6) for k, v in errs.items()})}); card {card}",
+              flush=True)
+    out["ep_ffn"] = rows
+
+
+def _mesh_train_olmoe(out, card, mesh):
+    """(b) olmoe-1b-7b at full width with MESH_OLMOE_LAYERS layers through
+    MESH_OLMOE_STEPS mesh steps at 1x1 (the EP region with one shard)
+    against the plain step, on phase 7's batches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TopicLMStream
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe-1b-7b").replace(n_layers=MESH_OLMOE_LAYERS)
+    if not moe.expert_parallel(cfg, mesh):
+        raise SmokeFailure("olmoe at 1x1 does not take the expert-parallel FFN")
+    stream = TopicLMStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=SEED)
+    batches = [{"tokens": torch.from_numpy(stream.batch_at(i)).cuda()}
+               for i in range(MESH_OLMOE_STEPS)]
+    row, plain, meshed, _ = _mesh_steps(f"(b) olmoe-1b-7b, {MESH_OLMOE_LAYERS} layers", card,
+                                        cfg, mesh, batches, 1)
+    out["olmoe"] = row
+    del plain, meshed
+    torch.cuda.empty_cache()
+
+
+def _mesh_serve_trained(out, card, mesh, bundle, plain, meshed, stream):
+    """(c) (a)'s mesh-trained head packed and served by
+    ``ServeSession(mesh=1x1)`` through cuda_fused and auto on 8 greedy
+    prompts, against the same sessions on the plain-trained head."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.train import Request, SamplingParams, ServeSession
+    from repro_torch.utils import tree_map
+
+    specs = sharding.train_state_shardings(mesh, plain)
+    whole = sharding.gather_tree(mesh, meshed, specs)
+    plain = type(plain)(params=tree_map(lambda t: t.cuda(), plain.params), opt=None,
+                        ds_state=tree_map(lambda t: t.cuda(), plain.ds_state))
+    prompts = [stream.batch_at(10_000 + i)[0, :n] for i, n in enumerate(TRAIN_PROMPT_LENS)]
+    max_seq = max(TRAIN_PROMPT_LENS) + TRAIN_NEW
+    streams, rows = {}, []
+    for name, st in (("mesh", whole), ("plain", plain)):
+        table = ds.pack_experts(st.params["head"], st.ds_state)
+        for kern in MESH_SESSION_KERNELS:
+            sess = ServeSession(bundle, st.params, table, n_slots=N_SLOTS, max_seq_len=max_seq,
+                                k=K_TOP, kernel=kern, mesh=mesh, device="cuda",
+                                overflow_threshold=BREAKER_OFF)
+            reqs = [Request(prompt=p.astype(np.int32),
+                            sampling=SamplingParams(max_new_tokens=TRAIN_NEW)) for p in prompts]
+            ops.reset_launch_counts()
+            sess.run(reqs)
+            torch.cuda.synchronize()
+            delta = ops.launch_counts()
+            _mesh_bodies_launched(f"mesh_train (c) {name} {kern}", kern, delta)
+            streams[(name, kern)] = [list(r.out_tokens) for r in reqs]
+            rows.append({"head": name, "kernel": kern,
+                         "launches": {n: c for n, c in delta.items() if c}})
+            del sess
+    held = out["lm_100m"]["held"]
+    partings = {}
+    for kern in MESH_SESSION_KERNELS:
+        a, b = streams[("mesh", kern)], streams[("plain", kern)]
+        partings[kern] = sum(x != y for x, y in zip(a, b))
+        if held == "bit for bit" and partings[kern]:
+            raise SmokeFailure(f"mesh_train (c) {kern}: the mesh-trained head's streams differ "
+                               "from the plain-trained head's")
+    out["serve"] = {"sessions": rows, "streams_parted": partings}
+    print(f"[mesh_train] (c) the mesh-trained lm-100m head served by ServeSession(mesh=1x1) "
+          f"through {', '.join(MESH_SESSION_KERNELS)}: streams against the plain-trained "
+          f"head's: {'token-identical' if not any(partings.values()) else partings} "
+          f"(phase 7m (a) held {held}); bodies launched {json.dumps(rows)}; card {card}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5392,6 +5803,7 @@ def main() -> int:
     timed("state", state_phase, results, card)
     timed("encdec", encdec_phase, results, card)
     timed("train", train_phase, results, card)
+    timed("mesh_train", mesh_train_phase, results, card)
 
     from repro_torch.kernels import ops
 

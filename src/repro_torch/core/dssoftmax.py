@@ -37,6 +37,7 @@ from repro_torch.core import pruning
 from repro_torch.core.dispatch import dispatch_indices, dispatch_load
 from repro_torch.core.gating import sparse_gate_matrix, top1_gate
 from repro_torch.device import check_on, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.kernels.registry import KernelContext, get_spec, resolve_kernel
@@ -302,14 +303,18 @@ def _scatter_rows(values: torch.Tensor, row: torch.Tensor, n_rows: int) -> torch
     return buf.index_put((row,), values)[:n_rows]
 
 
-def _aux(params, state: DSState, cfg: DSSoftmaxConfig, G, Gs, drop) -> DSAux:
+def _aux(params, state: DSState, cfg: DSSoftmaxConfig, G, Gs, drop, mesh=None) -> DSAux:
+    """The aux losses; with ``mesh`` (the mesh train step's) the gate's
+    per-expert sums and its entropy are over every batch rank's tokens."""
     w = params["experts"]
+    ent = torch.sum(G * torch.log(G + 1e-10), dim=-1)
     return DSAux(
         lasso=L.group_lasso(w, state.mask, cfg.gamma),
         expert_lasso=L.expert_lasso(w, state.mask),
-        load=L.load_balance(torch.sum(Gs.reshape(-1, Gs.shape[-1]), dim=0)),
+        load=L.load_balance(sharding.batch_sum(torch.sum(Gs.reshape(-1, Gs.shape[-1]), dim=0),
+                                               mesh)),
         drop_frac=drop,
-        gate_entropy=-torch.mean(torch.sum(G * torch.log(G + 1e-10), dim=-1)),
+        gate_entropy=-sharding.batch_mean(ent.reshape(-1), mesh),
     )
 
 
@@ -365,7 +370,7 @@ def _ce_chunk(buf_i, lab_i, g_i, w32, mask, mode: str):
 
 def loss_rows(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
               cfg: DSSoftmaxConfig, *, capacity_factor: float = 1.25,
-              label_mask: Optional[torch.Tensor] = None):
+              label_mask: Optional[torch.Tensor] = None, mesh=None):
     """Sorted-dispatch CE over batched rows. h: (B, S, d), labels: (B, S).
 
     Tokens are grouped by expert *within each row*: the B rows dispatch at
@@ -375,7 +380,10 @@ def loss_rows(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
     never materialized whole: the capacity runs in up to 8 chunks under
     ``torch.utils.checkpoint``, so one chunk's logits are live at a time
     and the backward recomputes them. ``label_mask`` (B, S) excludes
-    positions from the CE. Returns (task_ce, DSAux)."""
+    positions from the CE. ``mesh`` (the mesh train step's: the rows are
+    this rank's batch share) makes the CE, its token counts and the gate
+    statistics the whole batch's (``sharding.batch_sum``). Returns
+    (task_ce, DSAux)."""
     B, S, d = h.shape
     K, N, _ = params["experts"].shape
     expert_idx, g, G = top1_gate(params["gate"], h)          # (B,S), (B,S), (B,S,K)
@@ -415,13 +423,15 @@ def loss_rows(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
     valid = valid.view(B, S)
     if label_mask is not None:
         valid = valid & label_mask.bool()
-    n_valid = torch.clamp(torch.sum(valid.float()), min=1.0)
-    ce = torch.sum(torch.where(valid, tok_ce, 0.0)) / n_valid
+    nb = sharding.batch_ranks(mesh)
+    n_valid = torch.clamp(sharding.batch_sum(torch.sum(valid.float()), mesh), min=1.0)
+    ce = sharding.batch_sum(torch.sum(torch.where(valid, tok_ce, 0.0)), mesh) / n_valid
     if label_mask is None:  # a Python count: no host-to-device copy
-        drop = 1.0 - n_valid / (B * S)
+        drop = 1.0 - n_valid / (B * S * nb)
     else:
-        drop = 1.0 - n_valid / torch.clamp(torch.sum(label_mask.float()), min=1.0)
-    return ce, _aux(params, state, cfg, G, Gs, drop)
+        drop = 1.0 - n_valid / torch.clamp(
+            sharding.batch_sum(torch.sum(label_mask.float()), mesh), min=1.0)
+    return ce, _aux(params, state, cfg, G, Gs, drop, mesh)
 
 
 def total_loss(params, state, h, labels, cfg: DSSoftmaxConfig, **kw):
@@ -445,12 +455,15 @@ def _ce_from_logits(z: torch.Tensor, labels: torch.Tensor, mean: bool = True) ->
 # ---------------------------------------------------------------------------
 
 
-def update_mask(params, state: DSState, task_loss, cfg: DSSoftmaxConfig) -> DSState:
+def update_mask(params, state: DSState, task_loss, cfg: DSSoftmaxConfig,
+                norm_group=None) -> DSState:
     """Algorithm 1's prune: the new mask, gated on ``task_loss`` (a 0-d
-    tensor or a float) below ``cfg.prune_task_loss_threshold``."""
+    tensor or a float) below ``cfg.prune_task_loss_threshold``.
+    ``norm_group``: the experts' ``d`` is split over it (the mesh train
+    step's blocks; ``pruning.prune_step``)."""
     return DSState(mask=pruning.prune_step(
         params["experts"], state.mask, task_loss, gamma=cfg.gamma,
-        threshold=cfg.prune_task_loss_threshold))
+        threshold=cfg.prune_task_loss_threshold, norm_group=norm_group))
 
 
 def _round_up(x: int, m: int = 128) -> int:

@@ -13,13 +13,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import collective
 
-def row_norms(experts_w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+
+def row_norms(experts_w: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     """l2 norm of each class row. experts_w: (K, N, d), mask: (K, N) → (K, N).
     The ``+1e-12`` inside the root keeps the gradient finite at a zero
-    row."""
+    row. ``group``: the rows' ``d`` is split over this process group, so
+    the squares are summed over it (an all-reduce, no gradient) before the
+    ``+1e-12``."""
     w = experts_w.float() * mask[..., None].float()
-    return torch.sqrt(torch.sum(torch.square(w), dim=-1) + 1e-12)
+    sq = torch.sum(torch.square(w), dim=-1)
+    if group is not None:
+        sq = collective(sq, group, "all_reduce")
+    return torch.sqrt(sq + 1e-12)
 
 
 def group_lasso(experts_w: torch.Tensor, mask: torch.Tensor, gamma: float) -> torch.Tensor:

@@ -30,12 +30,18 @@ def keep_one_copy(candidate_mask: torch.Tensor, norms: torch.Tensor,
 
 
 def prune_step(experts_w: torch.Tensor, mask: torch.Tensor, task_loss: torch.Tensor, *,
-               gamma: float, threshold: float) -> torch.Tensor:
+               gamma: float, threshold: float, norm_group=None) -> torch.Tensor:
     """One pruning update → the new mask. Branch-free: the gate on the
     task loss is a ``torch.where`` on the 0-d tensor, so nothing waits for
-    the device. Computes no gradient."""
+    the device. Computes no gradient.
+
+    On a mesh ``experts_w`` and ``mask`` are this rank's blocks (the
+    experts placed ``(None, model, data)``, the mask ``(None, model)``):
+    ``norm_group``, the group the ``d`` axis splits over, completes each
+    row's sum of squares; :func:`keep_one_copy` stays local, as every rank
+    holds all K experts of its classes."""
     with torch.no_grad():
-        norms = row_norms(experts_w, mask)
+        norms = row_norms(experts_w, mask, norm_group)
         candidate = keep_one_copy(mask & (norms > gamma), norms, mask)
         do_prune = torch.as_tensor(task_loss, dtype=torch.float32,
                                    device=mask.device) < threshold

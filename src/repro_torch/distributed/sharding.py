@@ -1,5 +1,6 @@
-"""Serving-side sharding rules over a ``torch.distributed`` mesh (the serving
-half of ``repro.distributed.sharding``).
+"""Sharding rules over a ``torch.distributed`` mesh (``repro.distributed.
+sharding``): the serving rules, and the training rules with the collectives
+of the mesh train step.
 
 A placement is plain data: per dimension of a leaf, the mesh axis (or tuple
 of axes) it splits over, or ``None`` — the entries of ``repro``'s
@@ -109,16 +110,24 @@ def record_collectives():
 
 
 def collective(x: torch.Tensor, group, op: str = "all_gather") -> torch.Tensor:
-    """The one collective of the serving path. ``'all_gather'`` → the ranks'
+    """The one collective of the port. ``'all_gather'`` → the ranks'
     tensors stacked, ``(n, *x.shape)`` in group-rank order; ``'all_reduce'``
-    → their sum, ``x.shape`` (a new tensor)."""
+    → their sum, ``x.shape`` (a new tensor); ``'all_reduce_max'`` → their
+    elementwise maximum; ``'reduce_scatter'`` → this rank's block of dim 0
+    of their sum, ``(x.shape[0] // n, …)``."""
     n = dist.get_world_size(group)
     if _RECORD is not None:
         _RECORD.append((op, tuple(x.shape), x.dtype, n))
     x = x.contiguous()
-    if op == "all_reduce":
+    if op in ("all_reduce", "all_reduce_max"):
         out = x.clone()
-        dist.all_reduce(out, group=group)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "all_reduce_max"
+                        else dist.ReduceOp.SUM, group=group)
+        return out
+    if op == "reduce_scatter":
+        out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=group)
         return out
     if op != "all_gather":
         raise ValueError(f"unknown collective {op!r}")
@@ -196,9 +205,15 @@ def _fitted_pspec(path: str, shape: tuple, mesh, keep_axes: Optional[tuple] = No
     survives only if the mesh has it, it is wider than 1, it is in
     ``keep_axes`` (when given) and it divides the dim; else that dim is
     replicated. So the placement is always valid."""
+    return _fit(param_pspec(path, len(shape)), shape, mesh, keep_axes)
+
+
+def _fit(spec: tuple, shape: tuple, mesh, keep_axes: Optional[tuple] = None) -> tuple:
+    """``spec`` held to ``shape`` on ``mesh`` (the rule of
+    :func:`_fitted_pspec`)."""
     sizes = mesh_sizes(mesh)
     out = []
-    for dim, ax in zip(shape, param_pspec(path, len(shape))):
+    for dim, ax in zip(shape, spec):
         axes = ax if isinstance(ax, tuple) else (ax,)
         axes = tuple(a for a in axes
                      if a is not None and a in sizes
@@ -393,3 +408,286 @@ class ServeParamGather:
 def tree_shard_bytes(tree: Any) -> int:
     """This rank's resident bytes of a tree of (local) tensors."""
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# Training: the train state's placement, its gather, the step's collectives
+# ---------------------------------------------------------------------------
+#
+# The mesh train step (``train.train_step.make_train_step(mesh=)``) is data
+# parallel compute over a sharded train state. How it counts the loss
+# across ranks: every rank computes the loss of the WHOLE batch. A rank runs
+# its (pod, data) share of the rows; a batch statistic that enters the loss
+# (the CE's sum and token count, the DS gate's per-expert sums, the Switch
+# aux's f and P) is summed over the batch ranks in the forward
+# (:func:`batch_sum`), and that sum's adjoint is the same sum over the
+# cotangents. Each rank's gradient is then n_b times its rows' share plus
+# the terms that read the params alone (the lassos), and the step's gradient
+# is the mean of the ranks' over the batch group
+# (:func:`constrain_like_params`). For a power-of-two n_b the scaling by n_b
+# and the division by it are exact.
+
+
+def param_shardings(mesh, params) -> Any:
+    """The training placement of every leaf of ``params``: its rule over
+    both axes, fitted to its shape (:func:`_fitted_pspec`), as plain
+    tuples where ``repro`` builds ``NamedSharding`` s."""
+    return map_with_path(lambda p, x: _fitted_pspec(p, tuple(x.shape), mesh), params)
+
+
+def replicated(mesh) -> tuple:
+    """The placement that splits nothing."""
+    return ()
+
+
+def train_state_shardings(mesh, state) -> Any:
+    """The placement of a whole ``TrainState`` as ``repro``'s dry-run places
+    a train cell (``launch/dryrun.py:98-110``): the params and both Adam
+    moments by :func:`param_shardings`, the step count replicated, the DS
+    mask ``(None, 'model')`` fitted to its shape (its class axis splits as
+    the expert rows' does)."""
+    opt, ds_state = state.opt, state.ds_state
+    return type(state)(
+        params=param_shardings(mesh, state.params),
+        opt=type(opt)(step=replicated(mesh), m=param_shardings(mesh, opt.m),
+                      v=param_shardings(mesh, opt.v)),
+        ds_state=None if ds_state is None else type(ds_state)(
+            mask=_fit((None, "model"), tuple(ds_state.mask.shape), mesh)))
+
+
+def shard_train_state(mesh, state) -> tuple:
+    """A whole ``TrainState`` (on every rank) → (this rank's shard of it,
+    the placement :func:`train_state_shardings` gives)."""
+    specs = train_state_shardings(mesh, state)
+    return shard_tree(mesh, state, specs), specs
+
+
+def _spec_axes(ax) -> tuple:
+    return tuple(a for a in (ax if isinstance(ax, tuple) else (ax,)) if a is not None)
+
+
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh, keep: tuple = ()) -> torch.Tensor:
+    """The whole leaf from this rank's block under ``spec`` (the inverse of
+    :func:`slice_leaf`): one ``all_gather`` per split axis, the last axis of
+    a multi-axis dim first. Axes in ``keep`` stay split. ``x`` itself
+    without a mesh."""
+    if mesh is None:
+        return x
+    sizes = mesh_sizes(mesh)
+    for dim in reversed(range(len(spec))):
+        for a in reversed(_spec_axes(spec[dim])):
+            if a not in keep and sizes.get(a, 1) > 1:
+                x = _gather_dim(x, axis_group(mesh, a), dim)
+    return x
+
+
+def _spec_of(specs) -> dict:
+    return dict(zip(tree_paths(specs), tree_leaves(specs)))
+
+
+def gather_tree(mesh, tree: Any, specs: Any) -> Any:
+    """Every leaf of a tree of this rank's blocks made whole, on every rank
+    (the inverse of :func:`shard_tree`)."""
+    spec = _spec_of(specs)
+    return map_with_path(lambda p, x: gather_leaf(x, spec[p], mesh), tree)
+
+
+# the expert stacks the expert-parallel MoE FFN reads shard-locally
+# (``models.moe``): a rank keeps its block of their ``model`` axis
+_MODEL_LOCAL_RE = re.compile(r"moe/w_(gate|up|down)$")
+
+
+def model_local(path: str) -> bool:
+    """Whether the train step reads the leaf at ``path`` as this rank's
+    ``model`` block (the MoE expert stacks) rather than whole."""
+    return bool(_MODEL_LOCAL_RE.search(path))
+
+
+def gather_params(mesh, params: Any, specs: Any) -> Any:
+    """The params the mesh train step computes on, from this rank's blocks:
+    every leaf whole, except the MoE expert stacks, which keep their
+    ``model`` block. The whole tree at once, so a step holds one gathered
+    copy of the params for all its microbatches. ``params`` itself without
+    a mesh."""
+    if mesh is None:
+        return params
+    spec = _spec_of(specs)
+    return map_with_path(lambda p, x: gather_leaf(
+        x, spec[p], mesh, keep=("model",) if model_local(p) else ()), params)
+
+
+def constrain_like_params(grads: Any, mesh, specs: Any = None) -> Any:
+    """Each rank's gradients of the leaves it computed on (whole leaves, and
+    the MoE expert stacks' ``model`` blocks) → this rank's block, under the
+    params' placement ``specs``, of the batch group's mean gradient, in
+    fp32. ``specs`` defaults to :func:`param_shardings` of ``grads``, which
+    must then be whole leaves.
+
+    Along ``model`` a rank takes its block locally: every rank of a
+    ``model`` group computed the same gradient (the expert stacks' blocks
+    are already local). Over the batch ranks the sum is a reduce-scatter
+    along the leaf's ``data`` dim where it is split, and an all-reduce over
+    the batch axes that split no dim of it, in fp32; then the division by
+    the batch group's size (the loss convention above). Where one rank
+    holds the whole batch a gradient keeps its dtype. Every collective
+    goes through :func:`collective`, so :func:`record_collectives` sees
+    its bytes. ``grads`` themselves without a mesh."""
+    if mesh is None:
+        return grads
+    spec = _spec_of(param_shardings(mesh, grads) if specs is None else specs)
+    sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
+    batch = tuple(a for a in batch_axes(mesh) if sizes[a] > 1)
+    nb = batch_size_on(mesh)
+
+    def leaf(path, g):
+        split = []
+        for dim, ax in enumerate(spec[path]):
+            axes = tuple(a for a in _spec_axes(ax) if sizes.get(a, 1) > 1)
+            if len(axes) > 1:
+                raise ValueError(f"{path}: dim {dim} splits over {axes}; no rule does that")
+            if axes:
+                split.append((dim, axes[0]))
+        sliced = False
+        for dim, a in split:  # model (and any non-batch axis) first: less to reduce
+            if a not in batch and not (a == "model" and model_local(path)):
+                w = g.shape[dim] // sizes[a]
+                g, sliced = g.narrow(dim, coords[a] * w, w), True
+        if batch:
+            g = g.float()
+        left = list(batch)
+        for dim, a in split:
+            if a in batch:
+                g = collective(g.movedim(dim, 0), axis_group(mesh, a),
+                               "reduce_scatter").movedim(0, dim)
+                left.remove(a)
+        if left:
+            g = collective(g, axis_group(mesh, tuple(left)), "all_reduce")
+        elif sliced and not any(a in batch for _, a in split):
+            g = g.clone()  # not a view that keeps the whole gradient alive
+        return g / nb if nb > 1 else g
+
+    return map_with_path(leaf, grads)
+
+
+def global_norm(tree: Any, mesh, specs: Any) -> torch.Tensor:
+    """The fp32 l2 norm of a tree of blocks placed by ``specs``: each leaf's
+    local sum of squares is added over the axes its placement splits, and
+    only those, so a leaf replicated over an axis counts once. Leaves that
+    split over the same axes share one all-reduce; without a split this is
+    ``utils.tree.tree_global_norm``'s sum, in its order."""
+    spec = _spec_of(specs)
+    sizes = mesh_sizes(mesh)
+    groups: dict = {}
+    for p, x in zip(tree_paths(tree), tree_leaves(tree)):
+        used = {a for ax in spec[p] for a in _spec_axes(ax)}
+        axes = tuple(a for a in sizes if a in used and sizes[a] > 1)
+        groups.setdefault(axes, []).append(x)
+    total = None
+    for axes in sorted(groups):  # the same order on every rank
+        sq = sum(torch.sum(torch.square(x.float())) for x in groups[axes])
+        if axes:
+            sq = collective(sq, axis_group(mesh, axes), "all_reduce")
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _batch_group(mesh):
+    sizes = mesh_sizes(mesh)
+    return axis_group(mesh, tuple(a for a in batch_axes(mesh) if sizes[a] > 1))
+
+
+def batch_ranks(mesh) -> int:
+    """How many ranks split the batch: the (pod, data) size, 1 without a
+    mesh."""
+    return 1 if mesh is None else batch_size_on(mesh)
+
+
+def batch_index(mesh) -> int:
+    """This rank's place among the batch ranks, row-major over (pod, data)
+    as :func:`slice_leaf` lays blocks out; 0 without a mesh."""
+    if mesh is None:
+        return 0
+    sizes, c = mesh_sizes(mesh), 0
+    for a in batch_axes(mesh):
+        c = c * sizes[a] + axis_index(mesh, a)
+    return c
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Σ over a process group forward, and Σ over it backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return collective(x, group, "all_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return collective(g, ctx.group, "all_reduce"), None
+
+
+def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the batch ranks, the same on every rank; its
+    gradient is the sum of the ranks' cotangents (the loss convention
+    above). ``x`` itself without a mesh or where one rank holds the whole
+    batch."""
+    if batch_ranks(mesh) == 1:
+        return x
+    return _SumOverRanks.apply(x, _batch_group(mesh))
+
+
+def batch_mean(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The mean of ``x`` along ``dim`` over every batch rank's rows (each
+    rank holds as many), the same on every rank; ``torch.mean(x, dim)``
+    where the batch is not split."""
+    nb = batch_ranks(mesh)
+    if nb == 1:
+        return torch.mean(x, dim=dim)
+    return batch_sum(torch.sum(x, dim=dim), mesh) / (x.shape[dim] * nb)
+
+
+class _EnterModel(torch.autograd.Function):
+    """Identity forward, Σ over the ``model`` group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collective(g, ctx.group, "all_reduce"), None
+
+
+class _ExitModel(torch.autograd.Function):
+    """Σ over the ``model`` group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return collective(x, group, "all_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _model_size(mesh) -> int:
+    return mesh_sizes(mesh).get("model", 1)
+
+
+def model_enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Where a region split over ``model`` starts: ``x`` forward; backward
+    the sum of the model ranks' cotangents (each rank's region saw only its
+    share of the work that reads ``x``)."""
+    if _model_size(mesh) == 1:
+        return x
+    return _EnterModel.apply(x, axis_group(mesh, "model"))
+
+
+def model_exit(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Where a region split over ``model`` ends: the sum of the model
+    ranks' partials forward; backward the cotangent as it is (every model
+    rank carries the same one downstream)."""
+    if _model_size(mesh) == 1:
+        return x
+    return _ExitModel.apply(x, axis_group(mesh, "model"))

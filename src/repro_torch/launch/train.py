@@ -7,8 +7,9 @@ batch also carries stub encoder frames, ``RandomState(i).normal`` of shape
 (batch, frames, d) for batch ``i``, as ``repro.launch.train`` makes them.
 Runs on CUDA unless given ``--device cpu``; ``--reduced`` takes the small
 config of the same family. The moe, vlm, ssm, hybrid and encdec train
-losses are held against ``repro`` on the CPU; only the dense family has
-trained on the card.
+losses are held against ``repro`` on the CPU; the dense family has trained
+on the card, and the moe family at reduced depth (``chip_smoke.py`` phase
+7m).
 """
 import argparse
 import os

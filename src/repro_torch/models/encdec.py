@@ -154,15 +154,16 @@ def _decoder_hidden(params, cfg: ModelConfig, tokens, memory, train: bool = Fals
     return layernorm(params["dec_norm"], x), torch.stack(ks), torch.stack(vs)
 
 
-def train_loss(params, ds_state, cfg: ModelConfig, batch):
+def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None):
     """batch: frames (B, F, d), tokens (B, S+1). → (total loss, metrics
-    dict of 0-d tensors)."""
+    dict of 0-d tensors). ``mesh``: as in ``transformer.train_loss`` (only
+    the head reads it)."""
     memory = encode(params, cfg, batch["frames"].to(cfg.jdtype), train=True)
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     h, _, _ = _decoder_hidden(params, cfg, inputs, memory, train=True)
     ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
-                              embed_table=params["embed"]["table"])
+                              embed_table=params["embed"]["table"], mesh=mesh)
     return ce + aux["head_aux_total"], {"ce": ce, **aux}
 
 

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dssoftmax as ds
+from repro_torch.distributed.sharding import batch_ranks, batch_sum
 from repro_torch.kernels.ref import topk_stable
 
 
@@ -36,11 +37,12 @@ def _full_ce_chunk(h_i, lab_i, w):
     return lse - gold
 
 
-def _full_ce(w, h, labels, label_mask):
+def _full_ce(w, h, labels, label_mask, mesh=None):
     """Full-softmax CE. w: (N, d); h: (B, S, d); labels: (B, S). The gold
     logit is h·w[label]. The sequence runs in up to 8 chunks under
     ``torch.utils.checkpoint``, so one chunk's (B, cc, N) fp32 logits are
-    live at a time and the backward recomputes them."""
+    live at a time and the backward recomputes them. ``mesh``: the mean
+    is over every batch rank's positions (``sharding.batch_sum``)."""
     B, S, _ = h.shape
     n_chunks = 1
     for cand in (8, 4, 2):
@@ -56,6 +58,10 @@ def _full_ce(w, h, labels, label_mask):
                         for i in range(n_chunks)], dim=1)
     else:
         ce = _full_ce_chunk(h, labels, w)
+    if batch_ranks(mesh) > 1:
+        m = torch.ones_like(ce) if label_mask is None else label_mask.float()
+        return batch_sum(torch.sum(ce * m), mesh) / torch.clamp(
+            batch_sum(torch.sum(m), mesh), min=1.0)
     if label_mask is not None:
         m = label_mask.float()
         return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
@@ -64,11 +70,12 @@ def _full_ce(w, h, labels, label_mask):
 
 def head_loss(head_params, ds_state, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
               embed_table: Optional[torch.Tensor] = None,
-              label_mask: Optional[torch.Tensor] = None):
-    """→ (task_ce, aux_losses_dict). h: (B, S, d)."""
+              label_mask: Optional[torch.Tensor] = None, mesh=None):
+    """→ (task_ce, aux_losses_dict). h: (B, S, d). ``mesh``: h is this
+    rank's batch share, and the CE and aux losses are the whole batch's."""
     if cfg.head == "ds":
         ce, aux = ds.loss_rows(head_params, ds_state, h, labels, cfg.ds,
-                               label_mask=label_mask)
+                               label_mask=label_mask, mesh=mesh)
         dcfg = cfg.ds
         aux_total = (dcfg.lambda_lasso * aux.lasso + dcfg.lambda_expert * aux.expert_lasso
                      + dcfg.lambda_load * aux.load)
@@ -80,7 +87,7 @@ def head_loss(head_params, ds_state, cfg: ModelConfig, h: torch.Tensor, labels: 
             "head_aux_total": aux_total,
         }
     w = embed_table if cfg.tie_embeddings else head_params["unembed"]
-    ce = _full_ce(w, h, labels, label_mask)
+    ce = _full_ce(w, h, labels, label_mask, mesh=mesh)
     return ce, {"head_aux_total": torch.zeros((), dtype=torch.float32, device=h.device)}
 
 

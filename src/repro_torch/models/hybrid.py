@@ -186,8 +186,9 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=Fals
     return h, HybridCache(conv=torch.stack(conv), ssm=torch.stack(ssm), attn_k=ak, attn_v=av)
 
 
-def train_loss(params, ds_state, cfg: ModelConfig, batch):
-    """batch: tokens (B, S+1). → (total loss, metrics dict of 0-d tensors)."""
+def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None):
+    """batch: tokens (B, S+1). → (total loss, metrics dict of 0-d tensors).
+    ``mesh``: as in ``transformer.train_loss`` (only the head reads it)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     x = embed(params["embed"], inputs)
@@ -195,7 +196,7 @@ def train_loss(params, ds_state, cfg: ModelConfig, batch):
     positions = torch.arange(S, device=x.device).expand(B, S)
     h, _ = forward_hidden(params, cfg, x, positions, train=True)
     ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
-                              embed_table=params["embed"]["table"], label_mask=None)
+                              embed_table=params["embed"]["table"], label_mask=None, mesh=mesh)
     return ce + aux["head_aux_total"], {"ce": ce, **aux}
 
 

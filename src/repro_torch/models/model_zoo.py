@@ -40,7 +40,8 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init: Callable[[torch.Generator], Any]
-    # (params, ds_state, batch) → (total loss, metrics)
+    # (params, ds_state, batch, mesh=None) → (total loss, metrics); ``mesh``:
+    # the batch is this rank's share of the mesh train step's
     train_loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
@@ -90,7 +91,7 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         cfg=cfg,
         device=dev,
         init=lambda gen: mod.init_params(gen, cfg, device=dev),
-        train_loss=lambda p, s, batch: mod.train_loss(p, s, cfg, batch),
+        train_loss=lambda p, s, batch, mesh=None: mod.train_loss(p, s, cfg, batch, mesh=mesh),
         prefill=lambda p, t, batch, k=8, kernel=None, mesh=None, gather=None: mod.prefill(
             p, t, cfg, batch, k=k, kernel=kernel, mesh=mesh, gather=gather),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None, capacity_factor=None,
@@ -126,7 +127,8 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> ModelBundle:
         cfg=cfg,
         device=dev,
         init=lambda gen: encdec.init_params(gen, cfg, device=dev, max_target_len=MAX_TARGET_LEN),
-        train_loss=lambda p, s, batch: encdec.train_loss(p, s, cfg, batch),
+        train_loss=lambda p, s, batch, mesh=None: encdec.train_loss(p, s, cfg, batch,
+                                                                     mesh=mesh),
         prefill=lambda p, t, batch, k=8, kernel=None, mesh=None, gather=None: encdec.prefill(
             p, t, cfg, batch, k=k, kernel=kernel, mesh=mesh, gather=gather),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None, capacity_factor=None,

@@ -86,12 +86,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return params, ds_state
 
 
-def _ffn_residual(lp, cfg: ModelConfig, x):
+def _ffn_residual(lp, cfg: ModelConfig, x, mesh=None):
     """x + the layer's FFN (the MoE block or the MLP) of norm(x) → (new x,
-    the MoE's aux load loss; None for an MLP)."""
+    the MoE's aux load loss; None for an MLP). ``mesh``: the mesh train
+    step's (``moe.moe_block``)."""
     xn = rmsnorm(lp["ln2"], x)
     if cfg.moe is not None:
-        y, aux = moe.moe_block(lp["moe"], cfg, xn)
+        y, aux = moe.moe_block(lp["moe"], cfg, xn, mesh=mesh)
         return x + y, aux.load_loss
     return x + mlp(lp["mlp"], cfg, xn), None
 
@@ -101,12 +102,12 @@ def _ffn_residual(lp, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 
-def _layer_body(cfg: ModelConfig, x, layer_params, positions):
+def _layer_body(cfg: ModelConfig, x, layer_params, positions, mesh=None):
     """One train layer: the differentiable attention, then the FFN. →
     (new x, the layer's MoE aux load loss, 0-d; zero for an MLP)."""
     h, _ = attention_block(layer_params["attn"], cfg, rmsnorm(layer_params["ln1"], x),
                            positions, train=True)
-    x, aux = _ffn_residual(layer_params, cfg, x + h)
+    x, aux = _ffn_residual(layer_params, cfg, x + h, mesh=mesh)
     return x, (torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux)
 
 
@@ -137,10 +138,11 @@ def remat(cfg: ModelConfig, body, *args):
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
-def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions):
+def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions, mesh=None):
     """x: (B, S, d) embeddings → (final normed hidden (B, S, d), the sum of
-    the layers' MoE aux load losses: a 0-d zero without MoE)."""
-    body = functools.partial(_layer_body, cfg)
+    the layers' MoE aux load losses: a 0-d zero without MoE). ``mesh``: the
+    mesh train step's (x is this rank's batch share)."""
+    body = functools.partial(_layer_body, cfg, mesh=mesh)
     auxs = []
     for i in range(cfg.n_layers):
         x, aux = remat(cfg, body, x, stacked_layer(params["layers"], i), positions)
@@ -170,18 +172,21 @@ def embed_inputs(params, cfg: ModelConfig, batch, gather=None):
     return x, positions, label_mask
 
 
-def train_loss(params, ds_state, cfg: ModelConfig, batch):
+def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None):
     """batch: tokens (B, S+1) [+ patches (B, P, d)]. → (total_loss, metrics
     dict of 0-d tensors). The CE covers the text positions only; a moe
-    config adds ``router_aux_weight`` × the layers' aux load losses."""
+    config adds ``router_aux_weight`` × the layers' aux load losses.
+    ``mesh``: the batch is this rank's share of the mesh train step's, and
+    the loss and metrics are the whole batch's (``distributed.sharding``'s
+    loss convention)."""
     tokens = batch["tokens"]
     x, positions, label_mask = embed_inputs(params, cfg, {**batch, "tokens": tokens[:, :-1]})
     labels = tokens[:, 1:]
-    h, moe_aux = forward_hidden(params, cfg, x, positions)
+    h, moe_aux = forward_hidden(params, cfg, x, positions, mesh=mesh)
     if label_mask is not None:  # labels align with the text suffix
         h = h[:, x.shape[1] - labels.shape[1]:]
     ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
-                              embed_table=params["embed"]["table"], label_mask=None)
+                              embed_table=params["embed"]["table"], label_mask=None, mesh=mesh)
     moe_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
     total = ce + aux["head_aux_total"] + moe_w * moe_aux
     return total, {"ce": ce, "moe_aux": moe_aux, **aux}

@@ -2476,3 +2476,129 @@ def test_local_halves_through_the_kernels_merge_to_serve_topk(dev, path, ep, qua
         assert torch.equal(got["dispatched"], want[2]["dispatched"])
         if 6 % ep == 0:  # else capacity is sized by the padded K, as in repro
             assert torch.equal(got["overflow"], want[2]["overflow"])
+
+
+# Training on a mesh: the mesh step in a 1-rank NCCL group against the plain
+# step, and the expert-parallel FFN one shard after another
+# ---------------------------------------------------------------------------
+
+def _moe_train_setup(dev, dtype):
+    """Reduced olmoe-1b-7b (d 64, E 4, top-2), seeded on the CPU, moved."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import build
+    from repro_torch.optim import adam_init
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.utils import tree_map
+
+    cfg = reduce_config(get_config("olmoe-1b-7b"), vocab=256).replace(dtype=dtype)
+    cfg = cfg.replace(ds=cfg.ds.replace(lambda_lasso=1e-3, lambda_expert=1e-3, gamma=1.0))
+    params, st = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    move = lambda t: t.to(dev)  # noqa: E731
+    params, st = tree_map(move, params), st._replace(mask=move(st.mask))
+    return build(cfg, device=dev), TrainState(params, adam_init(params), st)
+
+
+@pytest.mark.parametrize("arch,dtype,micro", [("qwen2-1.5b", "float32", 1),
+                                              ("qwen2-1.5b", "bfloat16", 2),
+                                              ("olmoe-1b-7b", "float32", 2),
+                                              ("olmoe-1b-7b", "bfloat16", 1)])
+def test_mesh_train_step_in_a_one_rank_nccl_group_equals_the_plain_step(
+        dev, nccl_mesh, arch, dtype, micro):
+    """Three steps of ``make_train_step(mesh=1x1)`` over NCCL against the
+    plain step from the same state (olmoe through the expert-parallel FFN
+    with one shard): the same code with every collective on a group of one
+    left out, so params, moments, masks and metrics are equal bit for bit,
+    or (where a CUDA scatter sums in another order) params within 2·lr per
+    step, moments within 1e-3 of each leaf's largest, masks and metrics
+    within rtol 1e-3."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.utils import flatten_dict
+
+    lr = 1e-3
+    setup = _train_setup if arch == "qwen2-1.5b" else _moe_train_setup
+    bundle, state = setup(dev, dtype)
+    tcfg = TrainConfig(lr=lr, microbatches=micro)
+    local, specs = sharding.shard_train_state(nccl_mesh, state)
+    plain, meshed = make_train_step(bundle, tcfg), make_train_step(
+        bundle, tcfg, mesh=nccl_mesh, shardings=specs)
+    ops.reset_launch_counts()
+    for i in range(3):
+        batch = _batch(dev, seed=i)
+        state, pm = plain(state, batch)
+        local, mm = meshed(local, batch)
+        for k in pm:
+            torch.testing.assert_close(mm[k], pm[k], rtol=1e-3, atol=0, msg=k)
+    assert not any(ops.launch_counts().values())
+    fp, fm = flatten_dict(state), flatten_dict(local)
+    for k in fp:
+        if torch.equal(fp[k], fm[k]):
+            continue
+        assert fp[k].dtype != torch.bool, k
+        diff = (fp[k].float() - fm[k].float()).abs().max()
+        bound = 2 * lr * 3 if k.startswith("params/") else 1e-3 * fp[k].float().abs().max()
+        assert diff <= bound, (k, float(diff))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ep", [2, 4])
+def test_expert_parallel_ffn_one_shard_at_a_time_matches_moe_block(dev, ep, dtype):
+    """olmoe-1b-7b's MoE at full width (E 64, top-8, d 2048, f 1024), B 2 x
+    S 64: the shards' parts (``moe.moe_ep_local``) run one after another on
+    the card and summed in the activation dtype equal ``moe_block``: fp32
+    within max|y|·2^-20 (sums in another order); bf16 within the partials'
+    and running sums' half ulps plus half an ulp of the reference. The
+    gradients of Σ y·dy + the aux loss for x, the router and every expert
+    slice within 2^-16 (fp32) or 2^-6 (bf16) of each leaf's largest."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_inputs(dtype, "olmoe", 2, 64)
+    params = {k: v.to(dev) for k, v in params.items()}
+    x = x.to(dev)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    E = cfg.moe.num_experts
+
+    def grads(run):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        xr = x.detach().requires_grad_(True)
+        y, parts, load = run(leaves, xr)
+        g = torch.autograd.grad(torch.sum(y.float() * dy) + load, [xr] + list(leaves.values()))
+        return y.detach(), parts, dict(zip(["x"] + list(leaves), g))
+
+    def whole(p, xr):
+        y, aux = moe.moe_block(p, cfg, xr)
+        return y, None, aux.load_loss
+
+    def sharded(p, xr):
+        probs, top_p, top_e, slot, valid = moe.route(p, cfg, xr)
+        parts = [moe.moe_ep_local({k: p[k][m * (E // ep):(m + 1) * (E // ep)]
+                                   for k in ("w_gate", "w_up", "w_down")},
+                                  cfg, xr, top_e, top_p, slot, valid, m, ep)
+                 for m in range(ep)]
+        y = parts[0]
+        for part in parts[1:]:
+            y = y + part
+        return y, [q.detach() for q in parts], moe.switch_aux(probs, top_e, valid).load_loss
+
+    want, _, gw = grads(whole)
+    got, parts, gg = grads(sharded)
+    err = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        assert float(err.max()) <= float(want.abs().max()) * 2.0 ** -20
+    else:
+        def half_ulp(t):
+            e = torch.floor(torch.log2(torch.clamp(t.float().abs(), min=2.0 ** -126)))
+            return torch.exp2(e - 8)
+
+        bound = sum(half_ulp(q) for q in parts) + half_ulp(want)
+        run = parts[0].float()
+        for q in parts[1:]:
+            run = (run + q.float()).to(torch.bfloat16).float()
+            bound = bound + half_ulp(run)
+        assert bool((err <= bound).all()), float((err - bound).max())
+    tol = 2.0 ** -16 if dtype == "float32" else 2.0 ** -6
+    for k, w in gw.items():
+        rel = float((gg[k].float() - w.float()).abs().max() / w.float().abs().max())
+        assert rel <= tol, (k, rel)

@@ -55,7 +55,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "core/metrics.py", "core/analysis.py",
                                     "core/baselines.py", "utils/timing.py",
                                     "distributed/__init__.py", "distributed/sharding.py",
-                                    "launch/mesh.py"])
+                                    "launch/mesh.py", "optim/compression.py",
+                                    "optim/__init__.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()
