@@ -351,6 +351,28 @@ Phases, in order (any failure exits non-zero before the result line):
    on the plain-trained head where (a) held bit for bit (else the parted
    streams are counted), the path's bodies launched. The group is
    destroyed at the end.
+7d. The dry-run (``dryrun_phase``, after phase 7m): cells one card runs
+   at 1x1, traced on meta tensors by ``launch.dryrun`` (the plain train
+   step; a session's step without a mesh), then run on the card, each
+   prediction held. (a) Phase 7's lm-100m train step (its batch of 8 x
+   512, microbatches 1): the traced argument bytes equal
+   ``tree_shard_bytes`` of the card's state and batch exactly; the traced
+   step peak (peak less arguments) against ``max_memory_allocated`` less
+   ``memory_allocated`` at entry (after ``reset_peak_memory_stats``, one
+   step warmed up), within ``launch.dryrun.PEAK_RTOL`` and ``PEAK_ATOL``;
+   the counted flops against ``train_model_flops`` (the ratio printed,
+   within DRYRUN_FLOPS_RATIO); the step's ms (synced host clock) beside the
+   roofline's step time.
+   (b) qwen2-1.5b's decode step at phase 4's shape (8 slots, MAX_SEQ
+   positions, the stand-in mask's table, the params the session reads:
+   the gate, not the trained experts) and a 2048-token prefill into a
+   1-slot cache: argument bytes and peak held as in (a); the decode's
+   read-once bytes of weights and cache equal ``backbone_bytes`` at a full
+   cache plus the gate; the traced op bytes and the roofline's bound
+   beside the eager step's and the backbone graph replay's ms. (c) One
+   production cell per shape kind on the ``single`` mesh (qwen2-1.5b
+   train_4k, prefill_32k, decode_32k; deepseek-67b train_4k) traced in a
+   fake world of 256 ranks: fits, bottleneck and seconds printed.
 Every profile opens with a head of one-element adds that it does not
 count, and must find the device record of each launch after them, or it
 is taken again with a longer head (``traced``): Kineto loses the records
@@ -390,7 +412,6 @@ import statistics
 import subprocess
 import sys
 import time
-import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -5507,43 +5528,13 @@ def _mesh_steps(label, card, cfg, mesh, batches, micro, sched=None, lr=TRAIN_LR)
 MESH_PLACEMENT_SPECS = ("1x2", "2x1", "2x2", "8x1", "4x2")
 
 
-def _placement_bytes(state, spec: str) -> dict:
-    """Counts from shapes (nothing measured): one rank's resident bytes of
-    ``state`` placed on a ``spec`` mesh (``train_state_shardings``), and the
-    param bytes the mesh step's gather brings to it a step (each leaf whole,
-    or its ``model`` block for the MoE expert stacks, less what it holds)."""
-    from repro_torch.distributed import sharding
-    from repro_torch.utils.tree import map_with_path, tree_leaves, tree_paths
-
-    d, m = (int(x) for x in spec.split("x"))
-    stand = types.SimpleNamespace(shape={"data": d, "model": m}, axis_names=("data", "model"))
-    specs = sharding.train_state_shardings(stand, state)
-
-    def split(s, skip=()):
-        n = 1
-        for ax in s:
-            for a in (ax if isinstance(ax, tuple) else (ax,)):
-                if a and a not in skip:
-                    n *= stand.shape[a]
-        return n
-
-    resident = sum(x.numel() * x.element_size() // split(s)
-                   for s, x in zip(tree_leaves(specs), tree_leaves(state)))
-    p_spec = dict(zip(tree_paths(specs.params), tree_leaves(specs.params)))
-    gathered = []
-    map_with_path(lambda p, x: gathered.append(
-        x.numel() * x.element_size() * (1 / split(p_spec[p], ("data",) if
-                                                  sharding.model_local(p) else ("data", "model"))
-                                        - 1 / split(p_spec[p]))), state.params)
-    return {"resident_bytes": resident, "gathered_param_bytes_per_step": int(sum(gathered))}
-
-
 def _mesh_train_lm(out, card, mesh):
     """(a) lm-100m at full width: phase 7's seeded state and batches, its
     schedule, MESH_TRAIN_STEPS steps of microbatches 2."""
     import torch
 
     from repro_torch.data import TopicLMStream
+    from repro_torch.launch import dryrun
     from repro_torch.optim import make_schedule
 
     cfg = lm_100m_config()
@@ -5553,10 +5544,12 @@ def _mesh_train_lm(out, card, mesh):
     sched = make_schedule("cosine", TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
     row, plain, meshed, bundle = _mesh_steps("(a) lm-100m", card, cfg, mesh, batches,
                                              MESH_TRAIN_MICRO, sched)
-    row["placement_counts"] = {s: _placement_bytes(plain, s) for s in MESH_PLACEMENT_SPECS}
+    row["placement_counts"] = {
+        s: dryrun.train_state_bytes(dict(zip(("data", "model"), map(int, s.split("x")))), plain)
+        for s in MESH_PLACEMENT_SPECS}
     out["lm_100m"] = row
-    print(f"[mesh_train] (a) lm-100m placed on wider meshes (counts from the shapes, not "
-          f"measured: a rank's resident train-state bytes, the param bytes its gather "
+    print(f"[mesh_train] (a) lm-100m placed on wider meshes (the dry-run's counts from the "
+          f"shapes, not measured: a rank's resident train-state bytes, the param bytes its gather "
           f"brings a step): {json.dumps(row['placement_counts'])}", flush=True)
     return bundle, plain, meshed, stream
 
@@ -5734,6 +5727,243 @@ def _mesh_serve_trained(out, card, mesh, bundle, plain, meshed, stream):
           flush=True)
 
 
+# counted flops over train_model_flops: the remat recompute of each layer's
+# forward (+1/3 of the layers'), the chunked attention's causal blocks
+# (about half PaLM's non-causal count) and the DS head's losses' extra
+# products move it off 1
+DRYRUN_FLOPS_RATIO = (0.8, 1.6)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
+                ("qwen2-1.5b", "decode_32k"), ("deepseek-67b", "train_4k"))
+
+
+def dryrun_phase(results: dict, card: str) -> None:
+    """Phase 7d: the dry-run's predictions against the card, (a) training,
+    (b) serving, (c) production cells traced on the host."""
+    import torch
+
+    out = {"card": card}
+    try:
+        _dryrun_train(out, card)
+        torch.cuda.empty_cache()
+        _dryrun_serve(out, card)
+    finally:
+        torch.cuda.empty_cache()
+    _dryrun_production(out)
+    results["dryrun"] = out
+
+
+def _step_peak(fn):
+    """(fn's result, the bytes it allocated above what was allocated at
+    entry, at its peak)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entry = torch.cuda.memory_allocated()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - entry
+
+
+def _hold_prediction(label, rec, have_args: int, card_peak: int) -> dict:
+    """Hold a dry-run record's argument bytes (exactly) and step peak
+    (within ``launch.dryrun.PEAK_RTOL``/``PEAK_ATOL``) against the card's."""
+    from repro_torch.launch import dryrun
+
+    m = rec["memory"]
+    if m["argument_bytes"] != have_args:
+        raise SmokeFailure(f"dryrun {label}: traced argument bytes {m['argument_bytes']} "
+                           f"against the card's {have_args}")
+    pred = m["step_bytes"]
+    slack = dryrun.PEAK_RTOL * pred + dryrun.PEAK_ATOL
+    if abs(card_peak - pred) > slack:
+        raise SmokeFailure(f"dryrun {label}: traced step peak {pred} against the card's "
+                           f"{card_peak} (margin {slack:.0f})")
+    return {"argument_bytes": have_args, "step_peak_traced": pred, "step_peak_card": card_peak,
+            "peak_ratio": card_peak / pred, "trace_s": rec["trace_s"],
+            "cost": {k: rec["cost"][k] for k in ("flops", "bytes", "ops", "kernel_calls")},
+            "roofline": rec["roofline"]}
+
+
+def _dryrun_train(out, card):
+    """(a) lm-100m's plain train step: predicted, then run."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data import TopicLMStream
+    from repro_torch.distributed.sharding import tree_shard_bytes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.optim import adam_init
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = lm_100m_config()
+    shape = ShapeConfig(name="lm100m_train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    rec = dryrun.run_cell(None, "1x1", cfg.name, shape.name, cfg=cfg, shape=shape,
+                          microbatches=1)
+    bundle = build(cfg, device="cuda")
+    params, ds_state = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    state = TrainState(params, adam_init(params), ds_state)
+    stream = TopicLMStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=SEED)
+    batch = {"tokens": torch.from_numpy(stream.batch_at(0)).cuda()}
+    step = make_train_step(bundle, TrainConfig(lr=TRAIN_LR, microbatches=1))
+    warm, _ = step(state, batch)  # lazy library state (cuBLAS) comes up outside the measure
+    del warm
+    (new, _), peak = _step_peak(lambda: step(state, batch))
+    del new
+    row = _hold_prediction("(a) lm-100m train", rec,
+                           tree_shard_bytes(state) + tree_shard_bytes(batch), peak)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        del new
+    model = train_model_flops(cfg, params, TRAIN_BATCH * TRAIN_SEQ)["total"]
+    ratio = rec["cost"]["flops"] / model
+    lo, hi = DRYRUN_FLOPS_RATIO
+    if not lo <= ratio <= hi:
+        raise SmokeFailure(f"dryrun (a): counted flops {rec['cost']['flops']:.4e} are "
+                           f"{ratio:.3f}x train_model_flops {model:.4e}, outside "
+                           f"{DRYRUN_FLOPS_RATIO}")
+    row.update({"train_model_flops": model, "flops_ratio": ratio,
+                "step_ms_median": statistics.median(ms),
+                "roofline_step_ms": 1e3 * rec["roofline"]["step_time_s"]})
+    out["train"] = row
+    print(f"[dryrun] (a) lm-100m train step: argument bytes {row['argument_bytes']} equal; step "
+          f"peak traced {row['step_peak_traced'] / 2**30:.3f} GiB, card "
+          f"{row['step_peak_card'] / 2**30:.3f} GiB ({row['peak_ratio']:.4f}x); counted flops "
+          f"{rec['cost']['flops']:.4e} = {ratio:.4f}x train_model_flops {model:.4e}; step "
+          f"{row['step_ms_median']:.2f} ms (median of 3) against the roofline's "
+          f"{row['roofline_step_ms']:.2f} ms ({rec['roofline']['bottleneck']}, "
+          f"{rec['cost']['bytes']:.4e} op bytes); traced in {rec['trace_s']:.1f} s; card {card}",
+          flush=True)
+
+
+def _dryrun_serve(out, card):
+    """(b) qwen2-1.5b's decode step at phase 4's shape and a 2048-token
+    prefill: predicted, then run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.distributed.sharding import tree_shard_bytes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.models.model_zoo import cache_specs
+
+    cfg = get_config("qwen2-1.5b")
+    bundle = build(cfg, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    table = ds.pack_experts(params["head"], ds.DSState(mask=stand_in_mask(cfg, "cuda")))
+    gate_bytes = params["head"]["gate"].nbytes
+    params = dict(params, head={"gate": params["head"]["gate"]})  # what a session reads
+    torch.cuda.empty_cache()
+
+    def zeros_cache(shape):
+        specs = cache_specs(cfg, shape)
+        return type(specs)(*(torch.zeros(sp.shape, dtype=sp.dtype, device="cuda")
+                             for sp in specs))
+
+    # decode at phase 4's shape
+    shape = ShapeConfig(name="phase4_decode", seq_len=MAX_SEQ, global_batch=N_SLOTS,
+                        kind="decode")
+    rec = dryrun.run_cell(None, "1x1", "qwen2-1.5b", shape.name, cfg=cfg, shape=shape,
+                          v_pad=table.v_pad)
+    cache = zeros_cache(shape)
+    tok = torch.arange(N_SLOTS, dtype=torch.int32, device="cuda")
+    pos = torch.tensor([min(n, MAX_SEQ - 1) for n in PROMPT_LENS[:N_SLOTS]], dtype=torch.int32,
+                       device="cuda")
+    step = lambda: bundle.decode_step(  # noqa: E731
+        params, table, cache, tok, pos, with_stats=True)
+    step()
+    _, peak = _step_peak(step)
+    have = tree_shard_bytes({"p": params, "t": table, "c": cache, "b": {"tok": tok, "pos": pos}})
+    row = _hold_prediction("(b) qwen2-1.5b decode", rec, have, peak)
+    read = rec["memory"]["read_once_bytes_by_kind"]
+    traced_read = read.get("params", 0) + read.get("cache", 0)
+    full = backbone_bytes(params, cfg, [MAX_SEQ - 1] * N_SLOTS) + gate_bytes
+    if traced_read != full:
+        raise SmokeFailure(f"dryrun (b): traced read-once bytes of weights and cache "
+                           f"{traced_read} against backbone_bytes at a full cache plus the "
+                           f"gate {full}")
+    row["step_ms"] = time_ms(step, reps=10)
+    hidden = lambda: bundle.decode_hidden(params, cache, tok, pos)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            hidden()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hidden()
+    row["backbone_replay_ms"] = replay_ms(graph)
+    del graph
+    row.update({"read_once_bytes": traced_read, "backbone_bytes_full_cache": full,
+                "roofline_step_ms": 1e3 * rec["roofline"]["step_time_s"]})
+    out["decode"] = row
+    print(f"[dryrun] (b) qwen2-1.5b decode, {N_SLOTS} slots x {MAX_SEQ}: argument bytes {have} "
+          f"equal; step peak traced {row['step_peak_traced'] / 2**20:.1f} MiB, card "
+          f"{row['step_peak_card'] / 2**20:.1f} MiB ({row['peak_ratio']:.4f}x); read-once "
+          f"weights and cache {traced_read} = backbone_bytes at a full cache + the gate; op "
+          f"bytes {rec['cost']['bytes']:.4e}, roofline {row['roofline_step_ms']:.4f} ms "
+          f"({rec['roofline']['bottleneck']}) against the eager step {row['step_ms']:.3f} ms "
+          f"and the backbone graph replay {row['backbone_replay_ms']:.3f} ms; card {card}",
+          flush=True)
+    del cache, step, hidden
+    torch.cuda.empty_cache()
+
+    # a 2048-token prefill into a 1-slot cache
+    shape = ShapeConfig(name="prefill_2048", seq_len=2048, global_batch=1, kind="prefill")
+    rec = dryrun.run_cell(None, "1x1", "qwen2-1.5b", shape.name, cfg=cfg, shape=shape,
+                          v_pad=table.v_pad)
+    cache = zeros_cache(shape)
+    rng = np.random.RandomState(SEED + 7)
+    batch = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 2048))
+                                        .astype(np.int32)).cuda()}
+    call = lambda: bundle.prefill(params, table, batch)  # noqa: E731
+    call()
+    _, peak = _step_peak(call)
+    have = tree_shard_bytes({"p": params, "t": table, "c": cache, "b": batch})
+    row = _hold_prediction("(b) qwen2-1.5b prefill 2048", rec, have, peak)
+    row["ms"] = time_ms(call, reps=5)
+    row["roofline_ms"] = 1e3 * rec["roofline"]["step_time_s"]
+    out["prefill"] = row
+    print(f"[dryrun] (b) qwen2-1.5b prefill of 2048 tokens: argument bytes {have} equal; peak "
+          f"traced {row['step_peak_traced'] / 2**20:.1f} MiB, card "
+          f"{row['step_peak_card'] / 2**20:.1f} MiB ({row['peak_ratio']:.4f}x); op bytes "
+          f"{rec['cost']['bytes']:.4e}, flops {rec['cost']['flops']:.4e}, roofline "
+          f"{row['roofline_ms']:.3f} ms ({rec['roofline']['bottleneck']}) against "
+          f"{row['ms']:.3f} ms; card {card}", flush=True)
+
+
+def _dryrun_production(out):
+    """(c) production cells on the single mesh, traced in a fake world of
+    256 ranks on this host."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    rows = []
+    with fake_world(256):
+        mesh = make_production_mesh()
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(mesh, "single", arch, shape)
+            m, rf = rec["memory"], rec["roofline"]
+            rows.append({"arch": arch, "shape": shape, "fits": m["fits"],
+                         "peak_bytes": m["peak_bytes"], "argument_bytes": m["argument_bytes"],
+                         "bottleneck": rf["bottleneck"], "step_time_s": rf["step_time_s"],
+                         "trace_s": rec["trace_s"], "wall_s": rec["wall_s"]})
+    out["production"] = rows
+    print(f"[dryrun] (c) production cells, single mesh (32 x 8, a fake world on the host): "
+          f"{json.dumps(rows)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5804,6 +6034,7 @@ def main() -> int:
     timed("encdec", encdec_phase, results, card)
     timed("train", train_phase, results, card)
     timed("mesh_train", mesh_train_phase, results, card)
+    timed("dryrun", dryrun_phase, results, card)
 
     from repro_torch.kernels import ops
 

@@ -36,7 +36,7 @@ from repro_torch.core import losses as L
 from repro_torch.core import pruning
 from repro_torch.core.dispatch import dispatch_indices, dispatch_load
 from repro_torch.core.gating import sparse_gate_matrix, top1_gate
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_on, on_card, resolve_device
 from repro_torch.distributed import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
@@ -241,7 +241,10 @@ def calibrate_quantized_table(gate_w: torch.Tensor, table: ServeTable,
 
 def normal_(out: torch.Tensor, generator: torch.Generator, scale: float) -> torch.Tensor:
     """Fill ``out`` with ``N(0, 1) * scale`` drawn in fp32 then cast, one
-    leading-axis slice at a time so large tensors need no fp32 copy."""
+    leading-axis slice at a time so large tensors need no fp32 copy. A meta
+    tensor has no values to fill (the dry-run's abstract build)."""
+    if out.is_meta:
+        return out
     rows = out.unsqueeze(0) if out.dim() < 3 else out
     for r in rows:
         r.copy_(torch.randn(r.shape, generator=generator, device=out.device) * scale)
@@ -250,9 +253,10 @@ def normal_(out: torch.Tensor, generator: torch.Generator, scale: float) -> torc
 
 def init(generator: torch.Generator, d: int, n_classes: int, cfg: DSSoftmaxConfig,
          dtype=torch.float32, n_valid: Optional[int] = None, device="cuda"):
-    """Initialize params + state on ``device``. Experts start as full
-    softmaxes (paper); columns ≥ ``n_valid`` start (and stay) masked."""
-    dev = resolve_device(device)
+    """Initialize params + state on ``device`` (``'meta'``: shapes only,
+    for the dry-run). Experts start as full softmaxes (paper); columns ≥
+    ``n_valid`` start (and stay) masked."""
+    dev = resolve_device(device, meta=True)
     K = cfg.num_experts
     scale = 1.0 / math.sqrt(d)
     params = {
@@ -264,6 +268,15 @@ def init(generator: torch.Generator, d: int, n_classes: int, cfg: DSSoftmaxConfi
     if n_valid is not None and n_valid < n_classes:
         mask[:, n_valid:] = False
     return params, DSState(mask=mask)
+
+
+def abstract_params(d: int, n_classes: int, cfg: DSSoftmaxConfig, dtype=torch.bfloat16):
+    """Meta-tensor stand-ins of :func:`init`'s params and state (for the
+    dry-run: no allocation)."""
+    K = cfg.num_experts
+    meta = lambda *shape, dtype=dtype: torch.empty(shape, dtype=dtype, device="meta")
+    return ({"gate": meta(K, d), "experts": meta(K, n_classes, d)},
+            DSState(mask=meta(K, n_classes, dtype=torch.bool)))
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +529,8 @@ def serve_kernel_context(table: AnyServeTable, h: torch.Tensor, k: int,
         K=table.ids.shape[0],
         v_pad=table.ids.shape[1],
         k=k,
-        backend=h.device.type,
+        # a meta trace (the dry-run) prices the paths as the card runs them
+        backend="cuda" if on_card(h) else h.device.type,
         capacity_factor=capacity_factor,
         wbytes=table_rows(table).element_size(),
         hbytes=h.element_size(),
@@ -550,7 +564,7 @@ def serve_topk(gate_w: torch.Tensor, table: AnyServeTable, h: torch.Tensor, k: i
     ``with_stats=True`` also returns ``{'dispatched': (K,), 'overflow':
     (K,)}`` int32 per-expert load telemetry.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     check_on(dev, gate_w=gate_w, h=h, table_ids=table.ids, table_rows=table_rows(table))
     kernel = resolve_kernel(kernel, serve_kernel_context(table, h, k, capacity_factor))
     if get_spec(kernel).sharded:
@@ -670,7 +684,11 @@ def _overflow_fixup(table: AnyServeTable, h, g, expert_idx, valid, vals, ids, k:
     """Exact fallback for every ~valid token through the gather path
     (capacity overflow, and on quantized tables the tokens of
     full-precision fallback experts): cost proportional to the actual
-    overflow, the gathered rows bounded by ``_GATHER_BUDGET``."""
+    overflow, the gathered rows bounded by ``_GATHER_BUDGET``. A meta
+    trace (the dry-run) has no data to find the overflow from and counts
+    it as none."""
+    if h.is_meta:
+        return vals, ids
     over = torch.nonzero(~valid)[:, 0]
     if over.numel() == 0:
         return vals, ids
@@ -910,7 +928,7 @@ def serve_topk_sharded(gate_w, table, h, k: int, *, mesh, kernel="auto",
                                                   collective, mesh_coords, mesh_sizes,
                                                   slice_leaf)
 
-    if h.device.type != mesh.device_type:
+    if h.device.type != mesh.device_type and not h.is_meta:  # meta: the dry-run's trace
         raise ValueError(f"h lies on {h.device}, the mesh on {mesh.device_type}")
     shard = shard_table(table, mesh)
     ep, ndata = _mesh_degrees(mesh)

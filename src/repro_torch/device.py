@@ -2,17 +2,22 @@
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Asking for ``cuda`` on a host without CUDA raises: nothing carries on
-quietly on the CPU. The hand-written kernels are forward-only: their
-wrappers raise (:func:`check_forward_only`) rather than return a result
-autograd cannot differentiate.
+quietly on the CPU. The dry-run (``launch.dryrun``) traces the card's path
+on ``meta`` tensors, shapes without memory: the model build and the kernel
+wrappers admit ``meta`` (``resolve_device(..., meta=True)``), and
+:func:`on_card` sends a meta tensor down the path a CUDA tensor takes.
+The hand-written kernels are forward-only: their wrappers raise
+(:func:`check_forward_only`) rather than return a result autograd cannot
+differentiate.
 """
 from __future__ import annotations
 
 import torch
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` (str or torch.device) → a reachable ``torch.device``."""
+def resolve_device(device, meta: bool = False) -> torch.device:
+    """``device`` (str or torch.device) → a reachable ``torch.device``.
+    ``meta=True`` also admits ``'meta'`` (the dry-run's abstract build)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -20,9 +25,16 @@ def resolve_device(device) -> torch.device:
                 "device 'cuda' was asked for but torch.cuda.is_available() "
                 "is False; pass device='cpu' to run the plain PyTorch versions"
             )
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (meta and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
     return dev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's path where CUDA and CPU tensors part
+    (the kernels, bf16 products with fp32 outputs): a CUDA tensor, or a
+    meta tensor, which the dry-run traces as the card would run it."""
+    return t.is_cuda or t.is_meta
 
 
 def check_on(dev: torch.device, **tensors: torch.Tensor) -> None:

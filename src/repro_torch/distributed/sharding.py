@@ -23,7 +23,7 @@ runs through :func:`collective`, which records the shapes it moves when a
 
 A mesh is a ``DeviceMesh`` (``launch.mesh``), or, for the pure placement
 rules, any object with ``shape`` (axis name → size) and ``axis_names``, as
-``repro``'s tests stand a mesh in.
+``repro``'s tests stand a mesh in, or that ``{axis name: size}`` dict.
 """
 from __future__ import annotations
 
@@ -37,8 +37,9 @@ import torch.distributed as dist
 
 from repro_torch.utils.tree import map_with_path, tree_leaves, tree_paths
 
-# torch >= 2.13 renames all_gather_into_tensor; both names do the same
-warnings.filterwarnings("ignore", message=".*all_gather_into_tensor.*",
+# torch >= 2.13 renames all_gather_into_tensor and reduce_scatter_tensor;
+# both names do the same
+warnings.filterwarnings("ignore", message=".*(all_gather_into_tensor|reduce_scatter_tensor).*",
                         category=FutureWarning)
 
 
@@ -47,8 +48,11 @@ warnings.filterwarnings("ignore", message=".*all_gather_into_tensor.*",
 # ---------------------------------------------------------------------------
 
 def mesh_sizes(mesh) -> dict:
-    """Axis name → size of a DeviceMesh (or of a stand-in whose ``shape``
-    already maps names to sizes)."""
+    """Axis name → size of a DeviceMesh, of a stand-in whose ``shape``
+    already maps names to sizes, or of such a dict itself (a mesh's shape
+    alone, which the placement rules need)."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
         return dict(zip(names, tuple(mesh.shape)))
@@ -97,10 +101,21 @@ def batch_size_on(mesh) -> int:
 _RECORD: Optional[list] = None
 
 
+class CollectiveRecord(tuple):
+    """``(op, shape, dtype, group size)`` of one collective, which unpacks
+    as that 4-tuple, with the process group it ran on as ``group``."""
+
+    def __new__(cls, op, shape, dtype, n, group):
+        rec = super().__new__(cls, (op, shape, dtype, n))
+        rec.group = group
+        return rec
+
+
 @contextlib.contextmanager
 def record_collectives():
-    """Collect ``(op, shape, dtype, group size)`` of every :func:`collective`
-    run inside the block (``shape`` is this rank's contribution)."""
+    """Collect a :class:`CollectiveRecord` ``(op, shape, dtype, group
+    size)`` of every :func:`collective` run inside the block (``shape`` is
+    this rank's contribution)."""
     global _RECORD
     prev, _RECORD = _RECORD, []
     try:
@@ -117,7 +132,7 @@ def collective(x: torch.Tensor, group, op: str = "all_gather") -> torch.Tensor:
     of their sum, ``(x.shape[0] // n, …)``."""
     n = dist.get_world_size(group)
     if _RECORD is not None:
-        _RECORD.append((op, tuple(x.shape), x.dtype, n))
+        _RECORD.append(CollectiveRecord(op, tuple(x.shape), x.dtype, n, group))
     x = x.contiguous()
     if op in ("all_reduce", "all_reduce_max"):
         out = x.clone()
@@ -235,6 +250,87 @@ def batch_pspec(mesh, global_batch: int, extra_dims: int = 1) -> tuple:
     if global_batch % nb != 0 or global_batch < nb:
         ba = ()
     return (ba if ba else None,) + (None,) * extra_dims
+
+
+def input_shardings(mesh, cfg, specs: dict, shape) -> dict:
+    """The batch's placement as ``repro``'s dry-run places a cell's inputs:
+    each leaf's leading batch dim over (pod, data) when divisible."""
+    return {k: batch_pspec(mesh, shape.global_batch, len(v.shape) - 1)
+            for k, v in specs.items()}
+
+
+def cache_shardings(mesh, cfg, cache: Any, shape) -> Any:
+    """``repro``'s decode-cache placement (its dry-run's): attention K/V
+    (L, B, S, KV, dh) → B over (pod, data), S over ``model`` (split-KV; a
+    batch the batch axes do not divide puts S over every axis); SSM states
+    (L, B, H, P, N) → H over ``model``; conv states (L, B, W-1, C) → C over
+    ``model``; each where it divides."""
+    ba = batch_axes(mesh)
+    nb = batch_size_on(mesh)
+    b_ok = shape.global_batch % nb == 0
+    b_ax = ba if (ba and b_ok) else None
+    m = mesh_sizes(mesh).get("model", 1)
+
+    def leaf(path, x):
+        nd = len(x.shape)
+        if nd == 5 and ("attn" in path or "self_k" in path or "self_v" in path
+                        or "cross" in path or path.endswith("k") or path.endswith("v")):
+            s_ax = "model" if x.shape[2] % m == 0 else None
+            if not b_ok and x.shape[2] % (nb * m) == 0:
+                s_ax = tuple(ba) + ("model",)
+            return (None, b_ax, s_ax, None, None)
+        if nd == 5:
+            return (None, b_ax, "model" if x.shape[2] % m == 0 else None, None, None)
+        if nd == 4:
+            return (None, b_ax, None, "model" if x.shape[3] % m == 0 else None)
+        return (None,) * nd
+
+    return map_with_path(leaf, cache)
+
+
+def serve_table_shardings(mesh, table) -> Any:
+    """``repro``'s vocab-parallel placement of a serve table (its dry-run's
+    memory estimate): V_pad over ``model``, d over ``data``; a quantized
+    table's fallback rows replicated. The expert-parallel layout the
+    sessions serve from is :func:`serve_table_ep_shardings`."""
+    if hasattr(table, "qweights"):
+        return type(table)(ids=(None, "model"), qweights=(None, "model", "data"),
+                           scales=(None, "model"), fb_index=(None,),
+                           fb_weights=(None, None, None))
+    return type(table)(ids=(None, "model"), weights=(None, "model", "data"))
+
+
+def topk_out_shardings(mesh, global_batch: int) -> tuple:
+    """The placement of a head's (B, k) values and ids: B over (pod, data)
+    when divisible."""
+    return batch_pspec(mesh, global_batch, 1)
+
+
+def shard_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """One rank's block shape of a ``shape`` leaf placed by ``spec``: each
+    dim divided by the sizes of the axes it splits over (rounded up where
+    they do not divide it, as GSPMD pads)."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for i, dim in enumerate(shape):
+        n = 1
+        for a in _spec_axes(spec[i]) if i < len(spec) else ():
+            n *= sizes.get(a, 1)
+        out.append(-(-dim // n))
+    return tuple(out)
+
+
+def placed_bytes(tree: Any, specs: Any, mesh) -> int:
+    """One rank's bytes of ``tree`` (tensors, meta tensors or specs with
+    ``shape`` and ``dtype``) placed by ``specs`` on ``mesh``."""
+    spec = _spec_of(specs)
+    total = 0
+    for p, x in zip(tree_paths(tree), tree_leaves(tree)):
+        n = 1
+        for d in shard_shape(tuple(x.shape), spec[p], mesh):
+            n *= d
+        total += n * torch.empty((), dtype=x.dtype).element_size()
+    return total
 
 
 def serve_table_ep_shardings(mesh, table) -> Any:
@@ -406,8 +502,10 @@ class ServeParamGather:
 
 
 def tree_shard_bytes(tree: Any) -> int:
-    """This rank's resident bytes of a tree of (local) tensors."""
-    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    """This rank's resident bytes of a tree of (local) tensors (other
+    leaves, such as a ``TableShard``'s expert counts, hold none)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
 
 
 # ---------------------------------------------------------------------------

@@ -33,14 +33,14 @@ def dss_topk(weights, ids, h_scaled, expert_idx, k: int = 8, *, device="cuda"):
     """weights (K, V_pad, d) and h_scaled (B, d) of one dtype (float32 or
     bfloat16), ids (K, V_pad) int32 with -1 as padding, expert_idx (B,)
     int32 in [0, K) → (vals (B, k) fp32, ids (B, k) int32)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     check_forward_only("dss_topk", weights=weights, h_scaled=h_scaled)
     check_on(dev, weights=weights, ids=ids, h_scaled=h_scaled, expert_idx=expert_idx)
     if weights.dtype == torch.int8:
         raise TypeError("dss_topk serves fp tables only; int8 rows take "
                         "dss_topk_grouped or dss_topk_fused")
-    if dev.type == "cpu":
-        return ref.dss_topk_ref(weights, ids, h_scaled, expert_idx, k)
+    if dev.type != "cuda":
+        return ref.plain("dss_topk", ref.dss_topk_ref, weights, ids, h_scaled, expert_idx, k)
     K, v_pad, d = weights.shape
     B = h_scaled.shape[0]
     if h_scaled.shape != (B, d) or ids.shape != (K, v_pad) or expert_idx.shape != (B,):

@@ -35,15 +35,16 @@ def dss_topk_fused(gate_w, weights, ids, h, k: int = 8, *, scales=None, e_base: 
     ids (B, k) int32, expert (B,) int32 GLOBAL top-1 expert). ``e_base``
     is the global id of ``weights[0]``; tokens whose expert lies outside
     ``[e_base, e_base + K)`` emit ``(-inf, -1)`` rows."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     check_forward_only("dss_topk_fused", gate_w=gate_w, weights=weights, h=h, scales=scales)
     check_on(dev, gate_w=gate_w, weights=weights, ids=ids, h=h)
     ref.check_scales(weights, scales)
     quantized = scales is not None
     if quantized:
         check_on(dev, scales=scales)
-    if dev.type == "cpu":
-        return ref.dss_topk_fused_ref(gate_w, weights, ids, h, k, e_base, scales=scales)
+    if dev.type != "cuda":
+        return ref.plain("dss_topk_fused", ref.dss_topk_fused_ref, gate_w, weights, ids, h, k,
+                         e_base, scales=scales)
     K, v_pad, d = weights.shape
     B = h.shape[0]
     K_real = gate_w.shape[0]

@@ -251,15 +251,16 @@ def dss_topk_grouped(weights, ids, buf, g_buf, k: int = 8, *, scales=None, devic
     with ``scales`` (K, V_pad) fp32; buf (K, C, d); ids (K, V_pad) int32
     with -1 as padding; g_buf (K, C) fp32, 0 on an empty slot → (vals
     (K, C, k) fp32, ids (K, C, k) int32)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     check_forward_only("dss_topk_grouped", weights=weights, buf=buf, g_buf=g_buf, scales=scales)
     check_on(dev, weights=weights, ids=ids, buf=buf, g_buf=g_buf)
     ref.check_scales(weights, scales)
     quantized = scales is not None
     if quantized:
         check_on(dev, scales=scales)
-    if dev.type == "cpu":
-        return ref.dss_topk_grouped_ref(weights, ids, buf, g_buf, k, scales=scales)
+    if dev.type != "cuda":
+        return ref.plain("dss_topk_grouped", ref.dss_topk_grouped_ref, weights, ids, buf,
+                         g_buf, k, scales=scales)
     K, v_pad, d = weights.shape
     C = buf.shape[1]
     if buf.shape != (K, C, d) or ids.shape != (K, v_pad) or g_buf.shape != (K, C) \

@@ -129,7 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, device
     float32 or all bfloat16 → o (B, H, S, dh) in q's dtype: causal
     attention with fp32 scores times 1/√dh, -1e9 masking and an fp32
     online softmax whose p is rounded to v's dtype before p·v."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     check_forward_only("flash_attention", q=q, k=k, v=v)
     check_on(dev, q=q, k=k, v=v)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
@@ -142,8 +142,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, device
                          f"with H={H} a multiple of H_kv")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v)
+    if dev.type != "cuda":
+        # the body skips the tiles above the diagonal: about half the plain
+        # version's products
+        return ref.plain("flash_attention", ref.flash_attention_ref, q, k, v,
+                         flops=2 * B * H * dh * S * (S + 1))
     if not 1 <= dh <= MAX_DH:
         raise ValueError(f"head dim {dh} outside [1, {MAX_DH}]")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:

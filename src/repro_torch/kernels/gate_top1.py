@@ -16,11 +16,11 @@ def gate_top1(gate_w: torch.Tensor, h: torch.Tensor, *, device="cuda"):
     """gate_w (K, d) with K ≤ 64, h (B, d), same dtype (float32 or
     bfloat16) → (idx (B,) int32 = first argmax of softmax, g (B,) fp32 =
     its probability)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     check_forward_only("gate_top1", gate_w=gate_w, h=h)
     check_on(dev, gate_w=gate_w, h=h)
-    if dev.type == "cpu":
-        return ref.gate_top1_ref(gate_w, h)
+    if dev.type != "cuda":
+        return ref.plain("gate_top1", ref.gate_top1_ref, gate_w, h)
     B, d = h.shape
     K = gate_w.shape[0]
     if gate_w.shape != (K, d) or not 1 <= K <= _build.MAX_K:

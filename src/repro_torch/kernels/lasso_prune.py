@@ -22,7 +22,7 @@ def lasso_prune(weights: torch.Tensor, mask: torch.Tensor, gamma: float = 0.01, 
                 device="cuda"):
     """weights (K, N, d) float32 or bfloat16, mask (K, N) bool → (norms
     (K, N) fp32, new_mask (K, N) bool)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     check_forward_only("lasso_prune", weights=weights)
     check_on(dev, weights=weights, mask=mask)
     if weights.dim() != 3 or mask.shape != weights.shape[:2]:
@@ -30,8 +30,8 @@ def lasso_prune(weights: torch.Tensor, mask: torch.Tensor, gamma: float = 0.01, 
                          f"{tuple(mask.shape)} (K, N)")
     if mask.dtype != torch.bool:
         raise TypeError(f"mask must be bool, got {mask.dtype}")
-    if dev.type == "cpu":
-        return ref.lasso_prune_ref(weights, mask, gamma)
+    if dev.type != "cuda":
+        return ref.plain("lasso_prune", ref.lasso_prune_ref, weights, mask, gamma)
     K, N, d = weights.shape
     weights, mask = weights.contiguous(), mask.contiguous()
     norms = torch.empty((K, N), dtype=torch.float32, device=weights.device)

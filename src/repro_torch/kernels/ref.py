@@ -6,8 +6,9 @@ exact in fp32), for int8 rows the per-row scale applied to the fp32
 logits, then the gate value, padding rows (id -1) at ``NEG_INF``. int8
 rows are cast to the token dtype first, which is exact (|q| ≤ 127);
 ``q · scale`` is never premultiplied. The kernel wrappers call
-these only for tensors on the CPU; tests and ``chip_smoke.py`` hold the
-kernels against them.
+these (through :func:`plain`) only for tensors off the card: on the CPU,
+and on the meta tensors of the dry-run's trace; tests and
+``chip_smoke.py`` hold the kernels against them.
 
 Top-k is a stable descending sort, so ties go to the lowest packed
 position, as ``jax.lax.top_k`` does (``torch.topk`` promises no order
@@ -22,6 +23,22 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e9
+
+# Set by ``distributed.hlo_analysis.CostCounter`` while it counts a traced
+# step: a kernel's plain version then counts as the kernel itself.
+_COUNTER = None
+
+
+def plain(name: str, fn, *args, flops=None, **kw):
+    """``fn(*args, **kw)``, kernel ``name``'s plain version, which its
+    wrapper runs on tensors off the card. Under a cost counter the call
+    counts as the kernel does on the card: one op that reads its operands
+    and writes its results once, its temporaries never resident, its
+    flops the plain version's products or ``flops`` where the body does
+    less work."""
+    if _COUNTER is None:
+        return fn(*args, **kw)
+    return _COUNTER.kernel_call(name, fn, args, kw, flops)
 
 
 def topk_stable(z: torch.Tensor, k: int):

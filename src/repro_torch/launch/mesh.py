@@ -17,6 +17,7 @@ raises: nothing moves to ``gloo`` or to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 from typing import Optional, Sequence
@@ -137,4 +138,58 @@ def destroy() -> None:
     none is running."""
     if dist.is_initialized():
         dist.barrier()
+        dist.destroy_process_group()
+
+
+# Cards an NVLink node holds: the ``model`` axis (the innermost, so its
+# ranks are consecutive) stays inside one node.
+NODE_CARDS = 8
+
+
+def production_mesh_shape(multi_pod: bool = False) -> tuple:
+    """(shape, axis names) of the production mesh: (data 32, model 8), 256
+    cards in 32 nodes; or (pod 2, data 32, model 8), 512 cards."""
+    if multi_pod:
+        return (2, 32, NODE_CARDS), ("pod", "data", "model")
+    return (32, NODE_CARDS), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh over the running world, which must hold 256 (512
+    with ``multi_pod``) ranks: torchrun's over that many cards, or the one
+    process of :func:`fake_world`."""
+    shape, axes = production_mesh_shape(multi_pod)
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"the production mesh {'x'.join(map(str, shape))} needs a running "
+                           f"world of {n} ranks (torchrun, or launch.mesh.fake_world)")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    kind = "cpu" if dist.get_backend() in ("fake", "gloo") else "cuda"
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A world of ``world_size`` ranks in this one process, as rank 0, for
+    the length of the block: a ``fake`` process group, whose
+    collectives return at once and move nothing, so a step traced on meta
+    tensors runs every collective a rank of a real world of that size runs.
+    ``repro`` gets its 512 devices from
+    ``--xla_force_host_platform_device_count``; this is the counterpart,
+    from PyTorch's private ``torch.testing._internal.distributed.fake_pg``
+    (imported here only: nothing else of the port needs it). Refuses to
+    start while a process group runs, and tears its own down on the way
+    out, so no fake group outlives its block."""
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()} process group of {dist.get_world_size()} "
+                           "ranks is already running; a fake world needs none")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
         dist.destroy_process_group()

@@ -29,12 +29,16 @@ from repro_torch.models.layers import (
     attention_block,
     attention_decode,
     cross_attention_block,
+    dense_init,
     embed,
+    init_attention,
+    init_embedding,
+    init_layernorm,
     layernorm,
     mlp,
     stacked_layer,
 )
-from repro_torch.models.transformer import _dense, remat
+from repro_torch.models.transformer import remat
 
 FAMILIES = ("encdec",)
 
@@ -60,34 +64,22 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda",
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not built by models.encdec")
     d, ff, dt, gen = cfg.d_model, cfg.d_ff, cfg.jdtype, generator
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attention = lambda L: init_attention(gen, cfg, (L,), device)
+    dense = lambda L, d_in, d_out: dense_init(gen, (L, d_in, d_out), dt, fan_in=d_in,
+                                              device=device)
 
-    def attention(L):
-        p = {"wq": _dense(gen, L, (d, H * dh), dt, device),
-             "wk": _dense(gen, L, (d, KV * dh), dt, device),
-             "wv": _dense(gen, L, (d, KV * dh), dt, device),
-             "wo": _dense(gen, L, (H * dh, d), dt, device)}
-        if cfg.qkv_bias:
-            p.update({n: torch.zeros((L, w), dtype=dt, device=device)
-                      for n, w in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh))})
-        return p
-
-    def ffn(L):
-        p = {"w_up": _dense(gen, L, (d, ff), dt, device),
-             "w_down": _dense(gen, L, (ff, d), dt, device)}
+    def ffn(L):  # drawn up, down, gate (``layers.init_mlp`` draws the gate first)
+        p = {"w_up": dense(L, d, ff), "w_down": dense(L, ff, d)}
         if cfg.act == "swiglu":
-            p["w_gate"] = _dense(gen, L, (d, ff), dt, device)
+            p["w_gate"] = dense(L, d, ff)
         return p
 
-    def norm(*lead):
-        return {"scale": torch.ones(lead + (d,), dtype=torch.float32, device=device),
-                "bias": torch.zeros(lead + (d,), dtype=torch.float32, device=device)}
+    norm = lambda *lead: init_layernorm(d, lead, device)
 
     Le, Ld = cfg.n_encoder_layers, cfg.n_layers
-    table = torch.empty((cfg.padded_vocab, d), dtype=dt, device=device)
     pos_embed = torch.empty((max_target_len, d), dtype=dt, device=device)
     params = {
-        "embed": {"table": normal_(table, gen, 1.0 / math.sqrt(d))},
+        "embed": init_embedding(gen, cfg.padded_vocab, d, dt, device),
         "pos_embed": normal_(pos_embed, gen, 0.01),
         "enc_layers": {"ln1": norm(Le), "attn": attention(Le), "ln2": norm(Le),
                        "mlp": ffn(Le)},

@@ -21,18 +21,20 @@ transformer's.
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import torch
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dssoftmax import normal_
 from repro_torch.models import heads
 from repro_torch.models.layers import (
     attention_block,
     attention_decode,
     attention_prefill_chunk,
+    dense_init,
     embed,
+    init_attention,
+    init_embedding,
+    init_rmsnorm,
     mlp,
     rmsnorm,
     stacked_layer,
@@ -73,30 +75,22 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not built by models.hybrid")
     d, dt, gen = cfg.d_model, cfg.jdtype, generator
-    table = torch.empty((cfg.padded_vocab, d), dtype=dt, device=device)
-    ones = lambda *lead: {"scale": torch.ones(lead + (d,), dtype=torch.float32, device=device)}
     params = {
-        "embed": {"table": normal_(table, gen, 1.0 / math.sqrt(d))},
-        "layers": {"ln": ones(cfg.n_layers),
+        "embed": init_embedding(gen, cfg.padded_vocab, d, dt, device),
+        "layers": {"ln": init_rmsnorm(d, (cfg.n_layers,), device),
                    "mamba": init_mamba2(gen, cfg, cfg.n_layers, device=device)},
-        "final_norm": ones(),
+        "final_norm": init_rmsnorm(d, device=device),
     }
     if cfg.family == "hybrid":
-        H, KV, dh, ff = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
-
-        def dense(shape, fan_in=None):
-            w = torch.empty(shape, dtype=dt, device=device)
-            return normal_(w, gen, 1.0 / math.sqrt(fan_in or shape[0]))
-
-        attn = {"wq": dense((d, H * dh)), "wk": dense((d, KV * dh)),
-                "wv": dense((d, KV * dh)), "wo": dense((H * dh, d))}
-        if cfg.qkv_bias:
-            attn.update({n: torch.zeros((w,), dtype=dt, device=device)
-                         for n, w in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh))})
-        mlp_p = {"w_up": dense((d, ff)), "w_down": dense((ff, d))}
+        ff = cfg.d_ff
+        dense = lambda d_in, d_out: dense_init(gen, (d_in, d_out), dt, device=device)
+        attn = init_attention(gen, cfg, device=device)
+        # drawn up, down, gate (``layers.init_mlp`` draws the gate first)
+        mlp_p = {"w_up": dense(d, ff), "w_down": dense(ff, d)}
         if cfg.act == "swiglu":
-            mlp_p["w_gate"] = dense((d, ff))
-        params["shared_attn"] = {"ln1": ones(), "attn": attn, "ln2": ones(), "mlp": mlp_p}
+            mlp_p["w_gate"] = dense(d, ff)
+        params["shared_attn"] = {"ln1": init_rmsnorm(d, device=device), "attn": attn,
+                                 "ln2": init_rmsnorm(d, device=device), "mlp": mlp_p}
     params["head"], ds_state = heads.init_head(gen, cfg, device=device)
     return params, ds_state
 

@@ -9,10 +9,11 @@ a copy):
   to fp32 first — a bf16 × bf16 product is exact in fp32, while a bf16
   ``matmul`` in torch would return bf16;
 * causal self-attention over whole sequences (prefill) runs the
-  hand-written ``flash_attention`` kernel on CUDA tensors, for every
-  sequence length; on CPU tensors it stays the plain tensor code mirroring
-  the JAX einsums (``chunked_causal_attention`` above ``attn_q_chunk``,
-  else ``full_attention``), as do decode and chunked prefill on either
+  hand-written ``flash_attention`` kernel on CUDA tensors (and the
+  dry-run's meta tensors take that path), for every sequence length; on
+  CPU tensors it stays the plain tensor code mirroring the JAX einsums
+  (``chunked_causal_attention`` above ``attn_q_chunk``, else
+  ``full_attention``), as do decode and chunked prefill on either
   device: masks at -1e9, fp32 softmax; non-causal attention (the
   encoder's, cross-attention) is that plain code on either device too;
 * training (``attention_block(..., train=True)``) always takes that plain,
@@ -32,7 +33,66 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import on_card
+from repro_torch.core.dssoftmax import normal_
 from repro_torch.kernels.flash_attention import flash_attention
+
+# ---------------------------------------------------------------------------
+# Initializers. ``repro``'s take a key and give one layer; these take the
+# torch generator the params are drawn from and ``lead``, the leading axes
+# (a stack's ``(L,)``) every leaf gets, so a stack of L layers is drawn leaf
+# by leaf, each leaf for all L layers at once: the order the port's
+# ``init_params`` have always drawn in.
+# ---------------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, shape, dtype, fan_in: Optional[int] = None,
+               device="cuda") -> torch.Tensor:
+    """N(0, 1/fan_in) weights of ``shape`` (fan_in: ``shape[0]`` unless
+    given), drawn in fp32 by ``core.dssoftmax.normal_`` and cast."""
+    w = torch.empty(tuple(shape), dtype=dtype, device=device)
+    return normal_(w, generator, 1.0 / math.sqrt(fan_in or shape[0]))
+
+
+def init_rmsnorm(d: int, lead: tuple = (), device="cuda"):
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=torch.float32, device=device)}
+
+
+def init_layernorm(d: int, lead: tuple = (), device="cuda"):
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros(tuple(lead) + (d,), dtype=torch.float32, device=device)}
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig, lead: tuple = (),
+                   device="cuda"):
+    """wq, wk, wv, wo (drawn in that order) and, with ``cfg.qkv_bias``,
+    zero q/k/v biases."""
+    d, H, KV, dh, dt = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.jdtype
+    lead = tuple(lead)
+    dense = lambda d_in, d_out: dense_init(generator, lead + (d_in, d_out), dt, fan_in=d_in,
+                                           device=device)
+    p = {"wq": dense(d, H * dh), "wk": dense(d, KV * dh), "wv": dense(d, KV * dh),
+         "wo": dense(H * dh, d)}
+    if cfg.qkv_bias:
+        p.update({n: torch.zeros(lead + (w,), dtype=dt, device=device)
+                  for n, w in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh))})
+    return p
+
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None,
+             lead: tuple = (), device="cuda"):
+    """swiglu: w_gate, w_up, w_down (drawn in that order); else w_up, w_down."""
+    d, ff, dt, lead = cfg.d_model, d_ff or cfg.d_ff, cfg.jdtype, tuple(lead)
+    dense = lambda d_in, d_out: dense_init(generator, lead + (d_in, d_out), dt, fan_in=d_in,
+                                           device=device)
+    if cfg.act == "swiglu":
+        return {"w_gate": dense(d, ff), "w_up": dense(d, ff), "w_down": dense(ff, d)}
+    return {"w_up": dense(d, ff), "w_down": dense(ff, d)}
+
+
+def init_embedding(generator: torch.Generator, vocab: int, d: int, dtype, device="cuda"):
+    return {"table": dense_init(generator, (vocab, d), dtype, fan_in=d, device=device)}
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -189,7 +249,7 @@ def attention_block(params, cfg: ModelConfig, x: torch.Tensor, positions, *, cau
     differentiable code, as ``repro`` does."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     B, S = x.shape[:2]
-    if causal and q.is_cuda and not train:
+    if causal and on_card(q) and not train:
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             device=q.device).transpose(1, 2)
     elif causal and S > cfg.attn_q_chunk:

@@ -69,6 +69,11 @@ class ModelBundle:
     # None where ``verify_needs_state_commit`` is False
     commit_block: Optional[Callable[..., Any]] = None
 
+    def abstract_params(self):
+        """(params, ds_state) as meta tensors: ``init``'s shapes and dtypes,
+        no memory (the dry-run's counterpart of ``jax.eval_shape``)."""
+        return build(self.cfg, device="meta").init(torch.Generator())
+
 
 def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
     """The model's functions, with ``init`` placing params on ``device``.
@@ -76,8 +81,9 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
     ids) switch the serving functions to the paged arena; a family without
     the corresponding leaf kind ignores the extra argument. ``mesh`` serves
     the DS head expert-parallel and ``gather`` from FSDP-stored weights
-    (``distributed.sharding``)."""
-    dev = resolve_device(device)
+    (``distributed.sharding``). ``device='meta'`` builds on shapes alone:
+    the dry-run traces such a bundle's step (``launch.dryrun``)."""
+    dev = resolve_device(device, meta=True)
     _check_family(cfg)
     if cfg.family in encdec.FAMILIES:
         return _build_encdec(cfg, dev)

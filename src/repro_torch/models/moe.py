@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dispatch import dispatch_indices
 from repro_torch.core.dssoftmax import normal_
+from repro_torch.device import on_card
 from repro_torch.distributed import sharding
 from repro_torch.kernels.ref import topk_stable
 
@@ -92,7 +93,7 @@ class _BmmF32(torch.autograd.Function):
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with fp32 outputs: bf16 operands on the card, both widened
     to fp32 on the CPU (which has no ``aten::bmm.dtype`` kernel)."""
-    if a.is_cuda:
+    if on_card(a):
         return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 

@@ -13,7 +13,6 @@ prefill.
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import torch
@@ -21,13 +20,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dssoftmax import normal_
 from repro_torch.models import heads, moe
 from repro_torch.models.layers import (
     attention_block,
     attention_decode,
     attention_prefill_chunk,
     embed,
+    init_attention,
+    init_embedding,
+    init_mlp,
+    init_rmsnorm,
     mlp,
     rmsnorm,
     stacked_layer,
@@ -44,45 +46,32 @@ class DecodeCache(NamedTuple):
     v: torch.Tensor
 
 
-def _dense(gen, L, shape, dtype, device, fan_in=None):
-    w = torch.empty((L,) + shape, dtype=dtype, device=device)
-    return normal_(w, gen, 1.0 / math.sqrt(fan_in or shape[0]))
+def init_layer(generator: torch.Generator, cfg: ModelConfig, n_layers: int, device="cuda"):
+    """``n_layers`` layers' params stacked on a leading ``(L, …)`` axis (what
+    ``repro``'s ``vmap`` of its one-layer ``init_layer`` stacks): the
+    attention, then the MoE block or the MLP; the norms start at one."""
+    lead = (n_layers,)
+    p = {"ln1": init_rmsnorm(cfg.d_model, lead, device),
+         "attn": init_attention(generator, cfg, lead, device),
+         "ln2": init_rmsnorm(cfg.d_model, lead, device)}
+    if cfg.moe is not None:
+        p["moe"] = moe.init_moe(generator, cfg, n_layers, device=device)
+    else:
+        p["mlp"] = init_mlp(generator, cfg, lead=lead, device=device)
+    return p
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     """Seeded params on ``device`` → (params, ds_state)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not built by models.transformer")
-    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dt, gen = cfg.jdtype, generator
-    attn = {
-        "wq": _dense(gen, L, (d, H * dh), dt, device),
-        "wk": _dense(gen, L, (d, KV * dh), dt, device),
-        "wv": _dense(gen, L, (d, KV * dh), dt, device),
-        "wo": _dense(gen, L, (H * dh, d), dt, device),
-    }
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((L, H * dh), dtype=dt, device=device)
-        attn["bk"] = torch.zeros((L, KV * dh), dtype=dt, device=device)
-        attn["bv"] = torch.zeros((L, KV * dh), dtype=dt, device=device)
-    if cfg.moe is not None:
-        ffn = {"moe": moe.init_moe(gen, cfg, L, device=device)}
-    elif cfg.act == "swiglu":
-        ffn = {"mlp": {"w_gate": _dense(gen, L, (d, ff), dt, device),
-                       "w_up": _dense(gen, L, (d, ff), dt, device),
-                       "w_down": _dense(gen, L, (ff, d), dt, device)}}
-    else:
-        ffn = {"mlp": {"w_up": _dense(gen, L, (d, ff), dt, device),
-                       "w_down": _dense(gen, L, (ff, d), dt, device)}}
-    ones = lambda: {"scale": torch.ones((L, d), dtype=torch.float32, device=device)}
-    table = torch.empty((cfg.padded_vocab, d), dtype=dt, device=device)
+    layers_p = init_layer(generator, cfg, cfg.n_layers, device)
     params = {
-        "embed": {"table": normal_(table, gen, 1.0 / math.sqrt(d))},
-        "layers": {"ln1": ones(), "attn": attn, "ln2": ones(), **ffn},
-        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32, device=device)},
+        "embed": init_embedding(generator, cfg.padded_vocab, cfg.d_model, cfg.jdtype, device),
+        "layers": layers_p,
+        "final_norm": init_rmsnorm(cfg.d_model, device=device),
     }
-    params["head"], ds_state = heads.init_head(gen, cfg, device=device)
+    params["head"], ds_state = heads.init_head(generator, cfg, device=device)
     return params, ds_state
 
 

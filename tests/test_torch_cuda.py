@@ -2602,3 +2602,61 @@ def test_expert_parallel_ffn_one_shard_at_a_time_matches_moe_block(dev, ep, dtyp
     for k, w in gw.items():
         rel = float((gg[k].float() - w.float()).abs().max() / w.float().abs().max())
         assert rel <= tol, (k, rel)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dryrun_prediction_holds_on_the_card(dev, kind):
+    """A reduced qwen2-1.5b cell traced at 1x1 on meta tensors, then run on
+    the card from the same shapes: the argument bytes equal the card's
+    exactly, the step peak (``max_memory_allocated`` less what was
+    allocated at entry, one step warmed up) within
+    ``launch.dryrun.PEAK_RTOL``/``PEAK_ATOL`` of the traced one."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.distributed.sharding import tree_shard_bytes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.models.model_zoo import cache_specs
+    from repro_torch.optim import adam_init
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = reduce_config(get_config("qwen2-1.5b"))
+    shape = ShapeConfig(name=f"tiny_{kind}", seq_len=64, global_batch=8, kind=kind)
+    bundle = build(cfg, device="cuda")
+    params, ds_state = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    if kind == "train":
+        rec = dryrun.run_cell(None, "1x1", "qwen2-1.5b", shape.name, cfg=cfg, shape=shape,
+                              microbatches=2)
+        state = TrainState(params, adam_init(params), ds_state)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 65), generator=g, device=dev,
+                                         dtype=torch.int32)}
+        step = make_train_step(bundle, TrainConfig(microbatches=2))
+        args = tree_shard_bytes(state) + tree_shard_bytes(batch)
+        call = lambda: step(state, batch)  # noqa: E731
+    else:
+        table = ds.pack_experts(params["head"], ds_state)
+        params = dict(params, head={"gate": params["head"]["gate"]})
+        rec = dryrun.run_cell(None, "1x1", "qwen2-1.5b", shape.name, cfg=cfg, shape=shape,
+                              v_pad=table.v_pad)
+        specs = cache_specs(cfg, shape)
+        cache = type(specs)(*(torch.zeros(s.shape, dtype=s.dtype, device=dev) for s in specs))
+        tok = torch.arange(8, dtype=torch.int32, device=dev)
+        pos = torch.arange(8, dtype=torch.int32, device=dev) * 7
+        args = tree_shard_bytes({"p": params, "t": table, "c": cache,
+                                 "b": {"tok": tok, "pos": pos}})
+        call = lambda: bundle.decode_step(params, table, cache, tok, pos,  # noqa: E731
+                                          with_stats=True)
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entry = torch.cuda.memory_allocated()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - entry
+    del out
+    m = rec["memory"]
+    assert m["argument_bytes"] == args
+    traced = m["step_bytes"]
+    assert abs(peak - traced) <= dryrun.PEAK_RTOL * traced + dryrun.PEAK_ATOL, (peak, traced)
