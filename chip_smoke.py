@@ -301,7 +301,16 @@ Phases, in order (any failure exits non-zero before the result line):
    replicated and ``param_mode='fsdp'``, through cuda_fused and auto on
    phase 3's 12 requests: streams equal phase 3's, one decode graph, the
    bodies launched; tokens/s beside phase 3's and the rank's resident
-   parameter bytes. The group is destroyed before phase 6b.
+   parameter bytes; each session holds every slot's cache (one data row:
+   ``local_slots`` whole, ``cache_bytes`` the whole cache's). (d) A
+   data-2 mesh's slot-split decode emulated on the card
+   (``testing.mesh_rows.decode_data_rows``): each data row's 4 of the 8
+   slots (phase 3's first 8 prompts, 32 greedy emissions) stepped in turn
+   on its own half cache through the backbone and the cuda_fused head,
+   the rows merged, against the same decode on the whole cache: the
+   prefill's emission bit for bit, then BF16_DRIFT while the streams agree
+   and partings only at a near-tie (``_held_within_drift``); each row's
+   cache half the whole's bytes. The group is destroyed before phase 6b.
 7. Train: lm-100m, the repo's real-hardware training preset
    (``examples/train_lm_dssoftmax.py:31-37``: 12 layers, d 768, 12 heads,
    kv 4, d_ff 2048, V 50,304, K 8), built here, at full width in bf16 on
@@ -369,10 +378,15 @@ Phases, in order (any failure exits non-zero before the result line):
    1-slot cache: argument bytes and peak held as in (a); the decode's
    read-once bytes of weights and cache equal ``backbone_bytes`` at a full
    cache plus the gate; the traced op bytes and the roofline's bound
-   beside the eager step's and the backbone graph replay's ms. (c) One
-   production cell per shape kind on the ``single`` mesh (qwen2-1.5b
+   beside the eager step's and the backbone graph replay's ms. (b2) Rank
+   0 of a 2x1 mesh at (b)'s decode shape: the cache a session allocates
+   on the card for its 4 slots (``serve_cache_block``) equals the dry-run's
+   traced 2x1 rank-0 cache argument to the byte, half the 1x1 cell's. (c)
+   One production cell per shape kind on the ``single`` mesh (qwen2-1.5b
    train_4k, prefill_32k, decode_32k; deepseek-67b train_4k) traced in a
-   fake world of 256 ranks: fits, bottleneck and seconds printed.
+   fake world of 256 ranks: fits, bottleneck and seconds printed; the two
+   qwen2-1.5b serving cells must fit (``DRYRUN_MUST_FIT``: a rank holds
+   its block of the slots).
 Every profile opens with a head of one-element adds that it does not
 count, and must find the device record of each launch after them, or it
 is taken again with a longer head (``traced``): Kineto loses the records
@@ -5173,6 +5187,7 @@ def mesh_phase(results: dict, card: str, cfg, bundle, params, cases) -> None:
         _mesh_head(out, card, mesh, params["head"]["gate"], {"fp": fp, "int8": int8})
         _mesh_local_halves(out, card, params["head"]["gate"], {"fp": fp, "int8": int8}, cfg)
         _mesh_sessions(out, card, mesh, cfg, bundle, params, fp, results)
+        _mesh_data_rows(out, card, cfg, bundle, params, fp)
     finally:
         lmesh.destroy()
     results["mesh"] = out
@@ -5349,6 +5364,11 @@ def _mesh_sessions(out, card, mesh, cfg, bundle, params, table, results) -> None
                                    "without a mesh")
             if st["decode_graphs"] != 1:
                 raise SmokeFailure(f"{label}: {st['decode_graphs']} decode graph captures")
+            here, whole = sess.cache_bytes()
+            blk = sess.local_slots
+            if blk.splits or (blk.offset, blk.count) != (0, N_SLOTS) or here != whole:
+                raise SmokeFailure(f"{label}: one data row must hold every slot's cache "
+                                   f"(slots {blk}, {here} of {whole} bytes)")
             for n in NEEDS[(kern, False)] + (FLASH_TC,):
                 if delta[n] < 1:
                     raise SmokeFailure(f"{label}: kernel {n} never launched ({delta})")
@@ -5356,15 +5376,90 @@ def _mesh_sessions(out, card, mesh, cfg, bundle, params, table, results) -> None
             row = {"mode": mode, "kernel": kern, "tokens": n_tok, "wall_s": wall,
                    "tokens_per_s": n_tok / wall, "no_mesh_tokens_per_s": base_tps.get(kern),
                    "resident_param_bytes": sharding.tree_shard_bytes(sess.params),
+                   "resident_cache_bytes": here,
                    "launches": {n: c for n, c in delta.items() if c}}
             rows.append(row)
             print(f"[mesh] (c) {mode:10s} kernel={kern:10s} streams equal phase 3's; "
                   f"{row['tokens_per_s']:.2f} tokens/s vs {row['no_mesh_tokens_per_s']:.2f} "
                   f"without a mesh; resident params {row['resident_param_bytes'] / 2**30:.3f} "
-                  f"GiB on this rank; one decode graph; launches {row['launches']}; "
+                  f"GiB and cache {here / 2**30:.3f} GiB (all {N_SLOTS} slots: one data row) "
+                  f"on this rank; one decode graph; launches {row['launches']}; "
                   f"card {card}", flush=True)
             del sess
     out["sessions"] = rows
+
+
+MESH_DATA_ROWS = 2                # phase 6f (d): the emulated data rows
+MESH_ROWS_KERNEL = "cuda_fused"
+
+
+def _mesh_data_rows(out, card, cfg, bundle, params, table) -> None:
+    """(d) A data-2 mesh's slot-split decode emulated on the one card
+    (``testing.mesh_rows.decode_data_rows``): each data row's block of the
+    8 slots stepped in turn against its own block cache, through the
+    backbone and the head, the rows' outputs merged; held against the same
+    decode on the whole cache: the prefill's emission bit for bit, then the
+    drift rule (``_held_within_drift``, BF16_DRIFT) while the streams agree,
+    parting only at a near-tie. Each row's cache holds half the whole's
+    bytes; the head's bodies and the prefill's attention kernel launched."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.testing.mesh_rows import decode_data_rows
+
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS[:N_SLOTS]]
+    runs = {}
+    for n_rows in (1, MESH_DATA_ROWS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[n_rows] = decode_data_rows(bundle, params, table, prompts, n_rows=n_rows,
+                                        new_tokens=NEW_TOKENS, max_seq_len=MAX_SEQ, k=K_TOP,
+                                        kernel=MESH_ROWS_KERNEL, device="cuda")
+        torch.cuda.synchronize()
+        runs[n_rows].wall_s = time.perf_counter() - t0
+        runs[n_rows].launches = {n: c for n, c in ops.launch_counts().items() if c}
+        for n in NEEDS[(MESH_ROWS_KERNEL, False)] + (FLASH_TC,):
+            if runs[n_rows].launches.get(n, 0) < 1:
+                raise SmokeFailure(f"mesh (d) {n_rows} rows: kernel {n} never launched")
+    whole, split = runs[1], runs[MESH_DATA_ROWS]
+    label = f"mesh (d) {MESH_DATA_ROWS} data rows in turn"
+    for i in range(N_SLOTS):
+        (v0, i0), (v1, i1) = whole.heads[i][0], split.heads[i][0]
+        if not (torch.equal(v0, v1) and torch.equal(i0, i1)):
+            raise SmokeFailure(f"{label}: slot {i}'s prefill emission differs")
+    tail = lambda r: types.SimpleNamespace(  # noqa: E731 — emissions after the prefill's
+        heads=[h[1:] for h in r.heads], gates=[g[1:] for g in r.gates])
+    read = _held_within_drift(label, ([t[1:] for t in split.tokens], tail(split)),
+                              ([t[1:] for t in whole.tokens], tail(whole)), tag="mesh")
+    bitwise = split.tokens == whole.tokens and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for ha, hb in zip(split.heads, whole.heads) for a, b in zip(ha, hb))
+    row_bytes = [sharding.tree_shard_bytes(c) for c in split.caches]
+    whole_bytes = sharding.tree_shard_bytes(whole.caches[0])
+    if any(b * MESH_DATA_ROWS != whole_bytes for b in row_bytes):
+        raise SmokeFailure(f"{label}: row caches {row_bytes} against the whole {whole_bytes}")
+    out["data_rows"] = {"rows": MESH_DATA_ROWS, "kernel": MESH_ROWS_KERNEL,
+                        "streams_equal": split.tokens == whole.tokens, "bitwise": bitwise,
+                        **read, "row_cache_bytes": row_bytes, "whole_cache_bytes": whole_bytes,
+                        "wall_s": {"whole": whole.wall_s, "rows": split.wall_s},
+                        "launches": split.launches}
+    print(f"[mesh] (d) {N_SLOTS} slots over {MESH_DATA_ROWS} emulated data rows, each row's "
+          f"{N_SLOTS // MESH_DATA_ROWS} slots stepped in turn on its own cache "
+          f"({row_bytes[0] / 2**30:.3f} GiB a row of {whole_bytes / 2**30:.3f}), "
+          f"{MESH_ROWS_KERNEL} head: {NEW_TOKENS} greedy emissions a slot "
+          f"{'bit for bit the whole cache' + chr(39) + 's' if bitwise else 'within the drift rule'}"
+          f" (max drift {read['max_drift']:.3g}, gate {read['max_gate_drift']:.3g}; partings "
+          f"at token/gate near-ties {read['token_ties']}/{read['gate_ties']}); wall "
+          f"{whole.wall_s:.2f} s whole, {split.wall_s:.2f} s in rows; launches "
+          f"{split.launches}; card {card}", flush=True)
+    del runs, whole, split
+    torch.cuda.empty_cache()
 
 
 MESH_TRAIN_STEPS, MESH_TRAIN_MICRO = 6, 2       # phase 7m (a)
@@ -5734,6 +5829,9 @@ def _mesh_serve_trained(out, card, mesh, bundle, plain, meshed, stream):
 DRYRUN_FLOPS_RATIO = (0.8, 1.6)
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
                 ("qwen2-1.5b", "decode_32k"), ("deepseek-67b", "train_4k"))
+# the serving cells a rank's block of the slots fits on one card (the
+# train cells' whole-params gather does not)
+DRYRUN_MUST_FIT = (("qwen2-1.5b", "prefill_32k"), ("qwen2-1.5b", "decode_32k"))
 
 
 def dryrun_phase(results: dict, card: str) -> None:
@@ -5746,10 +5844,55 @@ def dryrun_phase(results: dict, card: str) -> None:
         _dryrun_train(out, card)
         torch.cuda.empty_cache()
         _dryrun_serve(out, card)
+        torch.cuda.empty_cache()
+        _dryrun_rank_cache(out, card)
     finally:
         torch.cuda.empty_cache()
     _dryrun_production(out)
     results["dryrun"] = out
+
+
+def _dryrun_rank_cache(out, card):
+    """(b2) Rank 0 of a 2x1 mesh serving phase 4's decode shape (8 slots x
+    MAX_SEQ): the cache the session allocates on the card for its block of
+    the slots (``serve_cache_block`` of the rank, ``ServeSession``'s
+    allocator) against the dry-run's traced 2x1 rank-0 cache argument, to
+    the byte, and half the 1x1 cell's."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.model_zoo import cache_specs
+    from repro_torch.testing.mesh_rows import row_mesh
+    from repro_torch.train.serve import _zeros
+
+    cfg = get_config("qwen2-1.5b")
+    shape = ShapeConfig(name="phase4_decode", seq_len=MAX_SEQ, global_batch=N_SLOTS,
+                        kind="decode")
+    one = dryrun.trace_cell(None, cfg, shape).arguments["cache"]
+    with fake_world(2):
+        mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+        traced = dryrun.trace_cell(mesh, cfg, shape).arguments["cache"]
+    blk = sharding.serve_cache_block(row_mesh(2, 0), N_SLOTS)
+    cache = _zeros(cache_specs(cfg, ShapeConfig(name="rank0", seq_len=MAX_SEQ,
+                                                global_batch=blk.count, kind="decode")),
+                   torch.device("cuda"))
+    have, want = sharding.tree_shard_bytes(cache), sharding.tree_shard_bytes(traced)
+    whole = sharding.tree_shard_bytes(one)
+    if have != want or 2 * want != whole:
+        raise SmokeFailure(f"dryrun (b2): the 2x1 rank 0's cache on the card {have} bytes, "
+                           f"traced {want}, the 1x1 cell's {whole}")
+    out["rank_cache"] = {"mesh": "2x1", "rank": 0, "slots": [blk.offset, blk.offset + blk.count],
+                         "card_bytes": have, "traced_bytes": want, "whole_bytes": whole}
+    print(f"[dryrun] (b2) qwen2-1.5b decode, 2x1 rank 0 (slots [{blk.offset}, "
+          f"{blk.offset + blk.count}) of {N_SLOTS} x {MAX_SEQ}): cache on the card {have} bytes "
+          f"= the dry-run's traced rank-0 cache argument, half the 1x1 cell's {whole}; card "
+          f"{card}", flush=True)
+    del cache
 
 
 def _step_peak(fn):
@@ -5955,6 +6098,9 @@ def _dryrun_production(out):
         for arch, shape in DRYRUN_CELLS:
             rec = dryrun.run_cell(mesh, "single", arch, shape)
             m, rf = rec["memory"], rec["roofline"]
+            if (arch, shape) in DRYRUN_MUST_FIT and not m["fits"]:
+                raise SmokeFailure(f"dryrun (c): {arch} {shape} does not fit a card "
+                                   f"(peak {m['peak_bytes'] / 2**30:.2f} GiB a rank)")
             rows.append({"arch": arch, "shape": shape, "fits": m["fits"],
                          "peak_bytes": m["peak_bytes"], "argument_bytes": m["argument_bytes"],
                          "bottleneck": rf["bottleneck"], "step_time_s": rf["step_time_s"],

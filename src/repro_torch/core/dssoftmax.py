@@ -905,11 +905,16 @@ def merge_carries(vals_all, ids_all, expert_idx, k_loc: int):
 
 
 def serve_topk_sharded(gate_w, table, h, k: int, *, mesh, kernel="auto",
-                       capacity_factor: float = 2.0, with_stats: bool = False):
+                       capacity_factor: float = 2.0, with_stats: bool = False,
+                       h_local: bool = False):
     """Mesh-sharded top-k retrieval, run by every rank of ``mesh`` on the
     same (B, d) ``h``: experts over ``model``, tokens over ``pod``/``data``
     (when they divide B), one O(B·k) all-gather merge. → (B, k) values
-    and ids on every rank.
+    and ids on every rank. ``h_local=True``: ``h`` is already this rank's
+    block of the B rows (batch rank r of n_b holds rows ``[r·B/n_b,
+    (r+1)·B/n_b)``, what ``batch_pspec`` places; a slot-split session's
+    step), so the rank takes no slice of it; the result is the same
+    merged (B, k) in global row order.
 
     Ids equal the single-device :func:`serve_topk`'s bit for bit: the gate
     is computed on every rank, exactly one rank owns each token's expert,
@@ -933,17 +938,19 @@ def serve_topk_sharded(gate_w, table, h, k: int, *, mesh, kernel="auto",
     shard = shard_table(table, mesh)
     ep, ndata = _mesh_degrees(mesh)
     sizes = mesh_sizes(mesh)
-    B = h.shape[0]
+    B = h.shape[0] * (ndata if h_local else 1)
     K_loc = shard.local.ids.shape[0]
     # tokens split over the batch axes where batch_pspec places them
     h_spec = batch_pspec(mesh, B)
     b_split = ndata if ndata > 1 and h_spec[0] is not None else 1
+    if h_local and b_split == 1 and ndata > 1:
+        raise ValueError(f"h_local: {B} rows do not split over {ndata} batch ranks")
     ctx = dataclasses.replace(serve_kernel_context(shard.local, h, k, capacity_factor,
-                                                   ep=ep, ndata=b_split), K=shard.n_experts)
+                                                   ep=ep, ndata=b_split), K=shard.n_experts, B=B)
     spec = get_spec(resolve_kernel(kernel, ctx))
     local_name = spec.local_name or spec.name
     bax = tuple(a for a in batch_axes(mesh) if sizes[a] > 1)
-    if b_split > 1:
+    if b_split > 1 and not h_local:
         h = slice_leaf(h, h_spec, sizes, mesh_coords(mesh))
     vals, ids, eidx, stats = serve_topk_local_half(
         gate_w, shard, h, k, local_name, capacity_factor=capacity_factor,

@@ -28,9 +28,10 @@ rules, any object with ``shape`` (axis name → size) and ``axis_names``, as
 from __future__ import annotations
 
 import contextlib
+import copy
 import re
 import warnings
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -379,6 +380,50 @@ def serve_paged_cache_shardings(mesh, cfg, cache: Any) -> Any:
     return map_with_path(leaf, cache)
 
 
+class CacheBlock(NamedTuple):
+    """One rank's block ``[offset, offset + count)`` of a serving cache's
+    slot (or arena page) axis of length ``total``. ``splits`` is False where
+    the rule keeps the axis whole (``offset`` 0, ``count == total``)."""
+
+    offset: int
+    count: int
+    total: int
+    splits: bool
+
+    @property
+    def index(self) -> int:
+        """The block's place among the batch ranks (0 when whole)."""
+        return self.offset // self.count if self.count else 0
+
+    def local(self, i: int) -> Optional[int]:
+        """Global index ``i`` → its index in this block, or None when
+        another rank holds it."""
+        i = int(i) - self.offset
+        return i if 0 <= i < self.count else None
+
+    def owner(self, i: int) -> int:
+        """The block (batch rank) that holds global index ``i``."""
+        return int(i) // self.count if self.splits else 0
+
+
+def serve_cache_block(mesh, n: int, paged: bool = False) -> CacheBlock:
+    """This rank's block of ``n`` cache slots (``paged``: of an arena of
+    ``n`` pages) where :func:`serve_cache_shardings` (or
+    :func:`serve_paged_cache_shardings`) places them: the block of batch
+    rank ``batch_index(mesh)`` of ``batch_size_on(mesh)`` when the rule
+    splits the axis, the whole axis where it returns ``()`` (no mesh, no
+    batch axis wider than 1, or ``n`` not divisible)."""
+    if mesh is None:
+        return CacheBlock(0, n, n, False)
+    leaf = {"x": torch.empty((1, n), device="meta")}
+    spec = (serve_paged_cache_shardings(mesh, None, leaf) if paged
+            else serve_cache_shardings(mesh, None, leaf, n))["x"]
+    if not spec:
+        return CacheBlock(0, n, n, False)
+    w = n // batch_size_on(mesh)
+    return CacheBlock(batch_index(mesh) * w, w, n, True)
+
+
 # ---------------------------------------------------------------------------
 # Serving-side FSDP parameter storage + per-layer just-in-time gather
 # ---------------------------------------------------------------------------
@@ -454,6 +499,17 @@ class ServeParamGather:
         self._spec = dict(zip(tree_paths(specs), tree_leaves(specs)))
         # a data axis of 1 (or leaves it never divides) splits nothing
         self._splits = any(ax is not None for s in self._spec.values() for ax in s)
+        self._local_ids = False
+
+    def for_local_rows(self) -> "ServeParamGather":
+        """This gather for a step whose token rows differ by batch rank (a
+        slot-split session's decode and verify steps): :meth:`rows` first
+        gathers the ids of the ranks it gathers rows from, so that every
+        rank takes the d-slices of the same rows, and keeps its own
+        block of the result."""
+        out = copy.copy(self)
+        out._local_ids = True
+        return out
 
     def _gather(self, prefix: str, tree: Any, drop_leading: bool) -> Any:
         if not self._splits:
@@ -492,11 +548,20 @@ class ServeParamGather:
         if any(ax is not None for ax in spec[:-1]):
             # the row axis split (no serving rule does this): gather it whole
             return self._gather(path, table, False)[ids.long()]
-        rows = table[ids.long()]
         d_ax = spec[-1]
         if d_ax is None:
-            return rows
-        for a in reversed(d_ax if isinstance(d_ax, tuple) else (d_ax,)):
+            return table[ids.long()]
+        axes = d_ax if isinstance(d_ax, tuple) else (d_ax,)
+        if self._local_ids:
+            if len(axes) != 1:
+                raise ValueError(f"local-row gathers take one axis, {key} splits over {axes}")
+            # this rank's ids differ from its peers': take every peer's rows
+            n, c = mesh_sizes(self.mesh)[axes[0]], axis_index(self.mesh, axes[0])
+            rows = table[_gather_dim(ids, axis_group(self.mesh, axes[0]), 0).long()]
+            rows = _gather_dim(rows, axis_group(self.mesh, axes[0]), rows.dim() - 1)
+            return rows.reshape((n,) + tuple(ids.shape) + rows.shape[-1:])[c]
+        rows = table[ids.long()]
+        for a in reversed(axes):
             rows = _gather_dim(rows, axis_group(self.mesh, a), rows.dim() - 1)
         return rows
 
@@ -689,7 +754,9 @@ def global_norm(tree: Any, mesh, specs: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _batch_group(mesh):
+def batch_group(mesh):
+    """The process group over the (pod, data) axes wider than 1, ranks in
+    :func:`batch_index` order."""
     sizes = mesh_sizes(mesh)
     return axis_group(mesh, tuple(a for a in batch_axes(mesh) if sizes[a] > 1))
 
@@ -731,7 +798,7 @@ def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     batch."""
     if batch_ranks(mesh) == 1:
         return x
-    return _SumOverRanks.apply(x, _batch_group(mesh))
+    return _SumOverRanks.apply(x, batch_group(mesh))
 
 
 def batch_mean(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:

@@ -15,12 +15,16 @@ under ``distributed.hlo_analysis.analyze``:
 * serving cells: what a mesh ``ServeSession`` runs (its FSDP layout,
   ``param_mode='fsdp'``): the weights stored ``data``-sharded and gathered
   a layer at a time (``ServeParamGather``), the serve table
-  expert-parallel over ``model`` (``shard_table``), the decode cache whole
-  on every rank. A prefill cell is ``global_batch`` whole-prompt
-  prefills, one request a call (``ServeSession._prefill_into_slot``): one
-  call is traced and its costs are counted ``global_batch`` times; a
-  decode cell is one decode step of ``global_batch`` slots against a
-  ``seq_len`` cache, the head with its stats, as ``ServeSession._decode``.
+  expert-parallel over ``model`` (``shard_table``), and this rank's block
+  of the ``global_batch`` slots' decode cache where
+  ``serve_cache_shardings`` splits the slots over (pod, data), the whole
+  cache where it does not (``sharding.serve_cache_block``). A prefill
+  cell is ``global_batch`` whole-prompt prefills, one request a call on
+  every rank (``ServeSession._prefill_into_slot``): one call is traced and
+  its costs are counted ``global_batch`` times; a decode cell is one
+  decode step of this rank's slots against its ``seq_len`` cache, then
+  the head with its stats over every rank's rows merged, as
+  ``ServeSession._decode``.
 
 Every collective runs on the fake group and is recorded; nothing is
 allocated on any device. The DS head's exact overflow fixup has a
@@ -46,6 +50,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -62,7 +67,7 @@ from repro_torch.distributed import roofline
 from repro_torch.distributed import sharding as shard
 from repro_torch.distributed.hlo_analysis import analyze
 from repro_torch.launch.mesh import fake_world, make_production_mesh, production_mesh_shape
-from repro_torch.models import model_zoo
+from repro_torch.models import heads, model_zoo
 from repro_torch.models.model_zoo import build, cache_specs, input_specs, serve_table_spec
 from repro_torch.optim import adam_init
 from repro_torch.train.train_step import TrainState, make_train_step
@@ -288,8 +293,10 @@ def trace_cell(mesh, cfg: ModelConfig, shape: ShapeConfig, *,
         stored = shard.shard_tree(mesh, params, shard.serve_param_shardings(mesh, params))
     head_table = ds_state if table is None else (
         ds.shard_table(table, mesh) if mesh is not None else table)
-    # the session's cache: global_batch slots of seq_len positions, whole on every rank
-    cache = _meta_cache(cache_specs(cfg, shape))
+    # the session's cache: this rank's block of the global_batch slots of
+    # seq_len positions (all of them where the rule keeps the slots whole)
+    slots = shard.serve_cache_block(mesh, shape.global_batch)
+    cache = _meta_cache(cache_specs(cfg, dataclasses.replace(shape, global_batch=slots.count)))
     args = {"params": stored, "table": head_table, "cache": cache}
     if shape.kind == "prefill":
         one = {k: torch.empty((1,) + tuple(v.shape[1:]), dtype=v.dtype, device="meta")
@@ -301,14 +308,16 @@ def trace_cell(mesh, cfg: ModelConfig, shape: ShapeConfig, *,
 
         calls = shape.global_batch
     else:
-        B = shape.global_batch
-        tok = torch.empty((B,), dtype=torch.int32, device="meta")
-        pos = torch.empty((B,), dtype=torch.int32, device="meta")
+        tok = torch.empty((slots.count,), dtype=torch.int32, device="meta")
+        pos = torch.empty((slots.count,), dtype=torch.int32, device="meta")
         args["batch"] = {"token": tok, "pos": pos}
+        step_gather = gather.for_local_rows() if gather is not None and slots.splits else gather
 
         def fn():
-            return bundle.decode_step(stored, head_table, cache, tok, pos, with_stats=True,
-                                      mesh=mesh, gather=gather)
+            h = bundle.decode_hidden(stored, cache, tok, pos, gather=step_gather)
+            return heads.head_topk(stored["head"], head_table, cfg, h, 8,
+                                   embed_table=stored["embed"]["table"], mesh=mesh,
+                                   gather=gather, with_stats=True, local_rows=slots.splits)
 
         calls = 1
     return Cell(cfg, shape, fn, args, calls, _gathered_serve_bytes(params, mesh), repro)

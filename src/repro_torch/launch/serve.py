@@ -22,7 +22,9 @@ draft 1).
 
 ``--mesh DxM`` serves expert-parallel over one process per rank, started by
 ``torchrun --nproc-per-node N`` (N = D·M): every rank builds the same
-seeded model and drives the same requests, and prints the same report.
+seeded model and drives the same requests, and prints the same report
+but for one line: the cache bytes the rank holds (its block of the slots
+where the mesh's data ranks divide ``--slots``) beside the whole cache's.
 ``--param-mode fsdp`` (requires ``--mesh``) stores the weights split over
 the mesh's ``data`` axis. On CUDA each rank takes one card; wider worlds
 run on the CPU (``--device cpu``, ``gloo``). ``--dist-store PATH`` joins the
@@ -185,6 +187,12 @@ def main(argv=None) -> ServeSession:
         f"{k.removeprefix('n_')}={stats[k]}"
         for k in ("n_completed", "n_rejected", "n_cancelled", "n_timed_out", "n_failed",
                   "n_shed")))
+    if mesh is not None:
+        here, whole = session.cache_bytes()
+        blk = session.local_slots
+        print(f"cache on this rank: {here / 1e6:.2f} MB of the whole {whole / 1e6:.2f} MB "
+              f"(slots [{blk.offset}, {blk.offset + blk.count}) of {session.n_slots}"
+              f"{'' if blk.splits else ', whole'})")
     if args.paged:
         pg = stats["paged"]
         print(f"paged arena: {pg['pages_in_use']}/{pg['pages_total']} pages in use "

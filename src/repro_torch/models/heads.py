@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dssoftmax as ds
-from repro_torch.distributed.sharding import batch_ranks, batch_sum
+from repro_torch.distributed.sharding import batch_group, batch_ranks, batch_sum, collective
 from repro_torch.kernels.ref import topk_stable
 
 
@@ -93,7 +93,8 @@ def head_loss(head_params, ds_state, cfg: ModelConfig, h: torch.Tensor, labels: 
 
 def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: int,
               embed_table: Optional[torch.Tensor] = None, kernel=None, mesh=None, gather=None,
-              capacity_factor: Optional[float] = None, with_stats: bool = False):
+              capacity_factor: Optional[float] = None, with_stats: bool = False,
+              local_rows: bool = False):
     """Top-k classes from hidden states h (B, d) → (values, ids) (B, k).
     For a DS head ``serve_table`` is either table kind.
 
@@ -109,7 +110,10 @@ def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: in
     :class:`~repro_torch.distributed.sharding.ServeParamGather`) marks the
     head's weights as FSDP-stored: a DS head gathers only its (K, d) gate
     here (the expert rows live in the serve table), a full softmax its
-    whole (V, d) operand."""
+    whole (V, d) operand. ``local_rows=True`` (with ``mesh``): ``h`` holds
+    only this batch rank's block of the rows (a slot-split session's step);
+    the result is every rank's rows merged, (B, k) in global row order on
+    every rank."""
     if gather is not None:
         if cfg.head == "ds":
             head_params = dict(head_params, gate=gather.full("head/gate", head_params["gate"]))
@@ -122,7 +126,8 @@ def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: in
         cf = capacity_factor if capacity_factor is not None else cfg.ds.capacity_factor
         if mesh is not None:
             return ds.serve_topk_sharded(head_params["gate"], serve_table, h, k, mesh=mesh,
-                                         kernel=kern, capacity_factor=cf, with_stats=with_stats)
+                                         kernel=kern, capacity_factor=cf, with_stats=with_stats,
+                                         h_local=local_rows)
         return ds.serve_topk(head_params["gate"], serve_table, h, k, kernel=kern,
                              capacity_factor=cf, with_stats=with_stats, device=h.device)
     w = embed_table if cfg.tie_embeddings else head_params["unembed"]
@@ -132,6 +137,11 @@ def head_topk(head_params, serve_table, cfg: ModelConfig, h: torch.Tensor, k: in
                         z, -1e9)
     vals, ids = topk_stable(z, k)
     ids = ids.to(torch.int32)
+    if local_rows and batch_ranks(mesh) > 1:
+        # the batch ranks' blocks, concatenated in rank order
+        group = batch_group(mesh)
+        vals = collective(vals, group).reshape(-1, k)
+        ids = collective(ids, group).reshape(-1, k)
     if not with_stats:
         return vals, ids
     zero = torch.zeros((1,), dtype=torch.int32, device=h.device)

@@ -38,6 +38,17 @@ copy/zero on the arena); the manager only says *which* pages to touch.
 Preemption policy lives in ``ServeSession`` (the manager supplies the
 metadata swap: release a victim's mappings, every page it shared
 survives through its co-owners' refcounts).
+
+**Blocks** (the port's, for a slot-split mesh session): the slots fall
+into ``slot_blocks`` equal blocks, one a batch rank, and each rank holds
+only its own slots' data. An arena split as well (``kv_blocks`` or
+``state_blocks`` equal to ``slot_blocks``) is cut into that many equal
+blocks of page ids, and a slot maps only pages of its own block, drawn
+from that block's free list; an arena kept whole has one free list. Ids 0
+and 1 stay the reserved pages on every rank (each rank keeps its own pair
+beside its block). A prefix is adopted only by a slot of the block that
+registered it: its pages hold data only on that rank. With one block of
+each (the default) the manager is ``repro``'s.
 """
 from __future__ import annotations
 
@@ -103,7 +114,8 @@ class PagedCacheManager:
                  max_seq_len: int, has_state: bool = False,
                  has_kv: bool = True,
                  n_state_pages: Optional[int] = None,
-                 prefix_capacity: int = 512):
+                 prefix_capacity: int = 512,
+                 slot_blocks: int = 1, kv_blocks: int = 1, state_blocks: int = 1):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if max_seq_len % page_size:
@@ -131,15 +143,21 @@ class PagedCacheManager:
                 f"got {n_state_pages}"
             )
 
-        # LIFO free lists keep the hot pages hot; ids below N_RESERVED
-        # never enter them.
-        self._free: List[int] = list(range(n_pages - 1, N_RESERVED - 1, -1))
+        for name, nb, n in (("slot", slot_blocks, n_slots), ("kv", kv_blocks, n_pages),
+                            ("state", state_blocks, self.n_state_pages)):
+            if nb not in (1, slot_blocks) or (n and n % nb):
+                raise ValueError(f"{name}_blocks ({nb}) must be 1 or slot_blocks "
+                                 f"({slot_blocks}) and divide {n}")
+        self.slot_blocks = slot_blocks
+        self.kv_blocks = kv_blocks
+        self.state_blocks = state_blocks
+        # LIFO free lists (one per block) keep the hot pages hot; ids
+        # below N_RESERVED never enter them.
+        self._free_blocks: List[List[int]] = _free_lists(n_pages, kv_blocks)
         self.ref = np.zeros(n_pages, np.int64)
         self.gen = np.zeros(n_pages, np.int64)
-        self._state_free: List[int] = (
-            list(range(self.n_state_pages - 1, N_RESERVED - 1, -1))
-            if has_state else []
-        )
+        self._state_free_blocks: List[List[int]] = (
+            _free_lists(self.n_state_pages, state_blocks) if has_state else [[]])
         self.state_ref = np.zeros(self.n_state_pages, np.int64)
         self.state_gen = np.zeros(self.n_state_pages, np.int64)
 
@@ -150,7 +168,8 @@ class PagedCacheManager:
         # its own registered snapshots + incref'd shared snapshots
         self.state_holdings: List[List[int]] = [[] for _ in range(n_slots)]
 
-        self._prefix: Dict[bytes, PrefixEntry] = {}
+        # keyed by content hash (by (slot block, hash) over several blocks)
+        self._prefix: Dict[object, PrefixEntry] = {}
         self._prefix_capacity = prefix_capacity
 
         # counters surfaced via ServeSession.stats()
@@ -159,27 +178,54 @@ class PagedCacheManager:
         self.n_prefix_queries = 0
         self.tokens_reused = 0
 
+    # -- blocks ---------------------------------------------------------------
+
+    def slot_block(self, slot: int) -> int:
+        """The block (batch rank) that holds ``slot``."""
+        return int(slot) * self.slot_blocks // self.n_slots
+
+    def kv_block(self, slot: int) -> int:
+        """The KV free list ``slot`` draws from."""
+        return self.slot_block(slot) if self.kv_blocks > 1 else 0
+
+    def state_block(self, slot: int) -> int:
+        return self.slot_block(slot) if self.state_blocks > 1 else 0
+
+    def _pkey(self, slot: int, key: bytes):
+        return key if self.slot_blocks == 1 else (self.slot_block(slot), key)
+
     # -- capacity -----------------------------------------------------------
+
+    @property
+    def _free(self) -> List[int]:
+        """Every free KV page id, block by block (one block: the list)."""
+        return [p for f in self._free_blocks for p in f]
 
     @property
     def allocatable(self) -> int:
         return self.n_pages - N_RESERVED
 
     @property
+    def slot_allocatable(self) -> int:
+        """The most pages one slot can ever map: its block's (block 0's,
+        which also holds the reserved ids, is the smallest)."""
+        return self.n_pages // self.kv_blocks - N_RESERVED
+
+    @property
     def pages_free(self) -> int:
-        return len(self._free)
+        return sum(map(len, self._free_blocks))
 
     @property
     def pages_in_use(self) -> int:
-        return self.allocatable - len(self._free)
+        return self.allocatable - self.pages_free
 
     @property
     def state_pages_free(self) -> int:
-        return len(self._state_free)
+        return sum(map(len, self._state_free_blocks))
 
     @property
     def state_pages_in_use(self) -> int:
-        return max(0, self.n_state_pages - N_RESERVED) - len(self._state_free)
+        return max(0, self.n_state_pages - N_RESERVED) - self.state_pages_free
 
     def shared_pages(self) -> List[int]:
         """KV pages currently mapped by more than one owner."""
@@ -187,12 +233,14 @@ class PagedCacheManager:
 
     # -- raw page ops -------------------------------------------------------
 
-    def alloc(self) -> Optional[int]:
-        """Take one KV page off the free list (ref = 1); ``None`` when
-        the arena is exhausted (the caller decides preempt vs defer)."""
-        if not self._free:
+    def alloc(self, block: Optional[int] = None) -> Optional[int]:
+        """Take one KV page off ``block``'s free list (ref = 1; ``None``:
+        the first block with a free page); ``None`` when it is exhausted
+        (the caller decides preempt vs defer)."""
+        free = _pick(self._free_blocks, block)
+        if not free:
             return None
-        pid = self._free.pop()
+        pid = free.pop()
         assert self.ref[pid] == 0
         self.ref[pid] = 1
         return pid
@@ -210,14 +258,15 @@ class PagedCacheManager:
         self.ref[pid] -= 1
         if self.ref[pid] == 0:
             self.gen[pid] += 1
-            self._free.append(pid)
+            self._free_blocks[pid * self.kv_blocks // self.n_pages].append(pid)
             return True
         return False
 
-    def alloc_state(self) -> Optional[int]:
-        if not self._state_free:
+    def alloc_state(self, block: Optional[int] = None) -> Optional[int]:
+        free = _pick(self._state_free_blocks, block)
+        if not free:
             return None
-        pid = self._state_free.pop()
+        pid = free.pop()
         assert self.state_ref[pid] == 0
         self.state_ref[pid] = 1
         return pid
@@ -231,7 +280,7 @@ class PagedCacheManager:
         self.state_ref[pid] -= 1
         if self.state_ref[pid] == 0:
             self.state_gen[pid] += 1
-            self._state_free.append(pid)
+            self._state_free_blocks[pid * self.state_blocks // self.n_state_pages].append(pid)
             return True
         return False
 
@@ -246,13 +295,13 @@ class PagedCacheManager:
         exhausted) with the table untouched."""
         pid = int(self.tables[slot, idx])
         if pid < N_RESERVED:
-            new = self.alloc()
+            new = self.alloc(self.kv_block(slot))
             if new is None:
                 return None
             self.tables[slot, idx] = new
             return WritePlan("fresh", pid, new)
         if self.ref[pid] > 1:
-            new = self.alloc()
+            new = self.alloc(self.kv_block(slot))
             if new is None:
                 return None
             self.tables[slot, idx] = new
@@ -298,6 +347,7 @@ class PagedCacheManager:
         are taken; the entry dies with the pages. ``state_snapshot`` is
         the already-copied conv/ssm boundary page for state families
         (owned by ``slot`` via its holdings)."""
+        key = self._pkey(slot, key)
         old = self._prefix.get(key)
         if old is not None and old.length == length and self.entry_valid(old):
             return
@@ -318,22 +368,23 @@ class PagedCacheManager:
             self._prefix.pop(next(iter(self._prefix)))  # FIFO evict
         self._prefix[key] = PrefixEntry(length=length, kv=kv, state=state)
 
-    def has_prefix(self, key: bytes, length: int) -> bool:
-        """True when ``key`` is registered at ``length`` and still valid
-        (callers use this to skip redundant snapshot copies)."""
-        e = self._prefix.get(key)
+    def has_prefix(self, key: bytes, length: int, slot: int = 0) -> bool:
+        """True when ``key`` is registered at ``length`` by ``slot``'s block
+        and still valid (callers use this to skip redundant snapshot
+        copies)."""
+        e = self._prefix.get(self._pkey(slot, key))
         return e is not None and e.length == length and self.entry_valid(e)
 
     def match_prefix(self, tokens: np.ndarray, chunk: int,
-                     max_len: int) -> Optional[PrefixEntry]:
-        """Longest registered, still-valid, chunk-aligned prefix of
-        ``tokens`` with length <= ``max_len`` (the caller passes
-        ``len(tokens) - 1`` so at least one tail chunk always runs and
-        produces the head's first top-k)."""
+                     max_len: int, slot: int = 0) -> Optional[PrefixEntry]:
+        """Longest chunk-aligned prefix of ``tokens`` with length <=
+        ``max_len`` registered by ``slot``'s block and still valid (the
+        caller passes ``len(tokens) - 1`` so at least one tail chunk always
+        runs and produces the head's first top-k)."""
         self.n_prefix_queries += 1
         hi = (min(max_len, len(tokens)) // chunk) * chunk
         for m in range(hi, 0, -chunk):
-            e = self._prefix.get(prefix_hash(tokens[:m]))
+            e = self._prefix.get(self._pkey(slot, prefix_hash(tokens[:m])))
             if e is not None and e.length == m and self.entry_valid(e):
                 self.n_prefix_hits += 1
                 self.tokens_reused += m
@@ -370,3 +421,17 @@ class PagedCacheManager:
             "prefix_hit_rate": (self.n_prefix_hits / q) if q else 0.0,
             "prefix_tokens_reused": self.tokens_reused,
         }
+
+
+def _free_lists(n_pages: int, n_blocks: int) -> List[List[int]]:
+    """One LIFO free list per block of ``n_pages // n_blocks`` ids (lowest
+    id on top), the reserved ids left out."""
+    w = n_pages // n_blocks
+    return [list(range((b + 1) * w - 1, max(N_RESERVED, b * w) - 1, -1))
+            for b in range(n_blocks)]
+
+
+def _pick(lists: List[List[int]], block: Optional[int]) -> List[int]:
+    if block is not None:
+        return lists[block]
+    return next((f for f in lists if f), lists[0])

@@ -1,6 +1,7 @@
 """Fault injection for serving tests (``faults``, the port of
 ``repro.testing``), tie-safe pruning thresholds and the flash_attention
-limit (``thresholds``)."""
+limit (``thresholds``), and a slot-split mesh session's decode emulated on
+one device (``mesh_rows``)."""
 from repro_torch.testing.faults import (
     CancelAfter,
     RaisingStreamCB,

@@ -68,10 +68,15 @@ def poison_cache_slot(session, slot: int) -> None:
     """NaN slot ``slot``'s rows of the session's decode cache, in place (the
     slot axis of every cache leaf is 1): that resident's next decode step
     returns non-finite values and the session must quarantine it
-    mid-flight."""
+    mid-flight. On a slot-split mesh session only the rank that holds the
+    slot writes, into its own row, as ``repro`` puts the poisoned cache
+    back on its placement."""
+    row = session._own(slot) if session._mgr is None else session._arena_row(slot)
+    if row is None:
+        return
     for leaf in session._cache:
         if leaf.is_floating_point():
-            leaf[:, slot] = float("nan")
+            leaf[:, row] = float("nan")
 
 
 def exhaust_pages(session, keep: int = 0) -> list:
@@ -99,10 +104,13 @@ def poison_page(session, pid: int) -> None:
     of every arena leaf is 1, so ``[:, pid]`` is one page across all
     layers). Poisoning a SHARED prefix page must quarantine every sharer
     without corrupting the free list: the refcounts drop one failing sharer
-    at a time, and whichever sharer frees the page zeroes it."""
-    for leaf in session._cache:
-        if leaf.is_floating_point() and leaf.shape[0]:
-            leaf[:, pid] = float("nan")
+    at a time, and whichever sharer frees the page zeroes it. On a
+    slot-split mesh session only the rank that holds the page's data
+    writes, at the page's index in its own arena."""
+    for leaf, kv in zip(session._cache, session._kv_leaf):
+        row = session._arena_row(pid, state=not kv)
+        if row is not None and leaf.is_floating_point() and leaf.shape[0]:
+            leaf[:, row] = float("nan")
 
 
 def skew_gate(params):

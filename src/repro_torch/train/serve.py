@@ -90,11 +90,19 @@ acceptance ``bundle.commit_block`` advances each slot by its accepted
 prefix through the one-token recurrence, eagerly. A state-family draft
 copies its conv/ssm before proposing and commits from that copy, as
 ``repro``'s draft commits from its pre-block snapshot.
+
+On a mesh (``mesh=``) each rank holds and steps only the slots of its
+``(pod, data)`` coordinate, where ``repro``'s ``serve_cache_shardings``
+places them (a paged arena: its block of pages, where
+``serve_paged_cache_shardings`` places them); the host side (scheduler,
+tokens, positions, page table, stats) stays global and the same on every
+rank, and the head merges the ranks' rows.
 """
 from __future__ import annotations
 
 import collections
 import enum
+import gc
 import logging
 from dataclasses import dataclass, field
 from typing import Callable, Deque, List, Optional
@@ -321,6 +329,12 @@ def _zeros(specs, device):
     return type(specs)(*(torch.zeros(s.shape, dtype=s.dtype, device=device) for s in specs))
 
 
+def _arena_pages(arena: sharding.CacheBlock) -> int:
+    """Pages of a rank's arena: its block, plus its own two reserved pages
+    where the arena splits (page ids 0 and 1 name them on every rank)."""
+    return arena.count + (N_RESERVED if arena.splits else 0)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -410,6 +424,12 @@ class _DecodeGraph:
             return h
         if self.graph is None:
             graph = torch.cuda.CUDAGraph()
+            # an unreachable graph (an earlier session's, held in a reference
+            # cycle) destroyed by the collector mid-capture voids the capture:
+            # collect first, and not during it
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, stream=self._stream):
                     h = run()
@@ -417,6 +437,9 @@ class _DecodeGraph:
                 raise RuntimeError(
                     f"capturing the {self.what} as a CUDA graph failed ({e}); "
                     "ServeSession(decode_graph=False) runs the step eagerly") from e
+            finally:
+                if collecting:
+                    gc.enable()
             self.graph, self.h, self._captured = graph, h, leaves
             self.n_captures += 1
         self.graph.replay()
@@ -458,12 +481,25 @@ class ServeSession:
             sharded experts → ``model`` (each rank keeps K/ep experts' rows,
             ``core.dssoftmax.shard_table``) and every head call runs
             ``serve_topk_sharded`` (the gate on every rank, the owner
-            rank's retrieval, one O(B·k) all-gather merge); every rank
-            steps every resident slot's backbone, so the cache is
-            replicated, and the head's token rows split over ``data``.
-            Every rank sees the same merged outputs and the same global
+            rank's retrieval, one O(B·k) all-gather merge). The cache is
+            split over slots as ``repro``'s
+            ``distributed.sharding.serve_cache_shardings`` places it: where
+            the (pod, data) ranks n_b divide ``n_slots``, batch rank r holds
+            and steps only slots ``[r·n_slots/n_b, (r+1)·n_slots/n_b)``
+            (``sharding.serve_cache_block``), and the head merges the
+            ranks' rows over the batch axes; elsewhere the cache is whole
+            on every rank. A paged arena splits its pages the same way
+            (``serve_paged_cache_shardings``, when the slots split too):
+            a slot maps pages of its own rank's block only, each rank keeps
+            its own reserved zero and garbage pages beside its block, and
+            a prefix is adopted only by a slot of the rank that holds its
+            pages. Every rank prefills every request (the owner keeps the
+            rows; a chunked prefill's result comes from the owner), so the
+            collectives stay in step. The host side stays global: every
+            rank sees the same merged outputs and the same global
             per-expert stats, so every host decision (scheduling, policy,
-            breaker, repack, sampling) is the same on all ranks.
+            breaker, repack, sampling) is the same on all ranks. A draft
+            stays whole on every rank.
         param_mode: ``'replicated'`` (default) or ``'fsdp'`` (requires
             ``mesh``): every backbone weight is stored split over the
             mesh's ``data`` axis (``distributed.sharding.
@@ -685,30 +721,55 @@ class ServeSession:
         # per cache leaf: True for attention K/V (position-indexed), False
         # for the state families' conv/ssm (one row per slot or state page)
         self._kv_leaf = tuple(cache_kv_leaves(cfg))
+        # this rank's slots: all of them, or its (pod, data) block where
+        # serve_cache_shardings splits the slot axis
+        self._slots = sharding.serve_cache_block(mesh, n_slots)
+        nb = n_slots // self._slots.count
+        self._kv_arena = self._state_arena = None
         if paged:
             has_state = not all(self._kv_leaf)
             n_alloc = page_arena if page_arena is not None else n_slots * (max_seq_len // page_size)
             n_state = (state_arena if state_arena is not None else 4 * n_slots) \
                 if has_state else 0
-            specs = paged_cache_specs(cfg, N_RESERVED + n_alloc, page_size,
-                                      (N_RESERVED + n_state) if has_state else 0)
+            n_pages, n_spages = N_RESERVED + n_alloc, (N_RESERVED + n_state) if has_state else 0
+            self._whole_specs = paged_cache_specs(cfg, n_pages, page_size, n_spages)
+            # an arena splits its pages where serve_paged_cache_shardings
+            # does, if the slots split too; a rank keeps its block and its
+            # own two reserved pages
+            self._kv_arena, self._state_arena = (
+                sharding.serve_cache_block(mesh if self._slots.splits else None, n, paged=True)
+                for n in (n_pages, n_spages))
+            specs = paged_cache_specs(
+                cfg, _arena_pages(self._kv_arena), page_size,
+                _arena_pages(self._state_arena) if has_state else 0)
             self._mgr = PagedCacheManager(
-                n_slots=n_slots, n_pages=N_RESERVED + n_alloc, page_size=page_size,
+                n_slots=n_slots, n_pages=n_pages, page_size=page_size,
                 max_seq_len=max_seq_len, has_state=has_state,
                 # a model without attention (pure ssm) has no K/V pages
                 has_kv=any(kv and s.shape[0] for s, kv in zip(specs, self._kv_leaf)),
-                n_state_pages=(N_RESERVED + n_state) if has_state else None)
+                n_state_pages=n_spages or None, slot_blocks=nb,
+                kv_blocks=nb if self._kv_arena.splits else 1,
+                state_blocks=nb if self._state_arena.splits else 1)
             log.info("paged cache: %d pages x %d positions (+%d state pages)", n_alloc,
                      page_size, n_state)
         else:
+            self._whole_specs = cache_specs(cfg, ShapeConfig(
+                name="serve", seq_len=max_seq_len, global_batch=n_slots, kind="decode"))
             specs = cache_specs(cfg, ShapeConfig(name="serve", seq_len=max_seq_len,
-                                                 global_batch=n_slots, kind="decode"))
+                                                 global_batch=self._slots.count, kind="decode"))
         self._cache = _zeros(specs, self.device)
+        self._scratch = None  # a non-owner's chunked-prefill row, made at first use
+        if self._slots.splits:
+            log.info("slot-split cache: slots [%d, %d) of %d on this rank, %.2f MB of %.2f",
+                     self._slots.offset, self._slots.offset + self._slots.count, n_slots,
+                     *(b / 1e6 for b in self.cache_bytes()))
+        # the backbone's FSDP gather where token rows differ by batch rank
+        self._step_gather = (self._gather.for_local_rows()
+                             if self._gather is not None and self._slots.splits else self._gather)
         self.scheduler = Scheduler(n_slots, queue_limit=queue_limit)
         self._tok = np.zeros(n_slots, np.int64)
         self._pos = np.zeros(n_slots, np.int64)
-        tables = None if self._mgr is None else self._mgr.tables
-        spid = self._state_pid()
+        _, tables, spid = self._step_inputs()
         # ---- speculative decoding (draft model) ----------------------------
         self.gamma = int(gamma)
         self._draft = None
@@ -754,13 +815,13 @@ class ServeSession:
             if decode_graph:
                 self._draft_graph = _DecodeGraph(n_slots, None, self.device,
                                                  what="draft's decode step")
-                self._verify_graph = _DecodeGraph(n_slots, tables, self.device,
+                self._verify_graph = _DecodeGraph(self._slots.count, tables, self.device,
                                                   width=self.gamma + 1, what="verify step",
                                                   state_pid=spid)
             log.info("speculative decoding: draft=%s gamma=%d (verify block %d x %d)",
                      d_bundle.cfg.name, self.gamma, n_slots, self.gamma + 1)
         elif decode_graph:
-            self._graph = _DecodeGraph(n_slots, tables, self.device, state_pid=spid)
+            self._graph = _DecodeGraph(self._slots.count, tables, self.device, state_pid=spid)
         self._outcomes: collections.Counter = collections.Counter()
         self._overflow_threshold = overflow_threshold
         self._overflow_hist: Deque[float] = collections.deque(maxlen=max(1, overflow_window))
@@ -796,32 +857,33 @@ class ServeSession:
         rebind leaves the decode graph as it is."""
         self._n_decode_builds += 1
         cfg, kernel, cf, k = self.cfg, self._eff_kernel, self._eff_capacity_factor, self.k
-        mesh, gather = self.mesh, self._gather
+        mesh, gather, local = self.mesh, self._gather, self._slots.splits
 
         def _head(p, t, h):
             return heads.head_topk(p["head"], t, cfg, h, k, embed_table=p["embed"]["table"],
                                    kernel=kernel, mesh=mesh, gather=gather,
-                                   capacity_factor=cf, with_stats=True)
+                                   capacity_factor=cf, with_stats=True, local_rows=local)
 
         self._head_fn = _head
 
     def _decode(self):
-        """One decode step over the slot batch from the host's tokens,
+        """One decode step over this rank's slots from the host's tokens,
         positions and page table: ``bundle.decode_hidden`` (replayed from the
-        decode graph, or eager), then the bound head. Returns (vals, ids,
-        stats) on the device."""
-        tables = None if self._mgr is None else self._mgr.tables
-        spid = self._state_pid()
+        decode graph, or eager), then the bound head (every rank's rows
+        merged). Returns (vals, ids, stats) of all n_slots on the device."""
+        loc, tables, spid = self._step_inputs()
+        tok, pos = self._tok[loc], self._pos[loc]
         g = self._graph
         if g is not None:
-            g.load(self._tok, self._pos, tables, spid)
-            h = g.hidden(_decode_backbone(self.bundle, self._gather), self.params, self._cache)
+            g.load(tok, pos, tables, spid)
+            h = g.hidden(_decode_backbone(self.bundle, self._step_gather), self.params,
+                         self._cache)
         else:
             dev = self.device
             h = self.bundle.decode_hidden(
-                self.params, self._cache, torch.from_numpy(self._tok).to(dev),
-                torch.from_numpy(self._pos).to(dev), pages=self._on_device(tables),
-                state_pages=self._on_device(spid), gather=self._gather)
+                self.params, self._cache, torch.from_numpy(tok).to(dev),
+                torch.from_numpy(pos).to(dev), pages=self._on_device(tables),
+                state_pages=self._on_device(spid), gather=self._step_gather)
         return self._head_fn(self.params, self.table, h)
 
     def _state_pid(self) -> Optional[np.ndarray]:
@@ -829,6 +891,84 @@ class ServeSession:
         host array the page table keeps), else None."""
         m = self._mgr
         return m.state_pid if m is not None and m.has_state else None
+
+    # -- this rank's share of the cache -----------------------------------------
+
+    def _step_inputs(self) -> tuple:
+        """(this rank's slots as a slice of the host arrays, their page
+        table rows and state page ids in this rank's arena, or None)."""
+        b = self._slots
+        loc = slice(b.offset, b.offset + b.count)
+        m = self._mgr
+        tables = None if m is None else self._arena_ids(m.tables[loc], self._kv_arena)
+        spid = self._state_pid()
+        if spid is not None:
+            spid = self._arena_ids(spid[loc], self._state_arena)
+        return loc, tables, spid
+
+    @staticmethod
+    def _arena_ids(pids, arena):
+        """Global page ids → indices into this rank's arena: its block's
+        pages follow the rank's own two reserved pages."""
+        if not arena.splits:
+            return pids
+        return np.where(pids < N_RESERVED, pids, pids - arena.offset + N_RESERVED)
+
+    def _own(self, i: int) -> Optional[int]:
+        """Slot ``i``'s row in this rank's cache, or None where another
+        batch rank holds the slot."""
+        return self._slots.local(i)
+
+    def _arena_row(self, pid: int, state: bool = False) -> Optional[int]:
+        """Arena page ``pid`` (a state page: ``state``) as an index into this
+        rank's arena, or None where this rank holds no data of it: a page of
+        another rank's block, or a page of a whole arena that only other
+        ranks' slots map."""
+        m, arena = self._mgr, self._state_arena if state else self._kv_arena
+        if arena.splits:
+            return None if arena.local(pid) is None else int(self._arena_ids(pid, arena))
+        if self._slots.splits:
+            if state:
+                maps = [i for i in range(self.n_slots)
+                        if m.state_pid[i] == pid or pid in m.state_holdings[i]]
+            else:
+                maps = np.nonzero((m.tables == pid).any(axis=1))[0]
+            owners = {m.slot_block(i) for i in maps}
+            if owners and self._slots.index not in owners:
+                return None
+        return int(pid)
+
+    @property
+    def local_slots(self) -> sharding.CacheBlock:
+        """The slots this rank holds and steps (all of them off a mesh, or
+        where the mesh's batch ranks do not divide ``n_slots``)."""
+        return self._slots
+
+    def cache_bytes(self) -> tuple:
+        """(this rank's resident cache bytes, the whole cache's)."""
+        whole = sum(int(np.prod(s.shape)) * torch.empty((), dtype=s.dtype).element_size()
+                    for s in self._whole_specs)
+        return sharding.tree_shard_bytes(self._cache), whole
+
+    def _scratch_row(self):
+        """A zeroed contiguous ``(·, 1, ·)`` cache row, for a rank that runs
+        the chunked prefill of a slot another rank holds."""
+        if self._scratch is None:
+            self._scratch = _zeros(cache_specs(self.cfg, ShapeConfig(
+                name="scratch", seq_len=self.max_seq_len, global_batch=1, kind="decode")),
+                self.device)
+        for leaf in self._scratch:
+            leaf.zero_()
+        return self._scratch
+
+    def _from_owner(self, i: int, vals, ids):
+        """Slot ``i``'s owner's (1, k) prefill result on every rank: one
+        all-gather over the batch ranks, whose blocks the owner's is picked
+        from (the other ranks ran the chunks on a scratch row)."""
+        if not self._slots.splits:
+            return vals, ids
+        group, b = sharding.batch_group(self.mesh), self._slots.owner(i)
+        return sharding.collective(vals, group)[b], sharding.collective(ids, group)[b]
 
     def _on_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
         return None if a is None else torch.from_numpy(a).to(self.device)
@@ -850,25 +990,26 @@ class ServeSession:
 
     def _verify(self, blocks: np.ndarray, pos0: np.ndarray):
         """One verify step over the (n_slots, W) blocks at per-slot starts
-        ``pos0``: ``bundle.verify_hidden`` (replayed from the verify graph,
-        or eager), then the bound head over all n_slots·W rows. Returns
-        (vals, ids) of shape (n_slots, W, k) and the head's stats, on the
-        device."""
-        tables = None if self._mgr is None else self._mgr.tables
-        spid = self._state_pid()
+        ``pos0``: ``bundle.verify_hidden`` over this rank's slots (replayed
+        from the verify graph, or eager), then the bound head over their
+        rows, merged slot-major over every rank. Returns (vals, ids) of
+        shape (n_slots, W, k) and the head's stats, on the device."""
+        loc, tables, spid = self._step_inputs()
+        blocks, pos0 = blocks[loc], pos0[loc]
         g = self._verify_graph
         if g is not None:
             g.load(blocks, pos0, tables, spid)
-            h = g.hidden(_verify_backbone(self.bundle, self._gather), self.params, self._cache)
+            h = g.hidden(_verify_backbone(self.bundle, self._step_gather), self.params,
+                         self._cache)
         else:
             dev = self.device
             h = self.bundle.verify_hidden(
                 self.params, self._cache, torch.from_numpy(blocks).to(dev),
                 torch.from_numpy(pos0).to(dev), pages=self._on_device(tables),
-                state_pages=self._on_device(spid), gather=self._gather)
+                state_pages=self._on_device(spid), gather=self._step_gather)
         n, W, dm = h.shape
         vals, ids, stats = self._head_fn(self.params, self.table, h.reshape(n * W, dm))
-        return vals.reshape(n, W, -1), ids.reshape(n, W, -1), stats
+        return (vals.reshape(self.n_slots, W, -1), ids.reshape(self.n_slots, W, -1), stats)
 
     # -- table hot-swap + online adaptation -----------------------------------
 
@@ -1056,10 +1197,11 @@ class ServeSession:
             if self.prefill_chunk is not None:
                 worst = max(worst, -(-S // self.prefill_chunk) * self.prefill_chunk)
             need = -(-worst // self._mgr.page_size)
-            if need > self._mgr.allocatable:
+            if need > self._mgr.slot_allocatable:
                 reject(f"request needs {need} pages at its max length but the arena "
-                       f"only has {self._mgr.allocatable}; raise page_arena or shorten "
-                       "the request")
+                       f"only has {self._mgr.slot_allocatable}"
+                       + (" a slot" if self._mgr.kv_blocks > 1 else "")
+                       + "; raise page_arena or shorten the request")
         req.submit_step = self.n_steps
         self.requests.append(req)
         victim = self.scheduler.submit(req)
@@ -1205,10 +1347,11 @@ class ServeSession:
             dev = self.device
             blk, p0, nv = (torch.from_numpy(a).to(dev) for a in (blocks, base_pos, n_valid))
             if self.bundle.verify_needs_state_commit:
+                loc, tables, spid = self._step_inputs()
                 self.bundle.commit_block(
-                    self.params, self._cache, blk, p0, nv,
-                    pages=self._on_device(None if self._mgr is None else self._mgr.tables),
-                    state_pages=self._on_device(self._state_pid()), gather=self._gather)
+                    self.params, self._cache, blk[loc], p0[loc], nv[loc],
+                    pages=self._on_device(tables), state_pages=self._on_device(spid),
+                    gather=self._step_gather)
             if self._draft_commits:
                 for leaf, old in zip(self._draft_state, d_state0):
                     leaf.copy_(old)
@@ -1449,7 +1592,7 @@ class ServeSession:
             # through its co-owners)
             self._release_slot_pages(i, scrub=status is RequestStatus.FAILED)
         elif status is RequestStatus.FAILED:
-            self._scrub(self._cache, i)
+            self._scrub_slot(i)
         if self._draft is not None and status is RequestStatus.FAILED:
             # the draft's contiguous row may carry the same poison
             self._scrub(self._draft_cache, i)
@@ -1461,6 +1604,12 @@ class ServeSession:
         # multiplies it (0·NaN = NaN); conv/ssm state rows go too.
         for leaf in cache:
             leaf[:, i] = 0
+
+    def _scrub_slot(self, i: int) -> None:
+        """:meth:`_scrub` of slot ``i``'s row, on the rank that holds it."""
+        li = self._own(i)
+        if li is not None:
+            self._scrub(self._cache, li)
 
     def _expire_queue(self) -> None:
         overdue = [r for r in self.scheduler.queue
@@ -1558,7 +1707,7 @@ class ServeSession:
                 if self._mgr is not None:
                     self._release_slot_pages(i, scrub=True)
                 else:
-                    self._scrub(self._cache, i)
+                    self._scrub_slot(i)
                 continue
             # prefixes become adoptable only after the finite check
             for key, length, snap in pending:
@@ -1585,6 +1734,7 @@ class ServeSession:
         after preemption (the slot is left with nothing mapped)."""
         S = len(toks)
         m = self._mgr
+        li = self._own(i)  # None: another batch rank holds slot i
         pending: List[tuple] = []
         if m is not None and not self._alloc_state_page(i, priority):
             return None
@@ -1594,68 +1744,81 @@ class ServeSession:
                     self._release_slot_pages(i, scrub=False)
                     return None
                 m.activate_slot(i)
+            # every rank computes the prefill (its collectives stay in step);
+            # the rank that holds slot i keeps the row
             vals, ids, row = self.bundle.prefill(
                 self.params, self.table,
                 {"tokens": torch.from_numpy(toks[None]).to(self.device)},
                 k=self.k, kernel=self.kernel, mesh=self.mesh, gather=self._gather)
-            if m is None:
-                self._insert(self._cache, self._kv_leaf, row, i, S)
-            else:
+            if li is not None and m is None:
+                self._insert(self._cache, self._kv_leaf, row, li, S)
+            elif li is not None:
                 pos = np.arange(S)
-                pid = self._on_device(m.tables[i][pos // m.page_size].astype(np.int64))
-                self._insert(self._cache, self._kv_leaf, row, i, S,
-                             pages=(pid, self._on_device(pos % m.page_size)),
-                             state_page=int(m.state_pid[i]) if m.has_state else None)
+                pid = self._arena_ids(m.tables[i][pos // m.page_size], self._kv_arena)
+                self._insert(self._cache, self._kv_leaf, row, li, S,
+                             pages=(self._on_device(pid.astype(np.int64)),
+                                    self._on_device(pos % m.page_size)),
+                             state_page=(int(self._arena_ids(m.state_pid[i], self._state_arena))
+                                         if m.has_state else None))
             return vals, ids, pending
         cp = self.prefill_chunk
         if m is None:
-            # slot i's (·, 1, ·) rows, written in place; its recurrent state
-            # starts from zeros, as a whole prompt's does
-            cache = self._slot_rows(self._cache, self._kv_leaf, i)
+            # slot i's (·, 1, ·) rows, written in place (a scratch row where
+            # another rank holds the slot); its recurrent state starts from
+            # zeros, as a whole prompt's does
+            cache = (self._slot_rows(self._cache, self._kv_leaf, li) if li is not None
+                     else self._scratch_row())
             for lo in range(0, S, cp):
                 vals, ids, _ = self._chunk(cache, toks, lo)
-            return vals, ids, pending
+            return (*self._from_owner(i, vals, ids), pending)
         # paged chunked prefill, straight into the shared arena
         pos0 = 0
         if self._prefix_sharing:
             # max_len = S - 1: at least one tail chunk runs and gives the
             # head's top-k for this prompt
-            e = m.match_prefix(toks, cp, S - 1)
+            e = m.match_prefix(toks, cp, S - 1, slot=i)
             if e is not None:
                 m.adopt_prefix(i, e)
                 if e.state is not None:
                     # the recurrent state at the prefix's end, copied into
                     # the slot's own page
-                    self._copy_state_page(e.state[0], int(m.state_pid[i]))
+                    self._copy_state_page(e.state[0], int(m.state_pid[i]), i)
                 pos0 = e.length
                 self._n_prefill_chunks_saved += pos0 // cp
         m.activate_slot(i)
         vals = ids = None
-        spages = None if not m.has_state else self._on_device(m.state_pid[i:i + 1])
+        # a rank that does not hold slot i runs the chunks on a scratch row:
+        # its results are dropped for the owner's, but its collectives (the
+        # FSDP gathers, the head's merge) stay in step
+        cache = self._cache if li is not None else self._scratch_row()
+        spages = None
+        if m.has_state and li is not None:
+            spages = self._on_device(self._arena_ids(m.state_pid[i:i + 1], self._state_arena))
         for lo in range(pos0, S, cp):
             # the chunk writes all cp rows (tail padding included), so the
             # prepared range covers the whole chunk
             if not self._prepare_kv_write_range(i, lo, lo + cp, priority):
                 self._release_slot_pages(i, scrub=False)
                 return None
-            vals, ids, _ = self._chunk(self._cache, toks, lo, self._on_device(m.tables[i:i + 1]),
-                                       spages)
+            pages = (None if li is None
+                     else self._on_device(self._arena_ids(m.tables[i:i + 1], self._kv_arena)))
+            vals, ids, _ = self._chunk(cache, toks, lo, pages, spages)
             self._n_prefill_chunks += 1
             hi = min(lo + cp, S)
             if self._prefix_sharing and hi == lo + cp \
-                    and not m.has_prefix(prefix_hash(toks[:hi]), hi):
+                    and not m.has_prefix(prefix_hash(toks[:hi]), hi, slot=i):
                 # a state family's prefix carries a copy of the state at its
                 # end (taken only from a free page: nobody is preempted for a
                 # snapshot)
                 snap = None
                 if m.has_state:
-                    snap = m.alloc_state()
+                    snap = m.alloc_state(m.state_block(i))
                     if snap is None:
                         continue
-                    self._copy_state_page(int(m.state_pid[i]), snap)
+                    self._copy_state_page(int(m.state_pid[i]), snap, i)
                     m.state_holdings[i].append(snap)
                 pending.append((prefix_hash(toks[:hi]), hi, snap))
-        return vals, ids, pending
+        return (*self._from_owner(i, vals, ids), pending)
 
     @staticmethod
     def _insert(cache, kv_leaf, row, i: int, S: int, pages=None, state_page=None) -> None:
@@ -1732,21 +1895,29 @@ class ServeSession:
         if not m.has_state:
             return True
         while True:
-            pid = m.alloc_state()
+            pid = m.alloc_state(m.state_block(i))
             if pid is not None:
                 break
-            if not self._preempt_lowest_below(priority):
+            if not self._preempt_lowest_below(priority, i if m.state_blocks > 1 else None):
                 return False
         m.state_pid[i] = pid
-        self._zero_state_page(pid)
+        self._zero_state_page(pid, i)
         return True
 
-    def _copy_state_page(self, src: int, dst: int) -> None:
+    def _copy_state_page(self, src: int, dst: int, i: int) -> None:
+        """Copy state page ``src`` to ``dst`` (pages of slot ``i``), on the
+        rank that holds the slot."""
+        if self._own(i) is None:
+            return
+        src, dst = (int(self._arena_ids(p, self._state_arena)) for p in (src, dst))
         for leaf, kv in zip(self._cache, self._kv_leaf):
             if not kv:
                 leaf[:, dst] = leaf[:, src]
 
-    def _zero_state_page(self, pid: int) -> None:
+    def _zero_state_page(self, pid: int, i: int) -> None:
+        if self._own(i) is None:
+            return
+        pid = int(self._arena_ids(pid, self._state_arena))
         for leaf, kv in zip(self._cache, self._kv_leaf):
             if not kv:
                 leaf[:, pid] = 0
@@ -1766,12 +1937,13 @@ class ServeSession:
                 plan = m.prepare_write(i, j)
                 if plan is not None:
                     break
-                if not self._preempt_lowest_below(priority):
+                if not self._preempt_lowest_below(priority, i if m.kv_blocks > 1 else None):
                     return False
-            if plan.kind == "cow":
+            if plan.kind == "cow" and self._own(i) is not None:
+                src, dst = (int(self._arena_ids(p, self._kv_arena)) for p in (plan.src, plan.dst))
                 for leaf, kv in zip(self._cache, self._kv_leaf):
                     if kv:
-                        leaf[:, plan.dst] = leaf[:, plan.src]
+                        leaf[:, dst] = leaf[:, src]
         return True
 
     def _prepare_decode_writes(self, width: int = 1) -> None:
@@ -1788,12 +1960,16 @@ class ServeSession:
                                                 slot.req.sampling_params.priority):
                 self._preempt_slot(i)
 
-    def _preempt_lowest_below(self, priority: int) -> bool:
+    def _preempt_lowest_below(self, priority: int, near: Optional[int] = None) -> bool:
         """Preempt the lowest-priority resident strictly below ``priority``
-        (the newest admission among ties). False when nobody qualifies:
-        equal priority never preempts equal priority."""
+        (the newest admission among ties); ``near``: only among the slots
+        of slot ``near``'s block, whose pages are the ones it can map.
+        False when nobody qualifies: equal priority never preempts equal
+        priority."""
         victim = None
         for i, slot in self.scheduler.active():
+            if near is not None and self._mgr.slot_block(i) != self._mgr.slot_block(near):
+                continue
             p = slot.req.sampling_params.priority
             if p >= priority:
                 continue
@@ -1832,17 +2008,19 @@ class ServeSession:
         non-finite; a still-shared page is zeroed by whichever failing
         co-owner drops the last reference)."""
         m = self._mgr
+        own = self._own(i) is not None
         for pid in m.mapped_kv_pages(i):
-            if m.decref(pid) and scrub:
+            if m.decref(pid) and scrub and own:
+                p = int(self._arena_ids(pid, self._kv_arena))
                 for leaf, kv in zip(self._cache, self._kv_leaf):
                     if kv:
-                        leaf[:, pid] = 0
+                        leaf[:, p] = 0
         if m.has_state:
             # the live page, then the snapshots it registered or adopted
             live = int(m.state_pid[i])
             for pid in ([live] if live >= N_RESERVED else []) + list(m.state_holdings[i]):
                 if m.decref_state(pid) and scrub:
-                    self._zero_state_page(pid)
+                    self._zero_state_page(pid, i)
         m.reset_slot(i)
 
     def _sample(self, vals: np.ndarray, ids: np.ndarray, sp: SamplingParams,

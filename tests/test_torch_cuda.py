@@ -1789,10 +1789,11 @@ def test_grouped_wgmma_body_at_wide_heads(dev, quantized, C, k, d):
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("k", [1, 8])
 def test_grouped_wgmma_first_tile_threshold_with_the_top_in_one_warp(dev, quantized, k):
-    """The first row tile's thresholds (the smallest of each warpgroup's 4
-    warps' top 2) when each expert's best rows all sit in one warp's 16 rows
-    of that tile, and on later tiles rows tie with them exactly: equal to
-    the plain version (ties to the lowest position)."""
+    """The first row tile's threshold (each token's seed: the k-th largest
+    of the 8 warps' top 2 values, or one past the tile's k-th padding row)
+    when each expert's best rows all sit in one warp's 16 rows of that
+    tile, and on later tiles rows tie with them exactly: equal to the plain
+    version (ties to the lowest position)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dss_topk_grouped import WGMMA, launch_body
 
@@ -2439,6 +2440,48 @@ def test_sharded_head_in_a_one_rank_nccl_group(dev, nccl_mesh, path, quantized):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert torch.equal(got[2]["dispatched"], want[2]["dispatched"])
         assert torch.equal(got[2]["overflow"], want[2]["overflow"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slot_split_data_rows_in_turn_equal_the_whole_cache(dev, dtype):
+    """A data-2 mesh's slot-split decode emulated on the card
+    (``testing.mesh_rows.decode_data_rows``: each data row's 2 of 4 slots
+    stepped in turn on its own block cache through the backbone and the
+    ``cuda_fused`` head, the rows merged) against the whole cache on reduced
+    qwen2-1.5b: the prefill's emission bit for bit; in fp32 every id equal
+    and values within rtol 1e-5 / atol 1e-5 (the backbone's products at 2
+    rows where the whole steps 4), in bf16 the streams equal or parting
+    only where the whole cache's top-2 are within 2^-4 of each other; each
+    row's cache half the whole's bytes; the fused body launched."""
+    from repro_torch import configs
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.testing.mesh_rows import decode_data_rows
+
+    cfg = configs.reduce_config(configs.get_config("qwen2-1.5b")).replace(dtype=dtype)
+    bundle = build(cfg, device=dev)
+    params, state = bundle.init(torch.Generator(device=dev).manual_seed(3))
+    table = ds.pack_experts(params["head"], state)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 17, 9, 30)]
+    kw = dict(new_tokens=12, max_seq_len=48, k=8, kernel="cuda_fused", device=dev)
+    whole = decode_data_rows(bundle, params, table, prompts, n_rows=1, **kw)
+    n0 = ops.launch_counts()["dss_topk_fused"]
+    rows = decode_data_rows(bundle, params, table, prompts, n_rows=2, **kw)
+    assert ops.launch_counts()["dss_topk_fused"] > n0
+    assert [sharding.tree_shard_bytes(c) * 2 for c in rows.caches] == \
+        [sharding.tree_shard_bytes(whole.caches[0])] * 2
+    for i in range(len(prompts)):
+        assert all(torch.equal(a, b) for a, b in zip(rows.heads[i][0], whole.heads[i][0]))
+        for j, ((v, ids), (wv, wids)) in enumerate(zip(rows.heads[i], whole.heads[i])):
+            if dtype == "float32":
+                assert torch.equal(ids, wids), (i, j)
+                torch.testing.assert_close(v, wv, rtol=1e-5, atol=1e-5)
+            elif rows.tokens[i][j] != whole.tokens[i][j]:
+                assert float(wv[0] - wv[1]) <= 2.0 ** -4 * abs(float(wv[0])), (i, j)
+                break
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -316,8 +316,37 @@ def test_run_cell_in_a_fake_world_leaves_no_group(kind):
         assert c["coll_counts"].get("reduce-scatter", 0) > 0
     else:
         assert c["kernel_calls"]  # the head's kernel, counted as one op
-        assert m["argument_bytes_by_kind"]["cache"] == sharding.tree_shard_bytes(
-            dryrun._meta_cache(tzoo.cache_specs(cfg, shape)))
+        # the session's cache as serve_cache_shardings places it: 8 slots
+        # over the 2 data ranks
+        cache = dryrun._meta_cache(tzoo.cache_specs(cfg, shape))
+        mesh2 = {"data": 2, "model": 2}
+        assert m["argument_bytes_by_kind"]["cache"] == sharding.placed_bytes(
+            cache, sharding.serve_cache_shardings(mesh2, cfg, cache, shape.global_batch), mesh2)
+
+
+def test_decode_cell_traces_the_slot_split_cache():
+    """A reduced decode cell (8 slots) in a fake world of 4 (2x2): the traced
+    cache argument is ``placed_bytes`` under ``serve_cache_shardings``, half
+    the single card's, whose step steps all 8 slots; the head's (B, k) rows
+    come back whole over the data ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = reduce_config(get_config("qwen2-1.5b"))
+    shape = ShapeConfig(name="tiny_decode", seq_len=64, global_batch=8, kind="decode")
+    one = dryrun.run_cell(None, "1x1", "qwen2-1.5b", shape.name, cfg=cfg, shape=shape)
+    with fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        rec = dryrun.run_cell(mesh, "2x2", "qwen2-1.5b", shape.name, cfg=cfg, shape=shape)
+        out = dryrun.trace_cell(mesh, cfg, shape).fn()
+    cache = dryrun._meta_cache(tzoo.cache_specs(cfg, shape))
+    mesh2 = {"data": 2, "model": 2}
+    placed = sharding.placed_bytes(cache, sharding.serve_cache_shardings(mesh2, cfg, cache, 8),
+                                   mesh2)
+    got = rec["memory"]["argument_bytes_by_kind"]["cache"]
+    assert got == placed == one["memory"]["argument_bytes_by_kind"]["cache"] // 2
+    assert rec["memory"]["argument_bytes_by_kind"]["batch"] * 2 == \
+        one["memory"]["argument_bytes_by_kind"]["batch"]
+    assert out[0].shape == out[1].shape == (8, 8)
 
 
 def test_production_mesh_groups_split_nvlink_from_network():

@@ -4,7 +4,11 @@ at 2x1, 4x1 and 2x2 for the dense, moe, ssm and hybrid families, and the
 encdec bundle's prefill and decode with a ``ServeParamGather``, held
 against ``repro``'s unsharded session and bundle on the same weights, and
 against the port's replicated session bit for bit; each rank's resident
-leaf shapes against ``repro``'s ``serve_param_pspec``.
+leaf shapes against ``repro``'s ``serve_param_pspec``. At 2x1 and 2x2 the
+two data rows split the sessions' slots (``serve_cache_shardings``): each
+rank's resident cache is its block, the whole cache at 4x1, whose 4 data
+ranks do not divide 2 slots; a paged hybrid session of 4 slots shares
+prompt prefixes within each data row.
 
 Each world runs once per module (``python tests/test_torch_fsdp.py
 <out_dir> <weights_dir> <store>`` per rank, every case in one go); this
@@ -32,6 +36,18 @@ HEAD_TOL = dict(rtol=1e-6, atol=2e-6)
 def prompts():
     rng = np.random.RandomState(0)
     return [rng.randint(1, VOCAB, rng.randint(3, 12)).astype(np.int32) for _ in range(5)]
+
+
+def prefix_prompts():
+    """6 prompts behind one 8-token system prefix (two chunks of 4)."""
+    rng = np.random.RandomState(5)
+    sysp = rng.randint(1, VOCAB, 8)
+    return [np.concatenate([sysp, rng.randint(1, VOCAB, rng.randint(2, 6))]).astype(np.int32)
+            for _ in range(6)]
+
+
+PREFIX_NEWS = [2, 5, 3, 6, 4, 2]
+PREFIX_SLOTS, PREFIX_ARENA = 4, 16
 
 
 def enc_batch(d):
@@ -86,7 +102,22 @@ def _session_cases(mesh, spec, out, weights_dir, replicated):
         out[f"{spec}/{fam}"] = {
             "tokens": toks, "replicated": rep, "shapes": shapes,
             "bytes": sharding.tree_shard_bytes(sess.params),
+            "cache_bytes": sharding.tree_shard_bytes(sess._cache),
             "stats": json.loads(json.dumps(sess.stats(), default=lambda o: type(o).__name__))}
+        if fam == "hybrid":
+            # paged, chunks of 4, 6 requests behind a shared prefix through
+            # 4 slots: at 2x1 and 2x2 two slots a data row, which adopt
+            # their row's prefixes
+            s4 = ServeSession(bundle, params, state, n_slots=PREFIX_SLOTS, max_seq_len=32,
+                              kernel="jnp", mesh=mesh, param_mode="fsdp", prefill_chunk=4,
+                              paged=True, page_size=8, page_arena=PREFIX_ARENA, device="cpu")
+            reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=m))
+                    for p, m in zip(prefix_prompts(), PREFIX_NEWS)]
+            s4.run(reqs)
+            out[f"{spec}/prefix"] = {
+                "tokens": [list(map(int, r.out_tokens)) for r in reqs],
+                "cache_bytes": sharding.tree_shard_bytes(s4._cache),
+                "stats": json.loads(json.dumps(s4.stats(), default=lambda o: type(o).__name__))}
         if fam == "dense":
             # every token to expert 0 at capacity factor 0.25: the grouped
             # path's fixup stays exact with the gate gathered from storage
@@ -223,6 +254,14 @@ def _repro_streams(models):
                 for p, m in zip(prompts(), MAX_NEWS)]
         sess.run(reqs)
         out[fam] = [list(map(int, r.out_tokens)) for r in reqs]
+    # the hybrid prefix prompts, single-device and unpaged
+    jb, params, state, _ = models[FAMILIES["hybrid"]]
+    sess = ServeSession(jb, params, state, n_slots=PREFIX_SLOTS, max_seq_len=32, kernel="jnp",
+                        prefill_chunk=4)
+    reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=m))
+            for p, m in zip(prefix_prompts(), PREFIX_NEWS)]
+    sess.run(reqs)
+    out["prefix"] = [list(map(int, r.out_tokens)) for r in reqs]
     return out
 
 
@@ -328,6 +367,70 @@ def test_fsdp_resident_shapes_match_repro_serve_param_pspec(results, spec, famil
         if sizes["data"] > 1:
             full = sum(int(np.prod(s)) * 4 for s in results["shapes"][FAMILIES[family]].values())
             assert got["bytes"] < full
+
+
+def _placed_cache_bytes(arch, spec, paged):
+    """(what a rank holds under repro's serving cache rules, the whole
+    cache): ``serve_cache_shardings`` over the 2-slot contiguous cache, or
+    ``serve_paged_cache_shardings`` over the paged hybrid's arenas plus the
+    rank's two reserved pages a leaf where an arena splits."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.models.model_zoo import cache_specs, paged_cache_specs
+    from repro_torch.serve.paged_cache import N_RESERVED
+
+    cfg = _tcfg(arch)
+    d, m = (int(x) for x in spec.split("x"))
+    mesh = {"data": d, "model": m}
+    if paged:
+        n = N_RESERVED + PREFIX_ARENA
+        specs = paged_cache_specs(cfg, n, 8, N_RESERVED + 4 * PREFIX_SLOTS)
+    else:
+        specs = cache_specs(cfg, ShapeConfig(name="serve", seq_len=32, global_batch=2,
+                                             kind="decode"))
+    meta = type(specs)(*(torch.empty(s.shape, dtype=s.dtype, device="meta") for s in specs))
+    rule = (sharding.serve_paged_cache_shardings(mesh, None, meta) if paged
+            else sharding.serve_cache_shardings(mesh, None, meta, 2))
+    want = sharding.placed_bytes(meta, rule, mesh)
+    for leaf, r in zip(meta, rule):
+        if paged and r:
+            want += N_RESERVED * leaf.numel() // leaf.shape[1] * leaf.element_size()
+    return want, sum(leaf.numel() * leaf.element_size() for leaf in meta)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+@pytest.mark.parametrize("spec", MESHES)
+def test_fsdp_cache_bytes_are_placed_bytes(results, spec, family):
+    """Each rank's resident cache is its block under ``serve_cache_shardings``
+    (half the whole at 2x1 and 2x2, where the two data rows split the 2
+    slots; the whole cache at 4x1, whose 4 data ranks do not divide 2
+    slots), for every family, the ssm and hybrid conv/ssm leaves included."""
+    want, whole = _placed_cache_bytes(FAMILIES[family], spec, False)
+    for js in results["ranks"][_world_of(spec)]:
+        assert js[f"{spec}/{family}"]["cache_bytes"] == want
+    assert (want < whole) == (spec != "4x1")
+
+
+@pytest.mark.parametrize("spec", MESHES)
+def test_fsdp_paged_hybrid_prefix_within_a_data_row(results, spec):
+    """A paged hybrid session (K/V and state arenas, chunks of 4, prefix
+    sharing, FSDP) of 4 slots: every rank emits repro's single-device
+    streams and the same stats; each rank holds its blocks of both arenas
+    plus its own reserved pages (at 4x1 the 18-page arenas stay whole: 4
+    does not divide them); where two slots share a data row (2x1, 2x2)
+    later requests adopt their row's prefix."""
+    want, whole = _placed_cache_bytes(FAMILIES["hybrid"], spec, True)
+    ranks = results["ranks"][_world_of(spec)]
+    first = ranks[0][f"{spec}/prefix"]
+    for js in ranks:
+        got = js[f"{spec}/prefix"]
+        assert got["tokens"] == results["streams"]["prefix"]
+        assert got["stats"] == first["stats"]
+        assert got["cache_bytes"] == want
+    paged = first["stats"]["paged"]
+    assert paged["pages_in_use"] == 0 and paged["state_pages_in_use"] == 0
+    if spec != "4x1":
+        assert want < whole and paged["prefix_hits"] > 0
 
 
 @pytest.mark.parametrize("spec", MESHES)

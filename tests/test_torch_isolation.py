@@ -58,7 +58,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_repro():
                                     "launch/mesh.py", "optim/compression.py",
                                     "optim/__init__.py", "launch/dryrun.py",
                                     "distributed/hlo_analysis.py",
-                                    "distributed/roofline.py", "device.py"])
+                                    "distributed/roofline.py", "device.py",
+                                    "testing/mesh_rows.py"])
 def test_adaptation_modules_import_no_jax_nor_repro(module):
     path = PORT / module
     assert path.exists()

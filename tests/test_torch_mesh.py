@@ -314,3 +314,40 @@ def test_local_halves_merge_to_serve_topk(path, ep, quantized):
         assert torch.equal(got["dispatched"], want[2]["dispatched"])
         if K % ep == 0:  # else capacity is sized by the padded K, as in repro
             assert torch.equal(got["overflow"], want[2]["overflow"])
+
+
+# ---------------------------------------------------------------------------
+# A slot-split decode's data rows in turn (phase 6f (d) of chip_smoke.py on the CPU)
+# ---------------------------------------------------------------------------
+
+def test_data_rows_in_turn_equal_the_whole_cache():
+    """``testing.mesh_rows.decode_data_rows`` on the CPU (reduced qwen2-1.5b,
+    fp32, 4 slots): 2 data rows stepped in turn, each on its own half cache,
+    emit the whole cache's streams (ids equal, values within rtol 1e-6 /
+    atol 2e-6); a row's cache is ``serve_cache_block``'s half; 3 rows do
+    not divide 4 slots."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.testing.mesh_rows import decode_data_rows, row_mesh
+
+    cfg = configs.reduce_config(configs.get_config("qwen2-1.5b")).replace(dtype="float32")
+    bundle = build(cfg, device="cpu")
+    params, state = bundle.init(torch.Generator().manual_seed(3))
+    table = ds.pack_experts(params["head"], state)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 17, 9, 30)]
+    kw = dict(new_tokens=6, max_seq_len=40, kernel="jnp", device="cpu")
+    whole = decode_data_rows(bundle, params, table, prompts, n_rows=1, **kw)
+    rows = decode_data_rows(bundle, params, table, prompts, n_rows=2, **kw)
+    assert rows.tokens == whole.tokens
+    for a, b in zip(rows.heads, whole.heads):
+        for (v, i), (wv, wi) in zip(a, b):
+            assert torch.equal(i, wi)
+            torch.testing.assert_close(v, wv, rtol=1e-6, atol=2e-6)
+    assert [sharding.serve_cache_block(row_mesh(2, r), 4)[:3] for r in (0, 1)] == \
+        [(0, 2, 4), (2, 2, 4)]
+    assert sharding.tree_shard_bytes(rows.caches[1]) * 2 == \
+        sharding.tree_shard_bytes(whole.caches[0])
+    with pytest.raises(ValueError, match="do not split"):
+        decode_data_rows(bundle, params, table, prompts, n_rows=3, **kw)

@@ -211,6 +211,35 @@ def test_manager_units():
     assert not m2.has_prefix(key, 8) and m2.pages_free == m2.allocatable
 
 
+def test_manager_blocks():
+    """The port's blocks (a slot-split mesh session's arena): 4 slots in 2
+    blocks over a 12-page arena cut in two. A slot maps pages of its own
+    block only (block 0 ids 2–5, beside the reserved 0 and 1; block 1 ids
+    6–11), a freed page returns to its block's list, ``slot_allocatable``
+    is the smaller block's, and a prefix registered by a slot of block 0
+    is matched only by block 0's slots. Blocks must divide the slots and
+    pages."""
+    m = PagedCacheManager(n_slots=4, n_pages=12, page_size=4, max_seq_len=16, slot_blocks=2,
+                          kv_blocks=2)
+    assert (m.allocatable, m.slot_allocatable, m.pages_free) == (10, 4, 10)
+    assert [m.slot_block(i) for i in range(4)] == [0, 0, 1, 1]
+    assert [m.prepare_write(0, j).dst for j in range(4)] == [2, 3, 4, 5]
+    assert m.prepare_write(1, 0) is None  # block 0 is dry, block 1 is not
+    assert m.prepare_write(2, 0).dst == 6 and m.pages_free == 5
+    key = prefix_hash(np.arange(8, dtype=np.int32))
+    m.register_prefix(0, key, 8)
+    assert m.has_prefix(key, 8, slot=1) and not m.has_prefix(key, 8, slot=2)
+    assert m.match_prefix(np.arange(12, dtype=np.int32), 4, 11, slot=3) is None
+    assert m.match_prefix(np.arange(12, dtype=np.int32), 4, 11, slot=1).length == 8
+    for pid in m.mapped_kv_pages(0):
+        m.decref(pid)
+    m.reset_slot(0)
+    assert sorted(m._free_blocks[0]) == [2, 3, 4, 5] and m.prepare_write(1, 0).dst in range(2, 6)
+    with pytest.raises(ValueError, match="kv_blocks"):
+        PagedCacheManager(n_slots=4, n_pages=11, page_size=4, max_seq_len=16, slot_blocks=2,
+                          kv_blocks=2)
+
+
 # ---------------------------------------------------------------------------
 # Sessions: token identity against the contiguous cache and repro
 # ---------------------------------------------------------------------------

@@ -5,6 +5,12 @@ and ``ServeSession(mesh=...)`` on meshes 1x2, 1x4 and 2x2, held against
 inputs (``repro``'s multi-device tests need 8 JAX devices; here the
 contract says the sharded results equal the single-device ones).
 
+At 2x2 the two data rows split the sessions' 2 slots (one slot a data
+row, ``repro``'s ``serve_cache_shardings``): each rank holds and steps only
+its slot's cache row (its block of the paged arena), and further
+variants run there: a paged whole-prompt prefill, shared prompt prefixes,
+speculation and the fault injectors.
+
 Each world runs once per module: ``python tests/test_torch_sharded.py
 <out_dir> <store>`` per rank (``tests/_spmd.py``), every case in
 one go, each rank writing its results to ``<out_dir>/rank<r>.npz`` and
@@ -36,6 +42,12 @@ MESHES = ("1x2", "1x4", "2x2")
 # itself, whose tokens split over pod and data together
 HEAD_MESHES = MESHES + ("2x2x1",)
 VARIANTS = ("whole", "chunk", "paged", "int8")
+# run where the slots split (2x2): paged whole-prompt prefill, 4 requests
+# behind a shared 8-token prompt prefix (chunks of 4), a self-draft, and
+# 4 slots on a 6-page arena where 2 late high-priority requests preempt
+SPLIT_VARIANTS = ("paged_whole", "prefix", "spec", "pressure")
+SPLIT_MESH = "2x2"
+GAMMA = 2
 MAX_NEWS = [2, 5, 3, 7, 4, 6]
 SAMPLED = 3
 RTOL, ATOL = 1e-6, 2e-6
@@ -97,6 +109,35 @@ def prompts():
     return [rng.randint(0, 128, rng.randint(3, 10)).astype(np.int32) for _ in range(6)]
 
 
+def prefix_prompts():
+    """4 prompts behind one 8-token system prefix (two chunks of 4)."""
+    rng = np.random.RandomState(5)
+    sysp = rng.randint(0, 128, 8)
+    return [np.concatenate([sysp, rng.randint(0, 128, rng.randint(2, 6))]).astype(np.int32)
+            for _ in range(4)]
+
+
+def variant_kw(variant):
+    """ServeSession keywords of a session variant (both packages)."""
+    return {"chunk": dict(prefill_chunk=4),
+            "paged": dict(prefill_chunk=4, paged=True, page_size=8),
+            "paged_whole": dict(paged=True, page_size=8),
+            "prefix": dict(prefill_chunk=4, paged=True, page_size=8),
+            "spec": dict(prefill_chunk=4),
+            "pressure": dict(prefill_chunk=4, paged=True, page_size=8, page_arena=6,
+                             n_slots=4)}.get(variant, {})
+
+
+def variant_requests(variant, Request, SamplingParams):
+    if variant == "prefix":
+        return [Request(prompt=p, sampling=SamplingParams(max_new_tokens=m))
+                for p, m in zip(prefix_prompts(), MAX_NEWS)]
+    return [Request(prompt=p, sampling=SamplingParams(
+        max_new_tokens=m, temperature=0.8 if j == SAMPLED else 0.0, seed=11,
+        priority=5 if variant == "pressure" and j >= 4 else 0))
+        for j, (p, m) in enumerate(zip(prompts(), MAX_NEWS))]
+
+
 # ---------------------------------------------------------------------------
 # The rank processes
 # ---------------------------------------------------------------------------
@@ -145,6 +186,7 @@ def _head_cases(mesh, spec, out, checks):
 def _session_cases(mesh, spec, out, checks, weights):
     from repro_torch.convert import params_from_jax
     from repro_torch.core import dssoftmax as ds
+    from repro_torch.distributed import sharding
     from repro_torch.kernels.registry import AutoPolicy
     from repro_torch.models import build
     from repro_torch.train import Request, SamplingParams, ServeSession
@@ -156,16 +198,23 @@ def _session_cases(mesh, spec, out, checks, weights):
     int8 = ds.quantize_table(fp, torch.arange(4) == 1)
 
     def run(mesh_, variant, kernel, table=fp, swap_at=None):
-        kw = {"chunk": dict(prefill_chunk=4),
-              "paged": dict(prefill_chunk=4, paged=True, page_size=8)}.get(variant, {})
-        sess = ServeSession(bundle, params, int8 if variant == "int8" else table, n_slots=2,
+        kw = dict(variant_kw(variant))
+        if variant == "spec":
+            kw.update(draft=(bundle, params, table), gamma=GAMMA)
+        kw.setdefault("n_slots", 2)
+        sess = ServeSession(bundle, params, int8 if variant == "int8" else table,
                             max_seq_len=32, kernel=kernel, mesh=mesh_, device="cpu", **kw)
-        reqs = [Request(prompt=p, sampling=SamplingParams(
-            max_new_tokens=m, temperature=0.8 if j == SAMPLED else 0.0, seed=11))
-            for j, (p, m) in enumerate(zip(prompts(), MAX_NEWS))]
+        sess._draft_backfill = False  # repro's draft schedule
+        reqs = variant_requests(variant, Request, SamplingParams)
+        late = reqs[4:] if variant == "pressure" else []
         for r in reqs:
-            sess.submit(r)
+            if r not in late:
+                sess.submit(r)
         while sess.step():
+            if late and sess.n_steps == 3:
+                for r in late:
+                    sess.submit(r)
+                late = []
             if swap_at is not None and sess.n_steps == swap_at[0]:
                 sess.swap_table(swap_at[1], new_gate=swap_at[2])
                 swap_at = None
@@ -181,7 +230,19 @@ def _session_cases(mesh, spec, out, checks, weights):
             # a policy object prints by type: its address differs per process
             "tokens": toks, "stats": json.loads(json.dumps(st, default=lambda o: type(o).__name__)),
             "policy": [name for _, name in hist],
-            "table_rows": int(sess.table.local.ids.shape[0]), "k_pad": sess.table.n_experts}
+            "table_rows": int(sess.table.local.ids.shape[0]), "k_pad": sess.table.n_experts,
+            "cache_bytes": sharding.tree_shard_bytes(sess._cache)}
+    if spec == SPLIT_MESH:
+        for variant in SPLIT_VARIANTS:
+            sess, toks = run(mesh, variant, "grouped")
+            out[f"split/{variant}"] = {
+                "tokens": toks, "cache_bytes": sharding.tree_shard_bytes(sess._cache),
+                "stats": json.loads(json.dumps(sess.stats(), default=lambda o: type(o).__name__))}
+        # the port's single-device runs: their paged counters beside the mesh's
+        for variant in ("prefix", "pressure"):
+            out[f"split/{variant}/unsharded"] = run(None, variant, "grouped")[0].stats()["paged"]
+        _fault_cases(mesh, out, bundle, params, fp)
+        _local_row_heads(mesh, out, params, fp)
     if "unsharded_stats" not in checks:  # it needs no mesh: once a world
         base, _ = run(None, "whole", "jnp")
         checks["unsharded_stats"] = json.loads(json.dumps(base.stats(), default=str))
@@ -197,6 +258,71 @@ def _session_cases(mesh, spec, out, checks, weights):
         out["swap/1x2"] = {"tokens": toks, "want": want, "k_pad": sess.table.n_experts,
                            "local_rows": int(sess.table.local.ids.shape[0]),
                            "version": sess.table_version}
+
+
+def _local_row_heads(mesh, out, params, fp):
+    """Each rank's block of 8 hidden rows through ``heads.head_topk(...,
+    local_rows=True)``, the DS head (``serve_topk_sharded(h_local=True)``,
+    with stats) and a full softmax over the tied embedding, against the
+    whole 8 rows without a mesh."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.distributed import sharding
+    from repro_torch.models import heads
+
+    cfg = _tiny_cfg()
+    h = torch.from_numpy(np.random.RandomState(9).randn(8, cfg.d_model).astype(np.float32))
+    r, nb = sharding.batch_index(mesh), sharding.batch_ranks(mesh)
+    mine = h[r * 8 // nb:(r + 1) * 8 // nb]
+    res = {}
+    for head in ("ds", "full"):
+        c = cfg.replace(head=head, tie_embeddings=head == "full")
+        table = ds.shard_table(fp, mesh) if head == "ds" else None
+        got = heads.head_topk(params["head"], table, c, mine, TOPK,
+                              embed_table=params["embed"]["table"], kernel="grouped",
+                              mesh=mesh, with_stats=True, local_rows=True)
+        want = heads.head_topk(params["head"], fp if head == "ds" else None, c, h, TOPK,
+                               embed_table=params["embed"]["table"], kernel="grouped",
+                               with_stats=True)
+        res[head] = {"ids": torch.equal(got[1], want[1]),
+                     "vals": bool(torch.allclose(got[0], want[0], rtol=RTOL, atol=ATOL)),
+                     # overflow depends on the split: capacity is sized by
+                     # each rank's rows
+                     "stats": head == "full" or torch.equal(got[2]["dispatched"][:4],
+                                                            want[2]["dispatched"]),
+                     "shape": list(got[0].shape)}
+    out["local_row_heads"] = res
+
+
+def _fault_cases(mesh, out, bundle, params, fp):
+    """``poison_cache_slot`` and ``poison_page`` on slot 1 of a slot-split
+    session (contiguous, and paged with whole-prompt prefill) after 2
+    decode steps: which rank wrote NaN, and every request's outcome."""
+    from repro_torch.distributed import sharding
+    from repro_torch.testing import faults
+    from repro_torch.train import Request, SamplingParams, ServeSession
+
+    for name, kw in (("slot", {}), ("page", dict(paged=True, page_size=8))):
+        sess = ServeSession(bundle, params, fp, n_slots=2, max_seq_len=32, kernel="grouped",
+                            mesh=mesh, device="cpu", **kw)
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=6))
+                for p in prompts()[:2]]
+        for r in reqs:
+            sess.submit(r)
+        sess.step()
+        sess.step()
+        victim = sess.scheduler.slots[1].req
+        if name == "slot":
+            faults.poison_cache_slot(sess, 1)
+        else:
+            faults.poison_page(sess, int(sess._mgr.tables[1, 0]))
+        poisoned = any(bool(torch.isnan(leaf).any()) for leaf in sess._cache)
+        while sess.step():
+            pass
+        out[f"fault/{name}"] = {
+            "batch_index": sharding.batch_index(mesh), "wrote_nan": poisoned,
+            "victim": reqs.index(victim), "status": [r.status.value for r in reqs],
+            "tokens": [list(map(int, r.out_tokens)) for r in reqs],
+            "nan_left": any(bool(torch.isnan(leaf).any()) for leaf in sess._cache)}
 
 
 def _worker(out_dir, weights, store):
@@ -318,7 +444,8 @@ def _tiny_cfg():
 def _repro_streams(jb, params, state):
     """repro's unsharded session (``jnp``, chunks of 4: token-identical to
     its whole prefill and one compile for every length) on the fp table and
-    on the int8 table with expert 1 on exact rows."""
+    on the int8 table with expert 1 on exact rows; on the shared-prefix
+    prompts; and its speculative session (a self-draft, gamma 2)."""
     import jax.numpy as jnp
 
     from repro.core import dssoftmax as jds
@@ -326,12 +453,14 @@ def _repro_streams(jb, params, state):
 
     fp = jds.pack_experts(params["head"], state)
     out = {}
-    for name, table in (("fp", fp), ("int8", jds.quantize_table(fp, jnp.arange(4) == 1))):
+    runs = (("fp", fp, "whole", {}), ("int8", jds.quantize_table(fp, jnp.arange(4) == 1),
+                                      "whole", {}),
+            ("prefix", fp, "prefix", {}),
+            ("spec", fp, "spec", dict(draft=(jb, params, fp), gamma=GAMMA)))
+    for name, table, variant, kw in runs:
         sess = ServeSession(jb, params, table, n_slots=2, max_seq_len=32, kernel="jnp",
-                            prefill_chunk=4)
-        reqs = [Request(prompt=p, sampling=SamplingParams(
-            max_new_tokens=m, temperature=0.8 if j == SAMPLED else 0.0, seed=11))
-            for j, (p, m) in enumerate(zip(prompts(), MAX_NEWS))]
+                            prefill_chunk=4, **kw)
+        reqs = variant_requests(variant, Request, SamplingParams)
         sess.run(reqs)
         out[name] = [list(map(int, r.out_tokens)) for r in reqs]
     return out
@@ -501,6 +630,129 @@ def test_session_mesh_auto_policy_picks_sharded_specs(results, spec):
     for _, js in results["ranks"][_world_of(spec)]:
         hist = js["sessions"][f"session/{spec}/whole"]["policy"]
         assert hist and all(name.endswith("_ep") for name in hist), hist
+
+
+def _whole_cache_specs(variant):
+    from repro_torch.models.model_zoo import cache_specs, paged_cache_specs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve.paged_cache import N_RESERVED
+
+    cfg = _tiny_cfg()
+    kw = variant_kw(variant)
+    paged, n_slots = bool(kw.get("paged")), kw.get("n_slots", 2)
+    specs = (paged_cache_specs(cfg, N_RESERVED + kw.get("page_arena", n_slots * 32 // 8), 8)
+             if paged else cache_specs(cfg, ShapeConfig(name="serve", seq_len=32,
+                                                        global_batch=n_slots, kind="decode")))
+    return type(specs)(*(torch.empty(s.shape, dtype=s.dtype, device="meta")
+                         for s in specs)), paged
+
+
+@pytest.mark.parametrize("spec", MESHES)
+def test_session_mesh_cache_bytes_are_placed_bytes(results, spec):
+    """Each rank's resident cache is ``placed_bytes`` of the whole cache
+    under ``serve_cache_shardings`` (paged: ``serve_paged_cache_shardings``,
+    plus the rank's own two reserved pages a leaf where the arena splits):
+    half the whole cache at 2x2, whose 2 data ranks split the 2 slots (and
+    the 10-page arena); the whole cache at 1x2 and 1x4."""
+    from repro_torch.distributed import sharding
+    from repro_torch.serve.paged_cache import N_RESERVED
+
+    d, m = (int(x) for x in spec.split("x"))
+    mesh = {"data": d, "model": m}
+    variants = VARIANTS + (SPLIT_VARIANTS if spec == SPLIT_MESH else ())
+    for _, js in results["ranks"][_world_of(spec)]:
+        for variant in variants:
+            got = js["sessions"][f"session/{spec}/{variant}" if variant in VARIANTS
+                                 else f"split/{variant}"]["cache_bytes"]
+            whole, paged = _whole_cache_specs(variant)
+            if paged:
+                rule = sharding.serve_paged_cache_shardings(mesh, None, whole)
+            else:
+                rule = sharding.serve_cache_shardings(mesh, None, whole,
+                                                      variant_kw(variant).get("n_slots", 2))
+            want = sharding.placed_bytes(whole, rule, mesh)
+            full = sum(int(np.prod(s.shape)) * 4 for s in whole)
+            if paged and d > 1:
+                # one page of every layer, for each reserved page
+                want += N_RESERVED * sum(int(np.prod(s.shape)) // s.shape[1] * 4 for s in whole)
+            assert got == want, (variant, got, want)
+            assert (got < full) == (d > 1), (variant, got, full)
+
+
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+def test_session_split_slots_match_repro_session(results, variant):
+    """Where the data ranks split the slots (2x2, one slot a rank): a paged
+    whole-prompt prefill, 4 requests behind a shared 8-token prefix (paged,
+    chunks of 4, prefix sharing) and a speculative self-draft (gamma 2,
+    repro's draft schedule, one sampled request) emit repro's unsharded
+    streams on every rank, and every rank's ``stats()`` is the same."""
+    want = results["streams"][{"paged_whole": "fp", "pressure": "fp"}.get(variant, variant)]
+    ranks = results["ranks"][_world_of(SPLIT_MESH)]
+    first = ranks[0][1]["sessions"][f"split/{variant}"]["stats"]
+    for _, js in ranks:
+        got = js["sessions"][f"split/{variant}"]
+        assert got["tokens"] == want
+        assert got["stats"] == first
+    if variant == "spec":
+        assert first["speculative"]["spec_steps"] > 0
+
+
+def test_session_split_prefix_hits_only_within_a_data_row(results):
+    """A prefix is adopted only by a slot of the data row that holds its
+    pages (Queue 3). With one slot a row, a row's prefix pages die with the
+    request that wrote them (an entry holds no reference), so the mesh
+    session hits none of the 3 prefixes the single-device one hits, while
+    its streams stay repro's (the test above); the arena's size and its
+    release are as on one device. ``tests/test_torch_fsdp.py`` shows hits
+    within a row of two slots."""
+    js = results["ranks"][_world_of(SPLIT_MESH)][0][1]["sessions"]
+    mesh_paged = js["split/prefix"]["stats"]["paged"]
+    single = js["split/prefix/unsharded"]
+    assert single["prefix_hits"] == 3 and mesh_paged["prefix_hits"] == 0
+    assert mesh_paged["prefix_queries"] == single["prefix_queries"] == 4
+    assert mesh_paged["pages_in_use"] == 0 and mesh_paged["pages_total"] == single["pages_total"]
+
+
+def test_session_split_preempts_within_a_data_row(results):
+    """4 slots (two a data row) on a 6-page arena, blocks of 4 pages (data
+    row 0 can map 2 of them, beside the reserved ids): a slot draws only
+    from its row's free list, so the mesh session preempts once where one
+    device, with all 6 pages on one list, never does (Queue 3); the
+    streams stay repro's (the test above) and every page is free at the
+    end."""
+    js = results["ranks"][_world_of(SPLIT_MESH)][0][1]["sessions"]
+    mesh_paged = js["split/pressure"]["stats"]["paged"]
+    single = js["split/pressure/unsharded"]
+    assert (mesh_paged["preemptions"], single["preemptions"]) == (1, 0)
+    assert mesh_paged["pages_in_use"] == 0 and mesh_paged["pages_total"] == 6
+
+
+@pytest.mark.parametrize("head", ["ds", "full"])
+def test_head_local_rows_merge_to_the_whole_batch(results, head):
+    """At 2x2 each rank passes only its data row's 4 of 8 hidden rows
+    (``head_topk(local_rows=True)``): every rank gets the whole (8, k) in
+    row order, ids equal and values within rtol 1e-6 / atol 2e-6 of the
+    head on all 8 rows without a mesh, the DS head's per-expert dispatch
+    counts summed over the rows."""
+    for _, js in results["ranks"][_world_of(SPLIT_MESH)]:
+        got = js["sessions"]["local_row_heads"][head]
+        assert got == {"ids": True, "vals": True, "stats": True, "shape": [8, TOPK]}
+
+
+@pytest.mark.parametrize("fault", ["slot", "page"])
+def test_session_split_fault_injectors_hit_the_owner(results, fault):
+    """``poison_cache_slot`` / ``poison_page`` on slot 1 at 2x2 write NaN
+    only on the ranks of data row 1, which hold the slot; the request there
+    fails, the other completes with its unpoisoned stream, and no NaN is
+    left in any rank's cache."""
+    want = results["streams"]["fp"]
+    for _, js in results["ranks"][_world_of(SPLIT_MESH)]:
+        got = js["sessions"][f"fault/{fault}"]
+        assert got["wrote_nan"] == (got["batch_index"] == 1)
+        v = got["victim"]
+        assert got["status"][v] == "failed" and got["status"][1 - v] == "completed"
+        assert got["tokens"][1 - v][:len(want[1 - v])] == want[1 - v]
+        assert not got["nan_left"]
 
 
 def test_session_mesh_swap_table_reshards(results):
