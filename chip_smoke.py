@@ -342,16 +342,20 @@ Phases, in order (any failure exits non-zero before the result line):
    group over a file store and a 1x1 mesh. (a) lm-100m at full width from
    phase 7's seeded state on its batches and schedule, 6 steps of
    microbatches 2 through ``make_train_step(mesh=)`` and through the plain
-   step: params, moments, masks and metrics equal under phase 7 (a2)'s
-   rule (which held is printed); step ms beside the plain step's, the
-   rank's resident train-state bytes and peak ``max_memory_allocated``;
-   the step launches no kernel body. (b) olmoe-1b-7b at full width (d
-   2048, E 64, top-8, f 1024): one layer's expert-parallel FFN at ep 2, 4
-   and 8, each shard's part (``moe.moe_ep_local``) run one after another
-   and summed in bf16, on a bf16 batch of 4 x 512, against ``moe_block``:
-   the forward within the sum of half a bf16 ulp of each partial and of
-   each running sum, plus half an ulp of the reference (the largest excess
-   printed); the gradients of x, the router and every expert slice within
+   step (the mesh step's params stay blocks, read through its
+   ``TrainParamGather``, which at 1x1 returns each block itself): params,
+   moments, masks and metrics equal under phase 7 (a2)'s rule (which held
+   is printed); step ms beside the plain step's, then both steps timed in
+   turns from one state on one batch (plain, mesh, mesh, plain, twice, as
+   ``tools/mesh_step_turns.py``), the rank's resident train-state bytes
+   and peak ``max_memory_allocated``; the step launches no kernel body.
+   (b) olmoe-1b-7b at full width (d 2048, E 64, top-8, f 1024): one
+   layer's expert-parallel FFN at ep 2, 4 and 8, each shard's part
+   (``moe.moe_ep_local``) run one after another and summed in bf16, on
+   a bf16 batch of 4 x 512, against ``moe_block``: the forward within the
+   sum of half a bf16 ulp of each partial and of each running sum, plus
+   half an ulp of the reference (the largest excess printed); the
+   gradients of x, the router and every expert slice within
    MESH_EP_GRAD_TOL of each leaf's largest. Then a 2-layer olmoe-1b-7b
    through 3 mesh steps at 1x1 (the expert-parallel FFN with one shard)
    against the plain step under (a)'s rule. (c) (a)'s mesh-trained head
@@ -384,9 +388,10 @@ Phases, in order (any failure exits non-zero before the result line):
    traced 2x1 rank-0 cache argument to the byte, half the 1x1 cell's. (c)
    One production cell per shape kind on the ``single`` mesh (qwen2-1.5b
    train_4k, prefill_32k, decode_32k; deepseek-67b train_4k) traced in a
-   fake world of 256 ranks: fits, bottleneck and seconds printed; the two
-   qwen2-1.5b serving cells must fit (``DRYRUN_MUST_FIT``: a rank holds
-   its block of the slots).
+   fake world of 256 ranks: fits, bottleneck and seconds printed; all
+   four must fit (``DRYRUN_MUST_FIT``: a serving rank holds its block of
+   the slots, a training rank its blocks of the state and one layer or
+   expert gathered at a time).
 Every profile opens with a head of one-element adds that it does not
 count, and must find the device record of each launch after them, or it
 is taken again with a longer head (``traced``): Kineto loses the records
@@ -5558,12 +5563,14 @@ def mesh_train_phase(results: dict, card: str) -> None:
     results["mesh_train"] = out
 
 
-def _mesh_steps(label, card, cfg, mesh, batches, micro, sched=None, lr=TRAIN_LR):
+def _mesh_steps(label, card, cfg, mesh, batches, micro, sched=None, lr=TRAIN_LR,
+                turns=False):
     """The plain step and the mesh step from the same seeded state over the
     same batches → (row, plain final state on the host, mesh final state,
     bundle). Each run starts from its own seeded init and the steps alone
     hold its state (at most two states on the card at once); the plain
-    run's end waits on the host."""
+    run's end waits on the host. ``turns``: then both steps timed in turns
+    from one seeded state on the first batch (:func:`_step_turns`)."""
     import torch
 
     from repro_torch.configs.base import TrainConfig
@@ -5582,17 +5589,17 @@ def _mesh_steps(label, card, cfg, mesh, batches, micro, sched=None, lr=TRAIN_LR)
 
     tcfg = TrainConfig(lr=lr, microbatches=micro, warmup_steps=TRAIN_WARMUP,
                        total_steps=TRAIN_STEPS)
-    plain, p_hist, p_ms = _timed_steps(make_train_step(bundle, tcfg, sched), state0(), batches)
+    plain_step = make_train_step(bundle, tcfg, sched)
+    plain, p_hist, p_ms = _timed_steps(plain_step, state0(), batches)
     plain = tree_map(lambda t: t.cpu(), plain)
     held_state = list(sharding.shard_train_state(mesh, state0()))
     specs = held_state.pop()
+    mesh_step = make_train_step(bundle, tcfg, sched, mesh=mesh, shardings=specs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     with sharding.record_collectives() as rec:
-        meshed, m_hist, m_ms = _timed_steps(
-            make_train_step(bundle, tcfg, sched, mesh=mesh, shardings=specs), held_state.pop(),
-            batches)
+        meshed, m_hist, m_ms = _timed_steps(mesh_step, held_state.pop(), batches)
     peak = torch.cuda.max_memory_allocated()
     if any(ops.launch_counts().values()):
         raise SmokeFailure(f"{label}: the mesh step launched kernel bodies {ops.launch_counts()}")
@@ -5617,7 +5624,45 @@ def _mesh_steps(label, card, cfg, mesh, batches, micro, sched=None, lr=TRAIN_LR)
           f"resident train state {row['resident_train_state_bytes'] / 2**30:.3f} GiB on this "
           f"rank; peak {peak / 2**30:.2f} GiB; {len(rec)} collectives; CE "
           f"{[round(c, 4) for c in row['ce']]}; card {card}", flush=True)
+    if turns:
+        s0 = state0()
+        row["turns"] = _step_turns({"plain": (plain_step, s0),
+                                    "mesh": (mesh_step, sharding.shard_train_state(mesh, s0)[0])},
+                                   batches[0])
+        del s0
+        t = row["turns"]
+        print(f"[mesh_train] {label} in turns (plain, mesh, mesh, plain, twice; the last "
+              f"{MESH_TURN_STEPS - 1} of {MESH_TURN_STEPS} steps a turn, one state, one batch): "
+              f"plain {t['plain']['median']:.2f} ms, mesh {t['mesh']['median']:.2f} ms (median; "
+              f"mesh/plain {t['mesh']['median'] / t['plain']['median']:.4f}); card {card}",
+              flush=True)
     return row, plain, meshed, bundle
+
+
+MESH_TURN_STEPS = 4  # a turn's steps; the first is dropped
+
+
+def _step_turns(steps: dict, batch) -> dict:
+    """``{name: (step, state)}`` of two steps timed in turns, as
+    ``tools/mesh_step_turns.py`` times them: plain, mesh, mesh, plain,
+    twice; each turn runs MESH_TURN_STEPS steps from the same state and
+    keeps the last MESH_TURN_STEPS - 1 (synced host clock) → {name:
+    {"median", "all"}} in ms."""
+    import torch
+
+    out = {k: [] for k in steps}
+    for name in ("plain", "mesh", "mesh", "plain") * 2:
+        step, state = steps[name]
+        for i in range(MESH_TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = step(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            del new, m
+            if i:
+                out[name].append(1e3 * dt)
+    return {k: {"median": statistics.median(v), "all": v} for k, v in out.items()}
 
 
 MESH_PLACEMENT_SPECS = ("1x2", "2x1", "2x2", "8x1", "4x2")
@@ -5638,14 +5683,14 @@ def _mesh_train_lm(out, card, mesh):
                for i in range(MESH_TRAIN_STEPS)]
     sched = make_schedule("cosine", TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
     row, plain, meshed, bundle = _mesh_steps("(a) lm-100m", card, cfg, mesh, batches,
-                                             MESH_TRAIN_MICRO, sched)
+                                             MESH_TRAIN_MICRO, sched, turns=True)
     row["placement_counts"] = {
         s: dryrun.train_state_bytes(dict(zip(("data", "model"), map(int, s.split("x")))), plain)
         for s in MESH_PLACEMENT_SPECS}
     out["lm_100m"] = row
     print(f"[mesh_train] (a) lm-100m placed on wider meshes (the dry-run's counts from the "
-          f"shapes, not measured: a rank's resident train-state bytes, the param bytes its gather "
-          f"brings a step): {json.dumps(row['placement_counts'])}", flush=True)
+          f"shapes, not measured: a rank's resident train-state bytes): "
+          f"{json.dumps(row['placement_counts'])}", flush=True)
     return bundle, plain, meshed, stream
 
 
@@ -5829,9 +5874,9 @@ def _mesh_serve_trained(out, card, mesh, bundle, plain, meshed, stream):
 DRYRUN_FLOPS_RATIO = (0.8, 1.6)
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
                 ("qwen2-1.5b", "decode_32k"), ("deepseek-67b", "train_4k"))
-# the serving cells a rank's block of the slots fits on one card (the
-# train cells' whole-params gather does not)
-DRYRUN_MUST_FIT = (("qwen2-1.5b", "prefill_32k"), ("qwen2-1.5b", "decode_32k"))
+# every one must fit a card: a serving rank holds its block of the slots, a
+# training rank its blocks of the state and one layer or expert gathered
+DRYRUN_MUST_FIT = DRYRUN_CELLS
 
 
 def dryrun_phase(results: dict, card: str) -> None:

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DSSoftmaxConfig
 from repro_torch.core import losses as L
@@ -316,14 +317,14 @@ def _scatter_rows(values: torch.Tensor, row: torch.Tensor, n_rows: int) -> torch
     return buf.index_put((row,), values)[:n_rows]
 
 
-def _aux(params, state: DSState, cfg: DSSoftmaxConfig, G, Gs, drop, mesh=None) -> DSAux:
-    """The aux losses; with ``mesh`` (the mesh train step's) the gate's
+def _aux(sq, cfg: DSSoftmaxConfig, G, Gs, drop, mesh=None) -> DSAux:
+    """The aux losses from ``sq``: the masked rows' sums of squares (K, N)
+    and the experts' (K,); with ``mesh`` (the mesh train step's) the gate's
     per-expert sums and its entropy are over every batch rank's tokens."""
-    w = params["experts"]
     ent = torch.sum(G * torch.log(G + 1e-10), dim=-1)
     return DSAux(
-        lasso=L.group_lasso(w, state.mask, cfg.gamma),
-        expert_lasso=L.expert_lasso(w, state.mask),
+        lasso=L.group_lasso_of(sq[0], cfg.gamma),
+        expert_lasso=L.expert_lasso_of(sq[1]),
         load=L.load_balance(sharding.batch_sum(torch.sum(Gs.reshape(-1, Gs.shape[-1]), dim=0),
                                                mesh)),
         drop_frac=drop,
@@ -370,40 +371,73 @@ def loss(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
         drop = 1.0 - n_valid / T
     else:
         raise ValueError(f"unknown dispatch {dispatch!r}")
-    return ce, _aux(params, state, cfg, G, sparse_gate_matrix(G), drop)
+    sq = (L.per_expert(L.row_sq, params["experts"], state.mask),
+          L.per_expert(L.frobenius_sq, params["experts"], state.mask))
+    return ce, _aux(sq, cfg, G, sparse_gate_matrix(G), drop)
 
 
 def _ce_chunk(buf_i, lab_i, g_i, w32, mask, mode: str):
-    """CE of one capacity chunk: buf_i (B, K, cc, d), lab_i/g_i (B, K, cc),
-    w32 (K, N, d) fp32 → (B, K, cc)."""
-    z = torch.einsum("bkcd,knd->bkcn", buf_i.float(), w32) * g_i[..., None]
-    z = _masked_logits(z, mask[None, :, None, :], mode)
+    """CE of one capacity chunk of one expert: buf_i (B, cc, d), lab_i/g_i
+    (B, cc), the expert's masked rows w32 (N, d) fp32 and mask (N,) → (B,
+    cc)."""
+    z = torch.einsum("bcd,nd->bcn", buf_i.float(), w32) * g_i[..., None]
+    z = _masked_logits(z, mask, mode)
     return _ce_from_logits(z, lab_i, mean=False)
+
+
+def _expert_ce(w, mask, buf, lab, g, n_chunks: int, mode: str, gather):
+    """One expert's part of :func:`loss_rows`: its rows ``w`` (N, d) (with
+    ``gather``, this rank's block of them, gathered whole here), masked and
+    widened to fp32 once, the CE of its capacity slots buf (B, C, d), lab
+    and g (B, C) in ``n_chunks`` chunks under ``checkpoint``, and the masked
+    rows' sums of squares → (CE (B, C), (row sums (N,), their total))."""
+    if gather is not None:
+        w = gather.expert("head/experts", w)
+    # each read of the rows widens them on its own, as ``repro``'s CE and
+    # lassos do, so their gradients meet at the rows in the rows' dtype:
+    # the Frobenius sum taken as the row sums' total (one widening for both
+    # lassos) parts the bf16 mesh step's grad norm from the single-device
+    # step's by more than 1e-3 at 2x1 and 2x2
+    w32 = pruning.apply_mask(w, mask).float()
+    sq = (L.row_sq(w, mask), L.frobenius_sq(w, mask))
+    if n_chunks == 1:
+        return _ce_chunk(buf, lab, g, w32, mask, mode), sq
+    cc = buf.shape[1] // n_chunks
+    return torch.cat([
+        checkpoint(_ce_chunk, *(t[:, i * cc:(i + 1) * cc] for t in (buf, lab, g)), w32, mask,
+                   mode, use_reentrant=False)
+        for i in range(n_chunks)], dim=1), sq
 
 
 def loss_rows(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
               cfg: DSSoftmaxConfig, *, capacity_factor: float = 1.25,
-              label_mask: Optional[torch.Tensor] = None, mesh=None):
+              label_mask: Optional[torch.Tensor] = None, mesh=None, gather=None):
     """Sorted-dispatch CE over batched rows. h: (B, S, d), labels: (B, S).
 
     Tokens are grouped by expert *within each row*: the B rows dispatch at
     once over B·K row-offset expert ids (a stable sort groups by row, then
     by expert, keeping each row's token order), into (B, K, C, d) buffers
-    with C = round(S/K·capacity_factor). The (B, K, C, N) fp32 logits are
-    never materialized whole: the capacity runs in up to 8 chunks under
-    ``torch.utils.checkpoint``, so one chunk's logits are live at a time
-    and the backward recomputes them. ``label_mask`` (B, S) excludes
-    positions from the CE. ``mesh`` (the mesh train step's: the rows are
-    this rank's batch share) makes the CE, its token counts and the gate
-    statistics the whole batch's (``sharding.batch_sum``). Returns
+    with C = round(S/K·capacity_factor). Then one expert at a time
+    (:func:`_expert_ce`, under ``torch.utils.checkpoint``): its rows masked
+    and widened to fp32, its capacity in chunks under a checkpoint of their
+    own (n // K chunks, where n ≤ 8 chunks of at least 8 slots would split
+    the K experts' capacity together), so one chunk's (B, cc, N) fp32
+    logits and one expert's (N, d) fp32 rows are live at a time and the
+    backward recomputes them;
+    the lassos read the (K, N) sums of squares it keeps. No fp32 or masked
+    copy of the whole (K, N, d) experts exists. ``label_mask`` (B, S)
+    excludes positions from the CE. ``mesh`` (the mesh train step's: the
+    rows are this rank's batch share) makes the CE, its token counts and
+    the gate statistics the whole batch's (``sharding.batch_sum``);
+    ``gather`` (its ``TrainParamGather``): ``params["experts"]`` is this
+    rank's block, each expert's rows gathered inside its region. Returns
     (task_ce, DSAux)."""
     B, S, d = h.shape
-    K, N, _ = params["experts"].shape
+    K = state.mask.shape[0]
     expert_idx, g, G = top1_gate(params["gate"], h)          # (B,S), (B,S), (B,S,K)
     Gs = sparse_gate_matrix(G)
     g_kept = torch.sum(Gs, dim=-1)                           # (B,S) — g with Eq-1 grads
     capacity = int(max(1, round(S / K * capacity_factor)))
-    w = pruning.apply_mask(params["experts"], state.mask)
 
     rows = torch.arange(B, device=h.device)[:, None]
     e_flat = (rows * K + expert_idx.long()).reshape(-1)      # row-offset expert ids
@@ -414,22 +448,22 @@ def loss_rows(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
     lab_buf = _scatter_rows(labels.reshape(-1).long(), row, n_slots).view(B, K, capacity)
     g_buf = _scatter_rows(g_kept.reshape(-1), row, n_slots).view(B, K, capacity)
 
-    n_chunks = 1
+    n_chunks = 1  # the K experts' capacity together: up to 8 chunks of 8 slots or more
     for cand in (8, 4, 2):
         if capacity % cand == 0 and capacity // cand >= 8:
             n_chunks = cand
             break
-    cc = capacity // n_chunks
-    w32 = w.float()
-    if n_chunks > 1:
-        from torch.utils.checkpoint import checkpoint
-
-        ce_buf = torch.cat([
-            checkpoint(_ce_chunk, *(t[:, :, i * cc:(i + 1) * cc] for t in (buf, lab_buf, g_buf)),
-                       w32, state.mask, cfg.mask_mode, use_reentrant=False)
-            for i in range(n_chunks)], dim=2)
-    else:
-        ce_buf = _ce_chunk(buf, lab_buf, g_buf, w32, state.mask, cfg.mask_mode)
+    # one expert's capacity in n_chunks // K of them: a chunk's (B, cc, N)
+    # fp32 logits are at most an n_chunks-th of the K experts' (B, K, C, N)
+    n_chunks = max(1, n_chunks // K)
+    # the experts' gradient is one stack of the K experts' (unbind's
+    # backward), not K zero tensors of the whole head added up
+    per = [checkpoint(_expert_ce, w, state.mask[e], buf[:, e], lab_buf[:, e], g_buf[:, e],
+                      n_chunks, cfg.mask_mode, gather, use_reentrant=False)
+           for e, w in enumerate(params["experts"].unbind(0))]
+    ce_buf = torch.stack([c for c, _ in per], dim=1)        # (B, K, C)
+    sq = (torch.stack([q for _, (q, _) in per]),            # (K, N)
+          torch.stack([f for _, (_, f) in per]))            # (K,)
 
     tok_ce = ce_buf.reshape(-1)[torch.where(valid, row, 0)]
     tok_ce = torch.where(valid, tok_ce, 0.0).view(B, S)
@@ -444,7 +478,7 @@ def loss_rows(params, state: DSState, h: torch.Tensor, labels: torch.Tensor,
     else:
         drop = 1.0 - n_valid / torch.clamp(
             sharding.batch_sum(torch.sum(label_mask.float()), mesh), min=1.0)
-    return ce, _aux(params, state, cfg, G, Gs, drop, mesh)
+    return ce, _aux(sq, cfg, G, Gs, drop, mesh)
 
 
 def total_loss(params, state, h, labels, cfg: DSSoftmaxConfig, **kw):

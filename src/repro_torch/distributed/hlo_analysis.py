@@ -34,13 +34,20 @@ products, or the body's own count where that is less (the causal
 The counter also follows every storage the trace allocates (weak
 references, so a storage counts until the last tensor or saved-for-backward
 reference to it goes): ``peak_bytes`` is the most that is alive at once,
-the step's arguments included.
+the step's arguments included; ``peak_top`` names the largest storages
+alive at that peak (at most ``TOP_N``, each of at least
+``TOP_MIN_BYTES``): the op that made it, its shape and dtype, and the
+innermost line of the port on the Python stack when it was made (a
+backward op's is the line that asked for the gradient, or the checkpoint
+or custom backward that ran it);
+``largest_tensor`` is the largest storage made at any time, named so.
 
 ``repro``'s HLO text parser (``HLOCost``, ``parse_module``, ``type_bytes``)
 and ``xla_cost_analysis`` read XLA's output and have no counterpart here.
 """
 from __future__ import annotations
 
+import sys
 import weakref
 from collections import Counter
 from typing import Optional
@@ -117,7 +124,7 @@ def _run_meta(func, args, kwargs):
         ok = _CACHEABLE[func] = func.namespace == "aten" and not (
             func.is_view or schema.is_mutable or func._overloadpacket in _FREE
             or any(r.alias_info for r in schema.returns))
-    if not ok:
+    if not ok or not _tensors(args):  # a factory may make a tensor off the meta device
         return func(*args, **kwargs)
     try:
         key = (func, _meta_key(args), _meta_key(tuple(sorted(kwargs.items()))))
@@ -192,6 +199,11 @@ def collective_costs(records) -> dict:
 # an argument counts as the rows they return
 _ROW_READS = {_aten.index, _aten.embedding, _aten.index_select, _aten.gather}
 
+# ``peak_top``: the storages of at least this many bytes alive at the peak
+# (a stack walk is made only for these), the largest ``TOP_N`` of them
+TOP_MIN_BYTES = 1 << 26
+TOP_N = 12
+
 
 class CostCounter(TorchDispatchMode):
     """Counts flops, op bytes, collectives and live storage over the ops
@@ -211,6 +223,10 @@ class CostCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._storages: dict = {}
+        self._large: dict = {}
+        self.peak_top: list = []
+        self._top_stale = False
+        self.largest: dict = {"bytes": -1}
         self._in_kernel = 0
         self._records = None
         self._prev_counter = None
@@ -220,7 +236,7 @@ class CostCounter(TorchDispatchMode):
         for kind, tree in (resident or {}).items():
             for t in tree_leaves(tree):
                 if isinstance(t, torch.Tensor):
-                    self._track(t)
+                    self._track(t, f"argument {kind}")
                     self._arg_of.setdefault(id(t.untyped_storage()),
                                             (kind, t.untyped_storage().nbytes()))
 
@@ -237,7 +253,7 @@ class CostCounter(TorchDispatchMode):
                 self._arg_of[id(t.untyped_storage())] = (kind, 0)
 
     # --- live storage ---------------------------------------------------
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, op: str) -> None:
         try:
             st = t.untyped_storage()
         except (RuntimeError, NotImplementedError):
@@ -250,10 +266,24 @@ class CostCounter(TorchDispatchMode):
         def freed(_, key=key, n=n):
             if self._storages.pop(key, None) is not None:
                 self.live -= n
+                if self._large.pop(key, None) is not None:
+                    self._top_stale = True
 
         self._storages[key] = weakref.ref(st, freed)
+        if n >= TOP_MIN_BYTES or n > self.largest["bytes"]:
+            row = {"bytes": n, "op": op, "shape": list(t.shape),
+                   "dtype": str(t.dtype).replace("torch.", ""), "where": _where()}
+            if n > self.largest["bytes"]:
+                self.largest = row
+            if n >= TOP_MIN_BYTES:
+                self._large[key] = row
+                self._top_stale = True
         self.live += n
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self._top_stale:  # the large storages alive at this peak
+                self.peak_top = sorted(self._large.values(), key=lambda r: -r["bytes"])
+                self._top_stale = False
 
     # --- the dispatch ---------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -276,7 +306,7 @@ class CostCounter(TorchDispatchMode):
             if self._arg_of:
                 self._reads(packet, inputs, out)
         for t in _tensors(out):
-            self._track(t)
+            self._track(t, str(packet))
         return out
 
     def kernel_call(self, name: str, fn, args, kw, flops: Optional[int]):
@@ -302,7 +332,7 @@ class CostCounter(TorchDispatchMode):
         if self._arg_of:
             self._reads(None, inputs, out)
         for t in _tensors(out):
-            self._track(t)
+            self._track(t, f"kernel {name}")
         return out
 
     def __enter__(self):
@@ -328,8 +358,23 @@ class CostCounter(TorchDispatchMode):
         out.update({"flops_by_dtype": {k: float(v) for k, v in self.flops_by_dtype.items()},
                     "ops": self.ops, "kernel_calls": dict(self.kernel_calls),
                     "peak_bytes": int(self.peak),
+                    "peak_top": self.peak_top[:TOP_N],
+                    "largest_tensor": self.largest,
                     "read_once_bytes_by_kind": dict(self.read_once)})
         return out
+
+
+def _where() -> str:
+    """The innermost line of the port (not this module) on the Python
+    stack, as ``repro_torch/…/file.py:line``."""
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        i = fn.rfind("repro_torch")
+        if i >= 0 and not fn.endswith("hlo_analysis.py"):
+            return f"{fn[i:]}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
 
 
 def analyze(fn, *args, resident: Optional[dict] = None, **kwargs) -> tuple:

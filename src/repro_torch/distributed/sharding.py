@@ -31,6 +31,7 @@ import contextlib
 import copy
 import re
 import warnings
+import weakref
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -586,9 +587,10 @@ def tree_shard_bytes(tree: Any) -> int:
 # (:func:`batch_sum`), and that sum's adjoint is the same sum over the
 # cotangents. Each rank's gradient is then n_b times its rows' share plus
 # the terms that read the params alone (the lassos), and the step's gradient
-# is the mean of the ranks' over the batch group
-# (:func:`constrain_like_params`). For a power-of-two n_b the scaling by n_b
-# and the division by it are exact.
+# is the mean of the ranks' over the batch group (:func:`block_grad`, run
+# in the backward of each of the step's gathers, :class:`TrainParamGather`).
+# For a power-of-two n_b the scaling by n_b and the division by it are
+# exact.
 
 
 def param_shardings(mesh, params) -> Any:
@@ -667,11 +669,10 @@ def model_local(path: str) -> bool:
 
 
 def gather_params(mesh, params: Any, specs: Any) -> Any:
-    """The params the mesh train step computes on, from this rank's blocks:
+    """A subtree of this rank's blocks made what the train step computes on:
     every leaf whole, except the MoE expert stacks, which keep their
-    ``model`` block. The whole tree at once, so a step holds one gathered
-    copy of the params for all its microbatches. ``params`` itself without
-    a mesh."""
+    ``model`` block (not differentiable: :class:`TrainParamGather` is the
+    step's gather). ``params`` itself without a mesh."""
     if mesh is None:
         return params
     spec = _spec_of(specs)
@@ -679,57 +680,185 @@ def gather_params(mesh, params: Any, specs: Any) -> Any:
         x, spec[p], mesh, keep=("model",) if model_local(p) else ()), params)
 
 
-def constrain_like_params(grads: Any, mesh, specs: Any = None) -> Any:
-    """Each rank's gradients of the leaves it computed on (whole leaves, and
-    the MoE expert stacks' ``model`` blocks) → this rank's block, under the
-    params' placement ``specs``, of the batch group's mean gradient, in
-    fp32. ``specs`` defaults to :func:`param_shardings` of ``grads``, which
-    must then be whole leaves.
+def block_grad(g: torch.Tensor, spec: tuple, mesh, keep: tuple = (),
+               path: str = "") -> torch.Tensor:
+    """One leaf's gradient as this rank computed it (the whole leaf, or its
+    block along the axes in ``keep``: the MoE expert stacks keep ``model``)
+    → this rank's block, under the leaf's placement ``spec``, of the batch
+    group's mean gradient.
 
     Along ``model`` a rank takes its block locally: every rank of a
-    ``model`` group computed the same gradient (the expert stacks' blocks
-    are already local). Over the batch ranks the sum is a reduce-scatter
-    along the leaf's ``data`` dim where it is split, and an all-reduce over
-    the batch axes that split no dim of it, in fp32; then the division by
-    the batch group's size (the loss convention above). Where one rank
-    holds the whole batch a gradient keeps its dtype. Every collective
-    goes through :func:`collective`, so :func:`record_collectives` sees
-    its bytes. ``grads`` themselves without a mesh."""
-    if mesh is None:
-        return grads
-    spec = _spec_of(param_shardings(mesh, grads) if specs is None else specs)
+    ``model`` group computed the same gradient. Over the batch ranks the sum
+    is a reduce-scatter along the leaf's ``data`` dim where it is split, and
+    an all-reduce over the batch axes that split no dim of it, in fp32; then
+    the division by the batch group's size (the loss convention above).
+    Where one rank holds the whole batch the gradient keeps its dtype.
+    Every collective goes through :func:`collective`, so
+    :func:`record_collectives` sees its bytes."""
     sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
     batch = tuple(a for a in batch_axes(mesh) if sizes[a] > 1)
     nb = batch_size_on(mesh)
+    split = []
+    for dim, ax in enumerate(spec):
+        axes = tuple(a for a in _spec_axes(ax) if sizes.get(a, 1) > 1)
+        if len(axes) > 1:
+            raise ValueError(f"{path}: dim {dim} splits over {axes}; no rule does that")
+        if axes:
+            split.append((dim, axes[0]))
+    sliced = False
+    for dim, a in split:  # model (and any non-batch axis) first: less to reduce
+        if a not in batch and a not in keep:
+            w = g.shape[dim] // sizes[a]
+            g, sliced = g.narrow(dim, coords[a] * w, w), True
+    if batch:
+        g = g.float()
+    left = list(batch)
+    for dim, a in split:
+        if a in batch:
+            g = collective(g.movedim(dim, 0), axis_group(mesh, a),
+                           "reduce_scatter").movedim(0, dim)
+            left.remove(a)
+    if left:
+        g = collective(g, axis_group(mesh, tuple(left)), "all_reduce")
+    elif sliced and not any(a in batch for _, a in split):
+        g = g.clone()  # not a view that keeps the whole gradient alive
+    return g / nb if nb > 1 else g
 
-    def leaf(path, g):
-        split = []
-        for dim, ax in enumerate(spec[path]):
-            axes = tuple(a for a in _spec_axes(ax) if sizes.get(a, 1) > 1)
-            if len(axes) > 1:
-                raise ValueError(f"{path}: dim {dim} splits over {axes}; no rule does that")
-            if axes:
-                split.append((dim, axes[0]))
-        sliced = False
-        for dim, a in split:  # model (and any non-batch axis) first: less to reduce
-            if a not in batch and not (a == "model" and model_local(path)):
-                w = g.shape[dim] // sizes[a]
-                g, sliced = g.narrow(dim, coords[a] * w, w), True
-        if batch:
-            g = g.float()
-        left = list(batch)
-        for dim, a in split:
-            if a in batch:
-                g = collective(g.movedim(dim, 0), axis_group(mesh, a),
-                               "reduce_scatter").movedim(0, dim)
-                left.remove(a)
-        if left:
-            g = collective(g, axis_group(mesh, tuple(left)), "all_reduce")
-        elif sliced and not any(a in batch for _, a in split):
-            g = g.clone()  # not a view that keeps the whole gradient alive
-        return g / nb if nb > 1 else g
 
-    return map_with_path(leaf, grads)
+def constrain_like_params(grads: Any, mesh, specs: Any = None) -> Any:
+    """Each rank's gradients of the leaves it computed on (whole leaves, and
+    the MoE expert stacks' ``model`` blocks) → this rank's block of the
+    batch group's mean, leaf by leaf (:func:`block_grad`), in fp32 where
+    ranks sum. ``specs`` defaults to :func:`param_shardings` of ``grads``,
+    which must then be whole leaves. ``grads`` themselves without a mesh."""
+    if mesh is None:
+        return grads
+    spec = _spec_of(param_shardings(mesh, grads) if specs is None else specs)
+    return map_with_path(lambda p, g: block_grad(
+        g, spec[p], mesh, ("model",) if model_local(p) else (), p), grads)
+
+
+class _GatherBlock(torch.autograd.Function):
+    """:func:`gather_leaf` of a block, in the param's ``dtype``, forward;
+    backward the gradient of what it gathered reduced into the block
+    (:func:`block_grad`), in the block's own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh, keep, path, dtype):
+        ctx.spec, ctx.mesh, ctx.keep, ctx.path, ctx.dtype = spec, mesh, keep, path, x.dtype
+        out = gather_leaf(x.to(dtype), spec, mesh, keep)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = block_grad(g, ctx.spec, ctx.mesh, ctx.keep, ctx.path)
+        return g.to(ctx.dtype), None, None, None, None, None
+
+
+class TrainParamGather:
+    """The mesh train step's just-in-time gather of its params' blocks.
+
+    The step keeps every leaf as this rank's block (placed by the state's
+    ``shardings.params``) and hands the loss the blocks (:meth:`grad_leaves`)
+    and this object; the model code calls back into it, with
+    :class:`ServeParamGather`'s call shape, for what it is about to run:
+
+    * ``layer(key, lp)`` — one layer's slice of the stacked ``params[key]``,
+      called inside that layer's ``remat`` region, so the backward's
+      recompute gathers it again and nothing gathered is saved for the
+      backward;
+    * ``full(key, sub)`` — a non-stacked subtree or leaf (the embedding, the
+      DS gate, norms, a full-softmax ``unembed``, hybrid's shared block);
+    * ``expert(key, w)`` — one DS expert's ``(N, d)`` rows of the stacked
+      ``(K, N, d)`` ``params[key]`` (the head's CE, an expert at a time);
+    * ``rows(key, table, ids)`` — rows of a table gathered whole.
+
+    Each gather is differentiable (:class:`_GatherBlock`): its backward
+    reduces the gradient of what it gathered into this rank's block of the
+    batch group's mean, so ``torch.autograd.grad`` with respect to the
+    blocks returns block gradients. Where ranks sum, the blocks autograd
+    differentiates are fp32 copies of the params' (each gather casts back
+    to the param's dtype), so a gradient reduced in fp32 stays fp32 (the
+    step accumulates microbatches in fp32); where one rank holds the whole
+    batch they are the blocks themselves. The MoE expert stacks keep their
+    ``model`` block (``model_local``). On a mesh that splits nothing (1x1)
+    every call returns the block itself.
+
+    ``gathered`` collects the paths gathered since :meth:`grad_leaves` (the
+    step checks that the loss read every leaf through this object);
+    ``peak_bytes`` is the most the gathers' results held at once."""
+
+    def __init__(self, mesh, specs: Any):
+        self.mesh = mesh
+        self._spec = _spec_of(specs)
+        self._sizes = mesh_sizes(mesh)
+        self._nb = batch_size_on(mesh)
+        self._dtype: dict = {}
+        self.gathered: set = set()
+        self.live = self.peak_bytes = 0
+
+    def grad_leaves(self, params: Any) -> list:
+        """The leaves of ``params`` (this rank's blocks) for autograd to
+        differentiate, in ``tree_leaves`` order, each requiring grad: fp32
+        copies of floating leaves where the batch ranks sum, else the
+        blocks detached."""
+        self.gathered.clear()
+        out = []
+        for p, x in zip(tree_paths(params), tree_leaves(params)):
+            self._dtype[p] = x.dtype
+            x = x.detach()
+            if self._nb > 1 and x.is_floating_point():
+                x = x.float()
+            out.append(x.requires_grad_(True))
+        return out
+
+    def _leaf(self, path: str, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        self.gathered.add(path)
+        keep = ("model",) if model_local(path) else ()
+        splits = any(a not in keep and self._sizes.get(a, 1) > 1
+                     for ax in spec for a in _spec_axes(ax))
+        if not splits and self._nb == 1:
+            return x
+        out = _GatherBlock.apply(x, spec, self.mesh, keep, path, self._dtype.get(path, x.dtype))
+        if splits:
+            self._count(out)
+        return out
+
+    def _count(self, t: torch.Tensor) -> None:
+        n = t.untyped_storage().nbytes()
+        self.live += n
+        self.peak_bytes = max(self.peak_bytes, self.live)
+
+        def freed(_, n=n):
+            self.live -= n
+
+        weakref.finalize(t.untyped_storage(), freed, None)
+
+    def _tree(self, key: str, sub: Any, drop_leading: bool) -> Any:
+        def leaf(p, x):
+            path = f"{key}/{p}" if p else key
+            s = self._spec[path]
+            return self._leaf(path, x, s[1:] if drop_leading else s)
+
+        return map_with_path(leaf, sub)
+
+    def layer(self, key: str, layer_params: Any) -> Any:
+        """ONE layer's slice of the stacked ``params[key]``, gathered."""
+        return self._tree(key, layer_params, drop_leading=True)
+
+    def full(self, key: str, sub: Any) -> Any:
+        """A non-stacked subtree or leaf ``params[key]``, gathered whole."""
+        return self._tree(key, sub, drop_leading=False)
+
+    def expert(self, key: str, w: torch.Tensor) -> torch.Tensor:
+        """One expert's block of the stacked ``(K, N, d)`` ``params[key]``
+        → its whole ``(N, d)`` rows."""
+        return self._tree(key, w, drop_leading=True)
+
+    def rows(self, key: str, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """``table[ids]``, the table gathered whole (its gradient is a
+        scatter into the whole table, reduced into the block)."""
+        return self.full(key, table)[ids.long()]
 
 
 def global_norm(tree: Any, mesh, specs: Any) -> torch.Tensor:

@@ -33,9 +33,14 @@ it as zero tokens (``core.dssoftmax._overflow_fixup``).
 
 Each cell's JSON holds, per rank: ``memory`` (``argument_bytes``: the
 rank's resident state, or its params, table and cache, and its inputs;
-``gathered_bytes``: what the step gathers at once; ``peak_bytes``: the
-most alive at once over the trace, autograd's saved tensors included;
-``fits`` against the card's memory), ``repro_placement_argument_bytes``
+``gathered_bytes``: the most the step holds gathered at once — a train
+step's ``TrainParamGather`` measures it over the trace (one layer, one DS
+expert's rows, the small leaves), a serving step's is its largest FSDP
+gather less the rank's block; ``peak_bytes``: the most alive at once over
+the trace, autograd's saved tensors included; ``peak_top``: the largest
+tensors alive at that peak, by op, shape, dtype and the port's source
+line, and ``largest_tensor`` the largest made at any time; ``fits``
+against the card's memory), ``repro_placement_argument_bytes``
 (the same arguments placed by ``repro``'s rules: ``param_shardings``,
 ``cache_shardings``, ``serve_table_shardings``, ``input_shardings``),
 ``cost`` (``hlo_analysis``) and ``roofline`` (``distributed.roofline``).
@@ -144,39 +149,15 @@ class Cell:
     fn: Any                # the traced call, fn() → its output
     arguments: dict        # name → tree of this rank's meta tensors alive at entry
     calls: int             # times the call runs per cell step (prefill: one per request)
-    gathered_bytes: int    # what the step gathers at once
+    gathered: Any          # () → the bytes the step holds gathered at once, after the trace
     repro_placement: int   # the arguments' bytes a rank holds under repro's rules
     microbatches: Optional[int] = None
 
 
-def _gathered_train_bytes(params, specs, mesh) -> int:
-    """The param bytes ``gather_params`` brings a rank at once: each leaf
-    whole (the MoE expert stacks their ``model`` block), less the block
-    the rank holds."""
-    sizes = shard.mesh_sizes(mesh) if mesh is not None else {}
-    spec = dict(zip(tree_paths(specs), tree_leaves(specs))) if specs is not None else {}
-    total = 0
-    for p, x in zip(tree_paths(params), tree_leaves(params)):
-        s = spec.get(p, ())
-        nbytes = x.numel() * x.element_size()
-        split = keep = 1
-        for ax in s:
-            for a in shard._spec_axes(ax):
-                split *= sizes.get(a, 1)
-                if a == "model" and shard.model_local(p):
-                    keep *= sizes.get(a, 1)
-        total += nbytes // keep - nbytes // split
-    return total
-
-
-def train_state_bytes(mesh, state) -> dict:
+def train_state_bytes(mesh, state) -> int:
     """One rank's bytes of a ``TrainState`` placed on ``mesh`` (a
-    DeviceMesh, or ``{axis name: size}``) by ``train_state_shardings``, and
-    the param bytes the mesh step's gather brings it a step."""
-    specs = shard.train_state_shardings(mesh, state)
-    return {"resident_bytes": shard.placed_bytes(state, specs, mesh),
-            "gathered_param_bytes_per_step": _gathered_train_bytes(state.params, specs.params,
-                                                                  mesh)}
+    DeviceMesh, or ``{axis name: size}``) by ``train_state_shardings``."""
+    return shard.placed_bytes(state, shard.train_state_shardings(mesh, state), mesh)
 
 
 def _gathered_serve_bytes(params, mesh) -> int:
@@ -279,9 +260,8 @@ def trace_cell(mesh, cfg: ModelConfig, shape: ShapeConfig, *,
         def fn():  # the caller keeps its state until the step returns, as a trainer does
             return step(local, specs)
 
-        return Cell(cfg, shape, fn, {"state": local, "batch": specs}, 1,
-                    _gathered_train_bytes(params, st_specs and st_specs.params, mesh), repro,
-                    micro)
+        gathered = (lambda: step.gather.peak_bytes) if mesh is not None else (lambda: 0)
+        return Cell(cfg, shape, fn, {"state": local, "batch": specs}, 1, gathered, repro, micro)
 
     table = _serve_table(cfg, v_pad)
     if table is not None:  # the serve table holds the head's rows; the session needs the gate
@@ -320,7 +300,8 @@ def trace_cell(mesh, cfg: ModelConfig, shape: ShapeConfig, *,
                                    gather=gather, with_stats=True, local_rows=slots.splits)
 
         calls = 1
-    return Cell(cfg, shape, fn, args, calls, _gathered_serve_bytes(params, mesh), repro)
+    served = _gathered_serve_bytes(params, mesh)
+    return Cell(cfg, shape, fn, args, calls, lambda: served, repro)
 
 
 def card_memory() -> tuple:
@@ -340,6 +321,8 @@ def count_cell(cell: Cell, n_devices: int) -> dict:
     _, cost = analyze(cell.fn, resident=cell.arguments)
     trace_s = time.perf_counter() - t0
     peak = cost.pop("peak_bytes")
+    peak_top = cost.pop("peak_top")
+    largest = cost.pop("largest_tensor")
     read_once = cost.pop("read_once_bytes_by_kind")
     if cell.calls > 1:  # the same call once per request
         for key in ("flops", "bytes", "coll_operand_bytes", "coll_wire_bytes",
@@ -359,8 +342,10 @@ def count_cell(cell: Cell, n_devices: int) -> dict:
             "argument_bytes_by_kind": arg_bytes,
             # the bytes of each kind of argument the step reads, each once
             "read_once_bytes_by_kind": read_once,
-            "gathered_bytes": cell.gathered_bytes,
+            "gathered_bytes": cell.gathered(),
             "peak_bytes": peak,
+            "peak_top": peak_top,
+            "largest_tensor": largest,
             "step_bytes": peak - argument,
             "card_bytes": card_bytes,
             "card": card,

@@ -37,6 +37,7 @@ from repro_torch.models.layers import (
     layernorm,
     mlp,
     stacked_layer,
+    whole,
 )
 from repro_torch.models.transformer import remat
 
@@ -97,7 +98,9 @@ def _run(cfg: ModelConfig, body, train: bool, *args):
     return remat(cfg, body, *args) if train else body(*args)
 
 
-def _enc_layer(cfg: ModelConfig, train: bool, x, lp, positions):
+def _enc_layer(cfg: ModelConfig, train: bool, x, lp, positions, gather=None):
+    if gather is not None:  # inside the layer's remat region in training
+        lp = gather.layer("enc_layers", lp)
     h, _ = attention_block(lp["attn"], cfg, layernorm(lp["ln1"], x), positions, causal=False,
                            train=train)
     x = x + h
@@ -107,19 +110,21 @@ def _enc_layer(cfg: ModelConfig, train: bool, x, lp, positions):
 def encode(params, cfg: ModelConfig, frames: torch.Tensor, train: bool = False,
            gather=None) -> torch.Tensor:
     """frames: (B, F, d) stub embeddings → the encoder memory (B, F, d).
-    ``gather`` serves from FSDP-stored weights (each layer gathered where
-    it runs)."""
+    ``gather`` serves from FSDP-stored weights, or trains from the mesh
+    train step's blocks: each layer gathered where it runs (in training
+    inside its ``remat`` region)."""
     B, F, _ = frames.shape
     x = frames + sinusoidal(F, cfg.d_model, device=frames.device).to(frames.dtype)[None]
     positions = torch.arange(F, device=x.device).expand(B, F)
-    body = functools.partial(_enc_layer, cfg, train)
+    body = functools.partial(_enc_layer, cfg, train, gather=gather)
     for i in range(cfg.n_encoder_layers):
-        x = _run(cfg, body, train, x, stacked_layer(params["enc_layers"], i, gather, "enc_layers"),
-                 positions)
-    return layernorm(params["enc_norm"], x)
+        x = _run(cfg, body, train, x, stacked_layer(params["enc_layers"], i), positions)
+    return layernorm(whole(params["enc_norm"], gather, "enc_norm"), x)
 
 
-def _dec_layer(cfg: ModelConfig, train: bool, x, lp, positions, memory):
+def _dec_layer(cfg: ModelConfig, train: bool, x, lp, positions, memory, gather=None):
+    if gather is not None:  # inside the layer's remat region in training
+        lp = gather.layer("dec_layers", lp)
     h, (k, v) = attention_block(lp["self_attn"], cfg, layernorm(lp["ln1"], x), positions,
                                 train=train)
     x = x + h
@@ -131,31 +136,32 @@ def _decoder_hidden(params, cfg: ModelConfig, tokens, memory, train: bool = Fals
                     gather=None):
     """tokens (B, S) at positions 0..S-1 against ``memory`` → (final normed
     hidden (B, S, d), the self K and V of every layer, (L, B, S, KV, dh)
-    each)."""
+    each). ``gather`` as in :func:`encode`."""
     B, S = tokens.shape
     x = embed(params["embed"], tokens, gather) + _pos_rows(params, torch.arange(
         S, device=tokens.device), gather)[None]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    body = functools.partial(_dec_layer, cfg, train)
+    body = functools.partial(_dec_layer, cfg, train, gather=gather)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = _run(cfg, body, train, x, stacked_layer(params["dec_layers"], i, gather,
-                                                          "dec_layers"), positions, memory)
+        x, k, v = _run(cfg, body, train, x, stacked_layer(params["dec_layers"], i), positions,
+                       memory)
         ks.append(k)
         vs.append(v)
-    return layernorm(params["dec_norm"], x), torch.stack(ks), torch.stack(vs)
+    return layernorm(whole(params["dec_norm"], gather, "dec_norm"), x), torch.stack(ks), \
+        torch.stack(vs)
 
 
-def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None):
+def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None, gather=None):
     """batch: frames (B, F, d), tokens (B, S+1). → (total loss, metrics
-    dict of 0-d tensors). ``mesh``: as in ``transformer.train_loss`` (only
-    the head reads it)."""
-    memory = encode(params, cfg, batch["frames"].to(cfg.jdtype), train=True)
+    dict of 0-d tensors). ``mesh`` and ``gather``: as in
+    ``transformer.train_loss``."""
+    memory = encode(params, cfg, batch["frames"].to(cfg.jdtype), train=True, gather=gather)
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    h, _, _ = _decoder_hidden(params, cfg, inputs, memory, train=True)
+    h, _, _ = _decoder_hidden(params, cfg, inputs, memory, train=True, gather=gather)
     ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
-                              embed_table=params["embed"]["table"], mesh=mesh)
+                              embed_table=params["embed"]["table"], mesh=mesh, gather=gather)
     return ce + aux["head_aux_total"], {"ce": ce, **aux}
 
 

@@ -70,12 +70,18 @@ def _full_ce(w, h, labels, label_mask, mesh=None):
 
 def head_loss(head_params, ds_state, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
               embed_table: Optional[torch.Tensor] = None,
-              label_mask: Optional[torch.Tensor] = None, mesh=None):
+              label_mask: Optional[torch.Tensor] = None, mesh=None, gather=None):
     """→ (task_ce, aux_losses_dict). h: (B, S, d). ``mesh``: h is this
-    rank's batch share, and the CE and aux losses are the whole batch's."""
+    rank's batch share, and the CE and aux losses are the whole batch's.
+    ``gather`` (the mesh train step's ``TrainParamGather``): the head's
+    leaves are this rank's blocks; a DS head gathers its gate whole and
+    its experts one at a time inside the CE (``ds.loss_rows``), a full
+    softmax its ``(V, d)`` operand whole."""
     if cfg.head == "ds":
+        if gather is not None:
+            head_params = dict(head_params, gate=gather.full("head/gate", head_params["gate"]))
         ce, aux = ds.loss_rows(head_params, ds_state, h, labels, cfg.ds,
-                               label_mask=label_mask, mesh=mesh)
+                               label_mask=label_mask, mesh=mesh, gather=gather)
         dcfg = cfg.ds
         aux_total = (dcfg.lambda_lasso * aux.lasso + dcfg.lambda_expert * aux.expert_lasso
                      + dcfg.lambda_load * aux.load)
@@ -86,7 +92,11 @@ def head_loss(head_params, ds_state, cfg: ModelConfig, h: torch.Tensor, labels: 
             "ds_drop_frac": aux.drop_frac,
             "head_aux_total": aux_total,
         }
-    w = embed_table if cfg.tie_embeddings else head_params["unembed"]
+    if cfg.tie_embeddings:
+        w = embed_table if gather is None else gather.full("embed/table", embed_table)
+    else:
+        w = head_params["unembed"] if gather is None else gather.full(
+            "head/unembed", head_params["unembed"])
     ce = _full_ce(w, h, labels, label_mask, mesh=mesh)
     return ce, {"head_aux_total": torch.zeros((), dtype=torch.float32, device=h.device)}
 

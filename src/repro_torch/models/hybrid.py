@@ -38,6 +38,7 @@ from repro_torch.models.layers import (
     mlp,
     rmsnorm,
     stacked_layer,
+    whole,
 )
 from repro_torch.models.mamba2 import (
     init_mamba2,
@@ -133,7 +134,11 @@ def _gather_shared(params, gather):
     return dict(params, shared_attn=gather.full("shared_attn", params["shared_attn"]))
 
 
-def _mamba_residual(cfg: ModelConfig, x, lp):
+def _mamba_residual(cfg: ModelConfig, x, lp, gather=None):
+    """x + the mamba layer of norm(x); ``gather``: ``lp`` is this rank's
+    block of the layer, gathered here (inside its ``remat`` region)."""
+    if gather is not None:
+        lp = gather.layer("layers", lp)
     return x + mamba2_block(lp["mamba"], cfg, rmsnorm(lp["ln"], x))
 
 
@@ -142,14 +147,20 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=Fals
     """x: (B, S, d) embeddings → (final normed hidden, aux 0, and with
     ``collect_state`` the :class:`HybridCache` sized to S). In training
     (``train=True``) ``cfg.remat`` checkpoints each mamba layer as
-    ``transformer.forward_hidden`` checkpoints each layer. ``gather``
-    serves from FSDP-stored weights."""
+    ``transformer.forward_hidden`` checkpoints each layer, and each
+    application of the shared block likewise. ``gather`` serves from
+    FSDP-stored weights; in training it is the mesh train step's
+    ``TrainParamGather``. In both, each mamba layer is gathered where it
+    runs (in training inside its ``remat`` region) and the shared block
+    whole once."""
     params = _gather_shared(params, gather)
     conv, ssm, ks, vs = [], [], [], []
-    body = functools.partial(_mamba_residual, cfg)
+    body = functools.partial(_mamba_residual, cfg, gather=gather)
 
     def mamba_op(lp, i, x):
         if collect_state:
+            if gather is not None:
+                lp = gather.layer("layers", lp)
             out, (c, s) = mamba2_block(lp["mamba"], cfg, rmsnorm(lp["ln"], x),
                                        return_state=True)
             conv.append(c)
@@ -157,17 +168,23 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=Fals
             return x + out
         return remat(cfg, body, x, lp) if train else body(x, lp)
 
+    def shared(x, sa):
+        return _shared_block(sa, cfg, x, lambda xn: attention_block(
+            sa["attn"], cfg, xn, positions, train=True)[0])
+
     def attn_op(x, gi):
+        if train:  # the K/V appends serve only collect_state
+            return remat(cfg, shared, x, params["shared_attn"])
+
         def attn(xn):
-            h, (k, v) = attention_block(params["shared_attn"]["attn"], cfg, xn, positions,
-                                        train=train)
+            h, (k, v) = attention_block(params["shared_attn"]["attn"], cfg, xn, positions)
             ks.append(k)
             vs.append(v)
             return h
         return _shared_block(params["shared_attn"], cfg, x, attn)
 
-    x = _walk(params, cfg, x, mamba_op, attn_op, gather)
-    h = rmsnorm(params["final_norm"], x)
+    x = _walk(params, cfg, x, mamba_op, attn_op)
+    h = rmsnorm(whole(params["final_norm"], gather, "final_norm"), x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_state:
         return h, aux
@@ -180,17 +197,18 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, *, collect_state=Fals
     return h, HybridCache(conv=torch.stack(conv), ssm=torch.stack(ssm), attn_k=ak, attn_v=av)
 
 
-def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None):
+def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None, gather=None):
     """batch: tokens (B, S+1). → (total loss, metrics dict of 0-d tensors).
-    ``mesh``: as in ``transformer.train_loss`` (only the head reads it)."""
+    ``mesh`` and ``gather``: as in ``transformer.train_loss``."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    x = embed(params["embed"], inputs)
+    x = embed(params["embed"], inputs, gather)
     B, S = inputs.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    h, _ = forward_hidden(params, cfg, x, positions, train=True)
+    h, _ = forward_hidden(params, cfg, x, positions, train=True, gather=gather)
     ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
-                              embed_table=params["embed"]["table"], label_mask=None, mesh=mesh)
+                              embed_table=params["embed"]["table"], label_mask=None, mesh=mesh,
+                              gather=gather)
     return ce + aux["head_aux_total"], {"ce": ce, **aux}
 
 

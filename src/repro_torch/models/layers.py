@@ -393,6 +393,12 @@ def embed(params, tokens: torch.Tensor, gather=None) -> torch.Tensor:
     return params["table"][tokens]
 
 
+def whole(sub, gather=None, key: str = ""):
+    """``sub`` (``params[key]``, a non-stacked subtree or leaf); with
+    ``gather`` gathered whole where it is used."""
+    return sub if gather is None else gather.full(key, sub)
+
+
 def stacked_layer(stacked, i: int, gather=None, key: str = "layers"):
     """Layer ``i``'s slice of the stacked ``(L, …)`` params ``stacked``
     (``params[key]``); with ``gather`` gathered whole, so the full layer

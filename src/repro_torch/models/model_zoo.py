@@ -97,7 +97,8 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         cfg=cfg,
         device=dev,
         init=lambda gen: mod.init_params(gen, cfg, device=dev),
-        train_loss=lambda p, s, batch, mesh=None: mod.train_loss(p, s, cfg, batch, mesh=mesh),
+        train_loss=lambda p, s, batch, mesh=None, gather=None: mod.train_loss(
+            p, s, cfg, batch, mesh=mesh, gather=gather),
         prefill=lambda p, t, batch, k=8, kernel=None, mesh=None, gather=None: mod.prefill(
             p, t, cfg, batch, k=k, kernel=kernel, mesh=mesh, gather=gather),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None, capacity_factor=None,
@@ -133,8 +134,8 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> ModelBundle:
         cfg=cfg,
         device=dev,
         init=lambda gen: encdec.init_params(gen, cfg, device=dev, max_target_len=MAX_TARGET_LEN),
-        train_loss=lambda p, s, batch, mesh=None: encdec.train_loss(p, s, cfg, batch,
-                                                                     mesh=mesh),
+        train_loss=lambda p, s, batch, mesh=None, gather=None: encdec.train_loss(
+            p, s, cfg, batch, mesh=mesh, gather=gather),
         prefill=lambda p, t, batch, k=8, kernel=None, mesh=None, gather=None: encdec.prefill(
             p, t, cfg, batch, k=k, kernel=kernel, mesh=mesh, gather=gather),
         decode_step=lambda p, t, cache, tok, pos, k=8, kernel=None, capacity_factor=None,

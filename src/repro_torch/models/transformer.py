@@ -33,6 +33,7 @@ from repro_torch.models.layers import (
     mlp,
     rmsnorm,
     stacked_layer,
+    whole,
 )
 
 
@@ -91,9 +92,13 @@ def _ffn_residual(lp, cfg: ModelConfig, x, mesh=None):
 # ---------------------------------------------------------------------------
 
 
-def _layer_body(cfg: ModelConfig, x, layer_params, positions, mesh=None):
+def _layer_body(cfg: ModelConfig, x, layer_params, positions, mesh=None, gather=None):
     """One train layer: the differentiable attention, then the FFN. →
-    (new x, the layer's MoE aux load loss, 0-d; zero for an MLP)."""
+    (new x, the layer's MoE aux load loss, 0-d; zero for an MLP).
+    ``gather``: ``layer_params`` is this rank's block of the layer, gathered
+    here, inside the layer's ``remat`` region."""
+    if gather is not None:
+        layer_params = gather.layer("layers", layer_params)
     h, _ = attention_block(layer_params["attn"], cfg, rmsnorm(layer_params["ln1"], x),
                            positions, train=True)
     x, aux = _ffn_residual(layer_params, cfg, x + h, mesh=mesh)
@@ -127,16 +132,20 @@ def remat(cfg: ModelConfig, body, *args):
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
-def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions, mesh=None):
+def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, positions, mesh=None,
+                   gather=None):
     """x: (B, S, d) embeddings → (final normed hidden (B, S, d), the sum of
     the layers' MoE aux load losses: a 0-d zero without MoE). ``mesh``: the
-    mesh train step's (x is this rank's batch share)."""
-    body = functools.partial(_layer_body, cfg, mesh=mesh)
+    mesh train step's (x is this rank's batch share); ``gather``: its
+    ``TrainParamGather`` (``params`` are this rank's blocks), each layer
+    gathered inside its ``remat`` region, so nothing gathered is saved."""
+    body = functools.partial(_layer_body, cfg, mesh=mesh, gather=gather)
     auxs = []
     for i in range(cfg.n_layers):
         x, aux = remat(cfg, body, x, stacked_layer(params["layers"], i), positions)
         auxs.append(aux)
-    return rmsnorm(params["final_norm"], x), torch.sum(torch.stack(auxs))
+    return (rmsnorm(whole(params["final_norm"], gather, "final_norm"), x),
+            torch.sum(torch.stack(auxs)))
 
 
 def embed_inputs(params, cfg: ModelConfig, batch, gather=None):
@@ -161,21 +170,24 @@ def embed_inputs(params, cfg: ModelConfig, batch, gather=None):
     return x, positions, label_mask
 
 
-def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None):
+def train_loss(params, ds_state, cfg: ModelConfig, batch, mesh=None, gather=None):
     """batch: tokens (B, S+1) [+ patches (B, P, d)]. → (total_loss, metrics
     dict of 0-d tensors). The CE covers the text positions only; a moe
     config adds ``router_aux_weight`` × the layers' aux load losses.
     ``mesh``: the batch is this rank's share of the mesh train step's, and
     the loss and metrics are the whole batch's (``distributed.sharding``'s
-    loss convention)."""
+    loss convention); ``gather``: ``params`` are this rank's blocks, read
+    through the step's ``TrainParamGather``."""
     tokens = batch["tokens"]
-    x, positions, label_mask = embed_inputs(params, cfg, {**batch, "tokens": tokens[:, :-1]})
+    x, positions, label_mask = embed_inputs(params, cfg, {**batch, "tokens": tokens[:, :-1]},
+                                            gather)
     labels = tokens[:, 1:]
-    h, moe_aux = forward_hidden(params, cfg, x, positions, mesh=mesh)
+    h, moe_aux = forward_hidden(params, cfg, x, positions, mesh=mesh, gather=gather)
     if label_mask is not None:  # labels align with the text suffix
         h = h[:, x.shape[1] - labels.shape[1]:]
     ce, aux = heads.head_loss(params["head"], ds_state, cfg, h, labels,
-                              embed_table=params["embed"]["table"], label_mask=None, mesh=mesh)
+                              embed_table=params["embed"]["table"], label_mask=None, mesh=mesh,
+                              gather=gather)
     moe_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
     total = ce + aux["head_aux_total"] + moe_w * moe_aux
     return total, {"ce": ce, "moe_aux": moe_aux, **aux}

@@ -349,6 +349,65 @@ def test_decode_cell_traces_the_slot_split_cache():
     assert out[0].shape == out[1].shape == (8, 8)
 
 
+def test_train_cell_gathers_a_layer_at_a_time():
+    """A reduced DS train cell (8 layers, d 256, layer remat) traced as rank 0
+    of a fake world of 8 (4x2): the mesh step keeps the params as blocks
+    and gathers one layer, one expert or one small leaf at a time, so its
+    step peak (peak less arguments) stays below the whole params' bytes,
+    and what it holds gathered at once (``gathered_bytes``) below a
+    quarter of them."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = reduce_config(get_config("qwen2-1.5b")).replace(remat="layer", n_layers=8,
+                                                          d_model=256, d_ff=512)
+    shape = ShapeConfig(name="tiny_train", seq_len=16, global_batch=8, kind="train")
+    with fake_world(8):
+        mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+        rec = dryrun.run_cell(mesh, "4x2", "qwen2-1.5b", shape.name, cfg=cfg, shape=shape,
+                              microbatches=1)
+    m, whole = rec["memory"], rec["param_bytes_global"]
+    assert cfg.head == "ds" and 0 < m["step_bytes"] < whole
+    assert 0 < m["gathered_bytes"] < whole // 4
+
+
+def test_loss_rows_widens_one_expert_at_a_time(monkeypatch):
+    """``loss_rows`` with bf16 experts (K 4, N 256, d 32; capacity 80, two
+    chunks an expert), forward and backward, traced by ``CostCounter``: no
+    tensor of the whole experts' K·N·d fp32 elements is ever made (each
+    expert's (N, d) rows are widened on their own, inside its checkpoint)."""
+    K, N, d, B, S = 4, 256, 32, 2, 256
+    g = torch.Generator().manual_seed(3)
+    params, st = ds.init(g, d, N, ds.DSSoftmaxConfig(num_experts=K), dtype=torch.bfloat16,
+                         device="cpu")
+    gate, experts = (params[k].detach().requires_grad_(True) for k in ("gate", "experts"))
+    h = torch.randn(B, S, d, generator=g).to(torch.bfloat16).requires_grad_(True)
+    labels = torch.randint(0, N, (B, S), generator=g)
+    counter = hlo_analysis.CostCounter()
+    with counter:
+        ce, aux = ds.loss_rows({"gate": gate, "experts": experts}, st, h, labels,
+                               ds.DSSoftmaxConfig(num_experts=K))
+        total = ce + aux.lasso + aux.expert_lasso + aux.load
+        grads = torch.autograd.grad(total, (gate, experts, h))
+    assert all(torch.isfinite(x.float()).all() for x in grads)
+    assert counter.largest["bytes"] < K * N * d * 4, counter.largest
+    # the same trace listing every storage alive at the peak, largest
+    # first, each by its op and the line that made it (the port's, or "?"
+    # for a backward op this test asked for)
+    monkeypatch.setattr(hlo_analysis, "TOP_MIN_BYTES", 0)
+    monkeypatch.setattr(hlo_analysis, "TOP_N", 1000)
+    counter = hlo_analysis.CostCounter()
+    with counter:
+        ce, aux = ds.loss_rows({"gate": gate, "experts": experts}, st, h, labels,
+                               ds.DSSoftmaxConfig(num_experts=K))
+        torch.autograd.grad(ce + aux.lasso + aux.expert_lasso + aux.load, (gate, experts, h))
+    top = counter.totals()["peak_top"]
+    assert sum(r["bytes"] for r in top) == counter.peak
+    assert [r["bytes"] for r in top] == sorted((r["bytes"] for r in top), reverse=True)
+    assert all(r["op"].startswith("aten.") for r in top)
+    assert {r["where"] for r in top} >= {"?"} and any(
+        r["where"].startswith("repro_torch/core/dssoftmax.py:") for r in top)
+
+
 def test_production_mesh_groups_split_nvlink_from_network():
     from repro_torch.launch.mesh import make_production_mesh
 

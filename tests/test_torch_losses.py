@@ -164,10 +164,12 @@ def test_loss_matches_repro(mode, dispatch, cf):
         np.testing.assert_allclose(_np(a), np.asarray(b), **TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("S,with_label_mask", [(16, False), (64, False), (64, True)])
+@pytest.mark.parametrize("S,with_label_mask", [(16, False), (64, False), (64, True),
+                                               (256, False)])
 def test_loss_rows_matches_repro(S, with_label_mask):
-    """S 16 at K 4 gives capacity 5 (one chunk); S 64 capacity 20 (two
-    chunks under checkpoint)."""
+    """One expert at a time: S 16 at K 4 gives capacity 5 and S 64 capacity
+    20 (one chunk an expert); S 256 capacity 80 (two chunks an expert,
+    under checkpoint)."""
     B, K, N, d = 3, 4, 48, 16
     gate, experts, mask, _, _ = _head(4, K=K, N=N, d=d)
     rng = np.random.RandomState(5)

@@ -461,8 +461,8 @@ def test_trainer_retry_ends_where_an_uninterrupted_run_does(tmp_path, where):
     else:
         loss = tb.train_loss
 
-        def faulty_loss(p, s, b):
-            out = loss(p, s, b)
+        def faulty_loss(p, s, b, **kw):
+            out = loss(p, s, b, **kw)
             fails["calls"] += 1
             if fails["calls"] == 3 and fails["left"]:
                 fails["left"] -= 1
@@ -479,7 +479,7 @@ def test_trainer_gives_up_after_max_retries(tmp_path):
     tb, pipe, tc = _tiny(tmp_path, 4, 100)
     tr = Trainer(tb, tc, iter(pipe), pipeline=pipe, max_retries=1)
 
-    def broken(p, s, b):
+    def broken(p, s, b, **kw):
         raise RuntimeError("always fails")
 
     object.__setattr__(tb, "train_loss", broken)

@@ -5,14 +5,17 @@ step (which ``tests/test_torch_train.py`` holds against ``repro``) and
 against ``repro``.
 
 One world per mesh: 1x2, 2x1 and 2x2 (``tests/_spmd.py``, one process per
-rank, every check of a world in one go). Each world steps four reduced
-configs 3 times from the same seeded state on the same batches of 8 rows:
-dense (qwen2-1.5b, full-softmax head tied to the embedding), moe
+rank, every check of a world in one go). Each world steps six reduced
+configs 3 times (hybrid once) from the same seeded state on the same batches
+of 8 rows: dense (qwen2-1.5b, full-softmax head tied to the embedding), moe
 (olmoe-1b-7b with a DS head, through the expert-parallel FFN wherever the
 mesh has a model axis; microbatches 2), DS (qwen2-1.5b, gamma 1.0, so the
-mask prunes) in fp32, and DS in bf16 (microbatches 2). The 1x2 world also
-runs one layer's expert-parallel FFN at model 2, the 4-rank world on a 1x4
-mesh at model 4. While the worlds run, this process computes the port's
+mask prunes) in fp32, DS in bf16 (microbatches 2), hybrid (zamba2-7b: mamba
+layers and the shared attention block, each under ``remat``) and encdec
+(whisper-base on 8 seeded frames a row, every layer under ``remat``;
+microbatches 2), both fp32 with a DS head. The 1x2 world also runs one
+layer's expert-parallel FFN at model 2, the 4-rank world on a 1x4 mesh at
+model 4. While the worlds run, this process computes the port's
 single-device references and ``repro``'s off-mesh ``moe_block``, and one
 subprocess with 4 host devices runs ``repro``'s own ``_moe_ep_shardmap`` (at
 1x2 and 1x4) and its sharded train step at 2x2 on the dense, DS and moe
@@ -26,7 +29,12 @@ Tolerances:
   is ≈ lr·sign(g) there, and a gradient of rounding noise, such as the K
   bias's, which is zero in exact arithmetic, takes either sign) within
   2·lr per step; loss, CE and grad norm rtol 1e-5; masks equal but for
-  rows whose norm is within 1e-6 of gamma (counted).
+  rows whose norm is within 1e-6 of gamma (counted). The hybrid case
+  steps once: from its second step on, its state turns on the last bit of
+  the grad norm, which the mesh sums in another order (the gradient is
+  clipped to norm 1 from about 21). Its single-device step with the clip
+  threshold moved by one part in 10^7 parts from itself by 1.28e-5 in the
+  mamba ``in_bc`` after 3 steps, as the mesh step does.
 * bf16 states: bit for bit, or params within 2·lr per step (``chip_smoke.py``
   phase 7 (a2)'s rule), loss, CE and grad norm rtol 1e-3, masks equal; the
   first moments within 2^-5 and the second within 2^-4 of each leaf's
@@ -62,7 +70,15 @@ CASES = {  # name: (arch, dtype, head, microbatches)
     "moe": ("olmoe-1b-7b", "float32", "ds", 2),
     "ds": ("qwen2-1.5b", "float32", "ds", 1),
     "ds_bf16": ("qwen2-1.5b", "bfloat16", "ds", 2),
+    "hybrid": ("zamba2-7b", "float32", "ds", 1),
+    "encdec": ("whisper-base", "float32", "ds", 2),
 }
+# the cases whose layers run under ``remat`` (the gather runs again in the
+# backward's recompute), and the frames a row of the encdec case
+REMAT_CASES = ("hybrid", "encdec")
+FRAMES = 8
+# the cases stepped fewer than STEPS times (module docstring)
+CASE_STEPS = {"hybrid": 1}
 # the cases repro's own sharded step runs at 2x2 (in the 4-device subprocess)
 REPRO_STEP_CASES = ("dense", "ds", "moe")
 EP_B, EP_S = 4, 16
@@ -79,12 +95,27 @@ def case_cfg(name):
     arch, dtype, head, _ = CASES[name]
     cfg = configs.reduce_config(configs.get_config(arch), vocab=VOCAB).replace(
         dtype=dtype, head=head)
+    if name in REMAT_CASES:
+        cfg = cfg.replace(remat="layer")
     return cfg.replace(ds=cfg.ds.replace(gamma=1.0, lambda_lasso=1e-3, lambda_expert=1e-3))
 
 
 def batches():
     rng = np.random.RandomState(1)
     return [rng.randint(0, VOCAB, (B, S + 1)).astype(np.int64) for _ in range(STEPS)]
+
+
+def case_batches(name):
+    """``batches()`` as the case's batch dicts of tensors (its first
+    ``CASE_STEPS`` of them): the tokens, and for the encdec case seeded
+    frames (B, FRAMES, d)."""
+    out = [{"tokens": torch.from_numpy(tok)} for tok in batches()[:CASE_STEPS.get(name)]]
+    if CASES[name][0] == "whisper-base":
+        rng = np.random.RandomState(2)
+        d = case_cfg(name).d_model
+        for b in out:
+            b["frames"] = torch.from_numpy(rng.randn(B, FRAMES, d).astype(np.float32))
+    return out
 
 
 def initial_state(name):
@@ -130,12 +161,13 @@ def _step_cases(mesh, arrays, info):
     for name in CASES:
         bundle, state = initial_state(name)
         local, specs = sharding.shard_train_state(mesh, state)
+        grad_parts = _block_grads_two_ways(bundle, mesh, local, specs, name)
         step = make_train_step(bundle, TrainConfig(lr=LR, microbatches=CASES[name][3]),
                                mesh=mesh, shardings=specs)
         hist, recs = [], []
-        for tok in batches():
+        for batch in case_batches(name):
             with sharding.record_collectives() as rec:
-                local, m = step(local, {"tokens": torch.from_numpy(tok)})
+                local, m = step(local, batch)
             hist.append({k: float(v) for k, v in m.items()})
             recs.append([(op, list(shape), str(dt), n) for op, shape, dt, n in rec])
         whole = sharding.gather_tree(mesh, local, specs)
@@ -143,7 +175,34 @@ def _step_cases(mesh, arrays, info):
             arrays[f"{name}/{k}"] = _np(v)
         info[name] = {"metrics": hist, "collectives": recs,
                       "resident_bytes": sharding.tree_shard_bytes(local),
-                      "whole_bytes": sharding.tree_shard_bytes(state)}
+                      "whole_bytes": sharding.tree_shard_bytes(state),
+                      "block_grads_two_ways": grad_parts}
+
+
+def _block_grads_two_ways(bundle, mesh, local, specs, name):
+    """The first microbatch's gradients of the first batch, this rank's
+    blocks, two ways: through the step's gather (``TrainParamGather``, each
+    gather's backward reducing into its block) and as whole-leaf gradients
+    of ``gather_params``' tree reduced by ``constrain_like_params`` → {leaf:
+    (max |difference|, max |the second|)}."""
+    from repro_torch.core import dssoftmax as ds
+    from repro_torch.distributed import sharding
+    from repro_torch.train.train_step import rank_rows, value_and_grad
+    from repro_torch.utils import flatten_dict
+
+    n = CASES[name][3]
+    mb = {k: rank_rows(v, mesh, 0, n) for k, v in case_batches(name)[0].items()}
+    ds_state = None if local.ds_state is None else ds.DSState(
+        mask=sharding.gather_leaf(local.ds_state.mask, specs.ds_state.mask, mesh))
+    _, by_gather = value_and_grad(bundle, local.params, ds_state, mb, mesh=mesh,
+                                  gather=sharding.TrainParamGather(mesh, specs.params))
+    _, whole = value_and_grad(bundle, sharding.gather_params(mesh, local.params, specs.params),
+                              ds_state, mb, mesh=mesh)
+    by_rule = sharding.constrain_like_params(whole, mesh, specs.params)
+    a, b = flatten_dict(by_gather), flatten_dict(by_rule)
+    assert set(a) == set(b) and all(a[k].shape == b[k].shape for k in a)
+    return {k: (float((a[k].float() - b[k].float()).abs().max()), float(b[k].float().abs().max()))
+            for k in a}
 
 
 def _ep_case(spec, arrays, info):
@@ -308,16 +367,16 @@ def _single_device_runs():
         n = CASES[name][3]
         step = make_train_step(bundle, TrainConfig(lr=LR, microbatches=n))
         hist, big = [], None
-        for tok in batches():
+        for batch in case_batches(name):
             g = None
-            for part in np.split(tok, n):
-                _, gi = value_and_grad(bundle, state.params, state.ds_state,
-                                       {"tokens": torch.from_numpy(part)})
+            for i in range(n):
+                part = {k: v[i * B // n:(i + 1) * B // n] for k, v in batch.items()}
+                _, gi = value_and_grad(bundle, state.params, state.ds_state, part)
                 gi = {k: v.float().numpy() for k, v in flatten_dict(gi).items()}
                 g = gi if g is None else {k: g[k] + gi[k] for k in g}
             b = {k: np.abs(v) >= 1e-3 * np.abs(v).max() for k, v in g.items()}
             big = b if big is None else {k: big[k] & b[k] for k in b}
-            state, m = step(state, {"tokens": torch.from_numpy(tok)})
+            state, m = step(state, batch)
             hist.append({k: float(v) for k, v in m.items()})
         out[name] = ({k: _np(v) for k, v in flatten_dict(state).items()}, hist, big)
     return out
@@ -385,7 +444,7 @@ def _hold(got, want, want_hist, hist, big, name):
             assert not (a != w)[~near].any(), k
             n_near += int((a != w).sum())
         elif k.startswith("params/"):
-            assert np.abs(a - w).max() <= 2 * LR * STEPS + 1e-7, k
+            assert np.abs(a - w).max() <= 2 * LR * len(want_hist) + 1e-7, k
             if not bf16:
                 sel = big[k[len("params/"):]]
                 np.testing.assert_allclose(a[sel], w[sel], **F32, err_msg=k)
@@ -407,15 +466,31 @@ def _case_arrays(arrays, name):
 @pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("spec", list(WORLDS))
 def test_mesh_step_equals_the_single_device_step(results, spec, name):
-    """After 3 steps every rank's gathered params, moments and mask, and its
-    loss, CE and grad norm at each step, equal the single-device step's
-    (tolerances in the module docstring)."""
+    """After 3 steps (the hybrid case: 1) every rank's gathered params,
+    moments and mask, and its loss, CE and grad norm at each step, equal
+    the single-device step's (tolerances in the module docstring)."""
     want, want_hist, big = results["single"][name]
     n_near = 0
     for arrays, info in results["ranks"][spec]:
         n_near += _hold(_case_arrays(arrays, name), want, want_hist, info[name]["metrics"],
                         big, name)
     assert n_near <= 4, n_near
+
+
+@pytest.mark.parametrize("spec", list(WORLDS))
+def test_the_gathers_backward_is_constrain_like_params(results, spec):
+    """On every rank and case, the block gradients that the step's gathers
+    reduce in their backward equal ``constrain_like_params`` of the
+    whole-leaf gradients of ``gather_params``' tree (one rule,
+    ``block_grad``, applied per gathered use or per leaf): fp32 within 1e-5
+    of each leaf's largest (sums in another order: a leaf read twice, as
+    the tied embedding, is reduced once per read), bf16 within 2^-5
+    (``tests/test_torch_train.py``'s bf16 gradient rule)."""
+    for _, info in results["ranks"][spec]:
+        for name in CASES:
+            tol = 2.0 ** -5 if CASES[name][1] == "bfloat16" else 1e-5
+            for leaf, (diff, top) in info[name]["block_grads_two_ways"].items():
+                assert diff <= tol * top, (name, leaf, diff, top)
 
 
 @pytest.mark.parametrize("spec", list(WORLDS))
@@ -452,8 +527,9 @@ def _block_bytes(specs, tree, mesh):
 def test_train_state_placement_and_collectives(results, spec):
     """Each rank holds its blocks of the state (its resident bytes are the
     whole state's under the placement, and less than the whole where the
-    mesh splits anything); a step's collectives are all-gathers (the params
-    and the mask), reduce-scatters of fp32 gradients over ``data``, and
+    mesh splits anything); a step's collectives are all-gathers (a layer,
+    an expert or a small leaf of the params at a time, and the mask),
+    reduce-scatters of fp32 gradients over ``data``, and
     all-reduces (gradients a leaf's ``data`` dim does not split, statistics,
     the norm, the expert-parallel exit and entry)."""
     from repro_torch.distributed import sharding
@@ -473,6 +549,30 @@ def test_train_state_placement_and_collectives(results, spec):
                         assert dtype == "torch.float32" and n == d, (name, shape)
                     if op == "all_gather":
                         assert dtype != "torch.float32" or CASES[name][1] == "float32"
+
+
+@pytest.mark.parametrize("spec", list(WORLDS))
+def test_every_gather_is_one_layer_one_expert_or_one_small_leaf(results, spec):
+    """The step keeps the params as blocks and gathers only what is about
+    to run: every all-gather of every step holds, with every rank's part,
+    at most as many elements as the largest of one layer's slice of a
+    stacked leaf, one DS expert's (N, d) rows and a non-stacked leaf other
+    than the experts. Gathering the params whole would exceed it (the
+    stacks hold 2 layers, the head 4 experts)."""
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    for name in CASES:
+        _, state = initial_state(name)
+        bound = 0
+        for p, x in zip(tree_paths(state.params), tree_leaves(state.params)):
+            per = x.numel()
+            if p.split("/")[0] in ("layers", "enc_layers", "dec_layers") or p == "head/experts":
+                per //= x.shape[0]
+            bound = max(bound, per)
+        for _, info in results["ranks"][spec]:
+            for recs in info[name]["collectives"]:
+                sizes = [n * int(np.prod(shape)) for op, shape, _, n in recs if op == "all_gather"]
+                assert sizes and max(sizes) <= bound, (name, max(sizes), bound)
 
 
 # ---------------------------------------------------------------------------
